@@ -28,10 +28,6 @@ from .._device import resolve_device
 from .energy import DEFAULT_ENERGY, EnergyModel, schedule_energy_constants
 from .topology import DEFAULT, TeraPoolConfig
 
-_PLACEMENT_TODO = ("counter placements are not ported yet (ROADMAP.md §1 "
-                   "item 1, core/placement.py)")
-
-
 @dataclasses.dataclass(frozen=True)
 class Level:
     """One level of the arrival tree."""
@@ -195,13 +191,15 @@ def all_radices(n_pes: int | None = None,
     return [k for k in range(2, n + 1) if n % k == 0]
 
 
-def schedule_name(schedule: BarrierSchedule) -> str:
+def schedule_name(schedule: BarrierSchedule, placement=None) -> str:
     """Canonical, sortable name: level sizes joined leaf-to-root
-    (``"8x16x8"``), ``hw``-prefixed for the event unit and
-    ``p``-suffixed for partial barriers."""
+    (``"8x16x8"``), ``hw``-prefixed for the event unit, ``p``-suffixed
+    for partial barriers and ``@strategy``-suffixed when a counter
+    placement is attached (``"8x16x8@leaf_local"``)."""
     base = "x".join(str(g) for g in schedule.sizes)
     base = ("hw" + base) if schedule.hw else base
-    return base + ("p" if schedule.partial else "")
+    base += "p" if schedule.partial else ""
+    return base + (f"@{placement.strategy}" if placement else "")
 
 
 # ---------------------------------------------------------------------------
@@ -312,11 +310,16 @@ def telescope_widths(table: LevelTable, n_pes: int) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def _level_arrays(schedule: BarrierSchedule, max_levels: int,
-                  cfg: TeraPoolConfig, energy_model: EnergyModel) -> dict:
+                  cfg: TeraPoolConfig, placement,
+                  energy_model: EnergyModel) -> dict:
     """The table of one schedule as numpy arrays (host side, cached)."""
-    width = counter_width(schedule.n_pes)
+    n = schedule.n_pes
+    width = counter_width(n)
     sizes = [lvl.group_size for lvl in schedule.levels]
     if schedule.hw:
+        if placement is not None:
+            raise ValueError(
+                "hardware event-unit barriers have no counters to place")
         # The event unit has no software level path and no bank
         # serialization: signals aggregate combinationally per stage.
         instr = [0.0] * len(sizes)
@@ -331,16 +334,36 @@ def _level_arrays(schedule: BarrierSchedule, max_levels: int,
         raise ValueError(
             f"schedule has {len(sizes)} levels, max_levels={max_levels}")
 
-    # Span-heuristic latencies (paper leaf-local): one latency per level
-    # broadcast across its counters, one distinct bank per counter;
-    # padding levels get zero latency and distinct identity banks.
-    lat_rows = [[float(lvl.latency)] * width for lvl in schedule.levels]
-    bank_rows = [[j * lvl.span * cfg.banking_factor for j in range(width)]
-                 for lvl in schedule.levels]
+    if placement is None:
+        # Span-heuristic latencies (paper leaf-local): one latency per
+        # level broadcast across its counters, one distinct bank each.
+        lat_rows = [[float(lvl.latency)] * width for lvl in schedule.levels]
+        bank_rows = [[j * lvl.span * cfg.banking_factor
+                      for j in range(width)] for lvl in schedule.levels]
+    else:
+        if placement.n_levels != len(sizes):
+            raise ValueError(
+                f"placement maps {placement.n_levels} levels, schedule "
+                f"has {len(sizes)}")
+        # Unused counter columns: zero latency and banks past every real
+        # bank (and distinct), so phantom counters never contend.
+        sentinel = cfg.n_pes * cfg.banking_factor
+        lat_rows, bank_rows = [], []
+        for lvl, lrow, brow in zip(schedule.levels, placement.latencies,
+                                   placement.banks):
+            count = n // lvl.span
+            if len(brow) != count:
+                raise ValueError(
+                    f"level with span {lvl.span} has {count} counters, "
+                    f"placement maps {len(brow)}")
+            lat_rows.append(list(map(float, lrow)) + [0.0] * (width - count))
+            bank_rows.append(list(brow)
+                             + [sentinel + j for j in range(count, width)])
+    # Padding levels: zero latency and distinct identity banks.
     lat_rows += [[0.0] * width] * pad
     bank_rows += [list(range(width))] * pad
 
-    stat, act, idle = schedule_energy_constants(schedule, None, cfg,
+    stat, act, idle = schedule_energy_constants(schedule, placement, cfg,
                                                 energy_model)
     return {
         "group_sizes": np.asarray(sizes + [1] * pad, np.int32),
@@ -375,12 +398,13 @@ def level_table(schedule: BarrierSchedule, max_levels: int | None = None,
 
     ``max_levels`` defaults to ``log2(schedule.n_pes)`` so that every
     power-of-two radix over one cluster shares one table shape.
-    ``placement`` must be ``None`` (ROADMAP.md §1 item 1)."""
-    if placement is not None:
-        raise NotImplementedError(_PLACEMENT_TODO)
+    ``placement`` (a :class:`~repro_torch.core.placement.
+    CounterPlacement`) supplies per-counter banks and latencies; ``None``
+    keeps the span heuristic with conflict-free banks."""
     if max_levels is None:
         max_levels = max_depth(schedule.n_pes)
-    arrays = _level_arrays(schedule, int(max_levels), cfg, energy_model)
+    arrays = _level_arrays(schedule, int(max_levels), cfg, placement,
+                           energy_model)
     return validate_tail_padding(
         level_table_from_arrays(arrays, device=device))
 
@@ -391,16 +415,22 @@ def stack_tables(schedules: Sequence[BarrierSchedule],
                  energy_model: EnergyModel = DEFAULT_ENERGY, *,
                  device="cuda") -> LevelTable:
     """Stack the tables of same-``n_pes`` schedules along a new leading
-    axis, so the cores simulate the whole stack as one batch."""
+    axis, so the cores simulate the whole stack as one batch.
+    ``placements`` aligns with ``schedules``; ``None`` entries use the
+    span heuristic."""
     if not schedules:
         raise ValueError("no schedules to stack")
-    if placements is not None and any(p is not None for p in placements):
-        raise NotImplementedError(_PLACEMENT_TODO)
     n = schedules[0].n_pes
     if any(s.n_pes != n for s in schedules):
         raise ValueError("stacked schedules must share n_pes")
+    if placements is None:
+        placements = [None] * len(schedules)
+    if len(placements) != len(schedules):
+        raise ValueError(
+            f"{len(schedules)} schedules but {len(placements)} placements")
     depth = max(max_depth(n), max(s.n_levels for s in schedules))
-    rows = [_level_arrays(s, depth, cfg, energy_model) for s in schedules]
+    rows = [_level_arrays(s, depth, cfg, p, energy_model)
+            for s, p in zip(schedules, placements)]
     stacked = {f: np.stack([r[f] for r in rows]) for f in LevelTable._fields}
     return validate_tail_padding(
         level_table_from_arrays(stacked, device=device), full=False)

@@ -292,7 +292,9 @@ def simulate(arrivals, schedule: BarrierSchedule,
       arrivals: (..., n_pes) per-PE barrier-entry cycles.
       schedule: static tree structure from :mod:`repro_torch.core.barrier`.
       cfg: machine model.
-      placement: must be ``None`` (ROADMAP.md §1 item 1).
+      placement: explicit counter -> bank mapping
+        (:class:`~repro_torch.core.placement.CounterPlacement`); ``None``
+        keeps the span heuristic.
       core: ``"telescope"`` (default) or ``"scan"``.
       energy_model: per-event cost model pricing the ``energy`` column.
       faults, fault_mask: must be ``None`` (ROADMAP.md §1 item 4).

@@ -82,15 +82,14 @@ def schedule_energy_constants(schedule, placement=None,
 
     Computed in float64 and rounded ONCE to float32, exactly as the
     reference does, so the table columns are bit-for-bit the
-    reference's.  ``placement`` must be ``None``: counter placements are
-    not ported yet (ROADMAP.md §1 item 1).
+    reference's.  ``placement`` prices each counter's atomics at its
+    placement-derived access latency.
     """
-    if placement is not None:
-        raise NotImplementedError(
-            "counter placements are not ported yet (ROADMAP.md §1 item 1, "
-            "core/placement.py)")
     n = schedule.n_pes
     hw = bool(getattr(schedule, "hw", False))
+    if hw and placement is not None:
+        raise ValueError(
+            "hardware event-unit barriers have no counters to place")
     if hw:
         active = float(n * cfg.hw_entry_instr)
         traffic = sum(
@@ -99,8 +98,10 @@ def schedule_energy_constants(schedule, placement=None,
     else:
         active = float(n * cfg.instr_per_level)
         traffic = 0.0
-        for lvl, m, count in _level_counts(schedule):
-            lats = np.full(count, float(lvl.latency))
+        for li, (lvl, m, count) in enumerate(_level_counts(schedule)):
+            lats = (np.asarray(placement.latencies[li], np.float64)
+                    if placement is not None
+                    else np.full(count, float(lvl.latency)))
             traffic += lvl.group_size * (
                 model.e_amo_issue * count + model.e_amo_hop * lats.sum())
             active += count * cfg.instr_per_level

@@ -7,18 +7,28 @@ cluster); every butterfly stage ends with a barrier.  Digital
 beamforming = MATMUL of the (N_B x N_RX) coefficient matrix with the
 FFT outputs, column-distributed over all 1024 PEs.
 
-Barrier options ported here (the paper's comparison plus the hardware
-floor):
+Barrier options (the paper's comparison, the hardware floor and the
+tuned modes):
 
-* ``central`` — global central-counter barrier after every stage;
-* ``tree``    — global k-ary tree barrier after every stage;
-* ``partial`` — k-ary tree over each 256-PE FFT subset only, global
-  barrier only at the FFT->MATMUL dependency;
-* ``hw``      — the hardware event-unit barrier on every barrier.
+* ``central``       — global central-counter barrier after every stage;
+* ``tree``          — global k-ary tree barrier after every stage;
+* ``partial``       — k-ary tree over each 256-PE FFT subset only,
+  global barrier only at the FFT->MATMUL dependency;
+* ``hw``            — the hardware event-unit barrier on every barrier;
+* ``tuned``         — global mixed-radix tree picked by the tuner
+  (:mod:`repro_torch.core.tuning`) for the app's arrival scatter;
+* ``tuned_partial`` — tuned tree over each FFT subset, tuned global
+  tree at the dependency;
+* ``placed``        — jointly tuned (schedule, counter placement) pair
+  (:mod:`repro_torch.core.placement`);
+* ``workload``      — stage and global barriers tuned separately, each
+  on the arrival model of the epochs it closes
+  (:func:`repro_torch.core.tuning.tune_for_arrivals`);
+* ``pareto``        — as ``workload``, each barrier at the knee of its
+  latency x energy front.
 
-The tuner-driven modes (``tuned``, ``tuned_partial``, ``placed``,
-``workload``, ``pareto``) raise :class:`NotImplementedError` until the
-tuner is ported (ROADMAP.md §1 items 1, 5 and 7).
+Tuned picks come from fixed-seed sweeps (``_TUNING_SEED``) and are kept
+per design point for the life of the process.
 
 The epoch loop runs on the device as a Python loop of batched core
 calls; every epoch's arrival scatter is drawn up front in one batched
@@ -27,25 +37,18 @@ threefry call, bit for bit the reference's per-epoch draws.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from .._device import resolve_device
-from . import barrier, barrier_sim, prng
+from . import barrier, barrier_sim, placement, prng, tuning, workloads
 from .barrier import LevelTable
 from .barrier_sim import core_fn
 from .energy import DEFAULT_ENERGY, EnergyModel
 from .topology import DEFAULT, TeraPoolConfig
-
-_TUNER_TODO = {
-    "tuned": "§1 item 7 (core/tuning.py)",
-    "tuned_partial": "§1 item 7 (core/tuning.py)",
-    "placed": "§1 items 1 and 7 (core/placement.py, core/tuning.py)",
-    "workload": "§1 items 5 and 7 (core/workloads.py, core/tuning.py)",
-    "pareto": "§1 items 5 and 7 (core/workloads.py, core/tuning.py)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,11 +128,76 @@ def _epoch_arrivals(key: torch.Tensor, start: torch.Tensor, work,
     return start + work + _epoch_noise(key, jitter, n)
 
 
-def _resolve_schedules(app: FiveGConfig, sync: str, radix: int,
-                       cfg: TeraPoolConfig):
-    """Stage + global schedules and the partial-group count of a mode."""
+# Fixed seed for the tuner's Monte-Carlo arrival draws: tuning is part
+# of the schedule construction, deterministic per design point.
+_TUNING_SEED = 1023
+
+
+def _prune(n_pes: int) -> str:
+    """Subset trees (<= 256 PEs) search every composition; the full
+    cluster the hierarchy-aligned ones (128 of 512)."""
+    return "none" if n_pes <= 256 else "hierarchy"
+
+
+@functools.lru_cache(maxsize=None)
+def _tuned_schedule(n_pes: int, delay: float, partial_tree: bool,
+                    cfg: TeraPoolConfig, device: str
+                    ) -> barrier.BarrierSchedule:
+    """Best mixed-radix composition for one uniform arrival scatter."""
+    return tuning.best_schedule(
+        prng.PRNGKey(_TUNING_SEED, device=device), n_pes, delay=delay,
+        n_trials=8, cfg=cfg, prune=_prune(n_pes), partial=partial_tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _placed_schedule(n_pes: int, delay: float, cfg: TeraPoolConfig,
+                     device: str) -> tuple:
+    """Jointly tuned (schedule, placement) pair for one uniform arrival
+    scatter: compositions crossed with every placement strategy."""
+    return tuning.best_placed_schedule(
+        prng.PRNGKey(_TUNING_SEED, device=device), n_pes, delay=delay,
+        n_trials=8, cfg=cfg, prune=_prune(n_pes))
+
+
+def _epoch_arrival_models(app: FiveGConfig, cfg: TeraPoolConfig,
+                          device) -> tuple:
+    """The two fixed-seed arrival matrices the workload-conditioned
+    modes tune on: the FFT stage model (8 trials) for the STAGE barrier,
+    and for the GLOBAL barrier the zero-scatter FFT->MATMUL dependency
+    (4 trials) stacked with the beamforming epoch (4 trials)."""
     n = cfg.n_pes
-    global_sched = None
+    keys = prng.split(prng.PRNGKey(_TUNING_SEED, device=device))
+    stage_arr = workloads.arrival_batch(keys[0], "fiveg_fft_stage", (8, n),
+                                        cfg=cfg, app=app)
+    mm_arr = workloads.arrival_batch(keys[1], "fiveg_matmul_row", (4, n),
+                                     cfg=cfg, app=app)
+    return stage_arr, torch.cat([torch.zeros_like(mm_arr), mm_arr])
+
+
+@functools.lru_cache(maxsize=None)
+def _epoch_tuned_schedules(app: FiveGConfig, cfg: TeraPoolConfig,
+                           objective: str, device: str) -> tuple:
+    """(stage schedule, stage placement, global schedule, global
+    placement) for the ``workload`` (``objective="cycles"``) and
+    ``pareto`` (``"pareto"``) modes: each barrier tuned jointly with
+    its counter placement on its own epochs' arrival model."""
+    prune = _prune(cfg.n_pes)
+    out = ()
+    for arr in _epoch_arrival_models(app, cfg, device):
+        sched, plc, _ = tuning.tune_for_arrivals(
+            arr, cfg, prune=prune, placements=placement.STRATEGIES,
+            objective=objective)
+        out += (sched, plc)
+    return out
+
+
+def _resolve_schedules(app: FiveGConfig, sync: str, radix: int,
+                       cfg: TeraPoolConfig, device: str):
+    """Stage + global schedules, their counter placements (``None`` =
+    span heuristic) and the partial-group count of a mode."""
+    n = cfg.n_pes
+    jitter = app.epoch_jitter
+    stage_plc = global_plc = global_sched = None
     if sync == "central":
         stage_sched = barrier.central_counter(cfg=cfg)
         partial_groups = 1
@@ -139,19 +207,33 @@ def _resolve_schedules(app: FiveGConfig, sync: str, radix: int,
     elif sync == "partial":
         stage_sched = barrier.partial_barrier(app.fft_pes, radix, cfg=cfg)
         partial_groups = n // app.fft_pes
+    elif sync == "tuned":
+        stage_sched = _tuned_schedule(n, jitter, False, cfg, device)
+        partial_groups = 1
+    elif sync == "tuned_partial":
+        stage_sched = _tuned_schedule(app.fft_pes, jitter, True, cfg,
+                                      device)
+        partial_groups = n // app.fft_pes
+    elif sync == "placed":
+        stage_sched, stage_plc = _placed_schedule(n, jitter, cfg, device)
+        global_sched, global_plc = stage_sched, stage_plc
+        partial_groups = 1
     elif sync == "hw":
         stage_sched = barrier.hw_event_unit(cfg=cfg)
         global_sched = stage_sched
         partial_groups = 1
-    elif sync in _TUNER_TODO:
-        raise NotImplementedError(
-            f"sync mode {sync!r} needs modules not ported yet: "
-            f"ROADMAP.md {_TUNER_TODO[sync]}")
+    elif sync in ("workload", "pareto"):
+        (stage_sched, stage_plc, global_sched,
+         global_plc) = _epoch_tuned_schedules(
+             app, cfg, "cycles" if sync == "workload" else "pareto", device)
+        partial_groups = 1
     else:
         raise ValueError(f"unknown sync mode {sync!r}")
-    if global_sched is None:   # modes without their own global tree
+    if sync in ("tuned", "tuned_partial"):
+        global_sched = _tuned_schedule(n, jitter, False, cfg, device)
+    elif global_sched is None:   # modes without their own global tree
         global_sched = barrier.kary_tree(min(radix, 32), cfg=cfg)
-    return stage_sched, global_sched, partial_groups
+    return stage_sched, global_sched, partial_groups, stage_plc, global_plc
 
 
 def _app_core(key: torch.Tensor, stage_table: LevelTable,
@@ -218,7 +300,8 @@ def _serial_cycles(app: FiveGConfig, device) -> torch.Tensor:
 
 
 def _result(app, total, sync_acc, energy_acc, n_epochs, model, cfg,
-            stage_sched, global_sched) -> FiveGResult:
+            stage_sched, global_sched, stage_plc,
+            global_plc) -> FiveGResult:
     dev = total.device
     serial = _serial_cycles(app, dev)
     total_energy = _compute_energy(app, cfg.n_pes, n_epochs, model, dev) \
@@ -232,8 +315,8 @@ def _result(app, total, sync_acc, energy_acc, n_epochs, model, cfg,
         sync_energy=energy_acc,
         total_energy=total_energy,
         energy_fraction=energy_acc / total_energy,
-        stage_schedule=barrier.schedule_name(stage_sched),
-        global_schedule=barrier.schedule_name(global_sched),
+        stage_schedule=barrier.schedule_name(stage_sched, stage_plc),
+        global_schedule=barrier.schedule_name(global_sched, global_plc),
     )
 
 
@@ -245,19 +328,22 @@ def simulate_app(key: torch.Tensor, app: FiveGConfig = FiveGConfig(),
                  faults=None, device="cuda") -> FiveGResult:
     """Simulate the full OFDM + beamforming pipeline under one barrier
     strategy, on ``device``.  ``sync`` in {"central", "tree", "partial",
-    "hw"}; ``radix`` is ignored by ``hw``.  ``core`` selects the
-    simulator implementation for every barrier; ``energy_model`` prices
-    the energy columns.  ``faults`` must be ``None`` (ROADMAP.md §1
-    item 4)."""
+    "hw", "tuned", "tuned_partial", "placed", "workload", "pareto"};
+    ``radix`` is ignored by all but the first three.  ``core`` selects
+    the simulator implementation for every barrier; ``energy_model``
+    prices the energy columns.  ``faults`` must be ``None`` (ROADMAP.md
+    §1 item 4)."""
     if faults is not None:
         raise NotImplementedError(barrier_sim._FAULTS_TODO)
     dev = resolve_device(device)
     n = cfg.n_pes
-    stage_sched, global_sched, partial_groups = _resolve_schedules(
-        app, sync, radix, cfg)
+    (stage_sched, global_sched, partial_groups, stage_plc,
+     global_plc) = _resolve_schedules(app, sync, radix, cfg, str(dev))
     stage_table = barrier.level_table(stage_sched, cfg=cfg,
+                                      placement=stage_plc,
                                       energy_model=energy_model, device=dev)
     global_table = barrier.level_table(global_sched, cfg=cfg,
+                                       placement=global_plc,
                                        energy_model=energy_model,
                                        device=dev)
     n_epochs = app.rounds * app.n_stages
@@ -271,7 +357,7 @@ def simulate_app(key: torch.Tensor, app: FiveGConfig = FiveGConfig(),
         n_epochs=n_epochs, partial_groups=partial_groups, n_pes=n, cfg=cfg,
         core=barrier_sim.resolve_core(core))
     return _result(app, total, sync_acc, energy_acc, n_epochs, energy_model,
-                   cfg, stage_sched, global_sched)
+                   cfg, stage_sched, global_sched, stage_plc, global_plc)
 
 
 def simulate_app_reference(key: torch.Tensor,
@@ -281,14 +367,19 @@ def simulate_app_reference(key: torch.Tensor,
                            device="cuda") -> FiveGResult:
     """The seed epoch loop over the per-level reference simulator, one
     key draw per epoch — the equivalence oracle for
-    :func:`simulate_app`."""
+    :func:`simulate_app`.  Placed barriers go through the per-bank-queue
+    oracle of :mod:`repro_torch.core.placement`."""
     dev = resolve_device(device)
     n = cfg.n_pes
-    stage_sched, global_sched, partial_groups = _resolve_schedules(
-        app, sync, radix, cfg)
+    (stage_sched, global_sched, partial_groups, stage_plc,
+     global_plc) = _resolve_schedules(app, sync, radix, cfg, str(dev))
 
-    def ref(arr, sched):
-        return barrier_sim.simulate_reference(arr, sched, cfg, device=dev)
+    def ref(arr, sched, plc):
+        if plc is None:
+            return barrier_sim.simulate_reference(arr, sched, cfg,
+                                                  device=dev)
+        return placement.simulate_placed_reference(arr, sched, plc, cfg,
+                                                   device=dev)
 
     epoch_work = app.epoch_work
     jitter = app.epoch_jitter
@@ -302,29 +393,31 @@ def simulate_app_reference(key: torch.Tensor,
     for e in range(n_epochs):
         arr = _epoch_arrivals(keys[e], t, epoch_work, jitter, n)
         if partial_groups > 1:
-            res = ref(arr.reshape(partial_groups, app.fft_pes), stage_sched)
+            res = ref(arr.reshape(partial_groups, app.fft_pes), stage_sched,
+                      stage_plc)
             t = res.exit_time.repeat_interleave(app.fft_pes)
             sync_acc = sync_acc + res.mean_residency.mean()
             energy_acc = energy_acc + res.energy.sum()
         else:
-            res = ref(arr, stage_sched)
+            res = ref(arr, stage_sched, stage_plc)
             t = res.exit_time.expand(n)
             sync_acc = sync_acc + res.mean_residency
             energy_acc = energy_acc + res.energy
 
     # FFT -> beamforming data dependency: one global barrier.
-    res = ref(t, global_sched)
+    res = ref(t, global_sched, global_plc)
     t = res.exit_time.expand(n)
     sync_acc = sync_acc + res.mean_residency
     energy_acc = energy_acc + res.energy
 
     # Beamforming MATMUL (see _app_core).
     arr = _epoch_arrivals(keys[-2], t, app.mm_work(n), app.mm_jitter(n), n)
-    res = ref(arr, global_sched)
+    res = ref(arr, global_sched, global_plc)
     sync_acc = sync_acc + res.mean_residency
     energy_acc = energy_acc + res.energy
     return _result(app, res.exit_time, sync_acc, energy_acc, n_epochs,
-                   DEFAULT_ENERGY, cfg, stage_sched, global_sched)
+                   DEFAULT_ENERGY, cfg, stage_sched, global_sched, stage_plc,
+                   global_plc)
 
 
 def compare_barriers(key: torch.Tensor, app: FiveGConfig = FiveGConfig(),

@@ -10,12 +10,18 @@ A key is an int64 tensor of shape ``(..., 2)`` holding two 32-bit words.
 All arithmetic runs on int64 tensors masked to 32 bits, so it is exact
 on every device torch supports.  Keys with leading batch dimensions
 draw one block per key in a single batched call.
+
+``normal`` goes through :func:`~repro_torch.core.xla_math.erf_inv`,
+XLA's float32 lowering written out op for op, so its draws agree bit
+for bit too.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
+from .xla_math import erf_inv
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -69,9 +75,10 @@ def _hash_counts(key: torch.Tensor, shape: tuple) -> tuple:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``num`` new keys, shape ``(num, 2)``."""
-    if key.shape != (2,):
-        raise ValueError(f"split takes one key of shape (2,), got "
+    """``jax.random.split``: ``num`` new keys per key, shape
+    ``key.shape[:-1] + (num, 2)`` (``(num, 2)`` for one key)."""
+    if key.ndim < 1 or key.shape[-1] != 2:
+        raise ValueError(f"split takes keys of shape (..., 2), got "
                          f"{tuple(key.shape)}")
     bits1, bits2 = _hash_counts(key, (int(num),))
     return torch.stack([bits1, bits2], dim=-1)
@@ -97,3 +104,28 @@ def uniform(key: torch.Tensor, shape, minval=0.0,
     scaled = (u.double() * (hi - lo).double() + lo.double()).to(
         torch.float32)
     return torch.maximum(lo, scaled)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: the threefry hash of the counter pair
+    ``(0, data)`` under ``key``; ``data`` is taken as a uint32."""
+    data = int(data) & _MASK
+    zero = torch.zeros_like(key[..., 0])
+    x0, x1 = threefry2x32(key[..., 0], key[..., 1], zero, zero + data)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli`` (``mode="low"``): a float32 uniform draw
+    below ``p``."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with
+    ``u`` uniform on ``[nextafter(-1, 0), 1)``."""
+    return _SQRT2 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))

@@ -75,9 +75,15 @@ def build(names) -> dict:
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            procs[name] = (tmp, subprocess.Popen(
-                nvcc_command(name, Path(tmp)), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
+            try:
+                proc = subprocess.Popen(
+                    nvcc_command(name, Path(tmp)), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+            except OSError as exc:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"cannot run nvcc for {name}.cu: {exc}") from exc
+            procs[name] = (tmp, proc)
         failures = []
         for name, (tmp, proc) in procs.items():
             log, _ = proc.communicate()

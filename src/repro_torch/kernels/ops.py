@@ -1,12 +1,14 @@
-"""Public wrappers of the 5G pipeline's kernels (port of the ``fft4`` and
-``matmul`` wrappers of ``repro.kernels.ops``).
+"""Public wrappers of the port's kernels (port of the ``fft4``,
+``matmul``, ``dotp`` and ``axpy`` wrappers of ``repro.kernels.ops``).
 
 ``fft4`` chains log4(n) :func:`~repro_torch.kernels.fft4.fft4_stage`
 launches and returns the digit-reversed spectrum; ``matmul`` is the
-beamforming product.  The reference's TPU-only padding of ragged matmul
-shapes to (8, 128) multiples is gone: the CUDA kernel masks ragged
-edges itself.  Both run where their inputs lie: the kernels for CUDA
-tensors, the plain versions for CPU tensors.
+beamforming product; ``dotp`` is the dot product as a central
+accumulator or a k-ary reduction tree; ``axpy`` is ``a * x + y``.  The
+reference's TPU-only layout steps are gone (the 128-lane padding of 1-D
+operands, the (8, 128) padding of ragged matmul shapes): the CUDA
+kernels mask ragged edges themselves.  All run where their inputs lie:
+the kernels for CUDA tensors, the plain versions for CPU tensors.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import math
 
 import torch
 
+from . import axpy as _axpy
+from . import dotp as _dotp
 from . import fft4 as _fft4
 from . import matmul as _mm
 
@@ -53,3 +57,34 @@ def fft4(re: torch.Tensor, im: torch.Tensor) -> tuple:
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with float32 output, for float32 or bfloat16 inputs."""
     return _mm.matmul(x, w)
+
+
+def dotp(x: torch.Tensor, y: torch.Tensor, *, radix: int = 0
+         ) -> torch.Tensor:
+    """``sum(x * y)`` as a float32 scalar, with the paper's barrier-radix
+    knob: ``radix <= 1`` is the central accumulator (one launch);
+    ``radix = k > 1`` a k-ary tree — one leaf launch, then one
+    :func:`~repro_torch.kernels.dotp.combine_partials` launch per level
+    until one partial is left."""
+    if radix <= 1:
+        return _dotp.dotp_central(x, y)
+    parts = _dotp.dotp_partials(x, y)
+    while parts.numel() > 1:
+        parts = _dotp.combine_partials(parts, radix)
+    return parts[0]
+
+
+def dotp_levels(n: int, radix: int) -> int:
+    """Tree levels :func:`dotp` runs over ``n`` elements at ``radix``
+    (0 for the central accumulator)."""
+    if radix <= 1:
+        return 0
+    parts, levels = _dotp.leaf_count(n), 0
+    while parts > 1:
+        parts, levels = -(-parts // radix), levels + 1
+    return levels
+
+
+def axpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``a * x + y`` in the operands' dtype."""
+    return _axpy.axpy(a, x, y)

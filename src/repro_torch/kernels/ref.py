@@ -1,11 +1,11 @@
-"""Plain PyTorch versions of the 5G pipeline's kernels (port of the
-``matmul`` and ``fft4`` oracles of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the port's kernels (port of the ``matmul``,
+``fft4``, ``dotp`` and ``axpy`` oracles of ``repro.kernels.ref``).
 
 These are the mathematical truth the CUDA kernels are held against:
 the kernel wrappers run them for tensors that lie on the CPU, and
 ``chip_smoke.py`` compares each kernel with them on the card.  None of
 them calls a library product: the plain matmul is an explicit
-broadcast multiply and sum.
+broadcast multiply and sum, the plain dot product a multiply and sum.
 """
 from __future__ import annotations
 
@@ -82,3 +82,43 @@ def digit_reverse_indices(n: int, *, device="cuda") -> torch.Tensor:
         out = out * 4 + idx % 4
         idx = idx // 4
     return out.to(resolve_device(device))
+
+
+# Elements per leaf of the dot-product reduction tree: the reference's
+# (256, 128) tile.
+DOTP_LEAF = 256 * 128
+
+
+def dotp(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sum(x * y)`` in float32 (inputs widened to float32 first)."""
+    return (x.reshape(-1).to(torch.float32)
+            * y.reshape(-1).to(torch.float32)).sum()
+
+
+def dotp_partials(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The leaves of the reduction tree: one float32 partial sum per
+    :data:`DOTP_LEAF` consecutive elements, the last leaf ragged."""
+    prod = x.reshape(-1).to(torch.float32) * y.reshape(-1).to(torch.float32)
+    pad = (-prod.numel()) % DOTP_LEAF
+    return torch.cat([prod, prod.new_zeros(pad)]).reshape(
+        -1, DOTP_LEAF).sum(dim=1)
+
+
+def dotp_central(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The central-counter dot product: every leaf's partial sum added
+    into one accumulator."""
+    return dotp_partials(x, y).sum()
+
+
+def combine_partials(parts: torch.Tensor, radix: int) -> torch.Tensor:
+    """One k-ary tree level: groups of ``radix`` partials summed into
+    one, the last group zero-padded."""
+    pad = (-parts.numel()) % radix
+    return torch.cat([parts, parts.new_zeros(pad)]).reshape(
+        -1, radix).sum(dim=1)
+
+
+def axpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``a * x + y`` computed in float32 and returned in ``x.dtype``."""
+    out = float(a) * x.to(torch.float32) + y.to(torch.float32)
+    return out.to(x.dtype)

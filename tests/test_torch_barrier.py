@@ -82,11 +82,20 @@ def test_level_table_from_reference_arrays(n):
 
 
 def test_placement_not_ported():
+    """No placement path is left unported: both table constructors take
+    counter placements (tests/test_torch_placement.py holds them to the
+    reference) and reject placements that do not fit the schedule."""
+    from repro_torch.core import placement
     sched = barrier.kary_tree(32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 1"):
-        barrier.level_table(sched, placement=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 1"):
-        barrier.stack_tables([sched], placements=[object()], device="cpu")
+    other = placement.place_counters(barrier.kary_tree(4), "central")
+    with pytest.raises(ValueError, match="placement maps"):
+        barrier.level_table(sched, placement=other, device="cpu")
+    with pytest.raises(ValueError, match="placements"):
+        barrier.stack_tables([sched], placements=[None, None], device="cpu")
+    placed = barrier.stack_tables(
+        [sched], placements=[placement.place_counters(sched, "central")],
+        device="cpu")
+    assert int(placed.bank_ids[0, 0, :32].max()) == 0
 
 
 def test_interior_padding_rejected():

@@ -1,8 +1,10 @@
-"""Port parity: the 5G pipeline's kernels against the JAX package, at
+"""Port parity: the port's kernels (the 5G pipeline's FFT stage and
+matmul, the Fig. 5/6 dot product and AXPY) against the JAX package, at
 the shapes and tolerances of tests/test_kernels.py.  On the CPU the
 wrappers run their plain PyTorch versions (the CUDA kernels are held
 against those on the card by chip_smoke.py and tests/test_torch_cuda.py).
 """
+import importlib.util
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -10,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import dotp as jdotp
 from repro.kernels import fft4 as jfft4
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import _build, fft4, matmul, ops, ref
+from repro_torch.kernels import _build, axpy, dotp, fft4, matmul, ops, ref
 
 RNG = np.random.default_rng(42)
 
@@ -90,10 +93,15 @@ def test_stage_matches_reference_pallas_stage():
 
 
 def test_cpu_tensors_take_the_plain_path_uncounted():
-    before = (fft4.LAUNCHES, matmul.LAUNCHES)
+    before = (fft4.LAUNCHES, matmul.LAUNCHES, axpy.LAUNCHES,
+              dict(dotp.LAUNCHES))
     ops.fft4(torch.ones(2, 64), torch.zeros(2, 64))
     ops.matmul(torch.ones(3, 4), torch.ones(4, 5))
-    assert (fft4.LAUNCHES, matmul.LAUNCHES) == before
+    ops.axpy(2.0, torch.ones(40000), torch.ones(40000))
+    for radix in (0, 2):
+        ops.dotp(torch.ones(40000), torch.ones(40000), radix=radix)
+    assert (fft4.LAUNCHES, matmul.LAUNCHES, axpy.LAUNCHES,
+            dict(dotp.LAUNCHES)) == before
 
 
 def test_wrappers_validate_arguments():
@@ -134,4 +142,123 @@ def test_build_targets_hopper(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-fPIC"} <= set(cmd)
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "fft4_stage", "matmul"]
+        "axpy", "dotp", "fft4_stage", "matmul"]
+
+
+def test_missing_compiler_raises(monkeypatch, tmp_path):
+    """A build that cannot run nvcc raises; nothing falls back."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "nvcc_path",
+                        lambda: str(tmp_path / "missing" / "nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("dotp", {})
+    assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("n", [64, 1000, 4096, 10000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_axpy_vs_reference(n, dtype):
+    """``ops.axpy`` against the reference's Pallas kernel (interpret
+    mode) at tests/test_kernels.py's shapes and tolerances."""
+    xs, ys = _arr((n,)), _arr((n,))
+    x = torch.from_numpy(xs).to(getattr(torch, dtype))
+    y = torch.from_numpy(ys).to(getattr(torch, dtype))
+    got = ops.axpy(1.7, x, y)
+    assert got.dtype == x.dtype and got.shape == (n,)
+    want = jops.axpy(1.7, jnp.asarray(x.float().numpy()).astype(dtype),
+                     jnp.asarray(y.float().numpy()).astype(dtype))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("n", [128, 1000, 8192])
+@pytest.mark.parametrize("radix", [0, 2, 4, 16])
+def test_dotp_vs_reference(n, radix):
+    x, y = _arr((n,)), _arr((n,))
+    got = ops.dotp(torch.from_numpy(x), torch.from_numpy(y), radix=radix)
+    assert got.shape == () and got.dtype == torch.float32
+    want = jops.dotp(jnp.asarray(x), jnp.asarray(y), radix=radix)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-4)
+    np.testing.assert_allclose(got.item(), float(jref.dotp(x, y)),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [333, 5 * 333, 40000, 70001])
+@pytest.mark.parametrize("radix", [2, 4, 16, 64])
+def test_dotp_tree_equals_central(n, radix):
+    """The barrier radix never changes the result (the reference's
+    property test), on the plain paths."""
+    x, y = torch.from_numpy(_arr((n,))), torch.from_numpy(_arr((n,)))
+    np.testing.assert_allclose(ops.dotp(x, y, radix=0).item(),
+                               ops.dotp(x, y, radix=radix).item(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [128, 1000, 8192, 1 << 20])
+def test_dotp_leaf_and_level_counts_match_reference(n):
+    """The tree over ``n`` elements has the reference's leaves (one per
+    (256, 128) tile of its 128-lane view) and, at every radix, its
+    number of combine levels."""
+    rows = -(-n // 128)
+    tiles = -(-rows // min(jdotp.TILE_ROWS, rows))
+    assert dotp.leaf_count(n) == tiles
+    assert ref.DOTP_LEAF == jdotp.TILE_ROWS * jdotp.TILE_COLS
+    x = torch.ones(n)
+    assert dotp.dotp_partials(x, x).shape == (tiles,)
+    for radix in (2, 4, 16, 32, 1024):
+        parts, levels = jnp.ones((tiles, 1)), 0
+        while parts.shape[0] > 1:
+            parts = jdotp.combine_partials(parts, radix)
+            levels += 1
+        assert ops.dotp_levels(n, radix) == levels
+        assert float(parts[0, 0]) == float(tiles)
+    assert ops.dotp_levels(n, 0) == ops.dotp_levels(n, 1) == 0
+    if n == 1 << 20:
+        assert tiles == 32
+
+
+def test_dotp_plain_twins():
+    x, y = torch.from_numpy(_arr((70001,))), torch.from_numpy(_arr((70001,)))
+    parts = dotp.dotp_partials(x, y)
+    assert parts.shape == (3,)
+    torch.testing.assert_close(parts[0], (x[:32768] * y[:32768]).sum())
+    torch.testing.assert_close(dotp.combine_partials(parts, 2),
+                               torch.stack([parts[:2].sum(), parts[2]]))
+    torch.testing.assert_close(dotp.dotp_central(x, y), parts.sum())
+    with pytest.raises(ValueError, match="radix"):
+        dotp.combine_partials(parts, 1)
+    with pytest.raises(ValueError, match="shape"):
+        ops.dotp(x, y[:5])
+    with pytest.raises(ValueError, match="at least one"):
+        ops.dotp(x[:0], y[:0])
+    with pytest.raises(ValueError, match="shape"):
+        ops.axpy(1.0, x, y[:5])
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n", [(1 << 20) + 5, 1 << 22])
+def test_chip_smoke_dotp_checks_catch_a_zeroed_leaf(n):
+    """chip_smoke.py's dot-product limits pass the plain results and fail
+    one leaf zeroed, in the partials and in the central sum, on the
+    plain paths at up to 128 leaves."""
+    smoke = _chip_smoke()
+    x, y = torch.from_numpy(_arr((n,))), torch.from_numpy(_arr((n,)))
+    parts, plain = dotp.dotp_partials(x, y), ref.dotp_partials(x, y)
+    leaf_lim, sum_lim = smoke.dotp_limits(ref, x, y)
+    assert leaf_lim.shape == parts.shape == (dotp.leaf_count(n),)
+    assert smoke.check_leaves(parts, plain, leaf_lim, "plain")[1] <= 1.0
+    central = dotp.dotp_central(x, y).item()
+    smoke.check_sum(central, ref.dotp(x, y).item(), sum_lim, "plain")
+    fault = smoke.planted_leaf_fault(ref, x, y, parts, central)
+    assert fault["caught"] == {"dotp_partials": True, "dotp_central": True}
+    assert abs(fault["leaf_sum"]) > sum_lim

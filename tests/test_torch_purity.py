@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import barrier, barrier_sim, fiveg, prng, sweep
+from repro_torch.core import (barrier, barrier_sim, fiveg, placement, prng,
+                              sweep, tuning, workloads)
 from repro_torch.kernels import ref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -28,13 +29,18 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "print('modules', len([m for m in sys.modules "
-        "if m.startswith('repro_torch')]))\n")
+        "print(' '.join(sorted(m for m in sys.modules "
+        "if m.startswith('repro_torch'))))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 26
+    assert {f"repro_torch.core.{m}" for m in (
+        "placement", "workloads", "tuning", "xla_math")} <= loaded
+    assert {f"repro_torch.kernels.{m}" for m in ("dotp", "axpy")} <= loaded
+    assert "repro_torch.examples.barrier_tuning" in loaded
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -63,10 +69,19 @@ def _no_card():
     lambda k: fiveg.compare_barriers(k),
     lambda k: fiveg.simulate_app_reference(k),
     lambda k: ref.digit_reverse_indices(16),
+    lambda k: workloads.arrival_batch(prng.PRNGKey(0), "axpy_1Mi", (2, 64)),
+    lambda k: tuning.tune_barrier(prng.PRNGKey(0), 64, n_trials=2),
+    lambda k: tuning.tuned_for_workload("axpy_1Mi", 64),
+    lambda k: placement.simulate_placed_reference(
+        torch.zeros(64), barrier.kary_tree(8, n_pes=64),
+        placement.place_counters(barrier.kary_tree(8, n_pes=64))),
+    lambda k: fiveg.simulate_app(k, sync="workload"),
 ], ids=["PRNGKey", "resolve_device", "level_table", "stack_tables",
         "simulate", "simulate_reference", "uniform_arrivals",
         "sweep_barrier", "simulate_app", "compare_barriers",
-        "simulate_app_reference", "digit_reverse_indices"])
+        "simulate_app_reference", "digit_reverse_indices",
+        "arrival_batch", "tune_barrier", "tuned_for_workload",
+        "simulate_placed_reference", "simulate_app_workload"])
 def test_entry_point_defaults_to_cuda_and_raises(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):

@@ -93,8 +93,8 @@ def test_unported_options_rejected():
     scheds = [barrier.kary_tree(4, n_pes=64)]
     with pytest.raises(NotImplementedError, match="§1 item 4"):
         sweep.sweep_schedules(key, scheds, faults=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="§1 item 1"):
-        sweep.sweep_schedules(key, scheds, placements=[object()],
+    with pytest.raises(ValueError, match="placements"):
+        sweep.sweep_schedules(key, scheds, placements=[None, None],
                               device="cpu")
     with pytest.raises(ValueError, match="trial_chunk"):
         sweep.sweep_schedules(key, scheds, trial_chunk=0, device="cpu")
