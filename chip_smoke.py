@@ -38,6 +38,23 @@ phase prints one JSON line:
     (64, 4) against the reference values.
 11. ``normal``: ``prng.normal`` on the card against stored JAX draws,
     in ulps.
+12. ``powf``: the ``powf`` kernel against the host's C library over every
+    float32 base the Pareto straggler model can reach at 64, 256 and
+    1024 PEs, and ``arrival_batch("straggler_pareto")`` at (8, 1024) on
+    the card against stored JAX draws, bit for bit, with where its
+    ``pow`` ran.
+13. ``faults``: the degradation sweep of ``benchmarks/bench_faults.py``
+    at N = 1024 (130 schedules x 5 PE failure rates x 64 trials) through
+    ``repro_torch.examples.bench_faults``, bit for bit against the
+    reference values; ``BENCH_faults.json``'s claims (the winners by
+    name), with its numbers printed beside the port's.
+14. ``fiveg_faults``: the 5G ``degradation_curve`` (central, tree, hw x 5
+    rates) against the reference values, ``BENCH_faults.json``'s
+    numbers printed beside.
+15. ``dct_conv2d``: ``ops.dct`` and ``ops.conv2d`` at the Fig. 5/6
+    suite's sizes, with the launch counts of that run, each kernel
+    against its plain version, and their times at (4096, 4096) and
+    (256, 512, 512) beside their bounds and one PyTorch library call.
 
 Each phase prints its wall time.  Then the kernels' summary line and,
 last, the device line.  Any failed
@@ -46,6 +63,7 @@ the rest of the checkout (``src/repro_torch``) and a CUDA device.
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -59,31 +77,49 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth,
 # float32 outside the tensor cores, bf16 in the tensor cores.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12,
+                "float64": 34e12}   # float64 outside the tensor cores
 L2_BYTES = 50e6
 
 MODES = ("central", "tree", "partial", "hw")
 TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
 KERNELS = ("fft4_stage", "matmul", "dotp_central", "dotp_partials",
-           "combine_partials", "axpy")
+           "combine_partials", "axpy", "dct", "conv2d", "powf")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             "matmul": "src/repro/kernels/matmul.py:41",
             "dotp_central": "src/repro/kernels/dotp.py:40",
             "dotp_partials": "src/repro/kernels/dotp.py:64",
             "combine_partials": "src/repro/kernels/dotp.py:89",
-            "axpy": "src/repro/kernels/axpy.py:27"}
+            "axpy": "src/repro/kernels/axpy.py:27",
+            "dct": "src/repro/kernels/dct.py:25",
+            "conv2d": "src/repro/kernels/conv2d.py:32",
+            # No Pallas kernel: XLA's call of the C library's powf in the
+            # Pareto straggler model.
+            "powf": "src/repro/core/workloads.py:311"}
 SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "matmul": "src/repro_torch/csrc/matmul.cu",
            "dotp_central": "src/repro_torch/csrc/dotp.cu",
            "dotp_partials": "src/repro_torch/csrc/dotp.cu",
            "combine_partials": "src/repro_torch/csrc/dotp.cu",
-           "axpy": "src/repro_torch/csrc/axpy.cu"}
+           "axpy": "src/repro_torch/csrc/axpy.cu",
+           "dct": "src/repro_torch/csrc/dct.cu",
+           "conv2d": "src/repro_torch/csrc/conv2d.cu",
+           "powf": "src/repro_torch/csrc/powf.cu"}
 # The dot product's path: the Fig. 5 input sizes and the 64 Mi-element
 # case where the bandwidth bound means something; the central
 # accumulator (radix 0) and the tree radices of the Fig. 6 sweep.
 DOTP_SIZES = (1 << 18, 1 << 19, 1 << 20, 1 << 26)
 DOTP_RADICES = (0, 2, 4, 16, 32, 1024)
 AXPY_SIZES = (1 << 20, 1 << 26)
+# The Fig. 5/6 suite's DCT and Conv2D inputs, and the sizes they are
+# timed at.
+DCT_SIZES = ((2, 4096), (64, 4096), (256, 4096))
+DCT_LARGE = (4096, 4096)
+CONV_SIZES = ((1, 128, 128), (1, 256, 256), (1, 512, 512))
+CONV_LARGE = (256, 512, 512)
+# The Pareto straggler model's draws on the card, and its work per PE.
+STRAGGLER_KERNEL = "straggler_pareto"
+POWF_CHUNK = 1 << 24
 
 
 def emit(obj) -> None:
@@ -130,7 +166,8 @@ def phase_info(torch, build):
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    paths = build.build(["fft4_stage", "matmul", "dotp", "axpy"])
+    paths = build.build(["fft4_stage", "matmul", "dotp", "axpy", "dct",
+                         "conv2d", "powf", "powf_host"])
     build_s = time.perf_counter() - t0
     emit({"phase": "info", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
@@ -778,6 +815,281 @@ def phase_normal(torch, prng, ref_values) -> None:
                              "JAX draws")
 
 
+def pareto_base_range(workloads) -> tuple:
+    """Bit patterns ``(first, last)`` of every float32 base the Pareto
+    straggler tail can hand to ``powf`` on a 64-, 256- or 1024-PE
+    machine: ``c - u * d`` for ``u`` in [0, 1), ``c = lo^-1.5``,
+    ``d = lo^-1.5 - hi^-1.5`` (float32), ``lo`` the model's work per PE
+    and ``hi = 256 lo``; widened by 16 ulps at each end."""
+    lows, highs = [], []
+    for n in (64, 256, 1024):
+        lo = ((1 << 18) / n) * workloads.COSTS.axpy_per_elem
+        hi = 256.0 * lo
+        c = np.float32(lo ** -1.5)
+        d = np.float32(lo ** -1.5 - hi ** -1.5)
+        lows.append(c - d)
+        highs.append(c)
+    first = int(np.float32(min(lows)).view(np.int32)) - 16
+    last = int(np.float32(max(highs)).view(np.int32)) + 16
+    return first, last
+
+
+def phase_powf(torch, powf, prng, workloads, ref_values) -> tuple:
+    """The kernel against the host's C library over every reachable base,
+    then the straggler model's draws on the card, counted.  Returns the
+    summary record and the launch count of the draws."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    y = -1.0 / 1.5
+    first, last = pareto_base_range(workloads)
+    mismatches, host_s = 0, 0.0
+    for lo in range(first, last + 1, POWF_CHUNK):
+        hi = min(last + 1, lo + POWF_CHUNK)
+        t0 = time.perf_counter()
+        want = powf.powf_plain(
+            torch.from_numpy(np.arange(lo, hi, dtype=np.int32)
+                             .view(np.float32)), y)
+        host_s += time.perf_counter() - t0
+        x = torch.arange(lo, hi, dtype=torch.int32, device=dev).view(
+            torch.float32)
+        got = powf.powf(x, y)
+        mismatches += int((got.view(torch.int32)
+                           != want.to(dev).view(torch.int32)).sum().item())
+    n_bases = last - first + 1
+    libc = os.confstr("CS_GNU_LIBC_VERSION")
+    emit({"phase": "powf", "check": "every reachable base", "bases": n_bases,
+          "first": float(np.int32(first).view(np.float32)),
+          "last": float(np.int32(last).view(np.float32)),
+          "exponent": float(np.float32(y)), "differing": mismatches,
+          "host_libc": libc, "host_libm_s": host_s})
+    if mismatches:
+        raise AssertionError(f"powf kernel differs from the host's {libc} "
+                             f"powf on {mismatches} of {n_bases} bases")
+
+    # The path, counted: the straggler model's draws, as a user makes them.
+    ref = ref_values["straggler_pareto"]
+    powf.LAUNCHES = 0
+    draws = workloads.arrival_batch(prng.PRNGKey(ref["key"]),
+                                    STRAGGLER_KERNEL, tuple(ref["shape"]))
+    torch.cuda.synchronize()
+    launches = powf.LAUNCHES
+    want = torch.tensor(ref["values"], dtype=torch.float32)
+    off = int((draws.cpu().view(torch.int32) != want.view(torch.int32))
+              .sum().item())
+    ran_on = (f"{draws.device.type} kernel csrc/powf.cu"
+              if launches == 1 and draws.device.type == "cuda" else "host")
+    emit({"phase": "powf", "draws": list(draws.shape), "launches": launches,
+          "pow_ran_on": ran_on, "draws_off": off})
+    if launches != 1 or draws.device.type != "cuda" or off:
+        raise AssertionError(f"straggler_pareto on the card: {launches} powf "
+                             f"launches, {off} draws differ from JAX")
+
+    # Times: the model's base count and a large block.
+    summary = None
+    gen = torch.Generator(device=dev).manual_seed(11)
+    c = np.float32(((1 << 18) / 1024 * 3.0) ** -1.5)
+    for n in (math.prod(ref["shape"]), POWF_CHUNK):
+        x = c * (1.0 - 0.99 * torch.rand(n, device=dev, generator=gen))
+        got = powf.powf(x, y)
+        err = (got - powf.powf_plain(x, y)).abs().max().item()
+        args = [(t, y) for (t,) in cold_copies(x)]
+        # ~27 float64 operations an element (6 + 3 fused multiply-adds
+        # counted twice, 9 other); 8 bytes moved.
+        b_ms, b_by = bound(8.0 * n, 27.0 * n, "float64")
+        rec = {"phase": "powf", "name": "powf", "n": n, "max_abs_err": err,
+               "tol": "bit for bit",
+               "ms": cuda_ms(torch, powf.powf, args),
+               "plain_ms": cuda_ms(torch, powf.powf_plain, args, iters=3,
+                                   warmup=1),
+               "library_ms": cuda_ms(torch, torch.pow, args),
+               "library": "torch.pow (not the C library's rounding)",
+               "bound_ms": b_ms, "bound_by": b_by}
+        if err != 0.0:
+            raise AssertionError(f"powf n={n}: kernel != C library ({err})")
+        if summary is None:
+            summary = rec
+        emit(rec)
+    emit({"phase": "powf", "wall_s": time.perf_counter() - t_phase})
+    return summary, launches
+
+
+def phase_faults(torch, bench_faults, tuning, ref_values, bench) -> None:
+    """The N = 1024 degradation sweep against the JAX reference values and
+    against ``BENCH_faults.json``."""
+    ref = ref_values["faults"]
+    t0 = time.perf_counter()
+    record, res, i_lat = bench_faults.degradation_sweep(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = list(res.names)
+    robust = [c["robust_tuned"]["schedule"] for c in record["curve"]]
+    if (names != ref["names"] or names[i_lat] != ref["latency_winner"]
+            or robust != ref["robust_winners"]):
+        raise AssertionError(f"fault sweep winners {names[i_lat]}, {robust}")
+    prefix = res.span_cycles[:, :, :len(ref["span_prefix"][0][0])].cpu()
+    if not torch.equal(prefix, torch.tensor(ref["span_prefix"],
+                                            dtype=torch.float32)):
+        raise AssertionError("fault sweep spans differ from the reference")
+    p99 = tuning._objective_grid(res, "p99_cycles")
+    if not np.array_equal(p99, np.asarray(ref["p99_cycles"], np.float32)):
+        raise AssertionError("fault sweep p99 spans differ")
+    for got, key in ((res.mean_span, "mean_cycles"),
+                     (res.completion_rate, "completion_rate"),
+                     (res.abandoned_pes.to(torch.float32).mean(dim=-1),
+                      "abandoned_pes_mean")):
+        np.testing.assert_allclose(got.cpu().numpy(), ref[key], rtol=1e-6,
+                                   err_msg=key)
+    if record != ref["record"]:
+        raise AssertionError("fault sweep record differs from the JAX one")
+    # BENCH_faults.json was drawn from another random stream than today's
+    # JAX package (ROADMAP.md §3): its claims must hold, its numbers are
+    # reported beside the port's.
+    file_curve = bench["degradation"]["curve"]
+    claims = {
+        "robust_beats_latency_at_1pct":
+            record["robust_beats_latency_at_1pct"]
+            == bench["degradation"]["robust_beats_latency_at_1pct"],
+        "winners_as_file": [(c["latency_tuned"]["schedule"],
+                             c["robust_tuned"]["schedule"])
+                            for c in record["curve"]]
+        == [(c["latency_tuned"]["schedule"], c["robust_tuned"]["schedule"])
+            for c in file_curve]}
+    if not all(claims.values()):
+        raise AssertionError(f"fault sweep claims fail: {claims}")
+    emit({"phase": "faults", "grid": list(res.span_cycles.shape),
+          "latency_winner": names[i_lat], "robust_winners": robust,
+          "p99_improvement": [c["p99_improvement"] for c in record["curve"]],
+          "file_p99_improvement": [c["p99_improvement"] for c in file_curve],
+          "p99_cycles": [[c["latency_tuned"]["p99_cycles"],
+                          c["robust_tuned"]["p99_cycles"]]
+                         for c in record["curve"]],
+          "file_p99_cycles": [[c["latency_tuned"]["p99_cycles"],
+                               c["robust_tuned"]["p99_cycles"]]
+                              for c in file_curve],
+          "equals_reference": True, "file_claims": claims,
+          "wall_s": wall})
+
+
+def phase_fiveg_faults(torch, bench_faults, ref_values, bench) -> None:
+    ref = ref_values["fiveg_faults"]
+    t0 = time.perf_counter()
+    record, curve = bench_faults.fiveg_degradation(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for mode in bench_faults.FIVEG_MODES:
+        for rate, res, want in zip(ref["rates"], curve[mode], ref[mode]):
+            for c in ("total_cycles", "completion_rate", "timed_out_levels"):
+                if getattr(res, c).item() != np.float32(want[c]):
+                    raise AssertionError(
+                        f"5G {mode} at {rate}: {c} {getattr(res, c).item()} "
+                        f"!= {want[c]}")
+            for c in ("sync_fraction", "sync_energy"):
+                np.testing.assert_allclose(getattr(res, c).item(), want[c],
+                                           rtol=1e-5, err_msg=c)
+    cols = ("total_cycles", "completion_rate", "timed_out_levels")
+    emit({"phase": "fiveg_faults",
+          **{c: {m: [r[c] for r in record[m]]
+                 for m in bench_faults.FIVEG_MODES} for c in cols},
+          **{f"file_{c}": {m: [r[c] for r in bench["fiveg"][m]]
+                           for m in bench_faults.FIVEG_MODES} for c in cols},
+          "equals_reference": True,
+          "wall_s": wall,
+          "wall_s_per_simulate_app": wall / (len(ref["rates"]) * len(
+              bench_faults.FIVEG_MODES))})
+
+
+def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
+    """``ops.dct`` and ``ops.conv2d`` at the suite's sizes, counted; each
+    kernel against its plain version; the times at the large sizes.
+    Returns the summary records and the launch counts."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(9)
+    xs = {s: torch.randn(*s, device=dev, generator=gen) for s in DCT_SIZES}
+    imgs = {s: torch.randn(*s, device=dev, generator=gen) for s in CONV_SIZES}
+    k = torch.randn(3, 3, device=dev, generator=gen)
+
+    # The path, counted: the suite's inputs, as a user transforms them.
+    dct.LAUNCHES = 0
+    conv2d.LAUNCHES = 0
+    out = {("dct", s): ops.dct(x) for s, x in xs.items()}
+    out.update({("conv2d", s): ops.conv2d(img, k) for s, img in imgs.items()})
+    torch.cuda.synchronize()
+    launches = {"dct": dct.LAUNCHES, "conv2d": conv2d.LAUNCHES}
+    if launches != {"dct": len(DCT_SIZES), "conv2d": len(CONV_SIZES)}:
+        raise AssertionError(f"dct/conv2d path launches {launches}")
+    for s, x in xs.items():
+        plain = dct.dct_plain(x, ops.dct_basis_t(s[1], dev))
+        np.testing.assert_allclose(out[("dct", s)].cpu().numpy(),
+                                   plain.cpu().numpy(), rtol=1e-3, atol=1e-3)
+        emit({"phase": "dct_conv2d", "op": "ops.dct", "shape": list(s),
+              "max_abs_err": (out[("dct", s)] - plain).abs().max().item(),
+              "tol": {"rtol": 1e-3, "atol": 1e-3}})
+    for s, img in imgs.items():
+        plain = conv2d.conv2d_plain(img, k)
+        np.testing.assert_allclose(out[("conv2d", s)].cpu().numpy(),
+                                   plain.cpu().numpy(), rtol=1e-4, atol=1e-5)
+        emit({"phase": "dct_conv2d", "op": "ops.conv2d", "shape": list(s),
+              "max_abs_err": (out[("conv2d", s)] - plain).abs().max().item(),
+              "bit_equal": bool(torch.equal(out[("conv2d", s)], plain)),
+              "tol": {"rtol": 1e-4, "atol": 1e-5}})
+
+    summary = {}
+    t, n = DCT_LARGE
+    x = torch.randn(t, n, device=dev, generator=gen)
+    bt = ops.dct_basis_t(n, dev)
+    got = dct.dct(x, bt)
+    plain = dct.dct_plain(x, bt)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+    args = cold_copies(x, bt)
+    b_ms, b_by = bound(4.0 * (2 * t * n + n * n), 2.0 * t * n * n, "float32")
+    lib = torch.matmul(x, bt)
+    summary["dct"] = {
+        "phase": "dct_conv2d", "name": "dct", "shape": [t, n],
+        "max_abs_err": (got - plain).abs().max().item(),
+        "tol": {"rtol": 1e-3, "atol": 1e-3},
+        "ms": cuda_ms(torch, dct.dct, args),
+        "plain_ms": cuda_ms(torch, dct.dct_plain, args, iters=2, warmup=1),
+        "library_ms": cuda_ms(torch, torch.matmul, args),
+        "library": "torch.matmul(x, basis_t), float32 (TF32 off)",
+        "library_max_abs_diff": (got - lib).abs().max().item(),
+        "bound_ms": b_ms, "bound_by": b_by}
+    emit(summary["dct"])
+    del x, got, plain, lib, args
+
+    img = torch.randn(*CONV_LARGE, device=dev, generator=gen)
+    px = img.numel()
+    got = conv2d.conv2d(img, k)
+    plain = conv2d.conv2d_plain(img, k)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+    def library(u, w):
+        return torch.nn.functional.conv2d(u[:, None], w[None, None],
+                                          padding=1)[:, 0]
+
+    args = cold_copies(img, k)
+    b_ms, b_by = bound(8.0 * px + 36, 17.0 * px, "float32")
+    summary["conv2d"] = {
+        "phase": "dct_conv2d", "name": "conv2d", "shape": list(CONV_LARGE),
+        "max_abs_err": (got - plain).abs().max().item(),
+        "bit_equal": bool(torch.equal(got, plain)),
+        "tol": {"rtol": 1e-4, "atol": 1e-5},
+        "ms": cuda_ms(torch, conv2d.conv2d, args),
+        "plain_ms": cuda_ms(torch, conv2d.conv2d_plain, args, iters=5),
+        "library_ms": cuda_ms(torch, library, args),
+        "library": "F.conv2d on (B, 1, H, W), padding=1 (cuDNN, TF32 off)",
+        "library_max_abs_diff": (got - library(img, k)).abs().max().item(),
+        "bound_ms": b_ms, "bound_by": b_by}
+    emit(summary["conv2d"])
+    emit({"phase": "dct_conv2d", "launches": launches,
+          "wall_s": time.perf_counter() - t_phase})
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -786,11 +1098,13 @@ def main() -> int:
         return 2
     from repro_torch.core import (barrier, barrier_sim, fiveg, placement,
                                   prng, sweep, tuning, workloads)
-    from repro_torch.examples import fiveg_pipeline
-    from repro_torch.kernels import _build, axpy, dotp, fft4, matmul, ops, ref
+    from repro_torch.examples import bench_faults, fiveg_pipeline
+    from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
+                                     matmul, ops, powf, ref)
 
     ref_values = json.loads(
         (ROOT / "src" / "repro_torch" / "reference_values.json").read_text())
+    bench = json.loads((ROOT / "BENCH_faults.json").read_text())
     phase_info(torch, _build)
     summary = phase_kernels(torch, ops, fft4, matmul, ref)
     launches = phase_pipeline(torch, fiveg_pipeline, fft4, matmul)
@@ -804,6 +1118,13 @@ def main() -> int:
     phase_tuner(torch, placement, prng, sweep, tuning, ref_values)
     phase_fig7_tuned(torch, fiveg, prng, ref_values)
     phase_normal(torch, prng, ref_values)
+    summary["powf"], launches["powf"] = phase_powf(torch, powf, prng,
+                                                   workloads, ref_values)
+    phase_faults(torch, bench_faults, tuning, ref_values, bench)
+    phase_fiveg_faults(torch, bench_faults, ref_values, bench)
+    more, more_launches = phase_dct_conv2d(torch, ops, dct, conv2d)
+    summary.update(more)
+    launches.update(more_launches)
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

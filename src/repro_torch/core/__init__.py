@@ -1,3 +1,4 @@
 """The simulator half of the port: TeraPool topology, barrier schedules
-and their padded level tables, the JAX-compatible PRNG, the plain
-simulator cores, the Fig. 4a sweep and the Fig. 7 5G application."""
+and their padded level tables, the JAX-compatible PRNG, the plain and
+degradation-tolerant simulator cores, the PE fault models, the Fig. 4a
+sweep, the tuner and the Fig. 7 5G application."""

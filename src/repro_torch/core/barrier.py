@@ -434,3 +434,70 @@ def stack_tables(schedules: Sequence[BarrierSchedule],
     stacked = {f: np.stack([r[f] for r in rows]) for f in LevelTable._fields}
     return validate_tail_padding(
         level_table_from_arrays(stacked, device=device), full=False)
+
+
+# ---------------------------------------------------------------------------
+# Degradation-tolerant release semantics: timeout and quorum barriers.
+# ---------------------------------------------------------------------------
+
+class FaultSpec(NamedTuple):
+    """Release semantics of a degradation-tolerant barrier, as tensor
+    data: new thresholds change values, never the launch sequence.
+
+    Every counter of every level releases at
+
+        ``release = min(quorum_done, first_serviced + timeout_cycles)``
+
+    * **quorum**: a counter over ``g`` children releases once
+      ``ceil(quorum_frac * g)`` of them have been serviced (K-of-N
+      release; ``quorum_frac == 1.0`` is the classical barrier).
+    * **timeout**: a watchdog armed when the counter services its FIRST
+      child forces release ``timeout_cycles`` later (the
+      hardware-synchronizer bound of Glaser et al., arXiv 2004.06662);
+      ``+inf`` disables it.
+
+    Children still missing at release are *abandoned* and counted in
+    ``abandoned_pes``.  With ``timeout = +inf`` and ``quorum_frac = 1``
+    the robust cores give the plain cores' results bit for bit.
+    ``timeout_cycles`` is a scalar or a per-level row aligned with the
+    PADDED level index of the table it runs against.  The tensors live
+    on the CPU; the cores copy them to the arrivals' device."""
+
+    timeout_cycles: torch.Tensor  # () or (L,) float32, +inf = never
+    quorum_frac: torch.Tensor     # () float32 in (0, 1]
+    e_timeout_poll: torch.Tensor  # () float32 pJ per watchdog release
+    e_abandon: torch.Tensor       # () float32 pJ per abandoned PE
+
+    def to(self, device) -> "FaultSpec":
+        """The spec with every tensor on ``device``."""
+        return FaultSpec(*(t.to(device) for t in self))
+
+
+def fault_spec(timeout_cycles=math.inf, quorum_frac=1.0,
+               energy_model: EnergyModel = DEFAULT_ENERGY) -> FaultSpec:
+    """Build a :class:`FaultSpec`, validating the thresholds: timeouts
+    must be ``>= 0`` and the quorum fraction in ``(0, 1]``."""
+    t = torch.as_tensor(np.asarray(timeout_cycles, np.float32))
+    q = torch.as_tensor(np.asarray(quorum_frac, np.float32))
+    if t.dim() > 1:
+        raise ValueError(
+            f"timeout_cycles must be a scalar or a per-level row, got "
+            f"shape {tuple(t.shape)}")
+    if bool((t < 0).any()):
+        raise ValueError(f"timeout_cycles must be >= 0, got {t}")
+    if not bool(((q > 0) & (q <= 1)).all()):
+        raise ValueError(f"quorum_frac must be in (0, 1], got {q}")
+    return FaultSpec(t, q,
+                     torch.tensor(energy_model.e_timeout_poll,
+                                  dtype=torch.float32),
+                     torch.tensor(energy_model.e_abandon,
+                                  dtype=torch.float32))
+
+
+def __getattr__(name: str):
+    """``NO_FAULTS``, the degenerate spec, built at first use."""
+    if name == "NO_FAULTS":
+        spec = fault_spec()
+        globals()["NO_FAULTS"] = spec
+        return spec
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

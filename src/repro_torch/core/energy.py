@@ -1,5 +1,4 @@
-"""Per-barrier energy accounting (port of ``repro.core.energy``, plain
-part).
+"""Per-barrier energy accounting (port of ``repro.core.energy``).
 
 An episode's energy is a *static* part fixed by the schedule, machine
 config and cost model, plus an idle-wait part proportional to the time
@@ -15,15 +14,19 @@ LevelTable`; the dynamic part is computed from ``mean_residency`` in
 :func:`episode_energy`.  The JAX reference compiles that formula so XLA
 contracts it into fused multiply-adds; eager torch does not, so the
 energy column matches the reference to a relative 1e-6, not bit for
-bit.
+bit.  :func:`robust_episode_energy` adds the degradation surcharges of
+the robust cores on top; :func:`energy_reference` is the independent
+numpy oracle of the whole column.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .topology import DEFAULT, TeraPoolConfig
 
 
@@ -123,3 +126,109 @@ def episode_energy(energy_static: torch.Tensor, active_cycles: torch.Tensor,
     float32 throughout, one rounding per operation."""
     return energy_static + idle_power * (
         n_pes * mean_residency - active_cycles)
+
+
+def robust_episode_energy(energy_static, active_cycles, idle_power,
+                          n_pes: int, mean_residency, e_timeout_poll,
+                          timed_out_levels, e_abandon,
+                          abandoned_pes) -> torch.Tensor:
+    """:func:`episode_energy` plus the degradation surcharges: one
+    watchdog-release round per timed-out level, one cleanup round per
+    abandoned PE.  Built on top of the plain formula, so a zero-fault
+    episode gives the plain energy bit for bit (``x + c * 0 == x``)."""
+    base = episode_energy(energy_static, active_cycles, idle_power, n_pes,
+                          mean_residency)
+    return (base + e_timeout_poll * timed_out_levels
+            + e_abandon * abandoned_pes)
+
+
+# ---------------------------------------------------------------------------
+# Independent numpy oracle (test-only).
+# ---------------------------------------------------------------------------
+
+def _count_events(schedule, placement, cfg: TeraPoolConfig,
+                  model: EnergyModel) -> tuple:
+    """Explicit per-event counting loops, the closed-form-free
+    cross-check of :func:`schedule_energy_constants` (float64, rounded
+    once)."""
+    n = schedule.n_pes
+    active = 0.0
+    traffic = 0.0
+    if getattr(schedule, "hw", False):
+        for _ in range(n):
+            active += cfg.hw_entry_instr
+        for lvl, m, _ in _level_counts(schedule):
+            for _ in range(m):
+                traffic += model.e_hw_signal + model.e_hw_hop * lvl.latency
+    else:
+        for _ in range(n):
+            active += cfg.instr_per_level
+        for li, (lvl, m, count) in enumerate(_level_counts(schedule)):
+            for c in range(count):
+                lat = (placement.latencies[li][c]
+                       if placement is not None else lvl.latency)
+                for _ in range(lvl.group_size):
+                    traffic += model.e_amo_issue + model.e_amo_hop * lat
+            for _ in range(count):
+                active += cfg.instr_per_level
+    wakeup = model.e_wakeup_write
+    for _ in range(n):
+        wakeup += model.e_wakeup_line
+    if model.sleep == "wfi":
+        for _ in range(n - 1):
+            wakeup += model.e_wfi_wake
+    static = model.e_instr * active + traffic + wakeup
+    return np.float32(static), np.float32(active)
+
+
+def _episode_exit(arr: np.ndarray, schedule, cfg: TeraPoolConfig) -> float:
+    """Unplaced episode walk in numpy, op for op the float32 sequence of
+    :func:`repro_torch.core.barrier_sim.simulate_reference`."""
+    hw = bool(getattr(schedule, "hw", False))
+    entry = cfg.hw_entry_instr if hw else cfg.instr_per_level
+    svc = np.float32(0.0 if hw else cfg.bank_service_cycles)
+    instr = np.float32(0.0 if hw else cfg.instr_per_level)
+    ready = arr.astype(np.float32) + np.float32(entry)
+    for lvl in schedule.levels:
+        a = np.sort(ready.reshape((-1, lvl.group_size)), axis=-1)
+        j = np.arange(a.shape[-1], dtype=np.float32) * svc
+        start = np.maximum.accumulate(a - j, axis=-1) + j
+        done = start[..., -1] + np.float32(lvl.latency)
+        ready = done + instr
+    return float(ready[0] + np.float32(cfg.wakeup_cycles))
+
+
+def energy_reference(arrivals, schedule, cfg: TeraPoolConfig = DEFAULT,
+                     placement=None, model: EnergyModel = DEFAULT_ENERGY,
+                     *, device="cuda") -> torch.Tensor:
+    """Independent numpy energy oracle for one barrier episode (or a
+    leading batch): explicit event-counting loops for the static part,
+    an explicit queue walk (per-bank queues when a placement is given)
+    for the exit times, and :func:`episode_energy` on top.  Per-episode
+    Python loops on the host; the result lands on ``device``."""
+    dev = resolve_device(device)
+    arr = np.asarray(torch.as_tensor(arrivals).detach().cpu(), np.float32)
+    if arr.shape[-1] != schedule.n_pes:
+        raise ValueError(
+            f"arrivals has {arr.shape[-1]} PEs, schedule expects "
+            f"{schedule.n_pes}")
+    n = schedule.n_pes
+    batch = arr.shape[:-1]
+    flat = arr.reshape((-1, n))
+
+    static, active = _count_events(schedule, placement, cfg, model)
+    idle = np.float32(model.idle_power)
+    if placement is None:
+        exits = np.asarray([_episode_exit(a, schedule, cfg) for a in flat],
+                           np.float32)
+    else:
+        from .placement import _placed_episode
+        exits = np.asarray(
+            [_placed_episode(a, schedule, placement, cfg) for a in flat],
+            np.float32) + np.float32(cfg.wakeup_cycles)
+    resid = (torch.tensor(exits, device=dev)[:, None]
+             - torch.tensor(flat, device=dev)).mean(dim=-1)
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    energy = episode_energy(f32(float(static)), f32(float(active)),
+                            f32(float(idle)), n, resid)
+    return energy.reshape(batch)

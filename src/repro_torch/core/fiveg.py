@@ -1,5 +1,5 @@
 """Model of the paper's 5G PUSCH application (Sec. 4.3, Fig. 7), port of
-``repro.core.fiveg`` (plain sync modes).
+``repro.core.fiveg``.
 
 OFDM demodulation = N_RX independent 4096-point radix-4 DIF FFTs, each
 scheduled on a 256-PE subset (4 FFTs concurrently across the 1024-PE
@@ -30,6 +30,10 @@ tuned modes):
 Tuned picks come from fixed-seed sweeps (``_TUNING_SEED``) and are kept
 per design point for the life of the process.
 
+``faults=`` (a :class:`FiveGFaults`) runs the pipeline under persistent
+PE fail-stops with timeout/quorum release on every barrier;
+:func:`degradation_curve` sweeps the failure rate per mode.
+
 The epoch loop runs on the device as a Python loop of batched core
 calls; every epoch's arrival scatter is drawn up front in one batched
 threefry call, bit for bit the reference's per-epoch draws.
@@ -41,14 +45,16 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
 from . import barrier, barrier_sim, placement, prng, tuning, workloads
-from .barrier import LevelTable
+from .barrier import FaultSpec, LevelTable, fault_spec
 from .barrier_sim import core_fn
 from .energy import DEFAULT_ENERGY, EnergyModel
 from .topology import DEFAULT, TeraPoolConfig
+from .xla_math import _fma
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,8 +119,29 @@ class FiveGResult(NamedTuple):
     energy_fraction: torch.Tensor   # sync_energy / total_energy
     stage_schedule: str = ""        # stage barrier tree name
     global_schedule: str = ""       # FFT->MATMUL / global tree name
-    completion_rate: float = 1.0    # fault-free runs release every PE
-    timed_out_levels: float = 0.0   # and never time out
+    # Degradation columns of ``faults=`` runs (trivial otherwise): the
+    # mean fraction of PEs released per barrier episode, and the
+    # watchdog releases over the whole pipeline.
+    completion_rate: torch.Tensor | float = 1.0
+    timed_out_levels: torch.Tensor | float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FiveGFaults:
+    """PE-failure mode of the 5G app: a persistent fail-stop mask drawn
+    once per run (``fail_rate`` Bernoulli per PE under ``seed``) plus
+    the timeout/quorum release policy every barrier then runs with, so
+    that failed PEs degrade the throughput instead of deadlocking it."""
+
+    fail_rate: float = 0.0
+    timeout_cycles: float = 2000.0
+    quorum_frac: float = 1.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if not 0.0 <= float(self.fail_rate) < 1.0:
+            raise ValueError(
+                f"fail_rate must be in [0, 1), got {self.fail_rate}")
 
 
 def _epoch_noise(keys: torch.Tensor, jitter, n: int) -> torch.Tensor:
@@ -241,45 +268,75 @@ def _app_core(key: torch.Tensor, stage_table: LevelTable,
               jitter: torch.Tensor, mm_work: torch.Tensor,
               mm_jitter: torch.Tensor, *, n_epochs: int,
               partial_groups: int, n_pes: int,
-              cfg: TeraPoolConfig, core: str) -> tuple:
+              cfg: TeraPoolConfig, core: str,
+              mask: torch.Tensor | None = None,
+              spec: FaultSpec | None = None) -> tuple:
     """The epoch pipeline: ``n_epochs`` stage barriers, the
     FFT->beamforming barrier and the beamforming barrier.  Returns
     (total cycles, summed mean barrier residency, summed barrier
-    energy) as float32 scalars on the tables' device."""
-    sim = core_fn(core)
+    energy) as float32 scalars on the tables' device.
+
+    Under a fault ``spec`` every barrier runs the robust core, the
+    persistent fail-stop ``mask`` turns its PEs' arrivals into ``+inf``
+    at every barrier entry, and the result also carries the completion
+    rate (mean fraction of PEs released per episode) and the watchdog
+    releases, as float32."""
+    robust = spec is not None
+    sim = core_fn(core, robust=robust)
     dev = stage_table.group_sizes.device
     keys = prng.split(key.to(dev), n_epochs + 2)
     noise = _epoch_noise(keys[:n_epochs], jitter, n_pes)   # (E, n)
-    fft_pes = n_pes // partial_groups
+    if robust:
+        spec = spec.to(dev)
+    zero = functools.partial(torch.zeros, (), device=dev)
+    sync_acc, energy_acc = zero(dtype=torch.float32), zero(dtype=torch.float32)
+    ab_acc, t_acc = zero(dtype=torch.int32), zero(dtype=torch.int32)
 
-    t = torch.zeros((n_pes,), dtype=torch.float32, device=dev)
-    sync_acc = torch.zeros((), dtype=torch.float32, device=dev)
-    energy_acc = torch.zeros((), dtype=torch.float32, device=dev)
-    for e in range(n_epochs):
-        arr = t + epoch_work + noise[e]
-        if partial_groups > 1:
-            res = sim(arr.reshape(partial_groups, fft_pes), stage_table, cfg)
-            t = res.exit_time.repeat_interleave(fft_pes)
+    def barrier_at(arr, table, groups=1):
+        """One barrier over ``arr`` in ``groups`` equal PE subsets;
+        accumulates its residency, energy and degradation counts and
+        returns every PE's exit."""
+        nonlocal sync_acc, energy_acc, ab_acc, t_acc
+        if robust:
+            arr = torch.where(mask, torch.inf, arr)
+        if groups > 1:
+            arr = arr.reshape(groups, -1)
+        res = (sim(arr, table, cfg, None, spec) if robust
+               else sim(arr, table, cfg))
+        if groups > 1:
             sync_acc = sync_acc + res.mean_residency.mean()
             energy_acc = energy_acc + res.energy.sum()
         else:
-            res = sim(arr, stage_table, cfg)
-            t = res.exit_time.expand(n_pes)
             sync_acc = sync_acc + res.mean_residency
             energy_acc = energy_acc + res.energy
+        if robust:
+            ab_acc = ab_acc + res.abandoned_pes.sum(dtype=torch.int32)
+            t_acc = t_acc + res.timed_out_levels.sum(dtype=torch.int32)
+        return res.exit_time
+
+    t = torch.zeros((n_pes,), dtype=torch.float32, device=dev)
+    for e in range(n_epochs):
+        exit_time = barrier_at(t + epoch_work + noise[e], stage_table,
+                               partial_groups)
+        t = (exit_time.repeat_interleave(n_pes // partial_groups)
+             if partial_groups > 1 else exit_time.expand(n_pes))
 
     # FFT -> beamforming data dependency: one global barrier.
-    res = sim(t, global_table, cfg)
-    t = res.exit_time.expand(n_pes)
-    sync_acc = sync_acc + res.mean_residency
-    energy_acc = energy_acc + res.energy
+    t = barrier_at(t, global_table).expand(n_pes)
 
     # Beamforming MATMUL: (N_B x N_RX) @ (N_RX x N_SC), column-wise over
     # all PEs; concurrent row reads -> moderate contention scatter.
-    arr = _epoch_arrivals(keys[n_epochs], t, mm_work, mm_jitter, n_pes)
-    res = sim(arr, global_table, cfg)
-    return (res.exit_time, sync_acc + res.mean_residency,
-            energy_acc + res.energy)
+    total = barrier_at(_epoch_arrivals(keys[n_epochs], t, mm_work,
+                                       mm_jitter, n_pes), global_table)
+    if not robust:
+        return total, sync_acc, energy_acc
+    # 1 - abandoned / PE-episodes as XLA compiles it: the division by
+    # a constant becomes a product with its float32 reciprocal, fused
+    # with the subtraction.
+    per_episode = float(np.float32(1.0) / np.float32((n_epochs + 2) * n_pes))
+    completion = _fma(ab_acc.to(torch.float32), -per_episode, 1.0)
+    return (total, sync_acc, energy_acc, completion,
+            t_acc.to(torch.float32))
 
 
 def _compute_energy(app: FiveGConfig, n: int, n_epochs: int,
@@ -300,8 +357,8 @@ def _serial_cycles(app: FiveGConfig, device) -> torch.Tensor:
 
 
 def _result(app, total, sync_acc, energy_acc, n_epochs, model, cfg,
-            stage_sched, global_sched, stage_plc,
-            global_plc) -> FiveGResult:
+            stage_sched, global_sched, stage_plc, global_plc,
+            completion=1.0, timed=0.0) -> FiveGResult:
     dev = total.device
     serial = _serial_cycles(app, dev)
     total_energy = _compute_energy(app, cfg.n_pes, n_epochs, model, dev) \
@@ -317,6 +374,8 @@ def _result(app, total, sync_acc, energy_acc, n_epochs, model, cfg,
         energy_fraction=energy_acc / total_energy,
         stage_schedule=barrier.schedule_name(stage_sched, stage_plc),
         global_schedule=barrier.schedule_name(global_sched, global_plc),
+        completion_rate=completion,
+        timed_out_levels=timed,
     )
 
 
@@ -325,16 +384,17 @@ def simulate_app(key: torch.Tensor, app: FiveGConfig = FiveGConfig(),
                  cfg: TeraPoolConfig = DEFAULT, *,
                  core: str | None = None,
                  energy_model: EnergyModel = DEFAULT_ENERGY,
-                 faults=None, device="cuda") -> FiveGResult:
+                 faults: FiveGFaults | None = None,
+                 device="cuda") -> FiveGResult:
     """Simulate the full OFDM + beamforming pipeline under one barrier
     strategy, on ``device``.  ``sync`` in {"central", "tree", "partial",
     "hw", "tuned", "tuned_partial", "placed", "workload", "pareto"};
     ``radix`` is ignored by all but the first three.  ``core`` selects
     the simulator implementation for every barrier; ``energy_model``
-    prices the energy columns.  ``faults`` must be ``None`` (ROADMAP.md
-    §1 item 4)."""
-    if faults is not None:
-        raise NotImplementedError(barrier_sim._FAULTS_TODO)
+    prices the energy columns.  ``faults`` (a :class:`FiveGFaults`)
+    runs every barrier on the robust cores under a persistent fail-stop
+    mask and fills the ``completion_rate`` / ``timed_out_levels``
+    columns; ``None`` runs the plain cores."""
     dev = resolve_device(device)
     n = cfg.n_pes
     (stage_sched, global_sched, partial_groups, stage_plc,
@@ -351,13 +411,56 @@ def simulate_app(key: torch.Tensor, app: FiveGConfig = FiveGConfig(),
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=dev)
 
-    total, sync_acc, energy_acc = _app_core(
-        key, stage_table, global_table, f32(app.epoch_work),
-        f32(app.epoch_jitter), f32(app.mm_work(n)), f32(app.mm_jitter(n)),
-        n_epochs=n_epochs, partial_groups=partial_groups, n_pes=n, cfg=cfg,
-        core=barrier_sim.resolve_core(core))
+    args = (key, stage_table, global_table, f32(app.epoch_work),
+            f32(app.epoch_jitter), f32(app.mm_work(n)),
+            f32(app.mm_jitter(n)))
+    static = dict(n_epochs=n_epochs, partial_groups=partial_groups,
+                  n_pes=n, cfg=cfg, core=barrier_sim.resolve_core(core))
+    if faults is None:
+        total, sync_acc, energy_acc = _app_core(*args, **static)
+        extra = ()
+    else:
+        mask = prng.bernoulli(prng.PRNGKey(faults.seed, device=dev),
+                              faults.fail_rate, (n,))
+        spec = fault_spec(timeout_cycles=faults.timeout_cycles,
+                          quorum_frac=faults.quorum_frac,
+                          energy_model=energy_model)
+        total, sync_acc, energy_acc, *extra = _app_core(
+            *args, mask=mask, spec=spec, **static)
     return _result(app, total, sync_acc, energy_acc, n_epochs, energy_model,
-                   cfg, stage_sched, global_sched, stage_plc, global_plc)
+                   cfg, stage_sched, global_sched, stage_plc, global_plc,
+                   *extra)
+
+
+def degradation_curve(key: torch.Tensor,
+                      fail_rates=(0.0, 0.005, 0.01, 0.02, 0.05),
+                      app: FiveGConfig = FiveGConfig(),
+                      modes: tuple = ("central", "tree", "hw"),
+                      radix: int = 32,
+                      cfg: TeraPoolConfig = DEFAULT, *,
+                      core: str | None = None,
+                      timeout_cycles: float = 2000.0,
+                      quorum_frac: float = 1.0,
+                      energy_model: EnergyModel = DEFAULT_ENERGY,
+                      device="cuda") -> dict:
+    """5G throughput against the PE-failure rate, per sync mode: one
+    :class:`FiveGResult` per (mode, rate), the rate's fail-stop mask
+    drawn under seed ``i`` for the ``i``-th rate.  Returns
+    ``{"fail_rates": tuple, mode: [FiveGResult, ...]}`` with each list
+    aligned to ``fail_rates``."""
+    rates = tuple(float(r) for r in fail_rates)
+    out: dict = {"fail_rates": rates}
+    for mode in modes:
+        out[mode] = [
+            simulate_app(key, app, sync=mode, radix=radix, cfg=cfg,
+                         core=core, energy_model=energy_model,
+                         faults=FiveGFaults(fail_rate=r,
+                                            timeout_cycles=timeout_cycles,
+                                            quorum_frac=quorum_frac,
+                                            seed=i),
+                         device=device)
+            for i, r in enumerate(rates)]
+    return out
 
 
 def simulate_app_reference(key: torch.Tensor,

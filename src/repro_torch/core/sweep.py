@@ -21,6 +21,9 @@ tables broadcast over the (delay, trial) batch.
 
 Placed and unplaced schedules share one table shape, so a placement
 axis is more rows of the same stacked table, not another code path.
+``faults=`` (a :class:`~repro_torch.core.barrier.FaultSpec`) runs any
+grid through the robust cores; the spec is tensor data shared by every
+point.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 
 from .._device import resolve_device
 from . import barrier, barrier_sim, prng
-from .barrier import LevelTable
+from .barrier import FaultSpec, LevelTable
 from .barrier_sim import BarrierResult, core_fn
 from .topology import DEFAULT, TeraPoolConfig
 
@@ -161,14 +164,26 @@ def _lift(tables: LevelTable, n_batch: int) -> LevelTable:
                                   + f.shape[1:]) for f in tables))
 
 
+def _grid(arrivals: torch.Tensor, tables: LevelTable, cfg: TeraPoolConfig,
+          core: str, widths: tuple | None,
+          faults: FaultSpec | None) -> BarrierResult:
+    """(S, ...) grid of the stacked tables over an arrival block: the
+    plain core, or its robust twin under ``faults``."""
+    lifted = _lift(tables, arrivals.ndim - 1)
+    if faults is None:
+        return core_fn(core)(arrivals, lifted, cfg, widths)
+    return core_fn(core, robust=True)(arrivals, lifted, cfg, widths, faults)
+
+
 def _sweep_body(tables: LevelTable, delays: torch.Tensor,
                 unit: torch.Tensor, cfg: TeraPoolConfig, core: str,
-                widths: tuple | None = None) -> BarrierResult:
+                widths: tuple | None = None,
+                faults: FaultSpec | None = None) -> BarrierResult:
     """(S, D, T) grid: ``unit`` is a (T, n_pes) block of standard
     uniforms, scaled by each delay into the (D, T, n_pes) arrivals; the
     stacked tables broadcast over the delay and trial axes."""
     arrivals = delays[:, None, None] * unit[None, :, :]      # (D, T, N)
-    return core_fn(core)(arrivals, _lift(tables, 2), cfg, widths)
+    return _grid(arrivals, tables, cfg, core, widths, faults)
 
 
 def _trial_chunks(n_trials: int, trial_chunk: int | None):
@@ -196,22 +211,17 @@ def sweep_schedules(key: torch.Tensor,
                     placements: Sequence | None = None, *,
                     core: str | None = None,
                     trial_chunk: int | None = None,
-                    shard: bool = True,
-                    devices=None,
-                    faults=None,
+                    faults: FaultSpec | None = None,
                     device="cuda") -> SweepResult:
     """Run a same-``n_pes`` schedule stack x delay x trial grid on
-    ``device`` as batched core calls.
+    ``device`` as batched core calls (one device; the reference's
+    sharding options are not ported).
 
     ``trial_chunk`` bounds the live grid memory by splitting the trial
     axis (chunked == unchunked bit for bit; the trial draws happen once,
-    up front).  ``shard`` and ``devices`` are accepted for signature
-    parity with the reference and ignored: the port runs on one device
-    (ROADMAP.md §1 item 11).  ``placements`` aligns with ``schedules``
-    (``None`` entries keep the span heuristic).  ``faults`` needs the
-    robust cores (item 4) and raises."""
-    if faults is not None:
-        raise NotImplementedError(barrier_sim._FAULTS_TODO)
+    up front).  ``placements`` aligns with ``schedules`` (``None``
+    entries keep the span heuristic).  ``faults`` switches the grid to
+    the robust cores."""
     dev = resolve_device(device)
     schedules = tuple(schedules)
     tables = barrier.stack_tables(schedules, cfg, placements, device=dev)
@@ -221,7 +231,7 @@ def sweep_schedules(key: torch.Tensor,
     core = barrier_sim.resolve_core(core)
     widths = barrier.telescope_widths(tables, n)
     res = _concat_results([
-        _sweep_body(tables, d, unit[lo:hi], cfg, core, widths)
+        _sweep_body(tables, d, unit[lo:hi], cfg, core, widths, faults)
         for lo, hi in _trial_chunks(n_trials, trial_chunk)])
     placements = tuple(placements) if placements is not None else ()
     return SweepResult(schedules=schedules, delays=d, placements=placements,
@@ -234,7 +244,7 @@ def sweep_barrier(key: torch.Tensor, radices: Sequence[int] | None = None,
                   cfg: TeraPoolConfig = DEFAULT, *,
                   core: str | None = None,
                   trial_chunk: int | None = None,
-                  shard: bool = True,
+                  faults: FaultSpec | None = None,
                   device="cuda") -> SweepResult:
     """The Fig. 4 grid: :func:`sweep_schedules` over the uniform-radix
     stack (every radix of ``n_pes`` by default)."""
@@ -243,7 +253,7 @@ def sweep_barrier(key: torch.Tensor, radices: Sequence[int] | None = None,
         radices = barrier.all_radices(n, cfg)
     scheds = [barrier.kary_tree(r, n_pes=n, cfg=cfg) for r in radices]
     return sweep_schedules(key, scheds, delays, n_trials, cfg, core=core,
-                           trial_chunk=trial_chunk, shard=shard,
+                           trial_chunk=trial_chunk, faults=faults,
                            device=device)
 
 
@@ -259,7 +269,7 @@ def sweep_arrivals(arrivals, schedules: Sequence[barrier.BarrierSchedule],
                    kernels: Sequence[str] | None = None, *,
                    core: str | None = None,
                    trial_chunk: int | None = None,
-                   faults=None) -> ArrivalSweepResult:
+                   faults: FaultSpec | None = None) -> ArrivalSweepResult:
     """Sweep a stack of measured arrival matrices across a schedule
     (x optional placement) stack as batched core calls, on the
     arrivals' device.
@@ -268,9 +278,9 @@ def sweep_arrivals(arrivals, schedules: Sequence[barrier.BarrierSchedule],
     :func:`repro_torch.core.workloads.arrival_batch` per kernel,
     stacked — or ``(n_trials, n_pes)`` for a single workload.
     ``trial_chunk`` splits the trial axis (bit for bit the unchunked
-    grid); ``faults`` raises (ROADMAP.md §1 item 4)."""
-    if faults is not None:
-        raise NotImplementedError(barrier_sim._FAULTS_TODO)
+    grid); ``faults`` switches to the robust cores (fail-stop PEs enter
+    as ``+inf`` arrivals in the stacks themselves, see
+    :func:`repro_torch.core.workloads.apply_faults`)."""
     arrivals = torch.as_tensor(arrivals, dtype=torch.float32)
     if arrivals.ndim == 2:
         arrivals = arrivals[None]
@@ -289,11 +299,10 @@ def sweep_arrivals(arrivals, schedules: Sequence[barrier.BarrierSchedule],
             f"kernel names")
     tables = barrier.stack_tables(schedules, cfg, placements,
                                   device=arrivals.device)
-    fn = core_fn(core)
+    core = barrier_sim.resolve_core(core)
     widths = barrier.telescope_widths(tables, arrivals.shape[-1])
-    lifted = _lift(tables, 2)
     res = _concat_results([
-        fn(arrivals[:, lo:hi], lifted, cfg, widths)
+        _grid(arrivals[:, lo:hi], tables, cfg, core, widths, faults)
         for lo, hi in _trial_chunks(arrivals.shape[1], trial_chunk)])
     kernels = (tuple(kernels) if kernels is not None
                else tuple(f"workload{i}" for i in range(arrivals.shape[0])))

@@ -41,9 +41,6 @@ from .barrier import BarrierSchedule
 from .placement import CounterPlacement
 from .topology import DEFAULT, TeraPoolConfig
 
-_ROBUST_TODO = ("fault models and the completion objective need the "
-                "robust cores, not ported yet (ROADMAP.md §1 item 4)")
-
 
 def enumerate_compositions(n_pes: int | None = None,
                            cfg: TeraPoolConfig = DEFAULT
@@ -139,7 +136,9 @@ def tune_barrier(key: torch.Tensor, n_pes: int | None = None,
     trial on ``key``'s device.  ``placements`` — strategy names from
     :data:`repro_torch.core.placement.STRATEGIES` — crosses every
     composition with every strategy (the result's ``schedules`` and
-    ``placements`` align entry for entry)."""
+    ``placements`` align entry for entry).  ``faults`` (a
+    :class:`~repro_torch.core.barrier.FaultSpec`) runs the robust cores;
+    pair it with the tail objectives."""
     if schedules is None:
         schedules = all_schedules(n_pes, cfg, prune=prune)
     scheds, placs = _cross_placements(schedules, placements, cfg)
@@ -244,10 +243,11 @@ _OBJECTIVE_GRIDS = ("cycles", "energy", "p99_cycles", "worst_cycles",
 def _objective_grid(res, objective: str) -> np.ndarray:
     """(S, columns) selection metric on the host: mean span
     (``"cycles"``), mean episode energy (``"energy"``), their product
-    (``"edp"``), the 99th-percentile span over trials with ``"lower"``
-    interpolation (``"p99_cycles"``) or the worst span
-    (``"worst_cycles"``).  ``"completion"`` counts abandoned PEs, which
-    needs the robust cores, and raises."""
+    (``"edp"``), the tail objectives — the 99th-percentile span over
+    trials with ``"lower"`` interpolation (``"p99_cycles"``, finite
+    while fewer than 1 % of trials hang), the worst span
+    (``"worst_cycles"``) — and the mean abandoned-PE count
+    (``"completion"``, minimized; zero without faults)."""
     sp = res.span_cycles.mean(dim=-1)
     if objective == "cycles":
         return sp.cpu().numpy()
@@ -258,7 +258,7 @@ def _objective_grid(res, objective: str) -> np.ndarray:
     if objective == "worst_cycles":
         return res.span_cycles.amax(dim=-1).cpu().numpy()
     if objective == "completion":
-        raise NotImplementedError(_ROBUST_TODO)
+        return res.abandoned_pes.to(torch.float32).mean(dim=-1).cpu().numpy()
     en = res.energy.mean(dim=-1)
     if objective == "energy":
         return en.cpu().numpy()
@@ -442,10 +442,11 @@ def sweep_workloads(key: torch.Tensor, kernels: Sequence[str] | None = None,
     schedule (x placement) stack, on ``key``'s device.  Each kernel
     (default: the Fig. 5/6 suite, :data:`repro_torch.core.workloads.
     FIG6_KERNELS`) contributes an ``(n_trials, N)`` batch under its own
-    key split.  ``fault_model`` and ``faults`` need the robust cores
-    (ROADMAP.md §1 item 4) and raise."""
-    if fault_model is not None:
-        raise NotImplementedError(_ROBUST_TODO)
+    key split.  ``fault_model`` (a :class:`~repro_torch.core.workloads.
+    PEFaultModel`) degrades every kernel's batch under a key folded off
+    ``key``, leaving the fault-free draws as they are; ``faults`` (a
+    :class:`~repro_torch.core.barrier.FaultSpec`) runs the robust cores,
+    which a nonzero ``p_fail`` needs to avoid hung episodes."""
     n = int(n_pes if n_pes is not None else cfg.n_pes)
     if kernels is None:
         kernels = workloads_mod.FIG6_KERNELS
@@ -456,6 +457,9 @@ def sweep_workloads(key: torch.Tensor, kernels: Sequence[str] | None = None,
     arrivals = torch.stack([
         workloads_mod.arrival_batch(k, kernel, (n_trials, n), cfg=cfg)
         for k, kernel in zip(keys, kernels)])
+    if fault_model is not None:
+        arrivals = workloads_mod.apply_faults(
+            prng.fold_in(key, 0x0FA17), arrivals, fault_model)
     if schedules is None:
         schedules = all_schedules(n, cfg, prune=prune)
     scheds, placs = _cross_placements(schedules, placements, cfg)
@@ -503,11 +507,14 @@ def tune_for_arrivals(arrivals, cfg: TeraPoolConfig = DEFAULT, *,
                       schedules: Sequence[BarrierSchedule] | None = None,
                       placements: Sequence[str] | None = None,
                       core: str | None = None,
-                      objective: str = "cycles") -> tuple:
+                      objective: str = "cycles",
+                      faults=None) -> tuple:
     """The winning (schedule, placement, mean_span) for an explicit
     ``(n_trials, N)`` arrival matrix (e.g. a trace of one 5G epoch), by
-    ``objective`` (``"cycles"``, ``"energy"``, ``"edp"`` or
-    ``"pareto"``); the float is always the winner's mean span."""
+    ``objective`` (``"cycles"``, ``"energy"``, ``"edp"``, ``"pareto"``
+    or a tail objective); the float is always the winner's mean span.
+    ``faults`` runs the robust cores (fail-stop PEs as ``+inf``
+    arrivals)."""
     arrivals = torch.as_tensor(arrivals, dtype=torch.float32)
     if arrivals.ndim == 1:
         arrivals = arrivals[None]
@@ -520,7 +527,7 @@ def tune_for_arrivals(arrivals, cfg: TeraPoolConfig = DEFAULT, *,
         schedules = all_schedules(n, cfg, prune=prune, partial=partial)
     scheds, placs = _cross_placements(schedules, placements, cfg)
     res = sweep.sweep_arrivals(arrivals, scheds, cfg, placements=placs,
-                               core=core)
+                               core=core, faults=faults)
     win = best_for_arrival_stack(res, (objective,))[0]
     return win.schedule, win.placement, win.mean_span
 

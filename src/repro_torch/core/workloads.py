@@ -14,6 +14,9 @@ Fig. 5 and which drives the barrier-radix selection of Fig. 6:
 * Conv2D       — local accesses but imbalanced work: PEs on the
   zero-padded border finish early -> bimodal CDF.
 
+:class:`PEFaultModel` / :func:`apply_faults` degrade any of them with
+stragglers, stalls and fail-stops (``+inf`` arrivals).
+
 Every model takes keys of shape ``(..., 2)`` and returns arrivals of
 shape ``(..., n_pes)``, one epoch per key, on the keys' device, so a
 whole trial batch is one call (:func:`arrival_batch`).  The draws go
@@ -213,6 +216,75 @@ def fiveg_matmul_arrivals(key: torch.Tensor, app=None,
     return _epoch_from_zero(key, app.mm_work(n), app.mm_jitter(n), n)
 
 
+
+# ---------------------------------------------------------------------------
+# In-machine PE fault models: heavy-tail stragglers, transient stalls,
+# permanent fail-stop.  A failed PE "arrives" at +inf; the robust
+# simulator cores count it abandoned instead of hanging.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PEFaultModel:
+    """Per-epoch PE degradation model, applied on top of any kernel's
+    arrival scatter by :func:`apply_faults`.
+
+    Each PE independently (per epoch) fail-stops with ``p_fail``
+    (arrival -> ``+inf``), transiently stalls with ``p_stall`` (arrival
+    += ``stall_cycles``), or straggles with ``p_straggler`` (arrival +=
+    a lognormal tail of median ``straggler_scale`` and shape
+    ``straggler_sigma``).  The all-zeros default is a bitwise no-op."""
+
+    p_fail: float = 0.0
+    p_stall: float = 0.0
+    stall_cycles: float = 2000.0
+    p_straggler: float = 0.0
+    straggler_scale: float = 500.0
+    straggler_sigma: float = 1.0
+
+    def __post_init__(self):
+        for name in ("p_fail", "p_stall", "p_straggler"):
+            p = getattr(self, name)
+            if not 0.0 <= float(p) <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {p}")
+
+
+NO_PE_FAULTS = PEFaultModel()
+
+
+def fault_mask(key: torch.Tensor, n_pes: int, p_fail: float
+               ) -> torch.Tensor:
+    """(n_pes,) bool fail-stop mask on ``key``'s device: True = the PE
+    never reaches the barrier (``simulate(..., fault_mask=...)``)."""
+    return prng.bernoulli(key, p_fail, (n_pes,))
+
+
+def apply_faults(key: torch.Tensor, arrivals,
+                 model: PEFaultModel = NO_PE_FAULTS) -> torch.Tensor:
+    """Degrade an ``(..., n_pes)`` arrival batch under ``model``, every
+    element drawing its own fate: straggle, then stall, then fail-stop
+    (``+inf`` absorbs the additive terms).  A model with every
+    probability zero returns the arrivals unchanged and draws nothing."""
+    arrivals = torch.as_tensor(arrivals, dtype=torch.float32)
+    if (model.p_fail == 0.0 and model.p_stall == 0.0
+            and model.p_straggler == 0.0):
+        return arrivals
+    k = prng.split(key.to(arrivals.device), 4)
+    k_straggle, k_tail, k_stall, k_fail = (k[j] for j in range(4))
+    shape = tuple(arrivals.shape)
+    if model.p_straggler > 0.0:
+        tail = _f32(model.straggler_scale) * exp(
+            _f32(model.straggler_sigma) * prng.normal(k_tail, shape))
+        straggles = prng.bernoulli(k_straggle, model.p_straggler, shape)
+        arrivals = arrivals + torch.where(straggles, tail, 0.0)
+    if model.p_stall > 0.0:
+        stalls = prng.bernoulli(k_stall, model.p_stall, shape)
+        arrivals = arrivals + torch.where(
+            stalls, _f32(model.stall_cycles), 0.0)
+    if model.p_fail > 0.0:
+        fails = prng.bernoulli(k_fail, model.p_fail, shape)
+        arrivals = torch.where(fails, torch.inf, arrivals)
+    return arrivals
+
 def straggler_arrivals(key: torch.Tensor, n_elems: int, *,
                        tail: str = "lognormal", frac: float = 0.05,
                        cfg: TeraPoolConfig = DEFAULT,
@@ -221,10 +293,9 @@ def straggler_arrivals(key: torch.Tensor, n_elems: int, *,
     ``frac`` fraction of PEs draws a heavy-tailed extra delay —
     lognormal (median 16 x the startup jitter, sigma 1) or a bounded
     Pareto (alpha 1.5) over [1x, 256x] the base work, drawn through its
-    inverse CDF.  The Pareto tail's ``pow`` runs on the host, one C
-    library ``powf`` call per element, for bit-exactness with the
-    reference (:func:`repro_torch.core.xla_math.powf`; ROADMAP.md §3):
-    on a card its cost grows with the number of PEs drawn."""
+    inverse CDF.  The Pareto tail's ``pow`` is the C library's ``powf``,
+    as in the reference (:func:`repro_torch.core.xla_math.powf`: a kernel
+    on the card, the host's library on the CPU)."""
     if not 0.0 < frac <= 1.0:
         raise ValueError(f"straggler frac must be in (0, 1], got {frac}")
     k = prng.split(key, 3)
@@ -296,8 +367,7 @@ def arrival_batch(key: torch.Tensor, kernel: str, shape: Tuple[int, int],
     kernel's arrival vector under the ``t``-th split of ``key``, all
     rows drawn in one batched call.  ``n_pes`` different from
     ``cfg.n_pes`` re-scales the machine (same problem size on a smaller
-    cluster).  ``straggler_pareto`` takes its ``pow`` on the host (see
-    :func:`straggler_arrivals`), one call per trial and PE."""
+    cluster)."""
     n_trials, n_pes = (int(x) for x in shape)
     if n_trials < 1:
         raise ValueError(f"need at least one trial, got {n_trials}")

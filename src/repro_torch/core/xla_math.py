@@ -9,13 +9,10 @@ multiply-add.  The functions here write those sequences out op for op
 (:func:`_fma` where the compiled code fuses), each step one correctly
 rounded IEEE operation, so the results agree with the reference bit
 for bit on the CPU and on the GPU alike.  ``pow`` is the exception: XLA
-calls the C library's ``powf`` for it, and so does :func:`powf`.
+calls the C library's ``powf`` for it, which :func:`powf` reproduces on
+the card with a kernel that computes glibc's algorithm.
 """
 from __future__ import annotations
-
-import ctypes
-import ctypes.util
-import functools
 
 import numpy as np
 import torch
@@ -147,25 +144,10 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     return y * scale
 
 
-@functools.lru_cache(maxsize=None)
-def _libm_powf():
-    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
-    fn = lib.powf
-    fn.argtypes = [ctypes.c_float, ctypes.c_float]
-    fn.restype = ctypes.c_float
-    return fn
-
-
 def powf(x: torch.Tensor, y: float) -> torch.Tensor:
-    """``x ** y`` in float32 through the C library's ``powf``, the call
-    XLA's CPU backend emits for ``pow``; evaluated on the host, one
-    element at a time, and returned on ``x``'s device.  A tensor on a
-    card makes a round trip to the host and a Python loop over its
-    elements: the price of matching the reference bit for bit until an
-    on-device ``powf`` that agrees with the C library exists
-    (ROADMAP.md §3)."""
-    fn = _libm_powf()
-    e = float(np.float32(y))
-    flat = x.detach().to("cpu", torch.float32).reshape(-1).tolist()
-    out = torch.tensor([fn(v, e) for v in flat], dtype=torch.float32)
-    return out.reshape(x.shape).to(x.device)
+    """``x ** y`` in float32 as the C library's ``powf`` computes it, the
+    call XLA's CPU backend emits for ``pow``: the hand-written kernel of
+    :mod:`repro_torch.kernels.powf` for a tensor on a card, one C loop
+    over the host's ``powf`` for a tensor on the CPU."""
+    from ..kernels.powf import powf as _powf
+    return _powf(x, y)

@@ -1,8 +1,9 @@
 """Where the main path's time goes on the GPU: host wall time against
 device busy time and kernel launches, for one Fig. 7 simulation per
-sync mode, the Fig. 4a sweep, the 5G slot pipeline and the tuner's
-workload sweep; and whether the profiler counts the hand-written
-kernels' launches as their wrappers do.
+sync mode (and two under PE failures), the Fig. 4a sweep, the fault
+degradation sweep, the 5G slot pipeline and the tuner's workload sweep;
+and whether the profiler counts the hand-written kernels' launches as
+their wrappers do.
 
     PYTHONPATH=src python -m repro_torch.examples.profile_main_path
 
@@ -24,20 +25,24 @@ import torch
 from torch.autograd import DeviceType
 
 from repro_torch.core import fiveg, prng, sweep, tuning
-from repro_torch.examples import fiveg_pipeline
-from repro_torch.kernels import axpy, dotp, fft4, matmul, ops
+from repro_torch.examples import bench_faults, fiveg_pipeline
+from repro_torch.kernels import axpy, conv2d, dct, dotp, fft4, matmul, ops
+from repro_torch.kernels import powf
 
 # Profiler kernel name fragment -> wrapper counter of that kernel.
 KERNEL_NAMES = {"fft4_stage_kernel": "fft4_stage", "mm_kernel": "matmul",
                 "partials_kernel": "dotp_partials",
                 "central_kernel": "dotp_central",
                 "combine_kernel": "combine_partials",
-                "axpy_kernel": "axpy"}
+                "axpy_kernel": "axpy", "dct_kernel": "dct",
+                "conv2d_kernel": "conv2d", "powf_kernel": "powf"}
 
 
 def _counters() -> dict:
     return dict(dotp.LAUNCHES, fft4_stage=fft4.LAUNCHES,
-                matmul=matmul.LAUNCHES, axpy=axpy.LAUNCHES)
+                matmul=matmul.LAUNCHES, axpy=axpy.LAUNCHES,
+                dct=dct.LAUNCHES, conv2d=conv2d.LAUNCHES,
+                powf=powf.LAUNCHES)
 
 
 def launch_counts(fn) -> dict:
@@ -108,6 +113,20 @@ def main(device="cuda") -> None:
                           "barriers": barriers,
                           "launches_per_barrier":
                               rec["kernel_launches"] / barriers, **rec}))
+    faults = fiveg.FiveGFaults(fail_rate=0.02, timeout_cycles=2000.0,
+                               quorum_frac=0.95, seed=3)
+    for mode in ("central", "tree"):
+        rec = profile_run(lambda: fiveg.simulate_app(
+            prng.PRNGKey(3, device=device), app, sync=mode, faults=faults,
+            device=device))
+        print(json.dumps({"run": f"simulate_app {mode} (16, 1), 2 % of "
+                                 f"PEs failed",
+                          "barriers": barriers,
+                          "launches_per_barrier":
+                              rec["kernel_launches"] / barriers, **rec}))
+    rec = profile_run(lambda: bench_faults.degradation_sweep(device=device))
+    print(json.dumps({"run": "bench_faults.degradation_sweep 130x5x64 "
+                             "N=1024", **rec}))
     rec = profile_run(lambda: sweep.sweep_barrier(
         prng.PRNGKey(0, device=device), n_pes=1024, n_trials=1024,
         trial_chunk=256, device=device))

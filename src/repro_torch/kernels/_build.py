@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/torch_ext/`` at the root of the checkout, then loaded with
-:mod:`ctypes`.  A library's file name carries a digest of its source
+:mod:`ctypes`.  A ``csrc/<name>.c`` (host code only, such as the C
+library helper beside the ``powf`` kernel) is compiled the same way by
+the host's C compiler.  A library's file name carries a digest of its source
 and flags, so an edited source is rebuilt and an unchanged one is
 reused.  :func:`build` compiles several sources at once, one ``nvcc``
 process each, all started together.
@@ -28,6 +30,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Host helpers: no fast-math and no vectorization, so a call of a C
+# library function stays one scalar call.
+CC_FLAGS = ("-O1", "-fno-tree-vectorize", "-fno-fast-math", "-shared",
+            "-fPIC")
 
 _LOCK = threading.Lock()
 _LOADED: dict = {}
@@ -47,11 +53,28 @@ def nvcc_path() -> str:
     return found
 
 
+def cc_path() -> str:
+    """The host's C compiler: ``$CC``, else ``cc``, else ``gcc``."""
+    for cand in (os.environ.get("CC"), "cc", "gcc"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no C compiler found (set CC): the host helpers "
+                       "are built at first use")
+
+
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu``, or ``csrc/<name>.c`` for a host helper."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.c"
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is built."""
+    """Where the library of ``csrc/<name>.cu`` (or ``.c``) is built."""
+    src = source_path(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes()
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -59,6 +82,16 @@ def nvcc_command(name: str, out: Path) -> list:
     """The ``nvcc`` command line that builds ``csrc/<name>.cu``."""
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
             str(CSRC / f"{name}.cu")]
+
+
+def compile_command(name: str, out: Path) -> list:
+    """The command that builds ``name``: ``nvcc`` for a ``.cu`` source,
+    the host's C compiler (linked against the C math library) for a
+    ``.c`` one."""
+    src = source_path(name)
+    if src.suffix == ".cu":
+        return nvcc_command(name, out)
+    return [cc_path(), *CC_FLAGS, "-o", str(out), str(src), "-lm"]
 
 
 def build(names) -> dict:
@@ -77,23 +110,25 @@ def build(names) -> dict:
             os.close(fd)
             try:
                 proc = subprocess.Popen(
-                    nvcc_command(name, Path(tmp)), stdout=subprocess.PIPE,
-                    stderr=subprocess.STDOUT, text=True)
-            except OSError as exc:
+                    compile_command(name, Path(tmp)),
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+            except (OSError, RuntimeError) as exc:
                 os.unlink(tmp)
                 raise RuntimeError(
-                    f"cannot run nvcc for {name}.cu: {exc}") from exc
+                    f"cannot build {source_path(name).name}: {exc}"
+                ) from exc
             procs[name] = (tmp, proc)
         failures = []
         for name, (tmp, proc) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failures.append(f"--- {name}.cu ---\n{log}")
+                failures.append(f"--- {source_path(name).name} ---\n{log}")
                 os.unlink(tmp)
             else:
                 os.replace(tmp, paths[name])
         if failures:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+            raise RuntimeError("build failed:\n" + "\n".join(failures))
     finally:
         for tmp, proc in procs.values():
             if proc.poll() is None:
@@ -105,9 +140,10 @@ def build(names) -> dict:
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use),
-    with ``argtypes`` set from ``signatures`` (function name -> list of
-    ctypes types) and every listed function returning ``int``."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.c``, built on
+    first use), with ``argtypes`` set from ``signatures`` (function name
+    -> list of ctypes types) and every listed function returning
+    ``int``."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
@@ -115,9 +151,10 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
+            if source_path(name).suffix == ".cu":
+                err = getattr(lib, f"{name}_error_string")
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
             _LOADED[name] = lib
     return lib
 

@@ -1,13 +1,16 @@
 """Public wrappers of the port's kernels (port of the ``fft4``,
-``matmul``, ``dotp`` and ``axpy`` wrappers of ``repro.kernels.ops``).
+``matmul``, ``dotp``, ``axpy``, ``conv2d`` and ``dct`` wrappers of
+``repro.kernels.ops``).
 
 ``fft4`` chains log4(n) :func:`~repro_torch.kernels.fft4.fft4_stage`
 launches and returns the digit-reversed spectrum; ``matmul`` is the
 beamforming product; ``dotp`` is the dot product as a central
-accumulator or a k-ary reduction tree; ``axpy`` is ``a * x + y``.  The
+accumulator or a k-ary reduction tree; ``axpy`` is ``a * x + y``;
+``conv2d`` the 3x3 "same" convolution; ``dct`` the row-wise DCT-II.  The
 reference's TPU-only layout steps are gone (the 128-lane padding of 1-D
-operands, the (8, 128) padding of ragged matmul shapes): the CUDA
-kernels mask ragged edges themselves.  All run where their inputs lie:
+operands, the (8, 128) padding of ragged matmul shapes, the padded copy
+of the conv2d images): the CUDA kernels mask ragged edges and halos
+themselves.  All run where their inputs lie:
 the kernels for CUDA tensors, the plain versions for CPU tensors.
 """
 from __future__ import annotations
@@ -18,9 +21,12 @@ import math
 import torch
 
 from . import axpy as _axpy
+from . import conv2d as _conv2d
+from . import dct as _dct
 from . import dotp as _dotp
 from . import fft4 as _fft4
 from . import matmul as _mm
+from . import ref
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,3 +94,21 @@ def dotp_levels(n: int, radix: int) -> int:
 def axpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``a * x + y`` in the operands' dtype."""
     return _axpy.axpy(a, x, y)
+
+
+def conv2d(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """3x3 zero-padded "same" convolution: (B, H, W) -> float32
+    (B, H, W)."""
+    return _conv2d.conv2d(img, kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def dct_basis_t(n: int, device: torch.device) -> torch.Tensor:
+    """The transposed orthonormal DCT-II basis (n, n), built once per
+    (n, device)."""
+    return ref.dct_basis(n, device=device).T.contiguous()
+
+
+def dct(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise DCT-II: (T, n) -> float32 (T, n)."""
+    return _dct.dct(x, dct_basis_t(x.shape[-1], x.device))

@@ -1,14 +1,18 @@
 """Plain PyTorch versions of the port's kernels (port of the ``matmul``,
-``fft4``, ``dotp`` and ``axpy`` oracles of ``repro.kernels.ref``).
+``fft4``, ``dotp``, ``axpy``, ``conv2d`` and ``dct`` oracles of
+``repro.kernels.ref``).
 
 These are the mathematical truth the CUDA kernels are held against:
 the kernel wrappers run them for tensors that lie on the CPU, and
 ``chip_smoke.py`` compares each kernel with them on the card.  None of
 them calls a library product: the plain matmul is an explicit
-broadcast multiply and sum, the plain dot product a multiply and sum.
+broadcast multiply and sum, the plain dot product a multiply and sum,
+the plain convolution nine shifted multiplies and adds, the plain DCT
+the plain matmul against the basis.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -122,3 +126,40 @@ def axpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``a * x + y`` computed in float32 and returned in ``x.dtype``."""
     out = float(a) * x.to(torch.float32) + y.to(torch.float32)
     return out.to(x.dtype)
+
+
+def conv2d(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """3x3 "same" convolution with zero padding over (B, H, W) images,
+    float32 out: nine shifted multiply-adds, di outer and dj inner, each
+    a float32 multiply and then an add."""
+    h, w = img.shape[1:]
+    pad = torch.nn.functional.pad(img.to(torch.float32), (1, 1, 1, 1))
+    k = kernel.to(device=img.device, dtype=torch.float32)
+    out = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    for di in range(3):
+        for dj in range(3):
+            out = out + k[di, dj] * pad[:, di:di + h, dj:dj + w]
+    return out
+
+
+def dct_basis(n: int, *, device="cuda") -> torch.Tensor:
+    """Orthonormal DCT-II basis (n x n) in float32, built in the
+    reference's operation order: the float32 angle ``pi * (2i + 1) * k /
+    (2n)`` (it reaches about 1.3e4 rad at n = 4096, so its rounding is
+    part of the basis), its cosine, then the row scale ``sqrt(1/n)`` or
+    ``sqrt(2/n)``."""
+    dev = resolve_device(device)
+    k = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    i = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
+    angle = float(np.float32(np.pi)) * (2 * i + 1) * k / (2 * n)
+    # The float64 cosine of each float32 angle, rounded once.
+    basis = torch.cos(angle.double()).float()
+    scale = torch.where(k == 0, float(np.sqrt(np.float32(1.0 / n))),
+                        float(np.sqrt(np.float32(2.0 / n))))
+    return basis * scale
+
+
+def dct(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise DCT-II of (T, n) rows, float32 out."""
+    return matmul(x.to(torch.float32),
+                  dct_basis(x.shape[-1], device=x.device).T)

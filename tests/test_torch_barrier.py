@@ -81,7 +81,7 @@ def test_level_table_from_reference_arrays(n):
             assert torch.equal(getattr(carried, f), getattr(own, f)), f
 
 
-def test_placement_not_ported():
+def test_level_tables_take_and_check_placements():
     """No placement path is left unported: both table constructors take
     counter placements (tests/test_torch_placement.py holds them to the
     reference) and reject placements that do not fit the schedule."""

@@ -145,13 +145,17 @@ def test_segmented_cummax_matches_loop():
 
 
 def test_faults_and_unknown_core_rejected():
+    """Bad fault specs and masks are refused (the robust path itself is
+    held to the reference in tests/test_torch_faults.py), and so are an
+    unknown core and a mismatched PE count."""
     arr = torch.zeros(64)
     sched = barrier.kary_tree(4, n_pes=64)
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        barrier_sim.simulate(arr, sched, faults=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        barrier_sim.simulate(arr, sched, fault_mask=torch.zeros(64, dtype=bool),
-                             device="cpu")
+    with pytest.raises(ValueError, match="timeout_cycles"):
+        barrier_sim.simulate(arr, sched, device="cpu",
+                             faults=barrier.fault_spec(timeout_cycles=-1.0))
+    with pytest.raises(RuntimeError):
+        barrier_sim.simulate(arr, sched, device="cpu",
+                             fault_mask=torch.zeros(65, dtype=bool))
     with pytest.raises(ValueError, match="unknown simulator core"):
         barrier_sim.simulate(arr, sched, core="fast", device="cpu")
     with pytest.raises(ValueError, match="schedule expects"):

@@ -7,8 +7,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import fiveg, prng, sweep
-from repro_torch.kernels import _build, axpy, dotp, fft4, matmul, ops, ref
+from repro_torch.core import barrier, fiveg, prng, sweep
+from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
+                                 matmul, ops, powf, ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -167,3 +168,76 @@ def test_failed_build_raises_instead_of_falling_back(cuda, monkeypatch,
         ops.axpy(2.0, x, x)
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.dotp(x, x, radix=4)
+
+
+@pytest.mark.parametrize("shape", [(33, 8), (33, 64), (33, 256), (2, 4096),
+                                   (257, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_dct_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(*shape, device=cuda, generator=gen).to(dtype)
+    before = dct.LAUNCHES
+    got = ops.dct(x)
+    assert dct.LAUNCHES == before + 1 and got.dtype == torch.float32
+    bt = ops.dct_basis_t(shape[1], x.device)
+    torch.testing.assert_close(got, dct.dct_plain(x, bt), rtol=1e-3,
+                               atol=1e-3)
+    torch.testing.assert_close(bt.cpu(), ops.dct_basis_t(
+        shape[1], torch.device("cpu")), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 8), (3, 16, 20), (3, 32, 32),
+                                   (1, 512, 512), (2, 33, 65)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_conv2d_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    img = torch.randn(*shape, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(3, 3, device=cuda, generator=gen)
+    before = conv2d.LAUNCHES
+    got = ops.conv2d(img, k)
+    assert conv2d.LAUNCHES == before + 1 and got.dtype == torch.float32
+    # The same float32 multiplies and adds in the same order: equal bits.
+    assert torch.equal(got, conv2d.conv2d_plain(img, k))
+
+
+def test_powf_kernel_equals_the_c_library(cuda):
+    y = -1.0 / 1.5
+    specials = torch.tensor(
+        [0.0, -0.0, 1.0, -1.0, 2.0, -2.0, float("inf"), float("-inf"),
+         1e-45, 2.5e-42, 1.1754942e-38, 3.4028235e38, 1e-30, 1e30, 0.5],
+        device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    bases = torch.cat([specials, torch.rand(1 << 16, device=cuda,
+                                            generator=gen) * 1e-4])
+    for exponent in (y, 2.0, 3.0, -1.0, 0.5, 0.0, 1e10, -1e10, 127.5):
+        before = powf.LAUNCHES
+        got = powf.powf(bases, exponent)
+        assert powf.LAUNCHES == before + 1
+        want = powf.powf_plain(bases, exponent)
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        assert bool(same.all()), (exponent, bases[~same][:5].tolist())
+        assert torch.equal(torch.signbit(got[~torch.isnan(got)]),
+                           torch.signbit(want[~torch.isnan(want)]))
+
+
+def test_robust_simulator_on_card_equals_cpu(cuda):
+    key = prng.PRNGKey(0, device="cpu")
+    app = fiveg.FiveGConfig(n_rx=16, ffts_per_round=4)
+    for mode in ("tree", "partial"):
+        faults = fiveg.FiveGFaults(fail_rate=0.02, timeout_cycles=2000.0,
+                                   seed=1)
+        gpu = fiveg.simulate_app(key, app, sync=mode, faults=faults,
+                                 device=cuda)
+        cpu = fiveg.simulate_app(key, app, sync=mode, faults=faults,
+                                 device="cpu")
+        for c in ("total_cycles", "completion_rate", "timed_out_levels"):
+            assert getattr(gpu, c).item() == getattr(cpu, c).item(), c
+    spec = barrier.fault_spec(timeout_cycles=500.0, quorum_frac=0.95)
+    gpu = sweep.sweep_barrier(key, n_pes=256, n_trials=8, faults=spec,
+                              device=cuda)
+    cpu = sweep.sweep_barrier(key, n_pes=256, n_trials=8, faults=spec,
+                              device="cpu")
+    for f in ("span_cycles", "abandoned_pes", "timed_out_levels"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f

@@ -103,7 +103,7 @@ def tuned_row():
 
 
 @pytest.mark.parametrize("mode", TUNED_MODES)
-def test_tuner_modes_not_ported(tuned_row, mode):
+def test_tuner_modes_match_reference(tuned_row, mode):
     """No tuner mode is left unported: each runs on the port, picks the
     reference's stage and global schedules (``@strategy`` included) from
     the same fixed-seed tuning sweeps, and gives the reference's
@@ -157,7 +157,8 @@ def test_unknown_mode_and_faults_rejected():
     key = prng.PRNGKey(0, device="cpu")
     with pytest.raises(ValueError, match="unknown sync mode"):
         fiveg.simulate_app(key, sync="magic", device="cpu")
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        fiveg.simulate_app(key, faults=object(), device="cpu")
+    with pytest.raises(ValueError, match="fail_rate"):
+        fiveg.simulate_app(key, faults=fiveg.FiveGFaults(fail_rate=1.0),
+                           device="cpu")
     with pytest.raises(ValueError, match="central"):
         fiveg.compare_barriers(key, modes=("tree",), device="cpu")

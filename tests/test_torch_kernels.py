@@ -1,5 +1,6 @@
 """Port parity: the port's kernels (the 5G pipeline's FFT stage and
-matmul, the Fig. 5/6 dot product and AXPY) against the JAX package, at
+matmul, the Fig. 5/6 dot product, AXPY, DCT and Conv2D, and the C library
+``powf``) against the JAX package, at
 the shapes and tolerances of tests/test_kernels.py.  On the CPU the
 wrappers run their plain PyTorch versions (the CUDA kernels are held
 against those on the card by chip_smoke.py and tests/test_torch_cuda.py).
@@ -16,7 +17,8 @@ from repro.kernels import dotp as jdotp
 from repro.kernels import fft4 as jfft4
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import _build, axpy, dotp, fft4, matmul, ops, ref
+from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
+                                 matmul, ops, powf, ref)
 
 RNG = np.random.default_rng(42)
 
@@ -142,7 +144,7 @@ def test_build_targets_hopper(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-fPIC"} <= set(cmd)
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "axpy", "dotp", "fft4_stage", "matmul"]
+        "axpy", "conv2d", "dct", "dotp", "fft4_stage", "matmul", "powf"]
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -262,3 +264,130 @@ def test_chip_smoke_dotp_checks_catch_a_zeroed_leaf(n):
     fault = smoke.planted_leaf_fault(ref, x, y, parts, central)
     assert fault["caught"] == {"dotp_partials": True, "dotp_central": True}
     assert abs(fault["leaf_sum"]) > sum_lim
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (16, 20), (32, 32)])
+def test_conv2d_vs_reference(hw):
+    """``ops.conv2d`` against the reference's Pallas kernel (interpret
+    mode) and its jnp oracle, at tests/test_kernels.py's shapes and
+    tolerance."""
+    img, kern = _arr((3, *hw)), _arr((3, 3))
+    got = ops.conv2d(torch.from_numpy(img), torch.from_numpy(kern))
+    assert got.dtype == torch.float32 and got.shape == (3, *hw)
+    for want in (jops.conv2d(jnp.asarray(img), jnp.asarray(kern)),
+                 jref.conv2d(jnp.asarray(img), jnp.asarray(kern))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [8, 64, 256])
+def test_dct_vs_reference(n):
+    """``ops.dct`` against the reference's Pallas kernel (interpret mode)
+    and its jnp oracle, at tests/test_kernels.py's shapes and
+    tolerance."""
+    x = _arr((33, n))
+    got = ops.dct(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (33, n)
+    for want in (jops.dct(jnp.asarray(x)), jref.dct(jnp.asarray(x))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
+                                   atol=1e-3)
+        np.testing.assert_allclose(ref.dct(torch.from_numpy(x)).numpy(),
+                                   np.asarray(want), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n", [32, 4096])
+def test_dct_basis_orthonormal_and_float32_like_reference(n):
+    """The basis is orthonormal and is the reference's float32 basis:
+    its angles are rounded to float32 as the reference rounds them (a
+    float64 basis would differ by about 1e-3 at n = 4096)."""
+    b = ref.dct_basis(n, device="cpu")
+    assert b.dtype == torch.float32
+    want = np.asarray(jref.dct_basis(n))
+    np.testing.assert_allclose(b.numpy(), want, rtol=0, atol=1e-6)
+    if n == 32:
+        np.testing.assert_allclose((b @ b.T).numpy(), np.eye(n), atol=1e-5)
+    else:
+        k = np.arange(n, dtype=np.float64)[:, None]
+        i = np.arange(n, dtype=np.float64)[None, :]
+        exact = np.cos(np.pi * (2 * i + 1) * k / (2 * n))
+        exact *= np.where(k == 0, np.sqrt(1 / n), np.sqrt(2 / n))
+        assert np.abs(exact - want).max() > 1e-5   # the hazard is real
+    assert ops.dct_basis_t(n, torch.device("cpu")) is ops.dct_basis_t(
+        n, torch.device("cpu"))
+
+
+def test_dct_conv2d_plain_twins_and_validation():
+    """The wrappers take their plain versions on the CPU without
+    counting, and validate shapes and types like the other kernels."""
+    before = (dct.LAUNCHES, conv2d.LAUNCHES, powf.LAUNCHES)
+    x = torch.from_numpy(_arr((5, 16)))
+    bt = ops.dct_basis_t(16, torch.device("cpu"))
+    assert torch.equal(dct.dct(x, bt), dct.dct_plain(x, bt))
+    assert torch.equal(dct.dct(x.to(torch.bfloat16), bt),
+                       dct.dct_plain(x.to(torch.bfloat16).float(), bt))
+    img, k = torch.from_numpy(_arr((2, 9, 7))), torch.from_numpy(_arr((3, 3)))
+    assert torch.equal(conv2d.conv2d(img, k), conv2d.conv2d_plain(img, k))
+    powf.powf(torch.ones(4), 2.0)
+    assert (dct.LAUNCHES, conv2d.LAUNCHES, powf.LAUNCHES) == before
+    with pytest.raises(ValueError, match=r"basis_t \(n, n\)"):
+        dct.dct(x, bt[:8])
+    with pytest.raises(TypeError, match="float32 basis"):
+        dct.dct(x, bt.double())
+    with pytest.raises(ValueError, match=r"\(3, 3\) kernel"):
+        conv2d.conv2d(img, k[:2])
+    with pytest.raises(ValueError, match=r"\(B, H, W\)"):
+        conv2d.conv2d(img[0], k)
+    with pytest.raises(TypeError, match="float32 bases"):
+        powf.powf(torch.ones(4, dtype=torch.float64), 2.0)
+
+
+def test_powf_plain_is_the_c_library():
+    """The plain powf is the host's C library ``powf``, one call per
+    element, in one C loop; it agrees with the reference's XLA ``pow``
+    on every base of a sample spanning the Pareto tail's range."""
+    import ctypes
+    import ctypes.util
+    import jax
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    lib.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    lib.powf.restype = ctypes.c_float
+    y = -1.0 / 1.5
+    bases = np.geomspace(1e-10, 5e-5, 4099).astype(np.float32)
+    bases = np.concatenate([bases, [0.0, 1.0, np.inf, 2.5e-42]]
+                           ).astype(np.float32)
+    got = powf.powf_plain(torch.from_numpy(bases), y).numpy()
+    want = np.asarray([lib.powf(float(b), np.float32(y)) for b in bases],
+                      np.float32)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    xla = np.asarray(jax.jit(lambda b: b ** (-1.0 / 1.5))(bases[:4099]))
+    assert np.array_equal(got[:4099].view(np.int32), xla.view(np.int32))
+
+
+def test_chip_smoke_kernel_tables_cover_every_kernel():
+    """The summary line of chip_smoke.py names a source and a replaced
+    site for every kernel it lists, and each source exists."""
+    smoke = _chip_smoke()
+    root = Path(__file__).resolve().parents[1]
+    assert set(smoke.KERNELS) == set(smoke.SOURCES) == set(smoke.REPLACES)
+    for name in smoke.KERNELS:
+        assert (root / smoke.SOURCES[name]).is_file(), name
+        path, line = smoke.REPLACES[name].split(":")
+        assert (root / path).is_file() and int(line) > 0, name
+
+
+def test_chip_smoke_pareto_range_covers_the_model():
+    """The powf check's base range holds every base the Pareto tail
+    passes to ``powf`` at 64, 256 and 1024 PEs."""
+    from repro_torch.core import workloads
+    smoke = _chip_smoke()
+    first, last = smoke.pareto_base_range(workloads)
+    seen = []
+    for n in (64, 256, 1024):
+        work = ((1 << 18) / n) * workloads.COSTS.axpy_per_elem
+        c = np.float32(work ** -1.5)
+        d = np.float32(work ** -1.5 - (256 * work) ** -1.5)
+        u = np.concatenate([np.linspace(0, 1, 1001, dtype=np.float32)[:-1],
+                            [np.nextafter(np.float32(1), np.float32(0))]])
+        seen.append(c - u * d)
+    bits = np.concatenate(seen).astype(np.float32).view(np.int32)
+    assert first <= bits.min() and bits.max() <= last

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import (barrier, barrier_sim, fiveg, placement, prng,
-                              sweep, tuning, workloads)
+from repro_torch.core import (barrier, barrier_sim, energy, fiveg,
+                              placement, prng, sweep, tuning, workloads)
+from repro_torch.examples import bench_faults
 from repro_torch.kernels import ref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -100,3 +101,22 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              cwd=script.parent)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("call", [
+    lambda: barrier_sim.simulate(torch.zeros(1024), barrier.kary_tree(32),
+                                 faults=barrier.NO_FAULTS),
+    lambda: barrier_sim.simulate_robust_reference(
+        torch.zeros(64), barrier.kary_tree(8, n_pes=64)),
+    lambda: energy.energy_reference(torch.zeros(64),
+                                    barrier.kary_tree(8, n_pes=64)),
+    lambda: fiveg.degradation_curve(prng.PRNGKey(0, device="cpu"), (0.0,),
+                                    modes=("central",)),
+    lambda: bench_faults.degradation_sweep(n_pes=64, n_trials=2),
+    lambda: bench_faults.fiveg_degradation(),
+], ids=["simulate_faults", "simulate_robust_reference", "energy_reference",
+        "degradation_curve", "bench_faults_sweep", "bench_faults_fiveg"])
+def test_fault_entry_points_default_to_cuda_and_raise(call):
+    _no_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()

@@ -17,7 +17,16 @@ computes, on the CPU, for:
   compositions x every placement strategy);
 * ``fig7_tuned``: the five tuner modes of the 5G app at (16, 1) and
   (64, 4) (key 3);
-* ``normal_sample``: ``jax.random.normal`` draws (key 0).
+* ``normal_sample``: ``jax.random.normal`` draws (key 0);
+* ``faults``: the degradation sweep of ``benchmarks/bench_faults.py`` at
+  N = 1024 (130 schedules x 5 PE failure rates x 64 trials, watchdog
+  2000 cycles, quorum 0.95, key 0): per-rate winners, p99 and mean
+  spans, completion rates, abandoned means, the spans of the first four
+  trials, and the record as the benchmark rounds it;
+* ``fiveg_faults``: the benchmark's 5G ``degradation_curve`` (central,
+  tree, hw x 5 rates at (16, 1), key 0);
+* ``straggler_pareto``: ``arrival_batch("straggler_pareto")`` at
+  (8, 1024) (key 7), whose tail goes through the C library's ``powf``.
 
 ``chip_smoke.py`` holds the port's GPU run against it without importing
 JAX.  Regenerate it with
@@ -32,6 +41,7 @@ import json
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -41,7 +51,9 @@ from repro.core import placement as jplacement
 from repro.core import sweep as jsweep
 from repro.core import tuning as jtuning
 from repro.core import workloads as jworkloads
+from repro.core.topology import TeraPoolConfig as JConfig
 from repro_torch.core import barrier, fiveg, prng, sweep, workloads
+from repro_torch.examples import bench_faults
 
 PATH = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "reference_values.json")
@@ -64,6 +76,10 @@ TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
 TUNED_GRID = ((16, 1), (64, 4))
 NORMAL_KEY = 0
 NORMAL_COUNT = 4096
+FAULTS = bench_faults       # key, sizes and release policy of the run
+STRAGGLER_KEY = 7
+STRAGGLER_SHAPE = (8, 1024)
+SPAN_PREFIX = 4             # trials whose spans are stored
 
 
 def _floats(x) -> list:
@@ -167,6 +183,96 @@ def _fig7_tuned_row(n_rx: int, fpr: int) -> dict:
     return row
 
 
+def _faults(n: int = FAULTS.N_PES, n_trials: int = FAULTS.TRIALS) -> dict:
+    """The degradation sweep of ``benchmarks/bench_faults.py`` with the
+    JAX package: its schedule stack, its masked arrival stack, its robust
+    and clean sweeps, its per-rate picks and its rounded record."""
+    cfg = JConfig(n_pes=n)
+    scheds = list(jtuning.all_schedules(n, cfg, prune="hierarchy"))
+    names = {jbarrier.schedule_name(s, None) for s in scheds}
+    for extra in (jbarrier.kary_tree(min(32, n), cfg=cfg),
+                  jbarrier.central_counter(cfg=cfg)):
+        if jbarrier.schedule_name(extra, None) not in names:
+            scheds.append(extra)
+    k_arr, k_mask = jax.random.split(jax.random.PRNGKey(FAULTS.KEY))
+    base = jax.random.uniform(k_arr, (n_trials, n), jnp.float32, 0.0,
+                              FAULTS.DELAY)
+    arrivals = jnp.stack([
+        jnp.where(jax.random.bernoulli(jax.random.fold_in(k_mask, i), rate,
+                                       (n_trials, n)), jnp.inf, base)
+        for i, rate in enumerate(FAULTS.RATES)])
+    labels = tuple(f"fail_{r:g}" for r in FAULTS.RATES)
+    chunk = min(16, n_trials)
+    res = jsweep.sweep_arrivals(
+        arrivals, scheds, cfg, kernels=labels, trial_chunk=chunk,
+        faults=jbarrier.fault_spec(FAULTS.TIMEOUT, FAULTS.QUORUM))
+    clean = jsweep.sweep_arrivals(arrivals[:1], scheds, cfg,
+                                  kernels=labels[:1], trial_chunk=chunk)
+    i_lat = int(np.argmin(np.asarray(clean.span_cycles).mean(axis=-1)[:, 0]))
+    spans = np.asarray(jnp.mean(res.span_cycles, axis=-1))
+    p99 = np.asarray(jnp.percentile(res.span_cycles, 99.0, axis=-1,
+                                    method="lower"))
+    completion = np.asarray(res.completion_rate)
+    abandoned = np.asarray(jnp.mean(res.abandoned_pes.astype(jnp.float32),
+                                    axis=-1))
+    winners = [int(np.argmin(p99[:, j])) for j in range(len(labels))]
+
+    def point(i, j):
+        return {"schedule": res.names[i],
+                "p99_cycles": round(float(p99[i, j]), 1),
+                "mean_cycles": round(float(spans[i, j]), 1),
+                "completion_rate": round(float(completion[i, j]), 5),
+                "abandoned_pes_mean": round(float(abandoned[i, j]), 2)}
+
+    curve = []
+    for j, rate in enumerate(FAULTS.RATES):
+        lat, rob = point(i_lat, j), point(winners[j], j)
+        curve.append({"fail_rate": rate, "latency_tuned": lat,
+                      "robust_tuned": rob,
+                      "p99_improvement": round(
+                          lat["p99_cycles"] / max(rob["p99_cycles"], 1e-9),
+                          4)})
+    beats = [c["p99_improvement"] > 1.0 for c in curve
+             if c["fail_rate"] >= 0.01]
+    return {
+        "key": FAULTS.KEY, "n_pes": n, "n_trials": n_trials,
+        "rates": list(FAULTS.RATES), "names": list(res.names),
+        "latency_winner": res.names[i_lat],
+        "robust_winners": [res.names[i] for i in winners],
+        "p99_cycles": _floats(p99), "mean_cycles": _floats(spans),
+        "completion_rate": _floats(completion),
+        "abandoned_pes_mean": _floats(abandoned),
+        "span_prefix": _floats(
+            np.asarray(res.span_cycles)[:, :, :SPAN_PREFIX]),
+        "record": {"n_pes": n, "n_schedules": len(scheds),
+                   "n_trials": n_trials, "base_delay": FAULTS.DELAY,
+                   "timeout_cycles": FAULTS.TIMEOUT,
+                   "quorum_frac": FAULTS.QUORUM, "curve": curve,
+                   "robust_beats_latency_at_1pct": bool(beats
+                                                        and all(beats))},
+    }
+
+
+def _fiveg_faults(modes=FAULTS.FIVEG_MODES) -> dict:
+    """The benchmark's 5G degradation curve with the JAX package."""
+    curve = jfiveg.degradation_curve(
+        jax.random.PRNGKey(FAULTS.KEY), FAULTS.RATES,
+        jfiveg.FiveGConfig(**FAULTS.FIVEG_APP), modes=modes, core="scan",
+        timeout_cycles=FAULTS.TIMEOUT, quorum_frac=FAULTS.QUORUM)
+    columns = FIG7_COLUMNS + ("completion_rate", "timed_out_levels")
+    return {"key": FAULTS.KEY, "app": FAULTS.FIVEG_APP,
+            "rates": list(FAULTS.RATES),
+            **{mode: [{c: float(np.asarray(getattr(r, c))) for c in columns}
+                      for r in curve[mode]] for mode in modes}}
+
+
+def _straggler_pareto() -> dict:
+    draws = jworkloads.arrival_batch(jax.random.PRNGKey(STRAGGLER_KEY),
+                                     "straggler_pareto", STRAGGLER_SHAPE)
+    return {"key": STRAGGLER_KEY, "shape": list(STRAGGLER_SHAPE),
+            "values": _floats(draws)}
+
+
 def generate() -> dict:
     res = jsweep.sweep_barrier(jax.random.PRNGKey(FIG4_KEY),
                                delays=FIG4_DELAYS, n_pes=FIG4_N,
@@ -188,6 +294,9 @@ def generate() -> dict:
             "key": NORMAL_KEY,
             "values": _floats(jax.random.normal(
                 jax.random.PRNGKey(NORMAL_KEY), (NORMAL_COUNT,)))},
+        "faults": _faults(),
+        "fiveg_faults": _fiveg_faults(),
+        "straggler_pareto": _straggler_pareto(),
     }
 
 
@@ -311,3 +420,75 @@ def test_normal_sample_matches_jax_and_port():
                        want.shape).numpy()
     assert np.array_equal(jax_now.view(np.int32), want.view(np.int32))
     assert np.array_equal(port.view(np.int32), want.view(np.int32))
+
+
+def test_straggler_pareto_matches_jax_and_port():
+    """The stored Pareto straggler draws are what JAX draws now, and the
+    port's CPU draws (the C library's ``powf`` in one C loop) equal them
+    bit for bit."""
+    ref = _load()["straggler_pareto"]
+    want = np.asarray(ref["values"], np.float32)
+    jax_now = np.asarray(_straggler_pareto()["values"], np.float32)
+    port = workloads.arrival_batch(prng.PRNGKey(ref["key"], device="cpu"),
+                                   "straggler_pareto", tuple(ref["shape"]))
+    assert np.array_equal(jax_now.view(np.int32), want.view(np.int32))
+    assert np.array_equal(port.numpy().view(np.int32), want.view(np.int32))
+
+
+def test_fiveg_faults_match_jax_and_port():
+    """The stored 5G degradation curve: one mode recomputed with JAX,
+    and every mode reproduced by the port's CPU run of the example
+    driver (cycles, completion and watchdog counts bit for bit)."""
+    ref = _load()["fiveg_faults"]
+    assert _fiveg_faults(modes=("hw",))["hw"] == ref["hw"]
+    _, curve = bench_faults.fiveg_degradation(device="cpu")
+    for mode in FAULTS.FIVEG_MODES:
+        for res, want in zip(curve[mode], ref[mode]):
+            for c in ("total_cycles", "completion_rate", "timed_out_levels"):
+                assert getattr(res, c).item() == np.float32(want[c]), \
+                    (mode, c)
+            for c in ("sync_fraction", "sync_energy"):
+                np.testing.assert_allclose(getattr(res, c).item(), want[c],
+                                           rtol=1e-5, err_msg=c)
+
+
+def test_fault_sweep_driver_matches_jax_at_small_n():
+    """``repro_torch.examples.bench_faults.degradation_sweep`` against the
+    benchmark's procedure run by JAX, at N = 64 and 8 trials: the
+    rounded record, winners, p99s and spans bit for bit."""
+    want = _faults(64, 8)
+    record, res, i_lat = bench_faults.degradation_sweep(
+        n_pes=64, n_trials=8, device="cpu")
+    assert record == want["record"]
+    assert list(res.names) == want["names"]
+    assert res.names[i_lat] == want["latency_winner"]
+    assert np.array_equal(res.span_cycles[:, :, :SPAN_PREFIX].numpy(),
+                          np.asarray(want["span_prefix"], np.float32))
+    from repro_torch.core import tuning
+    assert np.array_equal(tuning._objective_grid(res, "p99_cycles"),
+                          np.asarray(want["p99_cycles"], np.float32))
+    np.testing.assert_allclose(res.mean_span.numpy(), want["mean_cycles"],
+                               rtol=1e-6)
+
+
+def test_fault_sections_keep_the_bench_file_claims():
+    """The stored N = 1024 sweep (today's JAX) keeps BENCH_faults.json's
+    claims — the latency and robust winners at every rate, and the robust
+    pick beating the latency pick on p99 from 1 % of PEs failed — though
+    its numbers differ: the file was drawn with
+    ``jax_threefry_partitionable`` off (ROADMAP.md §3)."""
+    ref = _load()["faults"]
+    bench = json.loads((PATH.parents[2] / "BENCH_faults.json").read_text())
+    file_curve = bench["degradation"]["curve"]
+    got_curve = ref["record"]["curve"]
+    assert [(c["latency_tuned"]["schedule"], c["robust_tuned"]["schedule"])
+            for c in got_curve] == [
+        (c["latency_tuned"]["schedule"], c["robust_tuned"]["schedule"])
+        for c in file_curve]
+    assert ref["record"]["robust_beats_latency_at_1pct"] is True
+    assert bench["degradation"]["robust_beats_latency_at_1pct"] is True
+    for key in ("n_pes", "n_schedules", "n_trials", "base_delay",
+                "timeout_cycles", "quorum_frac"):
+        assert ref["record"][key] == bench["degradation"][key], key
+    assert ref["robust_winners"] == [c["robust_tuned"]["schedule"]
+                                     for c in got_curve]

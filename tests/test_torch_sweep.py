@@ -88,11 +88,12 @@ def test_radix_tables_match_stack():
         assert torch.equal(getattr(tab, f), getattr(want, f)), f
 
 
-def test_unported_options_rejected():
+def test_invalid_sweep_options_rejected():
     key = prng.PRNGKey(0, device="cpu")
     scheds = [barrier.kary_tree(4, n_pes=64)]
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        sweep.sweep_schedules(key, scheds, faults=object(), device="cpu")
+    with pytest.raises(ValueError, match="quorum_frac"):
+        sweep.sweep_schedules(key, scheds, device="cpu",
+                              faults=barrier.fault_spec(quorum_frac=0.0))
     with pytest.raises(ValueError, match="placements"):
         sweep.sweep_schedules(key, scheds, placements=[None, None],
                               device="cpu")

@@ -77,3 +77,39 @@ def test_validation():
         workloads.straggler_arrivals(key, 1024, frac=0.0)
     with pytest.raises(ValueError, match="tail"):
         workloads.straggler_arrivals(key, 1024, tail="cauchy")
+
+
+@pytest.mark.parametrize("model", [
+    dict(p_fail=0.02, p_straggler=0.1, straggler_scale=2000.0),
+    dict(p_stall=0.3, stall_cycles=1234.5),
+    dict(p_straggler=0.5, straggler_sigma=2.0),
+    dict(p_fail=0.05, p_stall=0.05, p_straggler=0.05)])
+def test_apply_faults_bit_exact(model):
+    """Stragglers (lognormal through XLA's ``exp``), stalls and fail-stops
+    drawn over a (kernel, trial, PE) batch equal the reference's."""
+    arr = (np.random.default_rng(1).random((2, 3, 64)) * 500).astype(
+        np.float32)
+    want = jworkloads.apply_faults(jax.random.PRNGKey(7), arr,
+                                   jworkloads.PEFaultModel(**model))
+    got = workloads.apply_faults(prng.PRNGKey(7, device="cpu"),
+                                 torch.from_numpy(arr),
+                                 workloads.PEFaultModel(**model))
+    assert got.dtype == torch.float32
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+def test_fault_mask_and_model_defaults():
+    want = jworkloads.fault_mask(jax.random.PRNGKey(3), 1024, 0.05)
+    got = workloads.fault_mask(prng.PRNGKey(3, device="cpu"), 1024, 0.05)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert ([(f.name, f.default)
+             for f in dataclasses.fields(workloads.PEFaultModel)]
+            == [(f.name, f.default)
+                for f in dataclasses.fields(jworkloads.PEFaultModel)])
+    arr = torch.arange(64, dtype=torch.float32)
+    assert torch.equal(workloads.apply_faults(
+        prng.PRNGKey(0, device="cpu"), arr, workloads.NO_PE_FAULTS), arr)
+    with pytest.raises(ValueError, match="p_fail"):
+        workloads.PEFaultModel(p_fail=1.5)
+    with pytest.raises(ValueError, match="p_straggler"):
+        workloads.PEFaultModel(p_straggler=-0.1)
