@@ -55,12 +55,22 @@ phase prints one JSON line:
     suite's sizes, with the launch counts of that run, each kernel
     against its plain version, and their times at (4096, 4096) and
     (256, 512, 512) beside their bounds and one PyTorch library call.
+16. ``lm_serve``: the LM serving path.  The flash-attention kernel
+    against its plain version at the reference's test shapes and at the
+    prefill's shape, timed beside its bound and SDPA; the qwen3 smoke
+    config on the card against the stored JAX values (its init's leaf
+    digests bit for bit, prefill and 4 decode steps); then full-width
+    Qwen3-4B through ``repro_torch.examples.serve_lm``: 4 requests of
+    2016 prompt tokens and 32 new tokens each, its first token's logits
+    held against the same prefill with the plain chunked attention.
 
 Each phase prints its wall time.  Then the kernels' summary line and,
 last, the device line.  Any failed
 check raises: the script exits non-zero and prints no result.  It needs
 the rest of the checkout (``src/repro_torch``) and a CUDA device.
 """
+import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -84,7 +94,8 @@ L2_BYTES = 50e6
 MODES = ("central", "tree", "partial", "hw")
 TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
 KERNELS = ("fft4_stage", "matmul", "dotp_central", "dotp_partials",
-           "combine_partials", "axpy", "dct", "conv2d", "powf")
+           "combine_partials", "axpy", "dct", "conv2d", "powf",
+           "flash_attention")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             "matmul": "src/repro/kernels/matmul.py:41",
             "dotp_central": "src/repro/kernels/dotp.py:40",
@@ -95,7 +106,8 @@ REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             "conv2d": "src/repro/kernels/conv2d.py:32",
             # No Pallas kernel: XLA's call of the C library's powf in the
             # Pareto straggler model.
-            "powf": "src/repro/core/workloads.py:311"}
+            "powf": "src/repro/core/workloads.py:311",
+            "flash_attention": "src/repro/kernels/flash_attn.py:73"}
 SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "matmul": "src/repro_torch/csrc/matmul.cu",
            "dotp_central": "src/repro_torch/csrc/dotp.cu",
@@ -104,7 +116,8 @@ SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "axpy": "src/repro_torch/csrc/axpy.cu",
            "dct": "src/repro_torch/csrc/dct.cu",
            "conv2d": "src/repro_torch/csrc/conv2d.cu",
-           "powf": "src/repro_torch/csrc/powf.cu"}
+           "powf": "src/repro_torch/csrc/powf.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attn.cu"}
 # The dot product's path: the Fig. 5 input sizes and the 64 Mi-element
 # case where the bandwidth bound means something; the central
 # accumulator (radix 0) and the tree radices of the Fig. 6 sweep.
@@ -120,6 +133,21 @@ CONV_LARGE = (256, 512, 512)
 # The Pareto straggler model's draws on the card, and its work per PE.
 STRAGGLER_KERNEL = "straggler_pareto"
 POWF_CHUNK = 1 << 24
+# The LM serving path: the reference's flash-attention test shapes (s, d),
+# the prefill's attention shape (B, H, Hk, S, D), and the full-width run.
+FA_TEST_SHAPES = ((64, 16), (128, 32), (256, 64))
+FA_PATH_SHAPE = (4, 32, 8, 2048, 128)
+# Kernel against plain in bf16: p is rounded to bf16 before the PV
+# product at a per-tile running max in the kernel and after the softmax
+# in the plain version, and the output is rounded to bf16 (2^-8
+# relative each): two bf16 ulps relative (1.6e-2) plus 1.6e-2 absolute
+# for unit-scale v.
+FA_BF16_TOL = 1.6e-2
+LM_FULL = {"arch": "qwen3_4b", "batch": 4, "prompt_len": 2016, "tokens": 32}
+# The serve path's tolerances against the JAX values (tests/
+# test_torch_lm_serve.py): float32 end to end, and bf16; and the full-width
+# kernel-against-plain logits gap, tests/test_arch_smoke.py's bf16 bound.
+LM_F32_TOL, LM_BF16_ATOL, LM_FULL_GAP = 1e-4, 0.0625, 0.35
 
 
 def emit(obj) -> None:
@@ -167,7 +195,7 @@ def phase_info(torch, build):
     print(smi, flush=True)
     t0 = time.perf_counter()
     paths = build.build(["fft4_stage", "matmul", "dotp", "axpy", "dct",
-                         "conv2d", "powf", "powf_host"])
+                         "conv2d", "powf", "powf_host", "flash_attn"])
     build_s = time.perf_counter() - t0
     emit({"phase": "info", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
@@ -1090,6 +1118,210 @@ def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
     return summary, launches
 
 
+def _top2_margin(logits):
+    top = logits.double().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _fa_kernel_checks(torch, flash_attn) -> dict:
+    """The kernel against its plain version at the test shapes (float32,
+    the reference's 2e-3) and at the prefill's shape (bf16); the
+    latter's times.  Returns the summary record."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for s, d in FA_TEST_SHAPES:
+        for causal in (True, False):
+            q, k, v = (0.5 * torch.randn(2, 2, s, d, device=dev,
+                                         generator=gen) for _ in range(3))
+            got = flash_attn.flash_attention(q, k, v, causal=causal)
+            want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+            torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+            emit({"phase": "lm_serve", "name": "flash_attention",
+                  "shape": [2, 2, s, d], "dtype": "float32",
+                  "causal": causal,
+                  "max_abs_err": (got - want).abs().max().item(),
+                  "tol": {"rtol": 2e-3, "atol": 2e-3}})
+    b, h, hk, s, d = FA_PATH_SHAPE
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, hk, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, hk, s, d, device=dev, generator=gen).to(torch.bfloat16)
+    got = flash_attn.flash_attention(q, k, v, causal=True)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_BF16_TOL,
+                               atol=FA_BF16_TOL)
+
+    def library(q_, k_, v_):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_, k_, v_, is_causal=True, enable_gqa=True)
+
+    lib = library(q, k, v)
+    # The causal half: query row i meets i + 1 keys; two products of
+    # 2 D operations per pair.  Bytes: q, k, v read once, out written once.
+    b_ms, b_by = bound(2.0 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                       4.0 * b * h * d * s * (s + 1) / 2, "bfloat16")
+    args = cold_copies(q, k, v)
+    rec = {"phase": "lm_serve", "name": "flash_attention",
+           "shape": [b, h, hk, s, d], "dtype": "bfloat16", "causal": True,
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "tol": {"rtol": FA_BF16_TOL, "atol": FA_BF16_TOL},
+           "ms": cuda_ms(torch, flash_attn.flash_attention, args),
+           "plain_ms": cuda_ms(torch, flash_attn.flash_attention_plain, args,
+                               iters=3, warmup=1),
+           "library_ms": cuda_ms(torch, library, args),
+           "library": "F.scaled_dot_product_attention(is_causal=True, "
+                      "enable_gqa=True)",
+           "library_max_abs_diff": (got.float() - lib.float()).abs().max()
+           .item(),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "unit": "one launch: the prefill attention of one layer"}
+    emit(rec)
+    return rec
+
+
+def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
+                       ref) -> None:
+    """The qwen3 smoke config on the card against the stored JAX run: the
+    bf16 variant through the serve steps, the float32 one float32 end to
+    end (the prefill step's function on float32 caches, as stored)."""
+    toks = torch.tensor(ref["prompts"], dtype=torch.int64, device="cuda")
+    b, length = toks.shape
+    for dtype, want in ref["variants"].items():
+        cfg = dataclasses.replace(configs.get_smoke(ref["arch"]),
+                                  param_dtype=dtype, compute_dtype=dtype)
+        params = transformer.init_params(cfg, prng.PRNGKey(0, device="cuda"))
+        digests = {}
+        for path, t in tree_items(params):
+            t = t.cpu()
+            raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+            digests[path] = hashlib.sha256(
+                raw.numpy().tobytes()).hexdigest()[:16]
+        if digests != want["digests"]:
+            raise AssertionError(f"lm_serve {dtype}: init_params on the card "
+                                 f"differs from the JAX leaves")
+        decode, _ = steps.build_decode_step(cfg, batch=b, max_len=length)
+        if want["cache_dtype"] == "float32":
+            caches = transformer.init_caches(cfg, b, length, torch.float32)
+            with torch.inference_mode():
+                logits, caches, _, _ = transformer.forward(
+                    params, cfg, {"tokens": toks}, caches=caches,
+                    last_only=True)
+        else:
+            prefill, _ = steps.build_prefill_step(cfg, batch=b,
+                                                  seq_len=length)
+            logits, caches = prefill(params, {"tokens": toks})
+        outs, toks_out = [logits[:, -1]], [logits[:, -1].argmax(-1)]
+        for i in range(ref["steps"]):
+            tok = toks_out[-1]
+            if dtype == "bfloat16":     # fed the stored tokens
+                tok = torch.tensor(want["tokens"][i], device="cuda")
+            pos = torch.full((b,), ref["prompt_len"] + i, dtype=torch.int32,
+                             device="cuda")
+            logits, caches = decode(params, caches, tok[:, None], pos)
+            outs.append(logits[:, 0])
+            toks_out.append(logits[:, 0].argmax(-1))
+        stored = [want["prefill_logits"]] + want["decode_logits"]
+        errs, mismatched = [], 0
+        for got, w, gt, wt in zip(outs, stored, toks_out, want["tokens"]):
+            w = torch.tensor(w, dtype=torch.float32)
+            got, gt, wt = got.cpu(), gt.cpu(), torch.tensor(wt)
+            errs.append((got - w).abs().max().item())
+            if dtype == "float32":
+                torch.testing.assert_close(got, w, rtol=LM_F32_TOL,
+                                           atol=LM_F32_TOL)
+                clear = torch.ones_like(wt, dtype=torch.bool)
+            else:
+                torch.testing.assert_close(got, w, rtol=0.0,
+                                           atol=LM_BF16_ATOL)
+                clear = _top2_margin(w) > 2 * LM_BF16_ATOL
+            mismatched += int((gt[clear] != wt[clear]).sum().item())
+        emit({"phase": "lm_serve", "check": f"smoke {ref['arch']} {dtype} "
+              f"against JAX", "cache_dtype": want["cache_dtype"],
+              "digests_equal": True, "max_abs_err_per_step": errs,
+              "tol": {"rtol": LM_F32_TOL, "atol": LM_F32_TOL}
+              if dtype == "float32" else {"atol": LM_BF16_ATOL},
+              "tokens_mismatched": mismatched})
+        if mismatched:
+            raise AssertionError(f"lm_serve {dtype}: {mismatched} greedy "
+                                 f"tokens differ from JAX")
+
+
+def phase_lm_serve(torch, flash_attn, ref_values) -> tuple:
+    """The LM serving path; returns the kernel's summary record and its
+    launch count over the full-width serve run."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.layers import tree_items
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    summary = _fa_kernel_checks(torch, flash_attn)
+    _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
+                       ref_values["lm_serve"])
+
+    # Full width: the main path, counted.
+    cfg = configs.get(LM_FULL["arch"])
+    flash_attn.LAUNCHES = 0
+    out = serve_lm.serve(cfg, batch=LM_FULL["batch"],
+                         prompt_len=LM_FULL["prompt_len"],
+                         tokens=LM_FULL["tokens"], device="cuda")
+    torch.cuda.synchronize()
+    launches = flash_attn.LAUNCHES
+    if launches != cfg.n_layers * out["prefill_calls"]:
+        raise AssertionError(f"full-width serve: {launches} flash_attention "
+                             f"launches over {out['prefill_calls']} prefills")
+    generated = out["tokens"]
+    if (generated.shape != (LM_FULL["batch"], LM_FULL["tokens"])
+            or not torch.isfinite(out["first_logits"]).all()
+            or generated.min() < 0 or generated.max() >= cfg.vocab_size):
+        raise AssertionError("full-width serve: bad logits or tokens")
+
+    # The same prefill with the plain chunked attention on the card.
+    max_len = LM_FULL["prompt_len"] + LM_FULL["tokens"]
+    prefill, _ = steps.build_prefill_step(cfg, batch=LM_FULL["batch"],
+                                          seq_len=max_len)
+    toks = torch.from_numpy(serve_lm.prompts(cfg, LM_FULL["batch"],
+                                             max_len)).cuda()
+    kernel_attention = attention.flash_attention
+    attention.flash_attention = attention.chunked_attention
+    try:
+        t0 = time.perf_counter()
+        plain_logits, _ = prefill(out["params"], {"tokens": toks})
+        torch.cuda.synchronize()
+        plain_prefill_s = time.perf_counter() - t0
+    finally:
+        attention.flash_attention = kernel_attention
+    plain_first = plain_logits[:, -1]
+    gap = (out["first_logits"] - plain_first).abs().max().item()
+    clear = _top2_margin(plain_first) > 2 * gap
+    first_equal = bool(torch.equal(generated[:, 0][clear],
+                                   plain_first.argmax(-1)[clear]))
+    rec = {"phase": "lm_serve", "run": "full-width serve",
+           "model": cfg.name, **LM_FULL,
+           "init_s": out["init_s"], "prefill_ms": out["prefill_s"] * 1e3,
+           "decode_s": out["decode_s"],
+           "decode_tok_s": out["decode_tok_s"],
+           "flash_attention_launches": launches,
+           "prefill_calls": out["prefill_calls"],
+           "launches_per_prefill": launches // out["prefill_calls"],
+           "peak_gib": out["peak_bytes"] / 2 ** 30,
+           "plain_attention_prefill_ms": plain_prefill_s * 1e3,
+           "logits_gap_vs_plain": gap, "gap_bound": LM_FULL_GAP,
+           "first_token_equal_where_clear": first_equal,
+           "rows_clear": int(clear.sum().item()),
+           "first_tokens": generated[:, 0].tolist()}
+    emit(rec)
+    if not (gap <= LM_FULL_GAP and first_equal):
+        raise AssertionError(f"full-width prefill: kernel against plain "
+                             f"attention gap {gap}, first tokens equal "
+                             f"where clear: {first_equal}")
+    emit({"phase": "lm_serve", "wall_s": time.perf_counter() - t_phase})
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1100,7 +1332,7 @@ def main() -> int:
                                   prng, sweep, tuning, workloads)
     from repro_torch.examples import bench_faults, fiveg_pipeline
     from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
-                                     matmul, ops, powf, ref)
+                                     flash_attn, matmul, ops, powf, ref)
 
     ref_values = json.loads(
         (ROOT / "src" / "repro_torch" / "reference_values.json").read_text())
@@ -1125,6 +1357,8 @@ def main() -> int:
     more, more_launches = phase_dct_conv2d(torch, ops, dct, conv2d)
     summary.update(more)
     launches.update(more_launches)
+    summary["flash_attention"], launches["flash_attention"] = (
+        phase_lm_serve(torch, flash_attn, ref_values))
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

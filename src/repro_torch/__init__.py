@@ -5,8 +5,10 @@ layout and module names: ``core/`` holds the cycle-level barrier
 simulator (plain and degradation-tolerant), the sweeps, the tuner and
 the Fig. 7 5G application as batched torch ops; ``kernels/`` holds the
 hand-written Hopper (``sm_90a``) CUDA kernels that execute the 5G
-pipeline and the Fig. 5/6 benchmark kernels, each beside its plain
-PyTorch version.  The package imports torch and numpy only.
+pipeline, the Fig. 5/6 benchmark kernels and the LM's prefill
+attention, each beside its plain PyTorch version; ``models/``,
+``configs/`` and ``launch/`` hold the LM serving path of the dense
+family.  The package imports torch and numpy only.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a
 CUDA device they raise instead of falling back to the CPU.

@@ -58,14 +58,15 @@ def PRNGKey(seed: int, *, device="cuda") -> torch.Tensor:
                         device=resolve_device(device))
 
 
-def _hash_counts(key: torch.Tensor, shape: tuple) -> tuple:
-    """Hash the flat indices of ``shape`` under every key of ``key``
-    (shape ``(..., 2)``); returns two word tensors of shape
-    ``key.shape[:-1] + shape``."""
+def _hash_counts(key: torch.Tensor, shape: tuple, offset: int = 0) -> tuple:
+    """Hash the flat indices ``offset, offset + 1, ...`` of ``shape``
+    under every key of ``key`` (shape ``(..., 2)``); returns two word
+    tensors of shape ``key.shape[:-1] + shape``."""
     count = 1
     for d in shape:
         count *= int(d)
-    flat = torch.arange(count, dtype=torch.int64, device=key.device)
+    flat = torch.arange(offset, offset + count, dtype=torch.int64,
+                        device=key.device)
     hi = (flat >> 32).reshape(shape)
     lo = (flat & _MASK).reshape(shape)
     lift = key.shape[:-1] + (1,) * len(shape)
@@ -84,15 +85,17 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([bits1, bits2], dim=-1)
 
 
-def uniform(key: torch.Tensor, shape, minval=0.0,
-            maxval=1.0) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0, *,
+            offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits under
     exponent 0 give a float in [1, 2); minus one, scaled to
     ``[minval, maxval)`` and clamped below at ``minval``.  ``key`` of
     shape ``(..., 2)`` gives a draw of shape ``key.shape[:-1] + shape``.
-    """
+    ``offset`` draws flat elements ``offset, offset + 1, ...`` of a
+    larger draw under the same key: each element hashes its own flat
+    index, so a large draw can be made in slices."""
     shape = tuple(int(d) for d in shape)
-    bits1, bits2 = _hash_counts(key, shape)
+    bits1, bits2 = _hash_counts(key, shape, offset)
     mantissa = ((bits1 ^ bits2) >> 9) | 0x3F800000
     u = mantissa.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.as_tensor(minval, dtype=torch.float32, device=key.device)
@@ -125,7 +128,9 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
+def normal(key: torch.Tensor, shape, *, offset: int = 0) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with
-    ``u`` uniform on ``[nextafter(-1, 0), 1)``."""
-    return _SQRT2 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+    ``u`` uniform on ``[nextafter(-1, 0), 1)``; ``offset`` as in
+    :func:`uniform`."""
+    return _SQRT2 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0,
+                                    offset=offset))

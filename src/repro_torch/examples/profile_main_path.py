@@ -2,10 +2,12 @@
 device busy time and kernel launches, for one Fig. 7 simulation per
 sync mode (and two under PE failures), the Fig. 4a sweep, the fault
 degradation sweep, the 5G slot pipeline and the tuner's workload sweep;
-and whether the profiler counts the hand-written kernels' launches as
-their wrappers do.
+whether the profiler counts the hand-written kernels' launches as their
+wrappers do; and full-width Qwen3-4B serving: one prefill of 4 x 2048
+tokens and 8 decode steps of batch 4.
 
     PYTHONPATH=src python -m repro_torch.examples.profile_main_path
+    PYTHONPATH=src python -m repro_torch.examples.profile_main_path --only serve
 
 Prints one JSON line per run.  ``wall_s`` is a synchronized host-clock
 run without the profiler; ``device_busy_s`` and ``kernel_launches`` come
@@ -18,16 +20,20 @@ its aggregated table and from its raw event list.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
 import torch
 from torch.autograd import DeviceType
 
+from repro_torch import configs
 from repro_torch.core import fiveg, prng, sweep, tuning
-from repro_torch.examples import bench_faults, fiveg_pipeline
-from repro_torch.kernels import axpy, conv2d, dct, dotp, fft4, matmul, ops
-from repro_torch.kernels import powf
+from repro_torch.examples import bench_faults, fiveg_pipeline, serve_lm
+from repro_torch.kernels import (axpy, conv2d, dct, dotp, fft4, flash_attn,
+                                 matmul, ops, powf)
+from repro_torch.launch import steps
+from repro_torch.models import init_params
 
 # Profiler kernel name fragment -> wrapper counter of that kernel.
 KERNEL_NAMES = {"fft4_stage_kernel": "fft4_stage", "mm_kernel": "matmul",
@@ -35,14 +41,15 @@ KERNEL_NAMES = {"fft4_stage_kernel": "fft4_stage", "mm_kernel": "matmul",
                 "central_kernel": "dotp_central",
                 "combine_kernel": "combine_partials",
                 "axpy_kernel": "axpy", "dct_kernel": "dct",
-                "conv2d_kernel": "conv2d", "powf_kernel": "powf"}
+                "conv2d_kernel": "conv2d", "powf_kernel": "powf",
+                "fa_mma_kernel": "flash_attention"}
 
 
 def _counters() -> dict:
     return dict(dotp.LAUNCHES, fft4_stage=fft4.LAUNCHES,
                 matmul=matmul.LAUNCHES, axpy=axpy.LAUNCHES,
                 dct=dct.LAUNCHES, conv2d=conv2d.LAUNCHES,
-                powf=powf.LAUNCHES)
+                powf=powf.LAUNCHES, flash_attention=flash_attn.LAUNCHES)
 
 
 def launch_counts(fn) -> dict:
@@ -102,8 +109,38 @@ def profile_run(fn) -> dict:
                              e.self_device_time_total / 1e3] for e in top]}
 
 
-def main(device="cuda") -> None:
-    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+def profile_serve(device="cuda", n_steps: int = 8) -> None:
+    """Full-width Qwen3-4B (weights from the port's init): one prefill of
+    4 x 2048 tokens, then ``n_steps`` decode steps of batch 4."""
+    cfg = configs.get("qwen3_4b")
+    params = init_params(cfg, prng.PRNGKey(0, device=device))
+    batch, length = 4, 2048
+    prefill, _ = steps.build_prefill_step(cfg, batch=batch, seq_len=length,
+                                          device=device)
+    decode, _ = steps.build_decode_step(cfg, batch=batch, max_len=length,
+                                        device=device)
+    toks = torch.from_numpy(serve_lm.prompts(cfg, batch, length)).to(device)
+    rec = profile_run(lambda: prefill(params, {"tokens": toks}))
+    print(json.dumps({"run": "prefill qwen3-4b 4x2048", **rec}))
+    logits, caches = prefill(params, {"tokens": toks})
+    tok = logits[:, -1].argmax(-1)[:, None]
+    pos = torch.full((batch,), length - 32, dtype=torch.int32, device=device)
+
+    def decode_steps():
+        for i in range(n_steps):
+            decode(params, caches, tok, pos + i)
+
+    rec = profile_run(decode_steps)
+    print(json.dumps({"run": f"decode qwen3-4b batch 4, {n_steps} steps",
+                      "launches_per_step": rec["kernel_launches"] / n_steps,
+                      "wall_s_per_step": rec["wall_s"] / n_steps, **rec}))
+    print(json.dumps({"run": "launch_counts prefill qwen3-4b 4x2048",
+                      "expected": cfg.n_layers,
+                      **launch_counts(lambda: prefill(params,
+                                                      {"tokens": toks}))}))
+
+
+def profile_simulator(device="cuda") -> None:
     app = fiveg.FiveGConfig(n_rx=16, ffts_per_round=1)
     barriers = app.rounds * app.n_stages + 2
     for mode in ("central", "tree", "partial", "hw"):
@@ -152,6 +189,18 @@ def main(device="cuda") -> None:
                                                            radix=radix))}))
     print(json.dumps({"run": "launch_counts ops.axpy 64Mi",
                       **launch_counts(lambda: ops.axpy(1.7, x, y))}))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("simulator", "serve"),
+                    help="profile one of the two paths (default both)")
+    args = ap.parse_args(argv)
+    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+    if args.only != "serve":
+        profile_simulator()
+    if args.only != "simulator":
+        profile_serve()
 
 
 if __name__ == "__main__":

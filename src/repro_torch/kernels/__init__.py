@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels: the 5G pipeline's FFT stage and matmul,
-the Fig. 5/6 benchmark kernels' dot product, AXPY, DCT and Conv2D, and
-the C library's ``powf`` for the Pareto straggler model.
+the Fig. 5/6 benchmark kernels' dot product, AXPY, DCT and Conv2D, the
+C library's ``powf`` for the Pareto straggler model, and the LM's
+flash attention.
 
 ``fft4.py``, ``matmul.py``, ``dotp.py``, ``axpy.py``, ``dct.py``,
-``conv2d.py`` and ``powf.py`` hold the CUDA kernels' wrappers (with
-their launch counters) beside their plain versions; ``ops.py`` the
-public wrappers; ``ref.py`` the plain PyTorch oracles; ``_build.py``
-compiles ``csrc/*.cu`` with ``nvcc`` (and the host helper
+``conv2d.py``, ``powf.py`` and ``flash_attn.py`` hold the CUDA kernels'
+wrappers (with their launch counters) beside their plain versions;
+``ops.py`` the public wrappers; ``ref.py`` the plain PyTorch oracles;
+``_build.py`` compiles ``csrc/*.cu`` with ``nvcc`` (and the host helper
 ``csrc/powf_host.c`` with the host's C compiler) at first use.
 """

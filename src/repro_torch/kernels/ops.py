@@ -1,12 +1,13 @@
 """Public wrappers of the port's kernels (port of the ``fft4``,
-``matmul``, ``dotp``, ``axpy``, ``conv2d`` and ``dct`` wrappers of
-``repro.kernels.ops``).
+``matmul``, ``dotp``, ``axpy``, ``conv2d``, ``dct`` and
+``flash_attention`` wrappers of ``repro.kernels.ops``).
 
 ``fft4`` chains log4(n) :func:`~repro_torch.kernels.fft4.fft4_stage`
 launches and returns the digit-reversed spectrum; ``matmul`` is the
 beamforming product; ``dotp`` is the dot product as a central
 accumulator or a k-ary reduction tree; ``axpy`` is ``a * x + y``;
-``conv2d`` the 3x3 "same" convolution; ``dct`` the row-wise DCT-II.  The
+``conv2d`` the 3x3 "same" convolution; ``dct`` the row-wise DCT-II;
+``flash_attention`` attention over (B, H, S, D) heads.  The
 reference's TPU-only layout steps are gone (the 128-lane padding of 1-D
 operands, the (8, 128) padding of ragged matmul shapes, the padded copy
 of the conv2d images): the CUDA kernels mask ragged edges and halos
@@ -25,6 +26,7 @@ from . import conv2d as _conv2d
 from . import dct as _dct
 from . import dotp as _dotp
 from . import fft4 as _fft4
+from . import flash_attn as _fa
 from . import matmul as _mm
 from . import ref
 
@@ -112,3 +114,9 @@ def dct_basis_t(n: int, device: torch.device) -> torch.Tensor:
 def dct(x: torch.Tensor) -> torch.Tensor:
     """Row-wise DCT-II: (T, n) -> float32 (T, n)."""
     return _dct.dct(x, dct_basis_t(x.shape[-1], x.device))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q, k, v: (B, H, S, D) -> (B, H, S, D) in q's dtype."""
+    return _fa.flash_attention(q, k, v, causal=causal)

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (port of the ``matmul``,
-``fft4``, ``dotp``, ``axpy``, ``conv2d`` and ``dct`` oracles of
-``repro.kernels.ref``).
+``fft4``, ``dotp``, ``axpy``, ``conv2d``, ``dct`` and ``flash_attention``
+oracles of ``repro.kernels.ref``).
 
 These are the mathematical truth the CUDA kernels are held against:
 the kernel wrappers run them for tensors that lie on the CPU, and
@@ -8,7 +8,10 @@ the kernel wrappers run them for tensors that lie on the CPU, and
 them calls a library product: the plain matmul is an explicit
 broadcast multiply and sum, the plain dot product a multiply and sum,
 the plain convolution nine shifted multiplies and adds, the plain DCT
-the plain matmul against the basis.
+the plain matmul against the basis.  The exception is attention, whose
+(S, S) score products would not fit as broadcasts at the serving
+path's shape: it uses ``torch.einsum`` in float32, as the reference
+uses ``jnp.einsum``.
 """
 from __future__ import annotations
 
@@ -163,3 +166,28 @@ def dct(x: torch.Tensor) -> torch.Tensor:
     """Row-wise DCT-II of (T, n) rows, float32 out."""
     return matmul(x.to(torch.float32),
                   dct_basis(x.shape[-1], device=x.device).T)
+
+
+NEG_INF = -1e30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """O(S^2) reference attention, float32 out.  q (B, H, S, D); k, v
+    (B, Hk, T, D) with ``H`` a multiple of ``Hk`` (query head ``h`` reads
+    KV head ``h // (H // Hk)``).  Scores are float32 products scaled by
+    ``D ** -0.5``; causal masking keeps key ``t <= s`` and writes the
+    finite ``-1e30``; the softmax is rounded to v's dtype before the PV
+    product, as the reference does."""
+    b, h, s, d = q.shape
+    hk, t = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, hk, h // hk, s, d)
+    sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32))
+    sc = sc * d ** -0.5
+    if causal:
+        keep = (torch.arange(s, device=q.device)[:, None]
+                >= torch.arange(t, device=q.device)[None, :])
+        sc = torch.where(keep, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1).to(v.dtype).to(torch.float32)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return out.reshape(b, h, s, d)

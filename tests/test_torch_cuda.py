@@ -9,7 +9,8 @@ import torch
 
 from repro_torch.core import barrier, fiveg, prng, sweep
 from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
-                                 matmul, ops, powf, ref)
+                                 flash_attn, matmul, ops, powf, ref)
+from repro_torch.models import attention
 
 pytestmark = pytest.mark.cuda
 
@@ -241,3 +242,73 @@ def test_robust_simulator_on_card_equals_cpu(cuda):
                               device="cpu")
     for f in ("span_cycles", "abandoned_pes", "timed_out_levels"):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+
+
+# flash_attention: float32 at the reference's tolerance; bf16 within two
+# bf16 ulps relative plus 1.6e-2 absolute (p and the output are rounded to
+# bf16 at other places in the kernel and the plain version).
+FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 1.6e-2}
+
+
+@pytest.mark.parametrize("s,d", [(64, 16), (128, 32), (256, 64), (33, 8),
+                                 (100, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, s, d, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (0.5 * torch.randn(2, 2, s, d, device=cuda, generator=gen)
+               for _ in range(3))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = flash_attn.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_attn.LAUNCHES == before + 1
+    assert got.dtype == dtype
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype],
+                               atol=FA_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,hk,s", [(1, 8, 2, 100), (2, 7, 1, 48),
+                                      (2, 32, 8, 512)])
+def test_flash_attention_kernel_grouped_heads_bf16(cuda, b, h, hk, s):
+    gen = torch.Generator(device=cuda).manual_seed(h * hk + s)
+    q = torch.randn(b, h, s, 128, device=cuda, generator=gen).bfloat16()
+    k = torch.randn(b, hk, s, 128, device=cuda, generator=gen).bfloat16()
+    v = torch.randn(b, hk, s, 128, device=cuda, generator=gen).bfloat16()
+    got = flash_attn.flash_attention(q, k, v, causal=True)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2,
+                               atol=1.6e-2)
+
+
+def test_model_attention_on_card_launches_the_kernel(cuda):
+    """models.attention.flash_attention on CUDA tensors is the kernel on
+    (B, H, S, D) transposes; the chunked plain algorithm agrees."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 64, 4, 16, device=cuda, generator=gen)
+    k = torch.randn(2, 64, 2, 16, device=cuda, generator=gen)
+    v = torch.randn(2, 64, 2, 16, device=cuda, generator=gen)
+    before = flash_attn.LAUNCHES
+    got = attention.flash_attention(q, k, v, causal=True, chunk=32)
+    assert flash_attn.LAUNCHES == before + 1
+    want = attention.chunked_attention(q, k, v, causal=True, chunk=32)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("kwargs", [{"window": 16}, {"scale": 0.5}])
+def test_model_attention_on_card_raises_for_later_slices(cuda, kwargs):
+    q = torch.randn(1, 32, 2, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="slice"):
+        attention.flash_attention(q, q, q, causal=True, chunk=32, **kwargs)
+    v = torch.randn(1, 32, 2, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match="slice"):
+        attention.flash_attention(q, q, v, causal=True, chunk=32)
+
+
+def test_flash_attention_rejects_other_head_dims_and_dtypes(cuda):
+    x = torch.ones(1, 2, 8, 24, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention(x, x, x)
+    x = torch.ones(1, 2, 8, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention(x, x, x)

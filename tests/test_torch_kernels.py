@@ -144,7 +144,8 @@ def test_build_targets_hopper(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-shared", "-O3", "-fPIC"} <= set(cmd)
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "axpy", "conv2d", "dct", "dotp", "fft4_stage", "matmul", "powf"]
+        "axpy", "conv2d", "dct", "dotp", "fft4_stage", "flash_attn",
+        "matmul", "powf"]
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):

@@ -1,0 +1,76 @@
+"""Port parity: the flash-attention kernel's wrapper against the JAX
+package, at the shapes and tolerance of tests/test_kernels.py
+(rtol = atol = 2e-3, the reference's own).  On the CPU the wrapper runs
+its plain version; the CUDA kernel is held against that on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attn, ops, ref
+
+RNG = np.random.default_rng(7)
+
+
+def _arr(shape, scale=1.0):
+    return (RNG.standard_normal(shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("s,d", [(64, 16), (128, 32), (256, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_jax_kernel_and_reference(s, d, causal):
+    q, k, v = (_arr((2, 2, s, d), 0.5) for _ in range(3))
+    before = flash_attn.LAUNCHES
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    assert flash_attn.LAUNCHES == before     # CPU: the plain version
+    assert got.dtype == torch.float32 and got.shape == (2, 2, s, d)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    kernel = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal))
+    plain = np.asarray(jref.flash_attention(jq, jk, jv, causal=causal))
+    np.testing.assert_allclose(got.numpy(), kernel, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got.numpy(), plain, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(
+        ref.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=causal).numpy(),
+        plain, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("h,hk", [(4, 2), (7, 1)])
+def test_grouped_heads_equal_repeated_kv(h, hk):
+    """Query head h reads KV head h // (H // Hk): the same as the
+    reference on K and V repeated per group."""
+    q, k, v = _arr((2, h, 48, 16)), _arr((2, hk, 48, 16)), _arr((2, hk, 48,
+                                                                16))
+    got = flash_attn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=True)
+    rep = h // hk
+    want = jref.flash_attention(jnp.asarray(q),
+                                jnp.repeat(jnp.asarray(k), rep, axis=1),
+                                jnp.repeat(jnp.asarray(v), rep, axis=1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_plain_version_keeps_q_dtype():
+    q = torch.from_numpy(_arr((1, 2, 32, 16))).to(torch.bfloat16)
+    out = flash_attn.flash_attention(q, q, q)
+    assert out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("shapes", [
+    ((2, 4, 16, 8), (2, 3, 16, 8)),      # H not a multiple of Hk
+    ((2, 4, 16, 8), (1, 4, 16, 8)),      # batch differs
+    ((2, 4, 16, 8), (2, 4, 16, 16)),     # head dim differs
+    ((4, 16, 8), (4, 16, 8)),            # not 4-D
+])
+def test_wrapper_rejects_mismatched_shapes(shapes):
+    qs, ks = shapes
+    q, k = torch.zeros(qs), torch.zeros(ks)
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention(q, k, k)

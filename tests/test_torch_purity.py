@@ -13,8 +13,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import (barrier, barrier_sim, energy, fiveg,
                               placement, prng, sweep, tuning, workloads)
-from repro_torch.examples import bench_faults
+from repro_torch import configs
+from repro_torch.examples import bench_faults, serve_lm
 from repro_torch.kernels import ref
+from repro_torch.launch import steps
+from repro_torch.models import convert, init_caches
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -37,11 +40,16 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.split())
-    assert len(loaded) >= 26
+    assert len(loaded) >= 51
     assert {f"repro_torch.core.{m}" for m in (
         "placement", "workloads", "tuning", "xla_math")} <= loaded
-    assert {f"repro_torch.kernels.{m}" for m in ("dotp", "axpy")} <= loaded
-    assert "repro_torch.examples.barrier_tuning" in loaded
+    assert {f"repro_torch.kernels.{m}" for m in ("dotp", "axpy",
+                                                 "flash_attn")} <= loaded
+    assert {f"repro_torch.models.{m}" for m in (
+        "config", "layers", "attention", "transformer", "convert")} <= loaded
+    assert {f"repro_torch.configs.{m}" for m in configs.ARCH_IDS} <= loaded
+    assert {"repro_torch.launch.steps", "repro_torch.examples.serve_lm",
+            "repro_torch.examples.barrier_tuning"} <= loaded
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -117,6 +125,23 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 ], ids=["simulate_faults", "simulate_robust_reference", "energy_reference",
         "degradation_curve", "bench_faults_sweep", "bench_faults_fiveg"])
 def test_fault_entry_points_default_to_cuda_and_raise(call):
+    _no_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+
+
+_QWEN = configs.get_smoke("qwen3_4b")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: init_caches(_QWEN, 1, 8),
+    lambda: steps.build_prefill_step(_QWEN, batch=1, seq_len=8),
+    lambda: steps.build_decode_step(_QWEN, batch=1, max_len=8),
+    lambda: convert.from_jax_params({"w": torch.zeros(2).numpy()}),
+    lambda: serve_lm.serve(_QWEN, batch=1, prompt_len=4, tokens=2),
+], ids=["init_caches", "build_prefill_step", "build_decode_step",
+        "from_jax_params", "serve"])
+def test_lm_entry_points_default_to_cuda_and_raise(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):
         call()

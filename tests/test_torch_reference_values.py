@@ -26,18 +26,31 @@ computes, on the CPU, for:
 * ``fiveg_faults``: the benchmark's 5G ``degradation_curve`` (central,
   tree, hw x 5 rates at (16, 1), key 0);
 * ``straggler_pareto``: ``arrival_batch("straggler_pareto")`` at
-  (8, 1024) (key 7), whose tail goes through the C library's ``powf``.
+  (8, 1024) (key 7), whose tail goes through the C library's ``powf``;
+* ``lm_serve``: the qwen3 smoke config served as ``examples/serve_lm.py``
+  serves it (tests/lm_parity.py): 2 numpy-seeded prompts, prefill over
+  64 tokens, 4 greedy decode steps.  Two variants: bf16 through the serve
+  steps as built (bf16 KV cache), and float32 end to end (float32 KV
+  cache).  Each holds the digests of ``init_params(PRNGKey(0))``'s
+  leaves, the prefill's last logits, each decode step's logits and the
+  greedy tokens.
 
 ``chip_smoke.py`` holds the port's GPU run against it without importing
 JAX.  Regenerate it with
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py
 
+or one section of it with
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py lm_serve
+
 The tests below recompute the cheap sections with JAX, so the file
 cannot go stale, and hold the port's CPU run to the sections small
 enough for the CPU.
 """
+import hashlib
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -52,8 +65,12 @@ from repro.core import sweep as jsweep
 from repro.core import tuning as jtuning
 from repro.core import workloads as jworkloads
 from repro.core.topology import TeraPoolConfig as JConfig
+from repro.models import init_params as jinit_params
 from repro_torch.core import barrier, fiveg, prng, sweep, workloads
 from repro_torch.examples import bench_faults
+from repro_torch.models import init_params, layers, param_defs
+
+from lm_parity import jax_serve, port_serve, prompts, top2_margin, variant
 
 PATH = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "reference_values.json")
@@ -80,6 +97,10 @@ FAULTS = bench_faults       # key, sizes and release policy of the run
 STRAGGLER_KEY = 7
 STRAGGLER_SHAPE = (8, 1024)
 SPAN_PREFIX = 4             # trials whose spans are stored
+LM_ARCH = "qwen3_4b"
+LM_BATCH, LM_PROMPT_LEN, LM_STEPS, LM_SEED = 2, 59, 4, 0
+# The serve-path tolerances of tests/test_torch_lm_serve.py.
+LM_F32_ATOL, LM_BF16_ATOL = 1e-4, 0.0625
 
 
 def _floats(x) -> list:
@@ -273,6 +294,37 @@ def _straggler_pareto() -> dict:
             "values": _floats(draws)}
 
 
+def leaf_digests(leaves) -> list:
+    """sha256 (first 16 hex digits) of each leaf's bytes."""
+    return [hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+            for a in leaves]
+
+
+def _lm_serve() -> dict:
+    """The qwen3 smoke config served by the JAX package, bf16 through the
+    serve steps and float32 end to end."""
+    out = {"arch": LM_ARCH, "batch": LM_BATCH,
+           "prompt_len": LM_PROMPT_LEN, "steps": LM_STEPS,
+           "seed": LM_SEED, "variants": {}}
+    for dtype in ("bfloat16", "float32"):
+        jcfg, cfg = variant(LM_ARCH, dtype)
+        params = jinit_params(jcfg, jax.random.PRNGKey(0))
+        toks = prompts(jcfg.vocab_size, LM_BATCH,
+                       LM_PROMPT_LEN + LM_STEPS + 1, LM_SEED)
+        run = jax_serve(jcfg, params, toks, LM_PROMPT_LEN, LM_STEPS,
+                        cache_dtype=dtype)
+        paths = [p for p, _ in layers.tree_items(param_defs(cfg))]
+        out["prompts"] = toks.tolist()
+        out["variants"][dtype] = {
+            "cache_dtype": dtype,
+            "digests": dict(zip(paths, leaf_digests(
+                jax.tree.map(np.asarray, jax.tree.leaves(params))))),
+            "prefill_logits": _floats(run["prefill_logits"]),
+            "decode_logits": [_floats(x) for x in run["decode_logits"]],
+            "tokens": [np.asarray(t).tolist() for t in run["tokens"]]}
+    return out
+
+
 def generate() -> dict:
     res = jsweep.sweep_barrier(jax.random.PRNGKey(FIG4_KEY),
                                delays=FIG4_DELAYS, n_pes=FIG4_N,
@@ -297,6 +349,7 @@ def generate() -> dict:
         "faults": _faults(),
         "fiveg_faults": _fiveg_faults(),
         "straggler_pareto": _straggler_pareto(),
+        "lm_serve": _lm_serve(),
     }
 
 
@@ -358,8 +411,16 @@ def test_fig4a_prefix_matches_port():
                        torch.from_numpy(want[rows, 2]))
 
 
+_SECTIONS = {"lm_serve": _lm_serve}
+
+
 if __name__ == "__main__":
-    PATH.write_text(json.dumps(generate(), indent=1) + "\n")
+    if sys.argv[1:]:
+        values = _load()
+        values.update({name: _SECTIONS[name]() for name in sys.argv[1:]})
+    else:
+        values = generate()
+    PATH.write_text(json.dumps(values, indent=1) + "\n")
     print(f"wrote {PATH}")
 
 
@@ -492,3 +553,38 @@ def test_fault_sections_keep_the_bench_file_claims():
         assert ref["record"][key] == bench["degradation"][key], key
     assert ref["robust_winners"] == [c["robust_tuned"]["schedule"]
                                      for c in got_curve]
+
+
+def test_lm_serve_section_matches_jax():
+    """The stored serve run is what the JAX package computes now."""
+    assert _load()["lm_serve"] == json.loads(json.dumps(_lm_serve()))
+
+
+def test_lm_serve_section_matches_port():
+    """The port on the CPU: its init gives the stored leaf digests; its
+    serve loop the stored logits (float32 at 1e-4 with its own greedy
+    tokens equal; bf16, fed the stored tokens, within its bound)."""
+    ref = _load()["lm_serve"]
+    toks = np.asarray(ref["prompts"])
+    for dtype, want in ref["variants"].items():
+        _, cfg = variant(ref["arch"], dtype)
+        params = init_params(cfg, prng.PRNGKey(0, device="cpu"))
+        items = layers.tree_items(params)
+        got = dict(zip([p for p, _ in items], leaf_digests(
+            [t.view(torch.int16).numpy() if t.dtype == torch.bfloat16
+             else t.numpy() for _, t in items])))
+        assert got == want["digests"]
+        forced = None if dtype == "float32" else want["tokens"][:-1]
+        run = port_serve(cfg, params, toks, ref["prompt_len"], ref["steps"],
+                         forced=forced, cache_dtype=want["cache_dtype"])
+        atol = LM_F32_ATOL if dtype == "float32" else LM_BF16_ATOL
+        rtol = LM_F32_ATOL if dtype == "float32" else 0.0
+        logits = [run["prefill_logits"]] + run["decode_logits"]
+        stored = [want["prefill_logits"]] + want["decode_logits"]
+        for g, w, gt, wt in zip(logits, stored, run["tokens"],
+                                want["tokens"]):
+            w = np.asarray(w, np.float32)
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+            clear = (top2_margin(w) > 2 * atol if dtype == "bfloat16"
+                     else np.ones(len(wt), bool))
+            assert np.array_equal(gt[clear], np.asarray(wt)[clear])
