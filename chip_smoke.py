@@ -12,10 +12,18 @@ phase prints one JSON line:
 2. ``kernel``: every kernel against its plain PyTorch version on the
    card, at the test shapes and the main path's shapes, with its time,
    the plain version's time, one PyTorch library call's time and the
-   least time the card could take (its bound).
+   least time the card could take (its bound).  ``ops.fft4``'s fused
+   kernel against the stage kernel's chain for rows of 16 to 16384
+   points, and a 65536-point row (a stage launch, then the fused kernel)
+   against ``torch.fft``; the fused kernel, the stage chain and
+   ``torch.fft`` timed in turns at (896, 4096) on the same cold copies,
+   in device time (CUDA graph replay) and eagerly, with each one's
+   ratio to the library.
 3. ``fiveg_pipeline``: one 5G NR slot (64 antennas x 4096 sub-carriers
-   x 14 symbols) through the FFT stage and matmul kernels, checked
-   against numpy; the launch counts of this run.
+   x 14 symbols) through the fused FFT kernel and the matmul kernel,
+   checked against numpy; the launch counts of this run (one fused FFT
+   launch, two matmuls); then ``ops.fft4`` over (64, 65536), the stage
+   kernel's own path, counted apart.
 4. ``fig4a``: the Fig. 4a sweep at N = 1024 (10 radices x 4 delays x
    1024 trials), its first 16 trials bit for bit against the port's
    ``simulate_reference`` on the CPU and the JAX reference values.
@@ -56,8 +64,12 @@ phase prints one JSON line:
     against its plain version, and their times at (4096, 4096) and
     (256, 512, 512) beside their bounds and one PyTorch library call.
 16. ``lm_serve``: the LM serving path.  The flash-attention kernel
-    against its plain version at the reference's test shapes and at the
-    prefill's shape, timed beside its bound and SDPA; the qwen3 smoke
+    against its plain version at the reference's test shapes, in bf16 at
+    every head width, and at the prefill's shape, where the model's
+    strided (B, S, H, D) views must give the contiguous call's bits; its
+    time there beside its bound and SDPA (``ratio_to_library``), and the
+    wgmma kernel's registers and shared memory (``nvcc -Xptxas -v``,
+    setmaxnreg, the launch's dynamic shared memory); the qwen3 smoke
     config on the card against the stored JAX values (its init's leaf
     digests bit for bit, prefill and 4 decode steps); then full-width
     Qwen3-4B through ``repro_torch.examples.serve_lm``: 4 requests of
@@ -93,10 +105,13 @@ L2_BYTES = 50e6
 
 MODES = ("central", "tree", "partial", "hw")
 TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
-KERNELS = ("fft4_stage", "matmul", "dotp_central", "dotp_partials",
-           "combine_partials", "axpy", "dct", "conv2d", "powf",
-           "flash_attention")
+KERNELS = ("fft4_stage", "fft4_fused", "matmul", "dotp_central",
+           "dotp_partials", "combine_partials", "axpy", "dct", "conv2d",
+           "powf", "flash_attention")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
+            # The same Pallas kernel as src/repro/kernels/ops.py::fft4
+            # chains it, every stage of a row in one launch.
+            "fft4_fused": "src/repro/kernels/fft4.py:58",
             "matmul": "src/repro/kernels/matmul.py:41",
             "dotp_central": "src/repro/kernels/dotp.py:40",
             "dotp_partials": "src/repro/kernels/dotp.py:64",
@@ -109,6 +124,7 @@ REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             "powf": "src/repro/core/workloads.py:311",
             "flash_attention": "src/repro/kernels/flash_attn.py:73"}
 SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
+           "fft4_fused": "src/repro_torch/csrc/fft4_stage.cu",
            "matmul": "src/repro_torch/csrc/matmul.cu",
            "dotp_central": "src/repro_torch/csrc/dotp.cu",
            "dotp_partials": "src/repro_torch/csrc/dotp.cu",
@@ -130,6 +146,10 @@ DCT_SIZES = ((2, 4096), (64, 4096), (256, 4096))
 DCT_LARGE = (4096, 4096)
 CONV_SIZES = ((1, 128, 128), (1, 256, 256), (1, 512, 512))
 CONV_LARGE = (256, 512, 512)
+# ops.fft4's fused kernel against the stage chain: row lengths up to
+# L_MAX, and a row above it (one stage launch, then the fused kernel).
+FFT_FUSED_SIZES = (16, 64, 256, 1024, 4096, 16384)
+FFT_LONG = (64, 4 ** 8)
 # The Pareto straggler model's draws on the card, and its work per PE.
 STRAGGLER_KERNEL = "straggler_pareto"
 POWF_CHUNK = 1 << 24
@@ -181,6 +201,28 @@ def cold_copies(*tensors) -> list:
                         for _ in range(count - 1)]
 
 
+def graph_ms(torch, fn, inputs, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``: ``iters`` calls
+    cycling through ``inputs``, captured once in a CUDA graph and timed
+    as one replay, so the host's launch cost between calls drops out."""
+    for args in inputs:                  # warm caches and lazy set-up
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
@@ -213,8 +255,9 @@ def phase_kernels(torch, ops, fft4, matmul, ref) -> dict:
     summary = {}
 
     # fft4_stage: every stage of the chain, kernel and plain on the same
-    # input.  The two differ only in FMA contraction and operation order
-    # inside a butterfly: a few float32 ulps of the largest output.
+    # input.  The butterfly's products are __fmul_rn in the kernel, so
+    # nothing is contracted into an FMA and both round every operation in
+    # the same order: equal bits are required.
     for n in (16, 256, 4096):
         for rows in (3, 896):
             re = torch.randn(rows, n, device=dev, generator=gen)
@@ -232,17 +275,95 @@ def phase_kernels(torch, ops, fft4, matmul, ref) -> dict:
                 scale = max(scale, pr.abs().max().item(),
                             pi.abs().max().item())
                 x_re, x_im = pr, pi
-            tol = 1e-5 * scale
-            if not err <= tol:
+            if err != 0.0:
                 raise AssertionError(
-                    f"fft4_stage ({rows}, {n}): max abs err {err} > {tol}")
+                    f"fft4_stage ({rows}, {n}): max abs err {err}, "
+                    f"expected equal bits (largest output {scale})")
             rec = {"phase": "kernel", "name": "fft4_stage",
                    "shape": [rows, n], "stages": stages,
-                   "max_abs_err": err, "tol": tol}
+                   "max_abs_err": err, "tol": 0.0}
             if (rows, n) == (896, 4096):
-                rec.update(_time_fft(torch, ops, fft4, ref, re, im, stages))
+                fft_times = _time_fft(torch, ops, fft4, ref, re, im, stages)
+                rec.update(fft_times["fft4_stage"])
                 summary["fft4_stage"] = rec
             emit(rec)
+
+    # fft4_fused: ops.fft4, one fused launch for rows up to L_MAX, against
+    # its plain version (the plain stage chain, fft4_fused_plain) and
+    # against the stage kernel's chain, on the same input.  All run the
+    # same butterfly on the same values, so equal bits are expected; the
+    # check is 1e-5 of the largest output.
+    for n in FFT_FUSED_SIZES:
+        for rows in (3, 896):
+            re = torch.randn(rows, n, device=dev, generator=gen)
+            im = torch.randn(rows, n, device=dev, generator=gen)
+            before = (fft4.LAUNCHES, fft4.FUSED_LAUNCHES)
+            fr, fi = ops.fft4(re, im)
+            launched = (fft4.LAUNCHES - before[0],
+                        fft4.FUSED_LAUNCHES - before[1])
+            pr, pi = fft4.fft4_fused_plain(re, im,
+                                           *ops.fused_twiddles(n, dev))
+            cr, ci = re, im
+            for s in range(fft4.log4(n)):
+                cr, ci = fft4.fft4_stage(cr, ci,
+                                         *ops._stage_twiddles(n, s, dev))
+            err = max((fr - pr).abs().max().item(),
+                      (fi - pi).abs().max().item())
+            err_chain = max((fr - cr).abs().max().item(),
+                            (fi - ci).abs().max().item())
+            tol = 1e-5 * max(pr.abs().max().item(), pi.abs().max().item())
+            if launched != (0, 1) or not max(err, err_chain) <= tol:
+                raise AssertionError(
+                    f"ops.fft4 ({rows}, {n}): launches (stage, fused) "
+                    f"{launched}, max abs err {err} (plain), {err_chain} "
+                    f"(stage chain) > {tol}")
+            rec = {"phase": "kernel", "name": "fft4_fused",
+                   "shape": [rows, n], "launches": 1, "max_abs_err": err,
+                   "bit_equal": bool(torch.equal(fr, pr)
+                                     and torch.equal(fi, pi)),
+                   "max_abs_err_vs_stage_chain": err_chain,
+                   "bit_equal_to_stage_chain": bool(
+                       torch.equal(fr, cr) and torch.equal(fi, ci)),
+                   "tol": tol}
+            if (rows, n) == (896, 4096):
+                rec.update(fft_times["fft4_fused"])
+                summary["fft4_fused"] = rec
+            emit(rec)
+    # A row above L_MAX: stage launches, then the fused kernel over the
+    # sub-transforms; against the plain stage chain over whole rows at
+    # 1e-5 of the largest output, and against torch.fft at
+    # test_fft4_vs_numpy's tolerance.
+    rows, n = FFT_LONG
+    lead, length = fft4.fft4_plan(n)
+    re = torch.randn(rows, n, device=dev, generator=gen)
+    im = torch.randn(rows, n, device=dev, generator=gen)
+    before = (fft4.LAUNCHES, fft4.FUSED_LAUNCHES)
+    fr, fi = ops.fft4(re, im)
+    launched = (fft4.LAUNCHES - before[0], fft4.FUSED_LAUNCHES - before[1])
+    want = torch.fft.fft(torch.complex(re.double(), im.double()))[
+        :, ref.digit_reverse_indices(n, device=dev)]
+    if launched != (lead, 1):
+        raise AssertionError(f"ops.fft4 ({rows}, {n}): launches {launched}, "
+                             f"expected {(lead, 1)}")
+    pr, pi = re, im
+    for s in range(fft4.log4(n)):
+        pr, pi = fft4.fft4_stage_plain(pr, pi,
+                                       *ops._stage_twiddles(n, s, dev))
+    err = max((fr - pr).abs().max().item(), (fi - pi).abs().max().item())
+    tol = 1e-5 * max(pr.abs().max().item(), pi.abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"ops.fft4 ({rows}, {n}): max abs err {err} "
+                             f"against the plain chain > {tol}")
+    torch.testing.assert_close(fr.double(), want.real, rtol=1e-3, atol=2e-3)
+    torch.testing.assert_close(fi.double(), want.imag, rtol=1e-3, atol=2e-3)
+    emit({"phase": "kernel", "name": "fft4_fused", "shape": [rows, n],
+          "plan": {"stage_launches": lead, "fused_length": length},
+          "max_abs_err": err, "tol": tol,
+          "bit_equal": bool(torch.equal(fr, pr) and torch.equal(fi, pi)),
+          "max_abs_err_vs_torch_fft": max(
+              (fr.double() - want.real).abs().max().item(),
+              (fi.double() - want.imag).abs().max().item()),
+          "tol_vs_torch_fft": {"rtol": 1e-3, "atol": 2e-3}})
 
     # matmul: the reference's test shapes in both dtypes and the 5G
     # beamforming shape.  Tolerance: the reference's float32 test bound
@@ -284,9 +405,15 @@ def phase_kernels(torch, ops, fft4, matmul, ref) -> dict:
 
 
 def _time_fft(torch, ops, fft4, ref, re, im, stages) -> dict:
-    """Times of the whole ``ops.fft4`` chain at the 5G shape: the kernel
-    chain, the plain chain, and torch.fft plus the digit-reversal gather
-    that gives the same output order."""
+    """Times of ``ops.fft4`` at the 5G shape, in this call, on the same
+    cold copies: the fused kernel (one launch), the stage kernel's chain
+    (one launch a stage), the plain chain, and torch.fft plus the
+    digit-reversal gather that gives the same output order.  ``ms`` and
+    ``library_ms`` are device time (``timing`` "graph": :func:`graph_ms`,
+    each measured twice in turns and averaged); ``eager_ms`` and
+    ``library_eager_ms`` the same calls issued one by one from Python
+    (:func:`cuda_ms`, as every other kernel is timed), the host's launch
+    cost included."""
     rows, n = re.shape
     idx = ref.digit_reverse_indices(n, device=re.device)
     twiddles = [ops._stage_twiddles(n, s, re.device) for s in range(stages)]
@@ -296,47 +423,72 @@ def _time_fft(torch, ops, fft4, ref, re, im, stages) -> dict:
             x_re, x_im = stage_fn(x_re, x_im, wr, wi)
         return x_re, x_im
 
+    def stage_chain(x_re, x_im):
+        return chain(fft4.fft4_stage, x_re, x_im)
+
     def library(x_re, x_im):
         y = torch.fft.fft(torch.complex(x_re, x_im))[:, idx]
         return y.real, y.imag
 
-    # The least traffic of the whole transform: both planes read once and
-    # written once, twiddles read once.  The stage chain as written moves
-    # `stages` times the plane traffic; fusing the stages of a row in
-    # shared memory would close that gap.
-    bytes_moved = 4 * rows * n * 4 + sum(
-        2 * wr.numel() * 4 for wr, _ in twiddles)
-    flops = stages * rows * (n // 4) * 34
-    b_ms, b_by = bound(bytes_moved, flops, "float32")
     lr, li = library(re, im)
-    kr, ki = chain(fft4.fft4_stage, re, im)
+    kr, ki = ops.fft4(re, im)
     args = cold_copies(re, im)
-    return {"unit": f"ops.fft4 over ({rows}, {n}): {stages} stage launches",
-            "ms": cuda_ms(torch, lambda *a: chain(fft4.fft4_stage, *a),
-                          args),
-            "plain_ms": cuda_ms(torch,
-                                lambda *a: chain(fft4.fft4_stage_plain, *a),
-                                args),
-            "library_ms": cuda_ms(torch, library, args),
-            "library": "torch.fft.fft + digit-reversal gather",
-            "library_max_abs_diff": max((kr - lr).abs().max().item(),
-                                        (ki - li).abs().max().item()),
-            "stage_bound_ms": bound(4 * rows * n * 4, 0.0, "float32")[0],
-            "bound_ms": b_ms, "bound_by": b_by}
+    order = (("fused", ops.fft4), ("chain", stage_chain),
+             ("library", library))
+    runs = {name: [] for name, _ in order}
+    for name, fn in order + order[::-1]:
+        runs[name].append(graph_ms(torch, fn, args))
+    ms = {name: sum(v) / len(v) for name, v in runs.items()}
+    eager = {name: cuda_ms(torch, fn, args) for name, fn in order}
+    plain_ms = cuda_ms(torch, lambda *a: chain(fft4.fft4_stage_plain, *a),
+                       args, iters=5)
+    # The least traffic of the whole transform: both planes read once and
+    # written once, the twiddles read once.  The stage chain moves
+    # `stages` times the plane traffic.
+    planes = 4 * rows * n * 4
+    flops = stages * rows * (n // 4) * 34
+    common = {"plain_ms": plain_ms, "library_ms": ms["library"],
+              "library_runs_ms": runs["library"],
+              "library_eager_ms": eager["library"],
+              "library": "torch.fft.fft + digit-reversal gather",
+              "library_max_abs_diff": max((kr - lr).abs().max().item(),
+                                          (ki - li).abs().max().item()),
+              "timing": "graph"}
+    b_ms, b_by = bound(planes + 2 * (n - 1) * 4, flops, "float32")
+    fused = dict(common, unit=f"ops.fft4 over ({rows}, {n}): one fused "
+                 f"launch", ms=ms["fused"], runs_ms=runs["fused"],
+                 eager_ms=eager["fused"],
+                 ratio_to_library=ms["fused"] / ms["library"],
+                 ratio_to_stage_chain=ms["fused"] / ms["chain"],
+                 bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(planes + sum(2 * wr.numel() * 4
+                                    for wr, _ in twiddles), flops, "float32")
+    stage = dict(common, unit=f"the stage chain over ({rows}, {n}): "
+                 f"{stages} stage launches", ms=ms["chain"],
+                 runs_ms=runs["chain"], eager_ms=eager["chain"],
+                 ratio_to_library=ms["chain"] / ms["library"],
+                 stage_bound_ms=bound(planes, 0.0, "float32")[0],
+                 bound_ms=b_ms, bound_by=b_by)
+    return {"fft4_fused": fused, "fft4_stage": stage}
 
 
-def phase_pipeline(torch, pipeline, fft4, matmul) -> dict:
+def phase_pipeline(torch, pipeline, fft4, matmul, ops) -> dict:
+    """The 5G slot, counted: one fused FFT launch and two matmuls; then
+    the stage kernel's own path, rows above the fused kernel's L_MAX,
+    counted apart."""
     fft4.LAUNCHES = 0
+    fft4.FUSED_LAUNCHES = 0
     matmul.LAUNCHES = 0
     t0 = time.perf_counter()
     out = pipeline.execute(device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fft4_stage": fft4.LAUNCHES, "matmul": matmul.LAUNCHES}
+    launches = {"fft4_fused": fft4.FUSED_LAUNCHES, "fft4_stage": fft4.LAUNCHES,
+                "matmul": matmul.LAUNCHES}
     errs = pipeline.check(out)
-    if launches != {"fft4_stage": 6, "matmul": 2}:
+    if launches != {"fft4_fused": 1, "fft4_stage": 0, "matmul": 2}:
         raise AssertionError(f"main path launches {launches}, expected "
-                             f"6 fft4_stage and 2 matmul")
+                             f"1 fft4_fused and 2 matmul")
     emit({"phase": "fiveg_pipeline", "rows": list(out["re"].shape),
           "beams": list(out["beams_r"].shape), "wall_s": wall,
           "launches": launches, "max_abs_err": errs,
@@ -344,6 +496,25 @@ def phase_pipeline(torch, pipeline, fft4, matmul) -> dict:
                   "matmul_rtol": pipeline.MM_RTOL,
                   "matmul_atol": pipeline.MM_ATOL_PER_SQRT_K
                   * out["coef"].shape[1] ** 0.5}})
+
+    rows, n = FFT_LONG
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    re = torch.randn(rows, n, device=dev, generator=gen)
+    im = torch.randn(rows, n, device=dev, generator=gen)
+    fft4.LAUNCHES = 0
+    fft4.FUSED_LAUNCHES = 0
+    ops.fft4(re, im)
+    torch.cuda.synchronize()
+    long_launches = {"fft4_stage": fft4.LAUNCHES,
+                     "fft4_fused": fft4.FUSED_LAUNCHES}
+    lead = fft4.fft4_plan(n)[0]
+    if long_launches != {"fft4_stage": lead, "fft4_fused": 1}:
+        raise AssertionError(f"ops.fft4 ({rows}, {n}) launches "
+                             f"{long_launches}")
+    emit({"phase": "fiveg_pipeline", "path": f"ops.fft4 over ({rows}, {n}), "
+          f"above L_MAX", "launches": long_launches})
+    launches["fft4_stage"] = long_launches["fft4_stage"]
     return launches
 
 
@@ -1123,10 +1294,12 @@ def _top2_margin(logits):
     return top[..., 0] - top[..., 1]
 
 
-def _fa_kernel_checks(torch, flash_attn) -> dict:
+def _fa_kernel_checks(torch, flash_attn, build) -> dict:
     """The kernel against its plain version at the test shapes (float32,
-    the reference's 2e-3) and at the prefill's shape (bf16); the
-    latter's times.  Returns the summary record."""
+    the reference's 2e-3) and at the prefill's shape (bf16), and the
+    model's strided layout against contiguous heads; the prefill shape's
+    times and the wgmma kernel's resources.  Returns the summary
+    record."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(14)
     for s, d in FA_TEST_SHAPES:
@@ -1141,6 +1314,22 @@ def _fa_kernel_checks(torch, flash_attn) -> dict:
                   "causal": causal,
                   "max_abs_err": (got - want).abs().max().item(),
                   "tol": {"rtol": 2e-3, "atol": 2e-3}})
+    # bf16 on each of its kernels: mma.sync at D 16 and 32 (the smoke
+    # config), wgmma at 64 and 128, grouped heads 4 to 1, a ragged length.
+    for d in (16, 32, 64, 128):
+        for causal in (True, False):
+            q = torch.randn(1, 8, 300, d, device=dev, generator=gen).bfloat16()
+            k, v = (torch.randn(1, 2, 300, d, device=dev,
+                                generator=gen).bfloat16() for _ in range(2))
+            got = flash_attn.flash_attention(q, k, v, causal=causal)
+            want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=FA_BF16_TOL, atol=FA_BF16_TOL)
+            emit({"phase": "lm_serve", "name": "flash_attention",
+                  "shape": [1, 8, 2, 300, d], "dtype": "bfloat16",
+                  "causal": causal,
+                  "max_abs_err": (got.float() - want.float()).abs().max()
+                  .item(), "tol": {"rtol": FA_BF16_TOL, "atol": FA_BF16_TOL}})
     b, h, hk, s, d = FA_PATH_SHAPE
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(b, hk, s, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -1154,28 +1343,80 @@ def _fa_kernel_checks(torch, flash_attn) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             q_, k_, v_, is_causal=True, enable_gqa=True)
 
+    # The model's layout: (B, S, H, D) tensors seen through transpose(1,
+    # 2), read and written in place; the same bits as contiguous heads.
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    out = torch.empty(b, s, h, d, device=dev, dtype=torch.bfloat16)
+    flash_attn.flash_attention(qs, ks, vs, causal=True,
+                               out=out.transpose(1, 2))
+    if not torch.equal(out.transpose(1, 2), got):
+        raise AssertionError("flash_attention on (B, S, H, D) views differs "
+                             "from the contiguous call")
+
     lib = library(q, k, v)
     # The causal half: query row i meets i + 1 keys; two products of
     # 2 D operations per pair.  Bytes: q, k, v read once, out written once.
     b_ms, b_by = bound(2.0 * (q.numel() + k.numel() + v.numel() + q.numel()),
                        4.0 * b * h * d * s * (s + 1) / 2, "bfloat16")
     args = cold_copies(q, k, v)
+    ms = cuda_ms(torch, flash_attn.flash_attention, args)
+    library_ms = cuda_ms(torch, library, args)
     rec = {"phase": "lm_serve", "name": "flash_attention",
            "shape": [b, h, hk, s, d], "dtype": "bfloat16", "causal": True,
            "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "tol": {"rtol": FA_BF16_TOL, "atol": FA_BF16_TOL},
-           "ms": cuda_ms(torch, flash_attn.flash_attention, args),
+           "strided_equal": True, "ms": ms,
+           "strided_ms": cuda_ms(torch, lambda *a: flash_attn.flash_attention(
+               *a, causal=True, out=out.transpose(1, 2)),
+               [(qs, ks, vs)]),
            "plain_ms": cuda_ms(torch, flash_attn.flash_attention_plain, args,
                                iters=3, warmup=1),
-           "library_ms": cuda_ms(torch, library, args),
+           "library_ms": library_ms, "ratio_to_library": ms / library_ms,
            "library": "F.scaled_dot_product_attention(is_causal=True, "
                       "enable_gqa=True)",
            "library_max_abs_diff": (got.float() - lib.float()).abs().max()
            .item(),
            "bound_ms": b_ms, "bound_by": b_by,
+           "kernel_resources": _wgmma_resources(build, flash_attn),
            "unit": "one launch: the prefill attention of one layer"}
     emit(rec)
     return rec
+
+
+def ptxas_usage(log: str, fragment: str) -> dict:
+    """``nvcc -Xptxas -v``'s registers, barriers, static shared memory and
+    spills of the kernel whose mangled name holds ``fragment``."""
+    usage, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = fragment in line
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            usage.update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                         spill_load_bytes=nums[2])
+        elif current and "Used" in line:
+            words = line.replace(",", " ").split()
+            for i, w in enumerate(words):
+                if w in ("registers", "barriers") and words[i - 1].isdigit():
+                    usage[w] = int(words[i - 1])
+                if w == "smem" and words[i - 2].isdigit():
+                    usage["static_smem_bytes"] = int(words[i - 2])
+    return usage
+
+
+def _wgmma_resources(build, flash_attn) -> dict:
+    """The wgmma kernel's resources at D = 64 and 128: ptxas's account
+    (its register count is the launch bound's per-thread share, which the
+    kernel's setmaxnreg then moves from the producer to the consumers)
+    and the dynamic shared memory of a launch, which ptxas does not
+    see."""
+    log = build.compiler_log("flash_attn")
+    lib = build.load("flash_attn", flash_attn._SIGNATURES)
+    return {f"d{d}": dict(ptxas_usage(log, f"fa_wgmma_kernelILi{d}E"),
+                          dynamic_smem_bytes=lib.flash_attn_wgmma_smem(d))
+            for d in (64, 128)}
 
 
 def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
@@ -1245,7 +1486,7 @@ def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
                                  f"tokens differ from JAX")
 
 
-def phase_lm_serve(torch, flash_attn, ref_values) -> tuple:
+def phase_lm_serve(torch, flash_attn, build, ref_values) -> tuple:
     """The LM serving path; returns the kernel's summary record and its
     launch count over the full-width serve run."""
     from repro_torch import configs
@@ -1258,7 +1499,7 @@ def phase_lm_serve(torch, flash_attn, ref_values) -> tuple:
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    summary = _fa_kernel_checks(torch, flash_attn)
+    summary = _fa_kernel_checks(torch, flash_attn, build)
     _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
                        ref_values["lm_serve"])
 
@@ -1322,6 +1563,27 @@ def phase_lm_serve(torch, flash_attn, ref_values) -> tuple:
     return summary, launches
 
 
+def kernel_entry(name: str, rec: dict, launches: int) -> dict:
+    """One kernel's entry of the summary line.  ``timing`` says how ``ms``
+    and ``library_ms`` were taken: "eager" (:func:`cuda_ms`, calls issued
+    one by one from Python) or "graph" (:func:`graph_ms`, device time
+    without the host's launch cost; ``eager_ms`` and ``library_eager_ms``
+    then give the eager times of the same calls).  ``plain_ms`` is always
+    eager."""
+    entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+             "replaces": REPLACES[name], "launches": launches,
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+             "timing": rec.get("timing", "eager"),
+             "shape": rec.get("shape", rec.get("n")),
+             "unit": rec.get("unit", "one launch")}
+    if entry["timing"] == "graph":
+        entry.update(eager_ms=rec["eager_ms"],
+                     library_eager_ms=rec["library_eager_ms"])
+    return entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1339,7 +1601,7 @@ def main() -> int:
     bench = json.loads((ROOT / "BENCH_faults.json").read_text())
     phase_info(torch, _build)
     summary = phase_kernels(torch, ops, fft4, matmul, ref)
-    launches = phase_pipeline(torch, fiveg_pipeline, fft4, matmul)
+    launches = phase_pipeline(torch, fiveg_pipeline, fft4, matmul, ops)
     phase_fig4a(torch, barrier, barrier_sim, prng, sweep, ref_values)
     phase_fig7(torch, fiveg, prng, ref_values)
     more, more_launches = phase_dotp_axpy(torch, ops, dotp, axpy, ref)
@@ -1358,19 +1620,10 @@ def main() -> int:
     summary.update(more)
     launches.update(more_launches)
     summary["flash_attention"], launches["flash_attention"] = (
-        phase_lm_serve(torch, flash_attn, ref_values))
+        phase_lm_serve(torch, flash_attn, _build, ref_values))
 
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
-         "bound_ms": summary[name]["bound_ms"],
-         "bound_by": summary[name]["bound_by"],
-         "library_ms": summary[name]["library_ms"],
-         "shape": summary[name].get("shape", summary[name].get("n")),
-         "unit": summary[name].get("unit", "one launch")}
-        for name in KERNELS]})
+    emit({"kernels": [kernel_entry(name, summary[name], launches[name])
+                      for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

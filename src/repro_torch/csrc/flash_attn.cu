@@ -1,5 +1,5 @@
 // Flash attention forward: out (B, H, S, D) = softmax(q k^T * scale) v,
-// causal or bidirectional, with grouped-query heads.
+// causal or bidirectional, with grouped-query heads and strided heads.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attn.py::
 // flash_attention (_fa_kernel), and on the card computes the LM stack's
@@ -7,13 +7,16 @@
 // chunked jnp twin of the same function).  q is (B, H, S, D); k and v are
 // (B, Hk, T, D) with H a multiple of Hk: query head h reads KV head
 // h / (H / Hk), so grouped-query attention needs no repeated copy of K
-// and V.  The semantics are the reference's: scores q.k * scale summed in
-// float32; causal masking by absolute position (key t is seen by query s
-// when t <= s) with the finite score NEG_INF = -1e30, never -inf; a
-// running state (acc, m, l) updated tile by tile; p rounded to v's dtype
-// before the PV product while l sums the unrounded p; out = acc /
-// max(l, 1e-30) in q's dtype.  KV tiles wholly above the diagonal are
-// skipped.  One launch covers every (b, h).
+// and V.  Every operand and the output come with their own batch, head
+// and sequence strides (the feature axis is contiguous), so the model's
+// (B, S, H, D) projections are read and written in place.  The semantics
+// are the reference's: scores q.k * scale summed in float32; causal
+// masking by absolute position (key t is seen by query s when t <= s)
+// with the finite score NEG_INF = -1e30, never -inf; keys past T give
+// p = 0; a running state (acc, m, l) updated tile by tile; p rounded to
+// v's dtype before the PV product while l sums the unrounded p; out =
+// acc / max(l, 1e-30) in q's dtype.  KV tiles wholly above the diagonal
+// are skipped, and the heaviest causal query tiles launch first.
 //
 // Bound: at the serving path's prefill (B = 4, H = 32, Hk = 8, S = T =
 // 2048, D = 128, bf16, causal) the two products over the causal half
@@ -25,24 +28,42 @@
 // Design.  The TPU kernel walked 512 x 512 VMEM tiles in a sequential
 // grid and carried (acc, m, l) in scratch across grid steps.  On Hopper
 // the kv loop lives inside the block instead and the state stays in
-// registers:
-//  * bf16, D in {16, 32, 64, 128} (the path): a block of 4 warps per
-//    (b, h, 64-query tile).  Each warp owns 16 query rows; its Q
-//    fragments stay in registers for the whole kv loop.  K and V tiles of
-//    64 rows are staged in shared memory (16 KB each at D = 128, rows
-//    padded by 8 elements so the fragment loads hit 32 distinct banks).
-//    QK^T and PV run on the tensor cores as mma.sync m16n8k16 (bf16 in,
-//    float32 accumulate); the score accumulator's layout is the PV
-//    A-operand's, so p goes from registers to the tensor cores without
-//    shared memory.  The row max and row sum are reduced across the four
-//    threads of a quad with shuffles.
-//  * float32 (true float32, no TF32) and bf16 at D = 8: plain FMAs.  A
-//    block of 128 threads takes 32 query rows, four threads a row, each
-//    owning every fourth feature; K and V tiles of 32 rows are staged in
-//    shared memory as float32, and each score is a quad-shuffle sum.
-// Causal blocks are launched heaviest first (the last query tiles have
-// the most kv tiles) to even out the tail.  What is left for later:
-// wgmma with TMA-fed, double-buffered K/V tiles and warp specialisation.
+// registers.  Three kernels:
+//  * bf16, D in {64, 128} (the serving path, D = 128): fa_wgmma_kernel,
+//    warp-specialised.  A block of three warpgroups takes 128 query rows
+//    of one (b, h).  The producer warpgroup gives up its registers
+//    (setmaxnreg) and one of its threads keeps a two-stage ring of K and V
+//    tiles (WG_BN = 128 rows each) full with TMA: 4-D tensor maps over
+//    (D, heads, rows, batch) carry the operands' strides, write the
+//    128-byte swizzled layout that wgmma reads without bank conflicts, and
+//    zero-fill rows past the end; mbarriers say when a tile has landed and
+//    when both consumers are done with it (K after QK^T, V after PV, so
+//    the next K refill need not wait for PV).  The two consumer warpgroups
+//    own 64 query rows each.  S = Q K^T is wgmma m64n128k16 with Q and K
+//    K-major in shared memory; O += P V is wgmma m64nDk16 with P taken
+//    from the S accumulators' registers (the accumulator layout of one
+//    16-key step is the A fragment's) and V read through the transpose
+//    flag, so neither P nor a transposed V goes through shared memory.
+//    Tile j's QK^T and tile j - 1's PV are issued together and the softmax
+//    of tile j runs while PV is in flight; the first tile runs before the
+//    loop, so that every wgmma in the loop is waited for on every path
+//    (ptxas serialises all of a kernel's wgmmas otherwise).  The two
+//    consumers run freely, so one's products fill the tensor cores while
+//    the other computes its softmax (making them take turns through named
+//    barriers was slower on the H100).  The softmax folds the scale into
+//    exp2f: p = 2^(s c - m) with c = scale log2(e) and the running max m
+//    kept in those units.
+//  * bf16, D in {16, 32}: fa_mma_kernel, 4 warps per 64-query tile on
+//    mma.sync m16n8k16, K and V tiles of 64 rows in padded shared memory.
+//  * float32 (true float32, no TF32) and bf16 at D = 8: fa_fma_kernel,
+//    plain FMAs.  A block of 128 threads takes 32 query rows, four
+//    threads a row, each owning every fourth feature; K and V tiles of
+//    32 rows are staged in shared memory as float32.
+// What is left for later: a persistent grid that overlaps one tile's
+// epilogue with the next tile's loads, and the output written through
+// shared memory with TMA.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,13 +73,10 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync m16n8k16).
-// ---------------------------------------------------------------------------
-
-constexpr int MMA_BQ = 64;        // query rows per block: 4 warps x 16
-constexpr int MMA_BK = 64;        // kv rows per shared-memory tile
-constexpr int MMA_THREADS = 128;
+// Element strides of the four operands: batch, head, sequence.
+struct Strides {
+  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
+};
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -71,6 +89,480 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
          | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on wgmma, D in {64, 128}.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 128;        // query rows per block: 2 warpgroups x 64
+constexpr int WG_BN = 128;        // kv rows per ring stage
+constexpr int WG_THREADS = 384;   // producer warpgroup + 2 consumers
+constexpr int WG_STAGES = 2;
+// Registers per thread after the hand-over: 128 x 24 + 256 x 240 <= 64 K.
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+
+template <int D>
+constexpr int wg_smem_bytes() {   // Q, the K/V ring, and 1 KB to align
+  return (WG_BM + 2 * WG_STAGES * WG_BN) * D * 2 + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// The producer's arrival, announcing `bytes` of TMA traffic to come.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// One TMA box of a 4-D (D, heads, sequence, batch) map into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for the 128-byte swizzle: start
+// address and leading and stride byte offsets, in bytes (the descriptor
+// holds them in 16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from touching the registers of an async wgmma (its
+// accumulators or its A fragments) before the wait that ends it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e]) :: "memory");
+}
+
+// d (64 x N, float32) = (scale_d ? d : 0) + A (64 x 16) B (16 x N), A and
+// B K-major in shared memory (wgmma_ss), or d += A B with A in registers
+// and B N-major in shared memory (wgmma_rs).
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// S = Q K^T for one warpgroup's 64 rows against a WG_BN-row K tile: D / 16
+// steps of 16 features.  Within a 64-column chunk a step advances the
+// start address by 32 bytes; the hardware applies the swizzle to the full
+// address.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sacc)[WG_BN / 2],
+                                         uint32_t q_s, uint32_t k_s,
+                                         int wg) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss(sacc,
+             sw128_desc(q_s + (kk / 4) * (WG_BM * 128) + wg * (64 * 128)
+                        + col, 16, 1024),
+             sw128_desc(k_s + (kk / 4) * (WG_BN * 128) + col, 16, 1024),
+             kk > 0);
+  }
+}
+
+// O += bf16(P) V: step kk's A fragment is the S accumulators of keys
+// [16 kk, 16 kk + 16); V is read N-major through the transpose flag, the
+// 16 rows of a step 2048 bytes on.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&pf)[WG_BN / 16][4],
+                                         uint32_t v_s) {
+#pragma unroll
+  for (int kk = 0; kk < WG_BN / 16; ++kk)
+    wgmma_rs(oacc, pf[kk],
+             sw128_desc(v_s + kk * 16 * 128, WG_BN * 128, 1024));
+}
+
+// The online softmax of one tile of scores (keys k0 .. k0 + WG_BN - 1) in
+// place: keys past T drop out (-inf, p = 0), causal masking writes the
+// reference's finite NEG_INF (only edge tiles need the test); the running
+// max m is kept in units of scale * log2(e), p = 2^(s c - m); l sums the
+// unrounded p.  Returns the factors al0, al1 that rescale O's rows.
+__device__ __forceinline__ void softmax_tile(
+    float (&sacc)[WG_BN / 2], int k0, int T, int causal, int wg_row0,
+    int r0, int r1, int t4, float scale_log2, float& m0, float& m1,
+    float& l0, float& l1, float& al0, float& al1) {
+  if (k0 + WG_BN > T || (causal && k0 + WG_BN - 1 > wg_row0)) {
+#pragma unroll
+    for (int i = 0; i < WG_BN / 2; ++i) {
+      const int col = k0 + (i / 4) * 8 + t4 * 2 + (i % 2);
+      const int row = (i % 4) < 2 ? r0 : r1;
+      if (col >= T) sacc[i] = -INFINITY;
+      else if (causal && col > row) sacc[i] = NEG_INF;
+    }
+  }
+  float tmax0 = -INFINITY, tmax1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < WG_BN / 2; ++i) {
+    if ((i % 4) < 2) tmax0 = fmaxf(tmax0, sacc[i]);
+    else tmax1 = fmaxf(tmax1, sacc[i]);
+  }
+  const float mn0 = fmaxf(m0, quad_max(tmax0) * scale_log2);
+  const float mn1 = fmaxf(m1, quad_max(tmax1) * scale_log2);
+  al0 = exp2f(m0 - mn0);
+  al1 = exp2f(m1 - mn1);
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < WG_BN / 2; ++i) {
+    const bool top = (i % 4) < 2;
+    const float p = exp2f(fmaf(sacc[i], scale_log2, top ? -mn0 : -mn1));
+    sacc[i] = p;
+    if (top) ps0 += p;
+    else ps1 += p;
+  }
+  l0 = l0 * al0 + quad_sum(ps0);
+  l1 = l1 * al1 + quad_sum(ps1);
+  m0 = mn0;
+  m1 = mn1;
+}
+
+// p rounded to bf16 as the PV product's A fragments.
+__device__ __forceinline__ void pack_p(const float (&sacc)[WG_BN / 2],
+                                       uint32_t (&pf)[WG_BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < WG_BN / 16; ++kk) {
+    pf[kk][0] = pack_f32(sacc[8 * kk], sacc[8 * kk + 1]);
+    pf[kk][1] = pack_f32(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pf[kk][2] = pack_f32(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pf[kk][3] = pack_f32(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, Strides st, int H, int Hk,
+                int S, int T, float scale_log2, int causal) {
+  constexpr uint32_t Q_BYTES = WG_BM * D * 2;
+  constexpr uint32_t KV_BYTES = WG_BN * D * 2;     // one K or V tile
+  constexpr int CHUNKS = D / 64;                   // 128-byte column chunks
+  extern __shared__ uint8_t fa_smem[];
+  // mbarriers: Q landed; per stage K landed, V landed, K consumed, V
+  // consumed.
+  __shared__ __align__(8) uint64_t bars[1 + 4 * WG_STAGES];
+  // Swizzle atoms are 1024 bytes and must start on a 1024-byte boundary.
+  const uint32_t q_s = (smem_u32(fa_smem) + 1023) & ~1023u;
+  const uint32_t k_ring = q_s + Q_BYTES;
+  const uint32_t v_ring = k_ring + WG_STAGES * KV_BYTES;
+  const uint32_t q_full = smem_u32(&bars[0]);
+  const uint32_t k_full = smem_u32(&bars[1]);                  // + 8 s
+  const uint32_t v_full = smem_u32(&bars[1 + WG_STAGES]);
+  const uint32_t k_empty = smem_u32(&bars[1 + 2 * WG_STAGES]);
+  const uint32_t v_empty = smem_u32(&bars[1 + 3 * WG_STAGES]);
+
+  const int qt = gridDim.y - 1 - blockIdx.y;      // heaviest tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int hk = h / (H / Hk);
+  const int q0 = qt * WG_BM;
+  int n_kv = (T + WG_BN - 1) / WG_BN;
+  if (causal) n_kv = min(n_kv, (min(q0 + WG_BM, S) - 1) / WG_BN + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);              // the 8 consumer warps
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: one thread keeps the TMA ring full; the warpgroup hands
+    // its registers to the consumers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int c = 0; c < CHUNKS; ++c)
+        tma_load(q_s + c * (WG_BM * 128), tq, q_full, c * 64, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % WG_STAGES;
+        const uint32_t free_parity = ((j / WG_STAGES) & 1) ^ 1;
+        mbar_wait(k_empty + 8 * s, free_parity);
+        mbar_expect_tx(k_full + 8 * s, KV_BYTES);
+        for (int c = 0; c < CHUNKS; ++c)
+          tma_load(k_ring + s * KV_BYTES + c * (WG_BN * 128), tk,
+                   k_full + 8 * s, c * 64, hk, j * WG_BN, b);
+        mbar_wait(v_empty + 8 * s, free_parity);
+        mbar_expect_tx(v_full + 8 * s, KV_BYTES);
+        for (int c = 0; c < CHUNKS; ++c)
+          tma_load(v_ring + s * KV_BYTES + c * (WG_BN * 128), tv,
+                   v_full + 8 * s, c * 64, hk, j * WG_BN, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64).
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int wg = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wg_row0 = q0 + wg * 64;
+  const int r0 = wg_row0 + warp * 16 + g, r1 = r0 + 8;
+
+  float oacc[D / 2], sacc[WG_BN / 2];
+  uint32_t pf[WG_BN / 16][4];      // bf16(p) of the last tile, A fragments
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0, al1;
+  mbar_wait(q_full, 0);
+
+  // Tile 0 alone, so that in the loop every PV issued is waited for on
+  // every path (a wait that ptxas cannot prove makes it serialise every
+  // wgmma of the kernel).
+  if (n_kv > 0) {
+    mbar_wait(k_full, 0);
+    wgmma_fence();
+    issue_qk<D>(sacc, q_s, k_ring, wg);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    if (lane == 0) mbar_arrive(k_empty);
+    softmax_tile(sacc, 0, T, causal, wg_row0, r0, r1, t4, scale_log2, m0,
+                 m1, l0, l1, al0, al1);
+    pack_p(sacc, pf);
+  }
+  for (int j = 1; j < n_kv; ++j) {
+    const int s = j % WG_STAGES;
+    const int sp = (j - 1) % WG_STAGES;          // tile j - 1's stage
+    mbar_wait(k_full + 8 * s, (j / WG_STAGES) & 1);
+    wgmma_fence();
+    issue_qk<D>(sacc, q_s, k_ring + s * KV_BYTES, wg);
+    wgmma_commit();
+    // O += bf16(P_{j-1}) V_{j-1}, in flight during this tile's softmax.
+    mbar_wait(v_full + 8 * sp, ((j - 1) / WG_STAGES) & 1);
+    issue_pv<D>(oacc, pf, v_ring + sp * KV_BYTES);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sacc);
+    if (lane == 0) mbar_arrive(k_empty + 8 * s);      // K_j is read
+    softmax_tile(sacc, j * WG_BN, T, causal, wg_row0, r0, r1, t4,
+                 scale_log2, m0, m1, l0, l1, al0, al1);
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    fence_regs(pf);
+    if (lane == 0) mbar_arrive(v_empty + 8 * sp);     // V_{j-1} is read
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] *= (i % 4) < 2 ? al0 : al1;
+    pack_p(sacc, pf);
+  }
+  if (n_kv > 0) {                 // the last tile's PV
+    const int sp = (n_kv - 1) % WG_STAGES;
+    mbar_wait(v_full + 8 * sp, ((n_kv - 1) / WG_STAGES) & 1);
+    wgmma_fence();
+    issue_pv<D>(oacc, pf, v_ring + sp * KV_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    fence_regs(pf);
+  }
+
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* oh = o + b * st.ob + h * st.oh;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) {
+    const int c = u * 8 + t4 * 2;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(oh + r0 * st.os + c) =
+          pack_f32(oacc[4 * u] / d0, oacc[4 * u + 1] / d0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(oh + r1 * st.os + c) =
+          pack_f32(oacc[4 * u + 2] / d1, oacc[4 * u + 3] / d1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on mma.sync m16n8k16, D in {16, 32}.
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_BQ = 64;        // query rows per block: 4 warps x 16
+constexpr int MMA_BK = 64;        // kv rows per shared-memory tile
+constexpr int MMA_THREADS = 128;
+
+
+
 // d += a (16 x 16, row-major) @ b (16 x 8, column-major), float32 sums.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -82,22 +574,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // Two consecutive bf16 of row `row` (zero past the last row) as one word.
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base,
                                               int row, int col, int rows,
-                                              int D) {
+                                              long long stride) {
   if (row >= rows) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + (long long)row * D + col);
+  return *reinterpret_cast<const uint32_t*>(base + row * stride + col);
 }
 
 template <int D>
@@ -105,8 +589,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
 fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int H, int Hk, int S, int T,
-              float scale, int causal) {
+              __nv_bfloat16* __restrict__ o, Strides st, int H, int Hk,
+              int S, int T, float scale, int causal) {
   constexpr int LD = D + 8;                 // padded shared row (elements)
   constexpr int PACKS = D / 8;              // 16-byte packs per row
   __shared__ __align__(16) __nv_bfloat16 ks[MMA_BK * LD];
@@ -121,19 +605,19 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = q0 + warp * 16 + g;        // this thread's rows: r0, r0 + 8
   const int r1 = r0 + 8;
 
-  const __nv_bfloat16* qh = q + ((long long)b * H + h) * S * D;
-  const __nv_bfloat16* kh = k + ((long long)b * Hk + hk) * T * D;
-  const __nv_bfloat16* vh = v + ((long long)b * Hk + hk) * T * D;
+  const __nv_bfloat16* qh = q + b * st.qb + h * st.qh;
+  const __nv_bfloat16* kh = k + b * st.kb + hk * st.kh;
+  const __nv_bfloat16* vh = v + b * st.vb + hk * st.vh;
 
   // Q as A fragments, one per 16-feature step, for the whole kv loop.
   uint32_t qf[D / 16][4];
 #pragma unroll
   for (int s = 0; s < D / 16; ++s) {
     const int c = s * 16 + t4 * 2;
-    qf[s][0] = load_pair(qh, r0, c, S, D);
-    qf[s][1] = load_pair(qh, r1, c, S, D);
-    qf[s][2] = load_pair(qh, r0, c + 8, S, D);
-    qf[s][3] = load_pair(qh, r1, c + 8, S, D);
+    qf[s][0] = load_pair(qh, r0, c, S, st.qs);
+    qf[s][1] = load_pair(qh, r1, c, S, st.qs);
+    qf[s][2] = load_pair(qh, r0, c + 8, S, st.qs);
+    qf[s][3] = load_pair(qh, r1, c + 8, S, st.qs);
   }
 
   float acc[D / 8][4];
@@ -154,8 +638,8 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int r = e / PACKS, c = (e % PACKS) * 8;
       uint4 kp = make_uint4(0u, 0u, 0u, 0u), vp = kp;
       if (k0 + r < T) {
-        kp = *reinterpret_cast<const uint4*>(kh + (long long)(k0 + r) * D + c);
-        vp = *reinterpret_cast<const uint4*>(vh + (long long)(k0 + r) * D + c);
+        kp = *reinterpret_cast<const uint4*>(kh + (k0 + r) * st.ks + c);
+        vp = *reinterpret_cast<const uint4*>(vh + (k0 + r) * st.vs + c);
       }
       *reinterpret_cast<uint4*>(ks + r * LD + c) = kp;
       *reinterpret_cast<uint4*>(vs + r * LD + c) = vp;
@@ -237,15 +721,15 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* oh = o + ((long long)b * H + h) * S * D;
+  __nv_bfloat16* oh = o + b * st.ob + h * st.oh;
 #pragma unroll
   for (int u = 0; u < D / 8; ++u) {
     const int c = u * 8 + t4 * 2;
     if (r0 < S)
-      *reinterpret_cast<uint32_t*>(oh + (long long)r0 * D + c) =
+      *reinterpret_cast<uint32_t*>(oh + r0 * st.os + c) =
           pack_f32(acc[u][0] / d0, acc[u][1] / d0);
     if (r1 < S)
-      *reinterpret_cast<uint32_t*>(oh + (long long)r1 * D + c) =
+      *reinterpret_cast<uint32_t*>(oh + r1 * st.os + c) =
           pack_f32(acc[u][2] / d1, acc[u][3] / d1);
   }
 }
@@ -277,8 +761,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(F_THREADS)
 fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int H, int Hk,
-              int S, int Tk, float scale, int causal) {
+              const T* __restrict__ v, T* __restrict__ o, Strides st,
+              int H, int Hk, int S, int Tk, float scale, int causal) {
   constexpr int DP = D / 4;                 // features per thread
   __shared__ float ks[F_BK][D];
   __shared__ float vs[F_BK][D];
@@ -289,14 +773,14 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int part = threadIdx.x % 4;         // features part, part + 4, ...
   const int row = qt * F_BQ + threadIdx.x / 4;
 
-  const T* qh = q + ((long long)b * H + h) * S * D;
-  const T* kh = k + ((long long)b * Hk + hk) * Tk * D;
-  const T* vh = v + ((long long)b * Hk + hk) * Tk * D;
+  const T* qh = q + b * st.qb + h * st.qh;
+  const T* kh = k + b * st.kb + hk * st.kh;
+  const T* vh = v + b * st.vb + hk * st.vh;
 
   float qr[DP], acc[DP];
 #pragma unroll
   for (int i = 0; i < DP; ++i) {
-    qr[i] = row < S ? to_f32(qh[(long long)row * D + i * 4 + part]) : 0.f;
+    qr[i] = row < S ? to_f32(qh[row * st.qs + i * 4 + part]) : 0.f;
     acc[i] = 0.f;
   }
   float m = NEG_INF, l = 0.f;
@@ -311,8 +795,8 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = threadIdx.x; e < F_BK * D; e += F_THREADS) {
       const int r = e / D, c = e % D;
       const bool in = k0 + r < Tk;
-      ks[r][c] = in ? to_f32(kh[(long long)(k0 + r) * D + c]) : 0.f;
-      vs[r][c] = in ? to_f32(vh[(long long)(k0 + r) * D + c]) : 0.f;
+      ks[r][c] = in ? to_f32(kh[(k0 + r) * st.ks + c]) : 0.f;
+      vs[r][c] = in ? to_f32(vh[(k0 + r) * st.vs + c]) : 0.f;
     }
     __syncthreads();
 
@@ -351,30 +835,105 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row < S) {
     const float den = fmaxf(l, 1e-30f);
-    T* orow = o + ((long long)b * H + h) * S * D + (long long)row * D;
+    T* orow = o + b * st.ob + h * st.oh + row * st.os;
 #pragma unroll
     for (int i = 0; i < DP; ++i) store(orow + i * 4 + part, acc[i] / den);
   }
 }
 
 template <typename T, int D>
-int launch_fma(const T* q, const T* k, const T* v, T* o, int B, int H,
-               int Hk, int S, int Tk, float scale, int causal,
+int launch_fma(const T* q, const T* k, const T* v, T* o, const Strides& st,
+               int B, int H, int Hk, int S, int Tk, float scale, int causal,
                cudaStream_t stream) {
   const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
-  fa_fma_kernel<T, D><<<grid, F_THREADS, 0, stream>>>(q, k, v, o, H, Hk, S,
-                                                     Tk, scale, causal);
+  fa_fma_kernel<T, D><<<grid, F_THREADS, 0, stream>>>(q, k, v, o, st, H, Hk,
+                                                     S, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-               const __nv_bfloat16* v, __nv_bfloat16* o, int B, int H,
-               int Hk, int S, int Tk, float scale, int causal,
+               const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
+               int B, int H, int Hk, int S, int Tk, float scale, int causal,
                cudaStream_t stream) {
   const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, H, B);
-  fa_mma_kernel<D><<<grid, MMA_THREADS, 0, stream>>>(q, k, v, o, H, Hk, S,
-                                                    Tk, scale, causal);
+  fa_mma_kernel<D><<<grid, MMA_THREADS, 0, stream>>>(q, k, v, o, st, H, Hk,
+                                                    S, Tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, fetched through the runtime once (no link
+// against libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 4-D TMA map over a bf16 tensor (D, heads, rows, batch) with element
+// strides (sh, ss, sb), boxes of 64 features x box_rows rows, 128-byte
+// swizzle; reads past the last row are zeros.  An axis of extent 1 gets
+// a nominal stride (it is never stepped).
+bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
+              int batch, long long sh, long long ss, long long sb,
+              int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {
+      (cuuint64_t)(heads > 1 ? sh : D) * 2, (cuuint64_t)(rows > 1 ? ss : D) * 2,
+      (cuuint64_t)(batch > 1 ? sb : D) * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                 const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
+                 int B, int H, int Hk, int S, int Tk, float scale, int causal,
+                 cudaStream_t stream) {
+  constexpr int smem = wg_smem_bytes<D>();
+  if ((S + WG_BM - 1) / WG_BM > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, H, S, B, st.qh, st.qs, st.qb, WG_BM))
+    return (int)cudaErrorInvalidValue;
+  if (Tk == 0) {                  // no key tile is ever loaded
+    tk = tv = tq;
+  } else if (!make_map(&tk, k, D, Hk, Tk, B, st.kh, st.ks, st.kb, WG_BN)
+             || !make_map(&tv, v, D, Hk, Tk, B, st.vh, st.vs, st.vb, WG_BN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // Raise the shared-memory limit once per device, so that a launch
+  // captured into a CUDA graph is a launch and nothing else.
+  static unsigned long long configured = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (!(configured >> device & 1ull)) {
+    err = cudaFuncSetAttribute(fa_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    configured |= 1ull << device;
+  }
+  // (b, h) on x, query tiles on y: every head's heaviest tile is issued
+  // before any lighter one, and heads that share a KV head run together.
+  const dim3 grid((unsigned)B * H, (S + WG_BM - 1) / WG_BM);
+  fa_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, o, st, H, Hk, S, Tk, scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
@@ -382,38 +941,53 @@ bool bad_shape(int B, int H, int Hk, int S, int Tk) {
   return B < 0 || S < 0 || Tk < 0 || H <= 0 || Hk <= 0 || H % Hk != 0;
 }
 
+Strides strides_from(const long long* s) {
+  return Strides{s[0], s[1], s[2], s[3], s[4], s[5],
+                 s[6], s[7], s[8], s[9], s[10], s[11]};
+}
+
 }  // namespace
 
+// strides: 12 element strides (batch, head, sequence) of q, k, v, out.
 extern "C" int flash_attn_f32(const float* q, const float* k, const float* v,
-                              float* o, int B, int H, int Hk, int S, int Tk,
-                              int D, float scale, int causal,
-                              cudaStream_t stream) {
+                              float* o, const long long* strides, int B,
+                              int H, int Hk, int S, int Tk, int D,
+                              float scale, int causal, cudaStream_t stream) {
   if (bad_shape(B, H, Hk, S, Tk)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
+  const Strides st = strides_from(strides);
   switch (D) {
-    case 8: return launch_fma<float, 8>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
-    case 16: return launch_fma<float, 16>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
-    case 32: return launch_fma<float, 32>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
-    case 64: return launch_fma<float, 64>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
-    case 128: return launch_fma<float, 128>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
+    case 8: return launch_fma<float, 8>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 16: return launch_fma<float, 16>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 32: return launch_fma<float, 32>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 64: return launch_fma<float, 64>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 128: return launch_fma<float, 128>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, __nv_bfloat16* o,
-                               int B, int H, int Hk, int S, int Tk, int D,
-                               float scale, int causal, cudaStream_t stream) {
+                               const long long* strides, int B, int H,
+                               int Hk, int S, int Tk, int D, float scale,
+                               int causal, cudaStream_t stream) {
   if (bad_shape(B, H, Hk, S, Tk)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
+  const Strides st = strides_from(strides);
   switch (D) {
-    case 8: return launch_fma<__nv_bfloat16, 8>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
-    case 16: return launch_mma<16>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
-    case 32: return launch_mma<32>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
-    case 64: return launch_mma<64>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
-    case 128: return launch_mma<128>(q, k, v, o, B, H, Hk, S, Tk, scale, causal, stream);
+    case 8: return launch_fma<__nv_bfloat16, 8>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 16: return launch_mma<16>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 32: return launch_mma<32>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 64: return launch_wgmma<64>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared memory of the wgmma kernel at head width D (0 if D has
+// none).
+extern "C" int flash_attn_wgmma_smem(int D) {
+  return D == 64 ? wg_smem_bytes<64>() : D == 128 ? wg_smem_bytes<128>() : 0;
 }
 
 extern "C" const char* flash_attn_error_string(int err) {

@@ -36,17 +36,21 @@ from repro_torch.launch import steps
 from repro_torch.models import init_params
 
 # Profiler kernel name fragment -> wrapper counter of that kernel.
-KERNEL_NAMES = {"fft4_stage_kernel": "fft4_stage", "mm_kernel": "matmul",
+KERNEL_NAMES = {"fft4_stage_kernel": "fft4_stage",
+                "fft4_fused_kernel": "fft4_fused", "mm_kernel": "matmul",
                 "partials_kernel": "dotp_partials",
                 "central_kernel": "dotp_central",
                 "combine_kernel": "combine_partials",
                 "axpy_kernel": "axpy", "dct_kernel": "dct",
                 "conv2d_kernel": "conv2d", "powf_kernel": "powf",
-                "fa_mma_kernel": "flash_attention"}
+                "fa_wgmma_kernel": "flash_attention",
+                "fa_mma_kernel": "flash_attention",
+                "fa_fma_kernel": "flash_attention"}
 
 
 def _counters() -> dict:
     return dict(dotp.LAUNCHES, fft4_stage=fft4.LAUNCHES,
+                fft4_fused=fft4.FUSED_LAUNCHES,
                 matmul=matmul.LAUNCHES, axpy=axpy.LAUNCHES,
                 dct=dct.LAUNCHES, conv2d=conv2d.LAUNCHES,
                 powf=powf.LAUNCHES, flash_attention=flash_attn.LAUNCHES)
@@ -101,7 +105,7 @@ def profile_run(fn) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall,
             "kernel_launches": sum(e.count for e in kernels),

@@ -28,8 +28,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+# -Xptxas -v: each kernel's registers, shared memory and spills, kept in
+# the library's log (see compiler_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Host helpers: no fast-math and no vectorization, so a call of a C
 # library function stays one scalar call.
 CC_FLAGS = ("-O1", "-fno-tree-vectorize", "-fno-fast-math", "-shared",
@@ -126,6 +128,7 @@ def build(names) -> dict:
                 failures.append(f"--- {source_path(name).name} ---\n{log}")
                 os.unlink(tmp)
             else:
+                paths[name].with_suffix(".log").write_text(log)
                 os.replace(tmp, paths[name])
         if failures:
             raise RuntimeError("build failed:\n" + "\n".join(failures))
@@ -137,6 +140,13 @@ def build(names) -> dict:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return paths
+
+
+def compiler_log(name: str) -> str:
+    """What the compiler printed when it built ``name`` (for a ``.cu``
+    source, ptxas's registers, shared memory and spills of each
+    kernel), building the library first if it is missing."""
+    return build([name])[name].with_suffix(".log").read_text()
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

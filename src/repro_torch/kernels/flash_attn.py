@@ -5,9 +5,13 @@ kernel ``_fa_kernel``).  The CUDA kernel (``csrc/flash_attn.cu``) takes
 q (B, H, S, D) and k, v (B, Hk, T, D) with ``H`` a multiple of ``Hk``
 (query head ``h`` reads KV head ``h // (H // Hk)``), float32 or
 bfloat16, ``D`` in :data:`HEAD_DIMS`, and returns (B, H, S, D) in q's
-dtype.  bfloat16 runs on the tensor cores (``mma.sync``), float32 in
-true float32 FMAs.  At the serving path's prefill it is bound by
-tensor-core operations.  The plain version is
+dtype.  Each operand, and the output, may be a strided view whose
+feature axis is contiguous (:func:`layout_error` says what the kernel
+reads), so the model hands it its (B, S, H, D) projections transposed,
+without a copy.  bfloat16 runs on the tensor cores (``wgmma`` at D 64
+and 128, ``mma.sync`` at 16 and 32), float32 and D = 8 in true float32
+FMAs.  At the serving path's prefill it is bound by tensor-core
+operations.  The plain version is
 :func:`repro_torch.kernels.ref.flash_attention` cast to q's dtype, the
 path for CPU tensors and the kernel's oracle on the card.
 """
@@ -24,9 +28,12 @@ LAUNCHES = 0
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 
-_SIGNATURES = {fn: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+# q, k, v, out, their 12 strides, B, H, Hk, S, T, D, scale, causal, stream.
+_SIGNATURES = {fn: [ctypes.c_void_p] * 4
+               + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
                for fn in ("flash_attn_f32", "flash_attn_bf16")}
+_SIGNATURES["flash_attn_wgmma_smem"] = [ctypes.c_int]
 _ENTRY = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
 
 
@@ -36,19 +43,46 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.flash_attention(q, k, v, causal=causal).to(q.dtype)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous with a 16-byte-aligned base (the kernel's vector
-    loads need it)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def layout_error(shape, strides, base: int):
+    """Why the kernel cannot read (or write) an operand of this ``shape``
+    and ``strides`` (elements) at address ``base``, or None.  The
+    feature axis must be contiguous, the base 16-byte aligned, and the
+    batch, head and sequence strides multiples of 8 elements, so that
+    every 8-element pack of a row is one aligned 16-byte copy (axes of
+    size 1 are never stepped, so their strides do not matter)."""
+    if strides[-1] != 1:
+        return f"has stride {strides[-1]} on its feature axis, not 1"
+    if base % 16:
+        return f"starts at {base}, not on a 16-byte boundary"
+    bad = [st for size, st in zip(shape[:-1], strides[:-1])
+           if size > 1 and st % 8]
+    if bad:
+        return f"has strides {tuple(strides)}, not multiples of 8 elements"
+    return None
+
+
+def _strides(*tensors):
+    """The kernel's 12 strides (batch, head, sequence of each tensor) as
+    a C array, after checking each tensor's layout."""
+    for name, t in zip(("q", "k", "v", "out"), tensors):
+        err = layout_error(t.shape, t.stride(), t.data_ptr())
+        if err:
+            raise ValueError(f"flash_attention: {name} {err}")
+    flat = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """Attention over q (B, H, S, D) and k, v (B, Hk, T, D) with scale
-    ``D ** -0.5``; causal masking by absolute position.  CUDA tensors
-    launch the kernel (float32 or bfloat16 operands of one dtype, ``D``
-    in :data:`HEAD_DIMS`); CPU tensors take the plain version."""
+    ``D ** -0.5``; causal masking by absolute position.  Writes into
+    ``out`` (q's shape and dtype, any layout :func:`layout_error`
+    accepts) if given, else into a new tensor laid out like q, and
+    returns it.  CUDA tensors launch the kernel (float32 or bfloat16
+    operands of one dtype, ``D`` in :data:`HEAD_DIMS`, layouts that
+    :func:`layout_error` accepts; anything else raises); CPU tensors take
+    the plain version in any layout."""
     global LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention needs q (B, H, S, D) and k, v "
@@ -62,8 +96,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"Hk)")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention operands must share one device")
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype
+                            or out.device != q.device):
+        raise ValueError(f"flash_attention: out must be {tuple(q.shape)} "
+                         f"{q.dtype} on {q.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        res = flash_attention_plain(q, k, v, causal=causal)
+        return res if out is None else out.copy_(res)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -73,14 +113,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
                          f"got {d}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    strides = _strides(q, k, v, out)
     lib = _build.load("flash_attn", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            hk, s, t, d, d ** -0.5, int(causal), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, b, h, hk, s, t, d, d ** -0.5, int(causal), stream)
     _build.check(lib, "flash_attn", err)
     LAUNCHES += 1
     return out

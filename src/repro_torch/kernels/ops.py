@@ -2,8 +2,11 @@
 ``matmul``, ``dotp``, ``axpy``, ``conv2d``, ``dct`` and
 ``flash_attention`` wrappers of ``repro.kernels.ops``).
 
-``fft4`` chains log4(n) :func:`~repro_torch.kernels.fft4.fft4_stage`
-launches and returns the digit-reversed spectrum; ``matmul`` is the
+``fft4`` runs every stage of a row in one
+:func:`~repro_torch.kernels.fft4.fft4_fused` launch (rows longer than
+its shared memory first take
+:func:`~repro_torch.kernels.fft4.fft4_stage` launches) and returns the
+digit-reversed spectrum; ``matmul`` is the
 beamforming product; ``dotp`` is the dot product as a central
 accumulator or a k-ary reduction tree; ``axpy`` is ``a * x + y``;
 ``conv2d`` the 3x3 "same" convolution; ``dct`` the row-wise DCT-II;
@@ -45,21 +48,36 @@ def _stage_twiddles(n: int, stage: int, device: torch.device) -> tuple:
     return wr.to(device), wi.to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def fused_twiddles(L: int, device: torch.device) -> tuple:
+    """The fused kernel's twiddle table for rows of length ``L``: every
+    stage's :func:`_stage_twiddles` planes back to back, ``L - 1``
+    float32 values each for re and im, built once per (L, device)."""
+    planes = [_stage_twiddles(L, s, device) for s in range(_fft4.log4(L))]
+    return (torch.cat([wr.reshape(-1) for wr, _ in planes]),
+            torch.cat([wi.reshape(-1) for _, wi in planes]))
+
+
 def fft4(re: torch.Tensor, im: torch.Tensor) -> tuple:
     """Radix-4 DIF FFT over rows; returns the digit-reversed spectrum
-    (re, im) as float32.  One stage launch per radix-4 digit, as the
-    paper schedules one partially synchronized stage at a time
-    (Fig. 3)."""
-    n = re.shape[-1]
-    stages = int(round(math.log(n, 4)))
-    if 4 ** stages != n:
-        raise ValueError(f"fft4 needs a power-of-4 length, got {n}")
+    (re, im) as float32.  Rows of up to
+    :data:`~repro_torch.kernels.fft4.L_MAX` points run every stage in one
+    fused launch; a longer row first runs stage launches until its
+    sub-transforms fit (:func:`~repro_torch.kernels.fft4.fft4_plan`).
+    Each stage is one partially synchronized step of the paper's Fig. 3,
+    a block-wide barrier inside the fused kernel."""
+    rows, n = re.shape
+    lead, L = _fft4.fft4_plan(n, _fft4.L_MAX)
     re = re.to(torch.float32)
     im = im.to(torch.float32)
-    for s in range(stages):
+    if n == 1:                  # no stage: the spectrum is the sample
+        return re, im
+    for s in range(lead):
         wr, wi = _stage_twiddles(n, s, re.device)
         re, im = _fft4.fft4_stage(re, im, wr, wi)
-    return re, im
+    wr, wi = fused_twiddles(L, re.device)
+    re, im = _fft4.fft4_fused(re.reshape(-1, L), im.reshape(-1, L), wr, wi)
+    return re.reshape(rows, n), im.reshape(rows, n)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -161,9 +161,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B,T,Hk,D[v]) -> (B,S,H,Dv) in q's dtype.
 
     CPU tensors run :func:`chunked_attention`.  CUDA tensors launch the
-    flash-attention kernel on (B, H, S, D) transposes (``chunk`` is the
-    CPU algorithm's blocking; the kernel has its own tiles); the
-    sliding window and ``Dv != D`` raise ``NotImplementedError``.
+    flash-attention kernel on (B, H, S, D) transposed views, which it
+    reads in place, and it writes a (B, S, H, D) output, so no operand
+    is copied (``chunk`` is the CPU algorithm's blocking; the kernel has
+    its own tiles); the sliding window and ``Dv != D`` raise
+    ``NotImplementedError``.
     """
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
@@ -177,9 +179,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "attention with a value width or scale of its own (MLA) on the "
             "card comes with the MLA/MoE slice")
-    out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal)
-    return out.transpose(1, 2)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal,
+                        out=out.transpose(1, 2))
+    return out
 
 
 # ---------------------------------------------------------------------------

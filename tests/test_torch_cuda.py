@@ -312,3 +312,112 @@ def test_flash_attention_rejects_other_head_dims_and_dtypes(cuda):
     x = torch.ones(1, 2, 8, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attn.flash_attention(x, x, x)
+
+
+def _bf16(cuda, gen, *shape):
+    return torch.randn(*shape, device=cuda, generator=gen).bfloat16()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [33, 100, 2047, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4, 7])
+def test_flash_attention_wgmma_matches_plain(cuda, d, s, causal, group):
+    """The wgmma kernel (bf16, D 64 and 128) against the plain version;
+    the same inputs as the model's (B, S, H, D) tensors seen through
+    transpose(1, 2) give the contiguous call's bits."""
+    hk = 1 if group == 7 else 2
+    h = group * hk
+    gen = torch.Generator(device=cuda).manual_seed(s + d + group)
+    q = _bf16(cuda, gen, 2, h, s, d)
+    k, v = _bf16(cuda, gen, 2, hk, s, d), _bf16(cuda, gen, 2, hk, s, d)
+    before = flash_attn.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_attn.LAUNCHES == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    out = torch.empty(2, s, h, d, device=cuda, dtype=torch.bfloat16)
+    flash_attn.flash_attention(qv, kv, vv, causal=causal,
+                               out=out.transpose(1, 2))
+    assert torch.equal(out.transpose(1, 2), got)
+
+
+def test_flash_attention_rejects_layouts_the_kernel_cannot_read(cuda):
+    x = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="feature axis"):
+        flash_attn.flash_attention(x.transpose(2, 3), x, x)
+    flat = torch.zeros(2 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attn.flash_attention(x, flat[1:].view(1, 2, 64, 64), x)
+
+
+def test_model_attention_reads_and_writes_the_projections_in_place(cuda):
+    """At D = 128 the model's attention is one launch and one allocation,
+    its output: no copy of q, k or v, and an output the (B, S, H * D)
+    reshape reads as a view."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _bf16(cuda, gen, 2, 256, 8, 128)
+    k, v = _bf16(cuda, gen, 2, 256, 2, 128), _bf16(cuda, gen, 2, 256, 2, 128)
+    attention.flash_attention(q, k, v, causal=True)     # build and warm
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    before = flash_attn.LAUNCHES
+    out = attention.flash_attention(q, k, v, causal=True)
+    assert flash_attn.LAUNCHES == before + 1
+    assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] \
+        == allocs + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    assert out.reshape(2, 256, -1).data_ptr() == out.data_ptr()
+    want = attention.chunked_attention(q, k, v, causal=True, chunk=64)
+    torch.testing.assert_close(out.float(), want.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
+
+
+def _stage_kernel_chain(re, im):
+    n = re.shape[1]
+    for s in range(fft4.log4(n)):
+        re, im = fft4.fft4_stage(re, im, *ops._stage_twiddles(n, s, re.device))
+    return re, im
+
+
+@pytest.mark.parametrize("n", [16, 64, 256, 1024, 4096])
+@pytest.mark.parametrize("rows", [3, 896])
+def test_fft4_fused_is_one_launch_equal_to_the_stage_chain(cuda, n, rows):
+    """One fused launch, equal to the stage kernel chain and to its plain
+    version (the plain stage chain) within 1e-5 of the largest output."""
+    gen = torch.Generator(device=cuda).manual_seed(n * rows)
+    re = torch.randn(rows, n, device=cuda, generator=gen)
+    im = torch.randn(rows, n, device=cuda, generator=gen)
+    before = (fft4.LAUNCHES, fft4.FUSED_LAUNCHES)
+    fr, fi = ops.fft4(re, im)
+    assert (fft4.LAUNCHES, fft4.FUSED_LAUNCHES) == (before[0],
+                                                    before[1] + 1)
+    cr, ci = _stage_kernel_chain(re, im)
+    scale = max(cr.abs().max().item(), ci.abs().max().item())
+    torch.testing.assert_close(fr, cr, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(fi, ci, rtol=0, atol=1e-5 * scale)
+    pr, pi = fft4.fft4_fused_plain(re, im, *ops.fused_twiddles(n, cuda))
+    torch.testing.assert_close(fr, pr, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(fi, pi, rtol=0, atol=1e-5 * scale)
+
+
+def test_fft4_above_l_max_runs_stage_launches_then_the_fused_kernel(cuda):
+    rows, n = 3, 4 ** 8
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    re = torch.randn(rows, n, device=cuda, generator=gen)
+    im = torch.randn(rows, n, device=cuda, generator=gen)
+    lead, length = fft4.fft4_plan(n)
+    assert (lead, length) == (1, fft4.L_MAX)
+    before = (fft4.LAUNCHES, fft4.FUSED_LAUNCHES)
+    fr, fi = ops.fft4(re, im)
+    assert (fft4.LAUNCHES, fft4.FUSED_LAUNCHES) == (before[0] + lead,
+                                                    before[1] + 1)
+    want = torch.fft.fft(torch.complex(re.double(), im.double()))[
+        :, ref.digit_reverse_indices(n, device=cuda)]
+    torch.testing.assert_close(fr.double(), want.real, rtol=1e-3, atol=2e-3)
+    torch.testing.assert_close(fi.double(), want.imag, rtol=1e-3, atol=2e-3)

@@ -376,6 +376,26 @@ def test_chip_smoke_kernel_tables_cover_every_kernel():
         assert (root / path).is_file() and int(line) > 0, name
 
 
+@pytest.mark.parametrize("timing", ["eager", "graph"])
+def test_chip_smoke_kernel_entry_says_how_it_was_timed(timing):
+    """Every entry of the summary line carries the contract's keys and
+    its timing method; a graph-timed entry also gives its eager times."""
+    smoke = _chip_smoke()
+    rec = {"max_abs_err": 0.0, "ms": 0.04, "plain_ms": 1.6,
+           "bound_ms": 0.0175, "bound_by": "bytes", "library_ms": 0.08,
+           "shape": [896, 4096]}
+    if timing == "graph":
+        rec.update(timing="graph", eager_ms=0.05, library_eager_ms=0.09)
+    entry = smoke.kernel_entry("fft4_fused", rec, 1)
+    assert {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} \
+        <= set(entry)
+    assert entry["timing"] == timing and entry["launches"] == 1
+    assert ("eager_ms" in entry) == (timing == "graph")
+    if timing == "graph":
+        assert (entry["eager_ms"], entry["library_eager_ms"]) == (0.05, 0.09)
+
+
 def test_chip_smoke_pareto_range_covers_the_model():
     """The powf check's base range holds every base the Pareto tail
     passes to ``powf`` at 64, 256 and 1024 PEs."""

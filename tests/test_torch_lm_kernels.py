@@ -74,3 +74,63 @@ def test_wrapper_rejects_mismatched_shapes(shapes):
     q, k = torch.zeros(qs), torch.zeros(ks)
     with pytest.raises(ValueError):
         flash_attn.flash_attention(q, k, k)
+
+
+def _layout(t):
+    return flash_attn.layout_error(t.shape, t.stride(), t.data_ptr())
+
+
+@pytest.mark.parametrize("d", [8, 16, 64, 128])
+def test_kernel_layout_accepts_the_models_transposed_views(d):
+    """The model's (B, S, H, D) projections and output, seen as (B, H, S,
+    D) through transpose(1, 2), and contiguous heads: all readable."""
+    x = torch.zeros(2, 48, 4, d)
+    assert _layout(x.transpose(1, 2)) is None
+    assert _layout(x.transpose(1, 2).contiguous()) is None
+
+
+@pytest.mark.parametrize("shape,strides,base,why", [
+    ((2, 4, 16, 64), (4096, 1024, 1, 16), 0, "feature axis"),
+    ((2, 4, 16, 64), (4096, 1024, 64, 1), 8, "16-byte boundary"),
+    ((2, 4, 16, 64), (4096, 1028, 64, 1), 0, "multiples of 8"),
+    ((2, 4, 16, 64), (4100, 1024, 64, 1), 0, "multiples of 8"),
+    ((2, 4, 16, 64), (4096, 1024, 68, 1), 0, "multiples of 8"),
+])
+def test_kernel_layout_rejects_what_it_cannot_read(shape, strides, base, why):
+    assert why in flash_attn.layout_error(shape, strides, base)
+
+
+def test_kernel_layout_ignores_strides_of_single_axes():
+    """An axis of extent 1 is never stepped: any stride there is fine."""
+    assert flash_attn.layout_error((1, 1, 16, 64), (3, 5, 64, 1), 32) is None
+    assert flash_attn.layout_error((1, 2, 16, 64), (3, 5, 64, 1),
+                                   32) is not None
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_cpu_path_takes_any_layout_and_writes_out(causal):
+    """The plain path reads strided views and a non-unit feature stride
+    alike, and fills ``out`` in place."""
+    q, k, v = (torch.from_numpy(_arr(s)) for s in
+               ((2, 40, 4, 16), (2, 40, 2, 16), (2, 40, 2, 16)))
+    want = flash_attn.flash_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=causal)
+    out = torch.empty(2, 40, 4, 16)
+    got = flash_attn.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal,
+                                     out=out.transpose(1, 2))
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out.transpose(1, 2), want)
+    # Features along the old sequence axis: a stride of H * D on D.
+    qo, ko, vo = (t.transpose(1, 3).transpose(1, 2) for t in (q, k, v))
+    assert qo.stride()[-1] != 1
+    odd = flash_attn.flash_attention(qo, ko, vo, causal=causal)
+    assert torch.equal(odd, flash_attn.flash_attention(
+        qo.contiguous(), ko.contiguous(), vo.contiguous(), causal=causal))
+
+
+def test_wrapper_rejects_an_out_of_another_shape():
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="out"):
+        flash_attn.flash_attention(q, q, q, out=torch.zeros(1, 2, 8, 8))
