@@ -31,10 +31,15 @@ phase prints one JSON line:
    the JAX reference values, with the wall time per ``simulate_app``,
    and claim C4 (paper: 1.6x at fine-grained sync, <= 6.2 % sync).
 6. ``dotp_axpy``: the Fig. 5/6 benchmark kernels through ``ops.dotp``
-   (central accumulator and k-ary trees of radix 2 to 1024) and
-   ``ops.axpy`` at the Fig. 5 sizes and at 64 Mi elements, with the
-   launch counts of that run; each kernel against its plain version and
-   timed beside its bound and one PyTorch library call.
+   (central accumulator and k-ary trees of radix 2 to 1024: the leaves,
+   then every level in one ``combine_tree`` launch) and ``ops.axpy`` at
+   the Fig. 5 sizes and at 64 Mi elements, and ``ops.dotp`` over 2 Gi
+   bf16 elements, whose 65536 leaves pass the tree's shared-memory cap
+   (one ``combine_partials`` level first), with the launch counts of that
+   run; each kernel against its plain version, the fused tree against
+   the chain of per-level launches bit for bit, and each timed beside its
+   bound and one PyTorch library call, the tree kernels and the chain in
+   device time (CUDA graph replay) and eagerly.
 7. ``fig5``: every Fig. 5 kernel's arrival gap and median against the
    JAX reference values, and claim C5.
 8. ``fig6``: the 7-radix x 15-kernel grid of
@@ -61,11 +66,18 @@ phase prints one JSON line:
     numbers printed beside.
 15. ``dct_conv2d``: ``ops.dct`` and ``ops.conv2d`` at the Fig. 5/6
     suite's sizes, with the launch counts of that run, each kernel
-    against its plain version, and their times at (4096, 4096) and
-    (256, 512, 512) beside their bounds and one PyTorch library call.
+    against its plain version (``dct`` also in bf16 and f16, at (4096,
+    4096) and a ragged (300, 1000)), the suite's rows of a (4096, 4096)
+    call equal to the same rows alone, and the times of ``dct`` at the
+    suite's three shapes and (4096, 4096) (device time and eager) and of
+    ``conv2d`` at (256, 512, 512), beside their bounds and one PyTorch
+    library call.
 16. ``lm_serve``: the LM serving path.  The flash-attention kernel
     against its plain version at the reference's test shapes, in bf16 at
-    every head width, and at the prefill's shape, where the model's
+    every head width of ``HEAD_DIMS``, in float32 at the configs' widths
+    80 and 192, at nemotron-4-340b's and hubert-xlarge's full-width
+    attention shapes (timed beside SDPA and the bound), and at the
+    prefill's shape, where the model's
     strided (B, S, H, D) views must give the contiguous call's bits; its
     time there beside its bound and SDPA (``ratio_to_library``), and the
     wgmma kernel's registers and shared memory (``nvcc -Xptxas -v``,
@@ -96,18 +108,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth,
-# float32 outside the tensor cores, bf16 in the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12,
-                "float64": 34e12}   # float64 outside the tensor cores
-L2_BYTES = 50e6
+from repro_torch.timing import (bound, cold_copies, cuda_ms, graph_ms,
+                                in_turns)
+
 
 MODES = ("central", "tree", "partial", "hw")
 TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
 KERNELS = ("fft4_stage", "fft4_fused", "matmul", "dotp_central",
-           "dotp_partials", "combine_partials", "axpy", "dct", "conv2d",
-           "powf", "flash_attention")
+           "dotp_partials", "combine_partials", "combine_tree", "axpy",
+           "dct", "conv2d", "powf", "flash_attention")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             # The same Pallas kernel as src/repro/kernels/ops.py::fft4
             # chains it, every stage of a row in one launch.
@@ -116,6 +125,9 @@ REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             "dotp_central": "src/repro/kernels/dotp.py:40",
             "dotp_partials": "src/repro/kernels/dotp.py:64",
             "combine_partials": "src/repro/kernels/dotp.py:89",
+            # The same Pallas kernel as src/repro/kernels/ops.py::dotp
+            # chains it, one launch a level: every level in one.
+            "combine_tree": "src/repro/kernels/dotp.py:89",
             "axpy": "src/repro/kernels/axpy.py:27",
             "dct": "src/repro/kernels/dct.py:25",
             "conv2d": "src/repro/kernels/conv2d.py:32",
@@ -129,6 +141,7 @@ SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "dotp_central": "src/repro_torch/csrc/dotp.cu",
            "dotp_partials": "src/repro_torch/csrc/dotp.cu",
            "combine_partials": "src/repro_torch/csrc/dotp.cu",
+           "combine_tree": "src/repro_torch/csrc/dotp.cu",
            "axpy": "src/repro_torch/csrc/axpy.cu",
            "dct": "src/repro_torch/csrc/dct.cu",
            "conv2d": "src/repro_torch/csrc/conv2d.cu",
@@ -139,6 +152,9 @@ SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
 # accumulator (radix 0) and the tree radices of the Fig. 6 sweep.
 DOTP_SIZES = (1 << 18, 1 << 19, 1 << 20, 1 << 26)
 DOTP_RADICES = (0, 2, 4, 16, 32, 1024)
+# A bf16 dot product whose leaf count (65536) passes the tree kernel's
+# cap: the path's one use of the per-level kernel.
+DOTP_ABOVE_CAP = 1 << 31
 AXPY_SIZES = (1 << 20, 1 << 26)
 # The Fig. 5/6 suite's DCT and Conv2D inputs, and the sizes they are
 # timed at.
@@ -157,12 +173,30 @@ POWF_CHUNK = 1 << 24
 # the prefill's attention shape (B, H, Hk, S, D), and the full-width run.
 FA_TEST_SHAPES = ((64, 16), (128, 32), (256, 64))
 FA_PATH_SHAPE = (4, 32, 8, 2048, 128)
+# Full-width attention of the configs with head widths 192 and 80, (B, H,
+# Hk, S, D, causal, dtypes): nemotron-4-340b (96 heads reading 8) and the
+# hubert-xlarge encoder.
+FA_CONFIG_SHAPES = {"nemotron-4-340b": (1, 96, 8, 1024, 192, True,
+                                        ("bfloat16",)),
+                    "hubert-xlarge": (2, 16, 16, 1024, 80, False,
+                                      ("bfloat16", "float32"))}
+# Kernel against plain in float32 at the new widths: both sum float32
+# products; 1e-4 leaves the exponentials' and the order's rounding a wide
+# margin.
+FA_F32_TOL = 1e-4
 # Kernel against plain in bf16: p is rounded to bf16 before the PV
 # product at a per-tile running max in the kernel and after the softmax
 # in the plain version, and the output is rounded to bf16 (2^-8
 # relative each): two bf16 ulps relative (1.6e-2) plus 1.6e-2 absolute
 # for unit-scale v.
 FA_BF16_TOL = 1.6e-2
+# FA_BF16_TOL is loose where outputs are averages of hundreds of keys
+# (about 0.1).  So bf16 is also held to float32 attention on the same bf16
+# inputs, each query row's largest error over that row's largest output
+# (row_scaled_err): the output's rounding and p's are 2^-9 relative each,
+# and 2^-6 leaves them a factor of four.  Faults planted in the kernel's
+# inputs and output (fa_planted_faults) must exceed it.
+FA_BF16_ROW_TOL = 2.0 ** -6
 LM_FULL = {"arch": "qwen3_4b", "batch": 4, "prompt_len": 2016, "tokens": 32}
 # The serve path's tolerances against the JAX values (tests/
 # test_torch_lm_serve.py): float32 end to end, and bf16; and the full-width
@@ -172,61 +206,6 @@ LM_F32_TOL, LM_BF16_ATOL, LM_FULL_GAP = 1e-4, 0.0625, 0.35
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def cuda_ms(torch, fn, inputs, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call of ``fn`` on the device: CUDA events
-    around ``iters`` back-to-back calls after ``warmup`` calls, cycling
-    through the argument tuples of ``inputs`` (see :func:`cold_copies`)."""
-    for i in range(warmup):
-        fn(*inputs[i % len(inputs)])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold_copies(*tensors) -> list:
-    """Enough copies of the argument tuple that cycling through them
-    streams more than twice the H100's 50 MB L2 cache, so each timed
-    call reads its inputs from device memory, as the bound assumes."""
-    size = sum(t.numel() * t.element_size() for t in tensors)
-    count = min(8, max(1, math.ceil(2 * L2_BYTES / size)))
-    return [tensors] + [tuple(t.clone() for t in tensors)
-                        for _ in range(count - 1)]
-
-
-def graph_ms(torch, fn, inputs, iters: int = 20) -> float:
-    """Mean device milliseconds per call of ``fn``: ``iters`` calls
-    cycling through ``inputs``, captured once in a CUDA graph and timed
-    as one replay, so the host's launch cost between calls drops out."""
-    for args in inputs:                  # warm caches and lazy set-up
-        fn(*args)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(*inputs[i % len(inputs)])
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
-    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_info(torch, build):
@@ -391,10 +370,10 @@ def phase_kernels(torch, ops, fft4, matmul, ref) -> dict:
                                2.0 * m * n * k, name)
             args = cold_copies(x, w)
             rec.update({
-                "ms": cuda_ms(torch, matmul.matmul, args),
-                "plain_ms": cuda_ms(torch, matmul.matmul_plain, args,
+                "ms": cuda_ms(matmul.matmul, args),
+                "plain_ms": cuda_ms(matmul.matmul_plain, args,
                                     iters=5),
-                "library_ms": cuda_ms(torch, torch.matmul, args),
+                "library_ms": cuda_ms(torch.matmul, args),
                 "library": "torch.matmul (output in the input dtype)",
                 "bound_ms": b_ms, "bound_by": b_by})
             if (m, k, n) == (32, 64, 57344) and dtype == torch.float32:
@@ -437,10 +416,10 @@ def _time_fft(torch, ops, fft4, ref, re, im, stages) -> dict:
              ("library", library))
     runs = {name: [] for name, _ in order}
     for name, fn in order + order[::-1]:
-        runs[name].append(graph_ms(torch, fn, args))
+        runs[name].append(graph_ms(fn, args))
     ms = {name: sum(v) / len(v) for name, v in runs.items()}
-    eager = {name: cuda_ms(torch, fn, args) for name, fn in order}
-    plain_ms = cuda_ms(torch, lambda *a: chain(fft4.fft4_stage_plain, *a),
+    eager = {name: cuda_ms(fn, args) for name, fn in order}
+    plain_ms = cuda_ms(lambda *a: chain(fft4.fft4_stage_plain, *a),
                        args, iters=5)
     # The least traffic of the whole transform: both planes read once and
     # written once, the twiddles read once.  The stage chain moves
@@ -651,6 +630,27 @@ def check_sum(got: float, plain: float, lim: float, what: str) -> float:
     return err
 
 
+def levels_before_tree(leaves: int, radix: int, cap: int) -> int:
+    """The per-level launches ``ops.dotp`` runs over ``leaves`` partials
+    before their count fits the tree kernel's ``cap``."""
+    pre = 0
+    while leaves > cap:
+        leaves, pre = -(-leaves // radix), pre + 1
+    return pre
+
+
+def chunked_partials(torch, ref, x, y, chunk: int = 1 << 27) -> tuple:
+    """``ref.dotp_partials(x, y)`` and the leaves' limits of
+    :func:`dotp_limits`, taken over leaf-aligned chunks of ``chunk``
+    elements so that a 2 Gi-element product needs little memory."""
+    parts, lims = [], []
+    for i in range(0, x.numel(), chunk):
+        u, v = x[i:i + chunk], y[i:i + chunk]
+        parts.append(ref.dotp_partials(u, v))
+        lims.append(dotp_limits(ref, u, v)[0])
+    return torch.cat(parts), torch.cat(lims)
+
+
 def planted_leaf_fault(ref, x, y, parts, central) -> dict:
     """The checks must see a fault: the leaf of median |sum| zeroed in
     the partials, and its sum taken out of the central result, must
@@ -679,9 +679,10 @@ def planted_leaf_fault(ref, x, y, parts, central) -> dict:
 
 def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
     """The Fig. 5/6 kernels' path: ``ops.dotp`` at every radix and
-    ``ops.axpy`` at every size, with the launch counts of that run; then
-    each kernel against its plain version, and the times.  Returns the
-    summary records and the launch counts."""
+    ``ops.axpy`` at every size, and ``ops.dotp`` above the tree kernel's
+    cap, with the launch counts of that run; then each kernel against its
+    plain version, the fused tree against the per-level chain, and the
+    times.  Returns the summary records and the launch counts."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -689,6 +690,16 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
     x32 = torch.randn(big, device=dev, generator=gen)
     y32 = torch.randn(big, device=dev, generator=gen)
     xb, yb = x32.to(torch.bfloat16), y32.to(torch.bfloat16)
+    xh = torch.randn(DOTP_ABOVE_CAP, device=dev, generator=gen,
+                     dtype=torch.bfloat16)
+    yh = torch.randn(DOTP_ABOVE_CAP, device=dev, generator=gen,
+                     dtype=torch.bfloat16)
+    tree_radices = [r for r in DOTP_RADICES if r > 1]
+    pre = {r: levels_before_tree(dotp.leaf_count(DOTP_ABOVE_CAP), r,
+                                 dotp.TREE_MAX) for r in tree_radices}
+    if min(pre.values()) < 1:
+        raise AssertionError(f"{DOTP_ABOVE_CAP} elements do not pass the "
+                             f"tree's cap of {dotp.TREE_MAX} leaves")
 
     # The path, counted: every call a user would make, nothing else.
     for k in dotp.LAUNCHES:
@@ -698,16 +709,22 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
     for n in DOTP_SIZES:
         for r in DOTP_RADICES:
             results[("dotp", n, r)] = ops.dotp(x32[:n], y32[:n], radix=r)
+    for r in DOTP_RADICES:
+        results[("dotp above cap", r)] = ops.dotp(xh, yh, radix=r)
     for n in AXPY_SIZES:
         for name, (x, y) in (("float32", (x32, y32)),
                              ("bfloat16", (xb, yb))):
             results[("axpy", n, name)] = ops.axpy(1.7, x[:n], y[:n])
     torch.cuda.synchronize()
     launches = dict(dotp.LAUNCHES, axpy=axpy.LAUNCHES)
-    trees = [(n, r) for n in DOTP_SIZES for r in DOTP_RADICES if r > 1]
-    want = {"dotp_central": len(DOTP_SIZES), "dotp_partials": len(trees),
-            "combine_partials": sum(ops.dotp_levels(n, r) for n, r in trees),
-            "axpy": 2 * len(AXPY_SIZES)}
+    # A tree is two launches, leaves and levels; above the cap each
+    # level run before the count fits is one more.
+    trees = [(n, r) for n in DOTP_SIZES + (DOTP_ABOVE_CAP,)
+             for r in tree_radices]
+    want = {"dotp_central": len(DOTP_SIZES) + 1, "dotp_partials": len(trees),
+            "combine_partials": sum(levels_before_tree(
+                dotp.leaf_count(n), r, dotp.TREE_MAX) for n, r in trees),
+            "combine_tree": len(trees), "axpy": 2 * len(AXPY_SIZES)}
     if launches != want:
         raise AssertionError(f"dotp/axpy path launches {launches}, "
                              f"expected {want}")
@@ -722,9 +739,25 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
                           f"ops.dotp n={n} radix={r}") for r in DOTP_RADICES]
         emit({"phase": "dotp_axpy", "op": "ops.dotp", "n": n,
               "leaves": dotp.leaf_count(n),
-              "launches_per_call": {r: 1 + ops.dotp_levels(n, r)
+              "levels": {r: ops.dotp_levels(n, r) for r in DOTP_RADICES},
+              "launches_per_call": {r: 1 if r <= 1 else 2
                                     for r in DOTP_RADICES},
               "max_abs_err": max(errs), "tol": tol})
+    # Above the cap: against the plain chain over the same leaves, the
+    # leaves' limits taken over leaf-aligned chunks (bounded memory).
+    plain_parts, leaf_lim = chunked_partials(torch, ref, xh, yh)
+    tol = leaf_lim.square().sum().sqrt().item()
+    errs = [check_sum(results[("dotp above cap", r)].item(),
+                      (plain_parts.sum() if r <= 1 else
+                       dotp.combine_tree_plain(plain_parts, r)).item(),
+                      tol, f"ops.dotp n={DOTP_ABOVE_CAP} radix={r}")
+            for r in DOTP_RADICES]
+    emit({"phase": "dotp_axpy", "op": "ops.dotp", "n": DOTP_ABOVE_CAP,
+          "dtype": "bfloat16", "leaves": dotp.leaf_count(DOTP_ABOVE_CAP),
+          "tree_max": dotp.TREE_MAX,
+          "launches_per_call": {r: 1 if r <= 1 else 2 + pre[r]
+                                for r in DOTP_RADICES},
+          "max_abs_err": max(errs), "tol": tol})
     for n in AXPY_SIZES:
         for name, (x, y), tol in (("float32", (x32, y32), 1e-5),
                                   ("bfloat16", (xb, yb), 2e-2)):
@@ -742,10 +775,10 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
             args = [(1.7,) + xy for xy in cold_copies(x[:n], y[:n])]
             b_ms, b_by = bound(3 * n * x.element_size(), 2.0 * n, name)
             rec.update({
-                "ms": cuda_ms(torch, axpy.axpy, args),
-                "plain_ms": cuda_ms(torch, axpy.axpy_plain, args),
+                "ms": cuda_ms(axpy.axpy, args),
+                "plain_ms": cuda_ms(axpy.axpy_plain, args),
                 "library_ms": cuda_ms(
-                    torch, lambda a, u, v: torch.add(v, u, alpha=a), args),
+                    lambda a, u, v: torch.add(v, u, alpha=a), args),
                 "library": "torch.add(y, x, alpha=a)",
                 "bound_ms": b_ms, "bound_by": b_by})
             if (n, name) == (big, "float32"):
@@ -766,11 +799,11 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
                    "dtype": name, "max_abs_err": err,
                    "tol": f"{DOTP_RTOL} * each leaf's sum |x_i y_i|",
                    "max_share_of_limit": share,
-                   "ms": cuda_ms(torch, dotp.dotp_partials, args),
-                   "plain_ms": cuda_ms(torch, dotp.dotp_partials_plain,
+                   "ms": cuda_ms(dotp.dotp_partials, args),
+                   "plain_ms": cuda_ms(dotp.dotp_partials_plain,
                                        args),
                    "library_ms": cuda_ms(
-                       torch, lambda u, v: torch.einsum(
+                       lambda u, v: torch.einsum(
                            "ij,ij->i", u.view(-1, ref.DOTP_LEAF),
                            v.view(-1, ref.DOTP_LEAF)), args),
                    "library": "torch.einsum('ij,ij->i') over the leaves",
@@ -787,18 +820,38 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
                           ref, x, y, parts, central)})
             rec = {"phase": "dotp_axpy", "name": "dotp_central", "n": n,
                    "dtype": name, "max_abs_err": err, "tol": tol,
-                   "ms": cuda_ms(torch, dotp.dotp_central, args),
-                   "plain_ms": cuda_ms(torch, dotp.dotp_central_plain,
+                   "ms": cuda_ms(dotp.dotp_central, args),
+                   "plain_ms": cuda_ms(dotp.dotp_central_plain,
                                        args),
-                   "library_ms": cuda_ms(torch, torch.dot, args),
+                   "library_ms": cuda_ms(torch.dot, args),
                    "library": "torch.dot",
                    "bound_ms": b_ms, "bound_by": b_by}
             if (n, name) == (big, "float32"):
                 summary["dotp_central"] = rec
             emit(rec)
 
-    # One tree level at the 64 Mi leaf count, and every whole chain.
+    # The fused tree against the chain of per-level launches, bit for
+    # bit, at the path's 2048 leaves and above the cap.
     parts = dotp.dotp_partials(x32, y32)
+    big_parts = dotp.dotp_partials(xh, yh)
+    for p in (parts, big_parts):
+        for r in tree_radices:
+            chain = p
+            while chain.numel() > 1:
+                chain = dotp.combine_partials(chain, r)
+            if not torch.equal(dotp.combine_tree(p, r), chain[0]):
+                raise AssertionError(f"combine_tree over {p.numel()} "
+                                     f"partials at radix {r} differs from "
+                                     f"the per-level chain")
+    emit({"phase": "dotp_axpy", "check": "combine_tree equals the chain of "
+          "combine_partials launches", "partials": [parts.numel(),
+                                                    big_parts.numel()],
+          "radices": tree_radices, "bit_equal": True})
+    del big_parts, plain_parts, leaf_lim
+
+    # One tree level at the 64 Mi leaf count, and the whole tree; device
+    # time (graph) and eager, each beside its library call in that mode.
+    pcopies = cold_copies(parts)
     for r in (2, 32, 1024):
         got = dotp.combine_partials(parts, r)
         want_c = dotp.combine_partials_plain(parts, r)
@@ -810,37 +863,74 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
         n_out = got.numel()
         b_ms, b_by = bound(4 * (parts.numel() + n_out), parts.numel(),
                            "float32")
+
+        def level(p, k=r):
+            return dotp.combine_partials(p, k)
+
+        def library(p, k=r):
+            return p.view(-1, k).sum(dim=1)
+
         rec = {"phase": "dotp_axpy", "name": "combine_partials",
                "n": parts.numel(), "radix": r, "max_abs_err": err,
                "tol": tol, "max_share_of_limit": share,
-               "ms": cuda_ms(torch, dotp.combine_partials, [(parts, r)]),
-               "plain_ms": cuda_ms(torch, dotp.combine_partials_plain,
+               "plain_ms": cuda_ms(dotp.combine_partials_plain,
                                    [(parts, r)]),
-               "library_ms": (cuda_ms(torch, lambda p, k: p.view(-1, k).sum(
-                   dim=1), [(parts, r)])
-                   if parts.numel() % r == 0 else None),
                "library": "tensor.view(-1, radix).sum(dim=1)",
                "bound_ms": b_ms, "bound_by": b_by}
+        if parts.numel() % r == 0:
+            rec.update(in_turns(level, library, pcopies))
+        else:
+            rec.update(timing="graph", library_ms=None,
+                       library_eager_ms=None,
+                       ms=graph_ms(level, pcopies),
+                       eager_ms=cuda_ms(level, pcopies))
         if r == 32:
             summary["combine_partials"] = rec
+        emit(rec)
+    for r in (2, 32):
+        got = dotp.combine_tree(parts, r)
+        plain = dotp.combine_tree_plain(parts, r)
+        levels = ops.dotp_levels(big, r)
+        # Each level within 1e-6 of its groups' sums |partial|: at most
+        # levels * 1e-6 * sum |partial| in all.
+        tol = levels * 1e-6 * parts.abs().sum().item()
+        err = check_sum(got.item(), plain.item(), tol,
+                        f"combine_tree radix {r}")
+        b_ms, b_by = bound(4 * (parts.numel() + 1), parts.numel(),
+                           "float32")
+        rec = {"phase": "dotp_axpy", "name": "combine_tree",
+               "n": parts.numel(), "radix": r, "levels": levels,
+               "max_abs_err": err, "tol": tol,
+               "plain_ms": cuda_ms(dotp.combine_tree_plain,
+                                   [(parts, r)]),
+               "library": "tensor.sum()", "bound_ms": b_ms,
+               "bound_by": b_by,
+               "unit": f"one launch: all {levels} levels over "
+                       f"{parts.numel()} leaves",
+               **in_turns(lambda p, k=r: dotp.combine_tree(p, k),
+                          lambda p: p.sum(), pcopies)}
+        if r == 2:
+            summary["combine_tree"] = rec
         emit(rec)
 
     def plain_chain(x, y, r):
         if r <= 1:
             return ref.dotp_central(x, y)
-        p = ref.dotp_partials(x, y)
-        while p.numel() > 1:
-            p = ref.combine_partials(p, r)
-        return p[0]
+        return dotp.combine_tree_plain(ref.dotp_partials(x, y), r)
 
     for n in (1 << 20, big):
         args = cold_copies(x32[:n], y32[:n])
         emit({"phase": "dotp_axpy", "op": "ops.dotp chain", "n": n,
-              "ms": {r: cuda_ms(torch, lambda u, v: ops.dotp(u, v, radix=r),
-                                args) for r in DOTP_RADICES},
-              "plain_ms": {r: cuda_ms(torch, lambda u, v: plain_chain(
-                  u, v, r), args) for r in DOTP_RADICES},
-              "library_ms": cuda_ms(torch, torch.dot, args),
+              "launches": {r: 1 if r <= 1 else 2 for r in DOTP_RADICES},
+              "graph_ms": {r: graph_ms(lambda u, v, k=r: ops.dotp(
+                  u, v, radix=k), args) for r in DOTP_RADICES},
+              "eager_ms": {r: cuda_ms(lambda u, v, k=r: ops.dotp(
+                  u, v, radix=k), args) for r in DOTP_RADICES},
+              "plain_ms": {r: cuda_ms(lambda u, v, k=r: plain_chain(
+                  u, v, k), args) for r in DOTP_RADICES},
+              "library_graph_ms": graph_ms(torch.dot, args),
+              "library_eager_ms": cuda_ms(torch.dot, args),
+              "library": "torch.dot",
               "bound_ms": bound(8 * n, 2.0 * n, "float32")[0]})
     emit({"phase": "dotp_axpy", "launches": launches,
           "wall_s": time.perf_counter() - t_phase})
@@ -1097,10 +1187,10 @@ def phase_powf(torch, powf, prng, workloads, ref_values) -> tuple:
         b_ms, b_by = bound(8.0 * n, 27.0 * n, "float64")
         rec = {"phase": "powf", "name": "powf", "n": n, "max_abs_err": err,
                "tol": "bit for bit",
-               "ms": cuda_ms(torch, powf.powf, args),
-               "plain_ms": cuda_ms(torch, powf.powf_plain, args, iters=3,
+               "ms": cuda_ms(powf.powf, args),
+               "plain_ms": cuda_ms(powf.powf_plain, args, iters=3,
                                    warmup=1),
-               "library_ms": cuda_ms(torch, torch.pow, args),
+               "library_ms": cuda_ms(torch.pow, args),
                "library": "torch.pow (not the C library's rounding)",
                "bound_ms": b_ms, "bound_by": b_by}
         if err != 0.0:
@@ -1199,8 +1289,9 @@ def phase_fiveg_faults(torch, bench_faults, ref_values, bench) -> None:
 
 def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
     """``ops.dct`` and ``ops.conv2d`` at the suite's sizes, counted; each
-    kernel against its plain version; the times at the large sizes.
-    Returns the summary records and the launch counts."""
+    kernel against its plain version; the times at the suite's DCT sizes
+    and the large sizes.  Returns the summary records and the launch
+    counts."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1235,29 +1326,67 @@ def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
               "bit_equal": bool(torch.equal(out[("conv2d", s)], plain)),
               "tol": {"rtol": 1e-4, "atol": 1e-5}})
 
+    # Every row is one FMA chain in increasing k whatever tile its call's
+    # row count picks: the suite's rows of a large call equal the same
+    # rows alone, bit for bit.  Then bf16 and f16 rows, and a ragged
+    # shape, against the plain version.
     summary = {}
     t, n = DCT_LARGE
     x = torch.randn(t, n, device=dev, generator=gen)
     bt = ops.dct_basis_t(n, dev)
     got = dct.dct(x, bt)
+    for rows, _ in DCT_SIZES:
+        if not torch.equal(dct.dct(x[:rows], bt), got[:rows]):
+            raise AssertionError(f"dct: the first {rows} rows of a ({t}, "
+                                 f"{n}) call differ from the same rows alone")
+    emit({"phase": "dct_conv2d", "check": "dct rows independent of the "
+          "tile", "rows": [r for r, _ in DCT_SIZES], "of": [t, n],
+          "bit_equal": True})
+    for shape in (DCT_LARGE, (300, 1000)):
+        xr = (x if shape == DCT_LARGE
+              else torch.randn(*shape, device=dev, generator=gen))
+        basis = ops.dct_basis_t(shape[1], dev)
+        for dtype in (torch.bfloat16, torch.float16):
+            xd = xr.to(dtype)
+            got_d, plain_d = dct.dct(xd, basis), dct.dct_plain(xd, basis)
+            np.testing.assert_allclose(got_d.cpu().numpy(),
+                                       plain_d.cpu().numpy(),
+                                       rtol=1e-3, atol=1e-3)
+            emit({"phase": "dct_conv2d", "op": "dct", "shape": list(shape),
+                  "dtype": str(dtype).split(".")[1],
+                  "max_abs_err": (got_d - plain_d).abs().max().item(),
+                  "tol": {"rtol": 1e-3, "atol": 1e-3}})
+        del xd, got_d, plain_d
     plain = dct.dct_plain(x, bt)
     np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
                                rtol=1e-3, atol=1e-3)
-    args = cold_copies(x, bt)
-    b_ms, b_by = bound(4.0 * (2 * t * n + n * n), 2.0 * t * n * n, "float32")
-    lib = torch.matmul(x, bt)
-    summary["dct"] = {
-        "phase": "dct_conv2d", "name": "dct", "shape": [t, n],
-        "max_abs_err": (got - plain).abs().max().item(),
-        "tol": {"rtol": 1e-3, "atol": 1e-3},
-        "ms": cuda_ms(torch, dct.dct, args),
-        "plain_ms": cuda_ms(torch, dct.dct_plain, args, iters=2, warmup=1),
-        "library_ms": cuda_ms(torch, torch.matmul, args),
-        "library": "torch.matmul(x, basis_t), float32 (TF32 off)",
-        "library_max_abs_diff": (got - lib).abs().max().item(),
-        "bound_ms": b_ms, "bound_by": b_by}
-    emit(summary["dct"])
-    del x, got, plain, lib, args
+    large = {"max_abs_err": (got - plain).abs().max().item(),
+             "plain_ms": cuda_ms(dct.dct_plain, [(x, bt)], iters=2,
+                                 warmup=1)}
+    del got, plain
+    # Times at the suite's shapes and the large one, each beside
+    # torch.matmul in the same mode.
+    for rows, n in DCT_SIZES + (DCT_LARGE,):
+        xr = xs[(rows, n)] if (rows, n) in xs else x
+        args = cold_copies(xr, bt)
+        b_ms, b_by = bound(4.0 * (2 * rows * n + n * n), 2.0 * rows * n * n,
+                           "float32")
+        rec = {"phase": "dct_conv2d", "name": "dct", "shape": [rows, n],
+               "tol": {"rtol": 1e-3, "atol": 1e-3},
+               "library": "torch.matmul(x, basis_t), float32 (TF32 off)",
+               "library_max_abs_diff": (dct.dct(xr, bt) - torch.matmul(
+                   xr, bt)).abs().max().item(),
+               "bound_ms": b_ms, "bound_by": b_by,
+               **in_turns(dct.dct, torch.matmul, args)}
+        if (rows, n) == DCT_LARGE:
+            rec.update(large)
+            summary["dct"] = rec
+        else:
+            rec["max_abs_err"] = (out[("dct", (rows, n))] - dct.dct_plain(
+                xr, bt)).abs().max().item()
+        emit(rec)
+        del args
+    del x
 
     img = torch.randn(*CONV_LARGE, device=dev, generator=gen)
     px = img.numel()
@@ -1277,9 +1406,9 @@ def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
         "max_abs_err": (got - plain).abs().max().item(),
         "bit_equal": bool(torch.equal(got, plain)),
         "tol": {"rtol": 1e-4, "atol": 1e-5},
-        "ms": cuda_ms(torch, conv2d.conv2d, args),
-        "plain_ms": cuda_ms(torch, conv2d.conv2d_plain, args, iters=5),
-        "library_ms": cuda_ms(torch, library, args),
+        "ms": cuda_ms(conv2d.conv2d, args),
+        "plain_ms": cuda_ms(conv2d.conv2d_plain, args, iters=5),
+        "library_ms": cuda_ms(library, args),
         "library": "F.conv2d on (B, 1, H, W), padding=1 (cuDNN, TF32 off)",
         "library_max_abs_diff": (got - library(img, k)).abs().max().item(),
         "bound_ms": b_ms, "bound_by": b_by}
@@ -1292,6 +1421,62 @@ def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
 def _top2_margin(logits):
     top = logits.double().topk(2, dim=-1).values
     return top[..., 0] - top[..., 1]
+
+
+def row_scaled_err(got, want) -> float:
+    """The largest, over query rows, of a row's max |got - want| over its
+    max |want|: the error at the scale of each row's output."""
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    return (diff / want.float().abs().amax(dim=-1)).max().item()
+
+
+def check_bf16_rows(flash_attn, q, k, v, causal, got, want) -> dict:
+    """``got`` (the kernel in bf16) against float32 attention on the same
+    bf16 inputs at :data:`FA_BF16_ROW_TOL`, with the plain bf16 version's
+    error beside it; raises past the limit."""
+    ref32 = flash_attn.flash_attention_plain(q.float(), k.float(), v.float(),
+                                             causal=causal)
+    rec = {"row_scaled_err": row_scaled_err(got, ref32),
+           "plain_row_scaled_err": row_scaled_err(want, ref32),
+           "row_tol": FA_BF16_ROW_TOL}
+    if not rec["row_scaled_err"] <= FA_BF16_ROW_TOL:
+        raise AssertionError(f"flash_attention bf16 {list(q.shape)}: row "
+                             f"error {rec['row_scaled_err']} over "
+                             f"{FA_BF16_ROW_TOL} of the row's scale")
+    return rec
+
+
+def fa_planted_faults(flash_attn, q, k, v, causal, got, want) -> dict:
+    """Three faults the bf16 limits must catch: one 64-key tile's values
+    left out of PV (its weights still in the row sum), the last 16
+    features left out of QK^T (a k16 step dropped), the last 16 output
+    features zeroed.  Each must exceed :data:`FA_BF16_ROW_TOL`; whether
+    :data:`FA_BF16_TOL` alone would have caught it is recorded."""
+    ref32 = flash_attn.flash_attention_plain(q.float(), k.float(), v.float(),
+                                             causal=causal)
+    mid = k.shape[2] // 2
+    v_gap = v.clone()
+    v_gap[:, :, mid:mid + 64] = 0
+    q_cut = q.clone()
+    q_cut[..., -16:] = 0
+    zeroed = got.clone()
+    zeroed[..., -16:] = 0
+    faults = {
+        "pv_tile_skipped": flash_attn.flash_attention(q, k, v_gap,
+                                                      causal=causal),
+        "qk_last_k16_dropped": flash_attn.flash_attention(q_cut, k, v,
+                                                          causal=causal),
+        "out_last_16_zeroed": zeroed}
+    rec = {}
+    for name, bad in faults.items():
+        err = row_scaled_err(bad, ref32)
+        near = ((bad.float() - want.float()).abs()
+                <= FA_BF16_TOL * (1 + want.float().abs())).all().item()
+        if not err > FA_BF16_ROW_TOL:
+            raise AssertionError(f"planted fault {name} passes the bf16 row "
+                                 f"check ({err})")
+        rec[name] = {"row_scaled_err": err, "passes_fa_bf16_tol": near}
+    return rec
 
 
 def _fa_kernel_checks(torch, flash_attn, build) -> dict:
@@ -1314,9 +1499,25 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
                   "causal": causal,
                   "max_abs_err": (got - want).abs().max().item(),
                   "tol": {"rtol": 2e-3, "atol": 2e-3}})
-    # bf16 on each of its kernels: mma.sync at D 16 and 32 (the smoke
-    # config), wgmma at 64 and 128, grouped heads 4 to 1, a ragged length.
-    for d in (16, 32, 64, 128):
+    # float32 at the configs' widths 80 and 192, grouped heads 2 to 1.
+    for d in (80, 192):
+        for causal in (True, False):
+            q = 0.5 * torch.randn(2, 4, 200, d, device=dev, generator=gen)
+            k, v = (0.5 * torch.randn(2, 2, 200, d, device=dev,
+                                      generator=gen) for _ in range(2))
+            got = flash_attn.flash_attention(q, k, v, causal=causal)
+            want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+            torch.testing.assert_close(got, want, rtol=FA_F32_TOL,
+                                       atol=FA_F32_TOL)
+            emit({"phase": "lm_serve", "name": "flash_attention",
+                  "shape": [2, 4, 2, 200, d], "dtype": "float32",
+                  "causal": causal,
+                  "max_abs_err": (got - want).abs().max().item(),
+                  "tol": {"rtol": FA_F32_TOL, "atol": FA_F32_TOL}})
+    # bf16 at every width, on each of its kernels: FMAs at D 8, mma.sync
+    # at 16 and 32 (the smoke configs) and 80 and 192, wgmma at 64 and
+    # 128; grouped heads 4 to 1, a ragged length.
+    for d in flash_attn.HEAD_DIMS:
         for causal in (True, False):
             q = torch.randn(1, 8, 300, d, device=dev, generator=gen).bfloat16()
             k, v = (torch.randn(1, 2, 300, d, device=dev,
@@ -1329,7 +1530,8 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
                   "shape": [1, 8, 2, 300, d], "dtype": "bfloat16",
                   "causal": causal,
                   "max_abs_err": (got.float() - want.float()).abs().max()
-                  .item(), "tol": {"rtol": FA_BF16_TOL, "atol": FA_BF16_TOL}})
+                  .item(), "tol": {"rtol": FA_BF16_TOL, "atol": FA_BF16_TOL},
+                  **check_bf16_rows(flash_attn, q, k, v, causal, got, want)})
     b, h, hk, s, d = FA_PATH_SHAPE
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(b, hk, s, d, device=dev, generator=gen).to(torch.bfloat16)
@@ -1360,17 +1562,17 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
     b_ms, b_by = bound(2.0 * (q.numel() + k.numel() + v.numel() + q.numel()),
                        4.0 * b * h * d * s * (s + 1) / 2, "bfloat16")
     args = cold_copies(q, k, v)
-    ms = cuda_ms(torch, flash_attn.flash_attention, args)
-    library_ms = cuda_ms(torch, library, args)
+    ms = cuda_ms(flash_attn.flash_attention, args)
+    library_ms = cuda_ms(library, args)
     rec = {"phase": "lm_serve", "name": "flash_attention",
            "shape": [b, h, hk, s, d], "dtype": "bfloat16", "causal": True,
            "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "tol": {"rtol": FA_BF16_TOL, "atol": FA_BF16_TOL},
            "strided_equal": True, "ms": ms,
-           "strided_ms": cuda_ms(torch, lambda *a: flash_attn.flash_attention(
+           "strided_ms": cuda_ms(lambda *a: flash_attn.flash_attention(
                *a, causal=True, out=out.transpose(1, 2)),
                [(qs, ks, vs)]),
-           "plain_ms": cuda_ms(torch, flash_attn.flash_attention_plain, args,
+           "plain_ms": cuda_ms(flash_attn.flash_attention_plain, args,
                                iters=3, warmup=1),
            "library_ms": library_ms, "ratio_to_library": ms / library_ms,
            "library": "F.scaled_dot_product_attention(is_causal=True, "
@@ -1382,6 +1584,61 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
            "unit": "one launch: the prefill attention of one layer"}
     emit(rec)
     return rec
+
+
+def _fa_config_checks(torch, flash_attn, build) -> None:
+    """The kernel at the full-width attention shapes of the configs with
+    head widths 192 and 80, against its plain version, and timed beside
+    SDPA (device time and eager) and its bound; the resources of the
+    kernels that run those widths (``nvcc -Xptxas -v``)."""
+    log = build.compiler_log("flash_attn")
+    emit({"phase": "lm_serve", "kernel_resources": {
+        f"{kernel} d{d}": ptxas_usage(log, f"{kernel}I{t}Li{d}E")
+        for kernel, t in (("fa_mma_kernel", ""), ("fa_fma_kernel", "f"))
+        for d in (80, 192)}})
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for config, (b, h, hk, s, d, causal, dtypes) in FA_CONFIG_SHAPES.items():
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            q = torch.randn(b, h, s, d, device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn(b, hk, s, d, device=dev,
+                                generator=gen).to(dtype) for _ in range(2))
+            got = flash_attn.flash_attention(q, k, v, causal=causal)
+            want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+            tol = FA_F32_TOL if name == "float32" else FA_BF16_TOL
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            rows = {}
+            if name == "bfloat16":
+                rows = check_bf16_rows(flash_attn, q, k, v, causal, got,
+                                       want)
+                rows["planted_faults"] = fa_planted_faults(
+                    flash_attn, q, k, v, causal, got, want)
+
+            def kernel(q_, k_, v_, c=causal):
+                return flash_attn.flash_attention(q_, k_, v_, causal=c)
+
+            def library(q_, k_, v_, c=causal):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q_, k_, v_, is_causal=c, enable_gqa=True)
+
+            pairs = s * (s + 1) / 2 if causal else s * s
+            b_ms, b_by = bound(
+                q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+                4.0 * b * h * d * pairs, name)
+            times = in_turns(kernel, library, cold_copies(q, k, v))
+            emit({"phase": "lm_serve", "name": "flash_attention",
+                  "config": config, "shape": [b, h, hk, s, d],
+                  "dtype": name, "causal": causal,
+                  "max_abs_err": (got.float() - want.float()).abs().max()
+                  .item(), "tol": {"rtol": tol, "atol": tol}, **rows,
+                  "library": "F.scaled_dot_product_attention("
+                             "enable_gqa=True)",
+                  "library_max_abs_diff": (got.float() - library(
+                      q, k, v).float()).abs().max().item(),
+                  "ratio_to_library": times["ms"] / times["library_ms"],
+                  "bound_ms": b_ms, "bound_by": b_by, **times})
 
 
 def ptxas_usage(log: str, fragment: str) -> dict:
@@ -1500,6 +1757,7 @@ def phase_lm_serve(torch, flash_attn, build, ref_values) -> tuple:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     summary = _fa_kernel_checks(torch, flash_attn, build)
+    _fa_config_checks(torch, flash_attn, build)
     _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
                        ref_values["lm_serve"])
 

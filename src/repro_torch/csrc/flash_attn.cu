@@ -53,12 +53,18 @@
 //    barriers was slower on the H100).  The softmax folds the scale into
 //    exp2f: p = 2^(s c - m) with c = scale log2(e) and the running max m
 //    kept in those units.
-//  * bf16, D in {16, 32}: fa_mma_kernel, 4 warps per 64-query tile on
-//    mma.sync m16n8k16, K and V tiles of 64 rows in padded shared memory.
-//  * float32 (true float32, no TF32) and bf16 at D = 8: fa_fma_kernel,
-//    plain FMAs.  A block of 128 threads takes 32 query rows, four
-//    threads a row, each owning every fourth feature; K and V tiles of
-//    32 rows are staged in shared memory as float32.
+//  * bf16, D in {16, 32, 80, 192}: fa_mma_kernel, 4 warps per 64-query
+//    tile on mma.sync m16n8k16, K and V tiles of 64 rows in padded
+//    shared memory (80 and 192 are the head widths of hubert-xlarge and
+//    nemotron-4-340b: multiples of 16, but not of the 64-column chunks the
+//    wgmma kernel's 128-byte swizzle takes).
+//  * float32 (true float32, no TF32) at every width and bf16 at D = 8:
+//    fa_fma_kernel, plain FMAs.  A block of 128 threads takes 32 query
+//    rows, four threads a row, each owning every fourth feature; K and V
+//    tiles of 32 rows are staged in shared memory as float32.
+//  The K and V tiles of both live in dynamic shared memory: at D = 192
+//  they take 51,200 bytes (mma) and 49,152 (fma), past the 48 KB a
+//  kernel may declare statically.
 // What is left for later: a persistent grid that overlaps one tile's
 // epilogue with the next tile's loads, and the output written through
 // shared memory with TMA.
@@ -561,7 +567,10 @@ constexpr int MMA_BQ = 64;        // query rows per block: 4 warps x 16
 constexpr int MMA_BK = 64;        // kv rows per shared-memory tile
 constexpr int MMA_THREADS = 128;
 
-
+template <int D>
+constexpr int mma_smem_bytes() {  // the K and V tiles, rows padded by 8
+  return 2 * MMA_BK * (D + 8) * 2;
+}
 
 // d += a (16 x 16, row-major) @ b (16 x 8, column-major), float32 sums.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -573,8 +582,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-
 
 // Two consecutive bf16 of row `row` (zero past the last row) as one word.
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base,
@@ -593,8 +600,9 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
               int S, int T, float scale, int causal) {
   constexpr int LD = D + 8;                 // padded shared row (elements)
   constexpr int PACKS = D / 8;              // 16-byte packs per row
-  __shared__ __align__(16) __nv_bfloat16 ks[MMA_BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[MMA_BK * LD];
+  extern __shared__ uint8_t fa_smem[];      // mma_smem_bytes<D>()
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(fa_smem);
+  __nv_bfloat16* vs = ks + MMA_BK * LD;
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -742,6 +750,11 @@ constexpr int F_BQ = 32;          // query rows per block, four threads each
 constexpr int F_BK = 32;          // kv rows per shared-memory tile
 constexpr int F_THREADS = 128;
 
+template <int D>
+constexpr int fma_smem_bytes() {  // the K and V tiles as float32
+  return 2 * F_BK * D * 4;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -764,8 +777,9 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, Strides st,
               int H, int Hk, int S, int Tk, float scale, int causal) {
   constexpr int DP = D / 4;                 // features per thread
-  __shared__ float ks[F_BK][D];
-  __shared__ float vs[F_BK][D];
+  extern __shared__ uint8_t fa_smem[];      // fma_smem_bytes<D>()
+  float (*ks)[D] = reinterpret_cast<float (*)[D]>(fa_smem);
+  float (*vs)[D] = ks + F_BK;
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -841,13 +855,35 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Let `kernel` take `bytes` of dynamic shared memory: past the default
+// 48 KB the limit is raised, once per device (`configured` holds a bit per
+// device), so that a launch captured into a CUDA graph is a launch and
+// nothing else.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       unsigned long long* configured) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || (*configured >> device & 1ull)) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) *configured |= 1ull << device;
+  return err;
+}
+
 template <typename T, int D>
 int launch_fma(const T* q, const T* k, const T* v, T* o, const Strides& st,
                int B, int H, int Hk, int S, int Tk, float scale, int causal,
                cudaStream_t stream) {
+  static unsigned long long configured = 0;
+  constexpr int smem = fma_smem_bytes<D>();
+  const cudaError_t err = allow_smem(fa_fma_kernel<T, D>, smem, &configured);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
-  fa_fma_kernel<T, D><<<grid, F_THREADS, 0, stream>>>(q, k, v, o, st, H, Hk,
-                                                     S, Tk, scale, causal);
+  fa_fma_kernel<T, D><<<grid, F_THREADS, smem, stream>>>(
+      q, k, v, o, st, H, Hk, S, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -856,9 +892,13 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
                int B, int H, int Hk, int S, int Tk, float scale, int causal,
                cudaStream_t stream) {
+  static unsigned long long configured = 0;
+  constexpr int smem = mma_smem_bytes<D>();
+  const cudaError_t err = allow_smem(fa_mma_kernel<D>, smem, &configured);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, H, B);
-  fa_mma_kernel<D><<<grid, MMA_THREADS, 0, stream>>>(q, k, v, o, st, H, Hk,
-                                                    S, Tk, scale, causal);
+  fa_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+      q, k, v, o, st, H, Hk, S, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -916,19 +956,9 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
              || !make_map(&tv, v, D, Hk, Tk, B, st.vh, st.vs, st.vb, WG_BN)) {
     return (int)cudaErrorInvalidValue;
   }
-  // Raise the shared-memory limit once per device, so that a launch
-  // captured into a CUDA graph is a launch and nothing else.
   static unsigned long long configured = 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = allow_smem(fa_wgmma_kernel<D>, smem, &configured);
   if (err != cudaSuccess) return (int)err;
-  if (!(configured >> device & 1ull)) {
-    err = cudaFuncSetAttribute(fa_wgmma_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    configured |= 1ull << device;
-  }
   // (b, h) on x, query tiles on y: every head's heaviest tile is issued
   // before any lighter one, and heads that share a KV head run together.
   const dim3 grid((unsigned)B * H, (S + WG_BM - 1) / WG_BM);
@@ -961,7 +991,9 @@ extern "C" int flash_attn_f32(const float* q, const float* k, const float* v,
     case 16: return launch_fma<float, 16>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 32: return launch_fma<float, 32>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 64: return launch_fma<float, 64>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 80: return launch_fma<float, 80>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 128: return launch_fma<float, 128>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 192: return launch_fma<float, 192>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -979,7 +1011,9 @@ extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
     case 16: return launch_mma<16>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 32: return launch_mma<32>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 64: return launch_wgmma<64>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 80: return launch_mma<80>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 128: return launch_wgmma<128>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 192: return launch_mma<192>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

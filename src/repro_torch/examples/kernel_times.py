@@ -1,0 +1,121 @@
+"""Device and eager times of the ``dct`` kernel and the dot product's
+tree kernels, each beside one PyTorch call for the same function in the
+same mode and the least time the card could take.
+
+    python src/repro_torch/examples/kernel_times.py [--src DIR] [--label L]
+
+``--src`` puts another checkout's ``src`` first on the import path, so
+that one run on one card can time two versions of the kernels in turns
+(for example a parent commit unpacked under ``build/``).  Prints one JSON
+line per measurement:
+
+* ``dct`` at (2, 4096), (64, 4096), (256, 4096) and (4096, 4096), float32,
+  against ``torch.matmul`` with TF32 off;
+* ``combine_partials`` (one tree level, 2048 -> 64) against
+  ``view(-1, 32).sum(1)``; ``combine_tree`` (every level, 2048 -> 1 at
+  radix 2 and 32) where the version has it, against ``sum()``;
+* ``ops.dotp`` over 64 Mi float32 elements at radix 0, 2 and 32 against
+  ``torch.dot``.
+
+``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
+through copies that together exceed twice the 50 MB L2, timed as one
+replay); ``eager_ms``/``library_eager_ms`` the same calls issued one by
+one from Python, the host's launch cost included.  Bounds use the H100
+SXM data sheet: 3.35 TB/s and 67 TFLOP/s float32.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[3]
+DCT_SHAPES = ((2, 4096), (64, 4096), (256, 4096), (4096, 4096))
+
+
+def own_timing():
+    """This checkout's :mod:`repro_torch.timing`, loaded by its path, so
+    that ``--src`` changes the kernels timed and not the clock."""
+    path = Path(__file__).resolve().parents[1] / "timing.py"
+    spec = importlib.util.spec_from_file_location("kernel_times_timing",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--src", help="import repro_torch from DIR")
+    parser.add_argument("--label", default="this tree")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(Path(args.src).resolve() if args.src
+                           else ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import dct, dotp, ops
+    timing = own_timing()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    common = {"label": args.label, "package": dotp.__file__, "card": smi}
+
+    def emit(rec):
+        print(json.dumps(dict(common, **rec)), flush=True)
+
+    for t, n in DCT_SHAPES:
+        x = torch.randn(t, n, device=dev, generator=gen)
+        bt = ops.dct_basis_t(n, dev)
+        got, lib = dct.dct(x, bt), torch.matmul(x, bt)
+        b, by = timing.bound(4.0 * (2 * t * n + n * n), 2.0 * t * n * n,
+                             "float32")
+        emit({"name": "dct", "shape": [t, n],
+              "max_abs_diff_vs_library": (got - lib).abs().max().item(),
+              **timing.in_turns(dct.dct, torch.matmul,
+                                timing.cold_copies(x, bt)),
+              "library": "torch.matmul, TF32 off",
+              "bound_ms": b, "bound_by": by})
+        del x, got, lib
+
+    x = torch.randn(1 << 26, device=dev, generator=gen)
+    y = torch.randn(1 << 26, device=dev, generator=gen)
+    parts = dotp.dotp_partials(x, y)
+    pcopies = timing.cold_copies(parts)
+    b, by = timing.bound(4.0 * (parts.numel() + parts.numel() // 32),
+                         parts.numel(), "float32")
+    emit({"name": "combine_partials", "n": parts.numel(), "radix": 32,
+          **timing.in_turns(lambda p: dotp.combine_partials(p, 32),
+                            lambda p: p.view(-1, 32).sum(dim=1), pcopies),
+          "library": "view(-1, 32).sum(dim=1)", "bound_ms": b,
+          "bound_by": by})
+    if hasattr(dotp, "combine_tree"):
+        for r in (2, 32):
+            b, by = timing.bound(4.0 * (parts.numel() + 1), parts.numel(),
+                                 "float32")
+            emit({"name": "combine_tree", "n": parts.numel(), "radix": r,
+                  "levels": ops.dotp_levels(x.numel(), r),
+                  **timing.in_turns(lambda p, r=r: dotp.combine_tree(p, r),
+                                    lambda p: p.sum(), pcopies),
+                  "library": "sum()", "bound_ms": b, "bound_by": by})
+    xy = timing.cold_copies(x, y)
+    b, by = timing.bound(8.0 * x.numel(), 2.0 * x.numel(), "float32")
+    for r in (0, 2, 32):
+        emit({"name": "ops.dotp", "n": x.numel(), "radix": r,
+              "levels": ops.dotp_levels(x.numel(), r),
+              **timing.in_turns(lambda u, v, r=r: ops.dotp(u, v, radix=r),
+                                torch.dot, xy),
+              "library": "torch.dot", "bound_ms": b, "bound_by": by})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -41,6 +41,7 @@ KERNEL_NAMES = {"fft4_stage_kernel": "fft4_stage",
                 "partials_kernel": "dotp_partials",
                 "central_kernel": "dotp_central",
                 "combine_kernel": "combine_partials",
+                "combine_tree_kernel": "combine_tree",
                 "axpy_kernel": "axpy", "dct_kernel": "dct",
                 "conv2d_kernel": "conv2d", "powf_kernel": "powf",
                 "fa_wgmma_kernel": "flash_attention",
@@ -188,7 +189,7 @@ def profile_simulator(device="cuda") -> None:
     for radix in (0, 2, 1024):
         print(json.dumps({"run": f"launch_counts ops.dotp 64Mi radix "
                                  f"{radix}",
-                          "expected": 1 + ops.dotp_levels(x.numel(), radix),
+                          "expected": 1 if radix <= 1 else 2,
                           **launch_counts(lambda: ops.dotp(x, y,
                                                            radix=radix))}))
     print(json.dumps({"run": "launch_counts ops.axpy 64Mi",

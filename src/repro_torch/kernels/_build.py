@@ -26,6 +26,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 # -Xptxas -v: each kernel's registers, shared memory and spills, kept in
@@ -153,7 +155,12 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (or ``.c``, built on
     first use), with ``argtypes`` set from ``signatures`` (function name
     -> list of ctypes types) and every listed function returning
-    ``int``."""
+    ``int``.  Each listed function is looked up in the library once, here,
+    and kept as an attribute of the returned object; once loaded, a call
+    is one dict lookup, without the lock."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
@@ -167,6 +174,21 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 err.restype = ctypes.c_char_p
             _LOADED[name] = lib
     return lib
+
+
+def call(lib: ctypes.CDLL, name: str, fn, device, *args) -> None:
+    """Call C function ``fn`` of ``lib`` (library ``name``) with ``args``
+    and the current stream of ``device``, and raise on a CUDA error.  The
+    device is entered only when it is not the current one.  The device
+    and the raw stream come from torch's C bindings (the ones its own
+    compiled kernels use), without the Python objects of
+    ``torch.cuda.current_device``/``current_stream``: a launch costs the
+    host a few microseconds, about what the small kernels cost the card."""
+    if device.index != torch._C._cuda_getDevice():
+        with torch.cuda.device(device):
+            return call(lib, name, fn, device, *args)
+    check(lib, name,
+          fn(*args, torch._C._cuda_getCurrentRawStream(device.index)))
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

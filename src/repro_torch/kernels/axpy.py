@@ -49,11 +49,7 @@ def axpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     xc, yc = x.contiguous(), y.contiguous()
     out = torch.empty_like(xc)
     lib = _build.load("axpy", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[x.dtype])(
-            a, xc.data_ptr(), yc.data_ptr(), out.data_ptr(), xc.numel(),
-            stream)
-    _build.check(lib, "axpy", err)
+    _build.call(lib, "axpy", getattr(lib, _ENTRY[x.dtype]), x.device,
+                a, xc.data_ptr(), yc.data_ptr(), out.data_ptr(), xc.numel())
     LAUNCHES += 1
     return out

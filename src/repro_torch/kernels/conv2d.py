@@ -56,10 +56,7 @@ def conv2d(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     k = kernel.to(torch.float32).contiguous()
     out = torch.empty((b, h, w), dtype=torch.float32, device=img.device)
     lib = _build.load("conv2d", _SIGNATURES)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[img.dtype])(
-            img.data_ptr(), k.data_ptr(), out.data_ptr(), b, h, w, stream)
-    _build.check(lib, "conv2d", err)
+    _build.call(lib, "conv2d", getattr(lib, _ENTRY[img.dtype]), img.device,
+                img.data_ptr(), k.data_ptr(), out.data_ptr(), b, h, w)
     LAUNCHES += 1
     return out

@@ -1,12 +1,16 @@
 """Row-wise DCT-II (the paper's DCT benchmark kernel).
 
 Replaces ``src/repro/kernels/dct.py::dct`` (Pallas kernel
-``_dct_kernel``).  The CUDA kernel (``csrc/dct.cu``) is a tiled float32
-GEMM of the rows against the transposed orthonormal basis, the basis
-streamed through shared memory along a k-loop (at n = 4096 it is 64 MB,
-too large to stay resident as it does in the TPU's VMEM).  Rows are
+``_dct_kernel``).  The CUDA kernel (``csrc/dct.cu``) is a pipelined
+float32 GEMM of the rows against the transposed orthonormal basis, the
+basis streamed through a ring of shared-memory tiles filled by
+``cp.async`` (at n = 4096 it is 64 MB, too large to stay resident as it
+does in the TPU's VMEM), with a block tile that follows the row count.
+Every output is one float32 FMA chain in increasing k whatever the tile,
+so a row's result does not depend on the rows beside it.  Rows are
 float32, bfloat16 or float16; the output is float32.  It is bound by
-float32 operations.  The plain version is
+float32 operations at many rows and by reading the basis at few.  The
+plain version is
 :func:`repro_torch.kernels.ref.dct`'s product, the path for CPU tensors
 and the kernel's oracle on the card.
 """
@@ -56,11 +60,7 @@ def dct(x: torch.Tensor, basis_t: torch.Tensor) -> torch.Tensor:
     rows, n = x.shape
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     lib = _build.load("dct", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[x.dtype])(
-            x.data_ptr(), basis_t.data_ptr(), out.data_ptr(), rows, n,
-            stream)
-    _build.check(lib, "dct", err)
+    _build.call(lib, "dct", getattr(lib, _ENTRY[x.dtype]), x.device,
+                x.data_ptr(), basis_t.data_ptr(), out.data_ptr(), rows, n)
     LAUNCHES += 1
     return out

@@ -122,13 +122,9 @@ def fft4_stage(re: torch.Tensor, im: torch.Tensor, wr: torch.Tensor,
     out_re = torch.empty_like(re)
     out_im = torch.empty_like(im)
     lib = _build.load("fft4_stage", _SIGNATURES)
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fft4_stage_f32(
-            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            out_re.data_ptr(), out_im.data_ptr(), rows, n, wr.shape[1],
-            stream)
-    _build.check(lib, "fft4_stage", err)
+    _build.call(lib, "fft4_stage", lib.fft4_stage_f32, re.device,
+                re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+                out_re.data_ptr(), out_im.data_ptr(), rows, n, wr.shape[1])
     LAUNCHES += 1
     return out_re, out_im
 
@@ -182,11 +178,8 @@ def fft4_fused(re: torch.Tensor, im: torch.Tensor, wr: torch.Tensor,
     out_re = torch.empty_like(re)
     out_im = torch.empty_like(im)
     lib = _build.load("fft4_stage", _SIGNATURES)
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fft4_fused_f32(
-            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            out_re.data_ptr(), out_im.data_ptr(), re.shape[0], L, stream)
-    _build.check(lib, "fft4_stage", err)
+    _build.call(lib, "fft4_stage", lib.fft4_fused_f32, re.device,
+                re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+                out_re.data_ptr(), out_im.data_ptr(), re.shape[0], L)
     FUSED_LAUNCHES += 1
     return out_re, out_im

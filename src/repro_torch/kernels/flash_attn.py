@@ -9,9 +9,12 @@ dtype.  Each operand, and the output, may be a strided view whose
 feature axis is contiguous (:func:`layout_error` says what the kernel
 reads), so the model hands it its (B, S, H, D) projections transposed,
 without a copy.  bfloat16 runs on the tensor cores (``wgmma`` at D 64
-and 128, ``mma.sync`` at 16 and 32), float32 and D = 8 in true float32
-FMAs.  At the serving path's prefill it is bound by tensor-core
-operations.  The plain version is
+and 128, ``mma.sync`` at 16, 32, 80 and 192), float32 and D = 8 in true
+float32 FMAs.  :data:`HEAD_DIMS` holds the head widths of the repo's
+configs: 64 and 128 (most of them), 80 (hubert-xlarge), 192
+(nemotron-4-340b), and the smoke configs' 8 and 16.  At the serving
+path's prefill it is bound by tensor-core operations.  The plain
+version is
 :func:`repro_torch.kernels.ref.flash_attention` cast to q's dtype, the
 path for CPU tensors and the kernel's oracle on the card.
 """
@@ -26,7 +29,7 @@ from . import _build, ref
 # Kernel launches made by flash_attention; the plain path never counts.
 LAUNCHES = 0
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 192)
 
 # q, k, v, out, their 12 strides, B, H, Hk, S, T, D, scale, causal, stream.
 _SIGNATURES = {fn: [ctypes.c_void_p] * 4
@@ -117,11 +120,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.empty_like(q)
     strides = _strides(q, k, v, out)
     lib = _build.load("flash_attn", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, b, h, hk, s, t, d, d ** -0.5, int(causal), stream)
-    _build.check(lib, "flash_attn", err)
+    _build.call(lib, "flash_attn", getattr(lib, _ENTRY[q.dtype]), q.device,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                strides, b, h, hk, s, t, d, d ** -0.5, int(causal))
     LAUNCHES += 1
     return out

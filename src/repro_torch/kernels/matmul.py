@@ -49,10 +49,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     lib = _build.load("matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[x.dtype])(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, stream)
-    _build.check(lib, "matmul", err)
+    _build.call(lib, "matmul", getattr(lib, _ENTRY[x.dtype]), x.device,
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k)
     LAUNCHES += 1
     return out

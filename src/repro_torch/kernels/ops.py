@@ -89,15 +89,15 @@ def dotp(x: torch.Tensor, y: torch.Tensor, *, radix: int = 0
          ) -> torch.Tensor:
     """``sum(x * y)`` as a float32 scalar, with the paper's barrier-radix
     knob: ``radix <= 1`` is the central accumulator (one launch);
-    ``radix = k > 1`` a k-ary tree — one leaf launch, then one
+    ``radix = k > 1`` a k-ary tree — one leaf launch, then every level
+    in one :func:`~repro_torch.kernels.dotp.combine_tree` launch, its
+    levels separated by a block-wide barrier (above
+    :data:`~repro_torch.kernels.dotp.TREE_MAX` leaves, one
     :func:`~repro_torch.kernels.dotp.combine_partials` launch per level
-    until one partial is left."""
+    first, until the count fits)."""
     if radix <= 1:
         return _dotp.dotp_central(x, y)
-    parts = _dotp.dotp_partials(x, y)
-    while parts.numel() > 1:
-        parts = _dotp.combine_partials(parts, radix)
-    return parts[0]
+    return _dotp.combine_tree(_dotp.dotp_partials(x, y), radix)
 
 
 def dotp_levels(n: int, radix: int) -> int:

@@ -59,10 +59,7 @@ def powf(x: torch.Tensor, y: float) -> torch.Tensor:
     xc = x.contiguous()
     out = torch.empty_like(xc)
     lib = _build.load("powf", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.powf_f32(xc.data_ptr(), float(np.float32(y)),
-                           out.data_ptr(), xc.numel(), stream)
-    _build.check(lib, "powf", err)
+    _build.call(lib, "powf", lib.powf_f32, x.device, xc.data_ptr(),
+                float(np.float32(y)), out.data_ptr(), xc.numel())
     LAUNCHES += 1
     return out

@@ -154,7 +154,11 @@ def dct_basis(n: int, *, device="cuda") -> torch.Tensor:
     dev = resolve_device(device)
     k = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
     i = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
-    angle = float(np.float32(np.pi)) * (2 * i + 1) * k / (2 * n)
+    # The divisor is a tensor on the device: CUDA torch divides by a Python
+    # number as a multiply by its float32 reciprocal, which at n not a
+    # power of two rounds some angles one ulp off the reference's quotient.
+    two_n = torch.full((), 2 * n, dtype=torch.float32, device=dev)
+    angle = float(np.float32(np.pi)) * (2 * i + 1) * k / two_n
     # The float64 cosine of each float32 angle, rounded once.
     basis = torch.cos(angle.double()).float()
     scale = torch.where(k == 0, float(np.sqrt(np.float32(1.0 / n))),

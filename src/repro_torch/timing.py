@@ -1,0 +1,91 @@
+"""Timing on the card and the least time it could take: the helpers that
+``chip_smoke.py`` and ``examples/kernel_times.py`` share.
+
+Device time is a CUDA graph of calls timed as one replay
+(:func:`graph_ms`), so the host's launch cost drops out; eager time
+(:func:`cuda_ms`) is the same calls issued one by one from Python.  The
+bound (:func:`bound`) uses the H100 SXM data sheet's peaks.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth,
+# float32 outside the tensor cores, bf16 in the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12,
+                "float64": 34e12}   # float64 outside the tensor cores
+L2_BYTES = 50e6
+
+
+def cuda_ms(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn`` on the device: CUDA events
+    around ``iters`` back-to-back calls after ``warmup`` calls, cycling
+    through the argument tuples of ``inputs`` (see :func:`cold_copies`)."""
+    for i in range(warmup):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_copies(*tensors) -> list:
+    """Enough copies of the argument tuple that cycling through them
+    streams more than twice the H100's 50 MB L2 cache, so each timed
+    call reads its inputs from device memory, as the bound assumes."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    count = min(8, max(1, math.ceil(2 * L2_BYTES / size)))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(count - 1)]
+
+
+def graph_ms(fn, inputs, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``: ``iters`` calls
+    cycling through ``inputs``, captured once in a CUDA graph and timed
+    as one replay, so the host's launch cost between calls drops out."""
+    for args in inputs:                  # warm caches and lazy set-up
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(fn, library, inputs) -> dict:
+    """``fn`` and ``library`` on the same inputs in device time
+    (:func:`graph_ms` in turns: fn, library, library, fn; each mean of
+    two) and eagerly (:func:`cuda_ms`): the fields of a graph-timed
+    kernel record."""
+    g = [graph_ms(f, inputs) for f in (fn, library, library, fn)]
+    return {"timing": "graph", "ms": (g[0] + g[3]) / 2,
+            "library_ms": (g[1] + g[2]) / 2, "runs_ms": [g[0], g[3]],
+            "library_runs_ms": [g[1], g[2]],
+            "eager_ms": cuda_ms(fn, inputs),
+            "library_eager_ms": cuda_ms(library, inputs)}
+
+
+def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
+    """The least milliseconds the card could take to move ``bytes_moved``
+    and do ``flops`` operations of ``dtype``, and which of the two sets
+    it: ``(ms, "bytes" | "operations")``."""
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

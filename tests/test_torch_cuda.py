@@ -126,12 +126,55 @@ def test_combine_partials_kernel_matches_plain(cuda, n, radix):
 @pytest.mark.parametrize("n", [128, 1000, 8192, 1 << 20])
 @pytest.mark.parametrize("radix", [0, 2, 4, 16, 32, 1024])
 def test_dotp_chain_launches_and_matches_plain(cuda, n, radix):
+    """The central accumulator is one launch; a tree is two below
+    dotp.TREE_MAX leaves: the leaves, then every level in one launch."""
     x, y = _pair(cuda, n, torch.float32, radix)
     before = sum(dotp.LAUNCHES.values())
     got = ops.dotp(x, y, radix=radix)
-    assert sum(dotp.LAUNCHES.values()) == before + 1 + ops.dotp_levels(
-        n, radix)
+    assert sum(dotp.LAUNCHES.values()) == before + (1 if radix <= 1 else 2)
     assert abs(got.item() - ref.dotp(x, y).item()) <= _dotp_limits(x, y)[1]
+
+
+def _kernel_chain(parts, radix):
+    """The tree as one combine_partials launch per level."""
+    while parts.numel() > 1:
+        parts = dotp.combine_partials(parts, radix)
+    return parts[0]
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 2048, 5000, 58112, 58113,
+                               100000])
+@pytest.mark.parametrize("radix", [2, 3, 32, 1024])
+def test_combine_tree_equals_the_per_level_chain(cuda, n, radix):
+    """One tree launch gives the bits of the chain of per-level launches,
+    below and above the shared-memory cap (above it, per-level launches
+    run until the count fits); every level of the chain is within 1e-6
+    of each group's sum |partial| of the plain level."""
+    gen = torch.Generator(device=cuda).manual_seed(n + radix)
+    parts = torch.randn(n, device=cuda, generator=gen)
+    before = dict(dotp.LAUNCHES)
+    got = dotp.combine_tree(parts, radix)
+    pre, m = 0, n
+    while m > dotp.TREE_MAX:
+        m, pre = -(-m // radix), pre + 1
+    assert dotp.LAUNCHES["combine_tree"] == before["combine_tree"] + 1
+    assert dotp.LAUNCHES["combine_partials"] == \
+        before["combine_partials"] + pre
+    assert got.shape == () and got.dtype == torch.float32
+    assert torch.equal(got, _kernel_chain(parts, radix))
+    level = parts
+    while level.numel() > 1:
+        nxt = dotp.combine_partials(level, radix)
+        assert ((nxt - dotp.combine_partials_plain(level, radix)).abs()
+                <= 1e-6 * dotp.combine_partials_plain(level.abs(),
+                                                      radix)).all()
+        level = nxt
+    assert torch.equal(got, level[0])
+
+
+def test_combine_tree_cap_is_the_kernels(cuda):
+    lib = _build.load("dotp", dotp._SIGNATURES)
+    assert lib.dotp_tree_max() == dotp.TREE_MAX == 232448 // 4
 
 
 @pytest.mark.parametrize("n", [1, 7, 4096, (1 << 20) + 3])
@@ -156,6 +199,8 @@ def test_new_kernels_reject_other_dtypes(cuda):
         ops.axpy(2.0, x, x)
     with pytest.raises(TypeError):
         dotp.combine_partials(x, 4)
+    with pytest.raises(TypeError):
+        dotp.combine_tree(x, 4)
 
 
 def test_failed_build_raises_instead_of_falling_back(cuda, monkeypatch,
@@ -172,7 +217,9 @@ def test_failed_build_raises_instead_of_falling_back(cuda, monkeypatch,
 
 
 @pytest.mark.parametrize("shape", [(33, 8), (33, 64), (33, 256), (2, 4096),
-                                   (257, 4096)])
+                                   (257, 4096), (64, 4096), (256, 4096),
+                                   (4096, 4096), (300, 1000), (5, 37),
+                                   (70, 1001)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_dct_kernel_matches_plain(cuda, shape, dtype):
@@ -186,6 +233,24 @@ def test_dct_kernel_matches_plain(cuda, shape, dtype):
                                atol=1e-3)
     torch.testing.assert_close(bt.cpu(), ops.dct_basis_t(
         shape[1], torch.device("cpu")), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dct_rows_do_not_depend_on_the_tile(cuda, dtype):
+    """Every output is one FMA chain in increasing k whatever tile the row
+    count picks, so the first rows of a large call equal the same rows
+    alone, bit for bit (the suite's 2, 64 and 256 rows against 4096),
+    and a row off 16-byte alignment (the element-wise copy) gives the
+    aligned call's bits too."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(4096, 4096, device=cuda, generator=gen).to(dtype)
+    full = ops.dct(x)
+    for t in (2, 64, 256):
+        assert torch.equal(ops.dct(x[:t]), full[:t])
+    flat = torch.empty(2 * 4096 + 1, device=cuda, dtype=dtype)
+    rows = flat[1:].view(2, 4096)
+    rows.copy_(x[:2])
+    assert torch.equal(ops.dct(rows), full[:2])
 
 
 @pytest.mark.parametrize("shape", [(3, 8, 8), (3, 16, 20), (3, 32, 32),
@@ -248,6 +313,17 @@ def test_robust_simulator_on_card_equals_cpu(cuda):
 # bf16 ulps relative plus 1.6e-2 absolute (p and the output are rounded to
 # bf16 at other places in the kernel and the plain version).
 FA_TOL = {torch.float32: 2e-3, torch.bfloat16: 1.6e-2}
+# bf16 against float32 attention on the same bf16 inputs, each query row's
+# largest error over that row's largest output (FA_TOL[bf16] is loose where
+# outputs average hundreds of keys): the output's and p's bf16 rounding are
+# 2^-9 relative each; 2^-6 leaves a factor of four (chip_smoke.py's
+# FA_BF16_ROW_TOL).
+FA_BF16_ROW_TOL = 2.0 ** -6
+
+
+def row_scaled_err(got, want) -> float:
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    return (diff / want.float().abs().amax(dim=-1)).max().item()
 
 
 @pytest.mark.parametrize("s,d", [(64, 16), (128, 32), (256, 64), (33, 8),
@@ -303,6 +379,51 @@ def test_model_attention_on_card_raises_for_later_slices(cuda, kwargs):
     v = torch.randn(1, 32, 2, 8, device=cuda)
     with pytest.raises(NotImplementedError, match="slice"):
         attention.flash_attention(q, q, v, causal=True, chunk=32)
+
+
+@pytest.mark.parametrize("d", [80, 192])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,group", [(100, 1), (300, 12)])
+def test_flash_attention_at_the_configs_head_widths(cuda, d, causal, dtype,
+                                                    s, group):
+    """hubert-xlarge's D 80 and nemotron-4-340b's D 192 (grouped 12 to 1,
+    as nemotron's 96 heads read 8): the kernel against its plain version,
+    within FA_TOL in bf16 and 1e-4 in float32 (both sum float32 products;
+    1e-4 leaves the exponentials' and the order's rounding a wide
+    margin); bf16 also within FA_BF16_ROW_TOL of each row's scale."""
+    gen = torch.Generator(device=cuda).manual_seed(d + s + group)
+    q = torch.randn(2, 2 * group, s, d, device=cuda, generator=gen)
+    k, v = (torch.randn(2, 2, s, d, device=cuda, generator=gen)
+            for _ in range(2))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = flash_attn.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_attn.LAUNCHES == before + 1 and got.dtype == dtype
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        ref32 = flash_attn.flash_attention_plain(q.float(), k.float(),
+                                                 v.float(), causal=causal)
+        assert row_scaled_err(got, ref32) <= FA_BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("d", [80, 192])
+def test_model_attention_on_card_runs_the_configs_head_widths(cuda, d):
+    """The model's attention at D 80 and 192 launches the kernel on its
+    (B, S, H, D) projections; the chunked plain algorithm agrees."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(2, 96, 4, d, device=cuda, generator=gen).bfloat16()
+    k, v = (torch.randn(2, 96, 2, d, device=cuda, generator=gen).bfloat16()
+            for _ in range(2))
+    before = flash_attn.LAUNCHES
+    got = attention.flash_attention(q, k, v, causal=True)
+    assert flash_attn.LAUNCHES == before + 1
+    want = attention.chunked_attention(q, k, v, causal=True, chunk=32)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
 
 
 def test_flash_attention_rejects_other_head_dims_and_dtypes(cuda):

@@ -18,7 +18,7 @@ from repro.kernels import fft4 as jfft4
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
-                                 matmul, ops, powf, ref)
+                                 flash_attn, matmul, ops, powf, ref)
 
 RNG = np.random.default_rng(42)
 
@@ -223,6 +223,46 @@ def test_dotp_leaf_and_level_counts_match_reference(n):
         assert tiles == 32
 
 
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 2048, 5000])
+@pytest.mark.parametrize("radix", [2, 3, 32, 1024])
+def test_combine_tree_plain_equals_the_level_chains(n, radix):
+    """The tree's plain version is the chain of ``ref.combine_partials``
+    levels, bit for bit, and agrees with JAX's chain of Pallas
+    ``combine_partials`` launches (interpret mode) to float32 rounding of
+    another summation order: 1e-6 of the sum of |partial|."""
+    parts = _arr((n,))
+    before = dict(dotp.LAUNCHES)
+    got = dotp.combine_tree(torch.from_numpy(parts), radix)
+    assert dotp.LAUNCHES == before      # CPU: the plain version
+    assert got.shape == () and got.dtype == torch.float32
+    chain = torch.from_numpy(parts)
+    while chain.numel() > 1:
+        chain = ref.combine_partials(chain, radix)
+    assert torch.equal(got, chain[0])
+    assert torch.equal(dotp.combine_tree_plain(torch.from_numpy(parts),
+                                               radix), got)
+    jchain = jnp.asarray(parts[:, None])
+    while jchain.shape[0] > 1:
+        jchain = jdotp.combine_partials(jchain, radix)
+    np.testing.assert_allclose(got.item(), float(jchain[0, 0]), rtol=0,
+                               atol=1e-6 * np.abs(parts).sum())
+
+
+@pytest.mark.parametrize("n", [1, 40000, 70001, 1 << 20])
+@pytest.mark.parametrize("radix", [2, 3, 32, 1024])
+def test_dotp_on_cpu_tensors_is_the_plain_level_chain(n, radix):
+    """On CPU tensors ``ops.dotp`` at radix > 1 is the plain leaves and
+    the plain level chain, bit for bit, and counts no launch."""
+    x, y = torch.from_numpy(_arr((n,))), torch.from_numpy(_arr((n,)))
+    before = dict(dotp.LAUNCHES)
+    got = ops.dotp(x, y, radix=radix)
+    assert dotp.LAUNCHES == before
+    parts = ref.dotp_partials(x, y)
+    while parts.numel() > 1:
+        parts = ref.combine_partials(parts, radix)
+    assert got.shape == () and torch.equal(got, parts[0])
+
+
 def test_dotp_plain_twins():
     x, y = torch.from_numpy(_arr((70001,))), torch.from_numpy(_arr((70001,)))
     parts = dotp.dotp_partials(x, y)
@@ -233,6 +273,10 @@ def test_dotp_plain_twins():
     torch.testing.assert_close(dotp.dotp_central(x, y), parts.sum())
     with pytest.raises(ValueError, match="radix"):
         dotp.combine_partials(parts, 1)
+    with pytest.raises(ValueError, match="radix"):
+        dotp.combine_tree(parts, 1)
+    with pytest.raises(ValueError, match="shape"):
+        dotp.combine_tree(parts[:0], 2)
     with pytest.raises(ValueError, match="shape"):
         ops.dotp(x, y[:5])
     with pytest.raises(ValueError, match="at least one"):
@@ -267,6 +311,28 @@ def test_chip_smoke_dotp_checks_catch_a_zeroed_leaf(n):
     assert abs(fault["leaf_sum"]) > sum_lim
 
 
+@pytest.mark.parametrize("d,causal", [(80, False), (192, True)])
+def test_chip_smoke_bf16_row_check_catches_planted_faults(d, causal):
+    """chip_smoke.py's bf16 attention check (each query row's error over
+    its largest output, against float32 attention on the same bf16
+    inputs) passes the plain bf16 version and fails its three planted
+    faults, on the plain path at hubert's (D 80) and nemotron's (D 192)
+    widths, 256 keys."""
+    smoke = _chip_smoke()
+    gen = torch.Generator().manual_seed(d)
+    q = torch.randn(1, 4, 256, d, generator=gen).bfloat16()
+    k, v = (torch.randn(1, 2, 256, d, generator=gen).bfloat16()
+            for _ in range(2))
+    got = flash_attn.flash_attention(q, k, v, causal=causal)
+    rows = smoke.check_bf16_rows(flash_attn, q, k, v, causal, got, got)
+    assert 0 < rows["row_scaled_err"] <= smoke.FA_BF16_ROW_TOL
+    faults = smoke.fa_planted_faults(flash_attn, q, k, v, causal, got, got)
+    assert sorted(faults) == ["out_last_16_zeroed", "pv_tile_skipped",
+                              "qk_last_k16_dropped"]
+    assert all(f["row_scaled_err"] > smoke.FA_BF16_ROW_TOL
+               for f in faults.values())
+
+
 @pytest.mark.parametrize("hw", [(8, 8), (16, 20), (32, 32)])
 def test_conv2d_vs_reference(hw):
     """``ops.conv2d`` against the reference's Pallas kernel (interpret
@@ -296,7 +362,7 @@ def test_dct_vs_reference(n):
                                    np.asarray(want), rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize("n", [32, 4096])
+@pytest.mark.parametrize("n", [32, 1000, 4096])
 def test_dct_basis_orthonormal_and_float32_like_reference(n):
     """The basis is orthonormal and is the reference's float32 basis:
     its angles are rounded to float32 as the reference rounds them (a
@@ -307,7 +373,7 @@ def test_dct_basis_orthonormal_and_float32_like_reference(n):
     np.testing.assert_allclose(b.numpy(), want, rtol=0, atol=1e-6)
     if n == 32:
         np.testing.assert_allclose((b @ b.T).numpy(), np.eye(n), atol=1e-5)
-    else:
+    elif n == 4096:
         k = np.arange(n, dtype=np.float64)[:, None]
         i = np.arange(n, dtype=np.float64)[None, :]
         exact = np.cos(np.pi * (2 * i + 1) * k / (2 * n))

@@ -11,7 +11,9 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro_torch.kernels import flash_attn, ops, ref
+from repro_torch.models import attention
 
 RNG = np.random.default_rng(7)
 
@@ -134,3 +136,29 @@ def test_wrapper_rejects_an_out_of_another_shape():
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="out"):
         flash_attn.flash_attention(q, q, q, out=torch.zeros(1, 2, 8, 8))
+
+
+@pytest.mark.parametrize("d,h,hk,causal", [(80, 4, 4, False),
+                                          (192, 6, 2, True)])
+def test_model_attention_at_the_configs_head_widths(d, h, hk, causal):
+    """hubert-xlarge's D 80 (an encoder: bidirectional) and
+    nemotron-4-340b's D 192 (causal, grouped heads): the port's chunked
+    attention, the function its kernel replaces on the card, equals JAX's
+    model attention on the same inputs in float32 to 1e-5 (the two sum
+    in other orders; tests/test_torch_lm_models.py), and the kernel's
+    wrapper takes the width."""
+    assert d in flash_attn.HEAD_DIMS
+    q, k, v = _arr((2, 48, h, d)), _arr((2, 48, hk, d)), _arr((2, 48, hk, d))
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal, chunk=16)
+    got = attention.chunked_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    # The kernel's contract on (B, H, S, D) heads, its plain version here.
+    heads = flash_attn.flash_attention(
+        *(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
+        causal=causal)
+    np.testing.assert_allclose(heads.transpose(1, 2).numpy(), got.numpy(),
+                               rtol=1e-5, atol=1e-5)
