@@ -18,12 +18,18 @@ phase prints one JSON line:
    against ``torch.fft``; the fused kernel, the stage chain and
    ``torch.fft`` timed in turns at (896, 4096) on the same cold copies,
    in device time (CUDA graph replay) and eagerly, with each one's
-   ratio to the library.
+   ratio to the library.  ``matmul`` at shapes that reach every path of
+   its kernel, the 5G shape timed in turns with ``torch.matmul`` in
+   device time and eagerly, and its row, column and offset-view
+   identities bit for bit.
 3. ``fiveg_pipeline``: one 5G NR slot (64 antennas x 4096 sub-carriers
    x 14 symbols) through the fused FFT kernel and the matmul kernel,
    checked against numpy; the launch counts of this run (one fused FFT
-   launch, two matmuls); then ``ops.fft4`` over (64, 65536), the stage
-   kernel's own path, counted apart.
+   launch, two matmuls) and its wall time, numpy's input generation
+   included; the slot's device work alone on resident inputs
+   (``slot_ms`` in device time, ``slot_eager_ms`` eagerly), each
+   kernel's share and the slot's bound; then ``ops.fft4`` over (64,
+   65536), the stage kernel's own path, counted apart.
 4. ``fig4a``: the Fig. 4a sweep at N = 1024 (10 radices x 4 delays x
    1024 trials), its first 16 trials bit for bit against the port's
    ``simulate_reference`` on the CPU and the JAX reference values.
@@ -38,8 +44,8 @@ phase prints one JSON line:
    (one ``combine_partials`` level first), with the launch counts of that
    run; each kernel against its plain version, the fused tree against
    the chain of per-level launches bit for bit, and each timed beside its
-   bound and one PyTorch library call, the tree kernels and the chain in
-   device time (CUDA graph replay) and eagerly.
+   bound and one PyTorch library call, the tree kernels, the chain and
+   ``axpy`` in device time (CUDA graph replay) and eagerly.
 7. ``fig5``: every Fig. 5 kernel's arrival gap and median against the
    JAX reference values, and claim C5.
 8. ``fig6``: the 7-radix x 15-kernel grid of
@@ -108,8 +114,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.timing import (bound, cold_copies, cuda_ms, graph_ms,
-                                in_turns)
+from repro_torch.timing import (bound, cold_copies, cuda_ms, fft_work,
+                                graph_ms, in_turns, matmul_work, slot_work)
 
 
 MODES = ("central", "tree", "partial", "hw")
@@ -156,6 +162,9 @@ DOTP_RADICES = (0, 2, 4, 16, 32, 1024)
 # cap: the path's one use of the per-level kernel.
 DOTP_ABOVE_CAP = 1 << 31
 AXPY_SIZES = (1 << 20, 1 << 26)
+# The 5G beamforming product: 32 beams x 64 antennas against 64 x (14
+# symbols x 4096 sub-carriers).
+MM_5G = (32, 64, 57344)
 # The Fig. 5/6 suite's DCT and Conv2D inputs, and the sizes they are
 # timed at.
 DCT_SIZES = ((2, 4096), (64, 4096), (256, 4096))
@@ -344,12 +353,18 @@ def phase_kernels(torch, ops, fft4, matmul, ref) -> dict:
               (fi.double() - want.imag).abs().max().item()),
           "tol_vs_torch_fft": {"rtol": 1e-3, "atol": 2e-3}})
 
-    # matmul: the reference's test shapes in both dtypes and the 5G
-    # beamforming shape.  Tolerance: the reference's float32 test bound
-    # (rtol 1e-4, atol 1e-4 sqrt(K)); bf16 inputs convert to float32
-    # exactly in both, so only the summation order differs.
+    # matmul: the reference's test shapes, shapes that reach every path of
+    # the kernel (one row; 31, 33 and 65 rows around its 32-row tile; K
+    # past its four-stage ring and off its 16-k chunks; N off the float4
+    # grid at the 5G width) and the 5G beamforming shape, in both dtypes.
+    # Tolerance: the reference's float32 test bound (rtol 1e-4, atol 1e-4
+    # sqrt(K)); bf16 inputs convert to float32 exactly in both, so only
+    # the summation order differs.  The 5G shape is timed in turns with
+    # torch.matmul in device time (TF32 off), the others eagerly.
+    torch.backends.cuda.matmul.allow_tf32 = False
     shapes = ((8, 16, 8), (100, 60, 72), (256, 512, 128), (129, 257, 65),
-              (32, 64, 57344))
+              (1, 64, 57344), (31, 64, 4096), (33, 64, 1000),
+              (65, 100, 4100), (32, 64, 57343), MM_5G)
     for m, k, n in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
@@ -362,25 +377,66 @@ def phase_kernels(torch, ops, fft4, matmul, ref) -> dict:
             if got.dtype != torch.float32:
                 raise AssertionError(f"matmul returned {got.dtype}")
             name = str(dtype).split(".")[1]
+            b_ms, b_by = bound(*matmul_work(m, k, n, x.element_size()), name)
+            args = cold_copies(x, w)
             rec = {"phase": "kernel", "name": "matmul", "shape": [m, k, n],
                    "dtype": name, "max_abs_err": err,
-                   "tol": {"rtol": 1e-4, "atol": 1e-4 * k ** 0.5}}
-            itemsize = x.element_size()
-            b_ms, b_by = bound((m * k + k * n) * itemsize + m * n * 4,
-                               2.0 * m * n * k, name)
-            args = cold_copies(x, w)
-            rec.update({
-                "ms": cuda_ms(matmul.matmul, args),
-                "plain_ms": cuda_ms(matmul.matmul_plain, args,
-                                    iters=5),
-                "library_ms": cuda_ms(torch.matmul, args),
-                "library": "torch.matmul (output in the input dtype)",
-                "bound_ms": b_ms, "bound_by": b_by})
-            if (m, k, n) == (32, 64, 57344) and dtype == torch.float32:
-                summary["matmul"] = rec
+                   "tol": {"rtol": 1e-4, "atol": 1e-4 * k ** 0.5},
+                   "plain_ms": cuda_ms(matmul.matmul_plain, args, iters=5),
+                   "library": "torch.matmul (output in the input dtype, "
+                              "TF32 off)",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            if (m, k, n) == MM_5G:
+                rec.update(in_turns(matmul.matmul, torch.matmul, args))
+                rec["ratio_to_library"] = rec["ms"] / rec["library_ms"]
+                if dtype == torch.float32:
+                    summary["matmul"] = rec
+            else:
+                rec.update(ms=cuda_ms(matmul.matmul, args),
+                           library_ms=cuda_ms(torch.matmul, args))
             emit(rec)
+    emit(matmul_layout_checks(torch, matmul, gen))
     emit({"phase": "kernel", "wall_s": time.perf_counter() - t_phase})
     return summary
+
+
+def matmul_layout_checks(torch, matmul, gen) -> dict:
+    """The one-fmaf-chain design's identities on the card, in float32:
+    the first t rows of a call equal the call on x[:t] and its first c
+    columns the call on w[:, :c], bit for bit, for t and c on both sides
+    of the 32 x 128 block tile and of a warp's 32 columns, and off the
+    float4 grid; and x as an offset row slice of a larger tensor, x off
+    16-byte alignment, and w off it (the element-wise copy of w), give
+    the aligned call's bits."""
+    dev = gen.device
+    m, k, n = 65, MM_5G[1], MM_5G[2]
+    x = torch.randn(m, k, device=dev, generator=gen)
+    w = torch.randn(k, n, device=dev, generator=gen)
+    full = matmul.matmul(x, w)
+    rows = {t: torch.equal(matmul.matmul(x[:t], w), full[:t])
+            for t in (1, 31, 32, 33)}
+    cols = {c: torch.equal(matmul.matmul(x, w[:, :c]), full[:, :c])
+            for c in (5, 33, 127, 129, 1000, n - 1)}
+    big = torch.randn(m + 7, k, device=dev, generator=gen)
+    big[3:3 + m] = x
+    flat_x = torch.empty(m * k + 1, device=dev)
+    flat_x[1:].view(m, k).copy_(x)
+    flat_w = torch.empty(k * n + 1, device=dev)
+    flat_w[1:].view(k, n).copy_(w)
+    views = {"x offset rows": torch.equal(matmul.matmul(big[3:3 + m], w),
+                                          full),
+             "x off 16 bytes": torch.equal(
+                 matmul.matmul(flat_x[1:].view(m, k), w), full),
+             "w off 16 bytes": torch.equal(
+                 matmul.matmul(x, flat_w[1:].view(k, n)), full)}
+    if not (all(rows.values()) and all(cols.values())
+            and all(views.values())):
+        raise AssertionError(f"matmul slices differ from the whole call: "
+                             f"rows {rows}, columns {cols}, views {views}")
+    return {"phase": "kernel", "name": "matmul", "shape": [m, k, n],
+            "check": "rows, columns and offset views equal the whole "
+                     "call bit for bit", "rows": list(rows),
+            "columns": list(cols), "views": list(views)}
 
 
 def _time_fft(torch, ops, fft4, ref, re, im, stages) -> dict:
@@ -425,7 +481,7 @@ def _time_fft(torch, ops, fft4, ref, re, im, stages) -> dict:
     # written once, the twiddles read once.  The stage chain moves
     # `stages` times the plane traffic.
     planes = 4 * rows * n * 4
-    flops = stages * rows * (n // 4) * 34
+    flops = fft_work(rows, n)[1]
     common = {"plain_ms": plain_ms, "library_ms": ms["library"],
               "library_runs_ms": runs["library"],
               "library_eager_ms": eager["library"],
@@ -433,7 +489,7 @@ def _time_fft(torch, ops, fft4, ref, re, im, stages) -> dict:
               "library_max_abs_diff": max((kr - lr).abs().max().item(),
                                           (ki - li).abs().max().item()),
               "timing": "graph"}
-    b_ms, b_by = bound(planes + 2 * (n - 1) * 4, flops, "float32")
+    b_ms, b_by = bound(*fft_work(rows, n), "float32")
     fused = dict(common, unit=f"ops.fft4 over ({rows}, {n}): one fused "
                  f"launch", ms=ms["fused"], runs_ms=runs["fused"],
                  eager_ms=eager["fused"],
@@ -449,6 +505,37 @@ def _time_fft(torch, ops, fft4, ref, re, im, stages) -> dict:
                  stage_bound_ms=bound(planes, 0.0, "float32")[0],
                  bound_ms=b_ms, bound_by=b_by)
     return {"fft4_fused": fused, "fft4_stage": stage}
+
+
+def _time_slot(torch, pipeline, ops, matmul, out) -> dict:
+    """The slot's device work alone, on cold copies of its inputs already
+    on the card: ``slot_ms`` one CUDA graph replay a slot
+    (:func:`graph_ms`), ``slot_eager_ms`` the slot called from Python
+    (:func:`cuda_ms`); each kernel's device time and share of
+    ``slot_ms``; and the slot's bound, the FFT's bytes and operations
+    plus both products'."""
+    dev = torch.device("cuda")
+    args = cold_copies(*(torch.from_numpy(out[key]).to(dev)
+                         for key in ("re", "im", "coef")))
+    slot_ms = graph_ms(pipeline.slot, args)
+    slot_eager_ms = cuda_ms(pipeline.slot, args)
+    fft_ms = graph_ms(lambda re, im, coef: ops.fft4(re, im), args)
+
+    def products(fr, fi, coef):
+        n_rx = coef.shape[1]
+        return (matmul.matmul(coef, fr.reshape(n_rx, -1)),
+                matmul.matmul(coef, fi.reshape(n_rx, -1)))
+
+    spectra = [ops.fft4(re, im) + (coef,) for re, im, coef in args]
+    mm_ms = graph_ms(products, spectra)
+    (rows, n), (n_beams, n_rx) = out["re"].shape, out["coef"].shape
+    b_ms, b_by = bound(*slot_work(rows, n, n_beams, n_rx), "float32")
+    return {"slot_ms": slot_ms, "slot_eager_ms": slot_eager_ms,
+            "kernel_ms": {"fft4_fused": fft_ms, "matmul (both)": mm_ms},
+            "share_of_slot_ms": {"fft4_fused": fft_ms / slot_ms,
+                                 "matmul (both)": mm_ms / slot_ms},
+            "slot_bound_ms": b_ms, "slot_bound_by": b_by,
+            "slot_bound_share": b_ms / slot_ms}
 
 
 def phase_pipeline(torch, pipeline, fft4, matmul, ops) -> dict:
@@ -470,11 +557,14 @@ def phase_pipeline(torch, pipeline, fft4, matmul, ops) -> dict:
                              f"1 fft4_fused and 2 matmul")
     emit({"phase": "fiveg_pipeline", "rows": list(out["re"].shape),
           "beams": list(out["beams_r"].shape), "wall_s": wall,
+          "wall_s_covers": "numpy input generation, the copy to the "
+                           "device and the slot",
           "launches": launches, "max_abs_err": errs,
           "tol": {"fft": [pipeline.FFT_RTOL, pipeline.FFT_ATOL],
                   "matmul_rtol": pipeline.MM_RTOL,
                   "matmul_atol": pipeline.MM_ATOL_PER_SQRT_K
-                  * out["coef"].shape[1] ** 0.5}})
+                  * out["coef"].shape[1] ** 0.5},
+          **_time_slot(torch, pipeline, ops, matmul, out)})
 
     rows, n = FFT_LONG
     dev = torch.device("cuda")
@@ -775,12 +865,12 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
             args = [(1.7,) + xy for xy in cold_copies(x[:n], y[:n])]
             b_ms, b_by = bound(3 * n * x.element_size(), 2.0 * n, name)
             rec.update({
-                "ms": cuda_ms(axpy.axpy, args),
                 "plain_ms": cuda_ms(axpy.axpy_plain, args),
-                "library_ms": cuda_ms(
-                    lambda a, u, v: torch.add(v, u, alpha=a), args),
                 "library": "torch.add(y, x, alpha=a)",
-                "bound_ms": b_ms, "bound_by": b_by})
+                "bound_ms": b_ms, "bound_by": b_by,
+                **in_turns(axpy.axpy,
+                           lambda a, u, v: torch.add(v, u, alpha=a), args)})
+            rec["ratio_to_library"] = rec["ms"] / rec["library_ms"]
             if (n, name) == (big, "float32"):
                 summary["axpy"] = rec
             emit(rec)

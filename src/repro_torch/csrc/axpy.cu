@@ -6,12 +6,16 @@
 // computed in float32 with one fused multiply-add and, for bfloat16,
 // rounded to bfloat16 once.
 //
-// Design: a grid-stride loop over 16-byte packs (4 float32 or 8
-// bfloat16 values), so every load and store is one 128-bit transaction
-// and neighbouring threads touch neighbouring packs; a scalar loop takes
-// the elements past the last whole pack, and all of them when a base
-// pointer is not 16-byte aligned.  Out of place: the caller allocates
-// `out`.
+// Design: each thread takes a fixed run of PACKS 16-byte packs (4
+// float32 or 8 bfloat16 values) of x and of y, PACKS * THREADS packs a
+// block and one block per run of the array (no grid-stride loop), and
+// issues all of its loads before its first FMA or store, so that every
+// thread keeps 2 PACKS loads in flight; neighbouring threads touch
+// neighbouring packs.  Loads are streaming (__ldcs) and so are stores
+// (__stcs): nothing is read twice.  The last block also takes the
+// elements past the last whole pack, and every block takes its run
+// element by element when a base pointer is not 16-byte aligned.  Out
+// of place: the caller allocates `out`.
 //
 // Bound: bytes.  Two reads and one write per element for 2 flops: 1/6
 // flop a byte in float32, far below the H100's 20 flops a byte.
@@ -22,7 +26,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 132 * 16;   // 16 resident-sized waves of SMs
+constexpr int PACKS = 2;   // 16-byte packs of x (and of y) a thread
 
 __device__ __forceinline__ float4 axpy4(float a, float4 x, float4 y) {
   return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y),
@@ -63,32 +67,53 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 axpy_kernel(float a, const T* __restrict__ x, const T* __restrict__ y,
-            T* __restrict__ out, long long n) {
+            T* __restrict__ out, long long n, int aligned) {
   constexpr int V = 16 / sizeof(T);
-  const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long stride = (long long)gridDim.x * THREADS;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x)
-                         | reinterpret_cast<uintptr_t>(y)
-                         | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const long long nv = aligned ? n / V : 0;
+  const long long first = (long long)blockIdx.x * (THREADS * PACKS * V);
+  if (!aligned) {
+    for (int j = 0; j < PACKS * V; ++j) {
+      const long long i = first + j * THREADS + threadIdx.x;
+      if (i < n) store(out + i, fmaf(a, to_f32(x[i]), to_f32(y[i])));
+    }
+    return;
+  }
+  const long long nv = n / V;
+  const long long v0 = first / V + threadIdx.x;
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   const uint4* yv = reinterpret_cast<const uint4*>(y);
   uint4* ov = reinterpret_cast<uint4*>(out);
-#pragma unroll 4
-  for (long long v = tid; v < nv; v += stride)
-    ov[v] = axpy_pack(a, __ldg(xv + v), __ldg(yv + v), T());
-  for (long long i = nv * V + tid; i < n; i += stride)
+  uint4 xp[PACKS], yp[PACKS];
+#pragma unroll
+  for (int j = 0; j < PACKS; ++j) {
+    const long long v = v0 + j * THREADS;
+    if (v < nv) {
+      xp[j] = __ldcs(xv + v);
+      yp[j] = __ldcs(yv + v);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PACKS; ++j) {
+    const long long v = v0 + j * THREADS;
+    if (v < nv) __stcs(ov + v, axpy_pack(a, xp[j], yp[j], T()));
+  }
+  const long long i = nv * V + threadIdx.x;   // fewer than V left over
+  if (blockIdx.x == gridDim.x - 1 && i < n)
     store(out + i, fmaf(a, to_f32(x[i]), to_f32(y[i])));
 }
 
 template <typename T>
 int launch(float a, const T* x, const T* y, T* out, long long n,
            cudaStream_t stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const long long packs = (n + 16 / sizeof(T) - 1) / (16 / sizeof(T));
-  long long blocks = (packs + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  axpy_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(a, x, y, out, n);
+  const long long span = (long long)THREADS * PACKS * (16 / sizeof(T));
+  const long long blocks = (n + span - 1) / span;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int aligned = ((reinterpret_cast<uintptr_t>(x)
+                        | reinterpret_cast<uintptr_t>(y)
+                        | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  axpy_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(a, x, y, out, n,
+                                                           aligned);
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,10 @@
 1. *Simulated on TeraPool*: the cycle-level model reproducing Fig. 7
    (central vs partial barriers), on the port's simulator.
 2. *Executed on the Hopper kernels*: one 5G NR slot (14 OFDM symbols)
-   from 64 antennas of 4096 sub-carriers goes through the radix-4 FFT
-   stage kernel (OFDM demodulation) and the matmul kernel (32-beam
-   beamforming), checked against numpy in complex128.
+   from 64 antennas of 4096 sub-carriers goes through the fused radix-4
+   FFT kernel (OFDM demodulation) and the matmul kernel (32-beam
+   beamforming), checked against numpy in complex128.  :func:`slot` is
+   that device work alone, on inputs already on the device.
 
     PYTHONPATH=src python -m repro_torch.examples.fiveg_pipeline
 """
@@ -37,33 +38,47 @@ def simulate(device="cuda") -> dict:
     return rows
 
 
-def execute(n_rx: int = 64, n_sc: int = 4096, n_beams: int = 32,
-            n_symbols: int = 14, seed: int = 0, device="cuda") -> dict:
-    """OFDM demodulation and beamforming of one slot on ``device``.
-
-    The time-domain streams (``n_rx * n_symbols`` rows of ``n_sc``
-    samples) and the beamforming coefficients are made from ``seed``
-    with numpy.  Returns the inputs and the outputs: the digit-reversed
-    spectrum ``(fr, fi)`` and the beams ``(beams_r, beams_i)`` of shape
-    ``(n_beams, n_symbols * n_sc)``."""
-    dev = resolve_device(device)
+def make_inputs(n_rx: int = 64, n_sc: int = 4096, n_beams: int = 32,
+                n_symbols: int = 14, seed: int = 0) -> tuple:
+    """One slot's inputs, made from ``seed`` with numpy: the time-domain
+    streams ``re``, ``im`` (``n_rx * n_symbols`` rows of ``n_sc``
+    samples, antenna-major) and the beamforming coefficients ``coef``
+    (``n_beams`` x ``n_rx``), all float32."""
     rng = np.random.default_rng(seed)
     rows = n_rx * n_symbols
     re = rng.standard_normal((rows, n_sc), dtype=np.float32)
     im = rng.standard_normal((rows, n_sc), dtype=np.float32)
     coef = rng.standard_normal((n_beams, n_rx), dtype=np.float32)
-    re_t, im_t, coef_t = (torch.from_numpy(a).to(dev)
-                          for a in (re, im, coef))
+    return re, im, coef
 
+
+def slot(re_t: torch.Tensor, im_t: torch.Tensor,
+         coef_t: torch.Tensor) -> dict:
+    """OFDM demodulation and beamforming of one slot whose inputs already
+    lie on the device: one ``ops.fft4`` over the rows, then two
+    ``ops.matmul`` (real and imaginary planes).  Returns the
+    digit-reversed spectrum ``(fr, fi)`` and the beams ``(beams_r,
+    beams_i)`` of shape ``(n_beams, rows * n_sc / n_rx)``."""
     # OFDM demodulation: one radix-4 DIF FFT per antenna and symbol.
     fr, fi = ops.fft4(re_t, im_t)
     # Beamforming: (beams x antennas) @ (antennas x symbols*sub-carriers);
     # rows are antenna-major, so the reshape is a view.
-    cols = n_symbols * n_sc
+    n_rx = coef_t.shape[1]
+    cols = fr.numel() // n_rx
     beams_r = ops.matmul(coef_t, fr.reshape(n_rx, cols))
     beams_i = ops.matmul(coef_t, fi.reshape(n_rx, cols))
-    return {"re": re, "im": im, "coef": coef, "fr": fr, "fi": fi,
-            "beams_r": beams_r, "beams_i": beams_i}
+    return {"fr": fr, "fi": fi, "beams_r": beams_r, "beams_i": beams_i}
+
+
+def execute(n_rx: int = 64, n_sc: int = 4096, n_beams: int = 32,
+            n_symbols: int = 14, seed: int = 0, device="cuda") -> dict:
+    """One slot end to end on ``device``: :func:`make_inputs`, the copy
+    of the inputs to the device, then :func:`slot`.  Returns the numpy
+    inputs (``re``, ``im``, ``coef``) and :func:`slot`'s outputs."""
+    dev = resolve_device(device)
+    re, im, coef = make_inputs(n_rx, n_sc, n_beams, n_symbols, seed)
+    out = slot(*(torch.from_numpy(a).to(dev) for a in (re, im, coef)))
+    return {"re": re, "im": im, "coef": coef, **out}
 
 
 def check(out: dict) -> dict:

@@ -1,6 +1,7 @@
-"""Device and eager times of the ``dct`` kernel and the dot product's
-tree kernels, each beside one PyTorch call for the same function in the
-same mode and the least time the card could take.
+"""Device and eager times of the ``matmul``, ``axpy`` and ``dct``
+kernels and the dot product's tree kernels, each beside one PyTorch call
+for the same function in the same mode and the least time the card
+could take.
 
     python src/repro_torch/examples/kernel_times.py [--src DIR] [--label L]
 
@@ -9,6 +10,14 @@ that one run on one card can time two versions of the kernels in turns
 (for example a parent commit unpacked under ``build/``).  Prints one JSON
 line per measurement:
 
+* ``matmul`` at the 5G beamforming shape (32, 64, 57344), float32 and
+  bf16, against ``torch.matmul`` with TF32 off (output in the input
+  dtype);
+* ``axpy`` over 64 Mi elements, float32 and bf16, against
+  ``torch.add(y, x, alpha=a)``;
+* the 5G slot's device work (``ops.fft4`` over (896, 4096), then two
+  ``ops.matmul`` (32, 64) @ (64, 57344)) on resident float32 inputs, in
+  device time and eagerly, beside the bound of its bytes;
 * ``dct`` at (2, 4096), (64, 4096), (256, 4096) and (4096, 4096), float32,
   against ``torch.matmul`` with TF32 off;
 * ``combine_partials`` (one tree level, 2048 -> 64) against
@@ -21,7 +30,7 @@ line per measurement:
 through copies that together exceed twice the 50 MB L2, timed as one
 replay); ``eager_ms``/``library_eager_ms`` the same calls issued one by
 one from Python, the host's launch cost included.  Bounds use the H100
-SXM data sheet: 3.35 TB/s and 67 TFLOP/s float32.
+SXM data sheet: 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bf16.
 """
 from __future__ import annotations
 
@@ -30,10 +39,14 @@ import importlib.util
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
 DCT_SHAPES = ((2, 4096), (64, 4096), (256, 4096), (4096, 4096))
+MM_SHAPE = (32, 64, 57344)
+SLOT_ROWS = (896, 4096)   # 64 antennas x 14 symbols, 4096 sub-carriers
+AXPY_N = 1 << 26
 
 
 def own_timing():
@@ -47,34 +60,74 @@ def own_timing():
     return mod
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--src", help="import repro_torch from DIR")
-    parser.add_argument("--label", default="this tree")
-    args = parser.parse_args(argv)
-    sys.path.insert(0, str(Path(args.src).resolve() if args.src
-                           else ROOT / "src"))
-    import torch
-    if not torch.cuda.is_available():
-        print("kernel_times: no CUDA device", file=sys.stderr)
-        return 2
-    from repro_torch.kernels import dct, dotp, ops
-    timing = own_timing()
+def time_matmul(torch, timing, kernels, emit, gen) -> None:
+    m, k, n = MM_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x = torch.randn(m, k, device=gen.device, generator=gen).to(dtype)
+        w = torch.randn(k, n, device=gen.device, generator=gen).to(dtype)
+        b, by = timing.bound(*timing.matmul_work(m, k, n, x.element_size()),
+                             name)
+        # A stream of the same bytes: torch.add of two (m, n) operands in
+        # x's dtype into a float32 (m, n) output reads and writes what the
+        # product does, less x.
+        u, v = (torch.randn(m, n, device=gen.device, generator=gen).to(dtype)
+                for _ in range(2))
+        stream = torch.empty(m, n, device=gen.device)
+        emit({"name": "matmul", "shape": [m, k, n], "dtype": name,
+              "max_abs_diff_vs_library": (kernels.matmul.matmul(x, w)
+                                          - torch.matmul(x, w).float()
+                                          ).abs().max().item(),
+              **timing.in_turns(kernels.matmul.matmul, torch.matmul,
+                                timing.cold_copies(x, w)),
+              "library": "torch.matmul, TF32 off", "bound_ms": b,
+              "bound_by": by,
+              "same_bytes_add_ms": timing.graph_ms(
+                  lambda a, c: torch.add(a, c, out=stream),
+                  timing.cold_copies(u, v))})
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(16)
-    common = {"label": args.label, "package": dotp.__file__, "card": smi}
 
-    def emit(rec):
-        print(json.dumps(dict(common, **rec)), flush=True)
+def time_axpy(torch, timing, kernels, emit, gen) -> None:
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x = torch.randn(AXPY_N, device=gen.device, generator=gen).to(dtype)
+        y = torch.randn(AXPY_N, device=gen.device, generator=gen).to(dtype)
+        b, by = timing.bound(3.0 * AXPY_N * x.element_size(), 2.0 * AXPY_N,
+                             name)
+        emit({"name": "axpy", "n": AXPY_N, "dtype": name,
+              **timing.in_turns(kernels.axpy.axpy,
+                                lambda a, u, v: torch.add(v, u, alpha=a),
+                                [(1.7,) + xy for xy in
+                                 timing.cold_copies(x, y)]),
+              "library": "torch.add(y, x, alpha=a)", "bound_ms": b,
+              "bound_by": by})
 
+
+def time_slot(torch, timing, kernels, emit, gen) -> None:
+    (rows, n_sc), (n_beams, n_rx) = SLOT_ROWS, MM_SHAPE[:2]
+    planes = [torch.randn(rows, n_sc, device=gen.device, generator=gen)
+              for _ in range(2)]
+    coef = torch.randn(n_beams, n_rx, device=gen.device, generator=gen)
+    mm = kernels.matmul.matmul
+
+    def slot(re, im, c):
+        fr, fi = kernels.ops.fft4(re, im)
+        return mm(c, fr.reshape(n_rx, -1)), mm(c, fi.reshape(n_rx, -1))
+
+    b, by = timing.bound(*timing.slot_work(rows, n_sc, n_beams, n_rx),
+                         "float32")
+    args = timing.cold_copies(*planes, coef)
+    emit({"name": "fiveg slot", "rows": [rows, n_sc], "beams": n_beams,
+          "ms": timing.graph_ms(slot, args),
+          "eager_ms": timing.cuda_ms(slot, args), "bound_ms": b,
+          "bound_by": by})
+
+
+def time_dct(torch, timing, kernels, emit, gen) -> None:
+    dct = kernels.dct
     for t, n in DCT_SHAPES:
-        x = torch.randn(t, n, device=dev, generator=gen)
-        bt = ops.dct_basis_t(n, dev)
+        x = torch.randn(t, n, device=gen.device, generator=gen)
+        bt = kernels.ops.dct_basis_t(n, gen.device)
         got, lib = dct.dct(x, bt), torch.matmul(x, bt)
         b, by = timing.bound(4.0 * (2 * t * n + n * n), 2.0 * t * n * n,
                              "float32")
@@ -84,10 +137,12 @@ def main(argv=None) -> int:
                                 timing.cold_copies(x, bt)),
               "library": "torch.matmul, TF32 off",
               "bound_ms": b, "bound_by": by})
-        del x, got, lib
 
-    x = torch.randn(1 << 26, device=dev, generator=gen)
-    y = torch.randn(1 << 26, device=dev, generator=gen)
+
+def time_dotp(torch, timing, kernels, emit, gen) -> None:
+    dotp, ops = kernels.dotp, kernels.ops
+    x = torch.randn(1 << 26, device=gen.device, generator=gen)
+    y = torch.randn(1 << 26, device=gen.device, generator=gen)
     parts = dotp.dotp_partials(x, y)
     pcopies = timing.cold_copies(parts)
     b, by = timing.bound(4.0 * (parts.numel() + parts.numel() // 32),
@@ -114,6 +169,36 @@ def main(argv=None) -> int:
               **timing.in_turns(lambda u, v, r=r: ops.dotp(u, v, radix=r),
                                 torch.dot, xy),
               "library": "torch.dot", "bound_ms": b, "bound_by": by})
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--src", help="import repro_torch from DIR")
+    parser.add_argument("--label", default="this tree")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(Path(args.src).resolve() if args.src
+                           else ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import axpy, dct, dotp, matmul, ops
+    kernels = types.SimpleNamespace(axpy=axpy, dct=dct, dotp=dotp,
+                                    matmul=matmul, ops=ops)
+    timing = own_timing()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(16)
+    common = {"label": args.label, "package": dotp.__file__, "card": smi}
+
+    def emit(rec):
+        print(json.dumps(dict(common, **rec)), flush=True)
+
+    for part in (time_matmul, time_axpy, time_slot, time_dct, time_dotp):
+        part(torch, timing, kernels, emit, gen)
     return 0
 
 

@@ -1,7 +1,9 @@
 """Where the main path's time goes on the GPU: host wall time against
 device busy time and kernel launches, for one Fig. 7 simulation per
 sync mode (and two under PE failures), the Fig. 4a sweep, the fault
-degradation sweep, the 5G slot pipeline and the tuner's workload sweep;
+degradation sweep, the 5G slot pipeline (with its numpy inputs made
+inside, and its device work alone on resident inputs) and the tuner's
+workload sweep;
 whether the profiler counts the hand-written kernels' launches as their
 wrappers do; and full-width Qwen3-4B serving: one prefill of 4 x 2048
 tokens and 8 decode steps of batch 4.
@@ -174,15 +176,20 @@ def profile_simulator(device="cuda") -> None:
         trial_chunk=256, device=device))
     print(json.dumps({"run": "sweep_barrier 10x4x1024 N=1024", **rec}))
     rec = profile_run(lambda: fiveg_pipeline.execute(device=device))
-    print(json.dumps({"run": "fiveg_pipeline.execute (896x4096 slot)",
-                      **rec}))
+    print(json.dumps({"run": "fiveg_pipeline.execute (896x4096 slot, "
+                             "numpy input generation included)", **rec}))
+    resident = [torch.from_numpy(a).to(device)
+                for a in fiveg_pipeline.make_inputs()]
+    rec = profile_run(lambda: fiveg_pipeline.slot(*resident))
+    print(json.dumps({"run": "fiveg_pipeline.slot (896x4096, inputs on "
+                             "the device)", **rec}))
     rec = profile_run(lambda: tuning.sweep_workloads(
         prng.PRNGKey(0, device=device), n_trials=4))
     print(json.dumps({"run": "sweep_workloads 512x15x4 N=1024", **rec}))
 
-    print(json.dumps({"run": "launch_counts fiveg_pipeline.execute",
-                      **launch_counts(lambda: fiveg_pipeline.execute(
-                          device=device))}))
+    print(json.dumps({"run": "launch_counts fiveg_pipeline.slot",
+                      **launch_counts(lambda: fiveg_pipeline.slot(
+                          *resident))}))
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(1 << 26, device=device, generator=gen)
     y = torch.randn(1 << 26, device=device, generator=gen)

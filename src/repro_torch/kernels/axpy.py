@@ -1,8 +1,9 @@
 """AXPY, ``a * x + y`` (the paper's AXPY benchmark kernel).
 
 Replaces ``src/repro/kernels/axpy.py::axpy`` (Pallas kernel
-``_axpy_kernel``).  The CUDA kernel (``csrc/axpy.cu``) is a grid-stride
-loop over 16-byte packs, float32 or bfloat16 in and out, each element
+``_axpy_kernel``).  In the CUDA kernel (``csrc/axpy.cu``) each thread
+loads a fixed run of 16-byte packs of x and y (streaming loads, all
+before its first store), float32 or bfloat16 in and out, each element
 one float32 fused multiply-add rounded once to the output dtype.  It is
 memory-bound: 12 bytes moved per float32 element for 2 flops.  The plain
 version is :func:`repro_torch.kernels.ref.axpy`, the path for CPU

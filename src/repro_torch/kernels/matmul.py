@@ -1,13 +1,21 @@
-"""Tiled GEMM with float32 accumulation (the paper's MATMUL /
+"""Skinny GEMM with float32 accumulation (the paper's MATMUL /
 beamforming kernel).
 
 Replaces ``src/repro/kernels/matmul.py::matmul`` (Pallas kernel
-``_mm_kernel``).  The CUDA kernel (``csrc/matmul.cu``) computes 64 x 64
-output tiles over a K loop in shared memory, takes float32 or bfloat16
-inputs, always writes float32 and masks ragged M/N/K edges itself.  At
-the 5G beamforming shape it is memory-bound (about 10 flops a byte).
-The plain version is :func:`repro_torch.kernels.ref.matmul`, the path
-for CPU tensors and the kernel's oracle on the card.
+``_mm_kernel``).  The CUDA kernel (``csrc/matmul.cu``) computes one
+32 x 128 output tile a block: x read once into a float32 panel in shared
+memory, each warp streaming its own 32 columns of w through a four-stage
+shared-memory ring of 16-k chunks by 16-byte ``cp.async``, with no
+block-wide barrier while it streams; it takes float32 or bfloat16
+inputs, always writes float32 (by ``float4`` streaming stores) and masks
+ragged M/N/K edges itself, copying and storing element by element where
+a row of w or of the output is not whole 16-byte packs on an aligned
+base.  Every output is one ``fmaf`` chain in increasing k, so a call's
+first rows (or columns) equal the call on the first rows of x (or
+columns of w) bit for bit.  At the 5G beamforming shape its bytes bound
+it (about 10 flops a byte), though its FMAs take about as long.  The
+plain version is :func:`repro_torch.kernels.ref.matmul`, the path for
+CPU tensors and the kernel's oracle on the card.
 """
 from __future__ import annotations
 

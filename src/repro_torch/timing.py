@@ -89,3 +89,26 @@ def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def matmul_work(m: int, k: int, n: int, itemsize: int) -> tuple:
+    """Bytes and operations of ``x (m, k) @ w (k, n)``: both inputs read
+    once in their dtype, the float32 output written once."""
+    return (m * k + k * n) * itemsize + m * n * 4, 2.0 * m * n * k
+
+
+def fft_work(rows: int, n: int) -> tuple:
+    """Bytes and operations of ``ops.fft4`` over (rows, n) float32 planes:
+    both planes read and written once, the fused kernel's twiddles read
+    once; 34 operations a radix-4 butterfly, n / 4 butterflies a stage
+    and row."""
+    return (4 * rows * n * 4 + 2 * (n - 1) * 4,
+            round(math.log(n, 4)) * rows * (n // 4) * 34.0)
+
+
+def slot_work(rows: int, n: int, n_beams: int, n_rx: int) -> tuple:
+    """Bytes and operations of one 5G slot: the FFT over (rows, n) and
+    the two float32 products (n_beams, n_rx) @ (n_rx, rows * n / n_rx)."""
+    fft_b, fft_f = fft_work(rows, n)
+    mm_b, mm_f = matmul_work(n_beams, n_rx, rows * n // n_rx, 4)
+    return fft_b + 2 * mm_b, fft_f + 2 * mm_f

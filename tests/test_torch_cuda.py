@@ -42,7 +42,9 @@ def test_fft4_stage_kernel_matches_plain(cuda, n, rows):
 
 @pytest.mark.parametrize("shape", [(8, 16, 8), (100, 60, 72),
                                    (256, 512, 128), (129, 257, 65),
-                                   (32, 64, 57344)])
+                                   (32, 64, 57344), (1, 64, 57344),
+                                   (31, 64, 4096), (33, 64, 1000),
+                                   (65, 100, 4100), (32, 64, 57343)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_kernel_matches_plain(cuda, shape, dtype):
     m, k, n = shape
@@ -55,6 +57,61 @@ def test_matmul_kernel_matches_plain(cuda, shape, dtype):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, matmul.matmul_plain(x, w), rtol=1e-4,
                                atol=1e-4 * k ** 0.5)
+
+
+def test_matmul_slices_equal_the_whole_call(cuda):
+    """Every output is one fmaf chain in increasing k whatever block it
+    falls in: the first t rows of a call equal the call on x[:t], and its
+    first c columns the call on w[:, :c], bit for bit, on both sides of
+    the 32 x 128 block tile and of a warp's 32 columns, and off the float4
+    grid (c = 57343)."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(65, 64, device=cuda, generator=gen)
+    w = torch.randn(64, 57344, device=cuda, generator=gen)
+    full = ops.matmul(x, w)
+    for t in (1, 31, 32, 33):
+        assert torch.equal(ops.matmul(x[:t], w), full[:t]), t
+    for c in (5, 33, 127, 129, 1000, 57343):
+        assert torch.equal(ops.matmul(x, w[:, :c]), full[:, :c]), c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_offset_views_give_the_aligned_bits(cuda, dtype):
+    """x as an offset row slice of a larger tensor, x one element off
+    16-byte alignment, and w one element off it (the element-wise copy
+    of w in place of cp.async) all give the aligned call's bits, and
+    match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    m, k, n = 32, 64, 4096
+    big = torch.randn(m + 7, k, device=cuda, generator=gen).to(dtype)
+    w = torch.randn(k, n, device=cuda, generator=gen).to(dtype)
+    x = big[3:3 + m]
+    full = ops.matmul(x.clone(), w)
+    torch.testing.assert_close(full, matmul.matmul_plain(x, w), rtol=1e-4,
+                               atol=1e-4 * k ** 0.5)
+    assert torch.equal(ops.matmul(x, w), full)
+    flat_x = torch.empty(m * k + 1, device=cuda, dtype=dtype)
+    flat_x[1:].view(m, k).copy_(x)
+    assert torch.equal(ops.matmul(flat_x[1:].view(m, k), w), full)
+    flat_w = torch.empty(k * n + 1, device=cuda, dtype=dtype)
+    flat_w[1:].view(k, n).copy_(w)
+    assert torch.equal(ops.matmul(x, flat_w[1:].view(k, n)), full)
+
+
+def test_fiveg_slot_launches_one_fft_and_two_matmuls(cuda):
+    """The 5G slot on resident inputs: one fused FFT launch, no stage
+    launch, two matmul launches, and the same bits as ``execute``."""
+    from repro_torch.examples import fiveg_pipeline
+    out = fiveg_pipeline.execute(device="cuda")
+    inputs = [torch.from_numpy(out[k]).to(cuda) for k in ("re", "im",
+                                                          "coef")]
+    before = (fft4.FUSED_LAUNCHES, fft4.LAUNCHES, matmul.LAUNCHES)
+    got = fiveg_pipeline.slot(*inputs)
+    assert (fft4.FUSED_LAUNCHES - before[0], fft4.LAUNCHES - before[1],
+            matmul.LAUNCHES - before[2]) == (1, 0, 2)
+    for name in ("fr", "fi", "beams_r", "beams_i"):
+        assert torch.equal(got[name], out[name]), name
+    fiveg_pipeline.check(out)
 
 
 def test_kernels_reject_other_dtypes(cuda):

@@ -47,7 +47,8 @@ def test_fft4_vs_numpy_and_reference(n):
 
 
 @pytest.mark.parametrize("shape", [(8, 16, 8), (100, 60, 72),
-                                   (256, 512, 128), (129, 257, 65)])
+                                   (256, 512, 128), (129, 257, 65),
+                                   (32, 64, 57344)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_matmul_vs_reference(shape, dtype):
     m, k, n = shape
@@ -309,6 +310,59 @@ def test_chip_smoke_dotp_checks_catch_a_zeroed_leaf(n):
     fault = smoke.planted_leaf_fault(ref, x, y, parts, central)
     assert fault["caught"] == {"dotp_partials": True, "dotp_central": True}
     assert abs(fault["leaf_sum"]) > sum_lim
+
+
+class _ChainMatmul:
+    """Stand-ins for the matmul kernel on the CPU: ``matmul`` sums k in
+    order, one float32 multiply and add per step, so every slice of a
+    call is that call's bits; ``split`` sums the two halves of k apart
+    when x has more than 32 rows, so row slices differ."""
+
+    @staticmethod
+    def matmul(x, w):
+        out = torch.zeros(x.shape[0], w.shape[1])
+        for k in range(x.shape[1]):
+            out = out + x[:, k:k + 1] * w[k:k + 1]
+        return out
+
+    @staticmethod
+    def split(x, w):
+        if x.shape[0] <= 32:
+            return _ChainMatmul.matmul(x, w)
+        h = x.shape[1] // 2
+        return (_ChainMatmul.matmul(x[:, :h], w[:h])
+                + _ChainMatmul.matmul(x[:, h:], w[h:]))
+
+
+def test_chip_smoke_matmul_layout_check_holds_a_chain_and_catches_a_split():
+    """chip_smoke.py's row, column and offset-view identities for the
+    matmul kernel pass a product summed in k order and fail one whose
+    sum order depends on the row count (split-K above 32 rows)."""
+    smoke = _chip_smoke()
+    rec = smoke.matmul_layout_checks(torch, _ChainMatmul,
+                                     torch.Generator().manual_seed(17))
+    assert rec["rows"] == [1, 31, 32, 33] and len(rec["views"]) == 3
+    split = type("Split", (), {"matmul": staticmethod(_ChainMatmul.split)})
+    with pytest.raises(AssertionError, match="slices differ"):
+        smoke.matmul_layout_checks(torch, split,
+                                   torch.Generator().manual_seed(17))
+
+
+def test_chip_smoke_slot_bound_adds_its_kernels_work():
+    """The 5G slot's bound counts the FFT's planes and twiddles and both
+    products' bytes once: 0.0307 ms at 3.35 TB/s for the 896 x 4096
+    slot, the FFT's 0.0175 plus twice the product's 0.0066."""
+    smoke = _chip_smoke()
+    fft_b, _ = smoke.fft_work(896, 4096)
+    mm_b, mm_f = smoke.matmul_work(32, 64, 57344, 4)
+    assert fft_b == 4 * 896 * 4096 * 4 + 2 * 4095 * 4
+    assert (mm_b, mm_f) == ((32 * 64 + 64 * 57344 + 32 * 57344) * 4,
+                            2.0 * 32 * 64 * 57344)
+    b, f = smoke.slot_work(896, 4096, 32, 64)
+    assert (b, f) == (fft_b + 2 * mm_b, smoke.fft_work(896, 4096)[1]
+                      + 2 * mm_f)
+    ms, by = smoke.bound(b, f, "float32")
+    assert by == "bytes" and 0.0306 < ms < 0.0308
 
 
 @pytest.mark.parametrize("d,causal", [(80, False), (192, True)])
