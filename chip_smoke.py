@@ -18,7 +18,8 @@ phase prints one JSON line:
    against ``torch.fft``; the fused kernel, the stage chain and
    ``torch.fft`` timed in turns at (896, 4096) on the same cold copies,
    in device time (CUDA graph replay) and eagerly, with each one's
-   ratio to the library.  ``matmul`` at shapes that reach every path of
+   ratio to the library; the stage kernel's one launch on a path (stage
+   0 of the 65536-point rows) timed in turns with ``torch.fft``.  ``matmul`` at shapes that reach every path of
    its kernel, the 5G shape timed in turns with ``torch.matmul`` in
    device time and eagerly, and its row, column and offset-view
    identities bit for bit.
@@ -86,8 +87,10 @@ phase prints one JSON line:
     prefill's shape, where the model's
     strided (B, S, H, D) views must give the contiguous call's bits; its
     time there beside its bound and SDPA (``ratio_to_library``), and the
-    wgmma kernel's registers and shared memory (``nvcc -Xptxas -v``,
-    setmaxnreg, the launch's dynamic shared memory); the qwen3 smoke
+    registers and shared memory of the wgmma kernel (D 64-192) and the
+    float32 FMA kernel (``nvcc -Xptxas -v``, setmaxnreg, the launch's
+    dynamic shared memory; a spill, or more than the 227 KB a block may
+    have, fails the run); the qwen3 smoke
     config on the card against the stored JAX values (its init's leaf
     digests bit for bit, prefill and 4 decode steps); then full-width
     Qwen3-4B through ``repro_torch.examples.serve_lm``: 4 requests of
@@ -114,8 +117,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.timing import (bound, cold_copies, cuda_ms, fft_work,
-                                graph_ms, in_turns, matmul_work, slot_work)
+from repro_torch.timing import (attention_work, bound, cold_copies, cuda_ms,
+                                fft_stage_work, fft_work, graph_ms, in_turns,
+                                matmul_work, slot_work)
 
 
 MODES = ("central", "tree", "partial", "hw")
@@ -206,6 +210,8 @@ FA_BF16_TOL = 1.6e-2
 # and 2^-6 leaves them a factor of four.  Faults planted in the kernel's
 # inputs and output (fa_planted_faults) must exceed it.
 FA_BF16_ROW_TOL = 2.0 ** -6
+# The shared memory a block may take on the H100 (227 KB).
+SMEM_PER_BLOCK = 232448
 LM_FULL = {"arch": "qwen3_4b", "batch": 4, "prompt_len": 2016, "tokens": 32}
 # The serve path's tolerances against the JAX values (tests/
 # test_torch_lm_serve.py): float32 end to end, and bf16; and the full-width
@@ -273,7 +279,6 @@ def phase_kernels(torch, ops, fft4, matmul, ref) -> dict:
             if (rows, n) == (896, 4096):
                 fft_times = _time_fft(torch, ops, fft4, ref, re, im, stages)
                 rec.update(fft_times["fft4_stage"])
-                summary["fft4_stage"] = rec
             emit(rec)
 
     # fft4_fused: ops.fft4, one fused launch for rows up to L_MAX, against
@@ -352,6 +357,8 @@ def phase_kernels(torch, ops, fft4, matmul, ref) -> dict:
               (fr.double() - want.real).abs().max().item(),
               (fi.double() - want.imag).abs().max().item()),
           "tol_vs_torch_fft": {"rtol": 1e-3, "atol": 2e-3}})
+    summary["fft4_stage"] = _lead_stage(torch, fft4, ops, ref, re, im)
+    emit(summary["fft4_stage"])
 
     # matmul: the reference's test shapes, shapes that reach every path of
     # the kernel (one row; 31, 33 and 65 rows around its 32-row tile; K
@@ -437,6 +444,45 @@ def matmul_layout_checks(torch, matmul, gen) -> dict:
             "check": "rows, columns and offset views equal the whole "
                      "call bit for bit", "rows": list(rows),
             "columns": list(cols), "views": list(views)}
+
+
+def _lead_stage(torch, fft4, ops, ref, re, im) -> dict:
+    """The stage kernel where a path still launches it: stage 0 of
+    ``ops.fft4`` over rows above ``fft4.L_MAX``, bit for bit its plain
+    version, timed in turns with torch.fft over the same rows (no library
+    call runs one stage, so the library entry is the whole transform)."""
+    rows, n = re.shape
+    wr, wi = ops._stage_twiddles(n, 0, re.device)
+    kr, ki = fft4.fft4_stage(re, im, wr, wi)
+    pr, pi = fft4.fft4_stage_plain(re, im, wr, wi)
+    err = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+    if err != 0.0:
+        raise AssertionError(f"fft4_stage ({rows}, {n}), stage 0: max abs "
+                             f"err {err}, expected equal bits")
+    idx = ref.digit_reverse_indices(n, device=re.device)
+
+    def stage(x_re, x_im):
+        return fft4.fft4_stage(x_re, x_im, wr, wi)
+
+    def library(x_re, x_im):
+        y = torch.fft.fft(torch.complex(x_re, x_im))[:, idx]
+        return y.real, y.imag
+
+    args = cold_copies(re, im)
+    b_ms, b_by = bound(*fft_stage_work(rows, n), "float32")
+    rec = {"phase": "kernel", "name": "fft4_stage", "shape": [rows, n],
+           "unit": f"stage 0 of {fft4.log4(n)}, the lead stage launch of "
+                   f"ops.fft4 over ({rows}, {n})",
+           "max_abs_err": err, "tol": 0.0,
+           **in_turns(stage, library, args),
+           "plain_ms": cuda_ms(lambda a, b: fft4.fft4_stage_plain(a, b, wr,
+                                                                  wi),
+                               args, iters=5),
+           "library": "torch.fft.fft + digit-reversal gather over the same "
+                      "rows: the whole transform",
+           "bound_ms": b_ms, "bound_by": b_by}
+    rec["ratio_to_library"] = rec["ms"] / rec["library_ms"]
+    return rec
 
 
 def _time_fft(torch, ops, fft4, ref, re, im, stages) -> dict:
@@ -1589,7 +1635,8 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
                   "causal": causal,
                   "max_abs_err": (got - want).abs().max().item(),
                   "tol": {"rtol": 2e-3, "atol": 2e-3}})
-    # float32 at the configs' widths 80 and 192, grouped heads 2 to 1.
+    # float32 (the register-tiled FMA kernel) at the configs' widths 80
+    # and 192, grouped heads 2 to 1.
     for d in (80, 192):
         for causal in (True, False):
             q = 0.5 * torch.randn(2, 4, 200, d, device=dev, generator=gen)
@@ -1605,8 +1652,8 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
                   "max_abs_err": (got - want).abs().max().item(),
                   "tol": {"rtol": FA_F32_TOL, "atol": FA_F32_TOL}})
     # bf16 at every width, on each of its kernels: FMAs at D 8, mma.sync
-    # at 16 and 32 (the smoke configs) and 80 and 192, wgmma at 64 and
-    # 128; grouped heads 4 to 1, a ragged length.
+    # at 16 and 32 (the smoke configs), wgmma at 64, 80, 128 and 192;
+    # grouped heads 4 to 1, a ragged length.
     for d in flash_attn.HEAD_DIMS:
         for causal in (True, False):
             q = torch.randn(1, 8, 300, d, device=dev, generator=gen).bfloat16()
@@ -1670,7 +1717,10 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
            "library_max_abs_diff": (got.float() - lib.float()).abs().max()
            .item(),
            "bound_ms": b_ms, "bound_by": b_by,
-           "kernel_resources": _wgmma_resources(build, flash_attn),
+           "kernel_resources": {
+               name: usage for name, usage in fa_resources(
+                   build, flash_attn).items()
+               if name.startswith("fa_wgmma_kernel")},
            "unit": "one launch: the prefill attention of one layer"}
     emit(rec)
     return rec
@@ -1681,11 +1731,9 @@ def _fa_config_checks(torch, flash_attn, build) -> None:
     head widths 192 and 80, against its plain version, and timed beside
     SDPA (device time and eager) and its bound; the resources of the
     kernels that run those widths (``nvcc -Xptxas -v``)."""
-    log = build.compiler_log("flash_attn")
     emit({"phase": "lm_serve", "kernel_resources": {
-        f"{kernel} d{d}": ptxas_usage(log, f"{kernel}I{t}Li{d}E")
-        for kernel, t in (("fa_mma_kernel", ""), ("fa_fma_kernel", "f"))
-        for d in (80, 192)}})
+        name: usage for name, usage in fa_resources(build, flash_attn).items()
+        if name.endswith((" d80", " d192"))}})
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(16)
     for config, (b, h, hk, s, d, causal, dtypes) in FA_CONFIG_SHAPES.items():
@@ -1713,10 +1761,8 @@ def _fa_config_checks(torch, flash_attn, build) -> None:
                 return torch.nn.functional.scaled_dot_product_attention(
                     q_, k_, v_, is_causal=c, enable_gqa=True)
 
-            pairs = s * (s + 1) / 2 if causal else s * s
-            b_ms, b_by = bound(
-                q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
-                4.0 * b * h * d * pairs, name)
+            b_ms, b_by = bound(*attention_work(b, h, hk, s, s, d, causal,
+                                               q.element_size()), name)
             times = in_turns(kernel, library, cold_copies(q, k, v))
             emit({"phase": "lm_serve", "name": "flash_attention",
                   "config": config, "shape": [b, h, hk, s, d],
@@ -1753,17 +1799,51 @@ def ptxas_usage(log: str, fragment: str) -> dict:
     return usage
 
 
-def _wgmma_resources(build, flash_attn) -> dict:
-    """The wgmma kernel's resources at D = 64 and 128: ptxas's account
-    (its register count is the launch bound's per-thread share, which the
-    kernel's setmaxnreg then moves from the producer to the consumers)
-    and the dynamic shared memory of a launch, which ptxas does not
-    see."""
+def ptxas_spills(log: str, fragment: str) -> dict:
+    """Spill bytes (stores plus loads) of every kernel whose mangled name
+    holds ``fragment``, by mangled name, from ``nvcc -Xptxas -v``."""
+    spills, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if fragment in line else None
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills[current] = nums[1] + nums[2]
+    return spills
+
+
+def fa_resources(build, flash_attn) -> dict:
+    """The resources of the attention kernels that run D 64-192 and
+    float32: ``fa_wgmma_kernel`` at 64, 80, 128 and 192 (ptxas's account;
+    its register count is the launch bound's per-thread share, which the
+    kernel's setmaxnreg then moves from the producer to the consumers) and
+    the float32 ``fa_fma_kernel`` at every width, each with the dynamic
+    shared memory of a launch, which ptxas does not see.  Raises if ptxas
+    reports a spill in any instantiation of either kernel (bf16 at D 8
+    included) or a launch would take more shared memory than the 227 KB
+    a block may have."""
     log = build.compiler_log("flash_attn")
     lib = build.load("flash_attn", flash_attn._SIGNATURES)
-    return {f"d{d}": dict(ptxas_usage(log, f"fa_wgmma_kernelILi{d}E"),
-                          dynamic_smem_bytes=lib.flash_attn_wgmma_smem(d))
-            for d in (64, 128)}
+    res = {}
+    for kernel, tag, smem in (
+            ("fa_wgmma_kernel", "", lib.flash_attn_wgmma_smem),
+            ("fa_fma_kernel", "f", lib.flash_attn_fma_smem)):
+        for d in flash_attn.HEAD_DIMS:
+            if smem(d):
+                res[f"{kernel} d{d}"] = dict(
+                    ptxas_usage(log, f"{kernel}I{tag}Li{d}E"),
+                    dynamic_smem_bytes=smem(d))
+    spills = {**ptxas_spills(log, "fa_wgmma_kernel"),
+              **ptxas_spills(log, "fa_fma_kernel")}
+    too_big = {name: u for name, u in res.items()
+               if u["dynamic_smem_bytes"] + u.get("static_smem_bytes", 0)
+               > SMEM_PER_BLOCK}
+    if len(spills) != len(res) + 1 or any(spills.values()) or too_big:
+        raise AssertionError(f"attention kernels: spill bytes {spills}, "
+                             f"over {SMEM_PER_BLOCK} bytes of shared "
+                             f"memory {too_big}")
+    return res
 
 
 def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,

@@ -23,48 +23,61 @@
 // take 4 B H D S (S + 1) / 2 = 1.375e11 FLOP, 0.139 ms at the H100's
 // 989 TFLOP/s bf16 tensor rate, against 168 MB of traffic (q, k, v read
 // once, out written once), 0.050 ms at 3.35 TB/s: the kernel is bound by
-// tensor-core operations.
+// tensor-core operations.  In float32 (no TF32) the same products run on
+// the 67 TFLOP/s FMA pipes, fifteen times slower: bound by operations too.
 //
 // Design.  The TPU kernel walked 512 x 512 VMEM tiles in a sequential
 // grid and carried (acc, m, l) in scratch across grid steps.  On Hopper
 // the kv loop lives inside the block instead and the state stays in
 // registers.  Three kernels:
-//  * bf16, D in {64, 128} (the serving path, D = 128): fa_wgmma_kernel,
-//    warp-specialised.  A block of three warpgroups takes 128 query rows
-//    of one (b, h).  The producer warpgroup gives up its registers
-//    (setmaxnreg) and one of its threads keeps a two-stage ring of K and V
-//    tiles (WG_BN = 128 rows each) full with TMA: 4-D tensor maps over
-//    (D, heads, rows, batch) carry the operands' strides, write the
+//  * bf16, D in {64, 80, 128, 192} (the serving path's 128, hubert-xlarge's
+//    80, nemotron-4-340b's 192): fa_wgmma_kernel, warp-specialised.  A
+//    block of three warpgroups takes 128 query rows of one (b, h).  The
+//    producer warpgroup gives up its registers (setmaxnreg) and one of its
+//    threads keeps a ring of K and V tiles full with TMA: 4-D tensor maps
+//    over (D, heads, rows, batch) carry the operands' strides, write the
 //    128-byte swizzled layout that wgmma reads without bank conflicts, and
 //    zero-fill rows past the end; mbarriers say when a tile has landed and
 //    when both consumers are done with it (K after QK^T, V after PV, so
-//    the next K refill need not wait for PV).  The two consumer warpgroups
-//    own 64 query rows each.  S = Q K^T is wgmma m64n128k16 with Q and K
-//    K-major in shared memory; O += P V is wgmma m64nDk16 with P taken
-//    from the S accumulators' registers (the accumulator layout of one
-//    16-key step is the A fragment's) and V read through the transpose
-//    flag, so neither P nor a transposed V goes through shared memory.
-//    Tile j's QK^T and tile j - 1's PV are issued together and the softmax
-//    of tile j runs while PV is in flight; the first tile runs before the
-//    loop, so that every wgmma in the loop is waited for on every path
-//    (ptxas serialises all of a kernel's wgmmas otherwise).  The two
-//    consumers run freely, so one's products fill the tensor cores while
-//    the other computes its softmax (making them take turns through named
-//    barriers was slower on the H100).  The softmax folds the scale into
-//    exp2f: p = 2^(s c - m) with c = scale log2(e) and the running max m
-//    kept in those units.
-//  * bf16, D in {16, 32, 80, 192}: fa_mma_kernel, 4 warps per 64-query
-//    tile on mma.sync m16n8k16, K and V tiles of 64 rows in padded
-//    shared memory (80 and 192 are the head widths of hubert-xlarge and
-//    nemotron-4-340b: multiples of 16, but not of the 64-column chunks the
-//    wgmma kernel's 128-byte swizzle takes).
+//    the next K refill need not wait for PV).  Shared memory holds whole
+//    64-column swizzle chunks, DP = D rounded up to 64: at D = 80 the
+//    second box of a row reads features 64-79 and TMA zero-fills the rest
+//    (the map's extent is D, so never the next head's data), and every
+//    expect_tx counts the whole boxes.  The ring is two stages of 128 rows
+//    up to D = 128 (160 KB); at D = 192 that would take 240 KB of the 227
+//    a block may have, so two stages of 64 rows (145 KB).  The two
+//    consumer warpgroups own 64 query rows each.  S = Q K^T is wgmma
+//    m64nBNk16 (BN the tile's rows) with Q and K K-major in shared memory,
+//    D / 16 steps; O += P V is wgmma m64nDk16 with P taken from the S
+//    accumulators' registers (the accumulator layout of one 16-key step is
+//    the A fragment's) and V read through the transpose flag, so neither P
+//    nor a transposed V goes through shared memory.  Tile j's QK^T and
+//    tile j - 1's PV are issued together and the softmax of tile j runs
+//    while PV is in flight; the first tile runs before the loop, so that
+//    every wgmma in the loop is waited for on every path (ptxas serialises
+//    all of a kernel's wgmmas otherwise).  The two consumers run freely,
+//    so one's products fill the tensor cores while the other computes its
+//    softmax (making them take turns through named barriers was slower on
+//    the H100).  The softmax folds the scale into exp2f: p = 2^(s c - m)
+//    with c = scale log2(e) and the running max m kept in those units.
+//  * bf16, D in {16, 32} (the smoke configs): fa_mma_kernel, 4 warps per
+//    64-query tile on mma.sync m16n8k16, K and V tiles of 64 rows in
+//    padded shared memory.
 //  * float32 (true float32, no TF32) at every width and bf16 at D = 8:
-//    fa_fma_kernel, plain FMAs.  A block of 128 threads takes 32 query
-//    rows, four threads a row, each owning every fourth feature; K and V
-//    tiles of 32 rows are staged in shared memory as float32.
-//  The K and V tiles of both live in dynamic shared memory: at D = 192
-//  they take 51,200 bytes (mma) and 49,152 (fma), past the 48 KB a
-//  kernel may declare statically.
+//    fa_fma_kernel, register-tiled FMAs.  A block of 128 threads takes 64
+//    query rows against 64-key tiles; a thread holds an 8 x 4 tile of S
+//    (8 rows, keys tx, tx + 16, ...) and an 8 x D/16 tile of O (the same
+//    rows, features tx, tx + 16, ...), so a 16-byte shared-memory load
+//    feeds 16 FMAs (of Q) or 32 (of K) and a score needs no shuffle.  The
+//    launch bound asks for two blocks a multiprocessor, which lets ptxas
+//    take the registers it needs (at D = 80 it spilled without).  The row max
+//    is reduced across the 16 lanes of a row once a tile; l is summed per
+//    lane and reduced once at the end.  p goes to shared memory key-major
+//    for PV.  Q, K and V are staged in their own dtype by cp.async, rows
+//    padded by 16 bytes (conflict-free 16-byte loads); K and V have one
+//    buffer each, and each buffer's next tile is copied while the other is
+//    read (K_{j+1} during tile j's softmax and PV, V_{j+1} during tile
+//    j + 1's QK^T), which keeps two blocks a multiprocessor at D = 80.
 // What is left for later: a persistent grid that overlaps one tile's
 // epilogue with the next tile's loads, and the output written through
 // shared memory with TMA.
@@ -106,21 +119,29 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on wgmma, D in {64, 128}.
+// bf16 on wgmma, D in {64, 80, 128, 192}.
 // ---------------------------------------------------------------------------
 
 constexpr int WG_BM = 128;        // query rows per block: 2 warpgroups x 64
-constexpr int WG_BN = 128;        // kv rows per ring stage
 constexpr int WG_THREADS = 384;   // producer warpgroup + 2 consumers
-constexpr int WG_STAGES = 2;
+constexpr int WG_STAGES = 2;      // K/V ring depth
 // Registers per thread after the hand-over: 128 x 24 + 256 x 240 <= 64 K.
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 
+// The wgmma kernel's tiling at head width D: shared memory holds DP = D
+// rounded up to whole 64-column (128-byte) swizzle chunks; K/V tiles of BN
+// rows.  Q, the ring and 1 KB to align take 160 KB at D 80 and 128, 145 KB
+// at D 192 (64-row tiles: 128 would need 240 KB).
 template <int D>
-constexpr int wg_smem_bytes() {   // Q, the K/V ring, and 1 KB to align
-  return (WG_BM + 2 * WG_STAGES * WG_BN) * D * 2 + 1024;
-}
+struct WgShape {
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int CHUNKS = DP / 64;
+  static constexpr int BN = D > 128 ? 64 : 128;
+  static constexpr uint32_t Q_BYTES = WG_BM * DP * 2;   // whole TMA boxes
+  static constexpr uint32_t KV_BYTES = BN * DP * 2;     // one K or V tile
+  static constexpr int SMEM = Q_BYTES + 2 * WG_STAGES * KV_BYTES + 1024;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -322,12 +343,83 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "memory");
 }
 
-// S = Q K^T for one warpgroup's 64 rows against a WG_BN-row K tile: D / 16
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// S = Q K^T for one warpgroup's 64 rows against a BN-row K tile: D / 16
 // steps of 16 features.  Within a 64-column chunk a step advances the
 // start address by 32 bytes; the hardware applies the swizzle to the full
 // address.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sacc)[WG_BN / 2],
+template <int D, int BN>
+__device__ __forceinline__ void issue_qk(float (&sacc)[BN / 2],
                                          uint32_t q_s, uint32_t k_s,
                                          int wg) {
 #pragma unroll
@@ -336,36 +428,38 @@ __device__ __forceinline__ void issue_qk(float (&sacc)[WG_BN / 2],
     wgmma_ss(sacc,
              sw128_desc(q_s + (kk / 4) * (WG_BM * 128) + wg * (64 * 128)
                         + col, 16, 1024),
-             sw128_desc(k_s + (kk / 4) * (WG_BN * 128) + col, 16, 1024),
+             sw128_desc(k_s + (kk / 4) * (BN * 128) + col, 16, 1024),
              kk > 0);
   }
 }
 
 // O += bf16(P) V: step kk's A fragment is the S accumulators of keys
 // [16 kk, 16 kk + 16); V is read N-major through the transpose flag, the
-// 16 rows of a step 2048 bytes on.
-template <int D>
+// 16 rows of a step 2048 bytes on, its 64-column chunks BN * 128 bytes
+// apart.  The product is D columns wide, so the zero columns past D are
+// never read.
+template <int D, int BN>
 __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
-                                         const uint32_t (&pf)[WG_BN / 16][4],
+                                         const uint32_t (&pf)[BN / 16][4],
                                          uint32_t v_s) {
 #pragma unroll
-  for (int kk = 0; kk < WG_BN / 16; ++kk)
-    wgmma_rs(oacc, pf[kk],
-             sw128_desc(v_s + kk * 16 * 128, WG_BN * 128, 1024));
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs(oacc, pf[kk], sw128_desc(v_s + kk * 16 * 128, BN * 128, 1024));
 }
 
-// The online softmax of one tile of scores (keys k0 .. k0 + WG_BN - 1) in
+// The online softmax of one tile of scores (keys k0 .. k0 + BN - 1) in
 // place: keys past T drop out (-inf, p = 0), causal masking writes the
 // reference's finite NEG_INF (only edge tiles need the test); the running
 // max m is kept in units of scale * log2(e), p = 2^(s c - m); l sums the
 // unrounded p.  Returns the factors al0, al1 that rescale O's rows.
+template <int BN>
 __device__ __forceinline__ void softmax_tile(
-    float (&sacc)[WG_BN / 2], int k0, int T, int causal, int wg_row0,
+    float (&sacc)[BN / 2], int k0, int T, int causal, int wg_row0,
     int r0, int r1, int t4, float scale_log2, float& m0, float& m1,
     float& l0, float& l1, float& al0, float& al1) {
-  if (k0 + WG_BN > T || (causal && k0 + WG_BN - 1 > wg_row0)) {
+  if (k0 + BN > T || (causal && k0 + BN - 1 > wg_row0)) {
 #pragma unroll
-    for (int i = 0; i < WG_BN / 2; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       const int col = k0 + (i / 4) * 8 + t4 * 2 + (i % 2);
       const int row = (i % 4) < 2 ? r0 : r1;
       if (col >= T) sacc[i] = -INFINITY;
@@ -374,7 +468,7 @@ __device__ __forceinline__ void softmax_tile(
   }
   float tmax0 = -INFINITY, tmax1 = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < WG_BN / 2; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     if ((i % 4) < 2) tmax0 = fmaxf(tmax0, sacc[i]);
     else tmax1 = fmaxf(tmax1, sacc[i]);
   }
@@ -384,7 +478,7 @@ __device__ __forceinline__ void softmax_tile(
   al1 = exp2f(m1 - mn1);
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < WG_BN / 2; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     const bool top = (i % 4) < 2;
     const float p = exp2f(fmaf(sacc[i], scale_log2, top ? -mn0 : -mn1));
     sacc[i] = p;
@@ -398,10 +492,11 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // p rounded to bf16 as the PV product's A fragments.
-__device__ __forceinline__ void pack_p(const float (&sacc)[WG_BN / 2],
-                                       uint32_t (&pf)[WG_BN / 16][4]) {
+template <int BN>
+__device__ __forceinline__ void pack_p(const float (&sacc)[BN / 2],
+                                       uint32_t (&pf)[BN / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < WG_BN / 16; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
     pf[kk][0] = pack_f32(sacc[8 * kk], sacc[8 * kk + 1]);
     pf[kk][1] = pack_f32(sacc[8 * kk + 2], sacc[8 * kk + 3]);
     pf[kk][2] = pack_f32(sacc[8 * kk + 4], sacc[8 * kk + 5]);
@@ -416,17 +511,16 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, Strides st, int H, int Hk,
                 int S, int T, float scale_log2, int causal) {
-  constexpr uint32_t Q_BYTES = WG_BM * D * 2;
-  constexpr uint32_t KV_BYTES = WG_BN * D * 2;     // one K or V tile
-  constexpr int CHUNKS = D / 64;                   // 128-byte column chunks
+  using W = WgShape<D>;
+  constexpr int BN = W::BN;
   extern __shared__ uint8_t fa_smem[];
   // mbarriers: Q landed; per stage K landed, V landed, K consumed, V
   // consumed.
   __shared__ __align__(8) uint64_t bars[1 + 4 * WG_STAGES];
   // Swizzle atoms are 1024 bytes and must start on a 1024-byte boundary.
   const uint32_t q_s = (smem_u32(fa_smem) + 1023) & ~1023u;
-  const uint32_t k_ring = q_s + Q_BYTES;
-  const uint32_t v_ring = k_ring + WG_STAGES * KV_BYTES;
+  const uint32_t k_ring = q_s + W::Q_BYTES;
+  const uint32_t v_ring = k_ring + WG_STAGES * W::KV_BYTES;
   const uint32_t q_full = smem_u32(&bars[0]);
   const uint32_t k_full = smem_u32(&bars[1]);                  // + 8 s
   const uint32_t v_full = smem_u32(&bars[1 + WG_STAGES]);
@@ -437,8 +531,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hk);
   const int q0 = qt * WG_BM;
-  int n_kv = (T + WG_BN - 1) / WG_BN;
-  if (causal) n_kv = min(n_kv, (min(q0 + WG_BM, S) - 1) / WG_BN + 1);
+  int n_kv = (T + BN - 1) / BN;
+  if (causal) n_kv = min(n_kv, (min(q0 + WG_BM, S) - 1) / BN + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -458,22 +552,22 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, Q_BYTES);
-      for (int c = 0; c < CHUNKS; ++c)
+      mbar_expect_tx(q_full, W::Q_BYTES);
+      for (int c = 0; c < W::CHUNKS; ++c)
         tma_load(q_s + c * (WG_BM * 128), tq, q_full, c * 64, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % WG_STAGES;
         const uint32_t free_parity = ((j / WG_STAGES) & 1) ^ 1;
         mbar_wait(k_empty + 8 * s, free_parity);
-        mbar_expect_tx(k_full + 8 * s, KV_BYTES);
-        for (int c = 0; c < CHUNKS; ++c)
-          tma_load(k_ring + s * KV_BYTES + c * (WG_BN * 128), tk,
-                   k_full + 8 * s, c * 64, hk, j * WG_BN, b);
+        mbar_expect_tx(k_full + 8 * s, W::KV_BYTES);
+        for (int c = 0; c < W::CHUNKS; ++c)
+          tma_load(k_ring + s * W::KV_BYTES + c * (BN * 128), tk,
+                   k_full + 8 * s, c * 64, hk, j * BN, b);
         mbar_wait(v_empty + 8 * s, free_parity);
-        mbar_expect_tx(v_full + 8 * s, KV_BYTES);
-        for (int c = 0; c < CHUNKS; ++c)
-          tma_load(v_ring + s * KV_BYTES + c * (WG_BN * 128), tv,
-                   v_full + 8 * s, c * 64, hk, j * WG_BN, b);
+        mbar_expect_tx(v_full + 8 * s, W::KV_BYTES);
+        for (int c = 0; c < W::CHUNKS; ++c)
+          tma_load(v_ring + s * W::KV_BYTES + c * (BN * 128), tv,
+                   v_full + 8 * s, c * 64, hk, j * BN, b);
       }
     }
     return;
@@ -488,8 +582,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg_row0 = q0 + wg * 64;
   const int r0 = wg_row0 + warp * 16 + g, r1 = r0 + 8;
 
-  float oacc[D / 2], sacc[WG_BN / 2];
-  uint32_t pf[WG_BN / 16][4];      // bf16(p) of the last tile, A fragments
+  float oacc[D / 2], sacc[BN / 2];
+  uint32_t pf[BN / 16][4];         // bf16(p) of the last tile, A fragments
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0, al1;
@@ -501,44 +595,44 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (n_kv > 0) {
     mbar_wait(k_full, 0);
     wgmma_fence();
-    issue_qk<D>(sacc, q_s, k_ring, wg);
+    issue_qk<D, BN>(sacc, q_s, k_ring, wg);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sacc);
     if (lane == 0) mbar_arrive(k_empty);
-    softmax_tile(sacc, 0, T, causal, wg_row0, r0, r1, t4, scale_log2, m0,
-                 m1, l0, l1, al0, al1);
-    pack_p(sacc, pf);
+    softmax_tile<BN>(sacc, 0, T, causal, wg_row0, r0, r1, t4, scale_log2,
+                     m0, m1, l0, l1, al0, al1);
+    pack_p<BN>(sacc, pf);
   }
   for (int j = 1; j < n_kv; ++j) {
     const int s = j % WG_STAGES;
-    const int sp = (j - 1) % WG_STAGES;          // tile j - 1's stage
+    const int sp = (j - 1) % WG_STAGES;             // tile j - 1's stage
     mbar_wait(k_full + 8 * s, (j / WG_STAGES) & 1);
     wgmma_fence();
-    issue_qk<D>(sacc, q_s, k_ring + s * KV_BYTES, wg);
+    issue_qk<D, BN>(sacc, q_s, k_ring + s * W::KV_BYTES, wg);
     wgmma_commit();
     // O += bf16(P_{j-1}) V_{j-1}, in flight during this tile's softmax.
     mbar_wait(v_full + 8 * sp, ((j - 1) / WG_STAGES) & 1);
-    issue_pv<D>(oacc, pf, v_ring + sp * KV_BYTES);
+    issue_pv<D, BN>(oacc, pf, v_ring + sp * W::KV_BYTES);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sacc);
     if (lane == 0) mbar_arrive(k_empty + 8 * s);      // K_j is read
-    softmax_tile(sacc, j * WG_BN, T, causal, wg_row0, r0, r1, t4,
-                 scale_log2, m0, m1, l0, l1, al0, al1);
+    softmax_tile<BN>(sacc, j * BN, T, causal, wg_row0, r0, r1, t4,
+                     scale_log2, m0, m1, l0, l1, al0, al1);
     wgmma_wait<0>();
     fence_regs(oacc);
     fence_regs(pf);
     if (lane == 0) mbar_arrive(v_empty + 8 * sp);     // V_{j-1} is read
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] *= (i % 4) < 2 ? al0 : al1;
-    pack_p(sacc, pf);
+    pack_p<BN>(sacc, pf);
   }
   if (n_kv > 0) {                 // the last tile's PV
     const int sp = (n_kv - 1) % WG_STAGES;
     mbar_wait(v_full + 8 * sp, ((n_kv - 1) / WG_STAGES) & 1);
     wgmma_fence();
-    issue_pv<D>(oacc, pf, v_ring + sp * KV_BYTES);
+    issue_pv<D, BN>(oacc, pf, v_ring + sp * W::KV_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(oacc);
@@ -743,21 +837,76 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// float32 (and bf16 at D = 8) on plain FMAs.
+// float32 (and bf16 at D = 8) on register-tiled FMAs.
 // ---------------------------------------------------------------------------
 
-constexpr int F_BQ = 32;          // query rows per block, four threads each
-constexpr int F_BK = 32;          // kv rows per shared-memory tile
-constexpr int F_THREADS = 128;
+constexpr int F_BQ = 64;          // query rows per block
+constexpr int F_BK = 64;          // keys per shared-memory tile
+constexpr int F_THREADS = 128;    // 8 row groups x 16 lanes
+constexpr int F_RM = F_BQ / 8;    // query rows per thread
+constexpr int F_KN = F_BK / 16;   // keys per thread in S
+constexpr int F_LDP = F_BQ + 4;   // a key's row of p (floats), padded
+static_assert(F_BQ == F_BK, "Q and K/V tiles share copy_tile");
 
-template <int D>
-constexpr int fma_smem_bytes() {  // the K and V tiles as float32
-  return 2 * F_BK * D * 4;
+// The FMA kernel's shared memory at head width D: Q, K and V tiles in
+// their own dtype, rows padded by 16 bytes (so that the 16-byte loads of
+// 8 consecutive rows hit distinct banks), and p as float32, key-major.
+template <typename T, int D>
+struct FmaShape {
+  static constexpr int LD = D + 16 / (int)sizeof(T);    // elements a row
+  static constexpr int PACKS = D * (int)sizeof(T) / 16;  // 16-byte copies
+  static constexpr int NC = (D + 15) / 16;     // output features a thread
+  static constexpr int SMEM = 3 * F_BK * LD * (int)sizeof(T)
+                              + F_BK * F_LDP * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows row0 .. row0 + 63 of a (rows, D) operand with row stride `stride`
+// into a padded tile; rows past the end are zeros.
+template <typename T, int D>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src,
+                                          long long stride, int row0,
+                                          int rows) {
+  using F = FmaShape<T, D>;
+  constexpr int PACK = 16 / (int)sizeof(T);
+  for (int e = threadIdx.x; e < F_BK * F::PACKS; e += F_THREADS) {
+    const int r = e / F::PACKS, c = (e % F::PACKS) * PACK;
+    const bool in = row0 + r < rows;
+    cp_async16(dst + r * F::LD + c, src + (in ? (row0 + r) * stride : 0) + c,
+               in);
+  }
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// Four consecutive elements of a shared tile as float32.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // p as the PV product sees it: rounded to v's dtype.
@@ -771,87 +920,179 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16_rn(x);
 }
 
+// Max and sum over the 16 lanes that share a row (lanes tx = 0 .. 15 of
+// one half-warp).
+__device__ __forceinline__ float row_max16(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o *= 2)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(F_THREADS)
+__global__ void __launch_bounds__(F_THREADS, 2)
 fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, Strides st,
               int H, int Hk, int S, int Tk, float scale, int causal) {
-  constexpr int DP = D / 4;                 // features per thread
-  extern __shared__ uint8_t fa_smem[];      // fma_smem_bytes<D>()
-  float (*ks)[D] = reinterpret_cast<float (*)[D]>(fa_smem);
-  float (*vs)[D] = ks + F_BK;
+  using F = FmaShape<T, D>;
+  constexpr int LD = F::LD, NC = F::NC;
+  extern __shared__ uint8_t fa_smem[];      // F::SMEM, 16-byte aligned
+  T* qs = reinterpret_cast<T*>(fa_smem);
+  T* ks = qs + F_BQ * LD;
+  T* vs = ks + F_BK * LD;
+  float* pt = reinterpret_cast<float*>(vs + F_BK * LD);   // [key][row]
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hk);
-  const int part = threadIdx.x % 4;         // features part, part + 4, ...
-  const int row = qt * F_BQ + threadIdx.x / 4;
+  // Thread (ty, tx): query rows q0 + 8 ty .. + 7; keys tx + 16 jj of a
+  // tile in S; features tx + 16 n in O.
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = qt * F_BQ;
+  const int row0 = q0 + ty * F_RM;
 
   const T* qh = q + b * st.qb + h * st.qh;
   const T* kh = k + b * st.kb + hk * st.kh;
   const T* vh = v + b * st.vb + hk * st.vh;
 
-  float qr[DP], acc[DP];
-#pragma unroll
-  for (int i = 0; i < DP; ++i) {
-    qr[i] = row < S ? to_f32(qh[row * st.qs + i * 4 + part]) : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = NEG_INF, l = 0.f;
-
-  const int q_last = min(qt * F_BQ + F_BQ, S) - 1;
+  const int q_last = min(q0 + F_BQ, S) - 1;
   int n_kv = (Tk + F_BK - 1) / F_BK;
   if (causal) n_kv = min(n_kv, q_last / F_BK + 1);
 
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * F_BK;
-    __syncthreads();
-    for (int e = threadIdx.x; e < F_BK * D; e += F_THREADS) {
-      const int r = e / D, c = e % D;
-      const bool in = k0 + r < Tk;
-      ks[r][c] = in ? to_f32(kh[(k0 + r) * st.ks + c]) : 0.f;
-      vs[r][c] = in ? to_f32(vh[(k0 + r) * st.vs + c]) : 0.f;
-    }
-    __syncthreads();
+  // Copy groups: Q with K_0, then V_0; in the loop K_{j+1}, then V_{j+1}.
+  // Each wait_group 1 below leaves only the newest group in flight.
+  copy_tile<T, D>(qs, qh, st.qs, q0, S);
+  if (n_kv > 0) copy_tile<T, D>(ks, kh, st.ks, 0, Tk);
+  cp_async_commit();
+  if (n_kv > 0) copy_tile<T, D>(vs, vh, st.vs, 0, Tk);
+  cp_async_commit();
 
-    float s[F_BK];
-    float tmax = -INFINITY;
+  float acc[F_RM][NC], m[F_RM], l[F_RM];
 #pragma unroll
-    for (int j = 0; j < F_BK; ++j) {
-      float dot = 0.f;
+  for (int i = 0; i < F_RM; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;                   // this lane's keys; summed at the end
 #pragma unroll
-      for (int i = 0; i < DP; ++i) dot += qr[i] * ks[j][i * 4 + part];
-      float x = quad_sum(dot) * scale;
-      const int col = k0 + j;
-      if (col >= Tk) x = -INFINITY;
-      else if (causal && col > row) x = NEG_INF;
-      s[j] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    const float mn = fmaxf(m, tmax);
-    const float al = expf(m - mn);
-    float psum = 0.f, pv[DP];
-#pragma unroll
-    for (int i = 0; i < DP; ++i) pv[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < F_BK; ++j) {
-      const float p = expf(s[j] - mn);
-      psum += p;
-      const float pr = as_v(p, v);
-#pragma unroll
-      for (int i = 0; i < DP; ++i) pv[i] += pr * vs[j][i * 4 + part];
-    }
-    l = l * al + psum;
-#pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] = acc[i] * al + pv[i];
-    m = mn;
+    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
   }
 
-  if (row < S) {
-    const float den = fmaxf(l, 1e-30f);
-    T* orow = o + b * st.ob + h * st.oh + row * st.os;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * F_BK;
+    cp_async_wait<1>();           // Q and K_j
+    __syncthreads();
+
+    // S = Q K^T: an 8 x 4 tile a thread, four features a step.
+    float s[F_RM][F_KN];
 #pragma unroll
-    for (int i = 0; i < DP; ++i) store(orow + i * 4 + part, acc[i] / den);
+    for (int i = 0; i < F_RM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < F_KN; ++jj) s[i][jj] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 kv[F_KN];
+#pragma unroll
+      for (int jj = 0; jj < F_KN; ++jj)
+        kv[jj] = ld4(ks + (tx + 16 * jj) * LD + d);
+#pragma unroll
+      for (int i = 0; i < F_RM; ++i) {
+        const float4 qv = ld4(qs + (ty * F_RM + i) * LD + d);
+#pragma unroll
+        for (int jj = 0; jj < F_KN; ++jj) {
+          s[i][jj] = fmaf(qv.x, kv[jj].x, s[i][jj]);
+          s[i][jj] = fmaf(qv.y, kv[jj].y, s[i][jj]);
+          s[i][jj] = fmaf(qv.z, kv[jj].z, s[i][jj]);
+          s[i][jj] = fmaf(qv.w, kv[jj].w, s[i][jj]);
+        }
+      }
+    }
+    __syncthreads();              // K_j is read: copy K_{j+1} over it
+    if (j + 1 < n_kv) copy_tile<T, D>(ks, kh, st.ks, k0 + F_BK, Tk);
+    cp_async_commit();
+
+    // Scale and mask (keys past T drop out, -inf; causal masking writes
+    // the reference's finite NEG_INF), then the online softmax row by row.
+#pragma unroll
+    for (int i = 0; i < F_RM; ++i) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < F_KN; ++jj) {
+        const int col = k0 + tx + 16 * jj;
+        float x = s[i][jj] * scale;
+        if (col >= Tk) x = -INFINITY;
+        else if (causal && col > row0 + i) x = NEG_INF;
+        s[i][jj] = x;
+        tmax = fmaxf(tmax, x);
+      }
+      const float mn = fmaxf(m[i], row_max16(tmax));
+      const float al = expf(m[i] - mn);
+      float ps = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < F_KN; ++jj) {
+        const float p = expf(s[i][jj] - mn);
+        ps += p;
+        s[i][jj] = as_v(p, v);
+      }
+      l[i] = l[i] * al + ps;
+      m[i] = mn;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) acc[i][n] *= al;
+    }
+    // p to shared memory, key-major: a key's 8 rows of this thread are
+    // two 16-byte stores.
+#pragma unroll
+    for (int jj = 0; jj < F_KN; ++jj) {
+      float4* dst = reinterpret_cast<float4*>(pt + (tx + 16 * jj) * F_LDP
+                                              + ty * F_RM);
+      dst[0] = make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+      dst[1] = make_float4(s[4][jj], s[5][jj], s[6][jj], s[7][jj]);
+    }
+    cp_async_wait<1>();           // V_j
+    __syncthreads();
+
+    // O += p V: an 8 x NC tile a thread.
+#pragma unroll 4
+    for (int c = 0; c < F_BK; ++c) {
+      const float4 pa = *reinterpret_cast<const float4*>(pt + c * F_LDP
+                                                         + ty * F_RM);
+      const float4 pb = *reinterpret_cast<const float4*>(pt + c * F_LDP
+                                                         + ty * F_RM + 4);
+      const float pr[F_RM] = {pa.x, pa.y, pa.z, pa.w,
+                              pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const int f = tx + 16 * n;
+        if (D % 16 == 0 || f < D) {
+          const float vf = to_f32(vs[c * LD + f]);
+#pragma unroll
+          for (int i = 0; i < F_RM; ++i)
+            acc[i][n] = fmaf(pr[i], vf, acc[i][n]);
+        }
+      }
+    }
+    __syncthreads();              // V_j and p are read: copy V_{j+1}
+    if (j + 1 < n_kv) copy_tile<T, D>(vs, vh, st.vs, k0 + F_BK, Tk);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  T* oh = o + b * st.ob + h * st.oh;
+#pragma unroll
+  for (int i = 0; i < F_RM; ++i) {
+    const float den = fmaxf(row_sum16(l[i]), 1e-30f);
+    if (row0 + i < S) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const int f = tx + 16 * n;
+        if (D % 16 == 0 || f < D)
+          store(oh + (row0 + i) * st.os + f, acc[i][n] / den);
+      }
+    }
   }
 }
 
@@ -878,7 +1119,7 @@ int launch_fma(const T* q, const T* k, const T* v, T* o, const Strides& st,
                int B, int H, int Hk, int S, int Tk, float scale, int causal,
                cudaStream_t stream) {
   static unsigned long long configured = 0;
-  constexpr int smem = fma_smem_bytes<D>();
+  constexpr int smem = FmaShape<T, D>::SMEM;
   const cudaError_t err = allow_smem(fa_fma_kernel<T, D>, smem, &configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
@@ -919,8 +1160,9 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 
 // A 4-D TMA map over a bf16 tensor (D, heads, rows, batch) with element
 // strides (sh, ss, sb), boxes of 64 features x box_rows rows, 128-byte
-// swizzle; reads past the last row are zeros.  An axis of extent 1 gets
-// a nominal stride (it is never stepped).
+// swizzle; reads past the last row, or past feature D (the second box of
+// a row at D = 80), are zeros.  An axis of extent 1 gets a nominal stride
+// (it is never stepped).
 bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
               int batch, long long sh, long long ss, long long sb,
               int box_rows) {
@@ -945,15 +1187,17 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
                  int B, int H, int Hk, int S, int Tk, float scale, int causal,
                  cudaStream_t stream) {
-  constexpr int smem = wg_smem_bytes<D>();
+  constexpr int smem = WgShape<D>::SMEM;
   if ((S + WG_BM - 1) / WG_BM > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, H, S, B, st.qh, st.qs, st.qb, WG_BM))
     return (int)cudaErrorInvalidValue;
   if (Tk == 0) {                  // no key tile is ever loaded
     tk = tv = tq;
-  } else if (!make_map(&tk, k, D, Hk, Tk, B, st.kh, st.ks, st.kb, WG_BN)
-             || !make_map(&tv, v, D, Hk, Tk, B, st.vh, st.vs, st.vb, WG_BN)) {
+  } else if (!make_map(&tk, k, D, Hk, Tk, B, st.kh, st.ks, st.kb,
+                       WgShape<D>::BN)
+             || !make_map(&tv, v, D, Hk, Tk, B, st.vh, st.vs, st.vb,
+                          WgShape<D>::BN)) {
     return (int)cudaErrorInvalidValue;
   }
   static unsigned long long configured = 0;
@@ -1011,9 +1255,9 @@ extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
     case 16: return launch_mma<16>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 32: return launch_mma<32>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 64: return launch_wgmma<64>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 80: return launch_mma<80>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 80: return launch_wgmma<80>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     case 128: return launch_wgmma<128>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 192: return launch_mma<192>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
+    case 192: return launch_wgmma<192>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1021,7 +1265,28 @@ extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // Dynamic shared memory of the wgmma kernel at head width D (0 if D has
 // none).
 extern "C" int flash_attn_wgmma_smem(int D) {
-  return D == 64 ? wg_smem_bytes<64>() : D == 128 ? wg_smem_bytes<128>() : 0;
+  switch (D) {
+    case 64: return WgShape<64>::SMEM;
+    case 80: return WgShape<80>::SMEM;
+    case 128: return WgShape<128>::SMEM;
+    case 192: return WgShape<192>::SMEM;
+    default: return 0;
+  }
+}
+
+// Dynamic shared memory of the float32 FMA kernel at head width D (0 if
+// D has none).
+extern "C" int flash_attn_fma_smem(int D) {
+  switch (D) {
+    case 8: return FmaShape<float, 8>::SMEM;
+    case 16: return FmaShape<float, 16>::SMEM;
+    case 32: return FmaShape<float, 32>::SMEM;
+    case 64: return FmaShape<float, 64>::SMEM;
+    case 80: return FmaShape<float, 80>::SMEM;
+    case 128: return FmaShape<float, 128>::SMEM;
+    case 192: return FmaShape<float, 192>::SMEM;
+    default: return 0;
+  }
 }
 
 extern "C" const char* flash_attn_error_string(int err) {

@@ -1,9 +1,11 @@
-"""Device and eager times of the ``matmul``, ``axpy`` and ``dct``
-kernels and the dot product's tree kernels, each beside one PyTorch call
+"""Device and eager times of the ``matmul``, ``axpy``, ``dct``,
+``fft4_stage`` and ``flash_attention`` kernels and the dot product's tree
+kernels, each beside one PyTorch call
 for the same function in the same mode and the least time the card
 could take.
 
     python src/repro_torch/examples/kernel_times.py [--src DIR] [--label L]
+        [--only PART,...]
 
 ``--src`` puts another checkout's ``src`` first on the import path, so
 that one run on one card can time two versions of the kernels in turns
@@ -24,7 +26,15 @@ line per measurement:
   ``view(-1, 32).sum(1)``; ``combine_tree`` (every level, 2048 -> 1 at
   radix 2 and 32) where the version has it, against ``sum()``;
 * ``ops.dotp`` over 64 Mi float32 elements at radix 0, 2 and 32 against
-  ``torch.dot``.
+  ``torch.dot``;
+* ``fft4_stage`` where a path still launches it: the lead stage of
+  ``ops.fft4`` over (64, 65536), and the whole ``ops.fft4`` there (that
+  stage, then one fused launch), each against ``torch.fft.fft`` and the
+  digit-reversal gather over the same rows;
+* ``flash_attention`` at the full-width attention of nemotron-4-340b
+  (bf16, (1, 96 heads reading 8, 1024, 192), causal) and hubert-xlarge
+  ((2, 16, 1024, 80), bidirectional, bf16 and float32), against
+  ``F.scaled_dot_product_attention(enable_gqa=True)``.
 
 ``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
 through copies that together exceed twice the 50 MB L2, timed as one
@@ -47,6 +57,12 @@ DCT_SHAPES = ((2, 4096), (64, 4096), (256, 4096), (4096, 4096))
 MM_SHAPE = (32, 64, 57344)
 SLOT_ROWS = (896, 4096)   # 64 antennas x 14 symbols, 4096 sub-carriers
 AXPY_N = 1 << 26
+FFT_LONG = (64, 4 ** 8)   # rows above the fused kernel's 16384 points
+# (config, (B, H, Hk, S, D), causal, dtype): the configs' full-width
+# attention at head widths 192 and 80.
+ATTN_SHAPES = (("nemotron-4-340b", (1, 96, 8, 1024, 192), True, "bfloat16"),
+               ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "bfloat16"),
+               ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "float32"))
 
 
 def own_timing():
@@ -171,10 +187,78 @@ def time_dotp(torch, timing, kernels, emit, gen) -> None:
               "library": "torch.dot", "bound_ms": b, "bound_by": by})
 
 
+def time_fft_long(torch, timing, kernels, emit, gen) -> None:
+    fft4, ops = kernels.fft4, kernels.ops
+    rows, n = FFT_LONG
+    re, im = (torch.randn(rows, n, device=gen.device, generator=gen)
+              for _ in range(2))
+    lead = fft4.fft4_plan(n)[0]
+    wr, wi = ops._stage_twiddles(n, 0, gen.device)
+    idx = kernels.ref.digit_reverse_indices(n, device=gen.device)
+
+    def stage(x_re, x_im):
+        return fft4.fft4_stage(x_re, x_im, wr, wi)
+
+    def library(x_re, x_im):
+        y = torch.fft.fft(torch.complex(x_re, x_im))[:, idx]
+        return y.real, y.imag
+
+    args = timing.cold_copies(re, im)
+    b, by = timing.bound(*timing.fft_stage_work(rows, n), "float32")
+    emit({"name": "fft4_stage", "shape": [rows, n],
+          "unit": f"stage 0 of {fft4.log4(n)}, the lead stage of ops.fft4 "
+                  f"({lead} stage launch, then one fused launch)",
+          **timing.in_turns(stage, library, args),
+          "library": "torch.fft.fft + digit-reversal gather, the whole "
+                     "transform", "bound_ms": b, "bound_by": by})
+    b, by = timing.bound(*timing.fft_work(rows, n), "float32")
+    emit({"name": "ops.fft4", "shape": [rows, n],
+          **timing.in_turns(ops.fft4, library, args),
+          "library": "torch.fft.fft + digit-reversal gather",
+          "bound_ms": b, "bound_by": by})
+
+
+def time_attention(torch, timing, kernels, emit, gen) -> None:
+    fa = kernels.flash_attn
+    for config, (b, h, hk, s, d), causal, name in ATTN_SHAPES:
+        dtype = getattr(torch, name)
+        q = torch.randn(b, h, s, d, device=gen.device, generator=gen)
+        k, v = (torch.randn(b, hk, s, d, device=gen.device, generator=gen)
+                for _ in range(2))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+
+        def kernel(q_, k_, v_, c=causal):
+            return fa.flash_attention(q_, k_, v_, causal=c)
+
+        def library(q_, k_, v_, c=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q_, k_, v_, is_causal=c, enable_gqa=True)
+
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        bnd, by = timing.bound(*timing.attention_work(
+            b, h, hk, s, s, d, causal, q.element_size()), name)
+        emit({"name": "flash_attention", "config": config,
+              "shape": [b, h, hk, s, d], "dtype": name, "causal": causal,
+              "max_abs_err_vs_plain": (kernel(q, k, v).float()
+                                       - want.float()).abs().max().item(),
+              **timing.in_turns(kernel, library,
+                                timing.cold_copies(q, k, v)),
+              "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+              "bound_ms": bnd, "bound_by": by})
+
+
+PARTS = {"matmul": time_matmul, "axpy": time_axpy, "slot": time_slot,
+         "dct": time_dct, "dotp": time_dotp, "fft": time_fft_long,
+         "attention": time_attention}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", help="import repro_torch from DIR")
     parser.add_argument("--label", default="this tree")
+    parser.add_argument("--only", default=",".join(PARTS),
+                        help="comma-separated parts to time, of "
+                             + ", ".join(PARTS))
     args = parser.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve() if args.src
                            else ROOT / "src"))
@@ -182,9 +266,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels import axpy, dct, dotp, matmul, ops
-    kernels = types.SimpleNamespace(axpy=axpy, dct=dct, dotp=dotp,
-                                    matmul=matmul, ops=ops)
+    from repro_torch.kernels import (axpy, dct, dotp, fft4, flash_attn,
+                                     matmul, ops, ref)
+    kernels = types.SimpleNamespace(axpy=axpy, dct=dct, dotp=dotp, fft4=fft4,
+                                    flash_attn=flash_attn, matmul=matmul,
+                                    ops=ops, ref=ref)
     timing = own_timing()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -197,8 +283,8 @@ def main(argv=None) -> int:
     def emit(rec):
         print(json.dumps(dict(common, **rec)), flush=True)
 
-    for part in (time_matmul, time_axpy, time_slot, time_dct, time_dotp):
-        part(torch, timing, kernels, emit, gen)
+    for name in args.only.split(","):
+        PARTS[name](torch, timing, kernels, emit, gen)
     return 0
 
 

@@ -8,9 +8,10 @@ bfloat16, ``D`` in :data:`HEAD_DIMS`, and returns (B, H, S, D) in q's
 dtype.  Each operand, and the output, may be a strided view whose
 feature axis is contiguous (:func:`layout_error` says what the kernel
 reads), so the model hands it its (B, S, H, D) projections transposed,
-without a copy.  bfloat16 runs on the tensor cores (``wgmma`` at D 64
-and 128, ``mma.sync`` at 16, 32, 80 and 192), float32 and D = 8 in true
-float32 FMAs.  :data:`HEAD_DIMS` holds the head widths of the repo's
+without a copy.  bfloat16 runs on the tensor cores (``wgmma`` at D 64,
+80, 128 and 192, ``mma.sync`` at 16 and 32), float32 at every width and
+bfloat16 at D = 8 in true float32 FMAs, register-tiled (no TF32).
+:data:`HEAD_DIMS` holds the head widths of the repo's
 configs: 64 and 128 (most of them), 80 (hubert-xlarge), 192
 (nemotron-4-340b), and the smoke configs' 8 and 16.  At the serving
 path's prefill it is bound by tensor-core operations.  The plain
@@ -37,6 +38,7 @@ _SIGNATURES = {fn: [ctypes.c_void_p] * 4
                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
                for fn in ("flash_attn_f32", "flash_attn_bf16")}
 _SIGNATURES["flash_attn_wgmma_smem"] = [ctypes.c_int]
+_SIGNATURES["flash_attn_fma_smem"] = [ctypes.c_int]
 _ENTRY = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
 
 

@@ -112,3 +112,23 @@ def slot_work(rows: int, n: int, n_beams: int, n_rx: int) -> tuple:
     fft_b, fft_f = fft_work(rows, n)
     mm_b, mm_f = matmul_work(n_beams, n_rx, rows * n // n_rx, 4)
     return fft_b + 2 * mm_b, fft_f + 2 * mm_f
+
+
+def attention_work(b: int, h: int, hk: int, s: int, t: int, d: int,
+                   causal: bool, itemsize: int) -> tuple:
+    """Bytes and operations of attention over q (b, h, s, d) and k, v
+    (b, hk, t, d): q, k and v read once and the output written once in
+    their dtype; two products of 2 d operations for each (query, key)
+    pair the mask keeps (causal: key t' <= query s')."""
+    n = min(s, t)
+    pairs = n * (n + 1) / 2 + (s - n) * t if causal else s * t
+    return (itemsize * (2 * b * h * s * d + 2 * b * hk * t * d),
+            4.0 * b * h * d * pairs)
+
+
+def fft_stage_work(rows: int, n: int) -> tuple:
+    """Bytes and operations of the lead ``fft4_stage`` launch (stage 0)
+    over (rows, n) float32 planes: both planes read and written once, the
+    stage's two (3, n / 4) twiddle planes read once; n / 4 butterflies of
+    34 operations a row."""
+    return 4 * rows * n * 4 + 2 * 3 * (n // 4) * 4, rows * (n // 4) * 34.0

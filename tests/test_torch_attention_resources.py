@@ -1,0 +1,146 @@
+"""chip_smoke.py's account of the attention kernels' resources, and the
+work that the attention and FFT-stage bounds count.
+
+``fa_resources`` reads ``nvcc -Xptxas -v``'s log of
+``csrc/flash_attn.cu`` on the card and fails the run if an instantiation
+of the wgmma or the float32 FMA kernel spills or a launch would take more
+shared memory than a block may have; here it reads logs written in
+ptxas's format.  ``repro_torch.timing.attention_work`` and
+``fft_stage_work`` give the bytes and operations of the bounds that
+``chip_smoke.py`` and ``examples/kernel_times.py`` print.
+"""
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import timing
+from repro_torch.kernels import flash_attn, ops
+
+WGMMA_SMEM = {64: 82944, 80: 164864, 128: 164864, 192: 148480}
+FMA_SMEM = {d: 3 * 64 * (d + 4) * 4 + 64 * 68 * 4
+            for d in flash_attn.HEAD_DIMS}
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _entry(mangled: str, spill: int = 0, regs: int = 168) -> str:
+    return (f"ptxas info    : Compiling entry function '{mangled}' for "
+            f"'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {spill} bytes stack frame, {spill} bytes spill stores, "
+            f"{spill} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers, "
+            f"80 bytes smem\n")
+
+
+def _log(spills=None, skip=()) -> str:
+    """A ptxas log of every attention kernel in csrc/flash_attn.cu, with
+    ``spills`` bytes in the kernels it names and none of those in
+    ``skip``."""
+    spills = spills or {}
+    prefix = "_ZN46_GLOBAL__N__72ef4e4e_13_flash_attn_cu_db5e4e7b"
+    names = ([f"15fa_wgmma_kernelILi{d}EEEv14CUtensorMap_st" for d in
+              WGMMA_SMEM]
+             + [f"13fa_mma_kernelILi{d}EEEvPK13__nv_bfloat16" for d in
+                (16, 32)]
+             + ["13fa_fma_kernelI13__nv_bfloat16Li8EEEvPKT_"]
+             + [f"13fa_fma_kernelIfLi{d}EEEvPKT_" for d in
+                flash_attn.HEAD_DIMS])
+    return "".join(_entry(prefix + n, spills.get(n, 0)) for n in names
+                   if n not in skip)
+
+
+class _Lib:
+    def __init__(self, wgmma_smem, fma_smem):
+        self.flash_attn_wgmma_smem = lambda d: wgmma_smem.get(d, 0)
+        self.flash_attn_fma_smem = lambda d: fma_smem.get(d, 0)
+
+
+class _Build:
+    def __init__(self, log, lib):
+        self.log, self.lib = log, lib
+
+    def compiler_log(self, name):
+        assert name == "flash_attn"
+        return self.log
+
+    def load(self, name, signatures):
+        assert name == "flash_attn" and "flash_attn_fma_smem" in signatures
+        return self.lib
+
+
+def test_fa_resources_names_every_wgmma_width_and_fma_width():
+    smoke = _chip_smoke()
+    res = smoke.fa_resources(_Build(_log(), _Lib(WGMMA_SMEM, FMA_SMEM)),
+                             flash_attn)
+    assert set(res) == ({f"fa_wgmma_kernel d{d}" for d in WGMMA_SMEM}
+                        | {f"fa_fma_kernel d{d}"
+                           for d in flash_attn.HEAD_DIMS})
+    assert res["fa_wgmma_kernel d192"]["dynamic_smem_bytes"] == 148480
+    assert res["fa_fma_kernel d80"] == {
+        "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+        "registers": 168, "barriers": 1, "static_smem_bytes": 80,
+        "dynamic_smem_bytes": FMA_SMEM[80]}
+
+
+@pytest.mark.parametrize("kernel", [
+    "15fa_wgmma_kernelILi192EEEv14CUtensorMap_st",
+    "13fa_fma_kernelIfLi80EEEvPKT_",
+    "13fa_fma_kernelI13__nv_bfloat16Li8EEEvPKT_"])
+def test_fa_resources_fails_a_spill(kernel):
+    """A spill in any instantiation of the two kernels fails the run, the
+    bf16 FMA kernel at D 8 included (it has no row of its own)."""
+    smoke = _chip_smoke()
+    build = _Build(_log({kernel: 16}), _Lib(WGMMA_SMEM, FMA_SMEM))
+    with pytest.raises(AssertionError, match="spill"):
+        smoke.fa_resources(build, flash_attn)
+
+
+def test_fa_resources_ignores_the_mma_kernel_and_fails_a_missing_one():
+    smoke = _chip_smoke()
+    mma = "13fa_mma_kernelILi16EEEvPK13__nv_bfloat16"
+    smoke.fa_resources(_Build(_log({mma: 8}), _Lib(WGMMA_SMEM, FMA_SMEM)),
+                       flash_attn)
+    gone = _log(skip=("15fa_wgmma_kernelILi80EEEv14CUtensorMap_st",))
+    with pytest.raises(AssertionError):
+        smoke.fa_resources(_Build(gone, _Lib(WGMMA_SMEM, FMA_SMEM)),
+                           flash_attn)
+
+
+def test_fa_resources_fails_shared_memory_past_a_blocks_limit():
+    """A ring of two 128-row stages at D 192 (240 KB) would not fit the
+    227 KB a block may have."""
+    smoke = _chip_smoke()
+    too_big = {**WGMMA_SMEM, 192: 128 * 192 * 2 * 5 + 1024}
+    with pytest.raises(AssertionError, match="shared"):
+        smoke.fa_resources(_Build(_log(), _Lib(too_big, FMA_SMEM)),
+                           flash_attn)
+
+
+@pytest.mark.parametrize("s,t", [(1, 1), (7, 7), (5, 9), (9, 5), (64, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_work_counts_the_pairs_the_mask_keeps(s, t, causal):
+    kept = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        kept = torch.arange(s)[:, None] >= torch.arange(t)[None, :]
+    b, h, hk, d = 2, 6, 2, 80
+    bytes_moved, flops = timing.attention_work(b, h, hk, s, t, d, causal, 2)
+    assert flops == 4.0 * b * h * d * kept.sum().item()
+    assert bytes_moved == 2 * (2 * b * h * s * d + 2 * b * hk * t * d)
+
+
+@pytest.mark.parametrize("n", [16, 64, 4 ** 8])
+def test_fft_stage_work_reads_the_stage_twiddles(n):
+    rows = 3
+    wr, wi = ops._stage_twiddles(n, 0, torch.device("cpu"))
+    bytes_moved, flops = timing.fft_stage_work(rows, n)
+    assert bytes_moved == 4 * rows * n * 4 + (wr.numel() + wi.numel()) * 4
+    assert flops == rows * (n // 4) * 34.0

@@ -496,12 +496,13 @@ def _bf16(cuda, gen, *shape):
     return torch.randn(*shape, device=cuda, generator=gen).bfloat16()
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
 @pytest.mark.parametrize("s", [33, 100, 2047, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 4, 7])
 def test_flash_attention_wgmma_matches_plain(cuda, d, s, causal, group):
-    """The wgmma kernel (bf16, D 64 and 128) against the plain version;
+    """The wgmma kernel (bf16, D 64, 80, 128 and 192) against the plain
+    version;
     the same inputs as the model's (B, S, H, D) tensors seen through
     transpose(1, 2) give the contiguous call's bits."""
     hk = 1 if group == 7 else 2
@@ -516,12 +517,100 @@ def test_flash_attention_wgmma_matches_plain(cuda, d, s, causal, group):
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=FA_TOL[torch.bfloat16],
                                atol=FA_TOL[torch.bfloat16])
+    assert torch.equal(_views_and_out(q, k, v, causal), got)
+
+
+def _views_and_out(q, k, v, causal):
+    """The kernel on the model's layout: q, k, v as (B, S, H, D) tensors
+    seen through transpose(1, 2), written into a transposed (B, S, H, D)
+    output."""
     qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
                   for t in (q, k, v))
-    out = torch.empty(2, s, h, d, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty(q.shape[0], q.shape[2], q.shape[1], q.shape[3],
+                      device=q.device, dtype=q.dtype)
     flash_attn.flash_attention(qv, kv, vv, causal=causal,
                                out=out.transpose(1, 2))
-    assert torch.equal(out.transpose(1, 2), got)
+    return out.transpose(1, 2)
+
+
+@pytest.mark.parametrize("d", [80, 192])
+@pytest.mark.parametrize("s,t,causal", [(100, 300, False), (300, 100, False),
+                                        (1, 65, False), (1000, 1000, True),
+                                        (1000, 1000, False), (129, 129, True),
+                                        (63, 63, True)])
+def test_flash_attention_wgmma_ragged_lengths(cuda, d, s, t, causal):
+    """D 80 and 192 on the wgmma kernel at lengths off its 128-row query
+    tiles and its 128- (D 80) or 64-row (D 192) key tiles, T above and
+    below S: the plain version within FA_TOL, float32 attention on the
+    same bf16 inputs within FA_BF16_ROW_TOL of each row's scale, and the
+    model's strided views the contiguous call's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(d * s + t)
+    q = _bf16(cuda, gen, 2, 4, s, d)
+    k, v = _bf16(cuda, gen, 2, 2, t, d), _bf16(cuda, gen, 2, 2, t, d)
+    before = flash_attn.LAUNCHES
+    got = flash_attn.flash_attention(q, k, v, causal=causal)
+    assert flash_attn.LAUNCHES == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
+    ref32 = flash_attn.flash_attention_plain(q.float(), k.float(), v.float(),
+                                             causal=causal)
+    assert row_scaled_err(got, ref32) <= FA_BF16_ROW_TOL
+    assert torch.equal(_views_and_out(q, k, v, causal), got)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_d192_grouped_12_to_1(cuda, causal):
+    """nemotron-4-340b's grouping (96 query heads read 8 KV heads) at D
+    192, on the model's strided views: 24 query heads reading 2, a ragged
+    length."""
+    gen = torch.Generator(device=cuda).manual_seed(192 + causal)
+    q = _bf16(cuda, gen, 1, 24, 333, 192)
+    k, v = _bf16(cuda, gen, 1, 2, 333, 192), _bf16(cuda, gen, 1, 2, 333, 192)
+    got = _views_and_out(q, k, v, causal)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
+    assert torch.equal(flash_attn.flash_attention(q, k, v, causal=causal),
+                       got)
+
+
+@pytest.mark.parametrize("d", flash_attn.HEAD_DIMS)
+@pytest.mark.parametrize("s,t", [(1, 1), (65, 200), (200, 65), (1000, 1000)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fma_kernel_every_width(cuda, d, s, t, causal):
+    """The float32 kernel (register-tiled FMAs) at every head width, at
+    lengths off its 64-row tiles, grouped heads 3 to 1: the plain version
+    within 1e-4 (both sum float32 products; chip_smoke.py's FA_F32_TOL),
+    and the model's strided views the contiguous call's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(d + s + 7 * t)
+    q = torch.randn(2, 6, s, d, device=cuda, generator=gen)
+    k, v = (torch.randn(2, 2, t, d, device=cuda, generator=gen)
+            for _ in range(2))
+    before = flash_attn.LAUNCHES
+    got = flash_attn.flash_attention(q, k, v, causal=causal)
+    assert flash_attn.LAUNCHES == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(_views_and_out(q, k, v, causal), got)
+
+
+@pytest.mark.parametrize("s,t", [(1, 1), (65, 200), (1000, 1000)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fma_kernel_bf16_d8(cuda, s, t, causal):
+    """bf16 at D 8 (the smoke configs) on the FMA kernel, p rounded to
+    bf16 before PV: the plain version within FA_TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(8 + s + t)
+    q = _bf16(cuda, gen, 2, 4, s, 8)
+    k, v = _bf16(cuda, gen, 2, 2, t, 8), _bf16(cuda, gen, 2, 2, t, 8)
+    got = flash_attn.flash_attention(q, k, v, causal=causal)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
+    assert torch.equal(_views_and_out(q, k, v, causal), got)
 
 
 def test_flash_attention_rejects_layouts_the_kernel_cannot_read(cuda):
