@@ -57,21 +57,44 @@ phase prints one JSON line:
 10. ``fig7_tuned``: the five tuner modes of the 5G app at (16, 1) and
     (64, 4) against the reference values.
 11. ``normal``: ``prng.normal`` on the card against stored JAX draws,
-    in ulps.
+    in ulps; and the original (non-partitionable) threefry stream's
+    ``split``/``uniform``/``normal``/``bernoulli`` against stored JAX
+    draws made with ``jax_threefry_partitionable`` off, bit for bit.
 12. ``powf``: the ``powf`` kernel against the host's C library over every
     float32 base the Pareto straggler model can reach at 64, 256 and
     1024 PEs, and ``arrival_batch("straggler_pareto")`` at (8, 1024) on
     the card against stored JAX draws, bit for bit, with where its
-    ``pow`` ran.
+    ``pow`` ran; the kernel timed in turns with ``torch.pow`` in device
+    time (CUDA graph replay) at the model's 8192 bases and at
+    ``POWF_CHUNK``, with the eager times beside.
 13. ``faults``: the degradation sweep of ``benchmarks/bench_faults.py``
     at N = 1024 (130 schedules x 5 PE failure rates x 64 trials) through
     ``repro_torch.examples.bench_faults``, bit for bit against the
-    reference values; ``BENCH_faults.json``'s claims (the winners by
-    name), with its numbers printed beside the port's.
+    reference values; then the same sweep on the original threefry
+    stream (``prng.threefry_partitionable(False)``), whose record must
+    equal ``BENCH_faults.json``'s ``degradation`` section at its
+    rounding.
 14. ``fiveg_faults``: the 5G ``degradation_curve`` (central, tree, hw x 5
-    rates) against the reference values, ``BENCH_faults.json``'s
-    numbers printed beside.
-15. ``dct_conv2d``: ``ops.dct`` and ``ops.conv2d`` at the Fig. 5/6
+    rates) against the reference values; on the original stream, equal
+    to ``BENCH_faults.json``'s ``fiveg`` section at its rounding.
+15. ``fig4b``: Fig. 4b through ``repro_torch.examples.fig4`` (the best
+    radix per delay of the 16-trial Fig. 4a sweep and its mean
+    residency, against the reference values), and claim C3 on the draws
+    of the reference's own test (radices 16/32/64/1024, 8 trials, delays
+    256 and 2048): the residencies against the reference values, the SFR
+    for < 10 % overhead inside (500, 4000) and (4000, 16000) cycles.
+16. ``multicluster``: hierarchical stacks on 4-cluster machines of 2048
+    and 4096 PEs bit for bit against the reference values (names,
+    telescope widths, exit times, spans); then
+    ``repro_torch.examples.bench_multicluster`` at 2048, 4096 and 16384
+    PEs, its ``n_schedules``, ``hier_vs_flat`` and ``widths.sum_*``
+    equal to ``BENCH_multicluster.json``, its sweep and width timings
+    recorded fresh.
+17. ``energy``: ``repro_torch.examples.bench_energy``'s three sections
+    equal to ``BENCH_energy.json`` at its rounding: energy per barrier at
+    64/256/1024 PEs and the Pareto front at 1024 (delay 0), and the 5G
+    energy section on the original threefry stream.
+18. ``dct_conv2d``: ``ops.dct`` and ``ops.conv2d`` at the Fig. 5/6
     suite's sizes, with the launch counts of that run, each kernel
     against its plain version (``dct`` also in bf16 and f16, at (4096,
     4096) and a ragged (300, 1000)), the suite's rows of a (4096, 4096)
@@ -79,7 +102,7 @@ phase prints one JSON line:
     suite's three shapes and (4096, 4096) (device time and eager) and of
     ``conv2d`` at (256, 512, 512), beside their bounds and one PyTorch
     library call.
-16. ``lm_serve``: the LM serving path.  The flash-attention kernel
+19. ``lm_serve``: the LM serving path.  The flash-attention kernel
     against its plain version at the reference's test shapes, in bf16 at
     every head width of ``HEAD_DIMS``, in float32 at the configs' widths
     80 and 192, at nemotron-4-340b's and hubert-xlarge's full-width
@@ -1238,6 +1261,26 @@ def phase_normal(torch, prng, ref_values) -> None:
     if ulps.max().item() != 0:
         raise AssertionError("prng.normal on the card differs from the "
                              "JAX draws")
+    ref = ref_values["prng_original"]
+    key = prng.PRNGKey(ref["key"])
+    off = {}
+    with prng.threefry_partitionable(False):
+        off["split"] = int(prng.split(key, 3).cpu().ne(torch.tensor(
+            ref["split"])).sum().item())
+        for want in ref["draws"]:
+            shape = tuple(want["shape"])
+            for name in ("uniform", "normal"):
+                got = getattr(prng, name)(key, shape).cpu()
+                off[f"{name}{list(shape)}"] = int(got.view(torch.int32).ne(
+                    torch.tensor(want[name], dtype=torch.float32)
+                    .view(torch.int32)).sum().item())
+            off[f"bernoulli{list(shape)}"] = int(
+                prng.bernoulli(key, 0.3, shape).cpu().ne(
+                    torch.tensor(want["bernoulli"])).sum().item())
+    emit({"phase": "normal", "stream": "original", "draws_off": off})
+    if any(off.values()):
+        raise AssertionError(f"the original threefry stream on the card "
+                             f"differs from JAX's: {off}")
 
 
 def pareto_base_range(workloads) -> tuple:
@@ -1323,10 +1366,9 @@ def phase_powf(torch, powf, prng, workloads, ref_values) -> tuple:
         b_ms, b_by = bound(8.0 * n, 27.0 * n, "float64")
         rec = {"phase": "powf", "name": "powf", "n": n, "max_abs_err": err,
                "tol": "bit for bit",
-               "ms": cuda_ms(powf.powf, args),
+               **in_turns(powf.powf, torch.pow, args),
                "plain_ms": cuda_ms(powf.powf_plain, args, iters=3,
                                    warmup=1),
-               "library_ms": cuda_ms(torch.pow, args),
                "library": "torch.pow (not the C library's rounding)",
                "bound_ms": b_ms, "bound_by": b_by}
         if err != 0.0:
@@ -1338,9 +1380,10 @@ def phase_powf(torch, powf, prng, workloads, ref_values) -> tuple:
     return summary, launches
 
 
-def phase_faults(torch, bench_faults, tuning, ref_values, bench) -> None:
-    """The N = 1024 degradation sweep against the JAX reference values and
-    against ``BENCH_faults.json``."""
+def phase_faults(torch, bench_faults, prng, tuning, ref_values,
+                 bench) -> None:
+    """The N = 1024 degradation sweep against the JAX reference values,
+    and on the original threefry stream against ``BENCH_faults.json``."""
     ref = ref_values["faults"]
     t0 = time.perf_counter()
     record, res, i_lat = bench_faults.degradation_sweep(device="cuda")
@@ -1366,9 +1409,9 @@ def phase_faults(torch, bench_faults, tuning, ref_values, bench) -> None:
                                    err_msg=key)
     if record != ref["record"]:
         raise AssertionError("fault sweep record differs from the JAX one")
-    # BENCH_faults.json was drawn from another random stream than today's
-    # JAX package (ROADMAP.md §3): its claims must hold, its numbers are
-    # reported beside the port's.
+    # BENCH_faults.json was drawn from the original threefry stream, not
+    # today's partitionable one: on today's stream its claims must hold,
+    # and on its own stream its numbers (below).
     file_curve = bench["degradation"]["curve"]
     claims = {
         "robust_beats_latency_at_1pct":
@@ -1381,6 +1424,17 @@ def phase_faults(torch, bench_faults, tuning, ref_values, bench) -> None:
             for c in file_curve]}
     if not all(claims.values()):
         raise AssertionError(f"fault sweep claims fail: {claims}")
+    # The file was drawn from the original threefry stream: on it the
+    # port reproduces the file.
+    t1 = time.perf_counter()
+    with prng.threefry_partitionable(False):
+        original, _, _ = bench_faults.degradation_sweep(device="cuda")
+    torch.cuda.synchronize()
+    original_wall = time.perf_counter() - t1
+    if original != bench["degradation"]:
+        raise AssertionError(
+            f"fault sweep on the original stream != BENCH_faults.json: "
+            f"{original['curve']} != {file_curve}")
     emit({"phase": "faults", "grid": list(res.span_cycles.shape),
           "latency_winner": names[i_lat], "robust_winners": robust,
           "p99_improvement": [c["p99_improvement"] for c in record["curve"]],
@@ -1392,10 +1446,14 @@ def phase_faults(torch, bench_faults, tuning, ref_values, bench) -> None:
                                c["robust_tuned"]["p99_cycles"]]
                               for c in file_curve],
           "equals_reference": True, "file_claims": claims,
-          "wall_s": wall})
+          "original_stream_equals_file": True,
+          "original_p99_improvement": [c["p99_improvement"]
+                                       for c in original["curve"]],
+          "wall_s": wall, "original_wall_s": original_wall})
 
 
-def phase_fiveg_faults(torch, bench_faults, ref_values, bench) -> None:
+def phase_fiveg_faults(torch, bench_faults, prng, ref_values,
+                       bench) -> None:
     ref = ref_values["fiveg_faults"]
     t0 = time.perf_counter()
     record, curve = bench_faults.fiveg_degradation(device="cuda")
@@ -1411,6 +1469,14 @@ def phase_fiveg_faults(torch, bench_faults, ref_values, bench) -> None:
             for c in ("sync_fraction", "sync_energy"):
                 np.testing.assert_allclose(getattr(res, c).item(), want[c],
                                            rtol=1e-5, err_msg=c)
+    t1 = time.perf_counter()
+    with prng.threefry_partitionable(False):
+        original, _ = bench_faults.fiveg_degradation(device="cuda")
+    torch.cuda.synchronize()
+    original_wall = time.perf_counter() - t1
+    if original != bench["fiveg"]:
+        raise AssertionError(f"5G degradation on the original stream != "
+                             f"BENCH_faults.json: {original}")
     cols = ("total_cycles", "completion_rate", "timed_out_levels")
     emit({"phase": "fiveg_faults",
           **{c: {m: [r[c] for r in record[m]]
@@ -1418,9 +1484,118 @@ def phase_fiveg_faults(torch, bench_faults, ref_values, bench) -> None:
           **{f"file_{c}": {m: [r[c] for r in bench["fiveg"][m]]
                            for m in bench_faults.FIVEG_MODES} for c in cols},
           "equals_reference": True,
-          "wall_s": wall,
+          "original_stream_equals_file": True,
+          "original_timed_out_levels": {
+              m: [r["timed_out_levels"] for r in original[m]]
+              for m in bench_faults.FIVEG_MODES},
+          "wall_s": wall, "original_wall_s": original_wall,
           "wall_s_per_simulate_app": wall / (len(ref["rates"]) * len(
               bench_faults.FIVEG_MODES))})
+
+
+def phase_fig4b(torch, fig4, ref_values) -> None:
+    """Fig. 4b from the fig4a sweep and claim C3 against the reference
+    values; residencies are means over PEs and trials, held to rtol
+    1e-6 (torch sums in another order than XLA)."""
+    ref = ref_values["fig4b"]
+    t0 = time.perf_counter()
+    res, steady_us, first_us = fig4.run_sweep("cuda")
+    rows = fig4.fig4b(res)
+    if len(rows) != len(ref["rows"]):
+        raise AssertionError(f"Fig. 4b has {len(rows)} rows, the stored "
+                             f"section {len(ref['rows'])}")
+    for row, want in zip(rows, ref["rows"]):
+        if (row["delay"], row["radix"]) != (want["delay"], want["radix"]):
+            raise AssertionError(f"Fig. 4b best radix {row} != {want}")
+        np.testing.assert_allclose(row["mean_residency"],
+                                   want["mean_residency"], rtol=1e-6)
+    c3 = fig4.claim_c3("cuda")
+    if len(c3) != len(ref["c3"]["rows"]):
+        raise AssertionError(f"C3 has {len(c3)} rows, the stored section "
+                             f"{len(ref['c3']['rows'])}")
+    for row, want in zip(c3, ref["c3"]["rows"]):
+        if (row["delay"], row["band"]) != (want["delay"], want["band"]):
+            raise AssertionError(f"C3 row {row} != stored {want}")
+        np.testing.assert_allclose(list(row["costs"].values()),
+                                   want["costs"], rtol=1e-6)
+    if not all(r["holds"] for r in c3):
+        raise AssertionError(f"C3 does not hold: {c3}")
+    emit({"phase": "fig4b", "rows": rows,
+          "c3": [{k: r[k] for k in ("delay", "sfr_needed", "band", "holds")}
+                 for r in c3],
+          "sweep_steady_us": steady_us, "sweep_first_us": first_us,
+          "wall_s": time.perf_counter() - t0})
+
+
+def phase_multicluster(torch, bench_multicluster, barrier, prng, sweep,
+                       ref_values, bench) -> None:
+    """The stored hierarchical stacks bit for bit, then the benchmark's
+    machines against ``BENCH_multicluster.json``."""
+    ref = ref_values["multicluster"]
+    t0 = time.perf_counter()
+    for want in ref["stacks"]:
+        n = want["n_pes"]
+        cfg = bench_multicluster.machine(n)
+        arr = ref["delay"] * prng.uniform(prng.PRNGKey(ref["key"]),
+                                          (ref["n_trials"], n))
+        scheds = [barrier.mixed_radix_tree(c, cfg=cfg)
+                  for c in want["sizes"]]
+        res = sweep.sweep_arrivals(arr, scheds, cfg)
+        widths = list(barrier.telescope_widths(
+            barrier.stack_tables(scheds, cfg), n))
+        if [s.name for s in scheds] != want["names"] or \
+                widths != want["widths"]:
+            raise AssertionError(f"N={n} stack {want['names']}: names or "
+                                 f"widths {widths} differ")
+        for f in ("exit_time", "span_cycles"):
+            if not torch.equal(getattr(res, f)[:, 0].cpu(), torch.tensor(
+                    want[f], dtype=torch.float32)):
+                raise AssertionError(f"N={n} stack {want['names']}: {f} "
+                                     f"differs from the reference values")
+    emit({"phase": "multicluster", "reference_stacks": len(ref["stacks"]),
+          "bit_exact": True, "wall_s": time.perf_counter() - t0})
+    for n in bench_multicluster.NS:
+        t1 = time.perf_counter()
+        got = bench_multicluster.bench_machine(n, "cuda")
+        wall = time.perf_counter() - t1
+        want = bench[f"N={n}"]
+        simulated = {
+            "n_schedules": (got["n_schedules"], want["n_schedules"]),
+            "points": (got["sweep"]["points"], want["sweep"]["points"]),
+            "hier_vs_flat": (got["hier_vs_flat"], want["hier_vs_flat"]),
+            "sum_tight": (got["widths"]["sum_tight"],
+                          want["widths"]["sum_tight"]),
+            "sum_fallback": (got["widths"]["sum_fallback"],
+                             want["widths"]["sum_fallback"])}
+        bad = {k: v for k, v in simulated.items() if v[0] != v[1]}
+        if bad:
+            raise AssertionError(f"N={n} != BENCH_multicluster.json: {bad}")
+        emit({"phase": "multicluster", "n_pes": n,
+              "n_schedules": got["n_schedules"],
+              "hier_vs_flat": got["hier_vs_flat"],
+              "sum_tight": got["widths"]["sum_tight"],
+              "sum_fallback": got["widths"]["sum_fallback"],
+              "equals_file": True, "sweep": got["sweep"],
+              "width_timing": {k: got["widths"][k]
+                               for k in ("tight", "fallback", "speedup")},
+              "sharding": got["sharding"], "wall_s": wall})
+
+
+def phase_energy(torch, bench_energy, bench) -> None:
+    """The energy benchmark's sections against ``BENCH_energy.json``."""
+    t0 = time.perf_counter()
+    got, wall = {}, {}
+    got["energy_per_barrier"], wall["energy_per_barrier"] = \
+        bench_energy.energy_per_barrier(device="cuda")
+    got["pareto"], wall["pareto"] = bench_energy.pareto(device="cuda")
+    got["fiveg"], wall["fiveg"] = bench_energy.fiveg_energy(device="cuda")
+    for name, value in got.items():
+        emit({"phase": "energy", "section": name, "record": value,
+              "equals_file": value == bench[name], "wall_us": wall[name]})
+    bad = [name for name, value in got.items() if value != bench[name]]
+    if bad:
+        raise AssertionError(f"energy sections {bad} != BENCH_energy.json")
+    emit({"phase": "energy", "wall_s": time.perf_counter() - t0})
 
 
 def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
@@ -2020,13 +2195,16 @@ def main() -> int:
         return 2
     from repro_torch.core import (barrier, barrier_sim, fiveg, placement,
                                   prng, sweep, tuning, workloads)
-    from repro_torch.examples import bench_faults, fiveg_pipeline
+    from repro_torch.examples import (bench_energy, bench_faults,
+                                      bench_multicluster, fig4,
+                                      fiveg_pipeline)
     from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
                                      flash_attn, matmul, ops, powf, ref)
 
     ref_values = json.loads(
         (ROOT / "src" / "repro_torch" / "reference_values.json").read_text())
-    bench = json.loads((ROOT / "BENCH_faults.json").read_text())
+    bench = {name: json.loads((ROOT / f"BENCH_{name}.json").read_text())
+             for name in ("faults", "multicluster", "energy")}
     phase_info(torch, _build)
     summary = phase_kernels(torch, ops, fft4, matmul, ref)
     launches = phase_pipeline(torch, fiveg_pipeline, fft4, matmul, ops)
@@ -2042,8 +2220,14 @@ def main() -> int:
     phase_normal(torch, prng, ref_values)
     summary["powf"], launches["powf"] = phase_powf(torch, powf, prng,
                                                    workloads, ref_values)
-    phase_faults(torch, bench_faults, tuning, ref_values, bench)
-    phase_fiveg_faults(torch, bench_faults, ref_values, bench)
+    phase_faults(torch, bench_faults, prng, tuning, ref_values,
+                 bench["faults"])
+    phase_fiveg_faults(torch, bench_faults, prng, ref_values,
+                       bench["faults"])
+    phase_fig4b(torch, fig4, ref_values)
+    phase_multicluster(torch, bench_multicluster, barrier, prng, sweep,
+                       ref_values, bench["multicluster"])
+    phase_energy(torch, bench_energy, bench["energy"])
     more, more_launches = phase_dct_conv2d(torch, ops, dct, conv2d)
     summary.update(more)
     launches.update(more_launches)

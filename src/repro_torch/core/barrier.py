@@ -191,6 +191,20 @@ def all_radices(n_pes: int | None = None,
     return [k for k in range(2, n + 1) if n % k == 0]
 
 
+def compose(*schedules: BarrierSchedule,
+            cfg: TeraPoolConfig = DEFAULT,
+            partial: bool = False) -> BarrierSchedule:
+    """Stack schedules leaf-to-root into one tree over the product of
+    their PE counts: the level sizes concatenate, and spans and
+    latencies are re-derived for the combined hierarchy."""
+    if not schedules:
+        raise ValueError("compose needs at least one schedule")
+    sizes: List[int] = []
+    for s in schedules:
+        sizes.extend(lvl.group_size for lvl in s.levels)
+    return mixed_radix_tree(sizes, cfg=cfg, partial=partial)
+
+
 def schedule_name(schedule: BarrierSchedule, placement=None) -> str:
     """Canonical, sortable name: level sizes joined leaf-to-root
     (``"8x16x8"``), ``hw``-prefixed for the event unit, ``p``-suffixed
@@ -200,6 +214,20 @@ def schedule_name(schedule: BarrierSchedule, placement=None) -> str:
     base = ("hw" + base) if schedule.hw else base
     base += "p" if schedule.partial else ""
     return base + (f"@{placement.strategy}" if placement else "")
+
+
+def describe(schedule: BarrierSchedule) -> str:
+    """One-line human description of a schedule's structure."""
+    kind = ("hardware event unit" if schedule.hw
+            else "central counter" if schedule.n_levels == 1
+            and schedule.levels[0].group_size == schedule.n_pes
+            else f"radix-{schedule.radix} tree" if schedule.radix
+            else "mixed-radix tree")
+    spans = ",".join(str(lvl.span) for lvl in schedule.levels)
+    lats = ",".join(str(lvl.latency) for lvl in schedule.levels)
+    part = " (partial)" if schedule.partial else ""
+    return (f"{schedule_name(schedule)}: {kind} over {schedule.n_pes} "
+            f"PEs{part}, spans [{spans}], latencies [{lats}]")
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,14 @@ counter of element ``i`` of a draw of shape ``s`` is the 64-bit flat
 index ``i`` split into two 32-bit words, so a block of shape ``(T, N)``
 equals the first ``T`` rows of any taller draw under the same key.
 
+Inside ``with threefry_partitionable(False):`` the draws follow JAX's
+original stream instead (the flag off): a draw of ``n`` words hashes
+the counter pairs ``(j, j + ceil(n / 2))`` of ``0 .. n - 1`` (the last
+one ``(j, 0)`` when ``n`` is odd) and concatenates the two output
+words, and ``split`` is such a draw of ``2 * num`` words.  A block is
+then no prefix of a taller draw, so ``offset=`` raises there.
+``fold_in`` is the same in both streams.
+
 A key is an int64 tensor of shape ``(..., 2)`` holding two 32-bit words.
 All arithmetic runs on int64 tensors masked to 32 bits, so it is exact
 on every device torch supports.  Keys with leading batch dimensions
@@ -17,6 +25,9 @@ for bit too.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
 
@@ -26,6 +37,25 @@ from .xla_math import erf_inv
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
+_PARTITIONABLE = contextvars.ContextVar("threefry_partitionable",
+                                        default=True)
+
+
+@contextlib.contextmanager
+def threefry_partitionable(enabled: bool):
+    """Draw from the partitionable stream (``True``, the default) or
+    from JAX's original one (``False``) inside the ``with`` block, as
+    ``jax.threefry_partitionable`` does for ``jax.random``."""
+    token = _PARTITIONABLE.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _PARTITIONABLE.reset(token)
+
+
+def partitionable() -> bool:
+    """Whether draws follow the partitionable stream here."""
+    return _PARTITIONABLE.get()
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -75,13 +105,50 @@ def _hash_counts(key: torch.Tensor, shape: tuple, offset: int = 0) -> tuple:
     return threefry2x32(k1, k2, hi, lo)
 
 
+def _hash_iota(key: torch.Tensor, count: int) -> torch.Tensor:
+    """The original stream's words ``0 .. count - 1`` under every key of
+    ``key`` (shape ``(..., 2)``): JAX's ``threefry_2x32`` over an iota,
+    which hashes the pairs ``(j, j + h)``, ``h = ceil(count / 2)``,
+    padding the last with 0 when ``count`` is odd.  Shape
+    ``key.shape[:-1] + (count,)``."""
+    if count >= _MASK:
+        raise ValueError(f"a draw of {count} words passes the original "
+                         f"stream's one-block limit")
+    half = (count + 1) // 2
+    j = torch.arange(half, dtype=torch.int64, device=key.device)
+    pair = j + half
+    pair = torch.where(pair < count, pair, 0)
+    lift = key.shape[:-1] + (1,)
+    y0, y1 = threefry2x32(key[..., 0].reshape(lift),
+                          key[..., 1].reshape(lift), j, pair)
+    return torch.cat([y0, y1], dim=-1)[..., :count]
+
+
+def _bits(key: torch.Tensor, shape: tuple, offset: int) -> torch.Tensor:
+    """32 random bits per element of ``shape`` under every key, from the
+    stream in force."""
+    if partitionable():
+        bits1, bits2 = _hash_counts(key, shape, offset)
+        return bits1 ^ bits2
+    if offset:
+        raise ValueError("offset= needs the partitionable stream: the "
+                         "original one has no prefix property")
+    count = 1
+    for d in shape:
+        count *= d
+    return _hash_iota(key, count).reshape(key.shape[:-1] + shape)
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``num`` new keys per key, shape
     ``key.shape[:-1] + (num, 2)`` (``(num, 2)`` for one key)."""
     if key.ndim < 1 or key.shape[-1] != 2:
         raise ValueError(f"split takes keys of shape (..., 2), got "
                          f"{tuple(key.shape)}")
-    bits1, bits2 = _hash_counts(key, (int(num),))
+    num = int(num)
+    if not partitionable():
+        return _hash_iota(key, 2 * num).reshape(key.shape[:-1] + (num, 2))
+    bits1, bits2 = _hash_counts(key, (num,))
     return torch.stack([bits1, bits2], dim=-1)
 
 
@@ -95,8 +162,7 @@ def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0, *,
     larger draw under the same key: each element hashes its own flat
     index, so a large draw can be made in slices."""
     shape = tuple(int(d) for d in shape)
-    bits1, bits2 = _hash_counts(key, shape, offset)
-    mantissa = ((bits1 ^ bits2) >> 9) | 0x3F800000
+    mantissa = (_bits(key, shape, offset) >> 9) | 0x3F800000
     u = mantissa.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.as_tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.as_tensor(maxval, dtype=torch.float32, device=key.device)

@@ -107,6 +107,34 @@ def hierarchy_compositions(n_pes: int | None = None,
     return list(product(0))
 
 
+def multicluster_compositions(cfg, *,
+                              intra: Sequence[Tuple[int, ...]] | None = None,
+                              inter: Sequence[Tuple[int, ...]] | None = None
+                              ) -> List[Tuple[int, ...]]:
+    """The hierarchical multi-cluster space: every intra-cluster
+    composition (default: the hierarchy-pruned space over
+    ``cfg.pes_per_cluster``) extended by every inter-cluster tree
+    (default: every factorization of ``cfg.n_clusters``), leaf first."""
+    if intra is None:
+        intra = hierarchy_compositions(cfg.pes_per_cluster, cfg)
+    if inter is None:
+        inter = (enumerate_compositions(cfg.n_clusters, cfg)
+                 if cfg.n_clusters > 1 else [()])
+    return [tuple(ic) + tuple(xc) for ic in intra for xc in inter]
+
+
+def multicluster_schedules(cfg, *,
+                           intra: Sequence[Tuple[int, ...]] | None = None,
+                           inter: Sequence[Tuple[int, ...]] | None = None,
+                           partial: bool = False) -> List[BarrierSchedule]:
+    """:func:`multicluster_compositions` as schedules over the whole
+    ``cfg.n_pes`` machine; inter-cluster levels carry
+    ``cfg.lat_remote``, in cycles and in the energy constants."""
+    return [barrier.mixed_radix_tree(c, cfg=cfg, partial=partial)
+            for c in multicluster_compositions(cfg, intra=intra,
+                                               inter=inter)]
+
+
 def all_schedules(n_pes: int | None = None,
                   cfg: TeraPoolConfig = DEFAULT, *,
                   prune: str = "none",

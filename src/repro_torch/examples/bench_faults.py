@@ -15,11 +15,17 @@ the same defaults, computed by the port.
 2. **5G under PE loss.**  ``fiveg.degradation_curve`` for the central
    counter, the radix-32 tree and the hardware event unit at (16, 1).
 
+Both draw from the partitionable threefry stream, today's JAX default;
+``--threefry original`` draws them from the original stream
+(``prng.threefry_partitionable(False)``), in which the reference's
+``BENCH_faults.json`` was drawn, and then reproduces that file.
+
 Prints one JSON line per measurement, rounded as the reference's file
 rounds them; ``--out PATH`` also writes the record there (the
 reference's ``BENCH_faults.json`` is never written).
 
-    PYTHONPATH=src python -m repro_torch.examples.bench_faults [--out P]
+    PYTHONPATH=src python -m repro_torch.examples.bench_faults \
+        [--threefry original] [--out P]
 """
 from __future__ import annotations
 
@@ -144,9 +150,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the record as JSON to this path")
+    ap.add_argument("--threefry", choices=("partitionable", "original"),
+                    default="partitionable",
+                    help="the random stream of both measurements")
     args = ap.parse_args(argv)
-    record = {"degradation": degradation_sweep()[0],
-              "fiveg": fiveg_degradation()[0]}
+    with prng.threefry_partitionable(args.threefry == "partitionable"):
+        record = {"degradation": degradation_sweep()[0],
+                  "fiveg": fiveg_degradation()[0]}
     for name, value in record.items():
         print(json.dumps({name: value}), flush=True)
     if args.out is not None:

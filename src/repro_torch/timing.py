@@ -1,14 +1,18 @@
 """Timing on the card and the least time it could take: the helpers that
-``chip_smoke.py`` and ``examples/kernel_times.py`` share.
+``chip_smoke.py``, ``examples/kernel_times.py`` and the benchmark drivers
+share.
 
 Device time is a CUDA graph of calls timed as one replay
 (:func:`graph_ms`), so the host's launch cost drops out; eager time
 (:func:`cuda_ms`) is the same calls issued one by one from Python.  The
-bound (:func:`bound`) uses the H100 SXM data sheet's peaks.
+bound (:func:`bound`) uses the H100 SXM data sheet's peaks.  The
+drivers' simulations are timed whole on the host's clock
+(:func:`wall_us`).
 """
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
@@ -35,6 +39,28 @@ def cuda_ms(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_us(fn, device, *, iters: int = 3) -> tuple:
+    """Host wall microseconds of ``fn()``, the device drained after each
+    call: ``(result, steady_us, first_us)``, the mean of ``iters`` calls
+    after one more warm-up call, and the first call alone (which also
+    pays the table caches and torch's first use of each operation)."""
+    def drain():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    result = fn()
+    drain()
+    first_us = (time.perf_counter() - t0) * 1e6
+    fn()
+    drain()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        result = fn()
+        drain()
+    return result, (time.perf_counter() - t0) * 1e6 / iters, first_us
 
 
 def cold_copies(*tensors) -> list:

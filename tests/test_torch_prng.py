@@ -1,7 +1,8 @@
 """Port parity: the threefry PRNG against ``jax.random``, bit for bit
 (partitionable threefry, the jax default here): keys, splits, fold-ins,
 uniform, bernoulli and normal draws, and the XLA float32 functions
-behind them."""
+behind them; and the original stream, ``prng.threefry_partitionable
+(False)`` against JAX under ``jax.threefry_partitionable(False)``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -130,3 +131,78 @@ def test_powf_is_the_c_library_call():
     got = xla_math.powf(torch.from_numpy(base), -1.0 / 1.5)
     want = np.asarray(jnp.asarray(base) ** (-1.0 / 1.5))
     assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+ORIGINAL_SHAPES = SHAPES + ((7,), (3, 5), (1,))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [1, 2, 3, 26])
+def test_original_stream_split_bit_exact(seed, num):
+    key = prng.PRNGKey(seed, device="cpu")
+    with jax.threefry_partitionable(False):
+        want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num),
+                          np.int64)
+    with prng.threefry_partitionable(False):
+        got = prng.split(key, num)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", ORIGINAL_SHAPES)
+def test_original_stream_draws_bit_exact(seed, shape):
+    """uniform (and a shifted range), normal and bernoulli; odd counts
+    hash a padded last pair."""
+    key = prng.PRNGKey(seed, device="cpu")
+    jkey = jax.random.PRNGKey(seed)
+    with jax.threefry_partitionable(False):
+        want = [np.asarray(jax.random.uniform(jkey, shape)),
+                np.asarray(jax.random.uniform(jkey, shape, minval=0.0,
+                                              maxval=2048.0)),
+                np.asarray(jax.random.normal(jkey, shape)),
+                np.asarray(jax.random.bernoulli(jkey, 0.3, shape))]
+    with prng.threefry_partitionable(False):
+        got = [prng.uniform(key, shape), prng.uniform(key, shape, 0.0, 2048.0),
+               prng.normal(key, shape), prng.bernoulli(key, 0.3, shape)]
+    for g, w in zip(got[:3], want[:3]):
+        assert np.array_equal(g.numpy().view(np.int32), w.view(np.int32))
+    assert np.array_equal(got[3].numpy(), want[3])
+
+
+def test_original_stream_batched_keys_and_fold_in():
+    """A batch of keys draws what each key draws alone (as ``vmap`` over
+    JAX's original stream does); ``fold_in`` is the same in both
+    streams."""
+    with jax.threefry_partitionable(False):
+        jkeys = jax.random.split(jax.random.PRNGKey(7), 5)
+        want = [np.asarray(jax.random.uniform(k, (33,))) for k in jkeys]
+        want_split = [np.asarray(jax.random.split(k, 3), np.int64)
+                      for k in jkeys]
+        want_fold = np.asarray(jax.random.fold_in(jkeys[0], 65), np.int64)
+    with prng.threefry_partitionable(False):
+        keys = prng.split(prng.PRNGKey(7, device="cpu"), 5)
+        got = prng.uniform(keys, (33,))
+        got_split = prng.split(keys, 3)
+        got_fold = prng.fold_in(keys[0], 65)
+    for i in range(5):
+        assert np.array_equal(got[i].numpy(), want[i])
+        assert np.array_equal(got_split[i].numpy(), want_split[i])
+    assert np.array_equal(got_fold.numpy(), want_fold)
+    assert torch.equal(got_fold, prng.fold_in(keys[0], 65))
+
+
+def test_original_stream_is_scoped_and_refuses_offsets():
+    key = prng.PRNGKey(0, device="cpu")
+    on = prng.uniform(key, (16,))
+    with prng.threefry_partitionable(False):
+        assert not prng.partitionable()
+        off = prng.uniform(key, (16,))
+        with prng.threefry_partitionable(True):
+            assert torch.equal(prng.uniform(key, (16,)), on)
+        with pytest.raises(ValueError, match="offset"):
+            prng.uniform(key, (16,), offset=16)
+        # No prefix property: a block is not the head of a taller draw.
+        assert not torch.equal(prng.uniform(key, (32,))[:16], off)
+    assert prng.partitionable()
+    assert not torch.equal(on, off)
+    assert torch.equal(prng.uniform(key, (16,)), on)

@@ -14,7 +14,8 @@ from repro_torch import resolve_device
 from repro_torch.core import (barrier, barrier_sim, energy, fiveg,
                               placement, prng, sweep, tuning, workloads)
 from repro_torch import configs
-from repro_torch.examples import bench_faults, serve_lm
+from repro_torch.examples import (bench_energy, bench_faults,
+                                  bench_multicluster, fig4, serve_lm)
 from repro_torch.kernels import ref
 from repro_torch.launch import steps
 from repro_torch.models import convert, init_caches
@@ -50,6 +51,9 @@ def test_importing_every_module_loads_no_jax():
     assert {f"repro_torch.configs.{m}" for m in configs.ARCH_IDS} <= loaded
     assert {"repro_torch.launch.steps", "repro_torch.examples.serve_lm",
             "repro_torch.examples.barrier_tuning"} <= loaded
+    assert {f"repro_torch.examples.{m}" for m in (
+        "fig4", "bench_energy", "bench_multicluster", "bench_faults")} \
+        <= loaded
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -125,6 +129,20 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 ], ids=["simulate_faults", "simulate_robust_reference", "energy_reference",
         "degradation_curve", "bench_faults_sweep", "bench_faults_fiveg"])
 def test_fault_entry_points_default_to_cuda_and_raise(call):
+    _no_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: fig4.run_sweep(n_trials=2),
+    lambda: fig4.claim_c3(n_trials=1),
+    lambda: bench_energy.energy_per_barrier(ns=(64,)),
+    lambda: bench_energy.fiveg_energy(64),
+    lambda: bench_multicluster.bench_machine(128),
+], ids=["fig4_sweep", "claim_c3", "energy_per_barrier", "fiveg_energy",
+        "multicluster"])
+def test_driver_entry_points_default_to_cuda_and_raise(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):
         call()

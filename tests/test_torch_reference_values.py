@@ -27,6 +27,17 @@ computes, on the CPU, for:
   tree, hw x 5 rates at (16, 1), key 0);
 * ``straggler_pareto``: ``arrival_batch("straggler_pareto")`` at
   (8, 1024) (key 7), whose tail goes through the C library's ``powf``;
+* ``fig4b``: the Fig. 4b rows of ``benchmarks/fig4_random_delay.py``
+  (the best radix per delay of the 16-trial Fig. 4a sweep and its mean
+  residency, key 0) and claim C3's residencies on the draws of
+  ``tests/test_barrier_sim.py`` (radices 16/32/64/1024, 8 trials, delays
+  256 and 2048);
+* ``multicluster``: exit times and spans of two hierarchical schedule
+  stacks on each 4-cluster machine of 2048 and 4096 PEs (see
+  :func:`mc_stacks`) under 4 trials of uniform arrivals over 512 cycles
+  (key 0), with the stacks' telescope widths;
+* ``prng_original``: ``split``, ``uniform``, ``normal`` and
+  ``bernoulli`` draws with ``jax_threefry_partitionable`` off (key 0);
 * ``lm_serve``: the qwen3 smoke config served as ``examples/serve_lm.py``
   serves it (tests/lm_parity.py): 2 numpy-seeded prompts, prefill over
   64 tokens, 4 greedy decode steps.  Two variants: bf16 through the serve
@@ -40,9 +51,10 @@ JAX.  Regenerate it with
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py
 
-or one section of it with
+or some sections of it with
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py lm_serve
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py fig4b multicluster prng_original
 
 The tests below recompute the cheap sections with JAX, so the file
 cannot go stale, and hold the port's CPU run to the sections small
@@ -64,10 +76,12 @@ from repro.core import placement as jplacement
 from repro.core import sweep as jsweep
 from repro.core import tuning as jtuning
 from repro.core import workloads as jworkloads
+from repro.core import barrier_sim as jbarrier_sim
 from repro.core.topology import TeraPoolConfig as JConfig
+from repro.core.topology import multi_cluster as jmulti_cluster
 from repro.models import init_params as jinit_params
 from repro_torch.core import barrier, fiveg, prng, sweep, workloads
-from repro_torch.examples import bench_faults
+from repro_torch.examples import bench_faults, fig4
 from repro_torch.models import init_params, layers, param_defs
 
 from lm_parity import jax_serve, port_serve, prompts, top2_margin, variant
@@ -97,6 +111,14 @@ FAULTS = bench_faults       # key, sizes and release policy of the run
 STRAGGLER_KEY = 7
 STRAGGLER_SHAPE = (8, 1024)
 SPAN_PREFIX = 4             # trials whose spans are stored
+FIG4 = fig4                 # key, delays, SFRs and C3 draws of Fig. 4b
+MC_KEY = 0
+MC_NS = (2048, 4096)
+MC_TRIALS = 4
+MC_DELAY = 512.0
+MC_PICKS = 8                # joint compositions kept per machine
+PRNG_ORIGINAL_KEY = 0
+PRNG_ORIGINAL_SHAPES = ((7,), (16, 33))
 LM_ARCH = "qwen3_4b"
 LM_BATCH, LM_PROMPT_LEN, LM_STEPS, LM_SEED = 2, 59, 4, 0
 # The serve-path tolerances of tests/test_torch_lm_serve.py.
@@ -294,6 +316,94 @@ def _straggler_pareto() -> dict:
             "values": _floats(draws)}
 
 
+def _fig4b() -> dict:
+    """Fig. 4b from the Fig. 4a sweep, and claim C3's residencies, with
+    the JAX package."""
+    res = jsweep.sweep_barrier(jax.random.PRNGKey(FIG4.KEY),
+                               radices=list(jbarrier.all_radices()),
+                               delays=FIG4.DELAYS, n_trials=FIG4.N_TRIALS)
+    spans = np.asarray(res.mean_span)
+    resid = np.asarray(res.mean_residency_grid)
+    radices = [int(r) for r in np.asarray(res.radices)]
+    rows = []
+    for j, delay in enumerate(FIG4.DELAYS):
+        i = int(np.argmin(spans[:, j]))
+        rows.append({"delay": delay, "radix": radices[i],
+                     "mean_residency": float(resid[i, j])})
+    c3 = []
+    key = jax.random.PRNGKey(FIG4.KEY)
+    for delay, lo, hi in FIG4.C3_BANDS:
+        arr = jbarrier_sim.uniform_arrivals(key, delay, FIG4.N_PES,
+                                            FIG4.C3_TRIALS)
+        c3.append({"delay": delay, "band": [lo, hi], "costs": [
+            float(jnp.mean(jbarrier_sim.simulate(
+                arr, jbarrier.kary_tree(r)).mean_residency))
+            for r in FIG4.C3_RADICES]})
+    return {"key": FIG4.KEY, "n_pes": FIG4.N_PES,
+            "n_trials": FIG4.N_TRIALS, "delays": list(FIG4.DELAYS),
+            "radices": radices, "rows": rows,
+            "c3": {"radices": list(FIG4.C3_RADICES),
+                   "n_trials": FIG4.C3_TRIALS, "rows": c3}}
+
+
+def mc_machine(multi_cluster, config, n: int):
+    """The 4-cluster machine of ``n`` PEs, built by either package."""
+    return multi_cluster(config(n_pes=n // 4), n_clusters=4)
+
+
+def mc_stacks(tuning_mod, barrier_mod, cfg) -> list:
+    """Two schedule stacks of a multi-cluster machine as level sizes,
+    built by either package: the hierarchy-segment intra tree under
+    every inter-cluster tree, with the radix-16 tree over the whole
+    machine (tight telescope widths); and every ``len / MC_PICKS``-th
+    joint composition with the central counter (the ``N >> i``
+    widths)."""
+    seg = [tuple(tuning_mod._hier_segments(cfg.pes_per_cluster, cfg))]
+    comps = tuning_mod.multicluster_compositions(cfg)
+    return [
+        [list(c) for c in tuning_mod.multicluster_compositions(
+            cfg, intra=seg)]
+        + [list(barrier_mod.kary_tree(16, n_pes=cfg.n_pes, cfg=cfg).sizes)],
+        [list(c) for c in comps[::max(1, len(comps) // MC_PICKS)]]
+        + [[cfg.n_pes]]]
+
+
+def _multicluster() -> dict:
+    """Hierarchical stacks at 2048 and 4096 PEs with the JAX package."""
+    out = []
+    for n in MC_NS:
+        cfg = mc_machine(jmulti_cluster, JConfig, n)
+        arr = MC_DELAY * jax.random.uniform(jax.random.PRNGKey(MC_KEY),
+                                            (MC_TRIALS, n))
+        for comps in mc_stacks(jtuning, jbarrier, cfg):
+            scheds = [jbarrier.mixed_radix_tree(c, cfg=cfg) for c in comps]
+            res = jsweep.sweep_arrivals(arr, scheds, cfg)
+            out.append({"n_pes": n, "n_clusters": 4, "sizes": comps,
+                        "names": [s.name for s in scheds],
+                        "widths": list(jbarrier.telescope_widths(
+                            jbarrier.stack_tables(scheds, cfg), n)),
+                        "exit_time": _floats(res.exit_time[:, 0]),
+                        "span_cycles": _floats(res.span_cycles[:, 0])})
+    return {"key": MC_KEY, "n_trials": MC_TRIALS, "delay": MC_DELAY,
+            "stacks": out}
+
+
+def _prng_original() -> dict:
+    """Draws of the original (non-partitionable) threefry stream."""
+    key = jax.random.PRNGKey(PRNG_ORIGINAL_KEY)
+    with jax.threefry_partitionable(False):
+        return {
+            "key": PRNG_ORIGINAL_KEY,
+            "split": np.asarray(jax.random.split(key, 3),
+                                np.int64).tolist(),
+            "draws": [{"shape": list(shape),
+                       "uniform": _floats(jax.random.uniform(key, shape)),
+                       "normal": _floats(jax.random.normal(key, shape)),
+                       "bernoulli": np.asarray(jax.random.bernoulli(
+                           key, 0.3, shape)).tolist()}
+                      for shape in PRNG_ORIGINAL_SHAPES]}
+
+
 def leaf_digests(leaves) -> list:
     """sha256 (first 16 hex digits) of each leaf's bytes."""
     return [hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
@@ -349,6 +459,9 @@ def generate() -> dict:
         "faults": _faults(),
         "fiveg_faults": _fiveg_faults(),
         "straggler_pareto": _straggler_pareto(),
+        "fig4b": _fig4b(),
+        "multicluster": _multicluster(),
+        "prng_original": _prng_original(),
         "lm_serve": _lm_serve(),
     }
 
@@ -411,7 +524,8 @@ def test_fig4a_prefix_matches_port():
                        torch.from_numpy(want[rows, 2]))
 
 
-_SECTIONS = {"lm_serve": _lm_serve}
+_SECTIONS = {"lm_serve": _lm_serve, "fig4b": _fig4b,
+             "multicluster": _multicluster, "prng_original": _prng_original}
 
 
 if __name__ == "__main__":
@@ -537,7 +651,9 @@ def test_fault_sections_keep_the_bench_file_claims():
     claims — the latency and robust winners at every rate, and the robust
     pick beating the latency pick on p99 from 1 % of PEs failed — though
     its numbers differ: the file was drawn with
-    ``jax_threefry_partitionable`` off (ROADMAP.md §3)."""
+    ``jax_threefry_partitionable`` off, the stream on which
+    :func:`test_fiveg_faults_original_stream_reproduce_bench_file` and
+    ``chip_smoke.py`` reproduce it."""
     ref = _load()["faults"]
     bench = json.loads((PATH.parents[2] / "BENCH_faults.json").read_text())
     file_curve = bench["degradation"]["curve"]
@@ -588,3 +704,107 @@ def test_lm_serve_section_matches_port():
             clear = (top2_margin(w) > 2 * atol if dtype == "bfloat16"
                      else np.ones(len(wt), bool))
             assert np.array_equal(gt[clear], np.asarray(wt)[clear])
+
+
+def test_fig4b_section_matches_port(tmp_path):
+    """``repro_torch.examples.fig4``'s CPU run, through the record it
+    writes: the stored Fig. 4b best radices, their residencies to rtol
+    1e-6, and C3's residencies inside its bands
+    (tests/test_torch_bench_drivers.py holds the same procedure to JAX
+    at 4 trials)."""
+    ref = _load()["fig4b"]
+    out = tmp_path / "fig4.json"
+    fig4.main(["--device", "cpu", "--out", str(out)])
+    record = json.loads(out.read_text())
+    assert len(record["fig4a"]) == 40
+    assert len(record["fig4b"]) == len(ref["rows"])
+    for row, want in zip(record["fig4b"], ref["rows"]):
+        assert (row["delay"], row["radix"]) == (want["delay"], want["radix"])
+        np.testing.assert_allclose(row["mean_residency"],
+                                   want["mean_residency"], rtol=1e-6)
+    assert len(record["c3"]) == len(ref["c3"]["rows"])
+    for row, want in zip(record["c3"], ref["c3"]["rows"]):
+        assert (row["delay"], row["band"]) == (want["delay"], want["band"])
+        np.testing.assert_allclose(list(row["costs"].values()),
+                                   want["costs"], rtol=1e-6)
+        assert row["holds"]
+
+
+def test_multicluster_section_matches_jax_and_port():
+    """The stored hierarchical stacks at 2048 and 4096 PEs: the port's
+    CPU run gives their names, widths, exit times and spans bit for bit,
+    and JAX recomputes the first (tests/test_torch_multicluster.py holds
+    the port to JAX at these machines)."""
+    from repro_torch.core import tuning
+    from repro_torch.core.topology import TeraPoolConfig, multi_cluster
+    ref = _load()["multicluster"]
+    jcfg = mc_machine(jmulti_cluster, JConfig, MC_NS[0])
+    first = ref["stacks"][0]
+    jres = jsweep.sweep_arrivals(
+        ref["delay"] * jax.random.uniform(jax.random.PRNGKey(ref["key"]),
+                                          (ref["n_trials"], MC_NS[0])),
+        [jbarrier.mixed_radix_tree(c, cfg=jcfg) for c in first["sizes"]],
+        jcfg)
+    assert first["span_cycles"] == _floats(jres.span_cycles[:, 0])
+    stacks = iter(ref["stacks"])
+    for n in MC_NS:
+        cfg = mc_machine(multi_cluster, TeraPoolConfig, n)
+        arr = ref["delay"] * prng.uniform(prng.PRNGKey(ref["key"],
+                                                       device="cpu"),
+                                          (ref["n_trials"], n))
+        for comps in mc_stacks(tuning, barrier, cfg):
+            want = next(stacks)
+            assert comps == want["sizes"]
+            scheds = [barrier.mixed_radix_tree(c, cfg=cfg) for c in comps]
+            res = sweep.sweep_arrivals(arr, scheds, cfg)
+            assert [s.name for s in scheds] == want["names"]
+            assert list(barrier.telescope_widths(
+                barrier.stack_tables(scheds, cfg, device="cpu"), n)) == \
+                want["widths"]
+            for f in ("exit_time", "span_cycles"):
+                assert np.array_equal(getattr(res, f)[:, 0].numpy(),
+                                      np.asarray(want[f], np.float32)), f
+
+
+def test_prng_original_section_matches_jax_and_port():
+    ref = _load()["prng_original"]
+    assert ref == json.loads(json.dumps(_prng_original()))
+    key = prng.PRNGKey(ref["key"], device="cpu")
+    with prng.threefry_partitionable(False):
+        assert prng.split(key, 3).tolist() == ref["split"]
+        for want in ref["draws"]:
+            shape = tuple(want["shape"])
+            for name in ("uniform", "normal"):
+                got = getattr(prng, name)(key, shape).numpy()
+                assert np.array_equal(
+                    got.view(np.int32),
+                    np.asarray(want[name], np.float32).view(np.int32)), name
+            assert prng.bernoulli(key, 0.3, shape).tolist() == \
+                want["bernoulli"]
+
+
+def test_fault_sweep_driver_matches_jax_at_small_n_original_stream():
+    """The degradation sweep on the original threefry stream against the
+    benchmark's procedure run by JAX with the flag off, at N = 64."""
+    with jax.threefry_partitionable(False):
+        want = _faults(64, 8)
+    with prng.threefry_partitionable(False):
+        record, res, i_lat = bench_faults.degradation_sweep(
+            n_pes=64, n_trials=8, device="cpu")
+    assert record == want["record"]
+    assert res.names[i_lat] == want["latency_winner"]
+    assert np.array_equal(res.span_cycles[:, :, :SPAN_PREFIX].numpy(),
+                          np.asarray(want["span_prefix"], np.float32))
+    assert record != bench_faults.degradation_sweep(
+        n_pes=64, n_trials=8, device="cpu")[0]
+
+
+def test_fiveg_faults_original_stream_reproduce_bench_file():
+    """The 5G degradation curve on the original stream is
+    ``BENCH_faults.json``'s ``fiveg`` section at its rounding, hw
+    ``timed_out_levels`` 26 at 1 % and 2 % included."""
+    bench = json.loads((PATH.parents[2] / "BENCH_faults.json").read_text())
+    with prng.threefry_partitionable(False):
+        record, _ = bench_faults.fiveg_degradation(device="cpu")
+    assert record == bench["fiveg"]
+    assert [r["timed_out_levels"] for r in record["hw"]][2:4] == [26.0, 26.0]
