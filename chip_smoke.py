@@ -34,9 +34,11 @@ phase prints one JSON line:
 4. ``fig4a``: the Fig. 4a sweep at N = 1024 (10 radices x 4 delays x
    1024 trials), its first 16 trials bit for bit against the port's
    ``simulate_reference`` on the CPU and the JAX reference values.
-5. ``fig7``: the Fig. 7 grid of ``benchmarks/fig7_5g_app.py`` against
-   the JAX reference values, with the wall time per ``simulate_app``,
-   and claim C4 (paper: 1.6x at fine-grained sync, <= 6.2 % sync).
+5. ``fig7``: the Fig. 7 grid of ``benchmarks/fig7_5g_app.py`` through
+   ``repro_torch.examples.fig7`` (central, tree, partial and hw at each
+   point) against the JAX reference values, with the wall time of each
+   point's ``compare_barriers``, and claim C4 (paper: 1.6x at
+   fine-grained sync, <= 6.2 % sync).
 6. ``dotp_axpy``: the Fig. 5/6 benchmark kernels through ``ops.dotp``
    (central accumulator and k-ary trees of radix 2 to 1024: the leaves,
    then every level in one ``combine_tree`` launch) and ``ops.axpy`` at
@@ -47,15 +49,19 @@ phase prints one JSON line:
    the chain of per-level launches bit for bit, and each timed beside its
    bound and one PyTorch library call, the tree kernels, the chain and
    ``axpy`` in device time (CUDA graph replay) and eagerly.
-7. ``fig5``: every Fig. 5 kernel's arrival gap and median against the
-   JAX reference values, and claim C5.
+7. ``fig5``: every Fig. 5 kernel's arrival gap and median through
+   ``repro_torch.examples.fig5`` against the JAX reference values, and
+   claim C5.
 8. ``fig6``: the 7-radix x 15-kernel grid of
-   ``benchmarks/fig6_kernel_colormap.py`` against the reference values.
+   ``benchmarks/fig6_kernel_colormap.py`` through
+   ``repro_torch.examples.fig6`` against the reference values.
 9. ``tuner``: ``sweep_workloads`` over all 512 compositions x 15 kernels
    x 4 trials at N = 1024, the per-delay tuner on the same schedules,
    claim C6, and one placed ``tune_barrier``.
 10. ``fig7_tuned``: the five tuner modes of the 5G app at (16, 1) and
-    (64, 4) against the reference values.
+    (64, 4) through ``repro_torch.examples.fig7`` against the reference
+    values.  The fig5, fig6 and fig7 phases write the drivers' records,
+    ``build/BENCH_torch_fig5.json`` ... ``fig7.json``.
 11. ``normal``: ``prng.normal`` on the card against stored JAX draws,
     in ulps; and the original (non-partitionable) threefry stream's
     ``split``/``uniform``/``normal``/``bernoulli`` against stored JAX
@@ -66,7 +72,9 @@ phase prints one JSON line:
     the card against stored JAX draws, bit for bit, with where its
     ``pow`` ran; the kernel timed in turns with ``torch.pow`` in device
     time (CUDA graph replay) at the model's 8192 bases and at
-    ``POWF_CHUNK``, with the eager times beside.
+    ``POWF_CHUNK``, with the eager times beside, and its bound: the
+    larger of its bytes and its FP64-pipe instructions and 64-bit
+    conversions a base, read from the built library's SASS.
 13. ``faults``: the degradation sweep of ``benchmarks/bench_faults.py``
     at N = 1024 (130 schedules x 5 PE failure rates x 64 trials) through
     ``repro_torch.examples.bench_faults``, bit for bit against the
@@ -94,7 +102,20 @@ phase prints one JSON line:
     equal to ``BENCH_energy.json`` at its rounding: energy per barrier at
     64/256/1024 PEs and the Pareto front at 1024 (delay 0), and the 5G
     energy section on the original threefry stream.
-18. ``dct_conv2d``: ``ops.dct`` and ``ops.conv2d`` at the Fig. 5/6
+18. ``figures``: the beyond-figure drivers
+    ``repro_torch.examples.fig_placement``, ``fig_tuned_tree`` and
+    ``fig_workload_tuned``, each row (name and derived value) equal to
+    the reference values' section of the same name.
+19. ``resilience``: ``resilient_sweep_schedules`` over the Fig. 4a grid
+    (10 radices x 4 delays x 1024 trials at N = 1024, 8 chunks of 128)
+    preempted before chunk 4 and resumed from its store, bit for bit the
+    plain ``sweep_schedules`` in the same chunks; the same for
+    ``resilient_sweep_arrivals`` over 2 x 1024 arrival vectors
+    (preempted before chunk 5); then ``fiveg``'s tuned mode read twice
+    through a schedule cache under ``build/resilience``, the second read
+    a hit with the same cycles; the walls, the lookups' and the reports'
+    ``ckpt_seconds``.
+20. ``dct_conv2d``: ``ops.dct`` and ``ops.conv2d`` at the Fig. 5/6
     suite's sizes, with the launch counts of that run, each kernel
     against its plain version (``dct`` also in bf16 and f16, at (4096,
     4096) and a ragged (300, 1000)), the suite's rows of a (4096, 4096)
@@ -102,7 +123,7 @@ phase prints one JSON line:
     suite's three shapes and (4096, 4096) (device time and eager) and of
     ``conv2d`` at (256, 512, 512), beside their bounds and one PyTorch
     library call.
-19. ``lm_serve``: the LM serving path.  The flash-attention kernel
+21. ``lm_serve``: the LM serving path.  The flash-attention kernel
     against its plain version at the reference's test shapes, in bf16 at
     every head width of ``HEAD_DIMS``, in float32 at the configs' widths
     80 and 192, at nemotron-4-340b's and hubert-xlarge's full-width
@@ -141,8 +162,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.timing import (attention_work, bound, cold_copies, cuda_ms,
-                                fft_stage_work, fft_work, graph_ms, in_turns,
-                                matmul_work, slot_work)
+                                fft_stage_work, fft_work, fp64_bound,
+                                graph_ms, in_turns, matmul_work, slot_work)
 
 
 MODES = ("central", "tree", "partial", "hw")
@@ -205,6 +226,8 @@ FFT_LONG = (64, 4 ** 8)
 # The Pareto straggler model's draws on the card, and its work per PE.
 STRAGGLER_KERNEL = "straggler_pareto"
 POWF_CHUNK = 1 << 24
+RESILIENCE_TRIALS = 1024   # the Fig. 4a grid's trials,
+RESILIENCE_CHUNK = 128     # in 8 chunks
 # The LM serving path: the reference's flash-attention test shapes (s, d),
 # the prefill's attention shape (B, H, Hk, S, D), and the full-width run.
 FA_TEST_SHAPES = ((64, 16), (128, 32), (256, 64))
@@ -705,21 +728,22 @@ def phase_fig4a(torch, barrier, barrier_sim, prng, sweep, ref_values):
                         for row in mean.tolist()]})
 
 
-def phase_fig7(torch, fiveg, prng, ref_values):
+def phase_fig7(torch, fiveg, fig7, prng, ref_values) -> list:
+    """The Fig. 7 grid through ``repro_torch.examples.fig7`` (every mode
+    of ``MODES`` at each point) against the reference values, then claim
+    C4.  Returns the driver's grid rows."""
     ref = ref_values["fig7"]
-    times = {m: [] for m in MODES}
-    for row in ref["rows"]:
-        app = fiveg.FiveGConfig(n_rx=row["n_rx"],
-                                ffts_per_round=row["ffts_per_round"])
+    if ((ref["key"], ref["radix"]) != (fig7.KEY, fig7.RADIX)
+            or [(r["n_rx"], r["ffts_per_round"]) for r in ref["rows"]]
+            != list(fig7.GRID)):
+        raise AssertionError("fig7 driver and reference values disagree "
+                             "on the grid")
+    t_phase = time.perf_counter()
+    points = fig7.grid("cuda", modes=MODES)
+    for p, row in zip(points, ref["rows"]):
         got = {}
         for mode in MODES:
-            t0 = time.perf_counter()
-            res = fiveg.simulate_app(prng.PRNGKey(ref["key"]), app,
-                                     sync=mode, radix=ref["radix"],
-                                     device="cuda")
-            torch.cuda.synchronize()
-            times[mode].append(time.perf_counter() - t0)
-            want = row[mode]
+            res, want = p["res"][mode], row[mode]
             if res.total_cycles.item() != np.float32(want["total_cycles"]):
                 raise AssertionError(
                     f"Fig. 7 {row['n_rx']}/{row['ffts_per_round']} {mode}: "
@@ -732,7 +756,12 @@ def phase_fig7(torch, fiveg, prng, ref_values):
         emit({"phase": "fig7", "n_rx": row["n_rx"],
               "ffts_per_round": row["ffts_per_round"],
               "total_cycles": got,
-              "wall_s": {m: times[m][-1] for m in MODES}})
+              "compare_barriers_s": {"steady": p["steady_us"] / 1e6,
+                                     "first": p["first_us"] / 1e6,
+                                     "modes": len(MODES)}})
+    rows = fig7.grid_rows(points)
+    emit({"phase": "fig7", "driver": "repro_torch.examples.fig7",
+          "rows": len(rows), "wall_s": time.perf_counter() - t_phase})
 
     # C4, as tests/test_barrier_sim.py::test_c4_5g_application holds it.
     key = prng.PRNGKey(0)
@@ -752,9 +781,8 @@ def phase_fig7(torch, fiveg, prng, ref_values):
                              f"sync fraction {frac}; serial {serial}")
     emit({"phase": "fig7_c4", "speedup_partial_16x1": speedup,
           "speedup_partial_64x4": speedup4,
-          "sync_fraction_partial_64x4": frac,
-          "mean_wall_s_per_simulate_app": {
-              m: sum(v) / len(v) for m, v in times.items()}})
+          "sync_fraction_partial_64x4": frac})
+    return rows
 
 
 DOTP_RTOL = 1e-5   # of one leaf's sum |x_i y_i|
@@ -1096,47 +1124,55 @@ def phase_dotp_axpy(torch, ops, dotp, axpy, ref) -> tuple:
     return summary, launches
 
 
-def phase_fig5(torch, prng, workloads, ref_values) -> None:
+def phase_fig5(torch, fig5, workloads, figure_rows, ref_values) -> None:
+    """Fig. 5 through ``repro_torch.examples.fig5``: every kernel's gap
+    bit for bit and median to rtol 1e-6 against the reference values,
+    and claim C5."""
     t0 = time.perf_counter()
     ref = ref_values["fig5"]
-    key = prng.PRNGKey(ref["key"])
+    if ref["key"] != fig5.KEY:
+        raise AssertionError("fig5 driver and reference values disagree "
+                             "on the key")
+    points = fig5.suite("cuda")
     gaps = {}
-    for kernel, dims in workloads.benchmark_suite().items():
-        for label, fn in dims.items():
-            name = f"{kernel}_{label}"
-            arr = fn(key)
-            if arr.shape != (1024,) or not torch.isfinite(arr).all():
-                raise AssertionError(f"Fig. 5 {name}: bad arrivals")
-            gap = workloads.cdf_first_last_gap(arr).item()
-            p50 = torch.quantile(arr - arr.min(), 0.5).item()
-            want = ref["kernels"][name]
-            if gap != want["gap"]:
-                raise AssertionError(f"Fig. 5 {name}: gap {gap} != "
-                                     f"{want['gap']}")
-            np.testing.assert_allclose(p50, want["p50"], rtol=1e-6)
-            gaps[name] = gap
+    for p in points:
+        name, arr = p["name"], p["arrivals"]
+        if arr.shape != (1024,) or not torch.isfinite(arr).all():
+            raise AssertionError(f"Fig. 5 {name}: bad arrivals")
+        want = ref["kernels"][name]
+        if p["gap"] != want["gap"]:
+            raise AssertionError(f"Fig. 5 {name}: gap {p['gap']} != "
+                                 f"{want['gap']}")
+        np.testing.assert_allclose(p["p50"], want["p50"], rtol=1e-6)
+        gaps[name] = p["gap"]
     # C5, as tests/test_barrier_sim.py::test_kernel_cdf_shapes holds it.
     suite = workloads.benchmark_suite()
     pick = {k: gaps[f"{k}_{max(dims)}"] for k, dims in suite.items()}
     if not (pick["axpy"] < pick["dotp"] and pick["dotp"] > 900
             and pick["conv2d"] > pick["axpy"]):
         raise AssertionError(f"C5 does not hold: {pick}")
-    emit({"phase": "fig5", "gap": gaps, "c5": pick, "bit_exact": True,
+    rows = fig5.rows(points)
+    figure_rows.write("fig5", rows, "cuda")
+    emit({"phase": "fig5", "driver": "repro_torch.examples.fig5",
+          "rows": len(rows), "gap": gaps, "c5": pick, "bit_exact": True,
+          "draw_s": {"steady_max": max(p["steady_us"] for p in points) / 1e6,
+                     "first_max": max(p["first_us"] for p in points) / 1e6},
           "wall_s": time.perf_counter() - t0})
 
 
-def phase_fig6(torch, barrier, prng, sweep, workloads, ref_values) -> None:
+def phase_fig6(torch, fig6, figure_rows, ref_values) -> None:
+    """The 7-radix x 15-kernel grid through
+    ``repro_torch.examples.fig6``: exit times bit for bit, residencies,
+    best radices, fractions and speedups against the reference values."""
     t0 = time.perf_counter()
     ref = ref_values["fig6"]
-    key = prng.PRNGKey(ref["key"])
-    suite = workloads.benchmark_suite()
-    arrivals = torch.stack([fn(key) for dims in suite.values()
-                            for fn in dims.values()])[:, None, :]
-    res = sweep.sweep_arrivals(
-        arrivals, [barrier.kary_tree(r) for r in ref["radices"]],
-        kernels=ref["kernels"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    if (ref["key"], tuple(ref["radices"])) != (fig6.KEY, fig6.RADICES):
+        raise AssertionError("fig6 driver and reference values disagree "
+                             "on the grid")
+    g = fig6.grid("cuda")
+    res = g["res"]
+    if list(res.kernels) != ref["kernels"]:
+        raise AssertionError(f"Fig. 6 kernels {res.kernels}")
     totals = res.exit_time[:, :, 0].cpu()
     if not torch.equal(totals, torch.tensor(ref["exit_time"],
                                             dtype=torch.float32)):
@@ -1153,9 +1189,15 @@ def phase_fig6(torch, barrier, prng, sweep, workloads, ref_values) -> None:
         raise AssertionError(f"Fig. 6 best radix {radix}")
     np.testing.assert_allclose(frac, ref["fraction"], rtol=1e-5)
     np.testing.assert_allclose(speedup, ref["speedup"], rtol=1e-6)
-    emit({"phase": "fig6", "grid": list(res.exit_time.shape),
+    rows = fig6.rows(g)
+    figure_rows.write("fig6", rows, "cuda")
+    emit({"phase": "fig6", "driver": "repro_torch.examples.fig6",
+          "rows": len(rows), "grid": list(res.exit_time.shape),
           "best_radix": dict(zip(ref["kernels"], radix)),
-          "speedup": dict(zip(ref["kernels"], speedup)), "wall_s": wall})
+          "speedup": dict(zip(ref["kernels"], speedup)),
+          "sweep_s": {"steady": g["steady_us"] / 1e6,
+                      "first": g["first_us"] / 1e6},
+          "wall_s": time.perf_counter() - t0})
 
 
 def phase_tuner(torch, placement, prng, sweep, tuning, ref_values) -> None:
@@ -1216,19 +1258,26 @@ def phase_tuner(torch, placement, prng, sweep, tuning, ref_values) -> None:
           "wall_s": time.perf_counter() - t0})
 
 
-def phase_fig7_tuned(torch, fiveg, prng, ref_values) -> None:
+def phase_fig7_tuned(torch, fig7, figure_rows, ref_values,
+                     grid_rows) -> None:
+    """The five tuner modes of the 5G app at (16, 1) and (64, 4) through
+    ``repro_torch.examples.fig7`` against the reference values; writes
+    the driver's record (the grid rows of the fig7 phase and the tuned
+    trees)."""
     ref = ref_values["fig7_tuned"]
+    if ref["key"] != fig7.KEY:
+        raise AssertionError("fig7 driver and reference values disagree "
+                             "on the key")
+    tuned_rows = None
     for row in ref["rows"]:
-        app = fiveg.FiveGConfig(n_rx=row["n_rx"],
-                                ffts_per_round=row["ffts_per_round"])
-        walls, got = {}, {}
+        app = (row["n_rx"], row["ffts_per_round"])
+        results, walls, got = {}, {}, {}
         for mode in TUNED_MODES:
             t0 = time.perf_counter()
-            res = fiveg.simulate_app(prng.PRNGKey(ref["key"]), app,
-                                     sync=mode, device="cuda")
+            results.update(fig7.tuned_modes("cuda", app=app, modes=(mode,)))
             torch.cuda.synchronize()
             walls[mode] = time.perf_counter() - t0
-            want = row[mode]
+            res, want = results[mode], row[mode]
             names = (res.stage_schedule, res.global_schedule)
             if names != (want["stage_schedule"], want["global_schedule"]):
                 raise AssertionError(f"Fig. 7 {mode}: schedules {names}")
@@ -1242,9 +1291,12 @@ def phase_fig7_tuned(torch, fiveg, prng, ref_values) -> None:
                                            rtol=1e-5)
             got[mode] = {"total_cycles": res.total_cycles.item(),
                          "stage": names[0], "global": names[1]}
+        if app == fig7.TUNED_APP:
+            tuned_rows = fig7.tuned_schedule_rows(results)
         emit({"phase": "fig7_tuned", "n_rx": row["n_rx"],
               "ffts_per_round": row["ffts_per_round"], "modes": got,
               "wall_s": walls})
+    figure_rows.write("fig7", grid_rows + tuned_rows, "cuda")
 
 
 def phase_normal(torch, prng, ref_values) -> None:
@@ -1356,21 +1408,22 @@ def phase_powf(torch, powf, prng, workloads, ref_values) -> tuple:
     summary = None
     gen = torch.Generator(device=dev).manual_seed(11)
     c = np.float32(((1 << 18) / 1024 * 3.0) ** -1.5)
+    # FP64-pipe instructions and 64-bit conversions a base, from the
+    # kernel's SASS; 8 bytes moved a base.
+    fp64, conversions = powf.fp64_work()
     for n in (math.prod(ref["shape"]), POWF_CHUNK):
         x = c * (1.0 - 0.99 * torch.rand(n, device=dev, generator=gen))
         got = powf.powf(x, y)
         err = (got - powf.powf_plain(x, y)).abs().max().item()
         args = [(t, y) for (t,) in cold_copies(x)]
-        # ~27 float64 operations an element (6 + 3 fused multiply-adds
-        # counted twice, 9 other); 8 bytes moved.
-        b_ms, b_by = bound(8.0 * n, 27.0 * n, "float64")
         rec = {"phase": "powf", "name": "powf", "n": n, "max_abs_err": err,
                "tol": "bit for bit",
                **in_turns(powf.powf, torch.pow, args),
                "plain_ms": cuda_ms(powf.powf_plain, args, iters=3,
                                    warmup=1),
                "library": "torch.pow (not the C library's rounding)",
-               "bound_ms": b_ms, "bound_by": b_by}
+               "fp64_per_base": fp64, "conversions_per_base": conversions,
+               **fp64_bound(8.0 * n, fp64 * n, conversions * n)}
         if err != 0.0:
             raise AssertionError(f"powf n={n}: kernel != C library ({err})")
         if summary is None:
@@ -1596,6 +1649,129 @@ def phase_energy(torch, bench_energy, bench) -> None:
     if bad:
         raise AssertionError(f"energy sections {bad} != BENCH_energy.json")
     emit({"phase": "energy", "wall_s": time.perf_counter() - t0})
+
+
+def phase_figures(drivers, figure_rows, ref_values) -> None:
+    """The beyond-figure drivers (``fig_placement``, ``fig_tuned_tree``,
+    ``fig_workload_tuned``) on the card: each row's name and derived
+    value equal to the reference values' section of the same name."""
+    for name, driver in drivers.items():
+        t0 = time.perf_counter()
+        rows = driver.run("cuda")
+        wall = time.perf_counter() - t0
+        got = [[r[0], r[2]] for r in rows]
+        want = ref_values[name]["rows"]
+        if [g[0] for g in got] != [w[0] for w in want]:
+            raise AssertionError(f"{name}: row names differ from the "
+                                 f"reference")
+        off = [(g, w[1]) for g, w in zip(got, want) if g[1] != w[1]]
+        figure_rows.write(name, rows, "cuda")
+        emit({"phase": "figures", "driver": f"repro_torch.examples.{name}",
+              "rows": len(rows), "rows_off": off, "wall_s": wall,
+              "timed_s": {r[0]: {"steady": r[1] / 1e6, "first": r[3] / 1e6}
+                          for r in rows if r[1]}})
+        if off:
+            raise AssertionError(f"{name}: {len(off)} rows differ from the "
+                                 f"reference: {off[:5]}")
+
+
+def phase_resilience(torch, barrier, fiveg, prng, sweep, ref_values) -> None:
+    """The resumable sweep runtime on the card: the Fig. 4a grid (10
+    radices x 4 delays x 1024 trials at N = 1024) in 8 chunks of 128
+    trials, preempted before chunk 4 and resumed from its store, bit for
+    bit the plain ``sweep_schedules`` in the same chunks; the same for
+    ``resilient_sweep_arrivals`` over 2 x 1024 arrival vectors; then
+    ``fiveg``'s tuned mode read twice through a schedule cache, the
+    second read a hit with the same cycles."""
+    import shutil
+    from repro_torch.runtime import (FaultPlan, Preemption,
+                                     ResilienceConfig, SimulatedFault,
+                                     resilient_sweep_arrivals,
+                                     resilient_sweep_schedules,
+                                     schedule_cache)
+    t_phase = time.perf_counter()
+    ref = ref_values["fig4a"]
+    n, trials, chunk = ref["n_pes"], RESILIENCE_TRIALS, RESILIENCE_CHUNK
+    key = prng.PRNGKey(ref["key"])
+    scheds = [barrier.kary_tree(r, n_pes=n) for r in barrier.all_radices(n)]
+    work = ROOT / "build" / "resilience"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def resumed(kind, run, plain, kill_at):
+        rc = ResilienceConfig(ckpt_dir=str(work / kind), trial_chunk=chunk)
+        plan = FaultPlan(faults={kill_at: Preemption()})
+        t0 = time.perf_counter()
+        try:
+            run(rc, plan)
+            raise AssertionError(f"{kind}: the preemption never fired")
+        except SimulatedFault:
+            killed = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = run(rc, plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = {f: torch.equal(getattr(rep.result, f), getattr(plain, f))
+                for f in rep.result._fields
+                if isinstance(getattr(plain, f), torch.Tensor)}
+        emit({"phase": "resilience", "sweep": kind,
+              "grid": list(rep.result.span_cycles.shape),
+              "chunks": [rep.chunks_total, rep.chunks_resumed,
+                         rep.chunks_computed],
+              "killed_run_s": killed, "resumed_run_s": wall,
+              "report_wall_s": rep.wall_seconds,
+              "ckpt_seconds": rep.ckpt_seconds, "bit_exact": same})
+        if (rep.chunks_resumed, rep.chunks_computed) != (
+                kill_at, rep.chunks_total - kill_at) or not all(same.values()):
+            raise AssertionError(f"{kind}: resumed sweep differs from the "
+                                 f"plain one: {same}")
+
+    t0 = time.perf_counter()
+    plain = sweep.sweep_schedules(key, scheds, ref["delays"], trials,
+                                  trial_chunk=chunk, device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "resilience", "plain_sweep_s": time.perf_counter() - t0})
+    resumed("schedules", lambda rc, plan: resilient_sweep_schedules(
+        key, scheds, ref["delays"], trials, resilience=rc, fault_plan=plan,
+        device="cuda"), plain, 4)
+    arrivals = 512.0 * prng.uniform(prng.fold_in(key, 1), (2, trials, n))
+    plain = sweep.sweep_arrivals(arrivals, scheds, trial_chunk=chunk)
+    resumed("arrivals", lambda rc, plan: resilient_sweep_arrivals(
+        arrivals, scheds, resilience=rc, fault_plan=plan, device="cuda"),
+        plain, 5)
+
+    # fiveg's tuned mode through an on-disk schedule cache: the first read
+    # tunes and stores, the second (a fresh in-process store) reads the
+    # file.  The lookup is timed apart from the app it serves.
+    app = fiveg.FiveGConfig(n_rx=16, ffts_per_round=1)
+    reads = []
+    os.environ[schedule_cache.CACHE_ENV] = str(work / "schedule_cache")
+    try:
+        for _ in range(2):
+            fiveg._tuned_schedule.cache_clear()
+            schedule_cache.reset_stats()
+            t0 = time.perf_counter()
+            fiveg._tuned_schedule(n, app.epoch_jitter, False, fiveg.DEFAULT,
+                                  "cuda")
+            lookup = time.perf_counter() - t0
+            stats = dict(schedule_cache.STATS)
+            t0 = time.perf_counter()
+            res = fiveg.simulate_app(prng.PRNGKey(3), app, sync="tuned",
+                                     device="cuda")
+            torch.cuda.synchronize()
+            reads.append({"lookup_s": lookup,
+                          "app_s": time.perf_counter() - t0,
+                          "total_cycles": res.total_cycles.item(),
+                          "stage": res.stage_schedule, **stats})
+    finally:
+        del os.environ[schedule_cache.CACHE_ENV]
+        fiveg._tuned_schedule.cache_clear()
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "resilience", "schedule_cache": reads,
+          "wall_s": time.perf_counter() - t_phase})
+    first, second = reads
+    if (first["stores"], second["hits"], second["misses"]) != (1, 1, 0) \
+            or second["total_cycles"] != first["total_cycles"]:
+        raise AssertionError(f"schedule cache: {reads}")
 
 
 def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
@@ -2196,7 +2372,9 @@ def main() -> int:
     from repro_torch.core import (barrier, barrier_sim, fiveg, placement,
                                   prng, sweep, tuning, workloads)
     from repro_torch.examples import (bench_energy, bench_faults,
-                                      bench_multicluster, fig4,
+                                      bench_multicluster, fig4, fig5, fig6,
+                                      fig7, fig_placement, fig_tuned_tree,
+                                      fig_workload_tuned, figure_rows,
                                       fiveg_pipeline)
     from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
                                      flash_attn, matmul, ops, powf, ref)
@@ -2209,14 +2387,14 @@ def main() -> int:
     summary = phase_kernels(torch, ops, fft4, matmul, ref)
     launches = phase_pipeline(torch, fiveg_pipeline, fft4, matmul, ops)
     phase_fig4a(torch, barrier, barrier_sim, prng, sweep, ref_values)
-    phase_fig7(torch, fiveg, prng, ref_values)
+    fig7_rows = phase_fig7(torch, fiveg, fig7, prng, ref_values)
     more, more_launches = phase_dotp_axpy(torch, ops, dotp, axpy, ref)
     summary.update(more)
     launches.update(more_launches)
-    phase_fig5(torch, prng, workloads, ref_values)
-    phase_fig6(torch, barrier, prng, sweep, workloads, ref_values)
+    phase_fig5(torch, fig5, workloads, figure_rows, ref_values)
+    phase_fig6(torch, fig6, figure_rows, ref_values)
     phase_tuner(torch, placement, prng, sweep, tuning, ref_values)
-    phase_fig7_tuned(torch, fiveg, prng, ref_values)
+    phase_fig7_tuned(torch, fig7, figure_rows, ref_values, fig7_rows)
     phase_normal(torch, prng, ref_values)
     summary["powf"], launches["powf"] = phase_powf(torch, powf, prng,
                                                    workloads, ref_values)
@@ -2228,6 +2406,11 @@ def main() -> int:
     phase_multicluster(torch, bench_multicluster, barrier, prng, sweep,
                        ref_values, bench["multicluster"])
     phase_energy(torch, bench_energy, bench["energy"])
+    phase_figures({"fig_placement": fig_placement,
+                   "fig_tuned_tree": fig_tuned_tree,
+                   "fig_workload_tuned": fig_workload_tuned},
+                  figure_rows, ref_values)
+    phase_resilience(torch, barrier, fiveg, prng, sweep, ref_values)
     more, more_launches = phase_dct_conv2d(torch, ops, dct, conv2d)
     summary.update(more)
     launches.update(more_launches)

@@ -28,7 +28,11 @@ tuned modes):
   latency x energy front.
 
 Tuned picks come from fixed-seed sweeps (``_TUNING_SEED``) and are kept
-per design point for the life of the process.
+per design point for the life of the process; beneath that in-process
+store each reads through the persistent on-disk schedule store
+(:mod:`repro_torch.runtime.schedule_cache`) when ``REPRO_SCHEDULE_CACHE``
+names a directory, so a fresh process serves a tuned mode without
+re-running its sweep.
 
 ``faults=`` (a :class:`FiveGFaults`) runs the pipeline under persistent
 PE fail-stops with timeout/quorum release on every barrier;
@@ -170,20 +174,39 @@ def _prune(n_pes: int) -> str:
 def _tuned_schedule(n_pes: int, delay: float, partial_tree: bool,
                     cfg: TeraPoolConfig, device: str
                     ) -> barrier.BarrierSchedule:
-    """Best mixed-radix composition for one uniform arrival scatter."""
-    return tuning.best_schedule(
+    """Best mixed-radix composition for one uniform arrival scatter
+    (read through the on-disk schedule store)."""
+    from ..runtime import schedule_cache
+    key = ("fiveg_tuned", int(n_pes), float(delay), bool(partial_tree),
+           _prune(n_pes), repr(cfg))
+    hit = schedule_cache.load(key)
+    if hit is not None:
+        return schedule_cache.decode_schedule(hit["schedule"], cfg)
+    sched = tuning.best_schedule(
         prng.PRNGKey(_TUNING_SEED, device=device), n_pes, delay=delay,
         n_trials=8, cfg=cfg, prune=_prune(n_pes), partial=partial_tree)
+    schedule_cache.store(key,
+                         {"schedule": schedule_cache.encode_schedule(sched)})
+    return sched
 
 
 @functools.lru_cache(maxsize=None)
 def _placed_schedule(n_pes: int, delay: float, cfg: TeraPoolConfig,
                      device: str) -> tuple:
     """Jointly tuned (schedule, placement) pair for one uniform arrival
-    scatter: compositions crossed with every placement strategy."""
-    return tuning.best_placed_schedule(
+    scatter: compositions crossed with every placement strategy (read
+    through the on-disk schedule store)."""
+    from ..runtime import schedule_cache
+    key = ("fiveg_placed", int(n_pes), float(delay), _prune(n_pes),
+           repr(cfg))
+    hit = schedule_cache.load(key)
+    if hit is not None:
+        return schedule_cache.decode_pair(hit, cfg)
+    sched, plc = tuning.best_placed_schedule(
         prng.PRNGKey(_TUNING_SEED, device=device), n_pes, delay=delay,
         n_trials=8, cfg=cfg, prune=_prune(n_pes))
+    schedule_cache.store(key, schedule_cache.encode_pair(sched, plc))
+    return sched, plc
 
 
 def _epoch_arrival_models(app: FiveGConfig, cfg: TeraPoolConfig,
@@ -207,14 +230,25 @@ def _epoch_tuned_schedules(app: FiveGConfig, cfg: TeraPoolConfig,
     """(stage schedule, stage placement, global schedule, global
     placement) for the ``workload`` (``objective="cycles"``) and
     ``pareto`` (``"pareto"``) modes: each barrier tuned jointly with
-    its counter placement on its own epochs' arrival model."""
+    its counter placement on its own epochs' arrival model (read
+    through the on-disk schedule store)."""
+    from ..runtime import schedule_cache
     prune = _prune(cfg.n_pes)
+    mode = "fiveg_workload" if objective == "cycles" else "fiveg_pareto"
+    key = (mode, repr(app), prune, repr(cfg))
+    hit = schedule_cache.load(key)
+    if hit is not None:
+        return (schedule_cache.decode_pair(hit["stage"], cfg)
+                + schedule_cache.decode_pair(hit["global"], cfg))
     out = ()
     for arr in _epoch_arrival_models(app, cfg, device):
         sched, plc, _ = tuning.tune_for_arrivals(
             arr, cfg, prune=prune, placements=placement.STRATEGIES,
             objective=objective)
         out += (sched, plc)
+    schedule_cache.store(key, {
+        "stage": schedule_cache.encode_pair(*out[:2], objective=objective),
+        "global": schedule_cache.encode_pair(*out[2:], objective=objective)})
     return out
 
 

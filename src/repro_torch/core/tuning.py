@@ -571,11 +571,26 @@ def tuned_for_workload(kernel: str, n_pes: int | None = None,
                        prune: str = "none", n_trials: int = 8,
                        placements: Tuple[str, ...] | None = None,
                        device="cuda") -> tuple:
-    """The winning (schedule, placement) for ``kernel`` at ``(n_pes,
-    cfg)``, tuned once under a fixed seed and kept for the life of the
-    process (an in-process store; the reference's optional on-disk
-    layer is not ported)."""
+    """The two-layer schedule store: the winning (schedule, placement)
+    for ``kernel`` at ``(n_pes, cfg)``, tuned once under a fixed seed
+    and reused by every later consumer.
+
+    The lru cache is the in-process layer; beneath it sits the
+    persistent, checksummed on-disk store of
+    :mod:`repro_torch.runtime.schedule_cache` (active when
+    ``REPRO_SCHEDULE_CACHE`` is set), so a second process asking for the
+    same ``(kernel, n_pes, cfg)`` runs no sweep, and a corrupt entry is
+    detected and re-tuned, not trusted.  The key leaves out ``device``:
+    the tuner picks the same winner on every device."""
+    from ..runtime import schedule_cache
+    key = ("tuned_for_workload", kernel, int(n_pes or cfg.n_pes),
+           repr(cfg), prune, int(n_trials), placements)
+    hit = schedule_cache.load(key)
+    if hit is not None:
+        return schedule_cache.decode_pair(hit, cfg)
     p = tune_for_workload(prng.PRNGKey(_WORKLOAD_TUNING_SEED, device=device),
                           kernel, n_pes, n_trials, cfg, prune=prune,
                           placements=placements)
+    schedule_cache.store(key, schedule_cache.encode_pair(p.schedule,
+                                                         p.placement))
     return p.schedule, p.placement

@@ -1,6 +1,6 @@
 """Device and eager times of the ``matmul``, ``axpy``, ``dct``,
-``fft4_stage`` and ``flash_attention`` kernels and the dot product's tree
-kernels, each beside one PyTorch call
+``fft4_stage``, ``powf`` and ``flash_attention`` kernels and the dot
+product's tree kernels, each beside one PyTorch call
 for the same function in the same mode and the least time the card
 could take.
 
@@ -31,6 +31,10 @@ line per measurement:
   ``ops.fft4`` over (64, 65536), and the whole ``ops.fft4`` there (that
   stage, then one fused launch), each against ``torch.fft.fft`` and the
   digit-reversal gather over the same rows;
+* ``powf`` at the straggler model's 8192 bases and at 2^24, against
+  ``torch.pow`` (which rounds otherwise), with its bound: the larger of
+  its bytes and, where the version has ``powf.fp64_work``, its FP64-pipe
+  instructions and 64-bit conversions read from the built library;
 * ``flash_attention`` at the full-width attention of nemotron-4-340b
   (bf16, (1, 96 heads reading 8, 1024, 192), causal) and hubert-xlarge
   ((2, 16, 1024, 80), bidirectional, bf16 and float32), against
@@ -40,7 +44,8 @@ line per measurement:
 through copies that together exceed twice the 50 MB L2, timed as one
 replay); ``eager_ms``/``library_eager_ms`` the same calls issued one by
 one from Python, the host's launch cost included.  Bounds use the H100
-SXM data sheet: 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bf16.
+SXM data sheet: 3.35 TB/s, 67 TFLOP/s float32 and 989 TFLOP/s bf16
+(``powf``'s FP64 rates: ``timing.fp64_bound``).
 """
 from __future__ import annotations
 
@@ -58,6 +63,8 @@ MM_SHAPE = (32, 64, 57344)
 SLOT_ROWS = (896, 4096)   # 64 antennas x 14 symbols, 4096 sub-carriers
 AXPY_N = 1 << 26
 FFT_LONG = (64, 4 ** 8)   # rows above the fused kernel's 16384 points
+# powf: the straggler model's bases a call at (8, 1024), and a large block.
+POWF_SIZES = (8192, 1 << 24)
 # (config, (B, H, Hk, S, D), causal, dtype): the configs' full-width
 # attention at head widths 192 and 80.
 ATTN_SHAPES = (("nemotron-4-340b", (1, 96, 8, 1024, 192), True, "bfloat16"),
@@ -218,6 +225,32 @@ def time_fft_long(torch, timing, kernels, emit, gen) -> None:
           "bound_ms": b, "bound_by": by})
 
 
+def time_powf(torch, timing, kernels, emit, gen) -> None:
+    powf = kernels.powf
+    y = -1.0 / 1.5
+    # Bases of the Pareto tail at 1024 PEs: c - u * d, u in [0, 0.99).
+    c = ((1 << 18) / 1024 * 3.0) ** -1.5
+    work = powf.fp64_work() if hasattr(powf, "fp64_work") else None
+    for n in POWF_SIZES:
+        x = c * (1.0 - 0.99 * torch.rand(n, device=gen.device,
+                                         generator=gen))
+        got = powf.powf(x, y).view(torch.int32).cpu()
+        want = powf.powf_plain(x, y).view(torch.int32).cpu()
+        rec = {"name": "powf", "n": n,
+               "bases_off_c_library": int((got != want).sum().item()),
+               **timing.in_turns(powf.powf, torch.pow,
+                                 [(t, y) for (t,) in timing.cold_copies(x)]),
+               "library": "torch.pow (not the C library's rounding)"}
+        if work is None:
+            b, by = timing.bound(8.0 * n, 0.0, "float32")
+            rec.update(bound_ms=b, bound_by=by)
+        else:
+            rec.update(fp64_per_base=work[0], conversions_per_base=work[1],
+                       **timing.fp64_bound(8.0 * n, work[0] * n,
+                                           work[1] * n))
+        emit(rec)
+
+
 def time_attention(torch, timing, kernels, emit, gen) -> None:
     fa = kernels.flash_attn
     for config, (b, h, hk, s, d), causal, name in ATTN_SHAPES:
@@ -249,7 +282,7 @@ def time_attention(torch, timing, kernels, emit, gen) -> None:
 
 PARTS = {"matmul": time_matmul, "axpy": time_axpy, "slot": time_slot,
          "dct": time_dct, "dotp": time_dotp, "fft": time_fft_long,
-         "attention": time_attention}
+         "powf": time_powf, "attention": time_attention}
 
 
 def main(argv=None) -> int:
@@ -267,10 +300,10 @@ def main(argv=None) -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import (axpy, dct, dotp, fft4, flash_attn,
-                                     matmul, ops, ref)
+                                     matmul, ops, powf, ref)
     kernels = types.SimpleNamespace(axpy=axpy, dct=dct, dotp=dotp, fft4=fft4,
                                     flash_attn=flash_attn, matmul=matmul,
-                                    ops=ops, ref=ref)
+                                    ops=ops, powf=powf, ref=ref)
     timing = own_timing()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

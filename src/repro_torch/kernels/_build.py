@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -149,6 +150,27 @@ def compiler_log(name: str) -> str:
     source, ptxas's registers, shared memory and spills of each
     kernel), building the library first if it is missing."""
     return build([name])[name].with_suffix(".log").read_text()
+
+
+def sass_opcodes(name: str, kernel: str) -> dict:
+    """Opcode counts (with their modifiers, e.g. ``"DSETP.GEU.OR"``) of
+    the SASS of every kernel of library ``name`` whose symbol contains
+    ``kernel``, from the toolkit's ``cuobjdump -sass``."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build([name])[name])],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict = {}
+    inside = False
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            inside = kernel in fn.group(1)
+            continue
+        op = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)", line)
+        if inside and op:
+            counts[op.group(1)] = counts.get(op.group(1), 0) + 1
+    return counts
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

@@ -5,10 +5,13 @@ an inverse CDF with a ``pow``, for which XLA's CPU backend calls the C
 library's ``powf``; glibc's is not correctly rounded, so no other
 ``pow`` reproduces the reference's draws.  The CUDA kernel
 (``csrc/powf.cu``) computes glibc's algorithm (2.28 and later) with its
-tables and its fused multiply-adds, elementwise on the card.  The plain
-version, :func:`powf_plain`, is the host's C library itself, called once
-over a whole buffer through a C helper (``csrc/powf_host.c``): the path
-for CPU tensors and the kernel's oracle on the card.
+tables and its fused multiply-adds, elementwise on the card: large
+arrays two 16-byte packs of bases a thread, small ones one base a
+thread.  The plain version, :func:`powf_plain`, is the host's C library
+itself, called once over a whole buffer through a C helper
+(``csrc/powf_host.c``): the path for CPU tensors and the kernel's oracle
+on the card.  :func:`fp64_work` reads the kernel's double-precision
+instructions a base from the built library, for its bound.
 """
 from __future__ import annotations
 
@@ -57,9 +60,35 @@ def powf(x: torch.Tensor, y: float) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"powf runs on cuda or cpu, not {x.device}")
     xc = x.contiguous()
-    out = torch.empty_like(xc)
+    off = xc.data_ptr() % 16 // xc.element_size()
+    if off == 0:
+        out = torch.empty_like(xc)
+    else:
+        # ``out`` sits at the same offset from a 16-byte boundary as
+        # ``x`` (an offset view), so the kernel's packs line up in both.
+        out = torch.empty(xc.numel() + off, dtype=xc.dtype,
+                          device=xc.device)[off:].view(xc.shape)
     lib = _build.load("powf", _SIGNATURES)
     _build.call(lib, "powf", lib.powf_f32, x.device, xc.data_ptr(),
                 float(np.float32(y)), out.data_ptr(), xc.numel())
     LAUNCHES += 1
     return out
+
+
+# Opcodes of the FP64 pipe, and conversions to or from 64-bit types other
+# than the exponent's (one a call, hoisted).
+_FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+_CONVERSIONS = ("F2F.F32.F64", "I2F.F64", "F2I.F64", "F2F.F64.F64")
+# Bases whose code powf_vec_kernel holds: its fast and its special-case
+# path, each for the 8 bases of two packs and for one ragged base.
+_VEC_COPIES = 2 * (2 * 4 + 1)
+
+
+def fp64_work() -> tuple:
+    """``(fp64, conversions)``: FP64-pipe instructions (adds, multiplies,
+    fused multiply-adds, compares) and slow 64-bit conversions a base in
+    the built ``powf_vec_kernel``, from its SASS (``cuobjdump -sass``)."""
+    ops = _build.sass_opcodes("powf", "powf_vec_kernel")
+    fp64 = sum(v for k, v in ops.items() if k.split(".")[0] in _FP64_OPS)
+    conv = sum(v for k, v in ops.items() if k.startswith(_CONVERSIONS))
+    return fp64 / _VEC_COPIES, conv / _VEC_COPIES

@@ -22,6 +22,13 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12,
                 "float64": 34e12}   # float64 outside the tensor cores
 L2_BYTES = 50e6
+# H100 SXM double precision outside the tensor cores, in instructions: 64
+# a clock per SM on the FP64 pipe (a fused multiply-add counts once), 16
+# a clock per SM for conversions to or from 64-bit types (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0), at the 1.98 GHz boost clock.
+FP64_INSTR_S = 132 * 64 * 1.98e9
+F64_CONVERSIONS_S = 132 * 16 * 1.98e9
 
 
 def cuda_ms(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
@@ -41,10 +48,10 @@ def cuda_ms(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def wall_us(fn, device, *, iters: int = 3) -> tuple:
+def wall_us(fn, device, *, iters: int = 3, warmup: int = 1) -> tuple:
     """Host wall microseconds of ``fn()``, the device drained after each
     call: ``(result, steady_us, first_us)``, the mean of ``iters`` calls
-    after one more warm-up call, and the first call alone (which also
+    after ``warmup`` more calls, and the first call alone (which also
     pays the table caches and torch's first use of each operation)."""
     def drain():
         if torch.device(device).type == "cuda":
@@ -54,8 +61,9 @@ def wall_us(fn, device, *, iters: int = 3) -> tuple:
     result = fn()
     drain()
     first_us = (time.perf_counter() - t0) * 1e6
-    fn()
-    drain()
+    for _ in range(warmup):
+        fn()
+        drain()
     t0 = time.perf_counter()
     for _ in range(iters):
         result = fn()
@@ -115,6 +123,17 @@ def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fp64_bound(bytes_moved: float, fp64: float, conversions: float) -> dict:
+    """The bound of an FP64 kernel: the bytes over the memory rate, the
+    FP64-pipe instructions plus the 64-bit conversions over their
+    rates, and the larger of the two (``bound_ms``, ``bound_by``)."""
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = (fp64 / FP64_INSTR_S + conversions / F64_CONVERSIONS_S) * 1e3
+    return {"bytes_bound_ms": t_bytes, "fp64_bound_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def matmul_work(m: int, k: int, n: int, itemsize: int) -> tuple:

@@ -345,6 +345,62 @@ def test_powf_kernel_equals_the_c_library(cuda):
                            torch.signbit(want[~torch.isnan(want)]))
 
 
+def _same_as_c_library(got, want) -> bool:
+    """Equal values and signs, NaN where the C library gives NaN (NaN
+    payloads excepted)."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            want[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 8191, 8192, (1 << 24) + 3])
+def test_powf_kernel_at_every_size(cuda, n):
+    """Both of the kernel's paths (one base a thread below 270,336 bases,
+    two 16-byte packs a thread above) and their ragged ends."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    bases = torch.rand(n, device=cuda, generator=gen) * 1e-3 + 1e-6
+    for exponent in (-1.0 / 1.5, 3.0):
+        got = powf.powf(bases, exponent)
+        assert got.shape == bases.shape
+        assert _same_as_c_library(got, powf.powf_plain(bases, exponent))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [8192, (1 << 20) + 5])
+def test_powf_kernel_on_offset_views(cuda, offset, n):
+    """A base pointer 4, 8 or 12 bytes past a 16-byte boundary: the
+    scalar prologue, then the packs."""
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    whole = torch.rand(n + offset, device=cuda, generator=gen) + 0.25
+    view = whole[offset:]
+    assert view.data_ptr() % 16 == 4 * offset
+    got = powf.powf(view, -1.0 / 1.5)
+    assert _same_as_c_library(got, powf.powf_plain(view, -1.0 / 1.5))
+
+
+@pytest.mark.parametrize("n", [64, 1 << 20])
+def test_powf_kernel_special_bases(cuda, n):
+    """Zero, subnormal, infinite, NaN and negative bases among ordinary
+    ones, under integer (odd and even) and non-integer exponents, on
+    both paths."""
+    specials = torch.tensor(
+        [0.0, -0.0, 1.0, -1.0, 2.0, -2.0, -3.0, -0.5, 1e-45, -1e-45,
+         2.5e-42, -2.5e-42, 1.1754942e-38, 3.4028235e38, -3.4028235e38,
+         float("inf"), float("-inf"), float("nan")], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    bases = torch.rand(n, device=cuda, generator=gen) * 4.0 - 2.0
+    idx = torch.randint(0, n, (n // 8,), device=cuda, generator=gen)
+    bases[idx] = specials[torch.arange(idx.numel(), device=cuda)
+                          % specials.numel()]
+    for exponent in (3.0, 2.0, -1.0, -2.0, 0.5, -1.0 / 1.5, 0.0, 1e10,
+                     -1e10, 127.5, float("inf"), float("-inf"),
+                     float("nan")):
+        got = powf.powf(bases, exponent)
+        assert _same_as_c_library(got, powf.powf_plain(bases, exponent)), \
+            exponent
+
+
 def test_robust_simulator_on_card_equals_cpu(cuda):
     key = prng.PRNGKey(0, device="cpu")
     app = fiveg.FiveGConfig(n_rx=16, ffts_per_round=4)

@@ -15,10 +15,16 @@ from repro_torch.core import (barrier, barrier_sim, energy, fiveg,
                               placement, prng, sweep, tuning, workloads)
 from repro_torch import configs
 from repro_torch.examples import (bench_energy, bench_faults,
-                                  bench_multicluster, fig4, serve_lm)
+                                  bench_multicluster, fig4, fig5, fig6, fig7,
+                                  fig_placement, fig_tuned_tree,
+                                  fig_workload_tuned, serve_lm)
 from repro_torch.kernels import ref
 from repro_torch.launch import steps
 from repro_torch.models import convert, init_caches
+from repro_torch.runtime import (ResilienceConfig, resilient_sweep_arrivals,
+                                 resilient_sweep_schedules,
+                                 resilient_sweep_workloads,
+                                 resilient_tune_barrier)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -52,8 +58,12 @@ def test_importing_every_module_loads_no_jax():
     assert {"repro_torch.launch.steps", "repro_torch.examples.serve_lm",
             "repro_torch.examples.barrier_tuning"} <= loaded
     assert {f"repro_torch.examples.{m}" for m in (
-        "fig4", "bench_energy", "bench_multicluster", "bench_faults")} \
-        <= loaded
+        "fig4", "bench_energy", "bench_multicluster", "bench_faults",
+        "fig5", "fig6", "fig7", "fig_placement", "fig_tuned_tree",
+        "fig_workload_tuned")} <= loaded
+    assert {f"repro_torch.runtime.{m}" for m in (
+        "schedule_cache", "inject", "fault", "elastic",
+        "resilient_sweep")} | {"repro_torch.checkpoint.ckpt"} <= loaded
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -61,6 +71,11 @@ def test_no_source_imports_jax_or_the_reference():
     assert len(files) >= 15
     offenders = [str(f) for f in files if IMPORT.search(f.read_text())]
     assert not offenders, offenders
+
+
+# A store that the resilient sweeps never reach: they raise on the
+# device first.
+_RESILIENCE = ResilienceConfig(ckpt_dir="build/never-written")
 
 
 def _no_card():
@@ -89,12 +104,24 @@ def _no_card():
         torch.zeros(64), barrier.kary_tree(8, n_pes=64),
         placement.place_counters(barrier.kary_tree(8, n_pes=64))),
     lambda k: fiveg.simulate_app(k, sync="workload"),
+    lambda k: resilient_sweep_schedules(
+        k, [barrier.kary_tree(8, n_pes=64)], n_trials=2,
+        resilience=_RESILIENCE),
+    lambda k: resilient_sweep_arrivals(
+        torch.zeros(2, 64), [barrier.kary_tree(8, n_pes=64)],
+        resilience=_RESILIENCE),
+    lambda k: resilient_tune_barrier(prng.PRNGKey(0), 64, n_trials=2,
+                                     resilience=_RESILIENCE),
+    lambda k: resilient_sweep_workloads(prng.PRNGKey(0), ("axpy_1Mi",), 64,
+                                        n_trials=2, resilience=_RESILIENCE),
 ], ids=["PRNGKey", "resolve_device", "level_table", "stack_tables",
         "simulate", "simulate_reference", "uniform_arrivals",
         "sweep_barrier", "simulate_app", "compare_barriers",
         "simulate_app_reference", "digit_reverse_indices",
         "arrival_batch", "tune_barrier", "tuned_for_workload",
-        "simulate_placed_reference", "simulate_app_workload"])
+        "simulate_placed_reference", "simulate_app_workload",
+        "resilient_sweep_schedules", "resilient_sweep_arrivals",
+        "resilient_tune_barrier", "resilient_sweep_workloads"])
 def test_entry_point_defaults_to_cuda_and_raises(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):
@@ -140,8 +167,22 @@ def test_fault_entry_points_default_to_cuda_and_raise(call):
     lambda: bench_energy.energy_per_barrier(ns=(64,)),
     lambda: bench_energy.fiveg_energy(64),
     lambda: bench_multicluster.bench_machine(128),
+    lambda: fig5.suite(),
+    lambda: fig6.grid(),
+    lambda: fig7.grid(),
+    lambda: fig7.tuned_modes(),
+    lambda: fig_placement.placement_tradeoff(),
+    lambda: fig_placement.placed_5g(),
+    lambda: fig_placement.banking_sensitivity(),
+    lambda: fig_tuned_tree.tuned_vs_uniform(),
+    lambda: fig_tuned_tree.tuned_5g(),
+    lambda: fig_workload_tuned.workload_tuned_kernels(),
+    lambda: fig_workload_tuned.workload_5g(),
 ], ids=["fig4_sweep", "claim_c3", "energy_per_barrier", "fiveg_energy",
-        "multicluster"])
+        "multicluster", "fig5", "fig6", "fig7", "fig7_tuned_modes",
+        "placement_tradeoff", "placed_5g", "banking_sensitivity",
+        "tuned_vs_uniform", "tuned_5g", "workload_tuned_kernels",
+        "workload_5g"])
 def test_driver_entry_points_default_to_cuda_and_raise(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):

@@ -38,6 +38,14 @@ computes, on the CPU, for:
   (key 0), with the stacks' telescope widths;
 * ``prng_original``: ``split``, ``uniform``, ``normal`` and
   ``bernoulli`` draws with ``jax_threefry_partitionable`` off (key 0);
+* ``fig_placement``, ``fig_tuned_tree``, ``fig_workload_tuned``: the rows
+  (name and derived value) of the beyond-figure benchmarks
+  ``benchmarks/fig_placement.py``, ``fig_tuned_tree.py`` and
+  ``fig_workload_tuned.py``; the ``fig5``, ``fig6`` and ``fig7`` sections
+  also hold the rows of ``fig5_kernel_cdf.py``, ``fig6_kernel_colormap.py``
+  and ``fig7_5g_app.py`` (``bench_rows``), which the port's drivers
+  (``repro_torch.examples.fig5`` ... ``fig_workload_tuned``) reproduce
+  (``tests/test_torch_figure_drivers.py``);
 * ``lm_serve``: the qwen3 smoke config served as ``examples/serve_lm.py``
   serves it (tests/lm_parity.py): 2 numpy-seeded prompts, prefill over
   64 tokens, 4 greedy decode steps.  Two variants: bf16 through the serve
@@ -55,12 +63,15 @@ or some sections of it with
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py lm_serve
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py fig4b multicluster prng_original
+    PYTHONPATH=src:. JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py fig5 fig6 fig7 fig_placement fig_tuned_tree fig_workload_tuned
 
-The tests below recompute the cheap sections with JAX, so the file
-cannot go stale, and hold the port's CPU run to the sections small
-enough for the CPU.
+The tests below recompute the cheap sections with JAX, and every row
+of the reference benchmarks (``bench_rows`` and the beyond-figure
+sections), so the file cannot go stale, and hold the port's CPU run to
+the sections small enough for the CPU.
 """
 import hashlib
+import importlib
 import json
 import sys
 from pathlib import Path
@@ -68,6 +79,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import barrier as jbarrier
@@ -119,6 +131,9 @@ MC_DELAY = 512.0
 MC_PICKS = 8                # joint compositions kept per machine
 PRNG_ORIGINAL_KEY = 0
 PRNG_ORIGINAL_SHAPES = ((7,), (16, 33))
+# The beyond-figure benchmarks whose rows the file holds, each with the
+# port's driver of the same name.
+FIGURES = ("fig_placement", "fig_tuned_tree", "fig_workload_tuned")
 LM_ARCH = "qwen3_4b"
 LM_BATCH, LM_PROMPT_LEN, LM_STEPS, LM_SEED = 2, 59, 4, 0
 # The serve-path tolerances of tests/test_torch_lm_serve.py.
@@ -142,6 +157,24 @@ def _fig7_row(n_rx: int, fpr: int) -> dict:
                       for c in FIG7_COLUMNS} for mode in FIG7_MODES}}
 
 
+def _bench_rows(name: str) -> list:
+    """``[name, derived]`` of every row of ``benchmarks/<name>.py``'s
+    ``run()`` (the repo root on the path: ``benchmarks`` is a namespace
+    package)."""
+    module = importlib.import_module(f"benchmarks.{name}")
+    return [[row[0], row[2]] for row in module.run()]
+
+
+def _figure(name: str) -> dict:
+    return {"benchmark": f"benchmarks/{name}.py", "rows": _bench_rows(name)}
+
+
+def _fig7() -> dict:
+    return {"key": FIG7_KEY, "radix": FIG7_RADIX, "modes": list(FIG7_MODES),
+            "rows": [_fig7_row(*p) for p in FIG7_GRID],
+            "bench_rows": _bench_rows("fig7_5g_app")}
+
+
 def _fig5() -> dict:
     """Gap and median of one draw of every Fig. 5 kernel, as
     ``benchmarks/fig5_kernel_cdf.py`` computes them."""
@@ -154,7 +187,8 @@ def _fig5() -> dict:
                 "gap": float(jworkloads.cdf_first_last_gap(arr)),
                 "p50": float(np.percentile(np.asarray(arr - arr.min()),
                                            50))}
-    return {"key": FIG5_KEY, "kernels": out}
+    return {"key": FIG5_KEY, "kernels": out,
+            "bench_rows": _bench_rows("fig5_kernel_cdf")}
 
 
 def _fig6() -> dict:
@@ -176,7 +210,8 @@ def _fig6() -> dict:
             "best_radix": [FIG6_RADICES[i] for i in best],
             "fraction": [float(fracs[i, j]) for j, i in enumerate(best)],
             "speedup": [float(totals[:, j].max() / totals[i, j])
-                        for j, i in enumerate(best)]}
+                        for j, i in enumerate(best)],
+            "bench_rows": _bench_rows("fig6_kernel_colormap")}
 
 
 def _tuner() -> dict:
@@ -440,9 +475,7 @@ def generate() -> dict:
                                delays=FIG4_DELAYS, n_pes=FIG4_N,
                                n_trials=FIG4_TRIALS)
     return {
-        "fig7": {"key": FIG7_KEY, "radix": FIG7_RADIX,
-                 "modes": list(FIG7_MODES),
-                 "rows": [_fig7_row(*p) for p in FIG7_GRID]},
+        "fig7": _fig7(),
         "fig4a": {"key": FIG4_KEY, "n_pes": FIG4_N,
                   "n_trials": FIG4_TRIALS, "delays": list(FIG4_DELAYS),
                   "radices": [int(r) for r in np.asarray(res.radices)],
@@ -463,6 +496,7 @@ def generate() -> dict:
         "multicluster": _multicluster(),
         "prng_original": _prng_original(),
         "lm_serve": _lm_serve(),
+        **{name: _figure(name) for name in FIGURES},
     }
 
 
@@ -525,7 +559,9 @@ def test_fig4a_prefix_matches_port():
 
 
 _SECTIONS = {"lm_serve": _lm_serve, "fig4b": _fig4b,
-             "multicluster": _multicluster, "prng_original": _prng_original}
+             "multicluster": _multicluster, "prng_original": _prng_original,
+             "fig5": _fig5, "fig6": _fig6, "fig7": _fig7,
+             **{name: (lambda n=name: _figure(n)) for name in FIGURES}}
 
 
 if __name__ == "__main__":
@@ -808,3 +844,27 @@ def test_fiveg_faults_original_stream_reproduce_bench_file():
         record, _ = bench_faults.fiveg_degradation(device="cpu")
     assert record == bench["fiveg"]
     assert [r["timed_out_levels"] for r in record["hw"]][2:4] == [26.0, 26.0]
+
+
+@pytest.fixture
+def one_call(monkeypatch):
+    """The reference benchmarks' ``timing.measure`` as one call: their
+    rows do not depend on the timing, and their figure calls are long."""
+    from benchmarks import timing as bench_timing
+    monkeypatch.setattr(
+        bench_timing, "measure",
+        lambda fn, **_: (jax.block_until_ready(fn()), 0.0, 0.0))
+
+
+def test_fig7_bench_rows_match_jax(one_call):
+    """The rows of ``benchmarks/fig7_5g_app.py`` (the grid's cycles,
+    speedups and fractions, the tuned modes' trees) are what the JAX
+    package computes now."""
+    assert _load()["fig7"]["bench_rows"] == _bench_rows("fig7_5g_app")
+
+
+@pytest.mark.parametrize("name", FIGURES)
+def test_figure_section_matches_jax(one_call, name):
+    """Every row (name and derived value) of a beyond-figure benchmark
+    is what the JAX package computes now."""
+    assert _load()[name] == json.loads(json.dumps(_figure(name)))
