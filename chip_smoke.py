@@ -115,7 +115,28 @@ phase prints one JSON line:
     through a schedule cache under ``build/resilience``, the second read
     a hit with the same cycles; the walls, the lookups' and the reports'
     ``ckpt_seconds``.
-20. ``dct_conv2d``: ``ops.dct`` and ``ops.conv2d`` at the Fig. 5/6
+20. ``serving``: the tuning-serving daemon on the card at N = 1024
+    (hierarchy-pruned compositions).  (a) The stored kernel requests
+    (``dotp_1Mi``, ``fiveg_fft_stage``, ``straggler_pareto`` under
+    ``cycles`` and ``pareto``), submitted from a client thread before the
+    worker starts: one dispatch, each answer exact with the stored batch
+    size, winner and mean span, its energy within rtol 1e-6, the arrival
+    digests equal; the straggler draws launch ``powf`` on the client
+    thread, and those launches join the ``powf`` row's count.  (b) 8
+    fresh traces in one dispatch, every field bit for bit 8 single
+    ``sweep_arrivals``.  (c) The ladder: a resubmission a cache hit, an
+    expired deadline the stored closed-form pick per objective, a
+    ``DeviceLoss`` mid-batch under a ``ResilienceConfig`` losing no
+    request, the breaker tripping and a probe closing it.  (d) ``fiveg``'s
+    client mode: ``simulate_app`` with ``sync="workload"`` and
+    ``"pareto"`` at (16, 1) through the server, one dispatch each, equal
+    to the inline run.  (e) ``repro_torch.examples.bench_serving``,
+    ``bench_resilience`` and ``bench_core`` at the reference's sizes,
+    their records printed and written to
+    ``build/BENCH_torch_{serving,resilience,core}.json``: every
+    sequential request exact, 8 requests a dispatch, the resumed sweep
+    bit for bit the plain one, both cores' spans equal.
+21. ``dct_conv2d``: ``ops.dct`` and ``ops.conv2d`` at the Fig. 5/6
     suite's sizes, with the launch counts of that run, each kernel
     against its plain version (``dct`` also in bf16 and f16, at (4096,
     4096) and a ragged (300, 1000)), the suite's rows of a (4096, 4096)
@@ -123,7 +144,7 @@ phase prints one JSON line:
     suite's three shapes and (4096, 4096) (device time and eager) and of
     ``conv2d`` at (256, 512, 512), beside their bounds and one PyTorch
     library call.
-21. ``lm_serve``: the LM serving path.  The flash-attention kernel
+22. ``lm_serve``: the LM serving path.  The flash-attention kernel
     against its plain version at the reference's test shapes, in bf16 at
     every head width of ``HEAD_DIMS``, in float32 at the configs' widths
     80 and 192, at nemotron-4-340b's and hubert-xlarge's full-width
@@ -228,6 +249,8 @@ STRAGGLER_KERNEL = "straggler_pareto"
 POWF_CHUNK = 1 << 24
 RESILIENCE_TRIALS = 1024   # the Fig. 4a grid's trials,
 RESILIENCE_CHUNK = 128     # in 8 chunks
+SERVING_TRACE_KEY = 11     # the serving phase's fresh arrival traces
+SERVING_TIMEOUT_S = 120    # a daemon answer later than this fails the run
 # The LM serving path: the reference's flash-attention test shapes (s, d),
 # the prefill's attention shape (B, H, Hk, S, D), and the full-width run.
 FA_TEST_SHAPES = ((64, 16), (128, 32), (256, 64))
@@ -1774,6 +1797,204 @@ def phase_resilience(torch, barrier, fiveg, prng, sweep, ref_values) -> None:
         raise AssertionError(f"schedule cache: {reads}")
 
 
+def phase_serving(torch, serving, fiveg, prng, sweep, tuning, powf,
+                  drivers, figure_rows, ref_values) -> int:
+    """The tuning-serving daemon on the card at full width (N = 1024,
+    hierarchy-pruned compositions), then the serving, resilience and core
+    benchmark drivers at their reference sizes.  Returns the ``powf``
+    launches of the kernel requests' draws."""
+    import shutil
+    import threading
+    from repro_torch.runtime import (DeviceLoss, FaultPlan,
+                                     ResilienceConfig, SimulatedOOM)
+    t_phase = time.perf_counter()
+    ref = ref_values["serving"]
+    dev = torch.device("cuda")
+    n = ref["n_pes"]
+    scheds = tuning.all_schedules(n, prune=ref["prune"])
+    work = ROOT / "build" / "serving"
+    shutil.rmtree(work, ignore_errors=True)
+    key = prng.PRNGKey(SERVING_TRACE_KEY)
+
+    def trace(i: int, trials: int = 4) -> "torch.Tensor":
+        return 300.0 * prng.uniform(prng.fold_in(key, i), (trials, n))
+
+    def server(*, start=False, fault_plan=None, devices=None, **kw):
+        kw.setdefault("batch_window", ref["batch_window"])
+        return serving.TuningServer(serving.ServerConfig(**kw), start=start,
+                                    device=dev, fault_plan=fault_plan,
+                                    devices=devices)
+
+    # (a) The stored kernel requests, submitted from a client thread
+    # before the worker starts, so they coalesce; the Pareto straggler's
+    # draw runs the powf kernel on that thread, the worker sweeps it.
+    srv = server()
+    tickets, client_launches = [], []
+
+    def client():
+        before = powf.LAUNCHES
+        tickets.extend(srv.submit(serving.TuneRequest(
+            kernel=r["kernel"], objective=r["objective"]))
+            for r in ref["requests"])
+        client_launches.append(powf.LAUNCHES - before)
+
+    powf.LAUNCHES = 0
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=client, name="serving-client")
+    thread.start()
+    thread.join(timeout=SERVING_TIMEOUT_S)
+    if thread.is_alive() or len(tickets) != len(ref["requests"]):
+        raise AssertionError("serving: the client thread did not submit")
+    digests = {p.label: serving._trace_digest(p.arrivals)
+               for p in srv._queue}
+    srv.start()
+    resps = [t.result(timeout=SERVING_TIMEOUT_S) for t in tickets]
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches = powf.LAUNCHES
+    bad = []
+    for r, want in zip(resps, ref["requests"]):
+        got = {"provenance": r.provenance, "tier": r.tier,
+               "batch_size": r.batch_size, "name": r.name,
+               "mean_span": r.mean_span}
+        if got != {k: want[k] for k in got} or not math.isclose(
+                r.mean_energy, want["mean_energy"], rel_tol=1e-6):
+            bad.append({"got": {**got, "mean_energy": r.mean_energy},
+                        "want": want})
+    emit({"phase": "serving", "check": "kernel requests", "n_pes": n,
+          "requests": len(resps), "batches": srv.stats.batches,
+          "powf_launches": launches,
+          "powf_launches_on_client_thread": client_launches[0],
+          "digests_equal": digests == ref["digests"], "mismatches": bad,
+          "wall_s": wall_a})
+    if bad or digests != ref["digests"] or srv.stats.batches != 1 \
+            or launches < 1 or client_launches[0] != launches:
+        raise AssertionError(f"serving (a): {bad}, digests {digests}, "
+                             f"{launches} powf launches")
+
+    # (c) The ladder: a resubmission is a cache hit; an expired deadline
+    # is the stored closed-form pick per objective.
+    hit = srv.tune(serving.TuneRequest(kernel=ref["requests"][0]["kernel"],
+                                       objective=ref["requests"][0]
+                                       ["objective"]), timeout=SERVING_TIMEOUT_S)
+    fallback = {}
+    for i, (objective, want) in enumerate(ref["fallback"].items()):
+        r = srv.tune(serving.TuneRequest(arrivals=trace(900 + i),
+                                         deadline=0.0, objective=objective),
+                     timeout=SERVING_TIMEOUT_S)
+        fallback[objective] = {"provenance": r.provenance, "tier": r.tier,
+                               "name": r.name, "mean_span": r.mean_span,
+                               "mean_energy": r.mean_energy}
+        if (r.provenance, r.tier) != ("degraded", "fallback") or {
+                k: fallback[objective][k] for k in want} != want:
+            raise AssertionError(f"serving fallback {objective}: "
+                                 f"{fallback[objective]} != {want}")
+    srv.close()
+    if (hit.provenance, hit.tier) != ("cache_hit", "cache"):
+        raise AssertionError(f"serving: resubmission gave {hit}")
+
+    # (b) Batched against unbatched: 8 fresh traces in one dispatch equal
+    # 8 single sweeps, every field bit for bit.
+    traces = [trace(100 + i) for i in range(8)]
+    srv = server(max_batch=8)
+    tickets = [srv.submit(serving.TuneRequest(arrivals=t)) for t in traces]
+    srv.start()
+    resps = [t.result(timeout=SERVING_TIMEOUT_S) for t in tickets]
+    srv.close()
+    same = [all(torch.equal(getattr(r.result, f),
+                            getattr(sweep.sweep_arrivals(t, scheds), f))
+                for f in sweep.BarrierResult._fields)
+            for t, r in zip(traces, resps)]
+    emit({"phase": "serving", "check": "batched equals unbatched",
+          "batches": srv.stats.batches,
+          "efficiency": srv.stats.batch_efficiency, "bit_exact": same})
+    if not all(same) or srv.stats.batches != 1:
+        raise AssertionError(f"serving (b): {same}, {srv.stats}")
+
+    # (c) A DeviceLoss mid-batch under a ResilienceConfig loses no
+    # request; the breaker trips, then a probe closes it.
+    rcfg = ResilienceConfig(ckpt_dir=str(work / "chunks"), trial_chunk=1,
+                            backoff_base=0.0, backoff_cap=0.0)
+    plan = FaultPlan(faults={1: DeviceLoss(1)})
+    srv = server(fault_plan=plan, devices=[dev, dev], resilience=rcfg,
+                 backoff_base=0.0, backoff_cap=0.0)
+    lossy = [trace(200 + i) for i in range(2)]
+    tickets = [srv.submit(serving.TuneRequest(arrivals=t)) for t in lossy]
+    srv.start()
+    resps = [t.result(timeout=SERVING_TIMEOUT_S) for t in tickets]
+    srv.close()
+    kept = [r.provenance == "batched" and torch.equal(
+        r.result.span_cycles, sweep.sweep_arrivals(t, scheds).span_cycles)
+        for t, r in zip(lossy, resps)]
+    loss_faults = dict(srv.stats.faults)
+    plan = FaultPlan(faults={0: SimulatedOOM(), 1: SimulatedOOM()})
+    srv = server(start=True, fault_plan=plan, max_batch_retries=0,
+                 breaker_threshold=1, breaker_probe_after=0.0,
+                 backoff_base=0.0, backoff_cap=0.0)
+    breaker = []
+    for i in range(3):
+        r = srv.tune(serving.TuneRequest(arrivals=trace(300 + i)),
+                     timeout=SERVING_TIMEOUT_S)
+        breaker.append([r.provenance, srv.breaker_state])
+    srv.close()
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "serving", "check": "ladder",
+          "resubmission": [hit.provenance, hit.tier], "fallback": fallback,
+          "device_loss": {"exact_and_equal": kept, "faults": loss_faults},
+          "breaker": breaker})
+    if not all(kept) or loss_faults.get("DeviceLoss", 0) < 1:
+        raise AssertionError(f"serving: device loss lost a request: {kept}")
+    if [b[0] for b in breaker] != ["degraded", "degraded", "batched"] \
+            or breaker[0][1] == "closed" or breaker[2][1] != "closed":
+        raise AssertionError(f"serving: breaker {breaker}")
+
+    # (d) fiveg's client mode: the tuned modes through the server, one
+    # dispatch each, equal to the inline run.
+    app = fiveg.FiveGConfig(n_rx=16, ffts_per_round=1)
+    client_mode = {}
+    for sync in ("workload", "pareto"):
+        inline = fiveg.simulate_app(prng.PRNGKey(3), app, sync=sync)
+        with server(start=True) as srv:
+            with fiveg.tuning_server(srv):
+                served = fiveg.simulate_app(prng.PRNGKey(3), app, sync=sync)
+        client_mode[sync] = {
+            "batches": srv.stats.batches,
+            "stage": [served.stage_schedule, inline.stage_schedule],
+            "global": [served.global_schedule, inline.global_schedule],
+            "total_cycles": [served.total_cycles.item(),
+                             inline.total_cycles.item()]}
+        if srv.stats.batches != 1 or served.stage_schedule != \
+                inline.stage_schedule or served.global_schedule != \
+                inline.global_schedule or not torch.equal(
+                    served.total_cycles, inline.total_cycles):
+            raise AssertionError(f"fiveg client mode {sync}: "
+                                 f"{client_mode[sync]}")
+    emit({"phase": "serving", "check": "fiveg client mode", **client_mode})
+
+    # (e) The drivers at their reference sizes, their records written.
+    records = {}
+    for name, mod in drivers.items():
+        t0 = time.perf_counter()
+        records[name] = figure_rows.write_record(mod.measure("cuda"),
+                                                 mod.OUT)
+        emit({"phase": "serving", "driver": name, "record": records[name],
+              "wall_s": time.perf_counter() - t0})
+    seq = records["serving"]
+    if seq["sequential_stats"]["exact"] != seq["n_requests"] \
+            or seq["batch_efficiency_req_per_dispatch"] != 8.0:
+        raise AssertionError(f"bench_serving: {seq}")
+    if not records["resilience"]["recovery"]["resumed_equals_plain"]:
+        raise AssertionError("bench_resilience: the resumed sweep differs "
+                             "from the plain one")
+    cores = [e["cores_equal"] for k, g in records["core"].items()
+             if k.startswith("N=") for e in g.values()]
+    if not all(cores):
+        raise AssertionError(f"bench_core: scan and telescope differ: "
+                             f"{records['core']}")
+    emit({"phase": "serving", "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def phase_dct_conv2d(torch, ops, dct, conv2d) -> tuple:
     """``ops.dct`` and ``ops.conv2d`` at the suite's sizes, counted; each
     kernel against its plain version; the times at the suite's DCT sizes
@@ -2371,13 +2592,15 @@ def main() -> int:
         return 2
     from repro_torch.core import (barrier, barrier_sim, fiveg, placement,
                                   prng, sweep, tuning, workloads)
-    from repro_torch.examples import (bench_energy, bench_faults,
-                                      bench_multicluster, fig4, fig5, fig6,
-                                      fig7, fig_placement, fig_tuned_tree,
-                                      fig_workload_tuned, figure_rows,
-                                      fiveg_pipeline)
+    from repro_torch.examples import (bench_core, bench_energy,
+                                      bench_faults, bench_multicluster,
+                                      bench_resilience, bench_serving, fig4,
+                                      fig5, fig6, fig7, fig_placement,
+                                      fig_tuned_tree, fig_workload_tuned,
+                                      figure_rows, fiveg_pipeline)
     from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
                                      flash_attn, matmul, ops, powf, ref)
+    from repro_torch.runtime import serving
 
     ref_values = json.loads(
         (ROOT / "src" / "repro_torch" / "reference_values.json").read_text())
@@ -2411,6 +2634,10 @@ def main() -> int:
                    "fig_workload_tuned": fig_workload_tuned},
                   figure_rows, ref_values)
     phase_resilience(torch, barrier, fiveg, prng, sweep, ref_values)
+    launches["powf"] += phase_serving(
+        torch, serving, fiveg, prng, sweep, tuning, powf,
+        {"serving": bench_serving, "resilience": bench_resilience,
+         "core": bench_core}, figure_rows, ref_values)
     more, more_launches = phase_dct_conv2d(torch, ops, dct, conv2d)
     summary.update(more)
     launches.update(more_launches)

@@ -32,7 +32,10 @@ per design point for the life of the process; beneath that in-process
 store each reads through the persistent on-disk schedule store
 (:mod:`repro_torch.runtime.schedule_cache`) when ``REPRO_SCHEDULE_CACHE``
 names a directory, so a fresh process serves a tuned mode without
-re-running its sweep.
+re-running its sweep.  Inside :func:`tuning_server` the ``workload`` and
+``pareto`` modes are resolved through a
+:class:`repro_torch.runtime.serving.TuningServer` instead (the client
+mode).
 
 ``faults=`` (a :class:`FiveGFaults`) runs the pipeline under persistent
 PE fail-stops with timeout/quorum release on every barrier;
@@ -44,6 +47,7 @@ threefry call, bit for bit the reference's per-epoch draws.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -252,6 +256,53 @@ def _epoch_tuned_schedules(app: FiveGConfig, cfg: TeraPoolConfig,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Tuning-server client mode: resolve the workload-conditioned sync modes
+# through a long-lived repro_torch.runtime.serving.TuningServer instead
+# of tuning inline — many app instances (or processes, via the shared
+# schedule cache) then amortize ONE batched sweep dispatch.
+# ---------------------------------------------------------------------------
+
+_TUNING_SERVER = None
+
+
+@contextlib.contextmanager
+def tuning_server(server):
+    """Route ``sync="workload"`` / ``sync="pareto"`` schedule
+    resolution through ``server`` (a
+    :class:`repro_torch.runtime.serving.TuningServer`) while the context
+    is active.  The stage and global barrier requests share one trial
+    count and tuning space, so the server fuses them into a single
+    batched ``sweep_arrivals`` dispatch — and both answers carry full
+    provenance (exact / cache / degraded)."""
+    global _TUNING_SERVER
+    prev = _TUNING_SERVER
+    _TUNING_SERVER = server
+    try:
+        yield server
+    finally:
+        _TUNING_SERVER = prev
+
+
+def _served_schedules(app: FiveGConfig, cfg: TeraPoolConfig,
+                      objective: str) -> tuple:
+    """Resolve the (stage, global) pairs through the installed server,
+    their arrival models drawn on its device.  Both requests are
+    submitted before either result is awaited, so they coalesce into
+    one dispatch."""
+    from ..runtime.serving import TuneRequest
+    placements = tuple(placement.STRATEGIES)
+    tickets = [_TUNING_SERVER.submit(TuneRequest(
+        arrivals=arr, cfg=cfg, objective=objective, placements=placements))
+        for arr in _epoch_arrival_models(app, cfg, _TUNING_SERVER.device)]
+    rs, rg = (t.result() for t in tickets)
+    for resp in (rs, rg):
+        if not resp.ok:
+            raise RuntimeError(
+                f"tuning server failed the request: {resp.detail}")
+    return rs.schedule, rs.placement, rg.schedule, rg.placement
+
+
 def _resolve_schedules(app: FiveGConfig, sync: str, radix: int,
                        cfg: TeraPoolConfig, device: str):
     """Stage + global schedules, their counter placements (``None`` =
@@ -284,9 +335,14 @@ def _resolve_schedules(app: FiveGConfig, sync: str, radix: int,
         global_sched = stage_sched
         partial_groups = 1
     elif sync in ("workload", "pareto"):
-        (stage_sched, stage_plc, global_sched,
-         global_plc) = _epoch_tuned_schedules(
-             app, cfg, "cycles" if sync == "workload" else "pareto", device)
+        objective = "cycles" if sync == "workload" else "pareto"
+        if _TUNING_SERVER is not None:
+            (stage_sched, stage_plc, global_sched,
+             global_plc) = _served_schedules(app, cfg, objective)
+        else:
+            (stage_sched, stage_plc, global_sched,
+             global_plc) = _epoch_tuned_schedules(app, cfg, objective,
+                                                  device)
         partial_groups = 1
     else:
         raise ValueError(f"unknown sync mode {sync!r}")

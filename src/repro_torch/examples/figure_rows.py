@@ -45,6 +45,13 @@ def write(name: str, rows: list, device, out: Path | None = None) -> Path:
     return out
 
 
+def write_record(record: dict, out: Path) -> dict:
+    """Write a benchmark driver's record as JSON to ``out``; returns it."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=2) + "\n")
+    return record
+
+
 def main(name: str, doc: str, run, argv=None) -> list:
     """Parse ``--device``/``--out``, run ``run(device)``, print its rows
     and write them (with the device) to ``--out``."""

@@ -744,3 +744,110 @@ def test_fft4_above_l_max_runs_stage_launches_then_the_fused_kernel(cuda):
         :, ref.digit_reverse_indices(n, device=cuda)]
     torch.testing.assert_close(fr.double(), want.real, rtol=1e-3, atol=2e-3)
     torch.testing.assert_close(fi.double(), want.imag, rtol=1e-3, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# The tuning-serving daemon on the card.
+# ---------------------------------------------------------------------------
+
+def _serve_on_card(cuda, requests, client_stream=None, in_thread=False):
+    """Submit ``requests()`` before the worker starts (one coalesced
+    dispatch), from a client thread and/or inside ``client_stream``;
+    returns the responses and the server's stats."""
+    import threading
+    from repro_torch.runtime.serving import ServerConfig, TuningServer
+    srv = TuningServer(ServerConfig(batch_window=0.01), start=False,
+                       device=cuda)
+    tickets = []
+
+    def client():
+        if client_stream is None:
+            tickets.extend(srv.submit(r) for r in requests())
+            return
+        with torch.cuda.stream(client_stream):
+            tickets.extend(srv.submit(r) for r in requests())
+
+    if in_thread:
+        t = threading.Thread(target=client)
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive()
+    else:
+        client()
+    srv.start()
+    out = [t.result(timeout=120) for t in tickets]
+    srv.close()
+    return out, srv.stats
+
+
+def _serving_requests(cuda):
+    """Two kernel requests (the Pareto straggler's draw launches the
+    ``powf`` kernel) and a trace computed on the current stream."""
+    from repro_torch.core.topology import TeraPoolConfig
+    from repro_torch.runtime.serving import TuneRequest
+    cfg = TeraPoolConfig(n_pes=256)
+
+    def make():
+        trace = 300.0 * prng.uniform(prng.PRNGKey(5, device=cuda), (8, 256))
+        trace = trace.sqrt() * trace.sqrt()      # more work on this stream
+        return [TuneRequest(kernel="straggler_pareto", cfg=cfg),
+                TuneRequest(kernel="dotp_1Mi", cfg=cfg, objective="pareto"),
+                TuneRequest(arrivals=trace, cfg=cfg)]
+    return make
+
+
+def test_serving_side_stream_client_equals_default_stream(cuda):
+    """A client on a side stream in its own thread gets the answers of a
+    client on the default stream, bit for bit."""
+    make = _serving_requests(cuda)
+    base, stats = _serve_on_card(cuda, make)
+    side, side_stats = _serve_on_card(cuda, make,
+                                      client_stream=torch.cuda.Stream(cuda),
+                                      in_thread=True)
+    assert stats.batches == side_stats.batches == 1
+    for a, b in zip(base, side):
+        assert (a.provenance, a.tier, a.name) == (b.provenance, b.tier,
+                                                  b.name) == (
+            "batched", "exact", a.name)
+        assert (a.mean_span, a.mean_energy) == (b.mean_span, b.mean_energy)
+        for field in sweep.BarrierResult._fields:
+            assert torch.equal(getattr(a.result, field),
+                               getattr(b.result, field)), field
+
+
+def test_serving_batched_equals_unbatched_on_card(cuda):
+    from repro_torch.core import tuning
+    from repro_torch.runtime.serving import TuneRequest
+    traces = [300.0 * prng.uniform(prng.PRNGKey(10 + i, device=cuda),
+                                   (4, 1024)) for i in range(4)]
+    resps, stats = _serve_on_card(
+        cuda, lambda: [TuneRequest(arrivals=t) for t in traces])
+    assert stats.batches == 1 and stats.batch_efficiency == 4.0
+    scheds = tuning.all_schedules(1024, prune="hierarchy")
+    for trace, resp in zip(traces, resps):
+        solo = sweep.sweep_arrivals(trace, scheds)
+        for field in sweep.BarrierResult._fields:
+            assert torch.equal(getattr(resp.result, field),
+                               getattr(solo, field)), field
+
+
+def test_serving_straggler_request_draw_equals_main_thread(cuda):
+    """A ``straggler_pareto`` request submitted from a client thread
+    draws, through the ``powf`` kernel, what ``arrival_batch`` draws on
+    the main thread, bit for bit."""
+    import threading
+    from repro_torch.core import workloads
+    from repro_torch.runtime.serving import (ServerConfig, TuneRequest,
+                                             TuningServer, _kernel_key)
+    srv = TuningServer(ServerConfig(), start=False, device=cuda)
+    before = powf.LAUNCHES
+    t = threading.Thread(target=lambda: srv.submit(
+        TuneRequest(kernel="straggler_pareto")))
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and powf.LAUNCHES == before + 1
+    got = srv._queue[0].arrivals
+    srv.close(drain=False)
+    want = workloads.arrival_batch(_kernel_key("straggler_pareto", cuda),
+                                   "straggler_pareto", (8, 1024))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -14,14 +14,16 @@ from repro_torch import resolve_device
 from repro_torch.core import (barrier, barrier_sim, energy, fiveg,
                               placement, prng, sweep, tuning, workloads)
 from repro_torch import configs
-from repro_torch.examples import (bench_energy, bench_faults,
-                                  bench_multicluster, fig4, fig5, fig6, fig7,
+from repro_torch.examples import (bench_core, bench_energy, bench_faults,
+                                  bench_multicluster, bench_resilience,
+                                  bench_serving, fig4, fig5, fig6, fig7,
                                   fig_placement, fig_tuned_tree,
-                                  fig_workload_tuned, serve_lm)
+                                  fig_workload_tuned, run, serve_lm)
 from repro_torch.kernels import ref
 from repro_torch.launch import steps
 from repro_torch.models import convert, init_caches
-from repro_torch.runtime import (ResilienceConfig, resilient_sweep_arrivals,
+from repro_torch.runtime import (ResilienceConfig, ServerConfig, TuningServer,
+                                 resilient_sweep_arrivals,
                                  resilient_sweep_schedules,
                                  resilient_sweep_workloads,
                                  resilient_tune_barrier)
@@ -60,10 +62,12 @@ def test_importing_every_module_loads_no_jax():
     assert {f"repro_torch.examples.{m}" for m in (
         "fig4", "bench_energy", "bench_multicluster", "bench_faults",
         "fig5", "fig6", "fig7", "fig_placement", "fig_tuned_tree",
-        "fig_workload_tuned")} <= loaded
+        "fig_workload_tuned", "bench_serving", "bench_resilience",
+        "bench_core", "run")} <= loaded
     assert {f"repro_torch.runtime.{m}" for m in (
         "schedule_cache", "inject", "fault", "elastic",
-        "resilient_sweep")} | {"repro_torch.checkpoint.ckpt"} <= loaded
+        "resilient_sweep", "serving")} | {"repro_torch.checkpoint.ckpt"} \
+        <= loaded
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -178,11 +182,18 @@ def test_fault_entry_points_default_to_cuda_and_raise(call):
     lambda: fig_tuned_tree.tuned_5g(),
     lambda: fig_workload_tuned.workload_tuned_kernels(),
     lambda: fig_workload_tuned.workload_5g(),
+    lambda: TuningServer(),
+    lambda: TuningServer(ServerConfig(), start=False),
+    lambda: bench_serving.measure(n=64),
+    lambda: bench_resilience.measure(n=64),
+    lambda: bench_core.measure(ns=(64,)),
+    lambda: run.main(["serving"]),
 ], ids=["fig4_sweep", "claim_c3", "energy_per_barrier", "fiveg_energy",
         "multicluster", "fig5", "fig6", "fig7", "fig7_tuned_modes",
         "placement_tradeoff", "placed_5g", "banking_sensitivity",
         "tuned_vs_uniform", "tuned_5g", "workload_tuned_kernels",
-        "workload_5g"])
+        "workload_5g", "tuning_server", "tuning_server_unstarted",
+        "bench_serving", "bench_resilience", "bench_core", "run_serving"])
 def test_driver_entry_points_default_to_cuda_and_raise(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):

@@ -569,7 +569,9 @@ if __name__ == "__main__":
         values = _load()
         values.update({name: _SECTIONS[name]() for name in sys.argv[1:]})
     else:
-        values = generate()
+        # Sections generated elsewhere (``serving``:
+        # tests/test_torch_serving_values.py) are kept.
+        values = {**_load(), **generate()}
     PATH.write_text(json.dumps(values, indent=1) + "\n")
     print(f"wrote {PATH}")
 
