@@ -144,23 +144,30 @@ phase prints one JSON line:
     suite's three shapes and (4096, 4096) (device time and eager) and of
     ``conv2d`` at (256, 512, 512), beside their bounds and one PyTorch
     library call.
-22. ``lm_serve``: the LM serving path.  The flash-attention kernel
+22. ``lm_serve``: the LM serving paths.  The flash-attention kernel
     against its plain version at the reference's test shapes, in bf16 at
     every head width of ``HEAD_DIMS``, in float32 at the configs' widths
-    80 and 192, at nemotron-4-340b's and hubert-xlarge's full-width
-    attention shapes (timed beside SDPA and the bound), and at the
-    prefill's shape, where the model's
-    strided (B, S, H, D) views must give the contiguous call's bits; its
-    time there beside its bound and SDPA (``ratio_to_library``), and the
-    registers and shared memory of the wgmma kernel (D 64-192) and the
-    float32 FMA kernel (``nvcc -Xptxas -v``, setmaxnreg, the launch's
-    dynamic shared memory; a spill, or more than the 227 KB a block may
-    have, fails the run); the qwen3 smoke
-    config on the card against the stored JAX values (its init's leaf
-    digests bit for bit, prefill and 4 decode steps); then full-width
-    Qwen3-4B through ``repro_torch.examples.serve_lm``: 4 requests of
-    2016 prompt tokens and 32 new tokens each, its first token's logits
-    held against the same prefill with the plain chunked attention.
+    80 and 192, at its (D, Dv) pairs (192, 128) and (24, 16) (float32 and
+    bf16, causal and full, the default scale and 0.37; bf16 with the
+    planted faults; an unsupported pair must raise), at nemotron-4-340b's,
+    hubert-xlarge's and DeepSeek-V3's full-width attention shapes (timed
+    beside SDPA and the bound), and at the prefill's shape, where the
+    model's strided (B, S, H, D) views must give the contiguous call's
+    bits; its time there beside its bound and SDPA
+    (``ratio_to_library``), and the registers and shared memory of the
+    wgmma kernel (D 64-192 and (192, 128)) and the float32 FMA kernel
+    (``nvcc -Xptxas -v``, setmaxnreg, the launch's dynamic shared memory;
+    a spill, or more than the 227 KB a block may have, fails the run);
+    the qwen3, moonshot and deepseek-v3 smoke configs on the card against
+    the stored JAX values (their inits' leaf digests bit for bit, prefill
+    and 4 decode steps); then full-width Qwen3-4B and DeepSeek-V3 (its
+    published widths, 3 dense layers and 1 MoE layer of 256 experts)
+    through ``repro_torch.examples.serve_lm``: 4 requests of 2016 prompt
+    tokens and 32 new tokens each, one kernel launch a layer a prefill,
+    the first token's logits held against the same prefill with the
+    plain chunked attention.  The summary line's ``flash_attention``
+    entry is the Qwen3-4B path, ``flash_attention_mla`` the DeepSeek-V3
+    one (the same kernel at (192, 128)).
 
 Each phase prints its wall time.  Then the kernels' summary line and,
 last, the device line.  Any failed
@@ -191,7 +198,7 @@ MODES = ("central", "tree", "partial", "hw")
 TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
 KERNELS = ("fft4_stage", "fft4_fused", "matmul", "dotp_central",
            "dotp_partials", "combine_partials", "combine_tree", "axpy",
-           "dct", "conv2d", "powf", "flash_attention")
+           "dct", "conv2d", "powf", "flash_attention", "flash_attention_mla")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             # The same Pallas kernel as src/repro/kernels/ops.py::fft4
             # chains it, every stage of a row in one launch.
@@ -209,7 +216,11 @@ REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             # No Pallas kernel: XLA's call of the C library's powf in the
             # Pareto straggler model.
             "powf": "src/repro/core/workloads.py:311",
-            "flash_attention": "src/repro/kernels/flash_attn.py:73"}
+            "flash_attention": "src/repro/kernels/flash_attn.py:73",
+            # The same Pallas kernel at MLA's (D, Dv) = (192, 128), which
+            # the models' attention computes with a scale of its own
+            # (src/repro/models/mla.py:145).
+            "flash_attention_mla": "src/repro/kernels/flash_attn.py:73"}
 SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "fft4_fused": "src/repro_torch/csrc/fft4_stage.cu",
            "matmul": "src/repro_torch/csrc/matmul.cu",
@@ -221,7 +232,8 @@ SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "dct": "src/repro_torch/csrc/dct.cu",
            "conv2d": "src/repro_torch/csrc/conv2d.cu",
            "powf": "src/repro_torch/csrc/powf.cu",
-           "flash_attention": "src/repro_torch/csrc/flash_attn.cu"}
+           "flash_attention": "src/repro_torch/csrc/flash_attn.cu",
+           "flash_attention_mla": "src/repro_torch/csrc/flash_attn.cu"}
 # The dot product's path: the Fig. 5 input sizes and the 64 Mi-element
 # case where the bandwidth bound means something; the central
 # accumulator (radix 0) and the tree radices of the Fig. 6 sweep.
@@ -255,13 +267,22 @@ SERVING_TIMEOUT_S = 120    # a daemon answer later than this fails the run
 # the prefill's attention shape (B, H, Hk, S, D), and the full-width run.
 FA_TEST_SHAPES = ((64, 16), (128, 32), (256, 64))
 FA_PATH_SHAPE = (4, 32, 8, 2048, 128)
-# Full-width attention of the configs with head widths 192 and 80, (B, H,
-# Hk, S, D, causal, dtypes): nemotron-4-340b (96 heads reading 8) and the
-# hubert-xlarge encoder.
+# Full-width attention of the configs with head widths 192 and 80, and of
+# DeepSeek-V3's MLA prefill ((D, Dv) = (128 + 64, 128)), (B, H, Hk, S, D or
+# (D, Dv), causal, dtypes): nemotron-4-340b (96 heads reading 8), the
+# hubert-xlarge encoder, and DeepSeek-V3's 128 heads at the full-width
+# serve's 4 x 2048 tokens.
 FA_CONFIG_SHAPES = {"nemotron-4-340b": (1, 96, 8, 1024, 192, True,
                                         ("bfloat16",)),
                     "hubert-xlarge": (2, 16, 16, 1024, 80, False,
-                                      ("bfloat16", "float32"))}
+                                      ("bfloat16", "float32")),
+                    "deepseek-v3-671b": (4, 128, 128, 2048, (192, 128), True,
+                                         ("bfloat16",))}
+# The kernel's (D, Dv) pairs beyond D = Dv: DeepSeek-V3's MLA and its
+# smoke config's (16 + 8, 16); each also with a scale other than
+# D ** -0.5.
+FA_PAIRS = ((192, 128), (24, 16))
+FA_SCALE = 0.37
 # Kernel against plain in float32 at the new widths: both sum float32
 # products; 1e-4 leaves the exponentials' and the order's rounding a wide
 # margin.
@@ -282,10 +303,17 @@ FA_BF16_ROW_TOL = 2.0 ** -6
 # The shared memory a block may take on the H100 (227 KB).
 SMEM_PER_BLOCK = 232448
 LM_FULL = {"arch": "qwen3_4b", "batch": 4, "prompt_len": 2016, "tokens": 32}
+# DeepSeek-V3 at its published widths, depth cut to 4 layers (its 3 leading
+# dense layers and 1 MoE layer of 256 experts), set here so that the
+# package has no such knob; the same traffic as LM_FULL.
+LM_MLA = {"arch": "deepseek_v3_671b", "n_layers": 4, "batch": 4,
+          "prompt_len": 2016, "tokens": 32}
 # The serve path's tolerances against the JAX values (tests/
 # test_torch_lm_serve.py): float32 end to end, and bf16; and the full-width
 # kernel-against-plain logits gap, tests/test_arch_smoke.py's bf16 bound.
 LM_F32_TOL, LM_BF16_ATOL, LM_FULL_GAP = 1e-4, 0.0625, 0.35
+# MLA rounds to bf16 at more sites (tests/test_torch_lm_serve_mla.py).
+LM_BF16_ATOL_BY_ARCH = {"deepseek_v3_671b": 0.125}
 
 
 def emit(obj) -> None:
@@ -2138,12 +2166,13 @@ def row_scaled_err(got, want) -> float:
     return (diff / want.float().abs().amax(dim=-1)).max().item()
 
 
-def check_bf16_rows(flash_attn, q, k, v, causal, got, want) -> dict:
+def check_bf16_rows(flash_attn, q, k, v, causal, got, want,
+                    scale=None) -> dict:
     """``got`` (the kernel in bf16) against float32 attention on the same
     bf16 inputs at :data:`FA_BF16_ROW_TOL`, with the plain bf16 version's
     error beside it; raises past the limit."""
     ref32 = flash_attn.flash_attention_plain(q.float(), k.float(), v.float(),
-                                             causal=causal)
+                                             causal=causal, scale=scale)
     rec = {"row_scaled_err": row_scaled_err(got, ref32),
            "plain_row_scaled_err": row_scaled_err(want, ref32),
            "row_tol": FA_BF16_ROW_TOL}
@@ -2154,14 +2183,15 @@ def check_bf16_rows(flash_attn, q, k, v, causal, got, want) -> dict:
     return rec
 
 
-def fa_planted_faults(flash_attn, q, k, v, causal, got, want) -> dict:
+def fa_planted_faults(flash_attn, q, k, v, causal, got, want,
+                      scale=None) -> dict:
     """Three faults the bf16 limits must catch: one 64-key tile's values
     left out of PV (its weights still in the row sum), the last 16
     features left out of QK^T (a k16 step dropped), the last 16 output
     features zeroed.  Each must exceed :data:`FA_BF16_ROW_TOL`; whether
     :data:`FA_BF16_TOL` alone would have caught it is recorded."""
     ref32 = flash_attn.flash_attention_plain(q.float(), k.float(), v.float(),
-                                             causal=causal)
+                                             causal=causal, scale=scale)
     mid = k.shape[2] // 2
     v_gap = v.clone()
     v_gap[:, :, mid:mid + 64] = 0
@@ -2170,10 +2200,10 @@ def fa_planted_faults(flash_attn, q, k, v, causal, got, want) -> dict:
     zeroed = got.clone()
     zeroed[..., -16:] = 0
     faults = {
-        "pv_tile_skipped": flash_attn.flash_attention(q, k, v_gap,
-                                                      causal=causal),
-        "qk_last_k16_dropped": flash_attn.flash_attention(q_cut, k, v,
-                                                          causal=causal),
+        "pv_tile_skipped": flash_attn.flash_attention(
+            q, k, v_gap, causal=causal, scale=scale),
+        "qk_last_k16_dropped": flash_attn.flash_attention(
+            q_cut, k, v, causal=causal, scale=scale),
         "out_last_16_zeroed": zeroed}
     rec = {}
     for name, bad in faults.items():
@@ -2298,22 +2328,80 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
     return rec
 
 
-def _fa_config_checks(torch, flash_attn, build) -> None:
+def _fa_pair_checks(torch, flash_attn) -> None:
+    """The kernel at its (D, Dv) pairs beyond D = Dv (:data:`FA_PAIRS`)
+    against its plain version: causal and full, float32 (the FMA kernel)
+    and bf16 (``wgmma`` at (192, 128), the FMA kernel at (24, 16)), the
+    default scale and :data:`FA_SCALE`, grouped heads 4 to 1 and a ragged
+    length; bf16 also against float32 attention row by row, with the
+    planted faults, which must fail that check."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for d, dv in FA_PAIRS:
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            for causal in (True, False):
+                for scale in (None, FA_SCALE):
+                    q = torch.randn(1, 8, 300, d, device=dev,
+                                    generator=gen).to(dtype)
+                    k = torch.randn(1, 2, 300, d, device=dev,
+                                    generator=gen).to(dtype)
+                    v = torch.randn(1, 2, 300, dv, device=dev,
+                                    generator=gen).to(dtype)
+                    before = flash_attn.LAUNCHES
+                    got = flash_attn.flash_attention(q, k, v, causal=causal,
+                                                     scale=scale)
+                    if flash_attn.LAUNCHES != before + 1:
+                        raise AssertionError("flash_attention did not launch")
+                    want = flash_attn.flash_attention_plain(
+                        q, k, v, causal=causal, scale=scale)
+                    tol = FA_F32_TOL if name == "float32" else FA_BF16_TOL
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               rtol=tol, atol=tol)
+                    rows = {}
+                    if name == "bfloat16":
+                        rows = check_bf16_rows(flash_attn, q, k, v, causal,
+                                               got, want, scale)
+                        if scale is not None:
+                            rows["planted_faults"] = fa_planted_faults(
+                                flash_attn, q, k, v, causal, got, want,
+                                scale)
+                    emit({"phase": "lm_serve", "name": "flash_attention",
+                          "shape": [1, 8, 2, 300, [d, dv]], "dtype": name,
+                          "causal": causal, "scale": scale,
+                          "max_abs_err": (got.float() - want.float()).abs()
+                          .max().item(), "tol": {"rtol": tol, "atol": tol},
+                          **rows})
+    x = torch.zeros(1, 2, 8, 16, device=dev)
+    try:
+        flash_attn.flash_attention(x, x, torch.zeros(1, 2, 8, 8, device=dev))
+    except ValueError:
+        emit({"phase": "lm_serve", "check": "unsupported (D, Dv) (16, 8) "
+              "raises ValueError"})
+    else:
+        raise AssertionError("flash_attention took an unsupported (D, Dv)")
+
+
+def _fa_config_checks(torch, flash_attn, build) -> dict:
     """The kernel at the full-width attention shapes of the configs with
-    head widths 192 and 80, against its plain version, and timed beside
-    SDPA (device time and eager) and its bound; the resources of the
-    kernels that run those widths (``nvcc -Xptxas -v``)."""
+    head widths 192 and 80 and of DeepSeek-V3's MLA, against its plain
+    version, and timed beside SDPA (device time and eager) and its bound;
+    the resources of the kernels that run those widths (``nvcc -Xptxas
+    -v``).  Returns DeepSeek-V3's record (the kernel's summary entry on
+    the MLA path)."""
     emit({"phase": "lm_serve", "kernel_resources": {
         name: usage for name, usage in fa_resources(build, flash_attn).items()
-        if name.endswith((" d80", " d192"))}})
+        if name.endswith((" d80", " d192", " dv128"))}})
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(16)
+    mla = None
     for config, (b, h, hk, s, d, causal, dtypes) in FA_CONFIG_SHAPES.items():
+        d, dv = d if isinstance(d, tuple) else (d, d)
         for name in dtypes:
             dtype = getattr(torch, name)
             q = torch.randn(b, h, s, d, device=dev, generator=gen).to(dtype)
-            k, v = (torch.randn(b, hk, s, d, device=dev,
-                                generator=gen).to(dtype) for _ in range(2))
+            k = torch.randn(b, hk, s, d, device=dev, generator=gen).to(dtype)
+            v = torch.randn(b, hk, s, dv, device=dev, generator=gen).to(dtype)
             got = flash_attn.flash_attention(q, k, v, causal=causal)
             want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
             tol = FA_F32_TOL if name == "float32" else FA_BF16_TOL
@@ -2334,19 +2422,31 @@ def _fa_config_checks(torch, flash_attn, build) -> None:
                     q_, k_, v_, is_causal=c, enable_gqa=True)
 
             b_ms, b_by = bound(*attention_work(b, h, hk, s, s, d, causal,
-                                               q.element_size()), name)
-            times = in_turns(kernel, library, cold_copies(q, k, v))
-            emit({"phase": "lm_serve", "name": "flash_attention",
-                  "config": config, "shape": [b, h, hk, s, d],
-                  "dtype": name, "causal": causal,
-                  "max_abs_err": (got.float() - want.float()).abs().max()
-                  .item(), "tol": {"rtol": tol, "atol": tol}, **rows,
-                  "library": "F.scaled_dot_product_attention("
-                             "enable_gqa=True)",
-                  "library_max_abs_diff": (got.float() - library(
-                      q, k, v).float()).abs().max().item(),
-                  "ratio_to_library": times["ms"] / times["library_ms"],
-                  "bound_ms": b_ms, "bound_by": b_by, **times})
+                                               q.element_size(), dv=dv),
+                               name)
+            args = cold_copies(q, k, v)
+            times = in_turns(kernel, library, args)
+            rec = {"phase": "lm_serve", "name": "flash_attention",
+                   "config": config, "shape": [b, h, hk, s, [d, dv]],
+                   "dtype": name, "causal": causal,
+                   "max_abs_err": (got.float() - want.float()).abs().max()
+                   .item(), "tol": {"rtol": tol, "atol": tol}, **rows,
+                   "library": "F.scaled_dot_product_attention("
+                              "enable_gqa=True)",
+                   "library_max_abs_diff": (got.float() - library(
+                       q, k, v).float()).abs().max().item(),
+                   "ratio_to_library": times["ms"] / times["library_ms"],
+                   "bound_ms": b_ms, "bound_by": b_by, **times}
+            if dv != d:
+                rec.update(plain_ms=cuda_ms(flash_attn.flash_attention_plain,
+                                            args, iters=3, warmup=1),
+                           unit="one launch: the prefill attention of one "
+                                "MLA layer")
+                mla = rec
+            emit(rec)
+            del q, k, v, got, want, args
+    torch.cuda.empty_cache()
+    return mla
 
 
 def ptxas_usage(log: str, fragment: str) -> dict:
@@ -2387,31 +2487,36 @@ def ptxas_spills(log: str, fragment: str) -> dict:
 
 def fa_resources(build, flash_attn) -> dict:
     """The resources of the attention kernels that run D 64-192 and
-    float32: ``fa_wgmma_kernel`` at 64, 80, 128 and 192 (ptxas's account;
-    its register count is the launch bound's per-thread share, which the
-    kernel's setmaxnreg then moves from the producer to the consumers) and
-    the float32 ``fa_fma_kernel`` at every width, each with the dynamic
-    shared memory of a launch, which ptxas does not see.  Raises if ptxas
-    reports a spill in any instantiation of either kernel (bf16 at D 8
-    included) or a launch would take more shared memory than the 227 KB
-    a block may have."""
+    float32: ``fa_wgmma_kernel`` at its (D, Dv) pairs, (64, 64) to (192,
+    192) and (192, 128) (ptxas's account; its register count is the launch
+    bound's per-thread share, which the kernel's setmaxnreg then moves
+    from the producer to the consumers) and the float32 ``fa_fma_kernel``
+    at every pair, each with the dynamic shared memory of a launch, which
+    ptxas does not see; a pair with D = Dv is named ``d{D}``, another
+    ``d{D} dv{Dv}``.  Raises if ptxas reports a spill in any
+    instantiation of either kernel (bf16 at D 8 and (24, 16) included) or
+    a launch would take more shared memory than the 227 KB a block may
+    have."""
     log = build.compiler_log("flash_attn")
     lib = build.load("flash_attn", flash_attn._SIGNATURES)
     res = {}
     for kernel, tag, smem in (
             ("fa_wgmma_kernel", "", lib.flash_attn_wgmma_smem),
             ("fa_fma_kernel", "f", lib.flash_attn_fma_smem)):
-        for d in flash_attn.HEAD_DIMS:
-            if smem(d):
-                res[f"{kernel} d{d}"] = dict(
-                    ptxas_usage(log, f"{kernel}I{tag}Li{d}E"),
-                    dynamic_smem_bytes=smem(d))
+        for d, dv in flash_attn.PAIRS:
+            if smem(d, dv):
+                name = f"{kernel} d{d}" + ("" if dv == d else f" dv{dv}")
+                res[name] = dict(
+                    ptxas_usage(log, f"{kernel}I{tag}Li{d}ELi{dv}E"),
+                    dynamic_smem_bytes=smem(d, dv))
     spills = {**ptxas_spills(log, "fa_wgmma_kernel"),
               **ptxas_spills(log, "fa_fma_kernel")}
+    bf16_fma = ptxas_spills(log, "fa_fma_kernelI13__nv_bfloat16")
     too_big = {name: u for name, u in res.items()
                if u["dynamic_smem_bytes"] + u.get("static_smem_bytes", 0)
                > SMEM_PER_BLOCK}
-    if len(spills) != len(res) + 1 or any(spills.values()) or too_big:
+    if (len(spills) != len(res) + len(bf16_fma) or len(bf16_fma) != 2
+            or any(spills.values()) or too_big):
         raise AssertionError(f"attention kernels: spill bytes {spills}, "
                              f"over {SMEM_PER_BLOCK} bytes of shared "
                              f"memory {too_big}")
@@ -2420,14 +2525,19 @@ def fa_resources(build, flash_attn) -> dict:
 
 def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
                        ref) -> None:
-    """The qwen3 smoke config on the card against the stored JAX run: the
-    bf16 variant through the serve steps, the float32 one float32 end to
-    end (the prefill step's function on float32 caches, as stored)."""
+    """A smoke config on the card against its stored JAX run (the qwen3
+    one of ``lm_serve``, the moonshot and deepseek-v3 ones of
+    ``lm_serve_moe``): the bf16 variant through the serve steps, the
+    float32 one float32 end to end (the prefill step's function on
+    float32 caches, as stored), each with the config overrides stored
+    beside it (the MoE configs' bf16 routing neutralised)."""
     toks = torch.tensor(ref["prompts"], dtype=torch.int64, device="cuda")
     b, length = toks.shape
+    bf16_atol = LM_BF16_ATOL_BY_ARCH.get(ref["arch"], LM_BF16_ATOL)
     for dtype, want in ref["variants"].items():
         cfg = dataclasses.replace(configs.get_smoke(ref["arch"]),
-                                  param_dtype=dtype, compute_dtype=dtype)
+                                  param_dtype=dtype, compute_dtype=dtype,
+                                  **want.get("overrides", {}))
         params = transformer.init_params(cfg, prng.PRNGKey(0, device="cuda"))
         digests = {}
         for path, t in tree_items(params):
@@ -2470,61 +2580,48 @@ def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
                                            atol=LM_F32_TOL)
                 clear = torch.ones_like(wt, dtype=torch.bool)
             else:
-                torch.testing.assert_close(got, w, rtol=0.0,
-                                           atol=LM_BF16_ATOL)
-                clear = _top2_margin(w) > 2 * LM_BF16_ATOL
+                torch.testing.assert_close(got, w, rtol=0.0, atol=bf16_atol)
+                clear = _top2_margin(w) > 2 * bf16_atol
             mismatched += int((gt[clear] != wt[clear]).sum().item())
         emit({"phase": "lm_serve", "check": f"smoke {ref['arch']} {dtype} "
               f"against JAX", "cache_dtype": want["cache_dtype"],
+              "overrides": want.get("overrides", {}),
               "digests_equal": True, "max_abs_err_per_step": errs,
               "tol": {"rtol": LM_F32_TOL, "atol": LM_F32_TOL}
-              if dtype == "float32" else {"atol": LM_BF16_ATOL},
+              if dtype == "float32" else {"atol": bf16_atol},
               "tokens_mismatched": mismatched})
         if mismatched:
             raise AssertionError(f"lm_serve {dtype}: {mismatched} greedy "
                                  f"tokens differ from JAX")
 
 
-def phase_lm_serve(torch, flash_attn, build, ref_values) -> tuple:
-    """The LM serving path; returns the kernel's summary record and its
-    launch count over the full-width serve run."""
-    from repro_torch import configs
-    from repro_torch.core import prng
-    from repro_torch.examples import serve_lm
-    from repro_torch.launch import steps
-    from repro_torch.models import attention, transformer
-    from repro_torch.models.layers import tree_items
-
-    t_phase = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    summary = _fa_kernel_checks(torch, flash_attn, build)
-    _fa_config_checks(torch, flash_attn, build)
-    _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
-                       ref_values["lm_serve"])
-
-    # Full width: the main path, counted.
-    cfg = configs.get(LM_FULL["arch"])
+def _serve_full(torch, flash_attn, serve_lm, steps, attention, cfg,
+                spec) -> int:
+    """A full-width serve through ``repro_torch.examples.serve_lm`` (the
+    main path, its ``flash_attention`` launches counted from 0), checked:
+    one launch a layer a prefill, finite logits, tokens in range, and the
+    first token's logits against the same prefill with the plain chunked
+    attention on the card.  Returns the launches."""
     flash_attn.LAUNCHES = 0
-    out = serve_lm.serve(cfg, batch=LM_FULL["batch"],
-                         prompt_len=LM_FULL["prompt_len"],
-                         tokens=LM_FULL["tokens"], device="cuda")
+    out = serve_lm.serve(cfg, batch=spec["batch"],
+                         prompt_len=spec["prompt_len"],
+                         tokens=spec["tokens"], device="cuda")
     torch.cuda.synchronize()
     launches = flash_attn.LAUNCHES
     if launches != cfg.n_layers * out["prefill_calls"]:
         raise AssertionError(f"full-width serve: {launches} flash_attention "
                              f"launches over {out['prefill_calls']} prefills")
     generated = out["tokens"]
-    if (generated.shape != (LM_FULL["batch"], LM_FULL["tokens"])
+    if (generated.shape != (spec["batch"], spec["tokens"])
             or not torch.isfinite(out["first_logits"]).all()
             or generated.min() < 0 or generated.max() >= cfg.vocab_size):
         raise AssertionError("full-width serve: bad logits or tokens")
 
     # The same prefill with the plain chunked attention on the card.
-    max_len = LM_FULL["prompt_len"] + LM_FULL["tokens"]
-    prefill, _ = steps.build_prefill_step(cfg, batch=LM_FULL["batch"],
+    max_len = spec["prompt_len"] + spec["tokens"]
+    prefill, _ = steps.build_prefill_step(cfg, batch=spec["batch"],
                                           seq_len=max_len)
-    toks = torch.from_numpy(serve_lm.prompts(cfg, LM_FULL["batch"],
+    toks = torch.from_numpy(serve_lm.prompts(cfg, spec["batch"],
                                              max_len)).cuda()
     kernel_attention = attention.flash_attention
     attention.flash_attention = attention.chunked_attention
@@ -2541,7 +2638,9 @@ def phase_lm_serve(torch, flash_attn, build, ref_values) -> tuple:
     first_equal = bool(torch.equal(generated[:, 0][clear],
                                    plain_first.argmax(-1)[clear]))
     rec = {"phase": "lm_serve", "run": "full-width serve",
-           "model": cfg.name, **LM_FULL,
+           "model": cfg.name, **spec,
+           "n_dense_layers": cfg.n_dense_layers if cfg.is_moe else None,
+           "params_b": cfg.param_count() / 1e9,
            "init_s": out["init_s"], "prefill_ms": out["prefill_s"] * 1e3,
            "decode_s": out["decode_s"],
            "decode_tok_s": out["decode_tok_s"],
@@ -2559,8 +2658,45 @@ def phase_lm_serve(torch, flash_attn, build, ref_values) -> tuple:
         raise AssertionError(f"full-width prefill: kernel against plain "
                              f"attention gap {gap}, first tokens equal "
                              f"where clear: {first_equal}")
+    return launches
+
+
+def phase_lm_serve(torch, flash_attn, build, ref_values) -> dict:
+    """The LM serving paths; returns ``{entry: (summary record,
+    launches)}`` for the kernel's two summary entries: the GQA path
+    (full-width Qwen3-4B) and the MLA path (DeepSeek-V3 at its published
+    widths, 4 layers)."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.layers import tree_items
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    summary = _fa_kernel_checks(torch, flash_attn, build)
+    _fa_pair_checks(torch, flash_attn)
+    mla_summary = _fa_config_checks(torch, flash_attn, build)
+    for ref in (ref_values["lm_serve"],
+                *ref_values["lm_serve_moe"].values()):
+        _smoke_against_jax(torch, configs, prng, steps, transformer,
+                           tree_items, ref)
+
+    # Full width: each path driven with the counts set to 0 just before
+    # it and read just after.
+    launches = _serve_full(torch, flash_attn, serve_lm, steps, attention,
+                           configs.get(LM_FULL["arch"]), LM_FULL)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(configs.get(LM_MLA["arch"]),
+                              n_layers=LM_MLA["n_layers"])
+    mla_launches = _serve_full(torch, flash_attn, serve_lm, steps,
+                               attention, cfg, LM_MLA)
+    torch.cuda.empty_cache()
     emit({"phase": "lm_serve", "wall_s": time.perf_counter() - t_phase})
-    return summary, launches
+    return {"flash_attention": (summary, launches),
+            "flash_attention_mla": (mla_summary, mla_launches)}
 
 
 def kernel_entry(name: str, rec: dict, launches: int) -> dict:
@@ -2641,8 +2777,9 @@ def main() -> int:
     more, more_launches = phase_dct_conv2d(torch, ops, dct, conv2d)
     summary.update(more)
     launches.update(more_launches)
-    summary["flash_attention"], launches["flash_attention"] = (
-        phase_lm_serve(torch, flash_attn, _build, ref_values))
+    for name, (rec, count) in phase_lm_serve(torch, flash_attn, _build,
+                                             ref_values).items():
+        summary[name], launches[name] = rec, count
 
     emit({"kernels": [kernel_entry(name, summary[name], launches[name])
                       for name in KERNELS]})

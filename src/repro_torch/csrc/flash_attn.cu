@@ -1,13 +1,17 @@
-// Flash attention forward: out (B, H, S, D) = softmax(q k^T * scale) v,
+// Flash attention forward: out (B, H, S, Dv) = softmax(q k^T * scale) v,
 // causal or bidirectional, with grouped-query heads and strided heads.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attn.py::
 // flash_attention (_fa_kernel), and on the card computes the LM stack's
 // prefill attention (src/repro/models/attention.py::flash_attention, a
-// chunked jnp twin of the same function).  q is (B, H, S, D); k and v are
-// (B, Hk, T, D) with H a multiple of Hk: query head h reads KV head
-// h / (H / Hk), so grouped-query attention needs no repeated copy of K
-// and V.  Every operand and the output come with their own batch, head
+// chunked jnp twin of the same function, which MLA calls with a value
+// width and a scale of its own).  q is (B, H, S, D); k is (B, Hk, T, D)
+// and v (B, Hk, T, Dv) with H a multiple of Hk: query head h reads KV
+// head h / (H / Hk), so grouped-query attention needs no repeated copy of
+// K and V.  (D, Dv) is one of the pairs D = Dv in {8, 16, 32, 64, 80, 128,
+// 192}, (192, 128) (DeepSeek-V3's MLA: 128 + 64 rope features against
+// values of 128) and (24, 16) (its smoke config); the scale is the
+// caller's.  Every operand and the output come with their own batch, head
 // and sequence strides (the feature axis is contiguous), so the model's
 // (B, S, H, D) projections are read and written in place.  The semantics
 // are the reference's: scores q.k * scale summed in float32; causal
@@ -25,13 +29,17 @@
 // once, out written once), 0.050 ms at 3.35 TB/s: the kernel is bound by
 // tensor-core operations.  In float32 (no TF32) the same products run on
 // the 67 TFLOP/s FMA pipes, fifteen times slower: bound by operations too.
+// DeepSeek-V3's prefill (B = 4, H = Hk = 128, S = 2048, (192, 128), bf16,
+// causal) takes 2 (D + Dv) B H S (S + 1) / 2 = 6.87e11 FLOP over the
+// causal half, 0.69 ms at the tensor rate, against 1.34 GB, 0.40 ms.
 //
 // Design.  The TPU kernel walked 512 x 512 VMEM tiles in a sequential
 // grid and carried (acc, m, l) in scratch across grid steps.  On Hopper
 // the kv loop lives inside the block instead and the state stays in
 // registers.  Three kernels:
 //  * bf16, D in {64, 80, 128, 192} (the serving path's 128, hubert-xlarge's
-//    80, nemotron-4-340b's 192): fa_wgmma_kernel, warp-specialised.  A
+//    80, nemotron-4-340b's 192) and (D 192, Dv 128) (DeepSeek-V3's MLA):
+//    fa_wgmma_kernel, warp-specialised.  A
 //    block of three warpgroups takes 128 query rows of one (b, h).  The
 //    producer warpgroup gives up its registers (setmaxnreg) and one of its
 //    threads keeps a ring of K and V tiles full with TMA: 4-D tensor maps
@@ -45,7 +53,11 @@
 //    (the map's extent is D, so never the next head's data), and every
 //    expect_tx counts the whole boxes.  The ring is two stages of 128 rows
 //    up to D = 128 (160 KB); at D = 192 that would take 240 KB of the 227
-//    a block may have, so two stages of 64 rows (145 KB).  The two
+//    a block may have, so two stages of 64 rows (145 KB).  V has a ring of
+//    its own width: at (192, 128) its tiles are 128 features wide (two
+//    chunks, two boxes, its own expect_tx), so two stages of 128-row K and
+//    V tiles fit (209 KB) and the registers are D 128's (S 64 x 128, O 64 x
+//    128 a warpgroup); only QK^T takes 12 steps instead of 8.  The two
 //    consumer warpgroups own 64 query rows each.  S = Q K^T is wgmma
 //    m64nBNk16 (BN the tile's rows) with Q and K K-major in shared memory,
 //    D / 16 steps; O += P V is wgmma m64nDk16 with P taken from the S
@@ -63,8 +75,8 @@
 //  * bf16, D in {16, 32} (the smoke configs): fa_mma_kernel, 4 warps per
 //    64-query tile on mma.sync m16n8k16, K and V tiles of 64 rows in
 //    padded shared memory.
-//  * float32 (true float32, no TF32) at every width and bf16 at D = 8:
-//    fa_fma_kernel, register-tiled FMAs.  A block of 128 threads takes 64
+//  * float32 (true float32, no TF32) at every pair and bf16 at D = 8 and
+//    (24, 16): fa_fma_kernel, register-tiled FMAs.  A block of 128 threads takes 64
 //    query rows against 64-key tiles; a thread holds an 8 x 4 tile of S
 //    (8 rows, keys tx, tx + 16, ...) and an 8 x D/16 tile of O (the same
 //    rows, features tx, tx + 16, ...), so a 16-byte shared-memory load
@@ -129,18 +141,27 @@ constexpr int WG_STAGES = 2;      // K/V ring depth
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 
-// The wgmma kernel's tiling at head width D: shared memory holds DP = D
-// rounded up to whole 64-column (128-byte) swizzle chunks; K/V tiles of BN
-// rows.  Q, the ring and 1 KB to align take 160 KB at D 80 and 128, 145 KB
-// at D 192 (64-row tiles: 128 would need 240 KB).
-template <int D>
+// The wgmma kernel's tiling at query/key width D and value width DV:
+// shared memory holds DP = D and DVP = DV rounded up to whole 64-column
+// (128-byte) swizzle chunks; K/V tiles of BN rows, 128 where two stages of
+// them fit the 227 KB a block may have, else 64.  Q, the ring and 1 KB to
+// align take 160 KB at D 80 and 128, 145 KB at D 192 (64-row tiles: 128
+// would need 240 KB) and 209 KB at (D 192, DV 128).
+constexpr int WG_SMEM_MAX = 232448;
+template <int D, int DV>
 struct WgShape {
   static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int DVP = (DV + 63) / 64 * 64;
   static constexpr int CHUNKS = DP / 64;
-  static constexpr int BN = D > 128 ? 64 : 128;
+  static constexpr int V_CHUNKS = DVP / 64;
   static constexpr uint32_t Q_BYTES = WG_BM * DP * 2;   // whole TMA boxes
-  static constexpr uint32_t KV_BYTES = BN * DP * 2;     // one K or V tile
-  static constexpr int SMEM = Q_BYTES + 2 * WG_STAGES * KV_BYTES + 1024;
+  static constexpr int BN =
+      Q_BYTES + WG_STAGES * 128 * (DP + DVP) * 2 + 1024 <= WG_SMEM_MAX ? 128
+                                                                        : 64;
+  static constexpr uint32_t K_BYTES = BN * DP * 2;      // one K tile
+  static constexpr uint32_t V_BYTES = BN * DVP * 2;     // one V tile
+  static constexpr int SMEM = Q_BYTES + WG_STAGES * (K_BYTES + V_BYTES)
+                              + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -436,10 +457,10 @@ __device__ __forceinline__ void issue_qk(float (&sacc)[BN / 2],
 // O += bf16(P) V: step kk's A fragment is the S accumulators of keys
 // [16 kk, 16 kk + 16); V is read N-major through the transpose flag, the
 // 16 rows of a step 2048 bytes on, its 64-column chunks BN * 128 bytes
-// apart.  The product is D columns wide, so the zero columns past D are
+// apart.  The product is DV columns wide, so the zero columns past DV are
 // never read.
-template <int D, int BN>
-__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+template <int DV, int BN>
+__device__ __forceinline__ void issue_pv(float (&oacc)[DV / 2],
                                          const uint32_t (&pf)[BN / 16][4],
                                          uint32_t v_s) {
 #pragma unroll
@@ -504,14 +525,14 @@ __device__ __forceinline__ void pack_p(const float (&sacc)[BN / 2],
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, Strides st, int H, int Hk,
                 int S, int T, float scale_log2, int causal) {
-  using W = WgShape<D>;
+  using W = WgShape<D, DV>;
   constexpr int BN = W::BN;
   extern __shared__ uint8_t fa_smem[];
   // mbarriers: Q landed; per stage K landed, V landed, K consumed, V
@@ -520,7 +541,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // Swizzle atoms are 1024 bytes and must start on a 1024-byte boundary.
   const uint32_t q_s = (smem_u32(fa_smem) + 1023) & ~1023u;
   const uint32_t k_ring = q_s + W::Q_BYTES;
-  const uint32_t v_ring = k_ring + WG_STAGES * W::KV_BYTES;
+  const uint32_t v_ring = k_ring + WG_STAGES * W::K_BYTES;
   const uint32_t q_full = smem_u32(&bars[0]);
   const uint32_t k_full = smem_u32(&bars[1]);                  // + 8 s
   const uint32_t v_full = smem_u32(&bars[1 + WG_STAGES]);
@@ -559,14 +580,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int s = j % WG_STAGES;
         const uint32_t free_parity = ((j / WG_STAGES) & 1) ^ 1;
         mbar_wait(k_empty + 8 * s, free_parity);
-        mbar_expect_tx(k_full + 8 * s, W::KV_BYTES);
+        mbar_expect_tx(k_full + 8 * s, W::K_BYTES);
         for (int c = 0; c < W::CHUNKS; ++c)
-          tma_load(k_ring + s * W::KV_BYTES + c * (BN * 128), tk,
+          tma_load(k_ring + s * W::K_BYTES + c * (BN * 128), tk,
                    k_full + 8 * s, c * 64, hk, j * BN, b);
         mbar_wait(v_empty + 8 * s, free_parity);
-        mbar_expect_tx(v_full + 8 * s, W::KV_BYTES);
-        for (int c = 0; c < W::CHUNKS; ++c)
-          tma_load(v_ring + s * W::KV_BYTES + c * (BN * 128), tv,
+        mbar_expect_tx(v_full + 8 * s, W::V_BYTES);
+        for (int c = 0; c < W::V_CHUNKS; ++c)
+          tma_load(v_ring + s * W::V_BYTES + c * (BN * 128), tv,
                    v_full + 8 * s, c * 64, hk, j * BN, b);
       }
     }
@@ -582,10 +603,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg_row0 = q0 + wg * 64;
   const int r0 = wg_row0 + warp * 16 + g, r1 = r0 + 8;
 
-  float oacc[D / 2], sacc[BN / 2];
+  float oacc[DV / 2], sacc[BN / 2];
   uint32_t pf[BN / 16][4];         // bf16(p) of the last tile, A fragments
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0, al1;
   mbar_wait(q_full, 0);
 
@@ -609,11 +630,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int sp = (j - 1) % WG_STAGES;             // tile j - 1's stage
     mbar_wait(k_full + 8 * s, (j / WG_STAGES) & 1);
     wgmma_fence();
-    issue_qk<D, BN>(sacc, q_s, k_ring + s * W::KV_BYTES, wg);
+    issue_qk<D, BN>(sacc, q_s, k_ring + s * W::K_BYTES, wg);
     wgmma_commit();
     // O += bf16(P_{j-1}) V_{j-1}, in flight during this tile's softmax.
     mbar_wait(v_full + 8 * sp, ((j - 1) / WG_STAGES) & 1);
-    issue_pv<D, BN>(oacc, pf, v_ring + sp * W::KV_BYTES);
+    issue_pv<DV, BN>(oacc, pf, v_ring + sp * W::V_BYTES);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sacc);
@@ -625,14 +646,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(pf);
     if (lane == 0) mbar_arrive(v_empty + 8 * sp);     // V_{j-1} is read
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] *= (i % 4) < 2 ? al0 : al1;
+    for (int i = 0; i < DV / 2; ++i) oacc[i] *= (i % 4) < 2 ? al0 : al1;
     pack_p<BN>(sacc, pf);
   }
   if (n_kv > 0) {                 // the last tile's PV
     const int sp = (n_kv - 1) % WG_STAGES;
     mbar_wait(v_full + 8 * sp, ((n_kv - 1) / WG_STAGES) & 1);
     wgmma_fence();
-    issue_pv<D, BN>(oacc, pf, v_ring + sp * W::KV_BYTES);
+    issue_pv<DV, BN>(oacc, pf, v_ring + sp * W::V_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(oacc);
@@ -642,7 +663,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   __nv_bfloat16* oh = o + b * st.ob + h * st.oh;
 #pragma unroll
-  for (int u = 0; u < D / 8; ++u) {
+  for (int u = 0; u < DV / 8; ++u) {
     const int c = u * 8 + t4 * 2;
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(oh + r0 * st.os + c) =
@@ -848,15 +869,25 @@ constexpr int F_KN = F_BK / 16;   // keys per thread in S
 constexpr int F_LDP = F_BQ + 4;   // a key's row of p (floats), padded
 static_assert(F_BQ == F_BK, "Q and K/V tiles share copy_tile");
 
-// The FMA kernel's shared memory at head width D: Q, K and V tiles in
-// their own dtype, rows padded by 16 bytes (so that the 16-byte loads of
-// 8 consecutive rows hit distinct banks), and p as float32, key-major.
-template <typename T, int D>
+// A shared tile's rows of W elements of T: padded by 16 bytes (so that
+// the 16-byte loads of 8 consecutive rows hit distinct banks), copied in
+// 16-byte packs.
+template <typename T, int W>
+struct FmaRow {
+  static constexpr int LD = W + 16 / (int)sizeof(T);    // elements a row
+  static constexpr int PACKS = W * (int)sizeof(T) / 16;  // 16-byte copies
+  static_assert(W * sizeof(T) % 16 == 0, "rows are whole 16-byte packs");
+};
+
+// The FMA kernel's shared memory at query/key width D and value width DV:
+// Q, K (rows of D) and V (rows of DV) tiles in their own dtype, and p as
+// float32, key-major.
+template <typename T, int D, int DV>
 struct FmaShape {
-  static constexpr int LD = D + 16 / (int)sizeof(T);    // elements a row
-  static constexpr int PACKS = D * (int)sizeof(T) / 16;  // 16-byte copies
-  static constexpr int NC = (D + 15) / 16;     // output features a thread
-  static constexpr int SMEM = 3 * F_BK * LD * (int)sizeof(T)
+  static constexpr int LD = FmaRow<T, D>::LD;
+  static constexpr int LDV = FmaRow<T, DV>::LD;
+  static constexpr int NC = (DV + 15) / 16;    // output features a thread
+  static constexpr int SMEM = (2 * F_BK * LD + F_BK * LDV) * (int)sizeof(T)
                               + F_BK * F_LDP * 4;
 };
 
@@ -876,13 +907,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Rows row0 .. row0 + 63 of a (rows, D) operand with row stride `stride`
+// Rows row0 .. row0 + 63 of a (rows, W) operand with row stride `stride`
 // into a padded tile; rows past the end are zeros.
-template <typename T, int D>
+template <typename T, int W>
 __device__ __forceinline__ void copy_tile(T* dst, const T* src,
                                           long long stride, int row0,
                                           int rows) {
-  using F = FmaShape<T, D>;
+  using F = FmaRow<T, W>;
   constexpr int PACK = 16 / (int)sizeof(T);
   for (int e = threadIdx.x; e < F_BK * F::PACKS; e += F_THREADS) {
     const int r = e / F::PACKS, c = (e % F::PACKS) * PACK;
@@ -935,18 +966,18 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(F_THREADS, 2)
 fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, Strides st,
               int H, int Hk, int S, int Tk, float scale, int causal) {
-  using F = FmaShape<T, D>;
-  constexpr int LD = F::LD, NC = F::NC;
+  using F = FmaShape<T, D, DV>;
+  constexpr int LD = F::LD, LDV = F::LDV, NC = F::NC;
   extern __shared__ uint8_t fa_smem[];      // F::SMEM, 16-byte aligned
   T* qs = reinterpret_cast<T*>(fa_smem);
   T* ks = qs + F_BQ * LD;
   T* vs = ks + F_BK * LD;
-  float* pt = reinterpret_cast<float*>(vs + F_BK * LD);   // [key][row]
+  float* pt = reinterpret_cast<float*>(vs + F_BK * LDV);  // [key][row]
 
   const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -970,7 +1001,7 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   copy_tile<T, D>(qs, qh, st.qs, q0, S);
   if (n_kv > 0) copy_tile<T, D>(ks, kh, st.ks, 0, Tk);
   cp_async_commit();
-  if (n_kv > 0) copy_tile<T, D>(vs, vh, st.vs, 0, Tk);
+  if (n_kv > 0) copy_tile<T, DV>(vs, vh, st.vs, 0, Tk);
   cp_async_commit();
 
   float acc[F_RM][NC], m[F_RM], l[F_RM];
@@ -1067,8 +1098,8 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
         const int f = tx + 16 * n;
-        if (D % 16 == 0 || f < D) {
-          const float vf = to_f32(vs[c * LD + f]);
+        if (DV % 16 == 0 || f < DV) {
+          const float vf = to_f32(vs[c * LDV + f]);
 #pragma unroll
           for (int i = 0; i < F_RM; ++i)
             acc[i][n] = fmaf(pr[i], vf, acc[i][n]);
@@ -1076,7 +1107,7 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();              // V_j and p are read: copy V_{j+1}
-    if (j + 1 < n_kv) copy_tile<T, D>(vs, vh, st.vs, k0 + F_BK, Tk);
+    if (j + 1 < n_kv) copy_tile<T, DV>(vs, vh, st.vs, k0 + F_BK, Tk);
     cp_async_commit();
   }
   cp_async_wait<0>();
@@ -1089,7 +1120,7 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
         const int f = tx + 16 * n;
-        if (D % 16 == 0 || f < D)
+        if (DV % 16 == 0 || f < DV)
           store(oh + (row0 + i) * st.os + f, acc[i][n] / den);
       }
     }
@@ -1114,16 +1145,17 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
   return err;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 int launch_fma(const T* q, const T* k, const T* v, T* o, const Strides& st,
                int B, int H, int Hk, int S, int Tk, float scale, int causal,
                cudaStream_t stream) {
   static unsigned long long configured = 0;
-  constexpr int smem = FmaShape<T, D>::SMEM;
-  const cudaError_t err = allow_smem(fa_fma_kernel<T, D>, smem, &configured);
+  constexpr int smem = FmaShape<T, D, DV>::SMEM;
+  const cudaError_t err = allow_smem(fa_fma_kernel<T, D, DV>, smem,
+                                     &configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
-  fa_fma_kernel<T, D><<<grid, F_THREADS, smem, stream>>>(
+  fa_fma_kernel<T, D, DV><<<grid, F_THREADS, smem, stream>>>(
       q, k, v, o, st, H, Hk, S, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
@@ -1161,7 +1193,8 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 // A 4-D TMA map over a bf16 tensor (D, heads, rows, batch) with element
 // strides (sh, ss, sb), boxes of 64 features x box_rows rows, 128-byte
 // swizzle; reads past the last row, or past feature D (the second box of
-// a row at D = 80), are zeros.  An axis of extent 1 gets a nominal stride
+// a row at D = 80), are zeros.  D here is the operand's own width: V's
+// is the value width.  An axis of extent 1 gets a nominal stride
 // (it is never stepped).
 bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
               int batch, long long sh, long long ss, long long sb,
@@ -1182,31 +1215,32 @@ bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
                  int B, int H, int Hk, int S, int Tk, float scale, int causal,
                  cudaStream_t stream) {
-  constexpr int smem = WgShape<D>::SMEM;
+  using W = WgShape<D, DV>;
+  constexpr int smem = W::SMEM;
   if ((S + WG_BM - 1) / WG_BM > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, H, S, B, st.qh, st.qs, st.qb, WG_BM))
     return (int)cudaErrorInvalidValue;
   if (Tk == 0) {                  // no key tile is ever loaded
     tk = tv = tq;
-  } else if (!make_map(&tk, k, D, Hk, Tk, B, st.kh, st.ks, st.kb,
-                       WgShape<D>::BN)
-             || !make_map(&tv, v, D, Hk, Tk, B, st.vh, st.vs, st.vb,
-                          WgShape<D>::BN)) {
+  } else if (!make_map(&tk, k, D, Hk, Tk, B, st.kh, st.ks, st.kb, W::BN)
+             || !make_map(&tv, v, DV, Hk, Tk, B, st.vh, st.vs, st.vb,
+                          W::BN)) {
     return (int)cudaErrorInvalidValue;
   }
   static unsigned long long configured = 0;
-  const cudaError_t err = allow_smem(fa_wgmma_kernel<D>, smem, &configured);
+  const cudaError_t err = allow_smem(fa_wgmma_kernel<D, DV>, smem,
+                                     &configured);
   if (err != cudaSuccess) return (int)err;
   // (b, h) on x, query tiles on y: every head's heaviest tile is issued
   // before any lighter one, and heads that share a KV head run together.
   const dim3 grid((unsigned)B * H, (S + WG_BM - 1) / WG_BM);
-  fa_wgmma_kernel<D><<<grid, WG_THREADS, smem, stream>>>(
+  fa_wgmma_kernel<D, DV><<<grid, WG_THREADS, smem, stream>>>(
       tq, tk, tv, o, st, H, Hk, S, Tk, scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
@@ -1223,68 +1257,87 @@ Strides strides_from(const long long* s) {
 }  // namespace
 
 // strides: 12 element strides (batch, head, sequence) of q, k, v, out.
+// (D, Dv): the query/key and value widths, one of the pairs below (0 ->
+// cudaErrorInvalidValue).
 extern "C" int flash_attn_f32(const float* q, const float* k, const float* v,
                               float* o, const long long* strides, int B,
-                              int H, int Hk, int S, int Tk, int D,
+                              int H, int Hk, int S, int Tk, int D, int Dv,
                               float scale, int causal, cudaStream_t stream) {
   if (bad_shape(B, H, Hk, S, Tk)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const Strides st = strides_from(strides);
-  switch (D) {
-    case 8: return launch_fma<float, 8>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 16: return launch_fma<float, 16>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 32: return launch_fma<float, 32>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 64: return launch_fma<float, 64>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 80: return launch_fma<float, 80>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 128: return launch_fma<float, 128>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 192: return launch_fma<float, 192>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
+#define FA_ARGS q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream
+  if (D == Dv) {
+    switch (D) {
+      case 8: return launch_fma<float, 8>(FA_ARGS);
+      case 16: return launch_fma<float, 16>(FA_ARGS);
+      case 32: return launch_fma<float, 32>(FA_ARGS);
+      case 64: return launch_fma<float, 64>(FA_ARGS);
+      case 80: return launch_fma<float, 80>(FA_ARGS);
+      case 128: return launch_fma<float, 128>(FA_ARGS);
+      case 192: return launch_fma<float, 192>(FA_ARGS);
+    }
   }
+  if (D == 192 && Dv == 128) return launch_fma<float, 192, 128>(FA_ARGS);
+  if (D == 24 && Dv == 16) return launch_fma<float, 24, 16>(FA_ARGS);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, __nv_bfloat16* o,
                                const long long* strides, int B, int H,
-                               int Hk, int S, int Tk, int D, float scale,
-                               int causal, cudaStream_t stream) {
+                               int Hk, int S, int Tk, int D, int Dv,
+                               float scale, int causal, cudaStream_t stream) {
   if (bad_shape(B, H, Hk, S, Tk)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const Strides st = strides_from(strides);
-  switch (D) {
-    case 8: return launch_fma<__nv_bfloat16, 8>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 16: return launch_mma<16>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 32: return launch_mma<32>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 64: return launch_wgmma<64>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 80: return launch_wgmma<80>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 128: return launch_wgmma<128>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    case 192: return launch_wgmma<192>(q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
+  if (D == Dv) {
+    switch (D) {
+      case 8: return launch_fma<__nv_bfloat16, 8>(FA_ARGS);
+      case 16: return launch_mma<16>(FA_ARGS);
+      case 32: return launch_mma<32>(FA_ARGS);
+      case 64: return launch_wgmma<64>(FA_ARGS);
+      case 80: return launch_wgmma<80>(FA_ARGS);
+      case 128: return launch_wgmma<128>(FA_ARGS);
+      case 192: return launch_wgmma<192>(FA_ARGS);
+    }
   }
+  if (D == 192 && Dv == 128) return launch_wgmma<192, 128>(FA_ARGS);
+  // The deepseek-v3 smoke config's (16 + 8, 16): too narrow a key for
+  // wgmma's 16-feature steps to pay, so the FMA kernel, as at D 8.
+  if (D == 24 && Dv == 16) return launch_fma<__nv_bfloat16, 24, 16>(FA_ARGS);
+#undef FA_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of the wgmma kernel at head width D (0 if D has
+// Dynamic shared memory of the wgmma kernel at (D, Dv) (0 if the pair has
 // none).
-extern "C" int flash_attn_wgmma_smem(int D) {
+extern "C" int flash_attn_wgmma_smem(int D, int Dv) {
+  if (D == 192 && Dv == 128) return WgShape<192, 128>::SMEM;
+  if (D != Dv) return 0;
   switch (D) {
-    case 64: return WgShape<64>::SMEM;
-    case 80: return WgShape<80>::SMEM;
-    case 128: return WgShape<128>::SMEM;
-    case 192: return WgShape<192>::SMEM;
+    case 64: return WgShape<64, 64>::SMEM;
+    case 80: return WgShape<80, 80>::SMEM;
+    case 128: return WgShape<128, 128>::SMEM;
+    case 192: return WgShape<192, 192>::SMEM;
     default: return 0;
   }
 }
 
-// Dynamic shared memory of the float32 FMA kernel at head width D (0 if
-// D has none).
-extern "C" int flash_attn_fma_smem(int D) {
+// Dynamic shared memory of the float32 FMA kernel at (D, Dv) (0 if the
+// pair has none).
+extern "C" int flash_attn_fma_smem(int D, int Dv) {
+  if (D == 192 && Dv == 128) return FmaShape<float, 192, 128>::SMEM;
+  if (D == 24 && Dv == 16) return FmaShape<float, 24, 16>::SMEM;
+  if (D != Dv) return 0;
   switch (D) {
-    case 8: return FmaShape<float, 8>::SMEM;
-    case 16: return FmaShape<float, 16>::SMEM;
-    case 32: return FmaShape<float, 32>::SMEM;
-    case 64: return FmaShape<float, 64>::SMEM;
-    case 80: return FmaShape<float, 80>::SMEM;
-    case 128: return FmaShape<float, 128>::SMEM;
-    case 192: return FmaShape<float, 192>::SMEM;
+    case 8: return FmaShape<float, 8, 8>::SMEM;
+    case 16: return FmaShape<float, 16, 16>::SMEM;
+    case 32: return FmaShape<float, 32, 32>::SMEM;
+    case 64: return FmaShape<float, 64, 64>::SMEM;
+    case 80: return FmaShape<float, 80, 80>::SMEM;
+    case 128: return FmaShape<float, 128, 128>::SMEM;
+    case 192: return FmaShape<float, 192, 192>::SMEM;
     default: return 0;
   }
 }

@@ -38,7 +38,11 @@ line per measurement:
 * ``flash_attention`` at the full-width attention of nemotron-4-340b
   (bf16, (1, 96 heads reading 8, 1024, 192), causal) and hubert-xlarge
   ((2, 16, 1024, 80), bidirectional, bf16 and float32), against
-  ``F.scaled_dot_product_attention(enable_gqa=True)``.
+  ``F.scaled_dot_product_attention(enable_gqa=True)``;
+* the ``mla`` part: ``flash_attention`` at DeepSeek-V3's prefill
+  attention ((D, Dv) = (192, 128), (4, 128, 2048), causal, bf16) and at
+  its smoke config's ((24, 16), (2, 4, 64), bf16 and float32), against
+  the same SDPA call (the scale D ** -0.5 on both sides, MLA's).
 
 ``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
 through copies that together exceed twice the 50 MB L2, timed as one
@@ -70,6 +74,14 @@ POWF_SIZES = (8192, 1 << 24)
 ATTN_SHAPES = (("nemotron-4-340b", (1, 96, 8, 1024, 192), True, "bfloat16"),
                ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "bfloat16"),
                ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "float32"))
+# (B, H, Hk, S, D, Dv): a value width of its own (multi-head latent
+# attention).
+MLA_SHAPES = (("deepseek-v3-671b", (4, 128, 128, 2048, 192, 128), True,
+               "bfloat16"),
+              ("deepseek-v3-671b smoke", (2, 4, 4, 64, 24, 16), True,
+               "bfloat16"),
+              ("deepseek-v3-671b smoke", (2, 4, 4, 64, 24, 16), True,
+               "float32"))
 
 
 def own_timing():
@@ -251,13 +263,15 @@ def time_powf(torch, timing, kernels, emit, gen) -> None:
         emit(rec)
 
 
-def time_attention(torch, timing, kernels, emit, gen) -> None:
+def time_attention(torch, timing, kernels, emit, gen,
+                   shapes=ATTN_SHAPES) -> None:
     fa = kernels.flash_attn
-    for config, (b, h, hk, s, d), causal, name in ATTN_SHAPES:
+    for config, (b, h, hk, s, d, *dv), causal, name in shapes:
+        dv = dv[0] if dv else d
         dtype = getattr(torch, name)
         q = torch.randn(b, h, s, d, device=gen.device, generator=gen)
-        k, v = (torch.randn(b, hk, s, d, device=gen.device, generator=gen)
-                for _ in range(2))
+        k = torch.randn(b, hk, s, d, device=gen.device, generator=gen)
+        v = torch.randn(b, hk, s, dv, device=gen.device, generator=gen)
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
 
         def kernel(q_, k_, v_, c=causal):
@@ -268,10 +282,13 @@ def time_attention(torch, timing, kernels, emit, gen) -> None:
                 q_, k_, v_, is_causal=c, enable_gqa=True)
 
         want = fa.flash_attention_plain(q, k, v, causal=causal)
-        bnd, by = timing.bound(*timing.attention_work(
-            b, h, hk, s, s, d, causal, q.element_size()), name)
+        work = timing.attention_work(b, h, hk, s, s, d, causal,
+                                     q.element_size(),
+                                     **({"dv": dv} if dv != d else {}))
+        bnd, by = timing.bound(*work, name)
         emit({"name": "flash_attention", "config": config,
-              "shape": [b, h, hk, s, d], "dtype": name, "causal": causal,
+              "shape": [b, h, hk, s, d] + ([dv] if dv != d else []),
+              "dtype": name, "causal": causal,
               "max_abs_err_vs_plain": (kernel(q, k, v).float()
                                        - want.float()).abs().max().item(),
               **timing.in_turns(kernel, library,
@@ -280,9 +297,13 @@ def time_attention(torch, timing, kernels, emit, gen) -> None:
               "bound_ms": bnd, "bound_by": by})
 
 
+def time_mla(torch, timing, kernels, emit, gen) -> None:
+    time_attention(torch, timing, kernels, emit, gen, shapes=MLA_SHAPES)
+
+
 PARTS = {"matmul": time_matmul, "axpy": time_axpy, "slot": time_slot,
          "dct": time_dct, "dotp": time_dotp, "fft": time_fft_long,
-         "powf": time_powf, "attention": time_attention}
+         "powf": time_powf, "attention": time_attention, "mla": time_mla}
 
 
 def main(argv=None) -> int:

@@ -19,10 +19,16 @@ The ``launch_counts`` lines set, for one traced call each of the 5G
 slot pipeline, the ``ops.dotp`` chain at three radices and ``ops.axpy``,
 the wrappers' counters beside the profiler's count of each kernel, from
 its aggregated table and from its raw event list.
+
+``--only serve_mla`` profiles DeepSeek-V3 instead of Qwen3-4B, at its
+published widths with its depth cut to 4 layers (3 dense, 1 MoE layer
+of 256 experts: the 15.8 B parameters ``chip_smoke.py`` serves), the
+same prefill and decode steps.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -108,7 +114,7 @@ def profile_run(fn) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall,
             "kernel_launches": sum(e.count for e in kernels),
@@ -116,10 +122,21 @@ def profile_run(fn) -> dict:
                              e.self_device_time_total / 1e3] for e in top]}
 
 
-def profile_serve(device="cuda", n_steps: int = 8) -> None:
-    """Full-width Qwen3-4B (weights from the port's init): one prefill of
-    4 x 2048 tokens, then ``n_steps`` decode steps of batch 4."""
-    cfg = configs.get("qwen3_4b")
+# The model each serve profile runs: full-width Qwen3-4B, and DeepSeek-V3
+# at its published widths, 4 layers deep.
+SERVE_MODELS = {
+    "serve": ("qwen3-4b", lambda: configs.get("qwen3_4b")),
+    "serve_mla": ("deepseek-v3 4 layers", lambda: dataclasses.replace(
+        configs.get("deepseek_v3_671b"), n_layers=4)),
+}
+
+
+def profile_serve(device="cuda", n_steps: int = 8, which="serve") -> None:
+    """One of :data:`SERVE_MODELS` (weights from the port's init): one
+    prefill of 4 x 2048 tokens, then ``n_steps`` decode steps of batch
+    4."""
+    name, make_cfg = SERVE_MODELS[which]
+    cfg = make_cfg()
     params = init_params(cfg, prng.PRNGKey(0, device=device))
     batch, length = 4, 2048
     prefill, _ = steps.build_prefill_step(cfg, batch=batch, seq_len=length,
@@ -128,7 +145,7 @@ def profile_serve(device="cuda", n_steps: int = 8) -> None:
                                         device=device)
     toks = torch.from_numpy(serve_lm.prompts(cfg, batch, length)).to(device)
     rec = profile_run(lambda: prefill(params, {"tokens": toks}))
-    print(json.dumps({"run": "prefill qwen3-4b 4x2048", **rec}))
+    print(json.dumps({"run": f"prefill {name} 4x2048", **rec}))
     logits, caches = prefill(params, {"tokens": toks})
     tok = logits[:, -1].argmax(-1)[:, None]
     pos = torch.full((batch,), length - 32, dtype=torch.int32, device=device)
@@ -138,10 +155,10 @@ def profile_serve(device="cuda", n_steps: int = 8) -> None:
             decode(params, caches, tok, pos + i)
 
     rec = profile_run(decode_steps)
-    print(json.dumps({"run": f"decode qwen3-4b batch 4, {n_steps} steps",
+    print(json.dumps({"run": f"decode {name} batch 4, {n_steps} steps",
                       "launches_per_step": rec["kernel_launches"] / n_steps,
                       "wall_s_per_step": rec["wall_s"] / n_steps, **rec}))
-    print(json.dumps({"run": "launch_counts prefill qwen3-4b 4x2048",
+    print(json.dumps({"run": f"launch_counts prefill {name} 4x2048",
                       "expected": cfg.n_layers,
                       **launch_counts(lambda: prefill(params,
                                                       {"tokens": toks}))}))
@@ -205,14 +222,15 @@ def profile_simulator(device="cuda") -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("simulator", "serve"),
-                    help="profile one of the two paths (default both)")
+    ap.add_argument("--only", choices=("simulator", "serve", "serve_mla"),
+                    help="profile one path (default: the simulator and "
+                         "Qwen3-4B's serve)")
     args = ap.parse_args(argv)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
-    if args.only != "serve":
+    if args.only in (None, "simulator"):
         profile_simulator()
-    if args.only != "simulator":
-        profile_serve()
+    if args.only in (None, "serve", "serve_mla"):
+        profile_serve(which=args.only or "serve")
 
 
 if __name__ == "__main__":

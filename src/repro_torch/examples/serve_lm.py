@@ -1,11 +1,20 @@
 """Batched serving (port of ``examples/serve_lm.py``): prefill a batch of
-prompts, then decode new tokens step by step against the KV cache,
-greedily.  The prefill attention runs the flash-attention kernel on the
-card.
+prompts, then decode new tokens step by step against the KV cache (the
+latent cache under multi-head latent attention), greedily.  The dense,
+MoE (moonshot) and MLA + MoE (deepseek-v3) families serve; the prefill
+attention runs the flash-attention kernel on the card.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu \\
+        --arch deepseek-v3-671b
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --full \\
         --batch 4 --prompt-len 2016 --tokens 32
+
+``--full`` runs the published config.  Qwen3-4B fits one H100, and so
+would moonshot-v1-16b-a3b's 28.4 B parameters (56.8 GB in bf16), which
+no run has served yet; DeepSeek-V3's 671.7 B do not: ``chip_smoke.py``
+serves it at its published widths with its depth cut to 4 layers
+through :func:`serve`.
 
 As in the reference, the prefill covers ``prompt_len + tokens`` random
 prompt tokens and decode step ``i`` writes position ``prompt_len + i``.

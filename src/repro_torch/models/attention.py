@@ -8,9 +8,9 @@ algorithm step for step (the ``chunk`` blocking, the single-block
 fallback, the ``swa_fast`` window path, the finite ``-1e30`` mask).  On
 the card it launches the hand-written kernel
 (:mod:`repro_torch.kernels.flash_attn`), which computes the same
-function with its own tiles; a window or a value width other than the
-key width (the hybrid and MLA families) raises there instead of falling
-back.  Decode attention is plain torch, as the reference has no kernel
+function with its own tiles, with a value width and a scale of its own
+where multi-head latent attention asks for them; a window (the hybrid
+family) raises there instead of falling back.  Decode attention is plain torch, as the reference has no kernel
 for it.
 """
 from __future__ import annotations
@@ -162,26 +162,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors run :func:`chunked_attention`.  CUDA tensors launch the
     flash-attention kernel on (B, H, S, D) transposed views, which it
-    reads in place, and it writes a (B, S, H, D) output, so no operand
+    reads in place, and it writes a (B, S, H, Dv) output, so no operand
     is copied (``chunk`` is the CPU algorithm's blocking; the kernel has
-    its own tiles); the sliding window and ``Dv != D`` raise
-    ``NotImplementedError``.
+    its own tiles); ``(D, Dv)`` must be one of the kernel's pairs
+    (``kernels.flash_attn.PAIRS``, else ``ValueError``), and the sliding
+    window raises ``NotImplementedError``.
     """
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale)
-    D, Dv = q.shape[-1], v.shape[-1]
     if window > 0:
         raise NotImplementedError(
             "sliding-window attention on the card comes with the hybrid "
             "(SSM + attention) slice")
-    if Dv != D or (scale is not None and scale != D ** -0.5):
-        raise NotImplementedError(
-            "attention with a value width or scale of its own (MLA) on the "
-            "card comes with the MLA/MoE slice")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                      device=q.device)
     _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal,
+                        v.transpose(1, 2), causal=causal, scale=scale,
                         out=out.transpose(1, 2))
     return out
 

@@ -1,15 +1,19 @@
-"""Model stacks (port of ``repro.models.transformer``) for the dense
-family and the encoder family:
+"""Model stacks (port of ``repro.models.transformer``) for the dense,
+encoder and MoE families, with multi-head latent attention:
 
   * dense:   x += attn(n1(x));  x += mlp(n2(x))
+  * moe:     x += attn(n1(x));  x += moe(n2(x))      (+ leading dense)
   * encoder: dense block, bidirectional attention
 
-The parameter registry (``param_defs``) equals the reference's for these
-families, frontend configs included, so ``param_count`` and the
-parameter tree agree.  The MoE, MLA, SSM and hybrid families raise
-``NotImplementedError`` naming their slice, and so does running a vision
-or audio frontend.  A Python loop over the stacked layer parameters
-replaces the reference's ``lax.scan``; serving has no
+``attn`` is GQA attention or, where the config says ``use_mla``,
+multi-head latent attention (:mod:`.mla`).  The parameter registry
+(``param_defs``) equals the reference's for every family but SSM and
+hybrid, frontends and DeepSeek's multi-token-prediction (``mtp``)
+subtree included, so ``param_count`` and the parameter tree agree; the
+``mtp`` head's loss is training and waits for that slice.  The SSM and
+hybrid families raise ``NotImplementedError`` naming their slice, and so
+does running a vision or audio frontend.  A Python loop over the stacked
+layer parameters replaces the reference's ``lax.scan``; serving has no
 rematerialization.
 """
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 
 from .._device import resolve_device
 from . import attention as attn_mod
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import (DTYPES, ParamDef, init_tree, mlp_apply, mlp_defs,
                      rms_norm, stacked, tree_map)
@@ -31,18 +37,14 @@ def _later(what: str, slice_name: str):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Raise for the families whose modules this slice does not port."""
-    if cfg.is_moe or cfg.use_mtp:
-        raise _later("the MoE family", "MoE/MLA")
-    if cfg.use_mla:
-        raise _later("multi-head latent attention", "MoE/MLA")
+    """Raise for the families whose modules the port does not have yet."""
     if cfg.family in ("ssm", "hybrid"):
         raise _later(f"the {cfg.family} family", "SSM/hybrid")
 
 
 def _check_runnable(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run: the families
-    above, and the vision and audio frontends."""
+    """Raise for what the port does not run yet: the families above, and
+    the vision and audio frontends."""
     _check_family(cfg)
     if cfg.frontend != "none":
         raise _later(f"the {cfg.frontend} frontend", "multimodal frontend")
@@ -56,17 +58,26 @@ def _norm_def(d: int) -> ParamDef:
     return ParamDef((d,), (None,), fsdp_dim=None, init="ones")
 
 
-def block_defs(cfg: ModelConfig) -> dict:
-    """One dense (or encoder) block's parameters."""
+def block_defs(cfg: ModelConfig, *, moe_layer: bool = False) -> dict:
+    """One block's parameters: attention (GQA or MLA), then an MLP or,
+    in a MoE layer, the experts."""
     _check_family(cfg)
     d = cfg.d_model
-    return {"norm1": _norm_def(d), "attn": attn_mod.attn_defs(cfg),
-            "norm2": _norm_def(d), "mlp": mlp_defs(d, cfg.d_ff, cfg.act)}
+    defs: Dict[str, Any] = {"norm1": _norm_def(d)}
+    defs["attn"] = (mla_mod.mla_defs(cfg) if cfg.use_mla
+                    else attn_mod.attn_defs(cfg))
+    defs["norm2"] = _norm_def(d)
+    if moe_layer:
+        defs["moe"] = moe_mod.moe_defs(cfg)
+    else:
+        defs["mlp"] = mlp_defs(d, cfg.d_ff, cfg.act)
+    return defs
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    """The parameter registry of a dense or encoder config, frontends
-    included (an audio frontend has no token embedding)."""
+    """The parameter registry, frontends included (an audio frontend has
+    no token embedding): MoE configs stack their leading dense layers as
+    ``dense_layers`` and their MoE layers as ``layers``."""
     _check_family(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {"final_norm": _norm_def(d)}
@@ -75,8 +86,26 @@ def param_defs(cfg: ModelConfig) -> dict:
                                  scale=d ** 0.5)  # ~N(0, 1/sqrt(d))
     defs["head"] = ParamDef((d, v), (None, "model"), fsdp_dim=0)
 
-    defs["layers"] = tree_map(lambda pd: stacked(pd, cfg.n_layers),
-                              block_defs(cfg))
+    def stack_tree(tree, n):
+        return tree_map(lambda pd: stacked(pd, n), tree)
+
+    if cfg.is_moe:
+        if cfg.n_dense_layers:
+            defs["dense_layers"] = stack_tree(
+                block_defs(cfg, moe_layer=False), cfg.n_dense_layers)
+        defs["layers"] = stack_tree(block_defs(cfg, moe_layer=True),
+                                    cfg.n_moe_layers)
+    else:
+        defs["layers"] = stack_tree(block_defs(cfg), cfg.n_layers)
+
+    if cfg.use_mtp:
+        defs["mtp"] = {
+            "proj": ParamDef((2 * d, d), (None, None)),
+            "norm_h": _norm_def(d),
+            "norm_e": _norm_def(d),
+            "block": block_defs(cfg, moe_layer=False),
+            "final_norm": _norm_def(d),
+        }
     return defs
 
 
@@ -91,19 +120,23 @@ def init_params(cfg: ModelConfig, key: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor,
-                cache: Optional[attn_mod.KVCache] = None,
+                moe_layer: bool = False, positions: torch.Tensor,
+                cache: Optional[Any] = None,
                 decode_pos: Optional[torch.Tensor] = None):
-    """Returns (x, new_cache).  The dense block has no auxiliary loss
-    (the reference's third result is a MoE router's)."""
+    """Returns (x, new_cache, aux_loss): the MoE router's auxiliary loss,
+    zero in a block without experts."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"])
-    a_out, new_cache = attn_mod.attention_apply(
-        p["attn"], h, cfg, positions=positions, cache=cache,
-        decode_pos=decode_pos)
+    apply = mla_mod.mla_apply if cfg.use_mla else attn_mod.attention_apply
+    a_out, new_cache = apply(p["attn"], h, cfg, positions=positions,
+                             cache=cache, decode_pos=decode_pos)
     x = x + a_out
     h2 = rms_norm(x, p["norm2"])
-    x = x + mlp_apply(p["mlp"], h2, cfg.act)
-    return x, new_cache
+    if moe_layer:
+        m_out, aux = moe_mod.moe_apply(p["moe"], h2, cfg)
+    else:
+        m_out = mlp_apply(p["mlp"], h2, cfg.act)
+    return x + m_out, new_cache, aux
 
 
 def _layer(tree, i: int):
@@ -123,6 +156,15 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: Dict[str, Any],
     return params["embed"][batch["tokens"]].to(compute_dtype)
 
 
+def _stacks(cfg: ModelConfig) -> list:
+    """(name, moe_layer, layer count) of each stack, in order."""
+    if not cfg.is_moe:
+        return [("layers", False, cfg.n_layers)]
+    out = [("dense_layers", False, cfg.n_dense_layers)] \
+        if cfg.n_dense_layers else []
+    return out + [("layers", True, cfg.n_moe_layers)]
+
+
 def forward(params: dict, cfg: ModelConfig, batch: Dict[str, Any], *,
             caches: Optional[Any] = None,
             decode_pos: Optional[torch.Tensor] = None,
@@ -132,7 +174,8 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, Any], *,
     ``caches`` (from :func:`init_caches`) are written in place and
     returned.  ``last_only`` projects only the last position to the
     vocabulary (logits (B, 1, V)): the prefill step needs no more, and
-    the row's values are the same product.
+    the row's values are the same product.  ``aux`` sums the MoE layers'
+    router losses, stack by stack as the reference does.
     """
     _check_runnable(cfg)
     cdt = DTYPES[cfg.compute_dtype]
@@ -144,19 +187,23 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, Any], *,
         positions = torch.broadcast_to(
             torch.arange(S, device=x.device)[None], (B, S))
 
-    stack = caches["layers"] if caches is not None else None
-    for i in range(cfg.n_layers):
-        cache = None
-        if stack is not None:
-            cache = attn_mod.KVCache(*(t[i] for t in stack))
-        x, _ = block_apply(_layer(params["layers"], i), x, cfg,
-                           positions=positions, cache=cache,
-                           decode_pos=decode_pos)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, moe_layer, n in _stacks(cfg):
+        stack = caches[name] if caches is not None else None
+        aux_stack = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n):
+            cache = None if stack is None else type(stack)(
+                *(t[i] for t in stack))
+            x, _, aux = block_apply(_layer(params[name], i), x, cfg,
+                                    moe_layer=moe_layer,
+                                    positions=positions, cache=cache,
+                                    decode_pos=decode_pos)
+            aux_stack = aux_stack + aux
+        aux_total = aux_total + aux_stack
 
     hidden = rms_norm(x, params["final_norm"])
     logits = _project_logits(params, hidden[:, -1:] if last_only else hidden)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, caches, aux, hidden
+    return logits, caches, aux_total, hidden
 
 
 def _project_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
@@ -172,11 +219,17 @@ def _project_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, *, device="cuda"):
-    """Stacked per-layer decode caches for the whole model:
-    ``{"layers": KVCache}`` with a leading layer axis."""
+    """Stacked per-layer decode caches for the whole model, one entry a
+    stack (``{"layers": ...}``, and ``"dense_layers"`` before it in a
+    MoE config with leading dense layers): a ``KVCache``, or an
+    ``MLACache`` under multi-head latent attention, with a leading layer
+    axis."""
     _check_runnable(cfg)
-    kv = attn_mod.init_cache(cfg, batch, max_len, dtype,
-                             device=resolve_device(device))
-    n = cfg.n_layers
-    return {"layers": attn_mod.KVCache(
-        *(t[None].expand((n,) + t.shape).contiguous() for t in kv))}
+    dev = resolve_device(device)
+    if cfg.use_mla:
+        one = mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device=dev)
+    else:
+        one = attn_mod.init_cache(cfg, batch, max_len, dtype, device=dev)
+    return {name: type(one)(*(t[None].expand((n,) + t.shape).contiguous()
+                              for t in one))
+            for name, _, n in _stacks(cfg)}

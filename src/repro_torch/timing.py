@@ -160,15 +160,17 @@ def slot_work(rows: int, n: int, n_beams: int, n_rx: int) -> tuple:
 
 
 def attention_work(b: int, h: int, hk: int, s: int, t: int, d: int,
-                   causal: bool, itemsize: int) -> tuple:
-    """Bytes and operations of attention over q (b, h, s, d) and k, v
-    (b, hk, t, d): q, k and v read once and the output written once in
-    their dtype; two products of 2 d operations for each (query, key)
-    pair the mask keeps (causal: key t' <= query s')."""
+                   causal: bool, itemsize: int, dv: int = None) -> tuple:
+    """Bytes and operations of attention over q (b, h, s, d), k (b, hk,
+    t, d) and v (b, hk, t, dv) (``dv`` defaults to ``d``): q, k and v
+    read once and the (b, h, s, dv) output written once in their dtype;
+    2 d operations (QK^T) and 2 dv (PV) for each (query, key) pair the
+    mask keeps (causal: key t' <= query s')."""
+    dv = d if dv is None else dv
     n = min(s, t)
     pairs = n * (n + 1) / 2 + (s - n) * t if causal else s * t
-    return (itemsize * (2 * b * h * s * d + 2 * b * hk * t * d),
-            4.0 * b * h * d * pairs)
+    return (itemsize * (b * h * s * (d + dv) + b * hk * t * (d + dv)),
+            2.0 * b * h * (d + dv) * pairs)
 
 
 def fft_stage_work(rows: int, n: int) -> tuple:

@@ -9,7 +9,10 @@ positions ``prompt_len + i`` (with L = prompt_len + n_steps + 1, as the
 example sizes it).  ``forced`` (n_steps,
 B) feeds given tokens to the decode steps instead of each side's own
 greedy ones, so two runs stay comparable where a near tie could flip a
-bf16 argmax.  ``cache_dtype`` float32 keeps the KV cache in float32
+bf16 argmax.  The caches are any of the stacks' trees (a KV cache or,
+under multi-head latent attention, a latent cache; ``dense_layers``
+beside ``layers`` in a MoE config).  ``cache_dtype`` float32 keeps the
+KV cache in float32
 instead of the serve steps' bf16 (the reference's ``init_caches``
 default), which makes a float32 config float32 end to end: each side's
 prefill is then its ``build_prefill_step`` function run on float32
@@ -30,13 +33,12 @@ from repro_torch import configs
 from repro_torch.launch import steps
 from repro_torch.models import transformer
 
-def variant(arch: str, dtype: str):
+def variant(arch: str, dtype: str, **overrides):
     """The smoke config of ``arch`` in both packages, parameters and
-    compute in ``dtype``."""
-    return (dataclasses.replace(jconfigs.get_smoke(arch), param_dtype=dtype,
-                                compute_dtype=dtype),
-            dataclasses.replace(configs.get_smoke(arch), param_dtype=dtype,
-                                compute_dtype=dtype))
+    compute in ``dtype``, with ``overrides`` of other fields."""
+    return tuple(dataclasses.replace(pkg.get_smoke(arch), param_dtype=dtype,
+                                     compute_dtype=dtype, **overrides)
+                 for pkg in (jconfigs, configs))
 
 
 def prompts(vocab: int, batch: int, length: int, seed: int) -> np.ndarray:
@@ -117,8 +119,8 @@ def port_serve(cfg, params, tokens: np.ndarray, prompt_len: int,
     logits, caches = prefill(params, {"tokens": torch.as_tensor(
         tokens, dtype=torch.int64, device=device)})
     out = {"prefill_logits": logits[:, -1].cpu().numpy(),
-           "caches": {"layers": type(caches["layers"])(
-               *(t.clone() for t in caches["layers"]))}}
+           "caches": {name: type(c)(*(t.clone() for t in c))
+                      for name, c in caches.items()}}
     tok = logits[:, -1].argmax(-1)
     toks, steps_out = [tok.cpu().numpy()], []
     for i in range(n_steps):
@@ -132,6 +134,42 @@ def port_serve(cfg, params, tokens: np.ndarray, prompt_len: int,
         toks.append(tok.cpu().numpy())
     out.update(decode_logits=steps_out, tokens=toks)
     return out
+
+
+def neutral_routing(arch: str) -> dict:
+    """Overrides that take the MoE router's discrete decisions out of a
+    bf16 comparison, as tests/test_arch_smoke.py does: no capacity drops
+    (capacity factor 8) and every expert selected (top-k = n_experts), so
+    the gates still weight each expert by its router probability.  With
+    the published top-k, one bf16 ulp of difference in a hidden state
+    flips a near-tied expert choice of a token (1 to 4 of 80 tokens a
+    layer in the smoke configs), which moves its logits by up to 1.6."""
+    return {"capacity_factor": 8.0,
+            "top_k": configs.get_smoke(arch).n_experts}
+
+
+def serve_both(arch: str, dtype: str, prompt_len: int, n_steps: int, *,
+               forced_from_jax: bool = False, cache_dtype="bfloat16",
+               seed: int = 3, **overrides):
+    """The reference's weights carried across, then both serving loops on
+    the same 2 prompts of ``prompt_len + n_steps + 1`` tokens: (port
+    run, JAX run); the port run also holds the config and weights it
+    ran (``cfg``, ``params``)."""
+    from repro.models import init_params as jinit_params
+    from repro_torch.models import convert
+
+    jcfg, cfg = variant(arch, dtype, **overrides)
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(0))
+    params = convert.from_jax_params(jax.tree.map(np.asarray, jparams),
+                                     device="cpu")
+    toks = prompts(cfg.vocab_size, 2, prompt_len + n_steps + 1, seed=seed)
+    want = jax_serve(jcfg, jparams, toks, prompt_len, n_steps,
+                     cache_dtype=cache_dtype)
+    forced = want["tokens"][:-1] if forced_from_jax else None
+    got = port_serve(cfg, params, toks, prompt_len, n_steps, forced=forced,
+                     cache_dtype=cache_dtype)
+    got.update(cfg=cfg, params=params)
+    return got, want
 
 
 def top2_margin(logits: np.ndarray) -> np.ndarray:

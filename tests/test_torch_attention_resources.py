@@ -18,9 +18,14 @@ import torch
 from repro_torch import timing
 from repro_torch.kernels import flash_attn, ops
 
-WGMMA_SMEM = {64: 82944, 80: 164864, 128: 164864, 192: 148480}
-FMA_SMEM = {d: 3 * 64 * (d + 4) * 4 + 64 * 68 * 4
-            for d in flash_attn.HEAD_DIMS}
+WGMMA_SMEM = {(64, 64): 82944, (80, 80): 164864, (128, 128): 164864,
+              (192, 192): 148480, (192, 128): 214016}
+FMA_SMEM = {(d, dv): (2 * (d + 4) + dv + 4) * 64 * 4 + 64 * 68 * 4
+            for d, dv in flash_attn.PAIRS}
+
+
+def _name(kernel, d, dv):
+    return f"{kernel} d{d}" + ("" if dv == d else f" dv{dv}")
 
 
 def _chip_smoke():
@@ -47,21 +52,23 @@ def _log(spills=None, skip=()) -> str:
     ``skip``."""
     spills = spills or {}
     prefix = "_ZN46_GLOBAL__N__72ef4e4e_13_flash_attn_cu_db5e4e7b"
-    names = ([f"15fa_wgmma_kernelILi{d}EEEv14CUtensorMap_st" for d in
-              WGMMA_SMEM]
+    names = ([f"15fa_wgmma_kernelILi{d}ELi{dv}EEEv14CUtensorMap_st"
+              for d, dv in WGMMA_SMEM]
              + [f"13fa_mma_kernelILi{d}EEEvPK13__nv_bfloat16" for d in
                 (16, 32)]
-             + ["13fa_fma_kernelI13__nv_bfloat16Li8EEEvPKT_"]
-             + [f"13fa_fma_kernelIfLi{d}EEEvPKT_" for d in
-                flash_attn.HEAD_DIMS])
+             + ["13fa_fma_kernelI13__nv_bfloat16Li8ELi8EEEvPKT_",
+                "13fa_fma_kernelI13__nv_bfloat16Li24ELi16EEEvPKT_"]
+             + [f"13fa_fma_kernelIfLi{d}ELi{dv}EEEvPKT_" for d, dv in
+                flash_attn.PAIRS])
     return "".join(_entry(prefix + n, spills.get(n, 0)) for n in names
                    if n not in skip)
 
 
 class _Lib:
     def __init__(self, wgmma_smem, fma_smem):
-        self.flash_attn_wgmma_smem = lambda d: wgmma_smem.get(d, 0)
-        self.flash_attn_fma_smem = lambda d: fma_smem.get(d, 0)
+        self.flash_attn_wgmma_smem = lambda d, dv: wgmma_smem.get((d, dv),
+                                                                  0)
+        self.flash_attn_fma_smem = lambda d, dv: fma_smem.get((d, dv), 0)
 
 
 class _Build:
@@ -81,23 +88,30 @@ def test_fa_resources_names_every_wgmma_width_and_fma_width():
     smoke = _chip_smoke()
     res = smoke.fa_resources(_Build(_log(), _Lib(WGMMA_SMEM, FMA_SMEM)),
                              flash_attn)
-    assert set(res) == ({f"fa_wgmma_kernel d{d}" for d in WGMMA_SMEM}
-                        | {f"fa_fma_kernel d{d}"
-                           for d in flash_attn.HEAD_DIMS})
+    assert set(res) == ({_name("fa_wgmma_kernel", *p) for p in WGMMA_SMEM}
+                        | {_name("fa_fma_kernel", *p)
+                           for p in flash_attn.PAIRS})
     assert res["fa_wgmma_kernel d192"]["dynamic_smem_bytes"] == 148480
+    assert res["fa_wgmma_kernel d192 dv128"]["dynamic_smem_bytes"] == 214016
     assert res["fa_fma_kernel d80"] == {
         "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
         "registers": 168, "barriers": 1, "static_smem_bytes": 80,
-        "dynamic_smem_bytes": FMA_SMEM[80]}
+        "dynamic_smem_bytes": FMA_SMEM[(80, 80)]}
+    assert res["fa_fma_kernel d24 dv16"]["dynamic_smem_bytes"] \
+        == FMA_SMEM[(24, 16)]
 
 
 @pytest.mark.parametrize("kernel", [
-    "15fa_wgmma_kernelILi192EEEv14CUtensorMap_st",
-    "13fa_fma_kernelIfLi80EEEvPKT_",
-    "13fa_fma_kernelI13__nv_bfloat16Li8EEEvPKT_"])
+    "15fa_wgmma_kernelILi192ELi192EEEv14CUtensorMap_st",
+    "15fa_wgmma_kernelILi192ELi128EEEv14CUtensorMap_st",
+    "13fa_fma_kernelIfLi80ELi80EEEvPKT_",
+    "13fa_fma_kernelIfLi24ELi16EEEvPKT_",
+    "13fa_fma_kernelI13__nv_bfloat16Li8ELi8EEEvPKT_",
+    "13fa_fma_kernelI13__nv_bfloat16Li24ELi16EEEvPKT_"])
 def test_fa_resources_fails_a_spill(kernel):
     """A spill in any instantiation of the two kernels fails the run, the
-    bf16 FMA kernel at D 8 included (it has no row of its own)."""
+    bf16 FMA kernel at D 8 and (24, 16) included (it has no row of its
+    own)."""
     smoke = _chip_smoke()
     build = _Build(_log({kernel: 16}), _Lib(WGMMA_SMEM, FMA_SMEM))
     with pytest.raises(AssertionError, match="spill"):
@@ -109,7 +123,7 @@ def test_fa_resources_ignores_the_mma_kernel_and_fails_a_missing_one():
     mma = "13fa_mma_kernelILi16EEEvPK13__nv_bfloat16"
     smoke.fa_resources(_Build(_log({mma: 8}), _Lib(WGMMA_SMEM, FMA_SMEM)),
                        flash_attn)
-    gone = _log(skip=("15fa_wgmma_kernelILi80EEEv14CUtensorMap_st",))
+    gone = _log(skip=("15fa_wgmma_kernelILi80ELi80EEEv14CUtensorMap_st",))
     with pytest.raises(AssertionError):
         smoke.fa_resources(_Build(gone, _Lib(WGMMA_SMEM, FMA_SMEM)),
                            flash_attn)
@@ -119,7 +133,7 @@ def test_fa_resources_fails_shared_memory_past_a_blocks_limit():
     """A ring of two 128-row stages at D 192 (240 KB) would not fit the
     227 KB a block may have."""
     smoke = _chip_smoke()
-    too_big = {**WGMMA_SMEM, 192: 128 * 192 * 2 * 5 + 1024}
+    too_big = {**WGMMA_SMEM, (192, 192): 128 * 192 * 2 * 5 + 1024}
     with pytest.raises(AssertionError, match="shared"):
         smoke.fa_resources(_Build(_log(), _Lib(too_big, FMA_SMEM)),
                            flash_attn)
@@ -127,14 +141,19 @@ def test_fa_resources_fails_shared_memory_past_a_blocks_limit():
 
 @pytest.mark.parametrize("s,t", [(1, 1), (7, 7), (5, 9), (9, 5), (64, 200)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_attention_work_counts_the_pairs_the_mask_keeps(s, t, causal):
+@pytest.mark.parametrize("dv", [None, 80, 48])
+def test_attention_work_counts_the_pairs_the_mask_keeps(s, t, causal, dv):
+    """QK^T and PV: 2 (D + Dv) operations a kept pair; q and k of width
+    D, v and the output of Dv."""
     kept = torch.ones(s, t, dtype=torch.bool)
     if causal:
         kept = torch.arange(s)[:, None] >= torch.arange(t)[None, :]
     b, h, hk, d = 2, 6, 2, 80
-    bytes_moved, flops = timing.attention_work(b, h, hk, s, t, d, causal, 2)
-    assert flops == 4.0 * b * h * d * kept.sum().item()
-    assert bytes_moved == 2 * (2 * b * h * s * d + 2 * b * hk * t * d)
+    bytes_moved, flops = timing.attention_work(b, h, hk, s, t, d, causal, 2,
+                                               dv=dv)
+    w = d if dv is None else dv
+    assert flops == 2.0 * b * h * (d + w) * kept.sum().item()
+    assert bytes_moved == 2 * (b * h * s * (d + w) + b * hk * t * (d + w))
 
 
 @pytest.mark.parametrize("n", [16, 64, 4 ** 8])

@@ -484,14 +484,76 @@ def test_model_attention_on_card_launches_the_kernel(cuda):
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("kwargs", [{"window": 16}, {"scale": 0.5}])
+@pytest.mark.parametrize("kwargs", [{"window": 16}, {}])
 def test_model_attention_on_card_raises_for_later_slices(cuda, kwargs):
+    """The sliding window waits for the hybrid slice; a (D, Dv) pair the
+    kernel has not (here (16, 8)) raises too, and never falls back."""
     q = torch.randn(1, 32, 2, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="slice"):
-        attention.flash_attention(q, q, q, causal=True, chunk=32, **kwargs)
     v = torch.randn(1, 32, 2, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="slice"):
-        attention.flash_attention(q, q, v, causal=True, chunk=32)
+    before = flash_attn.LAUNCHES
+    if kwargs:
+        with pytest.raises(NotImplementedError, match="slice"):
+            attention.flash_attention(q, q, q, causal=True, chunk=32,
+                                      **kwargs)
+    else:
+        with pytest.raises(ValueError, match="Dv"):
+            attention.flash_attention(q, q, v, causal=True, chunk=32)
+        with pytest.raises(ValueError, match="Dv"):
+            flash_attn.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                                       v.transpose(1, 2))
+    assert flash_attn.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d,dv", [(192, 128), (24, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [None, 0.37])
+@pytest.mark.parametrize("s,group", [(100, 1), (300, 4)])
+def test_flash_attention_value_width_pairs(cuda, d, dv, causal, dtype, scale,
+                                           s, group):
+    """MLA's pairs, DeepSeek-V3's (192, 128) (``wgmma`` in bf16) and its
+    smoke config's (24, 16) (the FMA kernel), against the plain version:
+    float32 within 1e-4, bf16 within FA_TOL and FA_BF16_ROW_TOL of each
+    row's scale; a scale other than D ** -0.5 as well as the default."""
+    gen = torch.Generator(device=cuda).manual_seed(d + dv + s + group)
+    q = torch.randn(2, 2 * group, s, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(2, 2, s, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(2, 2, s, dv, device=cuda, generator=gen).to(dtype)
+    before = flash_attn.LAUNCHES
+    got = flash_attn.flash_attention(q, k, v, causal=causal, scale=scale)
+    assert flash_attn.LAUNCHES == before + 1
+    assert got.shape == (2, 2 * group, s, dv) and got.dtype == dtype
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal,
+                                            scale=scale)
+    tol = 1e-4 if dtype == torch.float32 else FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        ref32 = flash_attn.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal, scale=scale)
+        assert row_scaled_err(got, ref32) <= FA_BF16_ROW_TOL
+    # The scale matters: the default's result is another one.
+    if scale is not None:
+        other = flash_attn.flash_attention(q, k, v, causal=causal)
+        assert (other.float() - got.float()).abs().max().item() > 10 * tol
+
+
+@pytest.mark.parametrize("d,dv", [(192, 128), (24, 16)])
+def test_model_attention_on_card_runs_mla_pairs(cuda, d, dv):
+    """The model's attention with MLA's widths and scale launches the
+    kernel on its (B, S, H, D) projections and writes (B, S, H, Dv); the
+    chunked plain algorithm agrees."""
+    gen = torch.Generator(device=cuda).manual_seed(d * dv)
+    q = torch.randn(2, 96, 4, d, device=cuda, generator=gen).bfloat16()
+    k = torch.randn(2, 96, 4, d, device=cuda, generator=gen).bfloat16()
+    v = torch.randn(2, 96, 4, dv, device=cuda, generator=gen).bfloat16()
+    before = flash_attn.LAUNCHES
+    got = attention.flash_attention(q, k, v, causal=True, scale=d ** -0.5)
+    assert flash_attn.LAUNCHES == before + 1 and got.shape == (2, 96, 4, dv)
+    want = attention.chunked_attention(q, k, v, causal=True, chunk=32,
+                                       scale=d ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("d", [80, 192])
@@ -851,3 +913,76 @@ def test_serving_straggler_request_draw_equals_main_thread(cuda):
     want = workloads.arrival_batch(_kernel_key("straggler_pareto", cuda),
                                    "straggler_pareto", (8, 1024))
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The MoE and MLA families on the card.
+# ---------------------------------------------------------------------------
+
+def test_moe_combine_gives_the_same_bits_twice(cuda):
+    """The MoE layer on the card at DeepSeek-V3's routing (256 experts,
+    top-8, capacity dropping some tokens): two runs give identical bits
+    (no atomics in the dispatch or the combine)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.get_smoke("deepseek_v3_671b"),
+                              n_experts=256, top_k=8, d_ff_expert=64,
+                              capacity_factor=0.5)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    p = {n: (torch.randn(d.shape, device=cuda, generator=gen)
+             * d.shape[-2] ** -0.5).to(getattr(torch, d.dtype))
+         for n, d in moe.moe_defs(cfg).items()}
+    x = torch.randn(4, 512, cfg.d_model, device=cuda,
+                    generator=gen).bfloat16()
+    a, aux_a = moe.moe_apply(p, x, cfg)
+    b, aux_b = moe.moe_apply(p, x, cfg)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(aux_a, aux_b)
+    cpu, aux_cpu = moe.moe_apply({n: t.cpu() for n, t in p.items()},
+                                 x.cpu(), cfg)
+    torch.testing.assert_close(a.cpu().float(), cpu.float(),
+                               rtol=2 ** -6, atol=2 ** -7 * cpu.float()
+                               .abs().max().item())
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "moonshot_v1_16b_a3b"])
+def test_smoke_serve_on_card_matches_the_cpu_port(cuda, arch):
+    """The smoke config's serve loop (float32 end to end, the published
+    routing) on the card against the port on the CPU: logits within
+    1e-4, greedy tokens equal; the prefill launches the kernel once a
+    layer."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import init_caches, init_params, transformer
+    cfg = dataclasses.replace(configs.get_smoke(arch),
+                              compute_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = init_params(cfg, prng.PRNGKey(0, device=dev))
+        caches = init_caches(cfg, 2, 64, torch.float32, device=dev)
+        before = flash_attn.LAUNCHES
+        with torch.inference_mode():
+            logits, caches, _, _ = transformer.forward(
+                params, cfg, {"tokens": toks[:, :60].to(dev)},
+                caches=caches, last_only=True)
+        launches = flash_attn.LAUNCHES - before
+        decode, _ = steps.build_decode_step(cfg, batch=2, max_len=64,
+                                            device=dev)
+        outs = [logits[:, -1].cpu()]
+        for i in range(3):
+            logits, caches = decode(params, caches,
+                                    toks[:, 60 + i:61 + i].to(dev),
+                                    torch.full((2,), 60 + i,
+                                               dtype=torch.int32,
+                                               device=dev))
+            outs.append(logits[:, 0].cpu())
+        runs[dev.type] = (outs, launches)
+    assert runs["cpu"][1] == 0 and runs["cuda"][1] == cfg.n_layers
+    for g, w in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(g.argmax(-1), w.argmax(-1))

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,7 +56,8 @@ def test_importing_every_module_loads_no_jax():
     assert {f"repro_torch.kernels.{m}" for m in ("dotp", "axpy",
                                                  "flash_attn")} <= loaded
     assert {f"repro_torch.models.{m}" for m in (
-        "config", "layers", "attention", "transformer", "convert")} <= loaded
+        "config", "layers", "attention", "transformer", "convert", "mla",
+        "moe")} <= loaded
     assert {f"repro_torch.configs.{m}" for m in configs.ARCH_IDS} <= loaded
     assert {"repro_torch.launch.steps", "repro_torch.examples.serve_lm",
             "repro_torch.examples.barrier_tuning"} <= loaded
@@ -201,6 +203,15 @@ def test_driver_entry_points_default_to_cuda_and_raise(call):
 
 
 _QWEN = configs.get_smoke("qwen3_4b")
+_DEEPSEEK = configs.get_smoke("deepseek_v3_671b")
+_MOONSHOT = configs.get_smoke("moonshot_v1_16b_a3b")
+
+
+def _jax_style_mla_cache():
+    """A cache tree as the reference's (an ``MLACache`` of numpy)."""
+    from repro_torch.models.mla import MLACache
+    return {"layers": MLACache(*(np.zeros((1, 2, 4), np.float32),) * 2,
+                               np.zeros((1, 2), np.int32))}
 
 
 @pytest.mark.parametrize("call", [
@@ -209,8 +220,15 @@ _QWEN = configs.get_smoke("qwen3_4b")
     lambda: steps.build_decode_step(_QWEN, batch=1, max_len=8),
     lambda: convert.from_jax_params({"w": torch.zeros(2).numpy()}),
     lambda: serve_lm.serve(_QWEN, batch=1, prompt_len=4, tokens=2),
+    lambda: init_caches(_DEEPSEEK, 1, 8),
+    lambda: steps.build_prefill_step(_DEEPSEEK, batch=1, seq_len=8),
+    lambda: serve_lm.serve(_DEEPSEEK, batch=1, prompt_len=4, tokens=2),
+    lambda: serve_lm.serve(_MOONSHOT, batch=1, prompt_len=4, tokens=2),
+    lambda: convert.caches_from_jax(_jax_style_mla_cache()),
 ], ids=["init_caches", "build_prefill_step", "build_decode_step",
-        "from_jax_params", "serve"])
+        "from_jax_params", "serve", "init_caches_mla",
+        "build_prefill_step_mla", "serve_mla", "serve_moe",
+        "caches_from_jax"])
 def test_lm_entry_points_default_to_cuda_and_raise(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):
