@@ -165,9 +165,24 @@ phase prints one JSON line:
     through ``repro_torch.examples.serve_lm``: 4 requests of 2016 prompt
     tokens and 32 new tokens each, one kernel launch a layer a prefill,
     the first token's logits held against the same prefill with the
-    plain chunked attention.  The summary line's ``flash_attention``
-    entry is the Qwen3-4B path, ``flash_attention_mla`` the DeepSeek-V3
-    one (the same kernel at (192, 128)).
+    plain chunked attention.  Then the hybrid and SSM families: the
+    attention kernel under a sliding window against its plain version
+    (windows 1 to past S, causal and not, every kernel it reaches, with
+    planted window faults) and at Hymba-1.5B's prefill shape, timed
+    beside SDPA on an explicit (S, S) mask; the selective-scan kernel's
+    resources (a spill fails the run) and against its plain version,
+    timed at Falcon-Mamba-7B's and Hymba-1.5B's prefill shapes; the
+    falcon-mamba and hymba smoke serves and the hubert-xlarge (audio)
+    and internvl2-76b (vision) smoke forwards against the stored JAX
+    values (``lm_serve_ssm``); then full-width Hymba-1.5B (32 layers) and
+    Falcon-Mamba-7B (64 layers) through ``serve_lm`` with the same
+    traffic: each kernel launched once a layer that has its mixer a
+    prefill, the logits held against the plain attention and scan.  The
+    summary line's ``flash_attention`` entry is the Qwen3-4B path,
+    ``flash_attention_mla`` the DeepSeek-V3 one (the same kernel at (192,
+    128)), ``flash_attention_window`` the Hymba one (the same kernel
+    under its window) and ``ssm_scan`` the Falcon-Mamba one: 15
+    kernels.
 
 Each phase prints its wall time.  Then the kernels' summary line and,
 last, the device line.  Any failed
@@ -191,14 +206,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.timing import (attention_work, bound, cold_copies, cuda_ms,
                                 fft_stage_work, fft_work, fp64_bound,
-                                graph_ms, in_turns, matmul_work, slot_work)
+                                graph_ms, in_turns, matmul_work, scan_bound,
+                                slot_work)
 
 
 MODES = ("central", "tree", "partial", "hw")
 TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
 KERNELS = ("fft4_stage", "fft4_fused", "matmul", "dotp_central",
            "dotp_partials", "combine_partials", "combine_tree", "axpy",
-           "dct", "conv2d", "powf", "flash_attention", "flash_attention_mla")
+           "dct", "conv2d", "powf", "flash_attention", "flash_attention_mla",
+           "flash_attention_window", "ssm_scan")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             # The same Pallas kernel as src/repro/kernels/ops.py::fft4
             # chains it, every stage of a row in one launch.
@@ -220,7 +237,13 @@ REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             # The same Pallas kernel at MLA's (D, Dv) = (192, 128), which
             # the models' attention computes with a scale of its own
             # (src/repro/models/mla.py:145).
-            "flash_attention_mla": "src/repro/kernels/flash_attn.py:73"}
+            "flash_attention_mla": "src/repro/kernels/flash_attn.py:73",
+            # The same Pallas kernel under the models' sliding-window mask
+            # (src/repro/models/attention.py:118-125), Hymba's.
+            "flash_attention_window": "src/repro/kernels/flash_attn.py:73",
+            # No Pallas kernel: the jnp selective scan (a chunked
+            # lax.associative_scan) of the SSM family.
+            "ssm_scan": "src/repro/models/ssm.py:69"}
 SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "fft4_fused": "src/repro_torch/csrc/fft4_stage.cu",
            "matmul": "src/repro_torch/csrc/matmul.cu",
@@ -233,7 +256,9 @@ SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "conv2d": "src/repro_torch/csrc/conv2d.cu",
            "powf": "src/repro_torch/csrc/powf.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attn.cu",
-           "flash_attention_mla": "src/repro_torch/csrc/flash_attn.cu"}
+           "flash_attention_mla": "src/repro_torch/csrc/flash_attn.cu",
+           "flash_attention_window": "src/repro_torch/csrc/flash_attn.cu",
+           "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu"}
 # The dot product's path: the Fig. 5 input sizes and the 64 Mi-element
 # case where the bandwidth bound means something; the central
 # accumulator (radix 0) and the tree radices of the Fig. 6 sweep.
@@ -314,6 +339,31 @@ LM_MLA = {"arch": "deepseek_v3_671b", "n_layers": 4, "batch": 4,
 LM_F32_TOL, LM_BF16_ATOL, LM_FULL_GAP = 1e-4, 0.0625, 0.35
 # MLA rounds to bf16 at more sites (tests/test_torch_lm_serve_mla.py).
 LM_BF16_ATOL_BY_ARCH = {"deepseek_v3_671b": 0.125}
+# The hybrid and SSM families at their published widths and full depth
+# (Hymba-1.5B: 32 layers of window-1024 attention beside a Mamba block;
+# Falcon-Mamba-7B: 64 Mamba layers), LM_FULL's traffic: the window cuts
+# the second half of each 2048-token prompt.
+LM_HYBRID = {"arch": "hymba_1_5b", "batch": 4, "prompt_len": 2016,
+             "tokens": 32}
+LM_SSM = {"arch": "falcon_mamba_7b", "batch": 4, "prompt_len": 2016,
+          "tokens": 32}
+# The window kernel's checks: windows from one key to past S at S = T =
+# 1100 (every window's edge falls inside a query tile), 10 query heads on
+# 2 KV heads (Hymba's grouping g = 5), each kernel the window reaches;
+# then Hymba's prefill attention, (B, H, Hk, S, D) and its window.
+FA_WINDOWS = (1, 7, 63, 64, 1000, 1024, 1100)
+FA_WINDOW_KERNELS = ((8, "float32"), (8, "bfloat16"), (64, "float32"),
+                     (16, "bfloat16"), (64, "bfloat16"), (128, "bfloat16"))
+FA_WINDOW_SHAPE = (4, 25, 5, 2048, 64, 1024)
+# The scan kernel against its plain version: S at, below and past the
+# plain version's 256-step chunk; then Falcon-Mamba's and Hymba's prefill
+# scans (B, S, d_inner, n).  Both sum float32 products over at most 16
+# states a step in other orders, with exponentials an ulp or two apart,
+# and the states decay: 1e-4.
+SCAN_TEST_S = (1, 255, 256, 2048)
+SCAN_SHAPES = {"falcon-mamba-7b": (4, 2048, 8192, 16),
+               "hymba-1.5b": (4, 2048, 3200, 16)}
+SCAN_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -328,7 +378,8 @@ def phase_info(torch, build):
     print(smi, flush=True)
     t0 = time.perf_counter()
     paths = build.build(["fft4_stage", "matmul", "dotp", "axpy", "dct",
-                         "conv2d", "powf", "powf_host", "flash_attn"])
+                         "conv2d", "powf", "powf_host", "flash_attn",
+                         "ssm_scan"])
     build_s = time.perf_counter() - t0
     emit({"phase": "info", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
@@ -2167,12 +2218,13 @@ def row_scaled_err(got, want) -> float:
 
 
 def check_bf16_rows(flash_attn, q, k, v, causal, got, want,
-                    scale=None) -> dict:
+                    scale=None, window=0) -> dict:
     """``got`` (the kernel in bf16) against float32 attention on the same
     bf16 inputs at :data:`FA_BF16_ROW_TOL`, with the plain bf16 version's
     error beside it; raises past the limit."""
     ref32 = flash_attn.flash_attention_plain(q.float(), k.float(), v.float(),
-                                             causal=causal, scale=scale)
+                                             causal=causal, scale=scale,
+                                             window=window)
     rec = {"row_scaled_err": row_scaled_err(got, ref32),
            "plain_row_scaled_err": row_scaled_err(want, ref32),
            "row_tol": FA_BF16_ROW_TOL}
@@ -2449,6 +2501,205 @@ def _fa_config_checks(torch, flash_attn, build) -> dict:
     return mla
 
 
+def _fa_window_checks(torch, flash_attn) -> dict:
+    """The kernel under a sliding window against its plain version: every
+    window of :data:`FA_WINDOWS`, causal and not, on each kernel the
+    window reaches (:data:`FA_WINDOW_KERNELS`), float32 within
+    :data:`FA_F32_TOL` and bf16 within :data:`FA_BF16_TOL` and
+    :data:`FA_BF16_ROW_TOL` of each row's scale; planted faults (one key
+    too few or too many, no window at all, a tile of values zeroed inside
+    the window) must fail both checks; then Hymba-1.5B's prefill attention
+    (:data:`FA_WINDOW_SHAPE`, bf16, causal) against its plain version,
+    timed in turns with SDPA on an explicit (S, S) boolean mask, beside
+    its bound over the pairs the window keeps.  Returns that record."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for d, name in FA_WINDOW_KERNELS:
+        dtype = getattr(torch, name)
+        tol = FA_F32_TOL if name == "float32" else FA_BF16_TOL
+        for causal in (True, False):
+            errs, rows = [], []
+            for window in FA_WINDOWS:
+                q = torch.randn(1, 10, 1100, d, device=dev,
+                                generator=gen).to(dtype)
+                k, v = (torch.randn(1, 2, 1100, d, device=dev,
+                                    generator=gen).to(dtype)
+                        for _ in range(2))
+                got = flash_attn.flash_attention(q, k, v, causal=causal,
+                                                 window=window)
+                want = flash_attn.flash_attention_plain(
+                    q, k, v, causal=causal, window=window)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol)
+                errs.append((got.float() - want.float()).abs().max().item())
+                ref32 = flash_attn.flash_attention_plain(
+                    q.float(), k.float(), v.float(), causal=causal,
+                    window=window)
+                rows.append(row_scaled_err(got, ref32))
+                if name == "bfloat16" and not rows[-1] <= FA_BF16_ROW_TOL:
+                    raise AssertionError(f"window {window} D {d}: row error "
+                                         f"{rows[-1]}")
+            emit({"phase": "lm_serve", "name": "flash_attention_window",
+                  "shape": [1, 10, 2, 1100, d], "dtype": name,
+                  "causal": causal, "windows": list(FA_WINDOWS),
+                  "max_abs_err_per_window": errs,
+                  "row_scaled_err_per_window": rows,
+                  "tol": {"rtol": tol, "atol": tol}})
+        q = torch.randn(1, 10, 600, d, device=dev, generator=gen).to(dtype)
+        k, v = (torch.randn(1, 2, 600, d, device=dev, generator=gen)
+                .to(dtype) for _ in range(2))
+        got = flash_attn.flash_attention(q, k, v, causal=True, window=64)
+        v_gap = v.clone()
+        v_gap[:, :, 520:584] = 0
+        faults = {f"window {w}": flash_attn.flash_attention_plain(
+            q, k, v, causal=True, window=w) for w in (63, 65, 0)}
+        faults["v tile zeroed"] = flash_attn.flash_attention_plain(
+            q, k, v_gap, causal=True, window=64)
+        caught = {}
+        for fault, bad in faults.items():
+            err = row_scaled_err(got, bad.float())
+            close = torch.allclose(got.float(), bad.float(), rtol=tol,
+                                   atol=tol)
+            if close or not err > FA_BF16_ROW_TOL:
+                raise AssertionError(f"planted window fault {fault} passes "
+                                     f"(row error {err})")
+            caught[fault] = err
+        emit({"phase": "lm_serve", "name": "flash_attention_window",
+              "check": "planted faults at window 64", "dtype": name,
+              "head_dim": d, "row_scaled_err": caught})
+
+    b, h, hk, s, d, window = FA_WINDOW_SHAPE
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).bfloat16()
+    k = torch.randn(b, hk, s, d, device=dev, generator=gen).bfloat16()
+    v = torch.randn(b, hk, s, d, device=dev, generator=gen).bfloat16()
+    got = flash_attn.flash_attention(q, k, v, causal=True, window=window)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=True,
+                                            window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_BF16_TOL,
+                               atol=FA_BF16_TOL)
+    rows = check_bf16_rows(flash_attn, q, k, v, True, got, want,
+                           window=window)
+    lag = (torch.arange(s, device=dev)[:, None]
+           - torch.arange(s, device=dev)[None, :])
+    mask = (lag >= 0) & (lag < window)
+
+    def kernel(q_, k_, v_):
+        return flash_attn.flash_attention(q_, k_, v_, causal=True,
+                                          window=window)
+
+    def library(q_, k_, v_):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=mask, enable_gqa=True)
+
+    b_ms, b_by = bound(*attention_work(b, h, hk, s, s, d, True, 2,
+                                       window=window), "bfloat16")
+    args = cold_copies(q, k, v)
+    times = in_turns(kernel, library, args)
+    rec = {"phase": "lm_serve", "name": "flash_attention_window",
+           "config": "hymba-1.5b", "shape": [b, h, hk, s, d],
+           "window": window, "dtype": "bfloat16", "causal": True,
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "tol": {"rtol": FA_BF16_TOL, "atol": FA_BF16_TOL}, **rows,
+           "plain_ms": cuda_ms(lambda *a: flash_attn.flash_attention_plain(
+               *a, causal=True, window=window), args, iters=3, warmup=1),
+           "library": "F.scaled_dot_product_attention(attn_mask=(S, S) "
+                      "bool, enable_gqa=True)",
+           "library_max_abs_diff": (got.float() - library(q, k, v).float())
+           .abs().max().item(),
+           "ratio_to_library": times["ms"] / times["library_ms"],
+           "bound_ms": b_ms, "bound_by": b_by, **times,
+           "unit": "one launch: the prefill attention of one hybrid layer"}
+    emit(rec)
+    return rec
+
+
+def _scan_inputs(torch, gen, b, s, di, n):
+    """Scan inputs as the model makes them: dt = softplus(N(0, 1) - 2),
+    x, B, C and the start state N(0, 1), A = -(1 .. n) per channel (the
+    ``ssm_a`` init), D N(0, 1)."""
+    dev = torch.device("cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, di, device=dev, generator=gen) - 2.0)
+    x = torch.randn(b, s, di, device=dev, generator=gen)
+    bm = torch.randn(b, s, n, device=dev, generator=gen)
+    cm = torch.randn(b, s, n, device=dev, generator=gen)
+    a = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).expand(
+        di, n).contiguous()
+    d = torch.randn(di, device=dev, generator=gen)
+    h0 = torch.randn(b, di, n, device=dev, generator=gen)
+    return dt, x, bm, cm, a, d, h0
+
+
+def scan_resources(build, ssm_scan) -> dict:
+    """``ssm_scan_kernel``'s registers, barriers, shared memory and spills
+    at each state width of ``ssm_scan.STATES`` (``nvcc -Xptxas -v``), by
+    ``"ssm_scan_kernel n{N}"``; raises if an instantiation spills or is
+    missing from the log."""
+    log = build.compiler_log("ssm_scan")
+    spills = ptxas_spills(log, "ssm_scan_kernel")
+    usage = {f"ssm_scan_kernel n{n}": ptxas_usage(log,
+                                                   f"ssm_scan_kernelILi{n}E")
+             for n in ssm_scan.STATES}
+    if (len(spills) != len(ssm_scan.STATES) or any(spills.values())
+            or not all(usage.values())):
+        raise AssertionError(f"ssm_scan: spill bytes {spills}")
+    return usage
+
+
+def _scan_checks(torch, ssm_scan, build) -> dict:
+    """The selective-scan kernel: its resources (``nvcc -Xptxas -v``; a
+    spill fails the run), then against its plain version at
+    :data:`SCAN_TEST_S` (n 8 and 16, 300 channels, a nonzero start state)
+    and at the two models' prefill shapes (:data:`SCAN_SHAPES`), each
+    timed (device time, a CUDA graph replay, and eagerly) beside the
+    plain version and its bound.  No single PyTorch call computes the
+    scan, so it has no library time.  Returns Falcon-Mamba's record."""
+    emit({"phase": "lm_serve", "name": "ssm_scan",
+          "kernel_resources": scan_resources(build, ssm_scan)})
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    for s in SCAN_TEST_S:
+        for n in ssm_scan.STATES:
+            args = _scan_inputs(torch, gen, 2, s, 300, n)
+            y, h = ssm_scan.ssm_scan(*args)
+            wy, wh = ssm_scan.ssm_scan_plain(*args)
+            torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+            torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
+            emit({"phase": "lm_serve", "name": "ssm_scan",
+                  "shape": [2, s, 300, n],
+                  "max_abs_err": max((y - wy).abs().max().item(),
+                                     (h - wh).abs().max().item()),
+                  "tol": {"rtol": SCAN_TOL, "atol": SCAN_TOL}})
+    out = None
+    for config, (b, s, di, n) in SCAN_SHAPES.items():
+        args = _scan_inputs(torch, gen, b, s, di, n)
+        y, h = ssm_scan.ssm_scan(*args)
+        wy, wh = ssm_scan.ssm_scan_plain(*args)
+        torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+        torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
+        err = max((y - wy).abs().max().item(), (h - wh).abs().max().item())
+        del y, h, wy, wh
+        inputs = cold_copies(*args)
+        rec = {"phase": "lm_serve", "name": "ssm_scan", "config": config,
+               "shape": [b, s, di, n], "dtype": "float32",
+               "max_abs_err": err, "tol": {"rtol": SCAN_TOL,
+                                           "atol": SCAN_TOL},
+               "timing": "graph", "ms": graph_ms(ssm_scan.ssm_scan, inputs),
+               "eager_ms": cuda_ms(ssm_scan.ssm_scan, inputs),
+               "plain_ms": cuda_ms(ssm_scan.ssm_scan_plain, inputs, iters=2,
+                                   warmup=1),
+               "library_ms": None, "library_eager_ms": None,
+               "library": "none: no single PyTorch call computes the "
+                          "selective scan",
+               **scan_bound(b, s, di, n),
+               "unit": "one launch: the prefill scan of one SSM layer"}
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+        out = out or rec
+        del args, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_usage(log: str, fragment: str) -> dict:
     """``nvcc -Xptxas -v``'s registers, barriers, static shared memory and
     spills of the kernel whose mangled name holds ``fragment``."""
@@ -2523,11 +2774,49 @@ def fa_resources(build, flash_attn) -> dict:
     return res
 
 
+def _param_digests(torch, tree_items, params) -> dict:
+    """sha256 (first 16 hex digits) of each leaf's bytes, by path."""
+    digests = {}
+    for path, t in tree_items(params):
+        t = t.cpu()
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+        digests[path] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+    return digests
+
+
+def _frontend_against_jax(torch, configs, prng, transformer, tree_items,
+                          ref) -> None:
+    """A frontend smoke config (``lm_serve_ssm``'s hubert-xlarge, audio,
+    and internvl2-76b, vision) on the card against its stored JAX forward:
+    the init's leaf digests bit for bit, the last positions' logits on the
+    stored inputs within the serve path's float32 and bf16 bounds."""
+    batch = {k: torch.tensor(v, device="cuda")
+             for k, v in ref["inputs"].items()}
+    for dtype, want in ref["variants"].items():
+        cfg = dataclasses.replace(configs.get_smoke(ref["arch"]),
+                                  param_dtype=dtype, compute_dtype=dtype)
+        params = transformer.init_params(cfg, prng.PRNGKey(0, device="cuda"))
+        if _param_digests(torch, tree_items, params) != want["digests"]:
+            raise AssertionError(f"lm_serve {ref['arch']} {dtype}: "
+                                 f"init_params differs from the JAX leaves")
+        with torch.inference_mode():
+            logits = transformer.forward(params, cfg, batch)[0]
+        got = logits[:, -ref["last"]:].cpu()
+        w = torch.tensor(want["logits"], dtype=torch.float32)
+        tol = ({"rtol": LM_F32_TOL, "atol": LM_F32_TOL} if dtype == "float32"
+               else {"rtol": 0.0, "atol": LM_BF16_ATOL})
+        torch.testing.assert_close(got, w, **tol)
+        emit({"phase": "lm_serve", "check": f"frontend {ref['arch']} "
+              f"({cfg.frontend}) {dtype} against JAX", "digests_equal": True,
+              "max_abs_err": (got - w).abs().max().item(), "tol": tol})
+
+
 def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
                        ref) -> None:
     """A smoke config on the card against its stored JAX run (the qwen3
     one of ``lm_serve``, the moonshot and deepseek-v3 ones of
-    ``lm_serve_moe``): the bf16 variant through the serve steps, the
+    ``lm_serve_moe``, the falcon-mamba and hymba ones of
+    ``lm_serve_ssm``): the bf16 variant through the serve steps, the
     float32 one float32 end to end (the prefill step's function on
     float32 caches, as stored), each with the config overrides stored
     beside it (the MoE configs' bf16 routing neutralised)."""
@@ -2539,13 +2828,7 @@ def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
                                   param_dtype=dtype, compute_dtype=dtype,
                                   **want.get("overrides", {}))
         params = transformer.init_params(cfg, prng.PRNGKey(0, device="cuda"))
-        digests = {}
-        for path, t in tree_items(params):
-            t = t.cpu()
-            raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
-            digests[path] = hashlib.sha256(
-                raw.numpy().tobytes()).hexdigest()[:16]
-        if digests != want["digests"]:
+        if _param_digests(torch, tree_items, params) != want["digests"]:
             raise AssertionError(f"lm_serve {dtype}: init_params on the card "
                                  f"differs from the JAX leaves")
         decode, _ = steps.build_decode_step(cfg, batch=b, max_len=length)
@@ -2595,36 +2878,49 @@ def _smoke_against_jax(torch, configs, prng, steps, transformer, tree_items,
                                  f"tokens differ from JAX")
 
 
-def _serve_full(torch, flash_attn, serve_lm, steps, attention, cfg,
-                spec) -> int:
+def _serve_full(torch, kernels, serve_lm, steps, attention, cfg,
+                spec) -> dict:
     """A full-width serve through ``repro_torch.examples.serve_lm`` (the
-    main path, its ``flash_attention`` launches counted from 0), checked:
-    one launch a layer a prefill, finite logits, tokens in range, and the
-    first token's logits against the same prefill with the plain chunked
-    attention on the card.  Returns the launches."""
-    flash_attn.LAUNCHES = 0
+    main path, the launches of each kernel module of ``kernels``,
+    ``flash_attn`` and ``ssm_scan``, counted from 0), checked: each
+    kernel launched once a layer that has its mixer a prefill (attention
+    in every layer but the SSM family's, the scan in the SSM and hybrid
+    families' layers), finite logits, tokens in range, and the first
+    token's logits against the same prefill with the plain chunked
+    attention and the plain scan on the card.  Returns the launches by
+    kernel."""
+    flash_attn, ssm_scan = kernels["flash_attention"], kernels["ssm_scan"]
+    flash_attn.LAUNCHES = ssm_scan.LAUNCHES = 0
     out = serve_lm.serve(cfg, batch=spec["batch"],
                          prompt_len=spec["prompt_len"],
                          tokens=spec["tokens"], device="cuda")
     torch.cuda.synchronize()
-    launches = flash_attn.LAUNCHES
-    if launches != cfg.n_layers * out["prefill_calls"]:
-        raise AssertionError(f"full-width serve: {launches} flash_attention "
-                             f"launches over {out['prefill_calls']} prefills")
+    launches = {"flash_attention": flash_attn.LAUNCHES,
+                "ssm_scan": ssm_scan.LAUNCHES}
+    calls = out["prefill_calls"]
+    expected = {"flash_attention": cfg.n_layers * calls
+                if cfg.family != "ssm" else 0,
+                "ssm_scan": cfg.n_layers * calls if cfg.has_ssm else 0}
+    if launches != expected:
+        raise AssertionError(f"full-width serve: launches {launches} over "
+                             f"{calls} prefills, expected {expected}")
     generated = out["tokens"]
     if (generated.shape != (spec["batch"], spec["tokens"])
             or not torch.isfinite(out["first_logits"]).all()
             or generated.min() < 0 or generated.max() >= cfg.vocab_size):
         raise AssertionError("full-width serve: bad logits or tokens")
 
-    # The same prefill with the plain chunked attention on the card.
+    # The same prefill with the plain chunked attention and the plain
+    # scan on the card.
     max_len = spec["prompt_len"] + spec["tokens"]
     prefill, _ = steps.build_prefill_step(cfg, batch=spec["batch"],
                                           seq_len=max_len)
     toks = torch.from_numpy(serve_lm.prompts(cfg, spec["batch"],
                                              max_len)).cuda()
-    kernel_attention = attention.flash_attention
+    kernel_attention, kernel_scan = (attention.flash_attention,
+                                     ssm_scan.ssm_scan)
     attention.flash_attention = attention.chunked_attention
+    ssm_scan.ssm_scan = ssm_scan.ssm_scan_plain
     try:
         t0 = time.perf_counter()
         plain_logits, _ = prefill(out["params"], {"tokens": toks})
@@ -2632,6 +2928,7 @@ def _serve_full(torch, flash_attn, serve_lm, steps, attention, cfg,
         plain_prefill_s = time.perf_counter() - t0
     finally:
         attention.flash_attention = kernel_attention
+        ssm_scan.ssm_scan = kernel_scan
     plain_first = plain_logits[:, -1]
     gap = (out["first_logits"] - plain_first).abs().max().item()
     clear = _top2_margin(plain_first) > 2 * gap
@@ -2644,28 +2941,30 @@ def _serve_full(torch, flash_attn, serve_lm, steps, attention, cfg,
            "init_s": out["init_s"], "prefill_ms": out["prefill_s"] * 1e3,
            "decode_s": out["decode_s"],
            "decode_tok_s": out["decode_tok_s"],
-           "flash_attention_launches": launches,
-           "prefill_calls": out["prefill_calls"],
-           "launches_per_prefill": launches // out["prefill_calls"],
+           "launches": launches, "prefill_calls": calls,
+           "launches_per_prefill": {k: n // calls
+                                    for k, n in launches.items()},
            "peak_gib": out["peak_bytes"] / 2 ** 30,
-           "plain_attention_prefill_ms": plain_prefill_s * 1e3,
+           "plain_kernels_prefill_ms": plain_prefill_s * 1e3,
            "logits_gap_vs_plain": gap, "gap_bound": LM_FULL_GAP,
            "first_token_equal_where_clear": first_equal,
            "rows_clear": int(clear.sum().item()),
            "first_tokens": generated[:, 0].tolist()}
     emit(rec)
     if not (gap <= LM_FULL_GAP and first_equal):
-        raise AssertionError(f"full-width prefill: kernel against plain "
-                             f"attention gap {gap}, first tokens equal "
-                             f"where clear: {first_equal}")
+        raise AssertionError(f"full-width prefill: kernels against plain "
+                             f"gap {gap}, first tokens equal where clear: "
+                             f"{first_equal}")
     return launches
 
 
-def phase_lm_serve(torch, flash_attn, build, ref_values) -> dict:
+def phase_lm_serve(torch, flash_attn, ssm_scan, build, ref_values) -> dict:
     """The LM serving paths; returns ``{entry: (summary record,
-    launches)}`` for the kernel's two summary entries: the GQA path
-    (full-width Qwen3-4B) and the MLA path (DeepSeek-V3 at its published
-    widths, 4 layers)."""
+    launches)}`` for the summary's four entries of the LM path: the
+    attention kernel on the GQA path (full-width Qwen3-4B), on the MLA
+    path (DeepSeek-V3 at its published widths, 4 layers) and under the
+    hybrid family's window (full-width Hymba-1.5B), and the scan kernel
+    (full-width Falcon-Mamba-7B)."""
     from repro_torch import configs
     from repro_torch.core import prng
     from repro_torch.examples import serve_lm
@@ -2679,24 +2978,45 @@ def phase_lm_serve(torch, flash_attn, build, ref_values) -> dict:
     summary = _fa_kernel_checks(torch, flash_attn, build)
     _fa_pair_checks(torch, flash_attn)
     mla_summary = _fa_config_checks(torch, flash_attn, build)
+    window_summary = _fa_window_checks(torch, flash_attn)
+    scan_summary = _scan_checks(torch, ssm_scan, build)
+    ssm_refs = ref_values["lm_serve_ssm"].values()
     for ref in (ref_values["lm_serve"],
-                *ref_values["lm_serve_moe"].values()):
+                *ref_values["lm_serve_moe"].values(),
+                *(r for r in ssm_refs if not r.get("frontend"))):
         _smoke_against_jax(torch, configs, prng, steps, transformer,
                            tree_items, ref)
+    for ref in ssm_refs:
+        if ref.get("frontend"):
+            _frontend_against_jax(torch, configs, prng, transformer,
+                                  tree_items, ref)
 
     # Full width: each path driven with the counts set to 0 just before
     # it and read just after.
-    launches = _serve_full(torch, flash_attn, serve_lm, steps, attention,
+    kernels = {"flash_attention": flash_attn, "ssm_scan": ssm_scan}
+    launches = _serve_full(torch, kernels, serve_lm, steps, attention,
                            configs.get(LM_FULL["arch"]), LM_FULL)
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(configs.get(LM_MLA["arch"]),
                               n_layers=LM_MLA["n_layers"])
-    mla_launches = _serve_full(torch, flash_attn, serve_lm, steps,
+    mla_launches = _serve_full(torch, kernels, serve_lm, steps,
                                attention, cfg, LM_MLA)
     torch.cuda.empty_cache()
+    hybrid_launches = _serve_full(torch, kernels, serve_lm, steps,
+                                  attention, configs.get(LM_HYBRID["arch"]),
+                                  LM_HYBRID)
+    torch.cuda.empty_cache()
+    ssm_launches = _serve_full(torch, kernels, serve_lm, steps, attention,
+                               configs.get(LM_SSM["arch"]), LM_SSM)
+    torch.cuda.empty_cache()
+    scan_summary["hybrid_launches"] = hybrid_launches["ssm_scan"]
     emit({"phase": "lm_serve", "wall_s": time.perf_counter() - t_phase})
-    return {"flash_attention": (summary, launches),
-            "flash_attention_mla": (mla_summary, mla_launches)}
+    return {"flash_attention": (summary, launches["flash_attention"]),
+            "flash_attention_mla": (mla_summary,
+                                    mla_launches["flash_attention"]),
+            "flash_attention_window": (window_summary,
+                                       hybrid_launches["flash_attention"]),
+            "ssm_scan": (scan_summary, ssm_launches["ssm_scan"])}
 
 
 def kernel_entry(name: str, rec: dict, launches: int) -> dict:
@@ -2714,6 +3034,8 @@ def kernel_entry(name: str, rec: dict, launches: int) -> dict:
              "timing": rec.get("timing", "eager"),
              "shape": rec.get("shape", rec.get("n")),
              "unit": rec.get("unit", "one launch")}
+    if "library" in rec:
+        entry["library"] = rec["library"]
     if entry["timing"] == "graph":
         entry.update(eager_ms=rec["eager_ms"],
                      library_eager_ms=rec["library_eager_ms"])
@@ -2735,7 +3057,8 @@ def main() -> int:
                                       fig_tuned_tree, fig_workload_tuned,
                                       figure_rows, fiveg_pipeline)
     from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
-                                     flash_attn, matmul, ops, powf, ref)
+                                     flash_attn, matmul, ops, powf, ref,
+                                     ssm_scan)
     from repro_torch.runtime import serving
 
     ref_values = json.loads(
@@ -2777,8 +3100,8 @@ def main() -> int:
     more, more_launches = phase_dct_conv2d(torch, ops, dct, conv2d)
     summary.update(more)
     launches.update(more_launches)
-    for name, (rec, count) in phase_lm_serve(torch, flash_attn, _build,
-                                             ref_values).items():
+    for name, (rec, count) in phase_lm_serve(torch, flash_attn, ssm_scan,
+                                             _build, ref_values).items():
         summary[name], launches[name] = rec, count
 
     emit({"kernels": [kernel_entry(name, summary[name], launches[name])

@@ -2,8 +2,10 @@
 
 ``jax.random.normal`` and the workload models of
 :mod:`repro_torch.core.workloads` reach ``log1p``, ``erf_inv`` and
-``exp`` through XLA, which emits its own polynomials (Cephes ``logf``
-and ``expf``, Giles' ``erfinv``) rather than calling the C library, and
+``exp`` through XLA, and the SSM family's init reaches ``log`` and
+``expm1``; XLA emits its own polynomials for them (Cephes ``logf`` and
+``expf``, Giles' ``erfinv``, Eigen's ``tanh`` inside ``expm1``) rather
+than calling the C library, and
 lets LLVM contract a multiply feeding an add into one fused
 multiply-add.  The functions here write those sequences out op for op
 (:func:`_fma` where the compiled code fuses), each step one correctly
@@ -142,6 +144,43 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     y = _fma(p, z * z, z) + 1.0
     scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
     return y * scale
+
+
+# Eigen's float32 ``tanh`` rational approximation as XLA's CPU backend
+# emits it (``xla.tanh.f32``): odd numerator in t^2, highest degree first,
+# and the even denominator; the input is clamped to +-7.998811721801758,
+# below 0.0004 in magnitude tanh(t) is t, and from 20 on it is +-1.
+_TANH_NUM = _f32(-2.76076847742355e-16, 2.00018790482477e-13,
+                 -8.60467152213735e-11, 5.12229709037114e-08,
+                 1.48572235717979e-05, 6.37261928875436e-04,
+                 4.89352455891786e-03)
+_TANH_DEN = _f32(1.19825839466702e-06, 1.18534705686654e-04,
+                 2.26843463243900e-03, 4.89352518554385e-03)
+_TANH_CLAMP, _TANH_SMALL = _f32(7.99881172180175781, 0.0004)
+
+
+def _tanh(t: torch.Tensor) -> torch.Tensor:
+    tc = torch.clamp(t, -_TANH_CLAMP, _TANH_CLAMP)
+    t2 = tc * tc
+    num = torch.full_like(t, _TANH_NUM[0])
+    for c in _TANH_NUM[1:]:
+        num = _fma(num, t2, c)
+    den = torch.full_like(t, _TANH_DEN[0])
+    for c in _TANH_DEN[1:]:
+        den = _fma(den, t2, c)
+    r = torch.where(t.abs() < _TANH_SMALL, t, (tc * num) / den)
+    return torch.where(t.abs() >= 20.0, torch.copysign(torch.ones_like(t), t),
+                       r)
+
+
+def expm1(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``expm1``: ``exp(x) - 1`` where ``|x| > 1/2``, else
+    ``tanh(x / 2) * (exp(x) + 1)`` with :func:`exp` and XLA's ``tanh``,
+    and ``x`` itself where ``x / 2`` is zero."""
+    e = exp(x)
+    h = x * 0.5
+    r = torch.where(x.abs() > 0.5, e - 1.0, _tanh(h) * (e + 1.0))
+    return torch.where(h == 0, x, r)
 
 
 def powf(x: torch.Tensor, y: float) -> torch.Tensor:

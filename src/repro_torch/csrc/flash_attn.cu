@@ -20,7 +20,15 @@
 // p = 0; a running state (acc, m, l) updated tile by tile; p rounded to
 // v's dtype before the PV product while l sums the unrounded p; out =
 // acc / max(l, 1e-30) in q's dtype.  KV tiles wholly above the diagonal
-// are skipped, and the heaviest causal query tiles launch first.
+// are skipped, and the heaviest causal query tiles launch first.  A
+// sliding window (window > 0, the hybrid family's; the reference's
+// src/repro/models/attention.py mask: key t is seen by query s when
+// s - t < window, and t <= s too when causal) starts each query tile's kv
+// loop at the tile holding its first row's first visible key, never at
+// tile 0; keys behind a row's window drop out as -inf, like keys past T,
+// so a row that has seen no key yet keeps its state (0, NEG_INF, 0) and
+// its rescale factor is 2^0, never 0 * inf.  A window needs S <= T
+// (every row then sees a key).
 //
 // Bound: at the serving path's prefill (B = 4, H = 32, Hk = 8, S = T =
 // 2048, D = 128, bf16, causal) the two products over the causal half
@@ -32,6 +40,10 @@
 // DeepSeek-V3's prefill (B = 4, H = Hk = 128, S = 2048, (192, 128), bf16,
 // causal) takes 2 (D + Dv) B H S (S + 1) / 2 = 6.87e11 FLOP over the
 // causal half, 0.69 ms at the tensor rate, against 1.34 GB, 0.40 ms.
+// Hymba-1.5B's (B = 4, H = 25, Hk = 5, S = 2048, D = 64, bf16, causal,
+// window 1024) keeps 1024 * 1025 / 2 + 1024 * 1024 (query, key) pairs a
+// head: 4 D B H of them is 4.03e10 FLOP, 0.041 ms, against 63 MB of
+// traffic, 0.019 ms: bound by operations.
 //
 // Design.  The TPU kernel walked 512 x 512 VMEM tiles in a sequential
 // grid and carried (acc, m, l) in scratch across grid steps.  On Hopper
@@ -469,21 +481,27 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[DV / 2],
 }
 
 // The online softmax of one tile of scores (keys k0 .. k0 + BN - 1) in
-// place: keys past T drop out (-inf, p = 0), causal masking writes the
-// reference's finite NEG_INF (only edge tiles need the test); the running
-// max m is kept in units of scale * log2(e), p = 2^(s c - m); l sums the
-// unrounded p.  Returns the factors al0, al1 that rescale O's rows.
+// place: keys past T and keys a window or more behind the row drop out
+// (-inf, p = 0), causal masking writes the reference's finite NEG_INF
+// (only edge tiles need the test); the running max m is kept in units of
+// scale * log2(e), p = 2^(s c - m); l sums the unrounded p.  A row whose
+// keys in this tile all lie behind its window, before any key it sees,
+// keeps m = NEG_INF, rescales by 2^0 and adds p = 2^-inf = 0: its state
+// stays (0, NEG_INF, 0), as if the tile had not been visited.  Returns
+// the factors al0, al1 that rescale O's rows.
 template <int BN>
 __device__ __forceinline__ void softmax_tile(
-    float (&sacc)[BN / 2], int k0, int T, int causal, int wg_row0,
-    int r0, int r1, int t4, float scale_log2, float& m0, float& m1,
-    float& l0, float& l1, float& al0, float& al1) {
-  if (k0 + BN > T || (causal && k0 + BN - 1 > wg_row0)) {
+    float (&sacc)[BN / 2], int k0, int T, int causal, int window,
+    int wg_row0, int r0, int r1, int t4, float scale_log2, float& m0,
+    float& m1, float& l0, float& l1, float& al0, float& al1) {
+  if (k0 + BN > T || (causal && k0 + BN - 1 > wg_row0)
+      || (window > 0 && wg_row0 + 63 - k0 >= window)) {
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) {
       const int col = k0 + (i / 4) * 8 + t4 * 2 + (i % 2);
       const int row = (i % 4) < 2 ? r0 : r1;
-      if (col >= T) sacc[i] = -INFINITY;
+      if (col >= T || (window > 0 && row - col >= window))
+        sacc[i] = -INFINITY;
       else if (causal && col > row) sacc[i] = NEG_INF;
     }
   }
@@ -531,7 +549,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, Strides st, int H, int Hk,
-                int S, int T, float scale_log2, int causal) {
+                int S, int T, float scale_log2, int causal, int window) {
   using W = WgShape<D, DV>;
   constexpr int BN = W::BN;
   extern __shared__ uint8_t fa_smem[];
@@ -554,6 +572,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * WG_BM;
   int n_kv = (T + BN - 1) / BN;
   if (causal) n_kv = min(n_kv, (min(q0 + WG_BM, S) - 1) / BN + 1);
+  // Under a sliding window the first tile is the one that holds the first
+  // key the block's first row sees: tiles j0 .. n_kv - 1, the i-th of
+  // them in ring stage i % WG_STAGES.
+  const int j0 = window > 0 ? max(0, q0 - window + 1) / BN : 0;
+  const int n_tiles = max(0, n_kv - j0);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -576,19 +599,19 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(q_full, W::Q_BYTES);
       for (int c = 0; c < W::CHUNKS; ++c)
         tma_load(q_s + c * (WG_BM * 128), tq, q_full, c * 64, h, q0, b);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % WG_STAGES;
-        const uint32_t free_parity = ((j / WG_STAGES) & 1) ^ 1;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % WG_STAGES, k0 = (j0 + i) * BN;
+        const uint32_t free_parity = ((i / WG_STAGES) & 1) ^ 1;
         mbar_wait(k_empty + 8 * s, free_parity);
         mbar_expect_tx(k_full + 8 * s, W::K_BYTES);
         for (int c = 0; c < W::CHUNKS; ++c)
           tma_load(k_ring + s * W::K_BYTES + c * (BN * 128), tk,
-                   k_full + 8 * s, c * 64, hk, j * BN, b);
+                   k_full + 8 * s, c * 64, hk, k0, b);
         mbar_wait(v_empty + 8 * s, free_parity);
         mbar_expect_tx(v_full + 8 * s, W::V_BYTES);
         for (int c = 0; c < W::V_CHUNKS; ++c)
           tma_load(v_ring + s * W::V_BYTES + c * (BN * 128), tv,
-                   v_full + 8 * s, c * 64, hk, j * BN, b);
+                   v_full + 8 * s, c * 64, hk, k0, b);
       }
     }
     return;
@@ -613,7 +636,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // Tile 0 alone, so that in the loop every PV issued is waited for on
   // every path (a wait that ptxas cannot prove makes it serialise every
   // wgmma of the kernel).
-  if (n_kv > 0) {
+  if (n_tiles > 0) {
     mbar_wait(k_full, 0);
     wgmma_fence();
     issue_qk<D, BN>(sacc, q_s, k_ring, wg);
@@ -621,11 +644,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs(sacc);
     if (lane == 0) mbar_arrive(k_empty);
-    softmax_tile<BN>(sacc, 0, T, causal, wg_row0, r0, r1, t4, scale_log2,
-                     m0, m1, l0, l1, al0, al1);
+    softmax_tile<BN>(sacc, j0 * BN, T, causal, window, wg_row0, r0, r1, t4,
+                     scale_log2, m0, m1, l0, l1, al0, al1);
     pack_p<BN>(sacc, pf);
   }
-  for (int j = 1; j < n_kv; ++j) {
+  for (int j = 1; j < n_tiles; ++j) {
     const int s = j % WG_STAGES;
     const int sp = (j - 1) % WG_STAGES;             // tile j - 1's stage
     mbar_wait(k_full + 8 * s, (j / WG_STAGES) & 1);
@@ -639,8 +662,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<1>();
     fence_regs(sacc);
     if (lane == 0) mbar_arrive(k_empty + 8 * s);      // K_j is read
-    softmax_tile<BN>(sacc, j * BN, T, causal, wg_row0, r0, r1, t4,
-                     scale_log2, m0, m1, l0, l1, al0, al1);
+    softmax_tile<BN>(sacc, (j0 + j) * BN, T, causal, window, wg_row0, r0,
+                     r1, t4, scale_log2, m0, m1, l0, l1, al0, al1);
     wgmma_wait<0>();
     fence_regs(oacc);
     fence_regs(pf);
@@ -649,9 +672,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < DV / 2; ++i) oacc[i] *= (i % 4) < 2 ? al0 : al1;
     pack_p<BN>(sacc, pf);
   }
-  if (n_kv > 0) {                 // the last tile's PV
-    const int sp = (n_kv - 1) % WG_STAGES;
-    mbar_wait(v_full + 8 * sp, ((n_kv - 1) / WG_STAGES) & 1);
+  if (n_tiles > 0) {              // the last tile's PV
+    const int sp = (n_tiles - 1) % WG_STAGES;
+    mbar_wait(v_full + 8 * sp, ((n_tiles - 1) / WG_STAGES) & 1);
     wgmma_fence();
     issue_pv<DV, BN>(oacc, pf, v_ring + sp * W::V_BYTES);
     wgmma_commit();
@@ -712,7 +735,7 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ o, Strides st, int H, int Hk,
-              int S, int T, float scale, int causal) {
+              int S, int T, float scale, int causal, int window) {
   constexpr int LD = D + 8;                 // padded shared row (elements)
   constexpr int PACKS = D / 8;              // 16-byte packs per row
   extern __shared__ uint8_t fa_smem[];      // mma_smem_bytes<D>()
@@ -753,8 +776,10 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int q_last = min(q0 + MMA_BQ, S) - 1;
   int n_kv = (T + MMA_BK - 1) / MMA_BK;
   if (causal) n_kv = min(n_kv, q_last / MMA_BK + 1);
+  // Under a sliding window, from the tile of the first row's first key.
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / MMA_BK : 0;
 
-  for (int kt = 0; kt < n_kv; ++kt) {
+  for (int kt = kt0; kt < n_kv; ++kt) {
     const int k0 = kt * MMA_BK;
     __syncthreads();                        // the previous tile is consumed
     for (int e = threadIdx.x; e < MMA_BK * PACKS; e += MMA_THREADS) {
@@ -783,8 +808,10 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // Scale and mask: keys past T drop out (-inf, p = 0); causal masking
-    // writes the reference's finite NEG_INF.
+    // Scale and mask: keys past T and keys a window or more behind the
+    // row drop out (-inf, p = 0; a row that has seen no key yet keeps m =
+    // NEG_INF and adds nothing); causal masking writes the reference's
+    // finite NEG_INF.
     float tmax0 = -INFINITY, tmax1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < MMA_BK / 8; ++j) {
@@ -793,7 +820,7 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const int col = k0 + j * 8 + t4 * 2 + (e & 1);
         const int row = e < 2 ? r0 : r1;
         float x = sc[j][e] * scale;
-        if (col >= T) x = -INFINITY;
+        if (col >= T || (window > 0 && row - col >= window)) x = -INFINITY;
         else if (causal && col > row) x = NEG_INF;
         sc[j][e] = x;
         if (e < 2) tmax0 = fmaxf(tmax0, x);
@@ -970,7 +997,8 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(F_THREADS, 2)
 fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, Strides st,
-              int H, int Hk, int S, int Tk, float scale, int causal) {
+              int H, int Hk, int S, int Tk, float scale, int causal,
+              int window) {
   using F = FmaShape<T, D, DV>;
   constexpr int LD = F::LD, LDV = F::LDV, NC = F::NC;
   extern __shared__ uint8_t fa_smem[];      // F::SMEM, 16-byte aligned
@@ -995,13 +1023,16 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(q0 + F_BQ, S) - 1;
   int n_kv = (Tk + F_BK - 1) / F_BK;
   if (causal) n_kv = min(n_kv, q_last / F_BK + 1);
+  // Under a sliding window, from the tile of the first row's first key.
+  const int j0 = window > 0 ? max(0, q0 - window + 1) / F_BK : 0;
 
-  // Copy groups: Q with K_0, then V_0; in the loop K_{j+1}, then V_{j+1}.
-  // Each wait_group 1 below leaves only the newest group in flight.
+  // Copy groups: Q with K_j0, then V_j0; in the loop K_{j+1}, then
+  // V_{j+1}.  Each wait_group 1 below leaves only the newest group in
+  // flight.
   copy_tile<T, D>(qs, qh, st.qs, q0, S);
-  if (n_kv > 0) copy_tile<T, D>(ks, kh, st.ks, 0, Tk);
+  if (j0 < n_kv) copy_tile<T, D>(ks, kh, st.ks, j0 * F_BK, Tk);
   cp_async_commit();
-  if (n_kv > 0) copy_tile<T, DV>(vs, vh, st.vs, 0, Tk);
+  if (j0 < n_kv) copy_tile<T, DV>(vs, vh, st.vs, j0 * F_BK, Tk);
   cp_async_commit();
 
   float acc[F_RM][NC], m[F_RM], l[F_RM];
@@ -1013,7 +1044,7 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
   }
 
-  for (int j = 0; j < n_kv; ++j) {
+  for (int j = j0; j < n_kv; ++j) {
     const int k0 = j * F_BK;
     cp_async_wait<1>();           // Q and K_j
     __syncthreads();
@@ -1046,8 +1077,10 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (j + 1 < n_kv) copy_tile<T, D>(ks, kh, st.ks, k0 + F_BK, Tk);
     cp_async_commit();
 
-    // Scale and mask (keys past T drop out, -inf; causal masking writes
-    // the reference's finite NEG_INF), then the online softmax row by row.
+    // Scale and mask (keys past T and keys a window or more behind the row
+    // drop out, -inf: a row that has seen no key yet keeps m = NEG_INF and
+    // adds nothing; causal masking writes the reference's finite NEG_INF),
+    // then the online softmax row by row.
 #pragma unroll
     for (int i = 0; i < F_RM; ++i) {
       float tmax = -INFINITY;
@@ -1055,7 +1088,8 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < F_KN; ++jj) {
         const int col = k0 + tx + 16 * jj;
         float x = s[i][jj] * scale;
-        if (col >= Tk) x = -INFINITY;
+        if (col >= Tk || (window > 0 && row0 + i - col >= window))
+          x = -INFINITY;
         else if (causal && col > row0 + i) x = NEG_INF;
         s[i][jj] = x;
         tmax = fmaxf(tmax, x);
@@ -1148,7 +1182,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
 template <typename T, int D, int DV = D>
 int launch_fma(const T* q, const T* k, const T* v, T* o, const Strides& st,
                int B, int H, int Hk, int S, int Tk, float scale, int causal,
-               cudaStream_t stream) {
+               int window, cudaStream_t stream) {
   static unsigned long long configured = 0;
   constexpr int smem = FmaShape<T, D, DV>::SMEM;
   const cudaError_t err = allow_smem(fa_fma_kernel<T, D, DV>, smem,
@@ -1156,7 +1190,7 @@ int launch_fma(const T* q, const T* k, const T* v, T* o, const Strides& st,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
   fa_fma_kernel<T, D, DV><<<grid, F_THREADS, smem, stream>>>(
-      q, k, v, o, st, H, Hk, S, Tk, scale, causal);
+      q, k, v, o, st, H, Hk, S, Tk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -1164,14 +1198,14 @@ template <int D>
 int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
                int B, int H, int Hk, int S, int Tk, float scale, int causal,
-               cudaStream_t stream) {
+               int window, cudaStream_t stream) {
   static unsigned long long configured = 0;
   constexpr int smem = mma_smem_bytes<D>();
   const cudaError_t err = allow_smem(fa_mma_kernel<D>, smem, &configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, H, B);
   fa_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
-      q, k, v, o, st, H, Hk, S, Tk, scale, causal);
+      q, k, v, o, st, H, Hk, S, Tk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -1219,7 +1253,7 @@ template <int D, int DV = D>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
                  int B, int H, int Hk, int S, int Tk, float scale, int causal,
-                 cudaStream_t stream) {
+                 int window, cudaStream_t stream) {
   using W = WgShape<D, DV>;
   constexpr int smem = W::SMEM;
   if ((S + WG_BM - 1) / WG_BM > 65535) return (int)cudaErrorInvalidValue;
@@ -1241,12 +1275,14 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   // before any lighter one, and heads that share a KV head run together.
   const dim3 grid((unsigned)B * H, (S + WG_BM - 1) / WG_BM);
   fa_wgmma_kernel<D, DV><<<grid, WG_THREADS, smem, stream>>>(
-      tq, tk, tv, o, st, H, Hk, S, Tk, scale * 1.4426950408889634f, causal);
+      tq, tk, tv, o, st, H, Hk, S, Tk, scale * 1.4426950408889634f, causal,
+      window);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int B, int H, int Hk, int S, int Tk) {
-  return B < 0 || S < 0 || Tk < 0 || H <= 0 || Hk <= 0 || H % Hk != 0;
+bool bad_shape(int B, int H, int Hk, int S, int Tk, int window) {
+  return B < 0 || S < 0 || Tk < 0 || H <= 0 || Hk <= 0 || H % Hk != 0
+         || window < 0 || (window > 0 && S > Tk);
 }
 
 Strides strides_from(const long long* s) {
@@ -1258,15 +1294,18 @@ Strides strides_from(const long long* s) {
 
 // strides: 12 element strides (batch, head, sequence) of q, k, v, out.
 // (D, Dv): the query/key and value widths, one of the pairs below (0 ->
-// cudaErrorInvalidValue).
+// cudaErrorInvalidValue).  window > 0: query s sees key t only when
+// s - t < window (a sliding window; with causal masking too, t <= s);
+// it needs S <= Tk, so that every row sees a key.
 extern "C" int flash_attn_f32(const float* q, const float* k, const float* v,
                               float* o, const long long* strides, int B,
                               int H, int Hk, int S, int Tk, int D, int Dv,
-                              float scale, int causal, cudaStream_t stream) {
-  if (bad_shape(B, H, Hk, S, Tk)) return (int)cudaErrorInvalidValue;
+                              float scale, int causal, int window,
+                              cudaStream_t stream) {
+  if (bad_shape(B, H, Hk, S, Tk, window)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const Strides st = strides_from(strides);
-#define FA_ARGS q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, stream
+#define FA_ARGS q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, window, stream
   if (D == Dv) {
     switch (D) {
       case 8: return launch_fma<float, 8>(FA_ARGS);
@@ -1287,8 +1326,9 @@ extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, __nv_bfloat16* o,
                                const long long* strides, int B, int H,
                                int Hk, int S, int Tk, int D, int Dv,
-                               float scale, int causal, cudaStream_t stream) {
-  if (bad_shape(B, H, Hk, S, Tk)) return (int)cudaErrorInvalidValue;
+                               float scale, int causal, int window,
+                               cudaStream_t stream) {
+  if (bad_shape(B, H, Hk, S, Tk, window)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const Strides st = strides_from(strides);
   if (D == Dv) {

@@ -23,7 +23,9 @@ its aggregated table and from its raw event list.
 ``--only serve_mla`` profiles DeepSeek-V3 instead of Qwen3-4B, at its
 published widths with its depth cut to 4 layers (3 dense, 1 MoE layer
 of 256 experts: the 15.8 B parameters ``chip_smoke.py`` serves), the
-same prefill and decode steps.
+same prefill and decode steps; ``--only serve_hybrid`` full-width
+Hymba-1.5B (32 layers of window-1024 attention beside a Mamba block) and
+``--only serve_ssm`` full-width Falcon-Mamba-7B (64 Mamba layers).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from repro_torch import configs
 from repro_torch.core import fiveg, prng, sweep, tuning
 from repro_torch.examples import bench_faults, fiveg_pipeline, serve_lm
 from repro_torch.kernels import (axpy, conv2d, dct, dotp, fft4, flash_attn,
-                                 matmul, ops, powf)
+                                 matmul, ops, powf, ssm_scan)
 from repro_torch.launch import steps
 from repro_torch.models import init_params
 
@@ -54,7 +56,8 @@ KERNEL_NAMES = {"fft4_stage_kernel": "fft4_stage",
                 "conv2d_kernel": "conv2d", "powf_kernel": "powf",
                 "fa_wgmma_kernel": "flash_attention",
                 "fa_mma_kernel": "flash_attention",
-                "fa_fma_kernel": "flash_attention"}
+                "fa_fma_kernel": "flash_attention",
+                "ssm_scan_kernel": "ssm_scan"}
 
 
 def _counters() -> dict:
@@ -62,7 +65,8 @@ def _counters() -> dict:
                 fft4_fused=fft4.FUSED_LAUNCHES,
                 matmul=matmul.LAUNCHES, axpy=axpy.LAUNCHES,
                 dct=dct.LAUNCHES, conv2d=conv2d.LAUNCHES,
-                powf=powf.LAUNCHES, flash_attention=flash_attn.LAUNCHES)
+                powf=powf.LAUNCHES, flash_attention=flash_attn.LAUNCHES,
+                ssm_scan=ssm_scan.LAUNCHES)
 
 
 def launch_counts(fn) -> dict:
@@ -122,12 +126,15 @@ def profile_run(fn) -> dict:
                              e.self_device_time_total / 1e3] for e in top]}
 
 
-# The model each serve profile runs: full-width Qwen3-4B, and DeepSeek-V3
-# at its published widths, 4 layers deep.
+# The model each serve profile runs: full-width Qwen3-4B, DeepSeek-V3 at
+# its published widths 4 layers deep, full-width Hymba-1.5B and
+# Falcon-Mamba-7B.
 SERVE_MODELS = {
     "serve": ("qwen3-4b", lambda: configs.get("qwen3_4b")),
     "serve_mla": ("deepseek-v3 4 layers", lambda: dataclasses.replace(
         configs.get("deepseek_v3_671b"), n_layers=4)),
+    "serve_hybrid": ("hymba-1.5b", lambda: configs.get("hymba_1_5b")),
+    "serve_ssm": ("falcon-mamba-7b", lambda: configs.get("falcon_mamba_7b")),
 }
 
 
@@ -159,7 +166,10 @@ def profile_serve(device="cuda", n_steps: int = 8, which="serve") -> None:
                       "launches_per_step": rec["kernel_launches"] / n_steps,
                       "wall_s_per_step": rec["wall_s"] / n_steps, **rec}))
     print(json.dumps({"run": f"launch_counts prefill {name} 4x2048",
-                      "expected": cfg.n_layers,
+                      "expected": {
+                          "flash_attention": 0 if cfg.family == "ssm"
+                          else cfg.n_layers,
+                          "ssm_scan": cfg.n_layers if cfg.has_ssm else 0},
                       **launch_counts(lambda: prefill(params,
                                                       {"tokens": toks}))}))
 
@@ -222,14 +232,16 @@ def profile_simulator(device="cuda") -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("simulator", "serve", "serve_mla"),
+    ap.add_argument("--only", choices=("simulator", "serve", "serve_mla",
+                                       "serve_hybrid", "serve_ssm"),
                     help="profile one path (default: the simulator and "
                          "Qwen3-4B's serve)")
     args = ap.parse_args(argv)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     if args.only in (None, "simulator"):
         profile_simulator()
-    if args.only in (None, "serve", "serve_mla"):
+    if args.only in (None, "serve", "serve_mla", "serve_hybrid",
+                     "serve_ssm"):
         profile_serve(which=args.only or "serve")
 
 

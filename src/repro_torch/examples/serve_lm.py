@@ -1,20 +1,26 @@
 """Batched serving (port of ``examples/serve_lm.py``): prefill a batch of
-prompts, then decode new tokens step by step against the KV cache (the
-latent cache under multi-head latent attention), greedily.  The dense,
-MoE (moonshot) and MLA + MoE (deepseek-v3) families serve; the prefill
-attention runs the flash-attention kernel on the card.
+prompts, then decode new tokens step by step against the caches (the KV
+cache, the latent cache under multi-head latent attention, the SSM
+family's conv and scan states), greedily.  The dense, MoE (moonshot),
+MLA + MoE (deepseek-v3), SSM (falcon-mamba) and hybrid (hymba) families
+serve; on the card the prefill attention runs the flash-attention
+kernel (under hymba's sliding window too) and the prefill scan the
+selective-scan kernel.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu \\
         --arch deepseek-v3-671b
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu \\
+        --arch falcon_mamba_7b          # also hymba_1_5b
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --full \\
         --batch 4 --prompt-len 2016 --tokens 32
 
-``--full`` runs the published config.  Qwen3-4B fits one H100, and so
-would moonshot-v1-16b-a3b's 28.4 B parameters (56.8 GB in bf16), which
-no run has served yet; DeepSeek-V3's 671.7 B do not: ``chip_smoke.py``
-serves it at its published widths with its depth cut to 4 layers
-through :func:`serve`.
+``--full`` runs the published config.  Qwen3-4B, Hymba-1.5B and
+Falcon-Mamba-7B (14.5 GB in bf16) fit one H100, and so would
+moonshot-v1-16b-a3b's 28.4 B parameters (56.8 GB in bf16), which no run
+has served yet; DeepSeek-V3's 671.7 B do not: ``chip_smoke.py`` serves
+it at its published widths with its depth cut to 4 layers through
+:func:`serve`.
 
 As in the reference, the prefill covers ``prompt_len + tokens`` random
 prompt tokens and decode step ``i`` writes position ``prompt_len + i``.
@@ -33,7 +39,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch import configs
 from repro_torch.core import prng
-from repro_torch.kernels import flash_attn
+from repro_torch.kernels import flash_attn, ssm_scan
 from repro_torch.launch import steps
 from repro_torch.models import init_params
 
@@ -120,7 +126,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = (configs.get if args.full else configs.get_smoke)(args.arch)
-    flash_attn.LAUNCHES = 0
+    flash_attn.LAUNCHES = ssm_scan.LAUNCHES = 0
     out = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                 tokens=args.tokens, device=args.device)
     max_len = args.prompt_len + args.tokens
@@ -129,8 +135,9 @@ def main(argv=None) -> None:
     if out["decode_tok_s"] is not None:
         print(f"decode {args.tokens - 1} steps: {out['decode_s'] * 1e3:.0f} "
               f"ms ({out['decode_tok_s']:.1f} tok/s)")
-    print(f"flash_attention launches: {flash_attn.LAUNCHES} over "
-          f"{out['prefill_calls']} prefills (a warm-up and the timed one)")
+    print(f"flash_attention launches: {flash_attn.LAUNCHES}, ssm_scan "
+          f"launches: {ssm_scan.LAUNCHES}, over {out['prefill_calls']} "
+          f"prefills (a warm-up and the timed one)")
     peak = out["peak_bytes"]
     print("peak device memory: "
           + ("not measured (CPU)" if peak is None else f"{peak / 2**30:.2f} GiB"))

@@ -11,7 +11,9 @@ says what the kernel reads), so the model hands it its (B, S, H, D)
 projections transposed, without a copy.  bfloat16 runs on the tensor
 cores (``wgmma`` at D 64, 80, 128 and 192 and at (192, 128),
 ``mma.sync`` at 16 and 32), float32 at every pair and bfloat16 at D = 8
-and (24, 16) in true float32 FMAs, register-tiled (no TF32).
+and (24, 16) in true float32 FMAs, register-tiled (no TF32); each of the
+three takes the models' sliding window (the hybrid family's), starting a
+query tile's kv loop at the first tile its first row sees.
 :data:`HEAD_DIMS` holds the head widths of the repo's configs: 64 and
 128 (most of them), 80 (hubert-xlarge), 192 (nemotron-4-340b), and the
 smoke configs' 8 and 16; :data:`PAIRS` adds DeepSeek-V3's multi-head
@@ -37,10 +39,11 @@ HEAD_DIMS = (8, 16, 32, 64, 80, 128, 192)
 PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 
 # q, k, v, out, their 12 strides, B, H, Hk, S, T, D, Dv, scale, causal,
-# stream.
+# window, stream.
 _SIGNATURES = {fn: [ctypes.c_void_p] * 4
                + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p]
                for fn in ("flash_attn_f32", "flash_attn_bf16")}
 _SIGNATURES["flash_attn_wgmma_smem"] = [ctypes.c_int] * 2
 _SIGNATURES["flash_attn_fma_smem"] = [ctypes.c_int] * 2
@@ -48,11 +51,11 @@ _ENTRY = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          scale: float | None = None) -> torch.Tensor:
+                          *, causal: bool = True, scale: float | None = None,
+                          window: int = 0) -> torch.Tensor:
     """The O(S^2) reference attention, in q's dtype."""
-    return ref.flash_attention(q, k, v, causal=causal,
-                               scale=scale).to(q.dtype)
+    return ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                               window=window).to(q.dtype)
 
 
 def layout_error(shape, strides, base: int):
@@ -86,10 +89,13 @@ def _strides(*tensors):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
+                    window: int = 0,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Attention over q (B, H, S, D), k (B, Hk, T, D) and v (B, Hk, T,
     Dv) with scale ``scale`` (default ``D ** -0.5``); causal masking by
-    absolute position.  Writes into ``out`` ((B, H, S, Dv) in q's dtype,
+    absolute position, and a sliding window where ``window > 0`` (query s
+    sees key t only when s - t < window; on the card it needs S <= T, so
+    that every row sees a key).  Writes into ``out`` ((B, H, S, Dv) in q's dtype,
     any layout :func:`layout_error` accepts) if given, else into a new
     tensor (laid out like q where Dv = D), and returns it.  CUDA tensors launch the
     kernel (float32 or bfloat16 operands of one dtype, ``(D, Dv)`` in
@@ -118,8 +124,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.dtype} on {q.device}, got {tuple(out.shape)} "
                          f"{out.dtype} on {out.device}")
     scale = d ** -0.5 if scale is None else float(scale)
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     if q.device.type == "cpu":
-        res = flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        res = flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                    window=window)
         return res if out is None else out.copy_(res)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
@@ -130,12 +140,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (d, dv) not in PAIRS:
         raise ValueError(f"flash_attention takes (D, Dv) in {PAIRS}, got "
                          f"({d}, {dv})")
+    if window and s > t:
+        raise ValueError(f"flash_attention: a window needs S <= T, got S "
+                         f"{s}, T {t}")
     if out is None:
         out = torch.empty_like(q) if dv == d else q.new_empty(o_shape)
     strides = _strides(q, k, v, out)
     lib = _build.load("flash_attn", _SIGNATURES)
     _build.call(lib, "flash_attn", getattr(lib, _ENTRY[q.dtype]), q.device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, b, h, hk, s, t, d, dv, scale, int(causal))
+                strides, b, h, hk, s, t, d, dv, scale, int(causal), window)
     LAUNCHES += 1
     return out

@@ -176,24 +176,30 @@ NEG_INF = -1e30
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: float | None = None) -> torch.Tensor:
+                    causal: bool = True, scale: float | None = None,
+                    window: int = 0) -> torch.Tensor:
     """O(S^2) reference attention, float32 out.  q (B, H, S, D); k (B, Hk,
     T, D) and v (B, Hk, T, Dv) with ``H`` a multiple of ``Hk`` (query head
     ``h`` reads KV head ``h // (H // Hk)``); out (B, H, S, Dv).  Scores
     are float32 products scaled by ``scale`` (default ``D ** -0.5``);
-    causal masking keeps key ``t <= s`` and writes the finite ``-1e30``;
-    the softmax is rounded to v's dtype before the PV product, as the
-    reference does."""
+    causal masking keeps key ``t <= s``, a sliding ``window > 0`` keeps
+    ``s - t < window`` (the models' mask), and masked scores are the
+    finite ``-1e30``; the softmax is rounded to v's dtype before the PV
+    product, as the reference does."""
     b, h, s, d = q.shape
     hk, t, dv = k.shape[1], k.shape[2], v.shape[3]
     scale = d ** -0.5 if scale is None else scale
     qg = q.to(torch.float32).reshape(b, hk, h // hk, s, d)
     sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32))
     sc = sc * scale
-    if causal:
-        keep = (torch.arange(s, device=q.device)[:, None]
-                >= torch.arange(t, device=q.device)[None, :])
+    if causal or window > 0:
+        lag = (torch.arange(s, device=q.device)[:, None]
+               - torch.arange(t, device=q.device)[None, :])
+        keep = torch.ones_like(lag, dtype=torch.bool)
+        if causal:
+            keep &= lag >= 0
+        if window > 0:
+            keep &= lag < window
         sc = torch.where(keep, sc, NEG_INF)
     p = torch.softmax(sc, dim=-1).to(v.dtype).to(torch.float32)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))

@@ -1,0 +1,120 @@
+"""The selective scan of the SSM family (Mamba-1), with its ``D`` skip.
+
+Replaces no Pallas kernel: the reference computes it in jnp, a chunked
+``lax.associative_scan`` (``src/repro/models/ssm.py:69`` ``ssm_scan``).
+It has a hand-written kernel all the same because its plain form on the
+card materialises (B, chunk, d_inner, n) float32 tensors, several a
+chunk, where a sequential scan in registers moves only its inputs and
+outputs.  Over S steps, for every batch row and channel,
+
+    h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t
+    y_t = C_t . h_t + D x_t
+
+with dt, x (B, S, d_inner), B_t and C_t (B, S, n), A (d_inner, n), D
+(d_inner,) and the start state h0 (B, d_inner, n), all float32; the
+result is y (B, S, d_inner) and the final state (B, d_inner, n), float32.
+
+The CUDA kernel (``csrc/ssm_scan.cu``) gives one thread a (batch row,
+channel) and its n states in registers, and stages tiles of dt, x, B and
+C in shared memory.  Its sums run in another order than the
+associative scan's tree: it agrees with the plain version to float32
+rounding, not bit for bit.  The plain version, :func:`ssm_scan_plain`,
+keeps the reference's chunks (``min(256, S)`` steps, the whole of S if
+that does not divide it) and runs a first-order scan inside each; it is
+the path for CPU tensors and the kernel's oracle on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+# Kernel launches made by ssm_scan; the plain path never counts.
+LAUNCHES = 0
+
+# The state widths the kernel holds in registers: the configs' 16 and the
+# smoke configs' 8.
+STATES = (8, 16)
+
+# dt, x, B, C, A, D, h0, y, h_out, then B, S, d_inner, n, stream.
+_SIGNATURES = {"ssm_scan_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+               + [ctypes.c_void_p]}
+
+
+def ssm_scan_plain(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
+                   cmat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                   h0: torch.Tensor, chunk: int = 256) -> tuple:
+    """The scan in plain torch, chunk by chunk as the reference runs it:
+    each chunk's decays ``exp(dt A)`` and inputs ``(dt x) B`` as (c, B,
+    d_inner, n) tensors, a first-order scan over the chunk's steps, then
+    ``y = C . h`` for the chunk; ``D x`` is added at the end.  Returns
+    ``(y, h)``."""
+    B, S, di = x.shape
+    c = min(chunk, S)
+    if c == 0 or S % c:
+        c = max(S, 1)
+    h = h0
+    ys = []
+    for t0 in range(0, S, c):
+        dt_c = dt[:, t0:t0 + c].transpose(0, 1)              # (c, B, di)
+        x_c = x[:, t0:t0 + c].transpose(0, 1)
+        decay = torch.exp(dt_c[..., None] * a)                # (c, B, di, n)
+        inp = (dt_c * x_c)[..., None] * bmat[:, t0:t0 + c].transpose(
+            0, 1)[:, :, None, :]
+        h_seq = torch.empty_like(decay)
+        for t in range(decay.shape[0]):
+            h = torch.addcmul(inp[t], decay[t], h, out=h_seq[t])
+        ys.append(torch.einsum("cbdn,bcn->bcd", h_seq, cmat[:, t0:t0 + c]))
+    y = torch.cat(ys, dim=1) if ys else torch.zeros_like(x)
+    return y + x * d_skip, h.clone()
+
+
+def _check(dt, x, bmat, cmat, a, d_skip, h0) -> None:
+    B, S, di = x.shape
+    n = a.shape[-1]
+    want = {"dt": (dt, (B, S, di)), "B": (bmat, (B, S, n)),
+            "C": (cmat, (B, S, n)), "A": (a, (di, n)), "D": (d_skip, (di,)),
+            "h0": (h0, (B, di, n))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ssm_scan: {name} is {tuple(t.shape)}, not "
+                             f"{shape} for x {tuple(x.shape)}")
+        if t.device != x.device:
+            raise ValueError("ssm_scan operands must share one device")
+
+
+def ssm_scan(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
+             cmat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+             h0: torch.Tensor) -> tuple:
+    """``(y, h)`` of the selective scan (module docstring).  CUDA tensors
+    launch the kernel: float32, contiguous, n in :data:`STATES` (anything
+    else raises); CPU tensors take :func:`ssm_scan_plain`."""
+    global LAUNCHES
+    if x.dim() != 3:
+        raise ValueError(f"ssm_scan needs x (B, S, d_inner), got "
+                         f"{tuple(x.shape)}")
+    _check(dt, x, bmat, cmat, a, d_skip, h0)
+    if x.device.type == "cpu":
+        return ssm_scan_plain(dt, x, bmat, cmat, a, d_skip, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on cuda or cpu, not {x.device}")
+    ops = (dt, x, bmat, cmat, a, d_skip, h0)
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError(f"ssm_scan takes float32 operands, got "
+                        f"{[t.dtype for t in ops]}")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("ssm_scan takes contiguous operands")
+    B, S, di = x.shape
+    n = a.shape[-1]
+    if n not in STATES:
+        raise ValueError(f"ssm_scan holds n in {STATES} states, got {n}")
+    y = torch.empty_like(x)
+    h = torch.empty_like(h0)
+    lib = _build.load("ssm_scan", _SIGNATURES)
+    _build.call(lib, "ssm_scan", lib.ssm_scan_f32, x.device,
+                *(t.data_ptr() for t in ops), y.data_ptr(), h.data_ptr(),
+                B, S, di, n)
+    LAUNCHES += 1
+    return y, h

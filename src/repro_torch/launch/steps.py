@@ -22,8 +22,10 @@ from ..models.config import ModelConfig
 def build_prefill_step(cfg: ModelConfig, *, batch: int, seq_len: int,
                        device="cuda"):
     """Prefill: encode ``seq_len`` tokens -> last logits (+ caches).  The
-    caches (``transformer.init_caches``: a KV cache or, under multi-head
-    latent attention, a latent cache for each stack) are allocated on
+    caches (``transformer.init_caches``: a KV cache, rolling under a
+    sliding window; a latent cache under multi-head latent attention; an
+    SSM cache of conv and scan states in the SSM family; both, as a dict,
+    in the hybrid family) are allocated on
     ``device`` at each call, in bf16 as the reference's are (its
     ``init_caches`` default, whatever the config's dtype).  Only the last position is projected to the vocabulary (the
     encoder family returns every position's logits and no caches, as

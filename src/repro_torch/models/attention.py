@@ -9,9 +9,10 @@ fallback, the ``swa_fast`` window path, the finite ``-1e30`` mask).  On
 the card it launches the hand-written kernel
 (:mod:`repro_torch.kernels.flash_attn`), which computes the same
 function with its own tiles, with a value width and a scale of its own
-where multi-head latent attention asks for them; a window (the hybrid
-family) raises there instead of falling back.  Decode attention is plain torch, as the reference has no kernel
-for it.
+where multi-head latent attention asks for them, and the sliding window
+of the hybrid family.  Decode attention is plain torch, as the reference
+has no kernel for it; under a window the KV cache is a rolling buffer of
+``min(max_len, window)`` slots (slot ``pos % Smax``).
 """
 from __future__ import annotations
 
@@ -164,22 +165,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash-attention kernel on (B, H, S, D) transposed views, which it
     reads in place, and it writes a (B, S, H, Dv) output, so no operand
     is copied (``chunk`` is the CPU algorithm's blocking; the kernel has
-    its own tiles); ``(D, Dv)`` must be one of the kernel's pairs
-    (``kernels.flash_attn.PAIRS``, else ``ValueError``), and the sliding
-    window raises ``NotImplementedError``.
+    its own tiles, and takes the window as the kernel's own argument);
+    ``(D, Dv)`` must be one of the kernel's pairs
+    (``kernels.flash_attn.PAIRS``, else ``ValueError``).
     """
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale)
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window attention on the card comes with the hybrid "
-            "(SSM + attention) slice")
     out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
                       device=q.device)
     _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal, scale=scale,
-                        out=out.transpose(1, 2))
+                        window=window, out=out.transpose(1, 2))
     return out
 
 

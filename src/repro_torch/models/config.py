@@ -6,8 +6,7 @@ MLA + MTP), pure SSM (Mamba-1), hybrid attention+SSM, and encoder-only
 backbones with stub modality frontends.  The fields, defaults and shape
 cells equal the reference's; the sharding knobs are kept so a config
 reads the same in both packages, though one device uses none of them.
-The port runs the dense family (and the encoder family without a
-frontend); the others raise in ``transformer`` until their slice.
+The port runs every family and both frontends on one device.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@ the reference's tree of numpy arrays (``jax.tree.map(np.asarray,
 params)``, the MoE configs' float32 router and DeepSeek's ``mtp``
 subtree included) and the port's dict of tensors; a cache tree
 (``{"layers": ..., "dense_layers": ...}`` whose entries are the
-reference's ``KVCache`` or ``MLACache`` of numpy arrays) and the port's
-caches of the same names.
+reference's ``KVCache``, ``MLACache`` or ``SSMCache`` of numpy arrays,
+or the hybrid family's dict ``{"attn": KVCache, "ssm": SSMCache}``) and
+the port's caches of the same names.
 
 JAX's bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which torch
 cannot read: they cross as their ``uint16`` bits, viewed as
@@ -19,9 +20,11 @@ from .._device import resolve_device
 from .attention import KVCache
 from .layers import tree_map
 from .mla import MLACache
+from .ssm import SSMCache
 
 # The port's cache types by the reference's class names.
-CACHE_TYPES = {"KVCache": KVCache, "MLACache": MLACache}
+CACHE_TYPES = {"KVCache": KVCache, "MLACache": MLACache,
+               "SSMCache": SSMCache}
 
 
 def _is_bf16(dtype: np.dtype) -> bool:
@@ -59,18 +62,27 @@ def to_numpy(tree) -> dict:
 
 
 def caches_from_jax(tree, *, device="cuda") -> dict:
-    """The port's caches from the reference's cache tree (its
-    ``KVCache``/``MLACache`` entries as numpy arrays, e.g.
+    """The port's caches from the reference's cache tree (its cache
+    NamedTuples, or a hybrid stack's dict of them, of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, caches)``), on ``device``, bit for bit."""
     dev = resolve_device(device)
-    return {name: CACHE_TYPES[type(c).__name__](
-                *(_to_tensor(a, dev) for a in c))
-            for name, c in tree.items()}
+
+    def one(c):
+        if isinstance(c, dict):
+            return {k: one(v) for k, v in c.items()}
+        return CACHE_TYPES[type(c).__name__](*(_to_tensor(a, dev)
+                                                for a in c))
+
+    return {name: one(c) for name, c in tree.items()}
 
 
 def caches_to_numpy(caches) -> dict:
-    """The port's cache tree as ``{name: {field: numpy array}}``, bf16 as
+    """The port's cache tree as ``{name: {field: numpy array}}`` (a hybrid
+    stack as ``{name: {"attn": {...}, "ssm": {...}}}``), bf16 as
     ``ml_dtypes.bfloat16`` with the same bits."""
-    return {name: {f: _to_array(t) for f, t in c._asdict().items()}
-            for name, c in caches.items()}
+    def one(c):
+        if isinstance(c, dict):
+            return {k: one(v) for k, v in c.items()}
+        return {f: _to_array(t) for f, t in c._asdict().items()}
 
+    return {name: one(c) for name, c in caches.items()}

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import prng
+from ..core import prng, xla_math
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -91,16 +91,17 @@ def stacked(d: ParamDef, n_layers: int) -> ParamDef:
 def init_param(key: torch.Tensor, d: ParamDef) -> torch.Tensor:
     """One leaf on ``key``'s device: ``normal(key, shape) * float32(std)``
     rounded to the leaf's dtype (to nearest even for bf16), with ``std =
-    scale * fan_in ** -0.5``; or zeros or ones."""
+    scale * fan_in ** -0.5``; or zeros or ones; or the SSM family's
+    ``ssm_a``/``ssm_dt`` (:func:`_ssm_a`, :func:`_ssm_dt`)."""
     dtype = DTYPES[d.dtype]
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=key.device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=key.device)
-    if d.init != "normal":
-        raise NotImplementedError(
-            f"init {d.init!r} belongs to the SSM family, which the port "
-            f"runs from the SSM/hybrid slice on")
+    if d.init == "ssm_a":
+        return _ssm_a(d.shape, key.device).to(dtype)
+    if d.init == "ssm_dt":
+        return _ssm_dt(key, d.shape).to(dtype)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     std = float(np.float32(d.scale * (fan_in ** -0.5)))
     out = torch.empty(d.shape, dtype=dtype, device=key.device)
@@ -112,6 +113,26 @@ def init_param(key: torch.Tensor, d: ParamDef) -> torch.Tensor:
     return out
 
 
+def _ssm_a(shape, device) -> torch.Tensor:
+    """Mamba-1's A matrix stored as ``log(-A)``: XLA's float32 ``log`` of
+    ``1 .. n`` along the last axis, broadcast over the channels."""
+    n = shape[-1]
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+    return torch.broadcast_to(xla_math._log(a), shape)
+
+
+def _ssm_dt(key: torch.Tensor, shape) -> torch.Tensor:
+    """The dt bias that starts ``softplus(dt)`` in [1e-3, 1e-1]: ``u +
+    log(-expm1(-u))`` with ``u = uniform(key, shape, 1e-3, 1e-1)``, in
+    XLA's float32 steps (the uniform's scale-and-shift one fused
+    multiply-add, ``log`` and ``expm1`` its polynomials)."""
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=key.device)
+              for v in (1e-3, 1e-1))
+    u = torch.maximum(lo, xla_math._fma(prng.uniform(key, shape), hi - lo,
+                                        lo))
+    return u + xla_math._log(-xla_math.expm1(-u))
+
+
 def init_tree(key: torch.Tensor, defs) -> dict:
     """Initialize a full ParamDef tree deterministically: one key of
     ``split(key, n_leaves)`` per leaf, in flatten order."""
@@ -119,14 +140,19 @@ def init_tree(key: torch.Tensor, defs) -> dict:
     keys = prng.split(key, len(items))
     flat = {path: init_param(keys[i], d)
             for i, (path, d) in enumerate(items)}
+    return _unflatten(defs, flat)
 
-    def build(tree, prefix=""):
-        if not isinstance(tree, dict):
-            return flat[prefix]
-        return {k: build(v, f"{prefix}.{k}" if prefix else k)
-                for k, v in tree.items()}
 
-    return build(defs)
+def _unflatten(tree, flat: dict, prefix: str = ""):
+    """``tree``'s dict structure with each leaf replaced by ``flat``'s
+    value at its dotted path.  A module-level function, not a recursive
+    closure: such a closure holds itself and ``flat`` in a reference
+    cycle, which kept every weight alive after the caller dropped them,
+    until the garbage collector happened to run."""
+    if not isinstance(tree, dict):
+        return flat[prefix]
+    return {k: _unflatten(v, flat, f"{prefix}.{k}" if prefix else k)
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------

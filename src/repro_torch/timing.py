@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth,
@@ -29,6 +30,10 @@ L2_BYTES = 50e6
 # capability 9.0), at the 1.98 GHz boost clock.
 FP64_INSTR_S = 132 * 64 * 1.98e9
 F64_CONVERSIONS_S = 132 * 16 * 1.98e9
+# H100 SXM special-function unit (MUFU) results, such as the ex2 of an
+# exponential: 16 a clock per SM (the same guide's table), at the 1.98
+# GHz boost clock.
+MUFU_S = 132 * 16 * 1.98e9
 
 
 def cuda_ms(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
@@ -160,17 +165,44 @@ def slot_work(rows: int, n: int, n_beams: int, n_rx: int) -> tuple:
 
 
 def attention_work(b: int, h: int, hk: int, s: int, t: int, d: int,
-                   causal: bool, itemsize: int, dv: int = None) -> tuple:
+                   causal: bool, itemsize: int, dv: int = None,
+                   window: int = 0) -> tuple:
     """Bytes and operations of attention over q (b, h, s, d), k (b, hk,
     t, d) and v (b, hk, t, dv) (``dv`` defaults to ``d``): q, k and v
     read once and the (b, h, s, dv) output written once in their dtype;
     2 d operations (QK^T) and 2 dv (PV) for each (query, key) pair the
-    mask keeps (causal: key t' <= query s')."""
+    mask keeps (causal: key t' <= query s'; a sliding ``window > 0``:
+    s' - t' < window)."""
     dv = d if dv is None else dv
-    n = min(s, t)
-    pairs = n * (n + 1) / 2 + (s - n) * t if causal else s * t
+    rows = np.arange(s, dtype=np.int64)
+    hi = np.minimum(rows, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(rows - window + 1, 0) if window > 0 else 0
+    pairs = float(np.maximum(hi - lo + 1, 0).sum())
     return (itemsize * (b * h * s * (d + dv) + b * hk * t * (d + dv)),
             2.0 * b * h * (d + dv) * pairs)
+
+
+def scan_work(b: int, s: int, di: int, n: int) -> tuple:
+    """Bytes and exponentials of the selective scan over (b, s, di)
+    float32 inputs with n states: dt and x read and y written once, B
+    and C (b, s, n) read once, A (di, n) and D (di,) read once, the start
+    and final states (b, di, n) read and written once; one exponential
+    (a MUFU ex2) for each of the b s di n decays."""
+    return (4.0 * (3 * b * s * di + 2 * b * s * n + di * n + di
+                   + 2 * b * di * n),
+            float(b) * s * di * n)
+
+
+def scan_bound(b: int, s: int, di: int, n: int) -> dict:
+    """The scan's bound: its bytes over the memory rate, its
+    exponentials over the MUFU rate, and the larger of the two
+    (``bound_ms``, ``bound_by``: ``"bytes"`` or ``"operations"``)."""
+    bytes_moved, exps = scan_work(b, s, di, n)
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = exps / MUFU_S * 1e3
+    return {"bytes_bound_ms": t_bytes, "mufu_bound_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def fft_stage_work(rows: int, n: int) -> tuple:

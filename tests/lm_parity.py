@@ -9,9 +9,10 @@ positions ``prompt_len + i`` (with L = prompt_len + n_steps + 1, as the
 example sizes it).  ``forced`` (n_steps,
 B) feeds given tokens to the decode steps instead of each side's own
 greedy ones, so two runs stay comparable where a near tie could flip a
-bf16 argmax.  The caches are any of the stacks' trees (a KV cache or,
-under multi-head latent attention, a latent cache; ``dense_layers``
-beside ``layers`` in a MoE config).  ``cache_dtype`` float32 keeps the
+bf16 argmax.  The caches are any of the stacks' trees (a KV cache, a
+latent cache under multi-head latent attention, an SSM cache, or the
+hybrid family's dict of a KV and an SSM cache; ``dense_layers`` beside
+``layers`` in a MoE config).  ``cache_dtype`` float32 keeps the
 KV cache in float32
 instead of the serve steps' bf16 (the reference's ``init_caches``
 default), which makes a float32 config float32 end to end: each side's
@@ -103,6 +104,29 @@ def _port_prefill_f32_cache(cfg, batch: int, seq_len: int, device):
     return fn
 
 
+def clone_cache(c):
+    """A copy of one stack's cache: a NamedTuple of tensors, or the hybrid
+    family's dict of them."""
+    if isinstance(c, dict):
+        return {k: clone_cache(v) for k, v in c.items()}
+    return type(c)(*(t.clone() for t in c))
+
+
+def cache_leaves(tree, mine) -> list:
+    """``(path, reference leaf, port leaf)`` for every leaf of a
+    reference cache tree (its cache NamedTuples, a hybrid stack's dict of
+    them) and the port's ``convert.caches_to_numpy`` tree of the same
+    shape."""
+    out = []
+    for path, ref in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        keys = [getattr(k, "key", getattr(k, "name", None)) for k in path]
+        got = mine
+        for key in keys:
+            got = got[key]
+        out.append((keys, ref, got))
+    return out
+
+
 def port_serve(cfg, params, tokens: np.ndarray, prompt_len: int,
                n_steps: int, device="cpu", forced=None,
                cache_dtype="bfloat16") -> dict:
@@ -119,8 +143,7 @@ def port_serve(cfg, params, tokens: np.ndarray, prompt_len: int,
     logits, caches = prefill(params, {"tokens": torch.as_tensor(
         tokens, dtype=torch.int64, device=device)})
     out = {"prefill_logits": logits[:, -1].cpu().numpy(),
-           "caches": {name: type(c)(*(t.clone() for t in c))
-                      for name, c in caches.items()}}
+           "caches": {name: clone_cache(c) for name, c in caches.items()}}
     tok = logits[:, -1].argmax(-1)
     toks, steps_out = [tok.cpu().numpy()], []
     for i in range(n_steps):

@@ -1,5 +1,5 @@
-"""chip_smoke.py's account of the attention kernels' resources, and the
-work that the attention and FFT-stage bounds count.
+"""chip_smoke.py's account of the attention and scan kernels' resources,
+and the work that the attention, FFT-stage and scan bounds count.
 
 ``fa_resources`` reads ``nvcc -Xptxas -v``'s log of
 ``csrc/flash_attn.cu`` on the card and fails the run if an instantiation
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import timing
-from repro_torch.kernels import flash_attn, ops
+from repro_torch.kernels import flash_attn, ops, ssm_scan
 
 WGMMA_SMEM = {(64, 64): 82944, (80, 80): 164864, (128, 128): 164864,
               (192, 192): 148480, (192, 128): 214016}
@@ -163,3 +163,70 @@ def test_fft_stage_work_reads_the_stage_twiddles(n):
     bytes_moved, flops = timing.fft_stage_work(rows, n)
     assert bytes_moved == 4 * rows * n * 4 + (wr.numel() + wi.numel()) * 4
     assert flops == rows * (n // 4) * 34.0
+
+
+def _scan_log(spills=None, skip=()) -> str:
+    """A ptxas log of ``csrc/ssm_scan.cu``'s instantiations."""
+    spills = spills or {}
+    prefix = "_ZN44_GLOBAL__N__b4ec31e4_11_ssm_scan_cu_5890e9f0"
+    names = [f"15ssm_scan_kernelILi{n}EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_ii"
+             for n in ssm_scan.STATES]
+    return "".join(_entry(prefix + n, spills.get(n, 0), regs=78)
+                   for n in names if n not in skip)
+
+
+class _ScanBuild:
+    def __init__(self, log):
+        self.log = log
+
+    def compiler_log(self, name):
+        assert name == "ssm_scan"
+        return self.log
+
+
+def test_scan_resources_names_every_state_width():
+    smoke = _chip_smoke()
+    res = smoke.scan_resources(_ScanBuild(_scan_log()), ssm_scan)
+    assert set(res) == {f"ssm_scan_kernel n{n}" for n in ssm_scan.STATES}
+    assert res["ssm_scan_kernel n16"]["registers"] == 78
+    assert res["ssm_scan_kernel n8"]["spill_store_bytes"] == 0
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_scan_resources_fails_a_spill_or_a_missing_width(n):
+    smoke = _chip_smoke()
+    name = f"15ssm_scan_kernelILi{n}EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_ii"
+    with pytest.raises(AssertionError, match="spill"):
+        smoke.scan_resources(_ScanBuild(_scan_log({name: 8})), ssm_scan)
+    with pytest.raises(AssertionError, match="spill"):
+        smoke.scan_resources(_ScanBuild(_scan_log(skip=(name,))), ssm_scan)
+
+
+@pytest.mark.parametrize("s,t,causal,window", [
+    (2048, 2048, True, 1024), (2048, 2048, True, 1), (1100, 1100, False, 64),
+    (300, 200, True, 0), (200, 300, False, 0), (64, 64, True, 100)])
+def test_attention_work_counts_the_pairs_a_window_keeps(s, t, causal, window):
+    """Under a sliding window the bound's operations count each (query,
+    key) pair the mask keeps, against the mask itself."""
+    lag = (torch.arange(s)[:, None] - torch.arange(t)[None, :])
+    keep = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        keep &= lag >= 0
+    if window:
+        keep &= lag < window
+    byts, ops_ = timing.attention_work(2, 4, 2, s, t, 64, causal, 2,
+                                       window=window)
+    assert ops_ == 2.0 * 2 * 4 * 128 * keep.sum().item()
+    assert byts == 2 * (2 * 4 * s * 128 + 2 * 2 * t * 128)
+
+
+def test_scan_bound_counts_its_bytes_and_exponentials():
+    """Falcon-Mamba-7B's prefill scan: 0.81 GB and 1.07e9 exponentials,
+    bound by the MUFU at 16 a clock an SM."""
+    byts, exps = timing.scan_work(4, 2048, 8192, 16)
+    assert exps == 4 * 2048 * 8192 * 16
+    assert byts == 4 * (3 * 4 * 2048 * 8192 + 2 * 4 * 2048 * 16
+                        + 8192 * 16 + 8192 + 2 * 4 * 8192 * 16)
+    b = timing.scan_bound(4, 2048, 8192, 16)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == exps / timing.MUFU_S * 1e3

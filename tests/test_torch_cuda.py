@@ -9,7 +9,8 @@ import torch
 
 from repro_torch.core import barrier, fiveg, prng, sweep
 from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
-                                 flash_attn, matmul, ops, powf, ref)
+                                 flash_attn, matmul, ops, powf, ref,
+                                 ssm_scan)
 from repro_torch.models import attention
 
 pytestmark = pytest.mark.cuda
@@ -486,15 +487,20 @@ def test_model_attention_on_card_launches_the_kernel(cuda):
 
 @pytest.mark.parametrize("kwargs", [{"window": 16}, {}])
 def test_model_attention_on_card_raises_for_later_slices(cuda, kwargs):
-    """The sliding window waits for the hybrid slice; a (D, Dv) pair the
-    kernel has not (here (16, 8)) raises too, and never falls back."""
+    """The sliding window launches the kernel and agrees with the chunked
+    plain algorithm; a (D, Dv) pair the kernel has not (here (16, 8))
+    raises, and never falls back."""
     q = torch.randn(1, 32, 2, 16, device=cuda)
     v = torch.randn(1, 32, 2, 8, device=cuda)
     before = flash_attn.LAUNCHES
     if kwargs:
-        with pytest.raises(NotImplementedError, match="slice"):
-            attention.flash_attention(q, q, q, causal=True, chunk=32,
-                                      **kwargs)
+        got = attention.flash_attention(q, q, q, causal=True, chunk=32,
+                                        **kwargs)
+        assert flash_attn.LAUNCHES == before + 1
+        want = attention.chunked_attention(q, q, q, causal=True, chunk=32,
+                                           **kwargs)
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+        return
     else:
         with pytest.raises(ValueError, match="Dv"):
             attention.flash_attention(q, q, v, causal=True, chunk=32)
@@ -983,6 +989,192 @@ def test_smoke_serve_on_card_matches_the_cpu_port(cuda, arch):
             outs.append(logits[:, 0].cpu())
         runs[dev.type] = (outs, launches)
     assert runs["cpu"][1] == 0 and runs["cuda"][1] == cfg.n_layers
+    for g, w in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The sliding window (the hybrid family) and the selective scan (SSM).
+# ---------------------------------------------------------------------------
+
+# (D, dtype) of each attention kernel the window reaches: the FMA kernel
+# in float32 and at bf16 D 8 (the hymba smoke width), mma.sync at bf16 D
+# 16, wgmma at bf16 D 64 (Hymba-1.5B's width) and 128.
+WINDOW_KERNELS = [(8, torch.float32), (8, torch.bfloat16),
+                  (64, torch.float32), (16, torch.bfloat16),
+                  (64, torch.bfloat16), (128, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("window", [1, 7, 63, 64, 1000, 1024, 1100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dtype", WINDOW_KERNELS)
+def test_flash_attention_window_matches_plain(cuda, window, causal, d,
+                                              dtype):
+    """S = T = 1100 (query tiles straddle the window's edge at every
+    window here, and a ragged last tile), 10 query heads on 2 KV heads (g
+    = 5, Hymba's grouping), windows 1 to >= S; bf16 also against float32
+    attention row by row."""
+    gen = torch.Generator(device=cuda).manual_seed(window + d)
+    q = torch.randn(1, 10, 1100, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(1, 2, 1100, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(1, 2, 1100, d, device=cuda, generator=gen).to(dtype)
+    before = flash_attn.LAUNCHES
+    got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attn.LAUNCHES == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=FA_TOL[dtype],
+                               atol=FA_TOL[dtype])
+    if dtype == torch.bfloat16:
+        ref32 = flash_attn.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal, window=window)
+        assert row_scaled_err(got, ref32) <= FA_BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("d,dtype", WINDOW_KERNELS)
+def test_flash_attention_window_planted_faults(cuda, d, dtype):
+    """The checks above must see a wrong window: the kernel at window 64
+    against the plain version at 63 and 65 (one key too few or too many,
+    here in every row past the 64th) and without a window (the scan from
+    key 0 unmasked); and a 64-key tile of values zeroed inside the
+    window.  Each fault passes neither the tolerance nor the row check."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(1, 10, 600, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(1, 2, 600, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(1, 2, 600, d, device=cuda, generator=gen).to(dtype)
+    got = flash_attn.flash_attention(q, k, v, causal=True, window=64)
+    v_gap = v.clone()
+    v_gap[:, :, 520:584] = 0
+    faults = {w: flash_attn.flash_attention_plain(q, k, v, causal=True,
+                                                  window=w)
+              for w in (63, 65, 0)}
+    faults["v_tile"] = flash_attn.flash_attention_plain(q, k, v_gap,
+                                                        causal=True, window=64)
+    tol = FA_TOL[dtype]
+    for name, bad in faults.items():
+        close = torch.allclose(got.float(), bad.float(), rtol=tol, atol=tol)
+        assert not close, name
+        assert row_scaled_err(got, bad.float()) > FA_BF16_ROW_TOL, name
+
+
+def test_flash_attention_window_needs_s_le_t(cuda):
+    q = torch.randn(1, 2, 64, 16, device=cuda)
+    k = torch.randn(1, 2, 32, 16, device=cuda)
+    before = flash_attn.LAUNCHES
+    with pytest.raises(ValueError, match="S <= T"):
+        flash_attn.flash_attention(q, k, k, window=8)
+    assert flash_attn.LAUNCHES == before
+
+
+def test_model_attention_window_on_card_matches_chunked(cuda):
+    """``models.attention.flash_attention`` with Hymba's window on (B, S, H,
+    D) projections (bf16, D 64, 25 heads on 5) against the chunked plain
+    algorithm on the card (the reference's ``swa_fast`` path)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 2048, 25, 64, device=cuda, generator=gen).bfloat16()
+    k = torch.randn(2, 2048, 5, 64, device=cuda, generator=gen).bfloat16()
+    v = torch.randn(2, 2048, 5, 64, device=cuda, generator=gen).bfloat16()
+    got = attention.flash_attention(q, k, v, causal=True, window=1024)
+    want = attention.chunked_attention(q, k, v, causal=True, window=1024)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2,
+                               atol=1.6e-2)
+
+
+def _scan_inputs(cuda, b, s, di, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, di, device=cuda, generator=gen) - 2.0)
+    x = torch.randn(b, s, di, device=cuda, generator=gen)
+    bm = torch.randn(b, s, n, device=cuda, generator=gen)
+    cm = torch.randn(b, s, n, device=cuda, generator=gen)
+    a = -torch.arange(1, n + 1, device=cuda, dtype=torch.float32).expand(
+        di, n).contiguous()
+    d = torch.randn(di, device=cuda, generator=gen)
+    h0 = torch.randn(b, di, n, device=cuda, generator=gen)
+    return dt, x, bm, cm, a, d, h0
+
+
+# The scan kernel against its plain version: both sum float32 products of
+# O(1) values over at most n = 16 states a step, in other orders, and
+# exponentials an ulp or two apart; the states decay, so errors do not
+# grow with S.
+SCAN_TOL = 1e-4
+
+
+@pytest.mark.parametrize("s", [1, 255, 256, 2048])
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("di", [128, 300])
+def test_ssm_scan_kernel_matches_plain(cuda, s, n, di):
+    """S at, below and past the plain version's 256-step chunk, a nonzero
+    start state, channel counts that fill and do not fill a 128-channel
+    block."""
+    args = _scan_inputs(cuda, 2, s, di, n, s + n + di)
+    before = ssm_scan.LAUNCHES
+    y, h = ssm_scan.ssm_scan(*args)
+    assert ssm_scan.LAUNCHES == before + 1
+    wy, wh = ssm_scan.ssm_scan_plain(*args)
+    torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+    torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+def test_ssm_scan_kernel_rejects_what_it_cannot_take(cuda):
+    args = list(_scan_inputs(cuda, 1, 8, 16, 4, 0))
+    with pytest.raises(ValueError, match="states"):
+        ssm_scan.ssm_scan(*args)
+    args = list(_scan_inputs(cuda, 1, 8, 16, 8, 0))
+    bad = list(args)
+    bad[1] = args[1].double()
+    with pytest.raises(TypeError):
+        ssm_scan.ssm_scan(*bad)
+    bad = list(args)
+    bad[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan.ssm_scan(*bad)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "hymba_1_5b"])
+def test_ssm_hybrid_smoke_serve_on_card_matches_the_cpu_port(cuda, arch):
+    """The smoke config's serve loop (float32 end to end) on the card
+    against the port on the CPU: logits within 1e-4, greedy tokens equal;
+    the prefill launches the scan kernel once a layer, and hymba the
+    attention kernel once a layer (its window of 16 under a 60-token
+    prefill)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import init_caches, init_params, transformer
+    cfg = dataclasses.replace(configs.get_smoke(arch),
+                              compute_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = init_params(cfg, prng.PRNGKey(0, device=dev))
+        caches = init_caches(cfg, 2, 64, torch.float32, device=dev)
+        before = flash_attn.LAUNCHES, ssm_scan.LAUNCHES
+        with torch.inference_mode():
+            logits, caches, _, _ = transformer.forward(
+                params, cfg, {"tokens": toks[:, :60].to(dev)},
+                caches=caches, last_only=True)
+        launches = (flash_attn.LAUNCHES - before[0],
+                    ssm_scan.LAUNCHES - before[1])
+        decode, _ = steps.build_decode_step(cfg, batch=2, max_len=64,
+                                            device=dev)
+        outs = [logits[:, -1].cpu()]
+        for i in range(3):
+            logits, caches = decode(params, caches,
+                                    toks[:, 60 + i:61 + i].to(dev),
+                                    torch.full((2,), 60 + i,
+                                               dtype=torch.int32,
+                                               device=dev))
+            outs.append(logits[:, 0].cpu())
+        runs[dev.type] = (outs, launches)
+    attn_layers = cfg.n_layers if cfg.family == "hybrid" else 0
+    assert runs["cpu"][1] == (0, 0)
+    assert runs["cuda"][1] == (attn_layers, cfg.n_layers)
     for g, w in zip(runs["cuda"][0], runs["cpu"][0]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
         assert torch.equal(g.argmax(-1), w.argmax(-1))

@@ -267,11 +267,17 @@ def test_init_slices_equal_one_draw():
 @pytest.mark.parametrize("arch", ["falcon_mamba_7b", "hymba_1_5b",
                                   "internvl2_76b", "hubert_xlarge"])
 def test_later_families_raise(arch):
+    """The SSM, hybrid, vision and audio configs run: no
+    ``NotImplementedError``, finite float32 logits of the batch's
+    shape."""
     cfg = configs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="slice"):
-        params = init_params(cfg, prng.PRNGKey(0, device="cpu"))
-        transformer.forward(params, cfg,
-                            {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+    params = init_params(cfg, prng.PRNGKey(0, device="cpu"))
+    batch = ({"features": torch.ones(1, 4, cfg.d_model)}
+             if cfg.frontend == "audio"
+             else {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+    logits, _, _, _ = transformer.forward(params, cfg, batch)
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------

@@ -54,10 +54,11 @@ def test_importing_every_module_loads_no_jax():
     assert {f"repro_torch.core.{m}" for m in (
         "placement", "workloads", "tuning", "xla_math")} <= loaded
     assert {f"repro_torch.kernels.{m}" for m in ("dotp", "axpy",
-                                                 "flash_attn")} <= loaded
+                                                 "flash_attn",
+                                                 "ssm_scan")} <= loaded
     assert {f"repro_torch.models.{m}" for m in (
         "config", "layers", "attention", "transformer", "convert", "mla",
-        "moe")} <= loaded
+        "moe", "ssm")} <= loaded
     assert {f"repro_torch.configs.{m}" for m in configs.ARCH_IDS} <= loaded
     assert {"repro_torch.launch.steps", "repro_torch.examples.serve_lm",
             "repro_torch.examples.barrier_tuning"} <= loaded
@@ -205,6 +206,8 @@ def test_driver_entry_points_default_to_cuda_and_raise(call):
 _QWEN = configs.get_smoke("qwen3_4b")
 _DEEPSEEK = configs.get_smoke("deepseek_v3_671b")
 _MOONSHOT = configs.get_smoke("moonshot_v1_16b_a3b")
+_FALCON = configs.get_smoke("falcon_mamba_7b")
+_HYMBA = configs.get_smoke("hymba_1_5b")
 
 
 def _jax_style_mla_cache():
@@ -212,6 +215,18 @@ def _jax_style_mla_cache():
     from repro_torch.models.mla import MLACache
     return {"layers": MLACache(*(np.zeros((1, 2, 4), np.float32),) * 2,
                                np.zeros((1, 2), np.int32))}
+
+
+def _jax_style_hybrid_cache():
+    """A hybrid cache tree as the reference's (a dict of a ``KVCache`` and
+    an ``SSMCache`` of numpy)."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMCache
+    return {"layers": {
+        "attn": KVCache(*(np.zeros((1, 2, 4, 1, 8), np.float32),) * 2,
+                        np.zeros((1, 2, 4), np.int32)),
+        "ssm": SSMCache(np.zeros((1, 2, 3, 8), np.float32),
+                        np.zeros((1, 2, 8, 4), np.float32))}}
 
 
 @pytest.mark.parametrize("call", [
@@ -225,10 +240,19 @@ def _jax_style_mla_cache():
     lambda: serve_lm.serve(_DEEPSEEK, batch=1, prompt_len=4, tokens=2),
     lambda: serve_lm.serve(_MOONSHOT, batch=1, prompt_len=4, tokens=2),
     lambda: convert.caches_from_jax(_jax_style_mla_cache()),
+    lambda: init_caches(_FALCON, 1, 8),
+    lambda: init_caches(_HYMBA, 1, 8),
+    lambda: steps.build_prefill_step(_FALCON, batch=1, seq_len=8),
+    lambda: steps.build_decode_step(_HYMBA, batch=1, max_len=8),
+    lambda: serve_lm.serve(_FALCON, batch=1, prompt_len=4, tokens=2),
+    lambda: serve_lm.serve(_HYMBA, batch=1, prompt_len=4, tokens=2),
+    lambda: convert.caches_from_jax(_jax_style_hybrid_cache()),
 ], ids=["init_caches", "build_prefill_step", "build_decode_step",
         "from_jax_params", "serve", "init_caches_mla",
         "build_prefill_step_mla", "serve_mla", "serve_moe",
-        "caches_from_jax"])
+        "caches_from_jax", "init_caches_ssm", "init_caches_hybrid",
+        "build_prefill_step_ssm", "build_decode_step_hybrid", "serve_ssm",
+        "serve_hybrid", "caches_from_jax_hybrid"])
 def test_lm_entry_points_default_to_cuda_and_raise(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):
