@@ -170,8 +170,9 @@ phase prints one JSON line:
     (windows 1 to past S, causal and not, every kernel it reaches, with
     planted window faults) and at Hymba-1.5B's prefill shape, timed
     beside SDPA on an explicit (S, S) mask; the selective-scan kernel's
-    resources (a spill fails the run) and against its plain version,
-    timed at Falcon-Mamba-7B's and Hymba-1.5B's prefill shapes; the
+    resources at every lane count (a spill fails the run) and against
+    its plain version at each of them, timed with its launch plan at
+    Falcon-Mamba-7B's and Hymba-1.5B's prefill shapes; the
     falcon-mamba and hymba smoke serves and the hubert-xlarge (audio)
     and internvl2-76b (vision) smoke forwards against the stored JAX
     values (``lm_serve_ssm``); then full-width Hymba-1.5B (32 layers) and
@@ -2631,43 +2632,66 @@ def _scan_inputs(torch, gen, b, s, di, n):
 
 
 def scan_resources(build, ssm_scan) -> dict:
-    """``ssm_scan_kernel``'s registers, barriers, shared memory and spills
-    at each state width of ``ssm_scan.STATES`` (``nvcc -Xptxas -v``), by
-    ``"ssm_scan_kernel n{N}"``; raises if an instantiation spills or is
-    missing from the log."""
+    """``ssm_scan_kernel``'s registers, barriers, spills and dynamic
+    shared memory at every (lanes, n) it instantiates
+    (``ssm_scan.lane_counts`` of each n in ``ssm_scan.STATES``; ``nvcc
+    -Xptxas -v`` and the library's ``ssm_scan_smem``), by
+    ``"ssm_scan_kernel l{lanes} n{n}"``; raises if an instantiation
+    spills, is missing from the log or has no shared memory in the
+    library."""
     log = build.compiler_log("ssm_scan")
+    lib = build.load("ssm_scan", ssm_scan._SIGNATURES)
     spills = ptxas_spills(log, "ssm_scan_kernel")
-    usage = {f"ssm_scan_kernel n{n}": ptxas_usage(log,
-                                                   f"ssm_scan_kernelILi{n}E")
-             for n in ssm_scan.STATES}
-    if (len(spills) != len(ssm_scan.STATES) or any(spills.values())
-            or not all(usage.values())):
-        raise AssertionError(f"ssm_scan: spill bytes {spills}")
+    pairs = [(lanes, n) for n in ssm_scan.STATES
+             for lanes in ssm_scan.lane_counts(n)]
+    usage = {f"ssm_scan_kernel l{lanes} n{n}": dict(
+        ptxas_usage(log, f"ssm_scan_kernelILi{lanes}ELi{n}E"),
+        dynamic_smem_bytes=lib.ssm_scan_smem(lanes, n))
+        for lanes, n in pairs}
+    if (len(spills) != len(pairs) or any(spills.values())
+            or not all("registers" in u and u["dynamic_smem_bytes"] > 0
+                       for u in usage.values())):
+        raise AssertionError(f"ssm_scan: spill bytes {spills}, resources "
+                             f"{usage}")
     return usage
 
 
 def _scan_checks(torch, ssm_scan, build) -> dict:
     """The selective-scan kernel: its resources (``nvcc -Xptxas -v``; a
     spill fails the run), then against its plain version at
-    :data:`SCAN_TEST_S` (n 8 and 16, 300 channels, a nonzero start state)
-    and at the two models' prefill shapes (:data:`SCAN_SHAPES`), each
-    timed (device time, a CUDA graph replay, and eagerly) beside the
-    plain version and its bound.  No single PyTorch call computes the
-    scan, so it has no library time.  Returns Falcon-Mamba's record."""
+    :data:`SCAN_TEST_S` (n 8 and 16, 300 channels, a nonzero start state;
+    the planned launch and every lane count the kernel has, whose final
+    states must equal each other bit for bit) and at the two models'
+    prefill shapes (:data:`SCAN_SHAPES`), each timed (device time, a CUDA
+    graph replay, and eagerly) beside its launch plan, the plain version
+    and its bound.  No single PyTorch call computes the scan, so it has
+    no library time.  Returns Falcon-Mamba's record."""
     emit({"phase": "lm_serve", "name": "ssm_scan",
           "kernel_resources": scan_resources(build, ssm_scan)})
     gen = torch.Generator(device="cuda").manual_seed(24)
     for s in SCAN_TEST_S:
         for n in ssm_scan.STATES:
             args = _scan_inputs(torch, gen, 2, s, 300, n)
-            y, h = ssm_scan.ssm_scan(*args)
             wy, wh = ssm_scan.ssm_scan_plain(*args)
-            torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
-            torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
+            runs = {"plan": ssm_scan.ssm_scan(*args)}
+            runs.update((lanes, ssm_scan.launch(*args, lanes))
+                        for lanes in ssm_scan.lane_counts(n))
+            errs = {}
+            for key, (y, h) in runs.items():
+                torch.testing.assert_close(y, wy, rtol=SCAN_TOL,
+                                           atol=SCAN_TOL)
+                torch.testing.assert_close(h, wh, rtol=SCAN_TOL,
+                                           atol=SCAN_TOL)
+                if not torch.equal(h, runs[1][1]):
+                    raise AssertionError(f"ssm_scan: the final states at "
+                                         f"{key} lanes differ from 1 lane's")
+                errs[str(key)] = max((y - wy).abs().max().item(),
+                                     (h - wh).abs().max().item())
             emit({"phase": "lm_serve", "name": "ssm_scan",
                   "shape": [2, s, 300, n],
-                  "max_abs_err": max((y - wy).abs().max().item(),
-                                     (h - wh).abs().max().item()),
+                  "lanes": ssm_scan.scan_plan(2, 300, n).lanes,
+                  "max_abs_err": max(errs.values()),
+                  "max_abs_err_by_lanes": errs,
                   "tol": {"rtol": SCAN_TOL, "atol": SCAN_TOL}})
     out = None
     for config, (b, s, di, n) in SCAN_SHAPES.items():
@@ -2679,8 +2703,12 @@ def _scan_checks(torch, ssm_scan, build) -> dict:
         err = max((y - wy).abs().max().item(), (h - wh).abs().max().item())
         del y, h, wy, wh
         inputs = cold_copies(*args)
+        plan = ssm_scan.scan_plan(b, di, n)
         rec = {"phase": "lm_serve", "name": "ssm_scan", "config": config,
                "shape": [b, s, di, n], "dtype": "float32",
+               "plan": {"lanes": plan.lanes, "channels": plan.channels,
+                        "blocks": plan.blocks,
+                        "warps_per_scheduler": plan.warps_per_scheduler},
                "max_abs_err": err, "tol": {"rtol": SCAN_TOL,
                                            "atol": SCAN_TOL},
                "timing": "graph", "ms": graph_ms(ssm_scan.ssm_scan, inputs),

@@ -1,8 +1,8 @@
 """Device and eager times of the ``matmul``, ``axpy``, ``dct``,
-``fft4_stage``, ``powf`` and ``flash_attention`` kernels and the dot
-product's tree kernels, each beside one PyTorch call
-for the same function in the same mode and the least time the card
-could take.
+``fft4_stage``, ``powf``, ``flash_attention`` and ``ssm_scan`` kernels
+and the dot product's tree kernels, each beside one PyTorch call
+for the same function in the same mode (where there is one) and the
+least time the card could take.
 
     python src/repro_torch/examples/kernel_times.py [--src DIR] [--label L]
         [--only PART,...]
@@ -42,7 +42,14 @@ line per measurement:
 * the ``mla`` part: ``flash_attention`` at DeepSeek-V3's prefill
   attention ((D, Dv) = (192, 128), (4, 128, 2048), causal, bf16) and at
   its smoke config's ((24, 16), (2, 4, 64), bf16 and float32), against
-  the same SDPA call (the scale D ** -0.5 on both sides, MLA's).
+  the same SDPA call (the scale D ** -0.5 on both sides, MLA's);
+* the ``scan`` part: ``ssm_scan`` at Falcon-Mamba-7B's and Hymba-1.5B's
+  prefill scans (B, S, d_inner, n) = (4, 2048, 8192, 16) and (4, 2048,
+  3200, 16), beside ``timing.scan_bound`` (no PyTorch call computes the
+  scan): this tree's kernel at its planned lane count and at every lane
+  count it instantiates, and the card's SM clock and power while it runs; with ``--src``, the other checkout's kernel and
+  this tree's in turns (other, this, this, other) on the same inputs,
+  and the other's lane counts too where it has them.
 
 ``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
 through copies that together exceed twice the 50 MB L2, timed as one
@@ -56,8 +63,10 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -82,6 +91,9 @@ MLA_SHAPES = (("deepseek-v3-671b", (4, 128, 128, 2048, 192, 128), True,
                "bfloat16"),
               ("deepseek-v3-671b smoke", (2, 4, 4, 64, 24, 16), True,
                "float32"))
+# (config, (B, S, d_inner, n)): the SSM and hybrid prefill scans.
+SCAN_SHAPES = (("falcon-mamba-7b", (4, 2048, 8192, 16)),
+               ("hymba-1.5b", (4, 2048, 3200, 16)))
 
 
 def own_timing():
@@ -93,6 +105,43 @@ def own_timing():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def own_scan():
+    """This checkout's ``kernels/ssm_scan.py`` (and the ``_build`` it
+    imports, which builds into this checkout's ``build/``), loaded by
+    path as a package of its own, so that ``--src`` can time another
+    checkout's scan in turns with this one in one process."""
+    name = "kernel_times_own_kernels"
+    if name not in sys.modules:
+        pkg = types.ModuleType(name)
+        pkg.__path__ = [str(Path(__file__).resolve().parents[1] / "kernels")]
+        sys.modules[name] = pkg
+    return importlib.import_module(f"{name}.ssm_scan")
+
+
+def clocks_during(torch, fn, inputs, seconds: float = 2.0) -> dict:
+    """The card's SM clock (MHz) and power draw (W), medians of what
+    ``nvidia-smi`` reads every 50 ms while ``fn`` runs back to back over
+    ``inputs`` for ``seconds``."""
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        for args in inputs:
+            fn(*args)
+        torch.cuda.synchronize()
+    smi.terminate()
+    rows = [line.split(",") for line in smi.communicate()[0].splitlines()
+            if line.count(",") == 1]
+    return {"sm_clock_mhz": statistics.median(float(r[0]) for r in rows),
+            "power_w": statistics.median(float(r[1]) for r in rows),
+            "clock_samples": len(rows)}
 
 
 def time_matmul(torch, timing, kernels, emit, gen) -> None:
@@ -301,9 +350,68 @@ def time_mla(torch, timing, kernels, emit, gen) -> None:
     time_attention(torch, timing, kernels, emit, gen, shapes=MLA_SHAPES)
 
 
+def time_scan(torch, timing, kernels, emit, gen) -> None:
+    scan, own = kernels.ssm_scan, own_scan()
+    other = Path(scan.__file__).resolve() != Path(own.__file__).resolve()
+    for config, (b, s, di, n) in SCAN_SHAPES:
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, s, di, device=gen.device, generator=gen) - 2.0)
+        x = torch.randn(b, s, di, device=gen.device, generator=gen)
+        bm, cm = (torch.randn(b, s, n, device=gen.device, generator=gen)
+                  for _ in range(2))
+        a = -torch.arange(1, n + 1, device=gen.device,
+                          dtype=torch.float32).expand(di, n).contiguous()
+        d = torch.randn(di, device=gen.device, generator=gen)
+        h0 = torch.randn(b, di, n, device=gen.device, generator=gen)
+        args = (dt, x, bm, cm, a, d, h0)
+        inputs = timing.cold_copies(*args)
+        plan = own.scan_plan(b, di, n)
+        base = {"name": "ssm_scan", "config": config, "shape": [b, s, di, n],
+                "plan": {"lanes": plan.lanes, "channels": plan.channels,
+                         "blocks": plan.blocks,
+                         "warps_per_scheduler": plan.warps_per_scheduler},
+                **timing.scan_bound(b, s, di, n)}
+        if other:
+            wy, wh = scan.ssm_scan(*args)
+            y, h = own.ssm_scan(*args)
+            g = [timing.graph_ms(f, inputs) for f in
+                 (scan.ssm_scan, own.ssm_scan, own.ssm_scan, scan.ssm_scan)]
+            emit(dict(base, timing="graph", ms=(g[1] + g[2]) / 2,
+                      runs_ms=[g[1], g[2]], other_ms=(g[0] + g[3]) / 2,
+                      other_runs_ms=[g[0], g[3]], other=str(scan.__file__),
+                      eager_ms=timing.cuda_ms(own.ssm_scan, inputs),
+                      other_eager_ms=timing.cuda_ms(scan.ssm_scan, inputs),
+                      max_abs_diff_vs_other=max(
+                          (y - wy).abs().max().item(),
+                          (h - wh).abs().max().item()),
+                      bound_share=base["bound_ms"] * 2 / (g[1] + g[2])))
+            del y, h, wy, wh
+        versions = [("this", own)] + ([("other", scan)] if other and hasattr(
+            scan, "lane_counts") else [])
+        for version, mod in versions:
+            planned = mod.scan_plan(b, di, n).lanes
+            for lanes in mod.lane_counts(n):
+                def run(*t, mod=mod, lanes=lanes):
+                    return mod.launch(*t, lanes)
+                ms = timing.graph_ms(run, inputs)
+                emit(dict(base, timing="graph", version=version, lanes=lanes,
+                          planned=lanes == planned, ms=ms,
+                          eager_ms=timing.cuda_ms(run, inputs),
+                          warps_per_scheduler=mod.plan_for(
+                              b, di, lanes).warps_per_scheduler,
+                          bound_share=base["bound_ms"] / ms))
+        clocks = clocks_during(torch, own.ssm_scan, inputs)
+        emit(dict(base, timing="clocks", **clocks,
+                  mufu_bound_ms_at_clock=base["mufu_bound_ms"] * 1980.0
+                  / clocks["sm_clock_mhz"]))
+        del args, inputs
+        torch.cuda.empty_cache()
+
+
 PARTS = {"matmul": time_matmul, "axpy": time_axpy, "slot": time_slot,
          "dct": time_dct, "dotp": time_dotp, "fft": time_fft_long,
-         "powf": time_powf, "attention": time_attention, "mla": time_mla}
+         "powf": time_powf, "attention": time_attention, "mla": time_mla,
+         "scan": time_scan}
 
 
 def main(argv=None) -> int:
@@ -321,10 +429,11 @@ def main(argv=None) -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import (axpy, dct, dotp, fft4, flash_attn,
-                                     matmul, ops, powf, ref)
+                                     matmul, ops, powf, ref, ssm_scan)
     kernels = types.SimpleNamespace(axpy=axpy, dct=dct, dotp=dotp, fft4=fft4,
                                     flash_attn=flash_attn, matmul=matmul,
-                                    ops=ops, powf=powf, ref=ref)
+                                    ops=ops, powf=powf, ref=ref,
+                                    ssm_scan=ssm_scan)
     timing = own_timing()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

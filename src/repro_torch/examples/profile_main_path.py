@@ -25,7 +25,8 @@ published widths with its depth cut to 4 layers (3 dense, 1 MoE layer
 of 256 experts: the 15.8 B parameters ``chip_smoke.py`` serves), the
 same prefill and decode steps; ``--only serve_hybrid`` full-width
 Hymba-1.5B (32 layers of window-1024 attention beside a Mamba block) and
-``--only serve_ssm`` full-width Falcon-Mamba-7B (64 Mamba layers).
+``--only serve_ssm`` full-width Falcon-Mamba-7B (64 Mamba layers);
+``--only serve_ssm,serve_hybrid`` profiles both in one process.
 """
 from __future__ import annotations
 
@@ -230,19 +231,26 @@ def profile_simulator(device="cuda") -> None:
                       **launch_counts(lambda: ops.axpy(1.7, x, y))}))
 
 
+PATHS = ("simulator", *SERVE_MODELS)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("simulator", "serve", "serve_mla",
-                                       "serve_hybrid", "serve_ssm"),
-                    help="profile one path (default: the simulator and "
-                         "Qwen3-4B's serve)")
+    ap.add_argument("--only", help="profile these paths, comma-separated, "
+                                   f"of {', '.join(PATHS)} (default: the "
+                                   "simulator and Qwen3-4B's serve)")
     args = ap.parse_args(argv)
+    only = args.only.split(",") if args.only else ["simulator", "serve"]
+    bad = [name for name in only if name not in PATHS]
+    if bad:
+        ap.error(f"--only: unknown paths {bad}, not of {PATHS}")
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
-    if args.only in (None, "simulator"):
-        profile_simulator()
-    if args.only in (None, "serve", "serve_mla", "serve_hybrid",
-                     "serve_ssm"):
-        profile_serve(which=args.only or "serve")
+    for name in only:
+        if name == "simulator":
+            profile_simulator()
+        else:
+            profile_serve(which=name)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

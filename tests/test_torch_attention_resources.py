@@ -165,14 +165,32 @@ def test_fft_stage_work_reads_the_stage_twiddles(n):
     assert flops == rows * (n // 4) * 34.0
 
 
+# Every (lanes, n) csrc/ssm_scan.cu instantiates, and its dynamic shared
+# memory: three stages of 16 steps of dt and x (128 / lanes channels)
+# and of B and C (n each).
+SCAN_PAIRS = [(lanes, n) for n in ssm_scan.STATES
+              for lanes in ssm_scan.lane_counts(n)]
+SCAN_SMEM = {(lanes, n): 3 * 4 * (2 * 16 * (128 // lanes) + 2 * 16 * n)
+             for lanes, n in SCAN_PAIRS}
+
+
+def _scan_name(lanes, n):
+    return (f"15ssm_scan_kernelILi{lanes}ELi{n}EEEvPKfS2_S2_S2_S2_S2_S2_"
+            f"PfS3_iii")
+
+
 def _scan_log(spills=None, skip=()) -> str:
     """A ptxas log of ``csrc/ssm_scan.cu``'s instantiations."""
     spills = spills or {}
     prefix = "_ZN44_GLOBAL__N__b4ec31e4_11_ssm_scan_cu_5890e9f0"
-    names = [f"15ssm_scan_kernelILi{n}EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_ii"
-             for n in ssm_scan.STATES]
+    names = [_scan_name(lanes, n) for lanes, n in SCAN_PAIRS]
     return "".join(_entry(prefix + n, spills.get(n, 0), regs=78)
                    for n in names if n not in skip)
+
+
+class _ScanLib:
+    def ssm_scan_smem(self, lanes, n):
+        return SCAN_SMEM.get((lanes, n), 0)
 
 
 class _ScanBuild:
@@ -183,23 +201,45 @@ class _ScanBuild:
         assert name == "ssm_scan"
         return self.log
 
+    def load(self, name, signatures):
+        assert name == "ssm_scan" and "ssm_scan_smem" in signatures
+        return _ScanLib()
+
 
 def test_scan_resources_names_every_state_width():
+    """Every lane count at every state width: n 8 at 1, 2 and 4 lanes, n
+    16 also at 8 (2 states a lane or more)."""
     smoke = _chip_smoke()
     res = smoke.scan_resources(_ScanBuild(_scan_log()), ssm_scan)
-    assert set(res) == {f"ssm_scan_kernel n{n}" for n in ssm_scan.STATES}
-    assert res["ssm_scan_kernel n16"]["registers"] == 78
-    assert res["ssm_scan_kernel n8"]["spill_store_bytes"] == 0
+    assert set(res) == {f"ssm_scan_kernel l{lanes} n{n}"
+                        for lanes, n in SCAN_PAIRS}
+    assert sorted(SCAN_PAIRS) == [(1, 8), (1, 16), (2, 8), (2, 16), (4, 8),
+                                  (4, 16), (8, 16)]
+    assert res["ssm_scan_kernel l2 n16"]["registers"] == 78
+    assert res["ssm_scan_kernel l4 n8"]["spill_store_bytes"] == 0
+    assert res["ssm_scan_kernel l2 n16"]["dynamic_smem_bytes"] == 30720
 
 
 @pytest.mark.parametrize("n", [8, 16])
 def test_scan_resources_fails_a_spill_or_a_missing_width(n):
     smoke = _chip_smoke()
-    name = f"15ssm_scan_kernelILi{n}EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_ii"
+    for lanes in ssm_scan.lane_counts(n):
+        name = _scan_name(lanes, n)
+        with pytest.raises(AssertionError, match="spill"):
+            smoke.scan_resources(_ScanBuild(_scan_log({name: 8})),
+                                 ssm_scan)
+        with pytest.raises(AssertionError, match="spill"):
+            smoke.scan_resources(_ScanBuild(_scan_log(skip=(name,))),
+                                 ssm_scan)
+
+
+def test_scan_resources_fails_a_pair_the_library_lacks(monkeypatch):
+    """A (lanes, n) that ptxas compiled but the library reports no shared
+    memory for (its dispatch lacks it) fails the run too."""
+    smoke = _chip_smoke()
+    monkeypatch.setitem(SCAN_SMEM, (8, 16), 0)
     with pytest.raises(AssertionError, match="spill"):
-        smoke.scan_resources(_ScanBuild(_scan_log({name: 8})), ssm_scan)
-    with pytest.raises(AssertionError, match="spill"):
-        smoke.scan_resources(_ScanBuild(_scan_log(skip=(name,))), ssm_scan)
+        smoke.scan_resources(_ScanBuild(_scan_log()), ssm_scan)
 
 
 @pytest.mark.parametrize("s,t,causal,window", [

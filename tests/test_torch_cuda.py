@@ -1119,6 +1119,82 @@ def test_ssm_scan_kernel_matches_plain(cuda, s, n, di):
     torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
 
 
+SCAN_PAIRS = [(lanes, n) for n in ssm_scan.STATES
+              for lanes in ssm_scan.lane_counts(n)]
+
+
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("di", [33, 300])
+@pytest.mark.parametrize("s", [1, 17, 255, 256, 2048])
+@pytest.mark.parametrize("lanes,n", SCAN_PAIRS)
+def test_ssm_scan_every_lane_count_matches_plain(cuda, lanes, n, s, di, b):
+    """Each lane count the kernel instantiates against the plain scan: S
+    of one step, inside a 16-step tile, around the plain version's
+    256-step chunk and the prefill's 2048; channels that do not fill a
+    block (33: rows not 16-byte aligned, so 4-byte copies; 300), one and
+    five batch rows, a nonzero start state.  Each call is one launch."""
+    args = _scan_inputs(cuda, b, s, di, n, 7 * s + n + di + b + lanes)
+    before = ssm_scan.LAUNCHES
+    y, h = ssm_scan.launch(*args, lanes)
+    assert ssm_scan.LAUNCHES == before + 1
+    wy, wh = ssm_scan.ssm_scan_plain(*args)
+    torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+    torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_ssm_scan_final_states_do_not_depend_on_the_lanes(cuda, n):
+    """Each state runs the same instructions whatever the lane count, so
+    the final states of every lane count are equal bit for bit (y sums
+    in another order and is only close)."""
+    args = _scan_inputs(cuda, 3, 300, 3200, n, n)
+    runs = {lanes: ssm_scan.launch(*args, lanes)
+            for lanes in ssm_scan.lane_counts(n)}
+    for lanes, (y, h) in runs.items():
+        assert torch.equal(h, runs[1][1]), lanes
+        torch.testing.assert_close(y, runs[1][0], rtol=SCAN_TOL,
+                                   atol=SCAN_TOL)
+
+
+def test_ssm_scan_offset_operands_match_plain(cuda):
+    """Operands that are contiguous but start 4 bytes past a 16-byte
+    boundary (a view at storage offset 1) take the 4-byte copies, at a
+    d_inner whose rows would otherwise be aligned."""
+    b, s, di, n = 2, 40, 64, 16
+    args = _scan_inputs(cuda, b, s, di, n, 3)
+    offset = []
+    for t in args:
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        offset.append(view)
+    wy, wh = ssm_scan.ssm_scan_plain(*args)
+    for lanes in ssm_scan.lane_counts(n):
+        y, h = ssm_scan.launch(*offset, lanes)
+        torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+        torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+def test_ssm_scan_lane_counts_are_the_instantiated_ones(cuda):
+    """The library's instantiations are the Python table's: shared
+    memory for each of them and none for any other (lanes, n); a launch
+    at a lane count the kernel lacks raises (cudaErrorInvalidValue) and
+    is not counted."""
+    lib = _build.load("ssm_scan", ssm_scan._SIGNATURES)
+    for n in (4, 8, 16, 32):
+        for lanes in (0, 1, 2, 3, 4, 8, 16):
+            want = n in ssm_scan.STATES and lanes in ssm_scan.lane_counts(n)
+            assert (lib.ssm_scan_smem(lanes, n) > 0) == want, (lanes, n)
+    args = _scan_inputs(cuda, 1, 20, 64, 8, 1)
+    before = ssm_scan.LAUNCHES
+    for lanes in (0, 3, 8, 16):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ssm_scan.launch(*args, lanes)
+    assert ssm_scan.LAUNCHES == before
+    assert ssm_scan.scan_plan(1, 64, 8).lanes in ssm_scan.lane_counts(8)
+
+
 def test_ssm_scan_kernel_rejects_what_it_cannot_take(cuda):
     args = list(_scan_inputs(cuda, 1, 8, 16, 4, 0))
     with pytest.raises(ValueError, match="states"):
