@@ -182,7 +182,29 @@ phase prints one JSON line:
     summary line's ``flash_attention`` entry is the Qwen3-4B path,
     ``flash_attention_mla`` the DeepSeek-V3 one (the same kernel at (192,
     128)), ``flash_attention_window`` the Hymba one (the same kernel
-    under its window) and ``ssm_scan`` the Falcon-Mamba one: 15
+    under its window) and ``ssm_scan`` the Falcon-Mamba one.
+23. ``lm_train``: the dense family's training path.  The attention
+    backward kernels against their plain version (autograd through the
+    float32 reference) at the test shapes (ragged S and T, H / Hk 1 and
+    4, causal and full, float32 and bf16, every head width of
+    ``HEAD_DIMS``): dQ, dK and dV scaled by each gradient's largest
+    element, the forward's row log-sum-exp against the plain
+    ``logsumexp``, two runs bit for bit; a window and the pairs (192,
+    128) and (24, 16) must raise before any launch; then Qwen3-4B's
+    training shape, timed beside the plain version, SDPA's backward and
+    the bound, and the forward kernel with and without the ``lse``
+    output in turns.  The qwen3 smoke config's three micro-batched train
+    steps on the card against the stored JAX values (``lm_train``: the
+    init's digests, the metrics, the updated leaves' sums), float32 and
+    bf16.  Then Qwen3-4B at full width with its depth cut to 12 layers:
+    one micro-batch's loss and gradients through the kernels against
+    the plain chunked attention under autograd on the card, then a
+    warm-up and 3 timed steps of ``build_train_step`` (8 micro-batches
+    of 2048 tokens, remat, AdamW) with the step time, tokens per second,
+    peak memory, the kernels' launches (the forward twice a layer a
+    micro-batch, the backward once) and the model-FLOPs share.  Last,
+    ``examples/train_lm.py`` at its default ``10m`` scale (head width 40)
+    trains 40 steps through both kernels.  The summary line's ``flash_attention_bwd`` entry is this path: 16
     kernels.
 
 Each phase prints its wall time.  Then the kernels' summary line and,
@@ -197,6 +219,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -216,7 +239,7 @@ TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
 KERNELS = ("fft4_stage", "fft4_fused", "matmul", "dotp_central",
            "dotp_partials", "combine_partials", "combine_tree", "axpy",
            "dct", "conv2d", "powf", "flash_attention", "flash_attention_mla",
-           "flash_attention_window", "ssm_scan")
+           "flash_attention_window", "ssm_scan", "flash_attention_bwd")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             # The same Pallas kernel as src/repro/kernels/ops.py::fft4
             # chains it, every stage of a row in one launch.
@@ -244,7 +267,10 @@ REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             "flash_attention_window": "src/repro/kernels/flash_attn.py:73",
             # No Pallas kernel: the jnp selective scan (a chunked
             # lax.associative_scan) of the SSM family.
-            "ssm_scan": "src/repro/models/ssm.py:69"}
+            "ssm_scan": "src/repro/models/ssm.py:69",
+            # No Pallas kernel: JAX's autodiff of the model's jnp chunked
+            # attention (the Pallas kernel has no backward).
+            "flash_attention_bwd": "src/repro/models/attention.py:86"}
 SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "fft4_fused": "src/repro_torch/csrc/fft4_stage.cu",
            "matmul": "src/repro_torch/csrc/matmul.cu",
@@ -259,7 +285,8 @@ SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attn.cu",
            "flash_attention_mla": "src/repro_torch/csrc/flash_attn.cu",
            "flash_attention_window": "src/repro_torch/csrc/flash_attn.cu",
-           "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu"}
+           "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
+           "flash_attention_bwd": "src/repro_torch/csrc/flash_attn_bwd.cu"}
 # The dot product's path: the Fig. 5 input sizes and the 64 Mi-element
 # case where the bandwidth bound means something; the central
 # accumulator (radix 0) and the tree radices of the Fig. 6 sweep.
@@ -365,6 +392,43 @@ SCAN_TEST_S = (1, 255, 256, 2048)
 SCAN_SHAPES = {"falcon-mamba-7b": (4, 2048, 8192, 16),
                "hymba-1.5b": (4, 2048, 3200, 16)}
 SCAN_TOL = 1e-4
+# The attention backward against its plain version (autograd through the
+# float32 reference), row-scaled as row_scaled_err does for the forward:
+# each row's largest error over the larger of that row's largest element
+# and 2^-6 of the gradient's largest row (FA_BWD_ROW_FLOOR; a row whose
+# gradient cancels, as query 0's under causal masking, is held at that
+# floor).  float32 sums in other orders: 1e-4 (2.6e-5 seen); bf16 rounds
+# P and dS to bf16 before their products and the gradients to bf16: 0.1
+# (0.055 seen at the test shapes; at the training shape 0.043, SDPA's
+# backward the same 0.043).  The forward's lse against the plain
+# logsumexp: float32 (9.5e-7 seen).
+FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 0.1}
+FA_BWD_ROW_FLOOR = 2.0 ** -6
+FA_LSE_TOL = 1e-5
+# Its test shapes (H, Hk, S, T): ragged lengths, groups of 1 and 4; then
+# Qwen3-4B's training attention (B, H, Hk, S, D), one micro-batch.
+FA_BWD_SHAPES = ((2, 2, 77, 77), (8, 2, 300, 300), (4, 1, 130, 200))
+FA_TRAIN_SHAPE = (1, 32, 8, 2048, 128)
+# The training path at full width: Qwen3-4B's published widths with the
+# depth cut to 12 of its 36 layers (4.41 B parameters need ~88 GB of
+# weights, float32 master, moments and gradient accumulator; 12 layers
+# 1.99 B, ~40 GB), its 8 micro-batches and remat, a global batch of 8 x
+# 2048 tokens of the synthetic stream (seed 0), AdamW from the config.
+LM_TRAIN = {"arch": "qwen3_4b", "n_layers": 12, "global_batch": 8,
+            "seq_len": 2048, "timed_steps": 3}
+# One micro-batch's loss and gradients through the kernels against the
+# plain chunked attention under autograd on the card: both bf16, with p
+# and the outputs rounded at other places.  Each gradient leaf's largest
+# gap to 0.1 of its largest element (the CPU's bf16 port against XLA:
+# 1.9e-2; 0.034 seen here) is the check that catches a wrong kernel: at
+# the random init the loss (about 12) barely depends on attention.  The
+# loss to 1e-3 (1.9e-4 seen).
+LM_TRAIN_LOSS_GAP, LM_TRAIN_GRAD_GAP = 1e-3, 0.1
+# The smoke train steps against the stored JAX values
+# (tests/test_torch_lm_train_values.py's TOL): the metrics' relative gap,
+# a leaf's sum gap over its sum of absolute values.
+LM_TRAIN_TOL = {"float32": {"metrics": 1e-5, "leaf_sum": 1e-4},
+                "bfloat16": {"metrics": 5e-3, "leaf_sum": 2e-3}}
 
 
 def emit(obj) -> None:
@@ -380,7 +444,7 @@ def phase_info(torch, build):
     t0 = time.perf_counter()
     paths = build.build(["fft4_stage", "matmul", "dotp", "axpy", "dct",
                          "conv2d", "powf", "powf_host", "flash_attn",
-                         "ssm_scan"])
+                         "flash_attn_bwd", "ssm_scan"])
     build_s = time.perf_counter() - t0
     emit({"phase": "info", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
@@ -2306,9 +2370,9 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
                   "causal": causal,
                   "max_abs_err": (got - want).abs().max().item(),
                   "tol": {"rtol": FA_F32_TOL, "atol": FA_F32_TOL}})
-    # bf16 at every width, on each of its kernels: FMAs at D 8, mma.sync
-    # at 16 and 32 (the smoke configs), wgmma at 64, 80, 128 and 192;
-    # grouped heads 4 to 1, a ragged length.
+    # bf16 at every width, on each of its kernels: FMAs at D 8 and 40,
+    # mma.sync at 16 and 32 (the smoke configs), wgmma at 64, 80, 128 and
+    # 192; grouped heads 4 to 1, a ragged length.
     for d in flash_attn.HEAD_DIMS:
         for causal in (True, False):
             q = torch.randn(1, 8, 300, d, device=dev, generator=gen).bfloat16()
@@ -2773,9 +2837,9 @@ def fa_resources(build, flash_attn) -> dict:
     at every pair, each with the dynamic shared memory of a launch, which
     ptxas does not see; a pair with D = Dv is named ``d{D}``, another
     ``d{D} dv{Dv}``.  Raises if ptxas reports a spill in any
-    instantiation of either kernel (bf16 at D 8 and (24, 16) included) or
-    a launch would take more shared memory than the 227 KB a block may
-    have."""
+    instantiation of either kernel (bf16 at D 8, 40 and (24, 16)
+    included) or a launch would take more shared memory than the 227 KB a
+    block may have."""
     log = build.compiler_log("flash_attn")
     lib = build.load("flash_attn", flash_attn._SIGNATURES)
     res = {}
@@ -2794,7 +2858,7 @@ def fa_resources(build, flash_attn) -> dict:
     too_big = {name: u for name, u in res.items()
                if u["dynamic_smem_bytes"] + u.get("static_smem_bytes", 0)
                > SMEM_PER_BLOCK}
-    if (len(spills) != len(res) + len(bf16_fma) or len(bf16_fma) != 2
+    if (len(spills) != len(res) + len(bf16_fma) or len(bf16_fma) != 3
             or any(spills.values()) or too_big):
         raise AssertionError(f"attention kernels: spill bytes {spills}, "
                              f"over {SMEM_PER_BLOCK} bytes of shared "
@@ -3047,6 +3111,396 @@ def phase_lm_serve(torch, flash_attn, ssm_scan, build, ref_values) -> dict:
             "ssm_scan": (scan_summary, ssm_launches["ssm_scan"])}
 
 
+def _scaled_err(got, want) -> float:
+    """A gradient's largest error over its largest element."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def grad_row_err(got, want) -> float:
+    """:func:`row_scaled_err` for a gradient: each row's largest error
+    over the larger of its largest element and :data:`FA_BWD_ROW_FLOOR`
+    of the gradient's largest row."""
+    diff = (got.float() - want.float()).abs().amax(dim=-1)
+    rows = want.float().abs().amax(dim=-1)
+    floor = rows.max().item() * FA_BWD_ROW_FLOOR
+    return (diff / rows.clamp_min(floor)).max().item()
+
+
+def bwd_resources(build, flash_attn) -> dict:
+    """ptxas's registers and spills of the backward kernels at each head
+    width: ``bwd_dkdv_mma``/``bwd_dq_mma`` (bf16, D a multiple of 16) and
+    ``bwd_dkdv_fma``/``bwd_dq_fma`` (float32; bf16 at D 8 and 40),
+    recorded beside the times (a spill costs time, not correctness,
+    here)."""
+    log = build.compiler_log("flash_attn_bwd")
+    res = {}
+    for d in flash_attn.HEAD_DIMS:
+        for kernel in ("bwd_dkdv", "bwd_dq"):
+            if d % 16 == 0:
+                res[f"{kernel}_mma d{d}"] = ptxas_usage(
+                    log, f"{kernel}_mmaILi{d}E")
+            res[f"{kernel}_fma f32 d{d}"] = ptxas_usage(
+                log, f"{kernel}_fmaIfLi{d}E")
+        if d % 16:
+            for kernel in ("bwd_dkdv", "bwd_dq"):
+                res[f"{kernel}_fma bf16 d{d}"] = ptxas_usage(
+                    log, f"{kernel}_fmaI13__nv_bfloat16Li{d}E")
+    return res
+
+
+def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> dict:
+    """The backward kernels against their plain version at the test
+    shapes and Qwen3-4B's training shape, their determinism and refusals,
+    and the times and resources at the training shape.  Returns the
+    summary record."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def inputs(dtype, b, h, hk, s, t, d):
+        q = (0.5 * torch.randn(b, h, s, d, device=dev, generator=gen)
+             ).to(dtype)
+        k = (0.5 * torch.randn(b, hk, t, d, device=dev, generator=gen)
+             ).to(dtype)
+        v = torch.randn(b, hk, t, d, device=dev, generator=gen).to(dtype)
+        do = torch.randn(b, h, s, d, device=dev, generator=gen).to(dtype)
+        return q, k, v, do
+
+    def run(q, k, v, do, causal):
+        lse = torch.empty(q.shape[:3], device=dev)
+        out = flash_attn.flash_attention(q, k, v, causal=causal, lse=lse)
+        got = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                                 causal=causal)
+        again = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                                   causal=causal)
+        want = flash_attn_bwd.flash_attention_bwd_plain(q, k, v, do,
+                                                        causal=causal)
+        lse_err = (lse - ref.attention_lse(q, k, causal=causal)).abs() \
+            .max().item()
+        errs = [grad_row_err(g, w) for g, w in zip(got, want)]
+        tol = FA_BWD_TOL[str(q.dtype).split(".")[1]]
+        if not (max(errs) <= tol and lse_err <= FA_LSE_TOL):
+            raise AssertionError(f"flash_attention_bwd {list(q.shape)} "
+                                 f"{q.dtype} causal={causal}: dq/dk/dv "
+                                 f"errors {errs} (tol {tol}), lse {lse_err}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("flash_attention_bwd: two runs differ")
+        return {"dq_dk_dv_row_err": errs, "lse_err": lse_err, "tol": tol,
+                "deterministic": True}, (out, lse, got, want)
+
+    worst = {}
+    for name in ("float32", "bfloat16"):
+        for d in flash_attn.HEAD_DIMS:
+            for causal in (True, False):
+                for h, hk, s, t in FA_BWD_SHAPES:
+                    rec, _ = run(*inputs(getattr(torch, name), 2, h, hk, s, t,
+                                         d), causal)
+                    worst[name] = max(worst.get(name, 0.0),
+                                      max(rec["dq_dk_dv_row_err"]))
+    emit({"phase": "lm_train", "check": "flash_attention_bwd against plain "
+          "at the test shapes", "shapes": FA_BWD_SHAPES,
+          "head_dims": flash_attn.HEAD_DIMS, "worst_row_err": worst,
+          "tol": FA_BWD_TOL, "deterministic": True})
+
+    x = torch.zeros(1, 2, 8, 192, device=dev, dtype=torch.bfloat16)
+    lse0 = torch.zeros(1, 2, 8, device=dev)
+    x24 = torch.zeros(1, 2, 8, 24, device=dev, dtype=torch.bfloat16)
+    before = flash_attn_bwd.LAUNCHES
+    for what, args, kw in (
+            ("window", (x, x, x, x, x, lse0), {"window": 64}),
+            ("(192, 128)", (x, x, x[..., :128], x, x, lse0), {}),
+            ("(24, 16)", (x24, x24, x24[..., :16], x24, x24, lse0), {})):
+        try:
+            flash_attn_bwd.flash_attention_bwd(*args, **kw)
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention_bwd took a {what}")
+    if flash_attn_bwd.LAUNCHES != before:
+        raise AssertionError("flash_attention_bwd launched before refusing")
+    emit({"phase": "lm_train", "check": "a window, (192, 128) and (24, 16) "
+          "raise ValueError before any launch"})
+
+    b, h, hk, s, d = FA_TRAIN_SHAPE
+    q, k, v, do = inputs(torch.bfloat16, b, h, hk, s, s, d)
+    rec, (out, lse, got, want) = run(q, k, v, do, True)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def library(do_):
+        return torch.autograd.grad(lib_out, (qs, ks, vs), do_,
+                                   retain_graph=True)
+
+    lib = library(do)
+
+    def kernel(*a):
+        return flash_attn_bwd.flash_attention_bwd(*a, causal=True)
+
+    args = [(q, k, v, out, do, lse)]
+    # The causal half's pairs, five products of 2 D operations each; q,
+    # k, v, out, dO and lse read once, dq, dk, dv written once.
+    pairs = s * (s + 1) / 2
+    b_ms, b_by = bound(2.0 * (4 * q.numel() + 4 * k.numel())
+                       + 4.0 * lse.numel(), 5 * 2.0 * d * b * h * pairs,
+                       "bfloat16")
+    ms = cuda_ms(kernel, args)
+    library_ms = cuda_ms(library, [(do,)])
+    # The forward kernel with and without the lse output, in turns, in
+    # device time, at this shape and at the serving prefill's.
+    fwd = {}
+    for label, shape in (("train", FA_TRAIN_SHAPE),
+                         ("serve", FA_PATH_SHAPE)):
+        bb, hh, hkk, ss, dd = shape
+        fq, fk, fv, _ = inputs(torch.bfloat16, bb, hh, hkk, ss, ss, dd)
+        lse_buf = torch.empty(bb, hh, ss, device=dev)
+        ins = cold_copies(fq, fk, fv)
+        runs = [graph_ms(lambda *a: flash_attn.flash_attention(
+                    *a, causal=True, lse=lse_buf if with_lse else None), ins)
+                for with_lse in (False, True, True, False)]
+        fwd[label] = {"no_lse_ms": (runs[0] + runs[3]) / 2,
+                      "lse_ms": (runs[1] + runs[2]) / 2, "runs_ms": runs}
+    summary = {"phase": "lm_train", "name": "flash_attention_bwd",
+               "shape": list(FA_TRAIN_SHAPE), "dtype": "bfloat16",
+               "causal": True, **rec,
+               "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                                  for g, w in zip(got, want)),
+               "ms": ms, "graph_ms": graph_ms(kernel, args),
+               "plain_ms": cuda_ms(
+                   lambda *a: flash_attn_bwd.flash_attention_bwd_plain(
+                       *a, causal=True), [(q, k, v, do)], iters=3, warmup=1),
+               "library_ms": library_ms, "ratio_to_library": ms / library_ms,
+               "library": "torch.autograd.grad of F.scaled_dot_product_"
+                          "attention(is_causal=True, enable_gqa=True) (the "
+                          "backward alone)",
+               "library_row_err": [grad_row_err(g, w)
+                                   for g, w in zip(lib, want)],
+               "bound_ms": b_ms, "bound_by": b_by,
+               "forward_lse_cost": fwd,
+               "kernel_resources": bwd_resources(build, flash_attn),
+               "unit": "one call: the pre-pass, dK/dV and dQ kernels of one "
+                       "layer's attention, one micro-batch"}
+    emit(summary)
+    return summary
+
+
+def _leaf_digests(torch, items) -> dict:
+    """sha256 (first 16 hex digits) of each (path, tensor)'s bytes."""
+    out = {}
+    for path, t in items:
+        t = t.detach().cpu()
+        raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        out[path] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def _train_smoke_against_jax(torch, configs, prng, optim, steps, data,
+                             init_params, tree_items, ref) -> None:
+    """The qwen3 smoke config's stored three train steps (``lm_train``)
+    on the card: the init's leaf digests, each step's metrics and the
+    updated leaves' sums at :data:`LM_TRAIN_TOL`."""
+    dcfg = data.DataConfig(seed=ref["data_seed"], seq_len=ref["seq_len"],
+                           global_batch=ref["global_batch"],
+                           vocab_size=configs.get_smoke(ref["arch"])
+                           .vocab_size)
+    for dtype, want in ref["variants"].items():
+        cfg = dataclasses.replace(configs.get_smoke(ref["arch"]),
+                                  **want["overrides"])
+        ocfg = optim.OptConfig.from_model(cfg, **ref["opt"])
+        params = init_params(cfg, prng.PRNGKey(0, device="cuda"))
+        if _leaf_digests(torch, tree_items(params)) != want["digests"]:
+            raise AssertionError(f"lm_train {dtype}: init_params on the card "
+                                 f"differs from the JAX leaves")
+        fn, _ = steps.build_train_step(cfg, opt_cfg=ocfg)
+        state = optim.init(params, ocfg)
+        m_gap = 0.0
+        for i, w in enumerate(want["metrics"]):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in
+                     data.batch_for_model(cfg, dcfg, i).items()}
+            params, state, m = fn(params, state, batch)
+            for k, wv in w.items():
+                g = float(m[k])
+                m_gap = max(m_gap, abs(g - wv) / abs(wv) if wv else abs(g))
+        s_gap = 0.0
+        for path, t in tree_items(params):
+            s, l1 = want["leaf_sums"][path]
+            s_gap = max(s_gap, abs(t.double().sum().item() - s) / l1)
+        tol = LM_TRAIN_TOL[dtype]
+        emit({"phase": "lm_train", "check": f"smoke {ref['arch']} {dtype} "
+              f"train steps against JAX", "steps": ref["steps"],
+              "micro_batches": ref["micro_batches"], "digests_equal": True,
+              "metrics_gap": m_gap, "leaf_sum_gap": s_gap, "tol": tol})
+        if not (m_gap <= tol["metrics"] and s_gap <= tol["leaf_sum"]):
+            raise AssertionError(f"lm_train {dtype}: metrics gap {m_gap}, "
+                                 f"leaf sum gap {s_gap} past {tol}")
+
+
+def _train_full(torch, configs, prng, optim, steps, data, attention,
+                models, layers, flash_attn, flash_attn_bwd, fa_ms) -> dict:
+    """Qwen3-4B at full width, depth cut to :data:`LM_TRAIN`'s 12 layers:
+    one micro-batch's loss and gradients through the kernels against the
+    plain chunked attention under autograd on the card, then a warm-up
+    step and the timed steps of ``build_train_step`` (the main path, the
+    kernels' launches counted from 0 just before the timed steps).
+    ``fa_ms`` holds one forward and one backward call's device
+    milliseconds at this shape.  Returns the launches by kernel."""
+    spec = LM_TRAIN
+    cfg = dataclasses.replace(configs.get(spec["arch"]),
+                              n_layers=spec["n_layers"])
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, prng.PRNGKey(0, device="cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dcfg = data.DataConfig(seed=0, seq_len=spec["seq_len"],
+                           global_batch=spec["global_batch"],
+                           vocab_size=cfg.vocab_size)
+
+    def batch(step):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in data.batch_for_model(cfg, dcfg, step).items()}
+
+    # One micro-batch (the first row of step 0), kernels against plain.
+    one = {k: v[:1] for k, v in batch(0).items()}
+    live = layers.tree_map(lambda t: t.detach().requires_grad_(True),
+                           params)
+    items = layers.tree_items(live)
+    leaves = [t for _, t in items]
+
+    def loss_grads():
+        loss, _ = models.loss_fn(live, cfg, one)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    kernel_loss, kernel_grads = loss_grads()
+    kernel_attention = attention.flash_attention
+    attention.flash_attention = attention.chunked_attention
+    try:
+        plain_loss, plain_grads = loss_grads()
+    finally:
+        attention.flash_attention = kernel_attention
+    loss_gap = abs(kernel_loss.item() - plain_loss.item())
+    grad_gaps = {path: _scaled_err(g, w) for (path, _), g, w in
+                 zip(items, kernel_grads, plain_grads)}
+    del live, items, leaves, kernel_grads, plain_grads
+    torch.cuda.empty_cache()
+    grad_gap = max(grad_gaps.values())
+    emit({"phase": "lm_train", "check": "full-width micro-batch: kernels "
+          "against the plain chunked attention under autograd",
+          "loss_kernels": kernel_loss.item(), "loss_plain": plain_loss.item(),
+          "loss_gap": loss_gap, "loss_gap_bound": LM_TRAIN_LOSS_GAP,
+          "grad_gap_by_leaf": grad_gaps, "grad_gap": grad_gap,
+          "grad_gap_bound": LM_TRAIN_GRAD_GAP})
+    if not (loss_gap <= LM_TRAIN_LOSS_GAP and grad_gap <= LM_TRAIN_GRAD_GAP):
+        raise AssertionError(f"full-width training: kernels against plain "
+                             f"loss gap {loss_gap}, gradient gap {grad_gap}")
+
+    ocfg = optim.OptConfig.from_model(cfg)
+    fn, _ = steps.build_train_step(cfg, opt_cfg=ocfg)
+    state = optim.init(params, ocfg)
+    t0 = time.perf_counter()
+    params, state, _ = fn(params, state, batch(0))          # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    flash_attn.LAUNCHES = flash_attn_bwd.LAUNCHES = 0
+    step_s, metrics = [], []
+    for i in range(spec["timed_steps"]):
+        b = batch(1 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = fn(params, state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {"flash_attention": flash_attn.LAUNCHES,
+                "flash_attention_bwd": flash_attn_bwd.LAUNCHES}
+    n = spec["timed_steps"]
+    micro = min(cfg.micro_batches, spec["global_batch"])
+    expected = {"flash_attention": n * cfg.n_layers * micro * 2,
+                "flash_attention_bwd": n * cfg.n_layers * micro}
+    tokens = spec["global_batch"] * spec["seq_len"]
+    step_mean = sum(step_s) / n
+    # Model FLOPs: 6 per parameter and token, plus attention's two
+    # products (4 D a kept pair a head) three times (forward, backward).
+    pairs = spec["seq_len"] * (spec["seq_len"] + 1) / 2
+    attn_flops = (3 * 4 * cfg.head_dim * cfg.n_heads * pairs * cfg.n_layers
+                  * spec["global_batch"])
+    model_flops = 6 * cfg.param_count() * tokens + attn_flops
+    attention_ms = (launches["flash_attention"] * fa_ms["forward"]
+                    + launches["flash_attention_bwd"] * fa_ms["backward"]) / n
+    rec = {"phase": "lm_train", "run": "full-width training",
+           "model": cfg.name, **spec,
+           "reduced": {"n_layers": [configs.get(spec["arch"]).n_layers,
+                                    cfg.n_layers]},
+           "micro_batches": micro, "remat": cfg.remat,
+           "params_b": cfg.param_count() / 1e9, "init_s": init_s,
+           "warmup_step_s": warmup_s, "step_ms": [x * 1e3 for x in step_s],
+           "step_ms_mean": step_mean * 1e3,
+           "tokens_per_s": tokens / step_mean,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "launches_expected": expected,
+           "metrics": metrics,
+           "attention_ms_per_step": attention_ms,
+           "attention_share": attention_ms / (step_mean * 1e3),
+           "model_tflop_per_step": model_flops / 1e12,
+           "mfu_bf16": model_flops / step_mean / 989e12}
+    emit(rec)
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    if launches != expected or not finite:
+        raise AssertionError(f"full-width training: launches {launches}, "
+                             f"expected {expected}; finite metrics {finite}")
+    return launches
+
+
+def _train_example(flash_attn, flash_attn_bwd) -> None:
+    """``examples/train_lm.py`` at its default ``10m`` scale (head width
+    40, the FMA kernels both ways) for 40 steps of 8 x 64 tokens on the
+    card, checkpoints in a temporary directory: both kernels launch, the
+    losses are finite and fall by more than 1."""
+    from repro_torch.examples import train_lm
+    cfg = train_lm.scale_config("10m")
+    fwd, bwd = flash_attn.LAUNCHES, flash_attn_bwd.LAUNCHES
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        out = train_lm.train(cfg, steps=40, seq=64, ckpt=ckpt, log_every=0)
+    losses = [h.metrics["loss"] for h in out["history"]]
+    launches = [flash_attn.LAUNCHES - fwd, flash_attn_bwd.LAUNCHES - bwd]
+    emit({"phase": "lm_train", "run": "train_lm --scale 10m",
+          "head_dim": cfg.head_dim, "steps": len(losses),
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "launches_fwd_bwd": launches,
+          "wall_s": time.perf_counter() - t0})
+    if not (len(losses) == 40 and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0] - 1.0 and min(launches) > 0):
+        raise AssertionError(f"train_lm 10m: losses {losses}, launches "
+                             f"{launches}")
+
+
+def phase_lm_train(torch, flash_attn, flash_attn_bwd, ref, build,
+                   ref_values):
+    """The dense family's training path; returns the summary record and
+    the full-width run's backward launches."""
+    from repro_torch import configs, data, models, optim
+    from repro_torch.core import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, layers
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    summary = _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build)
+    _train_smoke_against_jax(torch, configs, prng, optim, steps, data,
+                             models.init_params, layers.tree_items,
+                             ref_values["lm_train"])
+    fa_ms = {"forward": summary["forward_lse_cost"]["train"]["lse_ms"],
+             "backward": summary["graph_ms"]}
+    launches = _train_full(torch, configs, prng, optim, steps, data,
+                           attention, models, layers, flash_attn,
+                           flash_attn_bwd, fa_ms)
+    torch.cuda.empty_cache()
+    _train_example(flash_attn, flash_attn_bwd)
+    emit({"phase": "lm_train", "wall_s": time.perf_counter() - t_phase})
+    return summary, launches["flash_attention_bwd"]
+
+
 def kernel_entry(name: str, rec: dict, launches: int) -> dict:
     """One kernel's entry of the summary line.  ``timing`` says how ``ms``
     and ``library_ms`` were taken: "eager" (:func:`cuda_ms`, calls issued
@@ -3085,8 +3539,8 @@ def main() -> int:
                                       fig_tuned_tree, fig_workload_tuned,
                                       figure_rows, fiveg_pipeline)
     from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
-                                     flash_attn, matmul, ops, powf, ref,
-                                     ssm_scan)
+                                     flash_attn, flash_attn_bwd, matmul, ops,
+                                     powf, ref, ssm_scan)
     from repro_torch.runtime import serving
 
     ref_values = json.loads(
@@ -3131,6 +3585,9 @@ def main() -> int:
     for name, (rec, count) in phase_lm_serve(torch, flash_attn, ssm_scan,
                                              _build, ref_values).items():
         summary[name], launches[name] = rec, count
+    summary["flash_attention_bwd"], launches["flash_attention_bwd"] = \
+        phase_lm_train(torch, flash_attn, flash_attn_bwd, ref, _build,
+                       ref_values)
 
     emit({"kernels": [kernel_entry(name, summary[name], launches[name])
                       for name in KERNELS]})

@@ -8,8 +8,8 @@
 // width and a scale of its own).  q is (B, H, S, D); k is (B, Hk, T, D)
 // and v (B, Hk, T, Dv) with H a multiple of Hk: query head h reads KV
 // head h / (H / Hk), so grouped-query attention needs no repeated copy of
-// K and V.  (D, Dv) is one of the pairs D = Dv in {8, 16, 32, 64, 80, 128,
-// 192}, (192, 128) (DeepSeek-V3's MLA: 128 + 64 rope features against
+// K and V.  (D, Dv) is one of the pairs D = Dv in {8, 16, 32, 40, 64, 80,
+// 128, 192}, (192, 128) (DeepSeek-V3's MLA: 128 + 64 rope features against
 // values of 128) and (24, 16) (its smoke config); the scale is the
 // caller's.  Every operand and the output come with their own batch, head
 // and sequence strides (the feature axis is contiguous), so the model's
@@ -87,21 +87,24 @@
 //  * bf16, D in {16, 32} (the smoke configs): fa_mma_kernel, 4 warps per
 //    64-query tile on mma.sync m16n8k16, K and V tiles of 64 rows in
 //    padded shared memory.
-//  * float32 (true float32, no TF32) at every pair and bf16 at D = 8 and
-//    (24, 16): fa_fma_kernel, register-tiled FMAs.  A block of 128 threads takes 64
-//    query rows against 64-key tiles; a thread holds an 8 x 4 tile of S
-//    (8 rows, keys tx, tx + 16, ...) and an 8 x D/16 tile of O (the same
-//    rows, features tx, tx + 16, ...), so a 16-byte shared-memory load
-//    feeds 16 FMAs (of Q) or 32 (of K) and a score needs no shuffle.  The
-//    launch bound asks for two blocks a multiprocessor, which lets ptxas
-//    take the registers it needs (at D = 80 it spilled without).  The row max
-//    is reduced across the 16 lanes of a row once a tile; l is summed per
-//    lane and reduced once at the end.  p goes to shared memory key-major
-//    for PV.  Q, K and V are staged in their own dtype by cp.async, rows
-//    padded by 16 bytes (conflict-free 16-byte loads); K and V have one
-//    buffer each, and each buffer's next tile is copied while the other is
-//    read (K_{j+1} during tile j's softmax and PV, V_{j+1} during tile
-//    j + 1's QK^T), which keeps two blocks a multiprocessor at D = 80.
+//  * float32 (true float32, no TF32) at every pair and bf16 at D = 8, 40
+//    (not a multiple of 16) and (24, 16): fa_fma_kernel, register-tiled
+//    FMAs.  A block of 128 threads takes 64 query rows against 64-key
+//    tiles; a thread holds an 8 x 4 tile of S (8 rows, keys tx, tx + 16,
+//    ...) and an 8 x D/16 tile of O (the same rows, features tx, tx + 16,
+//    ...), so a 16-byte shared-memory load feeds 16 FMAs (of Q) or 32 (of
+//    K) and a score needs no shuffle.  The launch bound asks for two
+//    blocks a multiprocessor, which lets ptxas take the registers it needs
+//    (at D = 80 it spilled without).  The row max is reduced across the
+//    16 lanes of a row once a tile; l is summed per lane and reduced once
+//    at the end.  p goes to shared memory key-major for PV.  Q, K and V
+//    are staged in their own dtype by cp.async, rows padded by 16 bytes
+//    (conflict-free 16-byte loads); K and V have one buffer each, and
+//    each buffer's next tile is copied while the other is read (K_{j+1}
+//    during tile j's softmax and PV, V_{j+1} during tile j + 1's QK^T),
+//    which keeps two blocks a multiprocessor at D = 80.
+// Each kernel optionally writes the row log-sum-exp (lse) at its epilogue,
+// for the backward kernels of csrc/flash_attn_bwd.cu.
 // What is left for later: a persistent grid that overlaps one tile's
 // epilogue with the next tile's loads, and the output written through
 // shared memory with TMA.
@@ -548,8 +551,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, Strides st, int H, int Hk,
-                int S, int T, float scale_log2, int causal, int window) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                Strides st, int H, int Hk, int S, int T, float scale_log2,
+                int causal, int window) {
   using W = WgShape<D, DV>;
   constexpr int BN = W::BN;
   extern __shared__ uint8_t fa_smem[];
@@ -683,6 +687,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(pf);
   }
 
+  // The row's log-sum-exp in natural units (m is kept in log2 units).
+  if (lse != nullptr && t4 == 0) {
+    float* lh = lse + ((long long)b * H + h) * S;
+    if (r0 < S) lh[r0] = m0 * 0.6931471805599453f + logf(l0);
+    if (r1 < S) lh[r1] = m1 * 0.6931471805599453f + logf(l1);
+  }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   __nv_bfloat16* oh = o + b * st.ob + h * st.oh;
 #pragma unroll
@@ -734,8 +744,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
 fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, Strides st, int H, int Hk,
-              int S, int T, float scale, int causal, int window) {
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+              Strides st, int H, int Hk, int S, int T, float scale,
+              int causal, int window) {
   constexpr int LD = D + 8;                 // padded shared row (elements)
   constexpr int PACKS = D / 8;              // 16-byte packs per row
   extern __shared__ uint8_t fa_smem[];      // mma_smem_bytes<D>()
@@ -870,6 +881,11 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
+  if (lse != nullptr && t4 == 0) {
+    float* lh = lse + ((long long)b * H + h) * S;
+    if (r0 < S) lh[r0] = m0 + logf(l0);
+    if (r1 < S) lh[r1] = m1 + logf(l1);
+  }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   __nv_bfloat16* oh = o + b * st.ob + h * st.oh;
 #pragma unroll
@@ -885,7 +901,7 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// float32 (and bf16 at D = 8) on register-tiled FMAs.
+// float32 (and bf16 at D = 8 and 40) on register-tiled FMAs.
 // ---------------------------------------------------------------------------
 
 constexpr int F_BQ = 64;          // query rows per block
@@ -996,9 +1012,9 @@ __device__ __forceinline__ float row_sum16(float x) {
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(F_THREADS, 2)
 fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, Strides st,
-              int H, int Hk, int S, int Tk, float scale, int causal,
-              int window) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, Strides st, int H, int Hk, int S,
+              int Tk, float scale, int causal, int window) {
   using F = FmaShape<T, D, DV>;
   constexpr int LD = F::LD, LDV = F::LDV, NC = F::NC;
   extern __shared__ uint8_t fa_smem[];      // F::SMEM, 16-byte aligned
@@ -1147,9 +1163,13 @@ fa_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
 
   T* oh = o + b * st.ob + h * st.oh;
+  float* lh = lse == nullptr ? nullptr : lse + ((long long)b * H + h) * S;
 #pragma unroll
   for (int i = 0; i < F_RM; ++i) {
-    const float den = fmaxf(row_sum16(l[i]), 1e-30f);
+    const float sum = row_sum16(l[i]);
+    const float den = fmaxf(sum, 1e-30f);
+    if (lh != nullptr && tx == 0 && row0 + i < S)
+      lh[row0 + i] = m[i] + logf(sum);
     if (row0 + i < S) {
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
@@ -1180,7 +1200,8 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
 }
 
 template <typename T, int D, int DV = D>
-int launch_fma(const T* q, const T* k, const T* v, T* o, const Strides& st,
+int launch_fma(const T* q, const T* k, const T* v, T* o, float* lse,
+               const Strides& st,
                int B, int H, int Hk, int S, int Tk, float scale, int causal,
                int window, cudaStream_t stream) {
   static unsigned long long configured = 0;
@@ -1190,22 +1211,22 @@ int launch_fma(const T* q, const T* k, const T* v, T* o, const Strides& st,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
   fa_fma_kernel<T, D, DV><<<grid, F_THREADS, smem, stream>>>(
-      q, k, v, o, st, H, Hk, S, Tk, scale, causal, window);
+      q, k, v, o, lse, st, H, Hk, S, Tk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-               const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
-               int B, int H, int Hk, int S, int Tk, float scale, int causal,
-               int window, cudaStream_t stream) {
+               const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+               const Strides& st, int B, int H, int Hk, int S, int Tk,
+               float scale, int causal, int window, cudaStream_t stream) {
   static unsigned long long configured = 0;
   constexpr int smem = mma_smem_bytes<D>();
   const cudaError_t err = allow_smem(fa_mma_kernel<D>, smem, &configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, H, B);
   fa_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
-      q, k, v, o, st, H, Hk, S, Tk, scale, causal, window);
+      q, k, v, o, lse, st, H, Hk, S, Tk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -1251,9 +1272,9 @@ bool make_map(CUtensorMap* map, const void* base, int D, int heads, int rows,
 
 template <int D, int DV = D>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                 const __nv_bfloat16* v, __nv_bfloat16* o, const Strides& st,
-                 int B, int H, int Hk, int S, int Tk, float scale, int causal,
-                 int window, cudaStream_t stream) {
+                 const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                 const Strides& st, int B, int H, int Hk, int S, int Tk,
+                 float scale, int causal, int window, cudaStream_t stream) {
   using W = WgShape<D, DV>;
   constexpr int smem = W::SMEM;
   if ((S + WG_BM - 1) / WG_BM > 65535) return (int)cudaErrorInvalidValue;
@@ -1275,8 +1296,8 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   // before any lighter one, and heads that share a KV head run together.
   const dim3 grid((unsigned)B * H, (S + WG_BM - 1) / WG_BM);
   fa_wgmma_kernel<D, DV><<<grid, WG_THREADS, smem, stream>>>(
-      tq, tk, tv, o, st, H, Hk, S, Tk, scale * 1.4426950408889634f, causal,
-      window);
+      tq, tk, tv, o, lse, st, H, Hk, S, Tk, scale * 1.4426950408889634f,
+      causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -1293,24 +1314,31 @@ Strides strides_from(const long long* s) {
 }  // namespace
 
 // strides: 12 element strides (batch, head, sequence) of q, k, v, out.
+// lse: null, or a contiguous (B, H, S) float32 tensor that receives each
+// row's log-sum-exp of its scaled scores, m + log(l) in natural units from
+// the running state the epilogue already holds (the backward kernels
+// recompute p from it); serving passes null.
 // (D, Dv): the query/key and value widths, one of the pairs below (0 ->
 // cudaErrorInvalidValue).  window > 0: query s sees key t only when
 // s - t < window (a sliding window; with causal masking too, t <= s);
 // it needs S <= Tk, so that every row sees a key.
 extern "C" int flash_attn_f32(const float* q, const float* k, const float* v,
-                              float* o, const long long* strides, int B,
+                              float* o, float* lse, const long long* strides,
+                              int B,
                               int H, int Hk, int S, int Tk, int D, int Dv,
                               float scale, int causal, int window,
                               cudaStream_t stream) {
   if (bad_shape(B, H, Hk, S, Tk, window)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const Strides st = strides_from(strides);
-#define FA_ARGS q, k, v, o, st, B, H, Hk, S, Tk, scale, causal, window, stream
+#define FA_ARGS \
+  q, k, v, o, lse, st, B, H, Hk, S, Tk, scale, causal, window, stream
   if (D == Dv) {
     switch (D) {
       case 8: return launch_fma<float, 8>(FA_ARGS);
       case 16: return launch_fma<float, 16>(FA_ARGS);
       case 32: return launch_fma<float, 32>(FA_ARGS);
+      case 40: return launch_fma<float, 40>(FA_ARGS);
       case 64: return launch_fma<float, 64>(FA_ARGS);
       case 80: return launch_fma<float, 80>(FA_ARGS);
       case 128: return launch_fma<float, 128>(FA_ARGS);
@@ -1324,7 +1352,8 @@ extern "C" int flash_attn_f32(const float* q, const float* k, const float* v,
 
 extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, __nv_bfloat16* o,
-                               const long long* strides, int B, int H,
+                               float* lse, const long long* strides, int B,
+                               int H,
                                int Hk, int S, int Tk, int D, int Dv,
                                float scale, int causal, int window,
                                cudaStream_t stream) {
@@ -1336,6 +1365,8 @@ extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
       case 8: return launch_fma<__nv_bfloat16, 8>(FA_ARGS);
       case 16: return launch_mma<16>(FA_ARGS);
       case 32: return launch_mma<32>(FA_ARGS);
+      // Not a multiple of mma's 16 features: the FMA kernel.
+      case 40: return launch_fma<__nv_bfloat16, 40>(FA_ARGS);
       case 64: return launch_wgmma<64>(FA_ARGS);
       case 80: return launch_wgmma<80>(FA_ARGS);
       case 128: return launch_wgmma<128>(FA_ARGS);
@@ -1374,6 +1405,7 @@ extern "C" int flash_attn_fma_smem(int D, int Dv) {
     case 8: return FmaShape<float, 8, 8>::SMEM;
     case 16: return FmaShape<float, 16, 16>::SMEM;
     case 32: return FmaShape<float, 32, 32>::SMEM;
+    case 40: return FmaShape<float, 40, 40>::SMEM;
     case 64: return FmaShape<float, 64, 64>::SMEM;
     case 80: return FmaShape<float, 80, 80>::SMEM;
     case 128: return FmaShape<float, 128, 128>::SMEM;

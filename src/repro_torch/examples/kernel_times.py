@@ -35,8 +35,10 @@ line per measurement:
   ``torch.pow`` (which rounds otherwise), with its bound: the larger of
   its bytes and, where the version has ``powf.fp64_work``, its FP64-pipe
   instructions and 64-bit conversions read from the built library;
-* ``flash_attention`` at the full-width attention of nemotron-4-340b
-  (bf16, (1, 96 heads reading 8, 1024, 192), causal) and hubert-xlarge
+* ``flash_attention`` at Qwen3-4B's serving prefill (bf16, (4, 32 heads
+  reading 8, 2048, 128), causal), at the full-width attention of
+  nemotron-4-340b (bf16, (1, 96 heads reading 8, 1024, 192), causal) and
+  hubert-xlarge
   ((2, 16, 1024, 80), bidirectional, bf16 and float32), against
   ``F.scaled_dot_product_attention(enable_gqa=True)``;
 * the ``mla`` part: ``flash_attention`` at DeepSeek-V3's prefill
@@ -78,9 +80,10 @@ AXPY_N = 1 << 26
 FFT_LONG = (64, 4 ** 8)   # rows above the fused kernel's 16384 points
 # powf: the straggler model's bases a call at (8, 1024), and a large block.
 POWF_SIZES = (8192, 1 << 24)
-# (config, (B, H, Hk, S, D), causal, dtype): the configs' full-width
-# attention at head widths 192 and 80.
-ATTN_SHAPES = (("nemotron-4-340b", (1, 96, 8, 1024, 192), True, "bfloat16"),
+# (config, (B, H, Hk, S, D), causal, dtype): Qwen3-4B's serving prefill
+# and the configs' full-width attention at head widths 192 and 80.
+ATTN_SHAPES = (("qwen3-4b", (4, 32, 8, 2048, 128), True, "bfloat16"),
+               ("nemotron-4-340b", (1, 96, 8, 1024, 192), True, "bfloat16"),
                ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "bfloat16"),
                ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "float32"))
 # (B, H, Hk, S, D, Dv): a value width of its own (multi-head latent

@@ -27,6 +27,14 @@ same prefill and decode steps; ``--only serve_hybrid`` full-width
 Hymba-1.5B (32 layers of window-1024 attention beside a Mamba block) and
 ``--only serve_ssm`` full-width Falcon-Mamba-7B (64 Mamba layers);
 ``--only serve_ssm,serve_hybrid`` profiles both in one process.
+
+``--only train`` profiles the training step at full width (Qwen3-4B's
+published widths, depth cut to 12 layers, 8 micro-batches of 2048
+tokens, remat, AdamW, as ``chip_smoke.py`` trains it): one traced step's
+device time by kind (the attention kernels forward and backward, GEMMs,
+elementwise and reduction passes, the rest) with the step's busy and
+idle share (against that traced step's own wall time,
+``traced_wall_s``), and the optimizer update traced alone.
 """
 from __future__ import annotations
 
@@ -38,13 +46,15 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from repro_torch import configs
+from repro_torch import configs, optim
 from repro_torch.core import fiveg, prng, sweep, tuning
+from repro_torch.data import DataConfig, batch_for_model
 from repro_torch.examples import bench_faults, fiveg_pipeline, serve_lm
 from repro_torch.kernels import (axpy, conv2d, dct, dotp, fft4, flash_attn,
-                                 matmul, ops, powf, ssm_scan)
+                                 flash_attn_bwd, matmul, ops, powf, ssm_scan)
 from repro_torch.launch import steps
 from repro_torch.models import init_params
+from repro_torch.models.layers import tree_map
 
 # Profiler kernel name fragment -> wrapper counter of that kernel.
 KERNEL_NAMES = {"fft4_stage_kernel": "fft4_stage",
@@ -231,7 +241,87 @@ def profile_simulator(device="cuda") -> None:
                       **launch_counts(lambda: ops.axpy(1.7, x, y))}))
 
 
-PATHS = ("simulator", *SERVE_MODELS)
+# Profiler kernel name fragments of each kind of device work in a
+# training step (matched in order; anything else is "other").
+KINDS = (("attention_forward", ("fa_wgmma_kernel", "fa_mma_kernel",
+                                "fa_fma_kernel")),
+         ("attention_backward", ("bwd_dkdv", "bwd_dq", "bwd_delta")),
+         ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+         ("elementwise", ("elementwise", "vectorized", "reduce", "softmax",
+                          "cat", "copy", "fill", "index", "gather",
+                          "scatter", "norm")))
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    for kind, frags in KINDS:
+        if any(f in low for f in frags):
+            return kind
+    return "other"
+
+
+def _traced(fn) -> dict:
+    """One warm call, then one traced call of ``fn``: its host wall
+    seconds (synchronized) and the profiler's device seconds and launches
+    by kind, with the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kinds = {}
+    for e in kernels:
+        k = kinds.setdefault(_kind(e.key), {"device_s": 0.0, "launches": 0})
+        k["device_s"] += e.self_device_time_total / 1e6
+        k["launches"] += e.count
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {"traced_wall_s": wall, "by_kind": kinds,
+            "top_kernels": [[e.key[:70], e.count,
+                             e.self_device_time_total / 1e3] for e in top]}
+
+
+def profile_train(device="cuda") -> None:
+    """The full-width training step (module docstring)."""
+    cfg = dataclasses.replace(configs.get("qwen3_4b"), n_layers=12)
+    params = init_params(cfg, prng.PRNGKey(0, device=device))
+    ocfg = optim.OptConfig.from_model(cfg)
+    state = optim.init(params, ocfg)
+    fn, _ = steps.build_train_step(cfg, opt_cfg=ocfg, device=device)
+    dcfg = DataConfig(seed=0, seq_len=2048, global_batch=8,
+                      vocab_size=cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in batch_for_model(cfg, dcfg, 0).items()}
+    fn(params, state, batch)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flash_attn.LAUNCHES = flash_attn_bwd.LAUNCHES = 0
+    fn(params, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attn.LAUNCHES,
+                "flash_attention_bwd": flash_attn_bwd.LAUNCHES}
+    traced = _traced(lambda: fn(params, state, batch))
+    busy_s = sum(x["device_s"] for x in traced["by_kind"].values())
+
+    grads = tree_map(lambda t: torch.full(t.shape, 1e-3, device=device),
+                     params)
+    nsq = optim.global_norm_sq(grads)
+    update = _traced(lambda: optim.update(grads, state, params, ocfg,
+                                          norm_sq=nsq))
+    print(json.dumps({
+        "run": "train step qwen3-4b 12 layers, 8 x 2048 tokens",
+        "wall_s": wall, "launches": launches, "device_busy_s": busy_s,
+        "idle_share": 1.0 - busy_s / traced["traced_wall_s"], **traced,
+        "optimizer_update": update}))
+
+
+PATHS = ("simulator", "train", *SERVE_MODELS)
 
 
 def main(argv=None) -> None:
@@ -248,6 +338,9 @@ def main(argv=None) -> None:
     for name in only:
         if name == "simulator":
             profile_simulator()
+        elif name == "train":
+            profile_train()
+            torch.cuda.empty_cache()
         else:
             profile_serve(which=name)
             torch.cuda.empty_cache()

@@ -10,18 +10,28 @@ be a strided view whose feature axis is contiguous (:func:`layout_error`
 says what the kernel reads), so the model hands it its (B, S, H, D)
 projections transposed, without a copy.  bfloat16 runs on the tensor
 cores (``wgmma`` at D 64, 80, 128 and 192 and at (192, 128),
-``mma.sync`` at 16 and 32), float32 at every pair and bfloat16 at D = 8
-and (24, 16) in true float32 FMAs, register-tiled (no TF32); each of the
-three takes the models' sliding window (the hybrid family's), starting a
-query tile's kv loop at the first tile its first row sees.
-:data:`HEAD_DIMS` holds the head widths of the repo's configs: 64 and
-128 (most of them), 80 (hubert-xlarge), 192 (nemotron-4-340b), and the
-smoke configs' 8 and 16; :data:`PAIRS` adds DeepSeek-V3's multi-head
-latent attention, keys of 128 + 64 rope features against values of 128,
-and its smoke config's (16 + 8, 16).  At the serving path's prefill it
-is bound by tensor-core operations.  The plain version is
-:func:`repro_torch.kernels.ref.flash_attention` cast to q's dtype, the
-path for CPU tensors and the kernel's oracle on the card.
+``mma.sync`` at 16 and 32), float32 at every pair and bfloat16 at D 8
+and 40 and at (24, 16) in true float32 FMAs, register-tiled (no TF32);
+each of the three takes the models' sliding window (the hybrid
+family's), starting a query tile's kv loop at the first tile its first
+row sees.  :data:`HEAD_DIMS` holds the head widths of the repo's
+configs: 64 and 128 (most of them), 80 (hubert-xlarge), 192
+(nemotron-4-340b), the smoke configs' 8 and 16, and 40
+(``examples/train_lm.py``'s ``10m`` scale); :data:`PAIRS` adds
+DeepSeek-V3's multi-head latent attention, keys of 128 + 64 rope
+features against values of 128, and its smoke config's (16 + 8, 16).
+At the serving path's prefill it is bound by tensor-core operations.
+The plain version is :func:`repro_torch.kernels.ref.flash_attention`
+cast to q's dtype, the path for CPU tensors and the kernel's oracle on
+the card.
+
+Each kernel can also write the rows' log-sum-exp (``lse``), from which
+the backward kernels (:mod:`repro_torch.kernels.flash_attn_bwd`)
+recompute the softmax; serving asks for none.  This wrapper has no
+gradient: on the card it refuses operands that require one while grad is
+enabled, rather than return an output that autograd cannot trace back
+(``repro_torch.models.attention.flash_attention`` is the differentiable
+entry, at the pairs the backward kernels take).
 """
 from __future__ import annotations
 
@@ -34,13 +44,13 @@ from . import _build, ref
 # Kernel launches made by flash_attention; the plain path never counts.
 LAUNCHES = 0
 
-HEAD_DIMS = (8, 16, 32, 64, 80, 128, 192)
+HEAD_DIMS = (8, 16, 32, 40, 64, 80, 128, 192)
 # The (query/key width, value width) pairs the kernel computes.
 PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 
-# q, k, v, out, their 12 strides, B, H, Hk, S, T, D, Dv, scale, causal,
-# window, stream.
-_SIGNATURES = {fn: [ctypes.c_void_p] * 4
+# q, k, v, out, lse (or null), their 12 strides, B, H, Hk, S, T, D, Dv,
+# scale, causal, window, stream.
+_SIGNATURES = {fn: [ctypes.c_void_p] * 5
                + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7
                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p]
@@ -87,10 +97,16 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an operation on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     window: int = 0,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
     """Attention over q (B, H, S, D), k (B, Hk, T, D) and v (B, Hk, T,
     Dv) with scale ``scale`` (default ``D ** -0.5``); causal masking by
     absolute position, and a sliding window where ``window > 0`` (query s
@@ -99,8 +115,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     any layout :func:`layout_error` accepts) if given, else into a new
     tensor (laid out like q where Dv = D), and returns it.  CUDA tensors launch the
     kernel (float32 or bfloat16 operands of one dtype, ``(D, Dv)`` in
-    :data:`PAIRS`, layouts that :func:`layout_error` accepts; anything
-    else raises); CPU tensors take the plain version in any layout."""
+    :data:`PAIRS`, layouts that :func:`layout_error` accepts, and no
+    operand that requires grad while grad is enabled; anything else
+    raises); CPU tensors take the plain version in any layout.  ``lse``,
+    a contiguous (B, H, S) float32 tensor on q's device, receives each
+    row's log-sum-exp of its scaled scores (:func:`ref.attention_lse`)."""
     global LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
@@ -123,6 +142,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: out must be {o_shape} "
                          f"{q.dtype} on {q.device}, got {tuple(out.shape)} "
                          f"{out.dtype} on {out.device}")
+    if lse is not None and (tuple(lse.shape) != (b, h, s)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: lse must be a contiguous "
+                         f"({b}, {h}, {s}) float32 tensor on {q.device}")
     scale = d ** -0.5 if scale is None else float(scale)
     window = int(window)
     if window < 0:
@@ -130,7 +155,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         res = flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                     window=window)
+        if lse is not None:
+            lse.copy_(ref.attention_lse(q, k, causal=causal, scale=scale,
+                                        window=window))
         return res if out is None else out.copy_(res)
+    if needs_grad(q, k, v):
+        raise RuntimeError(
+            "the flash_attention kernel has no gradient of its own: call "
+            "repro_torch.models.attention.flash_attention (a backward at "
+            "(D, D) without a window) or run under torch.no_grad()")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -149,6 +182,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.load("flash_attn", _SIGNATURES)
     _build.call(lib, "flash_attn", getattr(lib, _ENTRY[q.dtype]), q.device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, b, h, hk, s, t, d, dv, scale, int(causal), window)
+                None if lse is None else lse.data_ptr(), strides,
+                b, h, hk, s, t, d, dv, scale, int(causal), window)
     LAUNCHES += 1
     return out

@@ -186,8 +186,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``s - t < window`` (the models' mask), and masked scores are the
     finite ``-1e30``; the softmax is rounded to v's dtype before the PV
     product, as the reference does."""
+    b, h, s, _ = q.shape
+    hk, dv = k.shape[1], v.shape[3]
+    sc = _scores(q, k, causal, scale, window)
+    p = torch.softmax(sc, dim=-1).to(v.dtype).to(torch.float32)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return out.reshape(b, h, s, dv)
+
+
+def _scores(q, k, causal, scale, window) -> torch.Tensor:
+    """The (B, Hk, H / Hk, S, T) float32 scores ``q.k * scale``, masked
+    keys the finite ``NEG_INF``."""
     b, h, s, d = q.shape
-    hk, t, dv = k.shape[1], k.shape[2], v.shape[3]
+    hk, t = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else scale
     qg = q.to(torch.float32).reshape(b, hk, h // hk, s, d)
     sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32))
@@ -201,6 +212,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if window > 0:
             keep &= lag < window
         sc = torch.where(keep, sc, NEG_INF)
-    p = torch.softmax(sc, dim=-1).to(v.dtype).to(torch.float32)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
-    return out.reshape(b, h, s, dv)
+    return sc
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  scale: float | None = None,
+                  window: int = 0) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled, masked float32 scores
+    (masked scores the finite ``-1e30``, as :func:`flash_attention`'s):
+    (B, H, S) float32, what the forward kernel writes beside its output
+    for the backward."""
+    b, h, s, _ = q.shape
+    return torch.logsumexp(_scores(q, k, causal, scale, window),
+                           dim=-1).reshape(b, h, s)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        scale: float | None = None) -> tuple:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` against
+    the output gradient ``dout``, float32: autograd through it on float32
+    copies of the operands (the softmax then needs no rounding before the
+    PV product)."""
+    ops = [t.detach().to(torch.float32).requires_grad_(True)
+           for t in (q, k, v)]
+    with torch.enable_grad():
+        out = flash_attention(*ops, causal=causal, scale=scale)
+        return torch.autograd.grad(out, ops, dout.to(torch.float32))

@@ -153,8 +153,9 @@ def ssm_scan(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
              h0: torch.Tensor) -> tuple:
     """``(y, h)`` of the selective scan (module docstring).  CUDA tensors
     launch the kernel at :func:`scan_plan`'s lane count: float32,
-    contiguous, n in :data:`STATES` (anything else raises); CPU tensors
-    take :func:`ssm_scan_plain`."""
+    contiguous, n in :data:`STATES`, no operand that requires grad while
+    grad is enabled (the kernel has no backward; anything else raises);
+    CPU tensors take :func:`ssm_scan_plain`, which autograd follows."""
     if x.device.type == "cpu":
         _check(dt, x, bmat, cmat, a, d_skip, h0)
         return ssm_scan_plain(dt, x, bmat, cmat, a, d_skip, h0)
@@ -174,6 +175,11 @@ def launch(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     global LAUNCHES
     ops = (dt, x, bmat, cmat, a, d_skip, h0)
     _check(*ops)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        raise RuntimeError(
+            "the ssm_scan kernel has no backward: training the SSM family "
+            "on the card waits for a backward scan; run it under "
+            "torch.no_grad() or torch.inference_mode()")
     if x.device.type != "cuda":
         raise ValueError(f"the ssm_scan kernel runs on cuda, not {x.device}")
     if any(t.dtype != torch.float32 for t in ops):

@@ -5,14 +5,19 @@ path, and single-token decode against the KV cache.
 :func:`flash_attention` runs where its inputs lie.  On the CPU it is
 :func:`chunked_attention`, the reference's chunked online-softmax
 algorithm step for step (the ``chunk`` blocking, the single-block
-fallback, the ``swa_fast`` window path, the finite ``-1e30`` mask).  On
+fallback, the ``swa_fast`` window path, the finite ``-1e30`` mask), and
+autograd differentiates it as JAX differentiates the reference's.  On
 the card it launches the hand-written kernel
 (:mod:`repro_torch.kernels.flash_attn`), which computes the same
 function with its own tiles, with a value width and a scale of its own
 where multi-head latent attention asks for them, and the sliding window
-of the hybrid family.  Decode attention is plain torch, as the reference
-has no kernel for it; under a window the KV cache is a rolling buffer of
-``min(max_len, window)`` slots (slot ``pos % Smax``).
+of the hybrid family.  Under autograd it is a ``torch.autograd.Function``
+whose forward kernel also writes the rows' log-sum-exp and whose
+backward is the kernels of :mod:`repro_torch.kernels.flash_attn_bwd`, at
+the pairs (D, D) without a window; elsewhere a gradient raises.  Decode
+attention is plain torch, as the reference has no kernel for it; under a
+window the KV cache is a rolling buffer of ``min(max_len, window)`` slots
+(slot ``pos % Smax``).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels import flash_attn as _fa
+from ..kernels import flash_attn_bwd as _fa_bwd
 from .config import ModelConfig
 from .layers import ParamDef, apply_rope, rms_norm
 
@@ -154,6 +160,37 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+class _KernelAttention(torch.autograd.Function):
+    """The attention kernel with its backward kernels, on (B, S, H, D)
+    tensors seen as (B, H, S, D) through ``transpose(1, 2)``: the forward
+    saves q, k, v, the output and the rows' log-sum-exp; the backward
+    hands the kernels the output gradient made contiguous and writes the
+    three gradients in the operands' (B, S, H, D) layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                          dtype=torch.float32, device=q.device)
+        _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, scale=scale,
+                            out=out.transpose(1, 2), lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        _fa_bwd.flash_attention_bwd(
+            *(t.transpose(1, 2) for t in (q, k, v, out, dout)), lse,
+            causal=ctx.causal, scale=ctx.scale, dq=dq.transpose(1, 2),
+            dk=dk.transpose(1, 2), dv=dv.transpose(1, 2))
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     chunk: int = 1024,
@@ -167,11 +204,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is copied (``chunk`` is the CPU algorithm's blocking; the kernel has
     its own tiles, and takes the window as the kernel's own argument);
     ``(D, Dv)`` must be one of the kernel's pairs
-    (``kernels.flash_attn.PAIRS``, else ``ValueError``).
+    (``kernels.flash_attn.PAIRS``, else ``ValueError``).  Where autograd
+    records (grad enabled and an operand that requires grad) CUDA tensors
+    go through :class:`_KernelAttention`, whose backward is a kernel too;
+    a window or a pair other than (D, D) then raises ``ValueError``, and
+    nothing falls back to the plain attention.
     """
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale)
+    if _fa.needs_grad(q, k, v):
+        _fa_bwd.check_supported(q.shape[-1], v.shape[-1], window)
+        return _KernelAttention.apply(q, k, v, causal, scale)
     out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
                       device=q.device)
     _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),

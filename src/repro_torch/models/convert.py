@@ -5,7 +5,9 @@ subtree included) and the port's dict of tensors; a cache tree
 (``{"layers": ..., "dense_layers": ...}`` whose entries are the
 reference's ``KVCache``, ``MLACache`` or ``SSMCache`` of numpy arrays,
 or the hybrid family's dict ``{"attn": KVCache, "ssm": SSMCache}``) and
-the port's caches of the same names.
+the port's caches of the same names; an optimizer state (``{"step",
+"params"}``, its int8 moments ``QTensor``s of ``q`` and ``scale``, its
+factored second moments and float32 masters) and the port's.
 
 JAX's bfloat16 arrays arrive as ``ml_dtypes.bfloat16``, which torch
 cannot read: they cross as their ``uint16`` bits, viewed as
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..optim.quant import QTensor
 from .attention import KVCache
 from .layers import tree_map
 from .mla import MLACache
@@ -86,3 +89,30 @@ def caches_to_numpy(caches) -> dict:
         return {f: _to_array(t) for f, t in c._asdict().items()}
 
     return {name: one(c) for name, c in caches.items()}
+
+
+def _opt_leaves(tree, fn):
+    """``fn`` over an optimizer state's arrays: dicts and ``QTensor``s (the
+    reference's, or the port's) kept as nodes, a ``QTensor`` of either
+    package coming out as the port's."""
+    if isinstance(tree, dict):
+        return {k: _opt_leaves(v, fn) for k, v in tree.items()}
+    if type(tree).__name__ == "QTensor":
+        return QTensor(*(fn(a) for a in tree))
+    return fn(tree)
+
+
+def opt_state_from_jax(tree, *, device="cuda") -> dict:
+    """The port's optimizer state (``repro_torch.optim.init``'s layout)
+    from the reference's (``jax.tree.map(np.asarray, opt_state)``: the
+    ``step`` scalar, and each parameter's ``m``, ``v`` and ``master``), on
+    ``device``, bit for bit."""
+    dev = resolve_device(device)
+    return _opt_leaves(tree, lambda a: _to_tensor(a, dev))
+
+
+def opt_state_to_numpy(state) -> dict:
+    """The inverse of :func:`opt_state_from_jax`: the same tree of numpy
+    arrays (a ``QTensor`` of numpy arrays for an int8 moment), bf16 as
+    ``ml_dtypes.bfloat16`` with the same bits."""
+    return _opt_leaves(state, _to_array)

@@ -13,17 +13,24 @@ latent attention (:mod:`.mla`); ``mamba`` is the selective state-space
 block of :mod:`.ssm`.  The parameter registry (``param_defs``) equals
 the reference's for every family, frontends and DeepSeek's
 multi-token-prediction (``mtp``) subtree included, so ``param_count``
-and the parameter tree agree; the ``mtp`` head's loss is training and
-waits for that slice.  The vision and audio frontends are the
-reference's stubs: precomputed embeddings in the batch.  A Python loop
-over the stacked layer parameters replaces the reference's
-``lax.scan``; serving has no rematerialization.
+and the parameter tree agree.  The losses are the reference's: the mean
+cross-entropy, DeepSeek's multi-token-prediction loss and ``loss_fn``
+(plus the MoE routers' auxiliary loss).  The vision and audio frontends
+are the reference's stubs: precomputed embeddings in the batch.  A
+Python loop over the stacked layer parameters replaces the reference's
+``lax.scan``.  Where the reference wraps each scanned block in
+``jax.checkpoint(nothing_saveable)`` (``cfg.remat``), the port wraps each
+block in ``torch.utils.checkpoint`` (non-reentrant) whenever autograd
+records, so a block's activations are recomputed in the backward pass;
+serving under ``inference_mode`` records nothing and runs each block
+once.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import attention as attn_mod
@@ -32,7 +39,7 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (DTYPES, ParamDef, init_tree, mlp_apply, mlp_defs,
-                     rms_norm, stacked, tree_map)
+                     rms_norm, stacked, tree_leaves, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -150,9 +157,15 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return x + m_out, new_cache, aux
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
-    return tree_map(lambda t: t[i], tree)
+def _layers(tree) -> list:
+    """A stacked parameter tree's layers, each a tree of views (no
+    copies): one ``unbind`` a leaf, whose backward stacks the layers'
+    gradients in one operation (indexing each layer instead would give
+    every layer's gradient the whole stack's size, zero-filled, and sum
+    them: ~0.3 s of a full-width Qwen3-4B training step on the H100)."""
+    per_leaf = tree_map(lambda t: t.unbind(0), tree)
+    n = len(next(iter(tree_leaves(per_leaf))))
+    return [tree_map(lambda views: views[i], per_leaf) for i in range(n)]
 
 
 def _cache_at(stack, i: int):
@@ -219,7 +232,9 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, Any], *,
     :func:`_store`).  ``last_only`` projects only the last position to the
     vocabulary (logits (B, 1, V)): the prefill step needs no more, and
     the row's values are the same product.  ``aux`` sums the MoE layers'
-    router losses, stack by stack as the reference does.
+    router losses, stack by stack as the reference does.  With
+    ``cfg.remat`` each block is recomputed in the backward pass when
+    autograd records and no caches are written.
     """
     cdt = DTYPES[cfg.compute_dtype]
     x = embed_inputs(params, cfg, batch, cdt)
@@ -230,15 +245,23 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, Any], *,
         positions = torch.broadcast_to(
             torch.arange(S, device=x.device)[None], (B, S))
 
+    remat = cfg.remat and torch.is_grad_enabled() and caches is None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for name, moe_layer, n in _stacks(cfg):
+    for name, moe_layer, _ in _stacks(cfg):
         stack = caches[name] if caches is not None else None
         aux_stack = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(n):
+        for i, layer_p in enumerate(_layers(params[name])):
             cache = None if stack is None else _cache_at(stack, i)
-            x, new_cache, aux = block_apply(
-                _layer(params[name], i), x, cfg, moe_layer=moe_layer,
-                positions=positions, cache=cache, decode_pos=decode_pos)
+            if remat:
+                x, new_cache, aux = checkpoint(
+                    block_apply, layer_p, x, cfg,
+                    moe_layer=moe_layer, positions=positions,
+                    decode_pos=decode_pos, use_reentrant=False)
+            else:
+                x, new_cache, aux = block_apply(
+                    layer_p, x, cfg, moe_layer=moe_layer,
+                    positions=positions, cache=cache,
+                    decode_pos=decode_pos)
             if stack is not None:
                 stack = _store(stack, i, new_cache)
             aux_stack = aux_stack + aux
@@ -256,6 +279,57 @@ def _project_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     reference's), then float32."""
     logits = hidden @ params["head"].to(hidden.dtype)
     return logits.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Losses.
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over all positions, in float32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(lse - picked)
+
+
+def mtp_loss(params: dict, cfg: ModelConfig, batch: Dict[str, Any],
+             hidden: torch.Tensor) -> torch.Tensor:
+    """DeepSeek multi-token-prediction: predict x_{t+2} from h_t and
+    emb(x_{t+1}) through one extra block with the shared head."""
+    p = params["mtp"]
+    tokens, targets = batch["tokens"], batch["targets"]
+    B, S = tokens.shape
+    h_in = rms_norm(hidden[:, :S - 1], p["norm_h"])
+    e_in = rms_norm(params["embed"][tokens[:, 1:]].to(hidden.dtype),
+                    p["norm_e"])
+    x = torch.cat([h_in, e_in], dim=-1) @ p["proj"].to(hidden.dtype)
+    positions = torch.broadcast_to(
+        torch.arange(S - 1, device=x.device)[None], (B, S - 1))
+    x, _, _ = block_apply(p["block"], x, cfg, moe_layer=False,
+                          positions=positions)
+    x = rms_norm(x, p["final_norm"])
+    logits = _project_logits(params, x)
+    return cross_entropy(logits[:, :-1], targets[:, 1:-1])
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(loss, metrics)``: the cross-entropy of the next tokens
+    ``batch["targets"]``, plus the MoE routers' auxiliary loss, plus
+    ``cfg.mtp_loss_weight`` times the multi-token-prediction loss where
+    the config has that head; ``metrics`` holds ``ce``, ``aux``, ``mtp``
+    (with the head) and ``loss``."""
+    logits, _, aux, hidden = forward(params, cfg, batch)
+    ce = cross_entropy(logits, batch["targets"])
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.use_mtp:
+        m = mtp_loss(params, cfg, batch, hidden)
+        loss = loss + cfg.mtp_loss_weight * m
+        metrics["mtp"] = m
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ def _log(spills=None, skip=()) -> str:
              + [f"13fa_mma_kernelILi{d}EEEvPK13__nv_bfloat16" for d in
                 (16, 32)]
              + ["13fa_fma_kernelI13__nv_bfloat16Li8ELi8EEEvPKT_",
+                "13fa_fma_kernelI13__nv_bfloat16Li40ELi40EEEvPKT_",
                 "13fa_fma_kernelI13__nv_bfloat16Li24ELi16EEEvPKT_"]
              + [f"13fa_fma_kernelIfLi{d}ELi{dv}EEEvPKT_" for d, dv in
                 flash_attn.PAIRS])
@@ -107,10 +108,11 @@ def test_fa_resources_names_every_wgmma_width_and_fma_width():
     "13fa_fma_kernelIfLi80ELi80EEEvPKT_",
     "13fa_fma_kernelIfLi24ELi16EEEvPKT_",
     "13fa_fma_kernelI13__nv_bfloat16Li8ELi8EEEvPKT_",
+    "13fa_fma_kernelI13__nv_bfloat16Li40ELi40EEEvPKT_",
     "13fa_fma_kernelI13__nv_bfloat16Li24ELi16EEEvPKT_"])
 def test_fa_resources_fails_a_spill(kernel):
     """A spill in any instantiation of the two kernels fails the run, the
-    bf16 FMA kernel at D 8 and (24, 16) included (it has no row of its
+    bf16 FMA kernel at D 8, 40 and (24, 16) included (it has no row of its
     own)."""
     smoke = _chip_smoke()
     build = _Build(_log({kernel: 16}), _Lib(WGMMA_SMEM, FMA_SMEM))

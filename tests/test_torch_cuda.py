@@ -9,8 +9,8 @@ import torch
 
 from repro_torch.core import barrier, fiveg, prng, sweep
 from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
-                                 flash_attn, matmul, ops, powf, ref,
-                                 ssm_scan)
+                                 flash_attn, flash_attn_bwd, matmul, ops,
+                                 powf, ref, ssm_scan)
 from repro_torch.models import attention
 
 pytestmark = pytest.mark.cuda
@@ -726,9 +726,22 @@ def test_flash_attention_fma_kernel_every_width(cuda, d, s, t, causal):
 def test_flash_attention_fma_kernel_bf16_d8(cuda, s, t, causal):
     """bf16 at D 8 (the smoke configs) on the FMA kernel, p rounded to
     bf16 before PV: the plain version within FA_TOL."""
-    gen = torch.Generator(device=cuda).manual_seed(8 + s + t)
-    q = _bf16(cuda, gen, 2, 4, s, 8)
-    k, v = _bf16(cuda, gen, 2, 2, t, 8), _bf16(cuda, gen, 2, 2, t, 8)
+    _check_bf16_fma(cuda, 8, s, t, causal)
+
+
+@pytest.mark.parametrize("s,t", [(1, 1), (65, 200), (1000, 1000)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fma_kernel_bf16_d40(cuda, s, t, causal):
+    """bf16 at D 40 (examples/train_lm.py's 10m scale, not a multiple of
+    mma's 16 features) on the FMA kernel: the plain version within
+    FA_TOL."""
+    _check_bf16_fma(cuda, 40, s, t, causal)
+
+
+def _check_bf16_fma(cuda, d, s, t, causal):
+    gen = torch.Generator(device=cuda).manual_seed(d + s + t)
+    q = _bf16(cuda, gen, 2, 4, s, d)
+    k, v = _bf16(cuda, gen, 2, 2, t, d), _bf16(cuda, gen, 2, 2, t, d)
     got = flash_attn.flash_attention(q, k, v, causal=causal)
     want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(),
@@ -1254,3 +1267,142 @@ def test_ssm_hybrid_smoke_serve_on_card_matches_the_cpu_port(cuda, arch):
     for g, w in zip(runs["cuda"][0], runs["cpu"][0]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
         assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The attention backward kernels (training).
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(cuda, dtype, b, h, hk, s, t, d, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = (0.5 * torch.randn(b, h, s, d, device=cuda, generator=gen)).to(dtype)
+    k = (0.5 * torch.randn(b, hk, t, d, device=cuda, generator=gen)).to(dtype)
+    v = torch.randn(b, hk, t, d, device=cuda, generator=gen).to(dtype)
+    do = torch.randn(b, h, s, d, device=cuda, generator=gen).to(dtype)
+    return q, k, v, do
+
+
+def _scaled_err(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+# The backward against its plain version (autograd through the float32
+# reference): float32 sums in other orders, 1e-5 of the gradient's scale
+# (3e-6 seen); bf16 rounds P and dS to bf16 before their products and the
+# gradients to bf16, 2e-2 of the scale (5.4e-3 seen).
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("d", flash_attn.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hk,s,t", [(2, 2, 77, 77), (8, 2, 300, 300),
+                                      (4, 1, 130, 200)])
+def test_flash_attention_bwd_matches_plain(cuda, d, dtype, causal, h, hk, s,
+                                           t):
+    q, k, v, do = _bwd_inputs(cuda, dtype, 2, h, hk, s, t, d, d + s)
+    lse = torch.empty(2, h, s, device=cuda)
+    out = flash_attn.flash_attention(q, k, v, causal=causal, lse=lse)
+    torch.testing.assert_close(lse, ref.attention_lse(q, k, causal=causal),
+                               rtol=0, atol=1e-5)
+    before = flash_attn_bwd.LAUNCHES
+    got = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                             causal=causal)
+    assert flash_attn_bwd.LAUNCHES == before + 1
+    want = flash_attn_bwd.flash_attention_bwd_plain(q, k, v, do,
+                                                    causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _scaled_err(g, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_is_deterministic(cuda, dtype):
+    """No atomics: two runs give the same bits."""
+    q, k, v, do = _bwd_inputs(cuda, dtype, 1, 8, 2, 700, 700, 128, 3)
+    lse = torch.empty(1, 8, 700, device=cuda)
+    out = flash_attn.flash_attention(q, k, v, lse=lse)
+    a = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse)
+    b = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_bwd_refuses_before_any_launch(cuda):
+    """A window or a pair other than (D, D) raises ValueError and launches
+    nothing."""
+    x = torch.zeros(1, 2, 8, 192, device=cuda, dtype=torch.bfloat16)
+    v128 = torch.zeros(1, 2, 8, 128, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    before = flash_attn_bwd.LAUNCHES
+    with pytest.raises(ValueError, match="window"):
+        flash_attn_bwd.flash_attention_bwd(x, x, x, x, x, lse, window=4)
+    with pytest.raises(ValueError, match="192, 128"):
+        flash_attn_bwd.flash_attention_bwd(x, x, v128, x, x, lse)
+    x24 = torch.zeros(1, 2, 8, 24, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="24, 16"):
+        flash_attn_bwd.flash_attention_bwd(x24, x24, x24[..., :16], x24,
+                                           x24, lse)
+    assert flash_attn_bwd.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_attention_gradient_on_card_matches_chunked(cuda, dtype):
+    """The model's attention under autograd on the card runs the kernels
+    both ways (a ``_KernelAttention`` node) and its gradients match the
+    plain chunked attention's under autograd on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    ops_ = [torch.randn(2, 256, hh, 16, device=cuda, generator=gen)
+            .to(dtype).requires_grad_() for hh in (8, 2, 2)]
+    fwd, bwd = flash_attn.LAUNCHES, flash_attn_bwd.LAUNCHES
+    out = attention.flash_attention(*ops_, causal=True, chunk=32)
+    assert type(out.grad_fn).__name__ == "_KernelAttentionBackward"
+    got = torch.autograd.grad(out.float().square().sum(), ops_)
+    assert (flash_attn.LAUNCHES, flash_attn_bwd.LAUNCHES) == (fwd + 1,
+                                                             bwd + 1)
+    plain = attention.chunked_attention(*ops_, causal=True, chunk=32)
+    want = torch.autograd.grad(plain.float().square().sum(), ops_)
+    for g, w in zip(got, want):
+        assert _scaled_err(g, w) <= BWD_TOL[dtype]
+
+
+def test_kernels_without_backward_refuse_a_gradient(cuda):
+    """No gradient passes silently through a kernel wrapper that has no
+    backward: the forward kernel itself, the model's attention under a
+    window or at (192, 128), and the scan all raise."""
+    q = torch.randn(1, 4, 64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attn.flash_attention(q, q, q)
+    with torch.no_grad():
+        flash_attn.flash_attention(q, q, q)
+    m = torch.randn(1, 64, 4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="window"):
+        attention.flash_attention(m, m, m, window=16)
+    m192 = torch.randn(1, 64, 4, 192, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="192, 128"):
+        attention.flash_attention(m192, m192, m192[..., :128])
+    x = torch.randn(1, 8, 128, device=cuda, requires_grad=True)
+    n = 16
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssm_scan.ssm_scan(x, x, torch.randn(1, 8, n, device=cuda),
+                          torch.randn(1, 8, n, device=cuda),
+                          -torch.rand(128, n, device=cuda),
+                          torch.randn(128, device=cuda),
+                          torch.zeros(1, 128, n, device=cuda))
+
+
+def test_train_lm_default_scale_trains_on_card(cuda, tmp_path):
+    """``examples/train_lm.py``'s default ``10m`` scale (head width 40)
+    trains on the card through both attention kernels, and its loss
+    falls over 40 steps."""
+    from repro_torch.examples import train_lm
+    cfg = train_lm.scale_config("10m")
+    assert cfg.head_dim == 40
+    fwd, bwd = flash_attn.LAUNCHES, flash_attn_bwd.LAUNCHES
+    out = train_lm.train(cfg, steps=40, seq=64, ckpt=str(tmp_path),
+                         log_every=0, device=cuda)
+    assert flash_attn.LAUNCHES > fwd and flash_attn_bwd.LAUNCHES > bwd
+    losses = [h.metrics["loss"] for h in out["history"]]
+    assert len(losses) == 40 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0] - 1.0

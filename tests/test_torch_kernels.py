@@ -146,7 +146,7 @@ def test_build_targets_hopper(monkeypatch):
     assert {"-shared", "-O3", "-fPIC"} <= set(cmd)
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
         "axpy", "conv2d", "dct", "dotp", "fft4_stage", "flash_attn",
-        "matmul", "powf", "ssm_scan"]
+        "flash_attn_bwd", "matmul", "powf", "ssm_scan"]
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):

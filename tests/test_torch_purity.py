@@ -19,7 +19,8 @@ from repro_torch.examples import (bench_core, bench_energy, bench_faults,
                                   bench_multicluster, bench_resilience,
                                   bench_serving, fig4, fig5, fig6, fig7,
                                   fig_placement, fig_tuned_tree,
-                                  fig_workload_tuned, run, serve_lm)
+                                  fig_workload_tuned, quickstart, run,
+                                  serve_lm, train_lm)
 from repro_torch.kernels import ref
 from repro_torch.launch import steps
 from repro_torch.models import convert, init_caches
@@ -55,7 +56,11 @@ def test_importing_every_module_loads_no_jax():
         "placement", "workloads", "tuning", "xla_math")} <= loaded
     assert {f"repro_torch.kernels.{m}" for m in ("dotp", "axpy",
                                                  "flash_attn",
+                                                 "flash_attn_bwd",
                                                  "ssm_scan")} <= loaded
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.quant",
+            "repro_torch.data.pipeline", "repro_torch.examples.train_lm",
+            "repro_torch.examples.quickstart"} <= loaded
     assert {f"repro_torch.models.{m}" for m in (
         "config", "layers", "attention", "transformer", "convert", "mla",
         "moe", "ssm")} <= loaded
@@ -247,12 +252,19 @@ def _jax_style_hybrid_cache():
     lambda: serve_lm.serve(_FALCON, batch=1, prompt_len=4, tokens=2),
     lambda: serve_lm.serve(_HYMBA, batch=1, prompt_len=4, tokens=2),
     lambda: convert.caches_from_jax(_jax_style_hybrid_cache()),
+    lambda: steps.build_train_step(_QWEN),
+    lambda: train_lm.train(_QWEN, steps=1),
+    lambda: quickstart.train_demo(steps=1),
+    lambda: quickstart.barrier_demo(),
+    lambda: convert.opt_state_from_jax({"step": np.zeros((), np.int32)}),
 ], ids=["init_caches", "build_prefill_step", "build_decode_step",
         "from_jax_params", "serve", "init_caches_mla",
         "build_prefill_step_mla", "serve_mla", "serve_moe",
         "caches_from_jax", "init_caches_ssm", "init_caches_hybrid",
         "build_prefill_step_ssm", "build_decode_step_hybrid", "serve_ssm",
-        "serve_hybrid", "caches_from_jax_hybrid"])
+        "serve_hybrid", "caches_from_jax_hybrid", "build_train_step",
+        "train_lm", "quickstart_train", "quickstart_barrier",
+        "opt_state_from_jax"])
 def test_lm_entry_points_default_to_cuda_and_raise(call):
     _no_card()
     with pytest.raises(RuntimeError, match="cuda"):
