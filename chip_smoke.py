@@ -405,9 +405,11 @@ SCAN_TOL = 1e-4
 FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 FA_BWD_ROW_FLOOR = 2.0 ** -6
 FA_LSE_TOL = 1e-5
-# Its test shapes (H, Hk, S, T): ragged lengths, groups of 1 and 4; then
+# Its test shapes (H, Hk, S, T): ragged lengths, groups of 1 and 4, and S
+# = 1000 (no multiple of the wgmma kernels' 64- and 128-row tiles); then
 # Qwen3-4B's training attention (B, H, Hk, S, D), one micro-batch.
-FA_BWD_SHAPES = ((2, 2, 77, 77), (8, 2, 300, 300), (4, 1, 130, 200))
+FA_BWD_SHAPES = ((2, 2, 77, 77), (8, 2, 300, 300), (4, 1, 130, 200),
+                 (8, 2, 1000, 1000))
 FA_TRAIN_SHAPE = (1, 32, 8, 2048, 128)
 # The training path at full width: Qwen3-4B's published widths with the
 # depth cut to 12 of its 36 layers (4.41 B parameters need ~88 GB of
@@ -3127,17 +3129,27 @@ def grad_row_err(got, want) -> float:
     return (diff / rows.clamp_min(floor)).max().item()
 
 
-def bwd_resources(build, flash_attn) -> dict:
+def bwd_resources(build, flash_attn, flash_attn_bwd) -> dict:
     """ptxas's registers and spills of the backward kernels at each head
-    width: ``bwd_dkdv_mma``/``bwd_dq_mma`` (bf16, D a multiple of 16) and
-    ``bwd_dkdv_fma``/``bwd_dq_fma`` (float32; bf16 at D 8 and 40),
-    recorded beside the times (a spill costs time, not correctness,
-    here)."""
+    width: ``bwd_dkdv_wgmma``/``bwd_dq_wgmma`` (bf16 at
+    ``flash_attn_bwd.WGMMA_DIMS``, with the dynamic shared memory of a
+    launch), ``bwd_dkdv_mma``/``bwd_dq_mma`` (bf16 at the other multiples
+    of 16) and ``bwd_dkdv_fma``/``bwd_dq_fma`` (float32; bf16 at D 8 and
+    40).  Raises if ptxas reports a spill in a wgmma kernel or one would
+    take more shared memory than a block may have; the older kernels'
+    spills are recorded beside the times (they cost time, not
+    correctness)."""
     log = build.compiler_log("flash_attn_bwd")
+    lib = build.load("flash_attn_bwd", flash_attn_bwd._SIGNATURES)
     res = {}
     for d in flash_attn.HEAD_DIMS:
-        for kernel in ("bwd_dkdv", "bwd_dq"):
-            if d % 16 == 0:
+        for which, kernel in enumerate(("bwd_dkdv", "bwd_dq")):
+            if d in flash_attn_bwd.WGMMA_DIMS:
+                res[f"{kernel}_wgmma d{d}"] = dict(
+                    ptxas_usage(log, f"{kernel}_wgmmaILi{d}E"),
+                    dynamic_smem_bytes=lib.flash_attn_bwd_wgmma_smem(d,
+                                                                     which))
+            elif d % 16 == 0:
                 res[f"{kernel}_mma d{d}"] = ptxas_usage(
                     log, f"{kernel}_mmaILi{d}E")
             res[f"{kernel}_fma f32 d{d}"] = ptxas_usage(
@@ -3146,6 +3158,16 @@ def bwd_resources(build, flash_attn) -> dict:
             for kernel in ("bwd_dkdv", "bwd_dq"):
                 res[f"{kernel}_fma bf16 d{d}"] = ptxas_usage(
                     log, f"{kernel}_fmaI13__nv_bfloat16Li{d}E")
+    wg = {name: u for name, u in res.items() if "_wgmma" in name}
+    spills = ptxas_spills(log, "_wgmmaILi")
+    too_big = {name: u for name, u in wg.items()
+               if u["dynamic_smem_bytes"] + u.get("static_smem_bytes", 0)
+               > SMEM_PER_BLOCK}
+    if (len(spills) != len(wg) or any(spills.values()) or too_big
+            or not all(u.get("registers") for u in wg.values())):
+        raise AssertionError(f"backward wgmma kernels: {wg}, spill bytes "
+                             f"{spills}, over {SMEM_PER_BLOCK} bytes of "
+                             f"shared memory {too_big}")
     return res
 
 
@@ -3276,7 +3298,8 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> dict:
                                    for g, w in zip(lib, want)],
                "bound_ms": b_ms, "bound_by": b_by,
                "forward_lse_cost": fwd,
-               "kernel_resources": bwd_resources(build, flash_attn),
+               "kernel_resources": bwd_resources(build, flash_attn,
+                                                 flash_attn_bwd),
                "unit": "one call: the pre-pass, dK/dV and dQ kernels of one "
                        "layer's attention, one micro-batch"}
     emit(summary)

@@ -21,12 +21,12 @@
 //   dQ_i    = scale sum_j dS_ij k_j
 //
 // in the FlashAttention-2 form: one kernel per (batch, KV head, key tile)
-// recomputes P from lse tile by tile, accumulates dK and dV in registers
-// over every query tile and over the H / Hk query heads of its group, and
-// writes them once; one kernel per (batch, head, query tile) recomputes P
-// and accumulates dQ.  No atomics: two runs give the same bits.  Pairs (D,
-// D) for D in {8, 16, 32, 40, 64, 80, 128, 192}; no window and no (D, Dv) pair
-// with Dv != D (the wrapper refuses both before any launch).
+// recomputes P from lse tile by tile, accumulates dK and dV over every
+// query tile and over the H / Hk query heads of its group, and writes them
+// once; one kernel per (batch, head, query tile) recomputes P and dP and
+// accumulates dQ.  No atomics: two runs give the same bits.  Pairs (D, D)
+// for D in {8, 16, 32, 40, 64, 80, 128, 192}; no window and no (D, Dv)
+// pair with Dv != D (the wrapper refuses both before any launch).
 //
 // Bound: at Qwen3-4B's training shape (B = 1, H = 32, Hk = 8, S = T =
 // 2048, D = 128, bf16, causal) the five products (S = QK^T and dP = dO V^T
@@ -34,34 +34,79 @@
 // causal half, 0.087 ms at the H100's 989 TFLOP/s bf16 tensor rate,
 // against 42 MB of traffic (q, k, v, out, dO, lse read once, dq, dk, dv
 // written once), 0.013 ms at 3.35 TB/s: bound by tensor-core operations.
+// dQ's own kernel recomputes S and dP (seven products in all), which caps
+// the pair at 5/7 of that bound.
 //
-// Design.  Two kernel families:
-//  * bf16 with D a multiple of 16: mma.sync m16n8k16 (bf16 in, float32
+// Design.  Three kernel families:
+//  * bf16 at D 64 and 128 (the training path's 128): bwd_dkdv_wgmma and
+//    bwd_dq_wgmma, warp-specialised as the forward's fa_wgmma_kernel
+//    (helpers in hopper.cuh).  A block is a producer warpgroup, which
+//    hands its registers to two consumer warpgroups (setmaxnreg), and
+//    the two consumers.  Every operand arrives by TMA through 4-D tensor
+//    maps over the strided views, 64-row boxes in the 128-byte swizzle
+//    that wgmma reads, rows past the end zero-filled; mbarriers say when
+//    a tile has landed and when its consumer is done with it.
+//    - dK/dV: a block takes one 64-key tile; K and V stay in shared
+//      memory, and a ring of three stages streams the (head, query tile)
+//      items that see the keys: Q and dO by TMA (producer warp 0), their
+//      lse (times log2 e, +inf past row S so that p = 0 there) and delta
+//      by producer warp 1.  The consumers take items in turn.  S^T = K Q^T
+//      and dP^T = V dO^T are wgmma with both operands in shared memory
+//      (64 keys x 64 queries); P^T (rounded to bf16, as the forward's PV
+//      took it) and dS^T (rounded to bf16) stay in registers, where the
+//      accumulator layout is the A fragment's, and are the A operands of
+//      dV += P^T dO and dK += dS^T Q (wgmma, dO and Q read N-major through
+//      the transpose flag): no operand is gathered element by element.
+//      Each consumer holds float32 dK and dV of all 64 keys (D floats a
+//      thread beside 64 of scores: 192 at D 128); at the end consumer 0
+//      hands its dK over the K/V tiles, consumer 1 its dV beside them, and
+//      each sums the other's half into the gradient it writes (a + b ==
+//      b + a, so the order of the two does not matter).
+//    - dQ: a block takes 128 query rows of one (batch, head), 64 a
+//      consumer; Q and dO stay in shared memory and a three-stage ring
+//      streams 64-key K and V tiles.  S = Q K^T and dP = dO V^T as above;
+//      dQ += bf16(dS) K with dS from registers.  A separate kernel, rather
+//      than dQ summed beside dK/dV: a key tile's share of dQ would cross
+//      blocks, and a fixed-order sum of it needs a float32 scratch of
+//      every (key tile, query row) or a flag chain between blocks; the
+//      two recomputed products cost less.
+//    - The grid (bwd_plan in kernels/flash_attn_bwd.py, which the wrapper
+//      passes and this file checks): dK/dV blocks launch key tile by key
+//      tile, so under causal masking the longest walks (tile j walks H /
+//      Hk (S/64 - j) items) go first and the short ones fill in behind
+//      them; dQ blocks launch the latest query tiles (the longest walks)
+//      first.  At the training shape the 256 dK/dV blocks hold 16,896
+//      items, 128 a multiprocessor, and taken in launch order end at 128.
+//    - Every wgmma is waited for in the iteration that issues it (ptxas
+//      serialises all of a kernel's wgmmas when a wait is not on every
+//      path); the two consumers overlap each other's elementwise work
+//      with their products.
+//  * bf16 at D 16, 32, 80 and 192: mma.sync m16n8k16 (bf16 in, float32
 //    sums).  Blocks of 4 warps own 64 rows of their side (keys in
 //    bwd_dkdv_mma, queries in bwd_dq_mma), 16 a warp; the other side comes
 //    in 64-row tiles through shared memory (rows padded by 8 elements) and
 //    is walked 16 rows at a time, so a warp's score tiles are 16 x 16 and
 //    its registers hold only its dK and dV (or dQ) accumulators.  The
 //    accumulators of S^T and dP^T become, after the elementwise step, the
-//    A fragments of the dV and dK products (the layout of two 8-column
-//    accumulator tiles is an A fragment's), as the forward's P does for
+//    A fragments of the dV and dK products, as the forward's P does for
 //    PV; the B operands that run along a tile's rows are gathered from
 //    shared memory two elements at a time.  Under causal masking a block
 //    starts at the first query tile that sees its keys (dK/dV) or stops at
 //    the last key tile its queries see (dQ), and a warp skips a 16-row step
-//    wholly above the diagonal.
+//    wholly above the diagonal.  At D 192 the wgmma design's dK and dV (192
+//    float32 registers a thread beside the scores) do not fit, and D 16,
+//    32 and 80 are the smoke configs' and hubert-xlarge's.
 //  * float32 (true float32 FMAs, no TF32) and bf16 at D = 8 and 40: 32 x 32
 //    tiles of 128 threads in float32 shared memory (rows padded by one
 //    float); a thread computes 8 scores and their dS, the block writes P
 //    and dS to shared memory, then each thread accumulates D / 4 elements
 //    of dK and dV (or dQ) over the tile.
-// What is left for later: wgmma and TMA, as the forward has, a persistent
-// grid that balances the causal triangle's long and short key tiles, and
-// dQ accumulated beside dK/dV instead of recomputing P a second time.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// What is left for later: the wgmma kernels at D 80 and 192 and under a
+// window or a (D, Dv) pair, and overlapping one item's products with the
+// next one's inside a consumer.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -130,16 +175,6 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 template <int D>
 constexpr int mma_smem_bytes() {
   return 4 * BM * (D + 8) * 2 + 2 * BM * 4;
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo)
-         | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -452,6 +487,436 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on wgmma fed by TMA, D in {64, 128}.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_TILE = 64;          // rows of every tile, keys and queries
+constexpr int WG_THREADS = 384;      // producer warpgroup + 2 consumers
+constexpr int KV_STAGES = 3;         // dK/dV: the Q/dO ring
+constexpr int DQ_STAGES = 3;         // dQ: the K/V ring
+// Registers per thread after the hand-over: 128 x 24 + 256 x 240 <= 64 K.
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+
+// Shared memory at width D: 64-row tiles of whole 64-column swizzle chunks
+// (8 KB each).  dK/dV: K and V, the ring's Q and dO, each stage's lse and
+// delta, and the float32 partial dV one consumer hands the other (its dK
+// partial goes over K and V once both are read), 1 KB to align: 163 KB at
+// D 128.  dQ: the block's 128 rows of Q and dO, the ring's K and V: 161 KB.
+template <int D>
+struct BwdShape {
+  static constexpr int CHUNKS = D / 64;
+  static constexpr uint32_t TILE = WG_TILE * D * 2;
+  static constexpr int ROWS_BYTES = 2 * WG_TILE * 4;     // lse and delta
+  static constexpr int RED_BYTES = 128 * (D / 2) * 4;    // one partial
+  static constexpr int KV_SMEM = 2 * TILE + KV_STAGES * (2 * TILE + ROWS_BYTES)
+                                 + RED_BYTES + 1024;
+  static constexpr int DQ_SMEM = 4 * TILE + DQ_STAGES * 2 * TILE + 1024;
+  static_assert(D % 64 == 0, "whole swizzle chunks");
+  static_assert(RED_BYTES <= 2 * TILE, "a partial fits over K and V");
+};
+
+// acc (64 x 64) = A B^T over D features, A and B 64-row tiles K-major in
+// shared memory: D / 16 steps of 16 features; a step advances 32 bytes
+// inside a 64-column chunk (the hardware swizzles the full address),
+// chunks are 8 KB apart.
+template <int D>
+__device__ __forceinline__ void issue_abt(float (&acc)[32], uint32_t a_s,
+                                          uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * (WG_TILE * 128) + (kk % 4) * 32;
+    wgmma_ss(acc, sw128_desc(a_s + off, 16, 1024),
+             sw128_desc(b_s + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 x D) += A B: A the 64 x 64 bf16 fragments in registers (step
+// kk's are columns 16 kk .. 16 kk + 15 of an accumulator tile), B a 64-row
+// tile read N-major through the transpose flag, 16 rows a step.
+template <int D>
+__device__ __forceinline__ void issue_ab(float (&acc)[D / 2],
+                                         const uint32_t (&af)[4][4],
+                                         uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(acc, af[kk], sw128_desc(b_s + kk * 16 * 128, WG_TILE * 128,
+                                     1024));
+}
+
+// A 64 x 64 accumulator tile rounded to bf16 as A fragments.
+__device__ __forceinline__ void pack_frags(const float (&acc)[32],
+                                           uint32_t (&af)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      af[kk][e] = pack_f32(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// dK and dV of one key tile: block i takes key tile i / (B Hk) of batch
+// row and KV head i % (B Hk) (bwd_plan in kernels/flash_attn_bwd.py: under
+// causal masking the longest walks first).  K and V stay in shared memory;
+// the (head, query tile) items that see them stream through the ring,
+// taken by the two consumers in turn; each consumer holds float32 dK and
+// dV of all 64 keys, and the two halves are summed at the end.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, Layouts st,
+               int B, int H, int Hk, int S, int T, float scale, int causal) {
+  using W = BwdShape<D>;
+  constexpr int NA = D / 2;                   // dK (or dV) floats a thread
+  extern __shared__ uint8_t bwd_smem[];
+  // mbarriers: K/V landed; per stage Q/dO (and lse, delta) landed, read.
+  __shared__ __align__(8) uint64_t bars[1 + 2 * KV_STAGES];
+  const uint32_t raw = smem_u32(bwd_smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  uint8_t* base = bwd_smem + (k_s - raw);
+  const uint32_t v_s = k_s + W::TILE;
+  const uint32_t ring = k_s + 2 * W::TILE;    // stage s: Q, then dO
+  float* rows = reinterpret_cast<float*>(base + (2 + 2 * KV_STAGES) * W::TILE);
+  float* red_k = reinterpret_cast<float*>(base);          // over K and V
+  float* red_v = rows + KV_STAGES * 2 * WG_TILE;
+  const uint32_t kv_full = smem_u32(&bars[0]);
+  const uint32_t full = smem_u32(&bars[1]);                        // + 8 s
+  const uint32_t empty = smem_u32(&bars[1 + KV_STAGES]);
+
+  const int n_qt = (S + WG_TILE - 1) / WG_TILE;
+  const int G = H / Hk;
+  const int bh = blockIdx.x % (B * Hk), kt = blockIdx.x / (B * Hk);
+  const int b = bh / Hk, hk = bh % Hk, k0 = kt * WG_TILE;
+  // Under causal masking the query tiles from the one holding row k0 on.
+  const int qt0 = causal ? min(kt, n_qt) : 0, nq = n_qt - qt0;
+  const int n_items = G * nq;                 // (head, query tile) pairs
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);        // TMA's arrival + the lse warp
+      mbar_init(empty + 8 * s, 4);            // the 4 warps of one consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: warp 0 loads K and V, then keeps the ring of Q and dO
+    // tiles full; warp 1 writes each stage's lse (times log2 e; +inf past
+    // row S, so that p = 0 there) and delta.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      mbar_expect_tx(kv_full, 2 * W::TILE);
+      for (int c = 0; c < W::CHUNKS; ++c) {
+        tma_load(k_s + c * (WG_TILE * 128), tk, kv_full, c * 64, hk, k0, b);
+        tma_load(v_s + c * (WG_TILE * 128), tv, kv_full, c * 64, hk, k0, b);
+      }
+    }
+    if (warp < 2) {
+      for (int i = 0; i < n_items; ++i) {
+        const int s = i % KV_STAGES;
+        const int h = hk * G + i / nq, q0 = (qt0 + i % nq) * WG_TILE;
+        mbar_wait(empty + 8 * s, ((i / KV_STAGES) & 1) ^ 1);
+        if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t q_t = ring + s * 2 * W::TILE;
+            mbar_expect_tx(full + 8 * s, 2 * W::TILE);
+            for (int c = 0; c < W::CHUNKS; ++c) {
+              tma_load(q_t + c * (WG_TILE * 128), tq, full + 8 * s, c * 64, h,
+                       q0, b);
+              tma_load(q_t + W::TILE + c * (WG_TILE * 128), tdo, full + 8 * s,
+                       c * 64, h, q0, b);
+            }
+          }
+        } else {
+          float* ls = rows + s * 2 * WG_TILE;
+          const long long bhs = ((long long)b * H + h) * S;
+          for (int r = lane; r < WG_TILE; r += 32) {
+            const int row = q0 + r;
+            ls[r] = row < S ? lse[bhs + row] * LOG2E : INFINITY;
+            ls[WG_TILE + r] = row < S ? delta[bhs + row] : 0.f;
+          }
+          mbar_arrive(full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg takes items wg, wg + 2, ...
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const float sl2 = scale * LOG2E;
+  float dka[NA], dva[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kv_full, 0);
+#pragma unroll 1
+  for (int i = wg; i < n_items; i += 2) {
+    const int s = i % KV_STAGES;
+    const int q0 = (qt0 + i % nq) * WG_TILE;
+    const uint32_t q_t = ring + s * 2 * W::TILE, do_t = q_t + W::TILE;
+    const float* ls = rows + s * 2 * WG_TILE;
+    mbar_wait(full + 8 * s, (i / KV_STAGES) & 1);
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries.
+    float sa[32], pa[32];
+    wgmma_fence();
+    issue_abt<D>(sa, k_s, q_t);
+    issue_abt<D>(pa, v_s, do_t);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(pa);
+    // P^T and dS^T in place; a tile that reaches past T or above the
+    // diagonal masks its keys.
+    const bool edge = k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > q0);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
+      const int key = k0 + warp * 16 + g + ((e % 4) >= 2 ? 8 : 0);
+      float p = exp2f(fmaf(sa[e], sl2, -ls[qi]));
+      if (edge && (key >= T || (causal && key > q0 + qi))) p = 0.f;
+      pa[e] = p * (pa[e] - ls[WG_TILE + qi]);
+      sa[e] = p;
+    }
+    // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over the 64 queries.
+    uint32_t pf[4][4], df[4][4];
+    pack_frags(sa, pf);
+    pack_frags(pa, df);
+    wgmma_fence();
+    issue_ab<D>(dva, pf, do_t);
+    issue_ab<D>(dka, df, q_t);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pf);
+    fence_regs(df);
+    __syncwarp();                             // every lane's lse is read
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+  // Both consumers are done with K and V: consumer 0 hands its dK over
+  // them, consumer 1 its dV beside; each adds the other's half (a + b ==
+  // b + a: the same bits whichever adds) and writes one gradient.
+  consumers_sync();
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    if (wg == 0) red_k[i * 128 + tid] = dka[i];
+    else red_v[i * 128 + tid] = dva[i];
+  }
+  consumers_sync();
+  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
+  bf16* out = wg == 0 ? dv + b * st.dv.b + hk * st.dv.h
+                      : dk + b * st.dk.b + hk * st.dk.h;
+  const long long os = wg == 0 ? st.dv.s : st.dk.s;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * u + e;
+      x[e] = (wg == 0 ? dva[i] + red_v[i * 128 + tid]
+                      : dka[i] + red_k[i * 128 + tid]) * mul;
+    }
+    const int col = u * 8 + t4 * 2;
+    if (r0 < T)
+      *reinterpret_cast<uint32_t*>(out + r0 * os + col) = pack_f32(x[0], x[1]);
+    if (r1 < T)
+      *reinterpret_cast<uint32_t*>(out + r1 * os + col) = pack_f32(x[2], x[3]);
+  }
+}
+
+// dS = P (dP - delta) in place in pa for one consumer's 64 queries (rows
+// r0, r1 of this thread, lse l0, l1 times log2 e, delta e0, e1) against
+// keys k0 .. k0 + 63; a tile that reaches past T or above the diagonal
+// masks its keys (p = 0).
+__device__ __forceinline__ void dq_scores(const float (&sa)[32],
+                                          float (&pa)[32], int k0, int T,
+                                          int causal, int wg_row0, int r0,
+                                          int r1, int t4, float sl2, float l0,
+                                          float l1, float e0, float e1) {
+  const bool edge = k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > wg_row0);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const bool top = (e % 4) < 2;
+    const int key = k0 + (e / 4) * 8 + t4 * 2 + (e % 2);
+    float p = exp2f(fmaf(sa[e], sl2, -(top ? l0 : l1)));
+    if (edge && (key >= T || (causal && key > (top ? r0 : r1)))) p = 0.f;
+    pa[e] = p * (pa[e] - (top ? e0 : e1));
+  }
+}
+
+// dQ of 128 query rows of one (batch row, head), 64 a consumer: S and dP
+// recomputed against each 64-key tile of the ring, dQ += bf16(dS) K.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, Layouts st, int H, int Hk, int S, int T,
+             float scale, int causal) {
+  using W = BwdShape<D>;
+  extern __shared__ uint8_t bwd_smem[];
+  // mbarriers: Q/dO landed; per stage K landed, V landed, K read, V read.
+  __shared__ __align__(8) uint64_t bars[1 + 4 * DQ_STAGES];
+  const uint32_t q_s = (smem_u32(bwd_smem) + 1023) & ~1023u;  // 2 tiles
+  const uint32_t do_s = q_s + 2 * W::TILE;                     // 2 tiles
+  const uint32_t ring = q_s + 4 * W::TILE;     // stage s: K, then V
+  const uint32_t q_full = smem_u32(&bars[0]);
+  const uint32_t k_full = smem_u32(&bars[1]);                  // + 8 s
+  const uint32_t v_full = smem_u32(&bars[1 + DQ_STAGES]);
+  const uint32_t k_empty = smem_u32(&bars[1 + 2 * DQ_STAGES]);
+  const uint32_t v_empty = smem_u32(&bars[1 + 3 * DQ_STAGES]);
+
+  const int qt = gridDim.y - 1 - blockIdx.y;      // heaviest tiles first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int hk = h / (H / Hk);
+  const int q0 = qt * 2 * WG_TILE;
+  int n_kv = (T + WG_TILE - 1) / WG_TILE;
+  if (causal) n_kv = min(n_kv, (min(q0 + 2 * WG_TILE, S) - 1) / WG_TILE + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);          // the 8 consumer warps
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 4 * W::TILE);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < W::CHUNKS; ++c) {
+          const uint32_t off = w * W::TILE + c * (WG_TILE * 128);
+          tma_load(q_s + off, tq, q_full, c * 64, h, q0 + w * WG_TILE, b);
+          tma_load(do_s + off, tdo, q_full, c * 64, h, q0 + w * WG_TILE, b);
+        }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % DQ_STAGES, k0 = j * WG_TILE;
+        const uint32_t free_parity = ((j / DQ_STAGES) & 1) ^ 1;
+        const uint32_t k_t = ring + s * 2 * W::TILE;
+        mbar_wait(k_empty + 8 * s, free_parity);
+        mbar_expect_tx(k_full + 8 * s, W::TILE);
+        for (int c = 0; c < W::CHUNKS; ++c)
+          tma_load(k_t + c * (WG_TILE * 128), tk, k_full + 8 * s, c * 64, hk,
+                   k0, b);
+        mbar_wait(v_empty + 8 * s, free_parity);
+        mbar_expect_tx(v_full + 8 * s, W::TILE);
+        for (int c = 0; c < W::CHUNKS; ++c)
+          tma_load(k_t + W::TILE + c * (WG_TILE * 128), tv, v_full + 8 * s,
+                   c * 64, hk, k0, b);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int wg = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wg_row0 = q0 + wg * WG_TILE;
+  const int r0 = wg_row0 + warp * 16 + g, r1 = r0 + 8;
+  const float sl2 = scale * LOG2E;
+  const float* lh = lse + ((long long)b * H + h) * S;
+  const float* eh = delta + ((long long)b * H + h) * S;
+  const float l0 = r0 < S ? lh[r0] * LOG2E : 0.f;
+  const float l1 = r1 < S ? lh[r1] * LOG2E : 0.f;
+  const float e0 = r0 < S ? eh[r0] : 0.f, e1 = r1 < S ? eh[r1] : 0.f;
+
+  const uint32_t q_t = q_s + wg * W::TILE, do_t = do_s + wg * W::TILE;
+  float dqa[D / 2], sa[32], pa[32];
+  uint32_t df[4][4];               // bf16(dS) of the last tile, A fragments
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  // Tile 0 alone, so that in the loop every wgmma issued is waited for on
+  // every path (a wait that ptxas cannot prove makes it serialise every
+  // wgmma of the kernel).
+  mbar_wait(k_full, 0);
+  mbar_wait(v_full, 0);
+  wgmma_fence();
+  issue_abt<D>(sa, q_t, ring);
+  issue_abt<D>(pa, do_t, ring + W::TILE);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sa);
+  fence_regs(pa);
+  if (lane == 0) mbar_arrive(v_empty);                // V_0 is read
+  dq_scores(sa, pa, 0, T, causal, wg_row0, r0, r1, t4, sl2, l0, l1, e0, e1);
+  pack_frags(pa, df);
+#pragma unroll 1
+  for (int j = 1; j < n_kv; ++j) {
+    const int s = j % DQ_STAGES, sp = (j - 1) % DQ_STAGES;
+    const uint32_t parity = (j / DQ_STAGES) & 1;
+    const uint32_t k_t = ring + s * 2 * W::TILE;
+    mbar_wait(k_full + 8 * s, parity);
+    mbar_wait(v_full + 8 * s, parity);
+    // S = Q K_j^T and dP = dO V_j^T (64 queries x 64 keys), then dQ +=
+    // bf16(dS_{j-1}) K_{j-1}, in flight during this tile's dS.
+    wgmma_fence();
+    issue_abt<D>(sa, q_t, k_t);
+    issue_abt<D>(pa, do_t, k_t + W::TILE);
+    wgmma_commit();
+    issue_ab<D>(dqa, df, ring + sp * 2 * W::TILE);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sa);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(v_empty + 8 * s);      // V_j is read
+    dq_scores(sa, pa, j * WG_TILE, T, causal, wg_row0, r0, r1, t4, sl2, l0,
+              l1, e0, e1);
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_regs(df);
+    if (lane == 0) mbar_arrive(k_empty + 8 * sp);     // K_{j-1} is read
+    pack_frags(pa, df);
+  }
+  wgmma_fence();                   // the last tile's dQ
+  issue_ab<D>(dqa, df, ring + ((n_kv - 1) % DQ_STAGES) * 2 * W::TILE);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dqa);
+  fence_regs(df);
+
+  bf16* dqh = dq + b * st.dq.b + h * st.dq.h;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) {
+    const int col = u * 8 + t4 * 2;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(dqh + r0 * st.dq.s + col) =
+          pack_f32(dqa[4 * u] * scale, dqa[4 * u + 1] * scale);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(dqh + r1 * st.dq.s + col) =
+          pack_f32(dqa[4 * u + 2] * scale, dqa[4 * u + 3] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 (and bf16 at D = 8 and 40) on FMAs.
 // ---------------------------------------------------------------------------
 
@@ -661,24 +1126,6 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
 // Launches.
 // ---------------------------------------------------------------------------
 
-// Let `kernel` take `bytes` of dynamic shared memory: past the default
-// 48 KB the limit is raised, once per device (`configured` holds a bit per
-// device), so that a launch captured into a CUDA graph is a launch and
-// nothing else.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes,
-                       unsigned long long* configured) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess || (*configured >> device & 1ull)) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) *configured |= 1ull << device;
-  return err;
-}
-
 template <typename T>
 struct Args {
   const T *q, *k, *v, *o, *dout;
@@ -721,6 +1168,50 @@ int launch_mma(const Args<bf16>& a) {
   bwd_dq_mma<D><<<dim3((a.S + BM - 1) / BM, a.H, a.B), THREADS, smem,
                   a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
                               a.st, a.H, a.Hk, a.S, a.Tk, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma kernels at width D.  tile and grid are bwd_plan's (the
+// wrapper's plan of the dK/dV grid), checked against this source's tile
+// and grid.
+template <int D>
+int launch_wgmma(const Args<bf16>& a, int tile, long long grid) {
+  using W = BwdShape<D>;
+  const long long kv_grid = (long long)((a.Tk + WG_TILE - 1) / WG_TILE)
+                            * a.B * a.Hk;
+  if (tile != WG_TILE || grid != kv_grid || kv_grid > 2147483647LL
+      || (long long)a.B * a.H > 2147483647LL
+      || (a.S + 2 * WG_TILE - 1) / (2 * WG_TILE) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Layouts& st = a.st;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, a.q, D, a.H, a.S, a.B, st.q.h, st.q.s, st.q.b, WG_TILE)
+      || !make_map(&tdo, a.dout, D, a.H, a.S, a.B, st.dout.h, st.dout.s,
+                   st.dout.b, WG_TILE)
+      || !make_map(&tk, a.k, D, a.Hk, a.Tk, a.B, st.k.h, st.k.s, st.k.b,
+                   WG_TILE)
+      || !make_map(&tv, a.v, D, a.Hk, a.Tk, a.B, st.v.h, st.v.s, st.v.b,
+                   WG_TILE))
+    return (int)cudaErrorInvalidValue;
+  static unsigned long long kv_configured = 0, q_configured = 0;
+  cudaError_t err = allow_smem(bwd_dkdv_wgmma<D>, W::KV_SMEM,
+                               &kv_configured);
+  if (err == cudaSuccess) err = allow_smem(bwd_dq_wgmma<D>, W::DQ_SMEM,
+                                           &q_configured);
+  if (err != cudaSuccess) return (int)err;
+  int rc = launch_delta(a);
+  if (rc) return rc;
+  bwd_dkdv_wgmma<D><<<(unsigned)kv_grid, WG_THREADS, W::KV_SMEM, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, a.dk, a.dv, st, a.B, a.H, a.Hk, a.S,
+      a.Tk, a.scale, a.causal);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  // (b, h) on x, query tiles on y, the heaviest (causal) first.
+  bwd_dq_wgmma<D><<<dim3((unsigned)(a.B * a.H),
+                         (a.S + 2 * WG_TILE - 1) / (2 * WG_TILE)),
+                    WG_THREADS, W::DQ_SMEM, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, a.dq, st, a.H, a.Hk, a.S, a.Tk,
+      a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -801,13 +1292,16 @@ extern "C" int flash_attn_bwd_f32(const float* q, const float* k,
   return (int)cudaErrorInvalidValue;
 }
 
+// tile, grid: bwd_plan's tile and dK/dV grid at D 64 and 128 (the wgmma
+// kernels), ignored at the other widths.
 extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
                                    const bf16* v, const bf16* o,
                                    const bf16* dout, const float* lse,
                                    float* delta, bf16* dq, bf16* dk, bf16* dv,
                                    const long long* strides, int B, int H,
                                    int Hk, int S, int Tk, int D, float scale,
-                                   int causal, cudaStream_t stream) {
+                                   int causal, int tile, long long grid,
+                                   cudaStream_t stream) {
   Args<bf16> a;
   if (!fill(a, q, k, v, o, dout, lse, delta, dq, dk, dv, strides, B, H, Hk,
             S, Tk, D, scale, causal, stream))
@@ -817,12 +1311,24 @@ extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
     case 16: return launch_mma<16>(a);
     case 32: return launch_mma<32>(a);
     case 40: return launch_fma<bf16, 40>(a);
-    case 64: return launch_mma<64>(a);
+    case 64: return launch_wgmma<64>(a, tile, grid);
     case 80: return launch_mma<80>(a);
-    case 128: return launch_mma<128>(a);
+    case 128: return launch_wgmma<128>(a, tile, grid);
+    // dK and dV of 64 keys at 192 features need 192 float32 registers a
+    // thread beside the scores: the mma.sync kernels.
     case 192: return launch_mma<192>(a);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the wgmma kernels at width D: which 0 the dK/dV
+// kernel, 1 the dQ kernel (0 at a width without them).
+extern "C" int flash_attn_bwd_wgmma_smem(int D, int which) {
+  switch (D) {
+    case 64: return which ? BwdShape<64>::DQ_SMEM : BwdShape<64>::KV_SMEM;
+    case 128: return which ? BwdShape<128>::DQ_SMEM : BwdShape<128>::KV_SMEM;
+  }
+  return 0;
 }
 
 extern "C" const char* flash_attn_bwd_error_string(int err) {

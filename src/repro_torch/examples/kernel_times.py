@@ -1,8 +1,8 @@
 """Device and eager times of the ``matmul``, ``axpy``, ``dct``,
-``fft4_stage``, ``powf``, ``flash_attention`` and ``ssm_scan`` kernels
-and the dot product's tree kernels, each beside one PyTorch call
-for the same function in the same mode (where there is one) and the
-least time the card could take.
+``fft4_stage``, ``powf``, ``flash_attention``, ``flash_attention_bwd``
+and ``ssm_scan`` kernels and the dot product's tree kernels, each beside
+one PyTorch call for the same function in the same mode (where there is
+one) and the least time the card could take.
 
     python src/repro_torch/examples/kernel_times.py [--src DIR] [--label L]
         [--only PART,...]
@@ -52,6 +52,11 @@ line per measurement:
   count it instantiates, and the card's SM clock and power while it runs; with ``--src``, the other checkout's kernel and
   this tree's in turns (other, this, this, other) on the same inputs,
   and the other's lane counts too where it has them.
+* the ``attention_bwd`` part: ``flash_attention_bwd`` at Qwen3-4B's
+  training attention ((1, 32 heads reading 8, 2048, 128), bf16, causal)
+  in device time and eagerly, beside SDPA's backward alone (eagerly), the
+  plain version and the bound of the backward's five products; with
+  ``--src``, the other checkout's kernels and this tree's in turns.
 
 ``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
 through copies that together exceed twice the 50 MB L2, timed as one
@@ -97,6 +102,9 @@ MLA_SHAPES = (("deepseek-v3-671b", (4, 128, 128, 2048, 192, 128), True,
 # (config, (B, S, d_inner, n)): the SSM and hybrid prefill scans.
 SCAN_SHAPES = (("falcon-mamba-7b", (4, 2048, 8192, 16)),
                ("hymba-1.5b", (4, 2048, 3200, 16)))
+# (config, (B, H, Hk, S, D)): the training attention's backward, one
+# micro-batch, bf16, causal.
+BWD_SHAPES = (("qwen3-4b", (1, 32, 8, 2048, 128)),)
 
 
 def own_timing():
@@ -110,17 +118,18 @@ def own_timing():
     return mod
 
 
-def own_scan():
-    """This checkout's ``kernels/ssm_scan.py`` (and the ``_build`` it
+def own_kernel(name: str):
+    """This checkout's ``kernels/<name>.py`` (and the ``_build`` it
     imports, which builds into this checkout's ``build/``), loaded by
-    path as a package of its own, so that ``--src`` can time another
-    checkout's scan in turns with this one in one process."""
-    name = "kernel_times_own_kernels"
-    if name not in sys.modules:
-        pkg = types.ModuleType(name)
-        pkg.__path__ = [str(Path(__file__).resolve().parents[1] / "kernels")]
-        sys.modules[name] = pkg
-    return importlib.import_module(f"{name}.ssm_scan")
+    path under a package of its own standing for ``repro_torch``, so that
+    ``--src`` can time another checkout's kernel in turns with this one
+    in one process."""
+    pkg_name = "kernel_times_own"
+    if pkg_name not in sys.modules:
+        pkg = types.ModuleType(pkg_name)
+        pkg.__path__ = [str(Path(__file__).resolve().parents[1])]
+        sys.modules[pkg_name] = pkg
+    return importlib.import_module(f"{pkg_name}.kernels.{name}")
 
 
 def clocks_during(torch, fn, inputs, seconds: float = 2.0) -> dict:
@@ -354,7 +363,7 @@ def time_mla(torch, timing, kernels, emit, gen) -> None:
 
 
 def time_scan(torch, timing, kernels, emit, gen) -> None:
-    scan, own = kernels.ssm_scan, own_scan()
+    scan, own = kernels.ssm_scan, own_kernel("ssm_scan")
     other = Path(scan.__file__).resolve() != Path(own.__file__).resolve()
     for config, (b, s, di, n) in SCAN_SHAPES:
         dt = torch.nn.functional.softplus(
@@ -411,10 +420,99 @@ def time_scan(torch, timing, kernels, emit, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
+    """The backward at Qwen3-4B's training attention: this tree's kernels
+    (the pre-pass, dK/dV and dQ of one call) in device time and eagerly,
+    with ``--src`` the other checkout's in turns (other, this, this,
+    other); SDPA's backward alone (``autograd.grad`` through
+    ``scaled_dot_product_attention(enable_gqa=True)``, eagerly); the plain
+    version; the bound of the backward's five products; the errors
+    against the plain version; the SM clock and power while it runs."""
+    fa, bwd = own_kernel("flash_attn"), own_kernel("flash_attn_bwd")
+    other = kernels.flash_attn_bwd
+    if Path(other.__file__).resolve() == Path(bwd.__file__).resolve():
+        other = None
+    for config, (b, h, hk, s, d) in BWD_SHAPES:
+        q = (0.5 * torch.randn(b, h, s, d, device=gen.device, generator=gen)
+             ).bfloat16()
+        k = (0.5 * torch.randn(b, hk, s, d, device=gen.device, generator=gen)
+             ).bfloat16()
+        v = torch.randn(b, hk, s, d, device=gen.device, generator=gen
+                        ).bfloat16()
+        do = torch.randn(b, h, s, d, device=gen.device, generator=gen
+                         ).bfloat16()
+        lse = torch.empty(b, h, s, device=gen.device)
+        out = fa.flash_attention(q, k, v, causal=True, lse=lse)
+        inputs = timing.cold_copies(q, k, v, out, do, lse)
+
+        def kernel(*a, mod=bwd):
+            return mod.flash_attention_bwd(*a, causal=True)
+
+        got = kernel(q, k, v, out, do, lse)
+        again = kernel(q, k, v, out, do, lse)
+        want = bwd.flash_attention_bwd_plain(q, k, v, do, causal=True)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True)
+
+        def library(do_):
+            return torch.autograd.grad(lib_out, (qs, ks, vs), do_,
+                                       retain_graph=True)
+
+        _, fwd_flops = timing.attention_work(b, h, hk, s, s, d, True, 2)
+        # q, k, v, out, dO read once and dq, dk, dv written once in bf16,
+        # lse read once in float32; five products to the forward's two.
+        bnd, by = timing.bound(2.0 * (4 * b * h * s * d + 4 * b * hk * s * d)
+                               + 4.0 * b * h * s, fwd_flops * 5 / 2,
+                               "bfloat16")
+        rec = {"name": "flash_attention_bwd", "config": config,
+               "shape": [b, h, hk, s, d], "dtype": "bfloat16",
+               "causal": True,
+               "scaled_err_vs_plain": [
+                   ((g.float() - w.float()).abs().max()
+                    / w.float().abs().max()).item()
+                   for g, w in zip(got, want)],
+               "deterministic": all(torch.equal(x, y)
+                                    for x, y in zip(got, again)),
+               "bound_ms": bnd, "bound_by": by}
+        del got, again, want
+        if other is not None:
+            g = [timing.graph_ms(f, inputs)
+                 for f in (lambda *a: other.flash_attention_bwd(
+                     *a, causal=True), kernel, kernel,
+                           lambda *a: other.flash_attention_bwd(
+                               *a, causal=True))]
+            rec.update(ms=(g[1] + g[2]) / 2, runs_ms=[g[1], g[2]],
+                       other_ms=(g[0] + g[3]) / 2, other_runs_ms=[g[0], g[3]],
+                       other=str(other.__file__),
+                       other_eager_ms=timing.cuda_ms(
+                           lambda *a: other.flash_attention_bwd(
+                               *a, causal=True), inputs))
+        else:
+            rec.update(ms=timing.graph_ms(kernel, inputs))
+        lib_inputs = timing.cold_copies(do)
+        rec.update(timing="graph", eager_ms=timing.cuda_ms(kernel, inputs),
+                   library_eager_ms=timing.cuda_ms(library, lib_inputs),
+                   library="torch.autograd.grad of F.scaled_dot_product_"
+                           "attention(is_causal=True, enable_gqa=True), "
+                           "the backward alone, eagerly",
+                   plain_ms=timing.cuda_ms(
+                       lambda *a: bwd.flash_attention_bwd_plain(
+                           *a, causal=True), [(q, k, v, do)], iters=3,
+                       warmup=1),
+                   **clocks_during(torch, kernel, inputs))
+        rec.update(bound_share=bnd / rec["ms"],
+                   ratio_to_library_eager=rec["eager_ms"]
+                   / rec["library_eager_ms"])
+        emit(rec)
+        del inputs, lib_inputs, lib_out
+        torch.cuda.empty_cache()
+
+
 PARTS = {"matmul": time_matmul, "axpy": time_axpy, "slot": time_slot,
          "dct": time_dct, "dotp": time_dotp, "fft": time_fft_long,
          "powf": time_powf, "attention": time_attention, "mla": time_mla,
-         "scan": time_scan}
+         "scan": time_scan, "attention_bwd": time_attention_bwd}
 
 
 def main(argv=None) -> int:
@@ -432,11 +530,13 @@ def main(argv=None) -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import (axpy, dct, dotp, fft4, flash_attn,
-                                     matmul, ops, powf, ref, ssm_scan)
+                                     flash_attn_bwd, matmul, ops, powf, ref,
+                                     ssm_scan)
     kernels = types.SimpleNamespace(axpy=axpy, dct=dct, dotp=dotp, fft4=fft4,
-                                    flash_attn=flash_attn, matmul=matmul,
-                                    ops=ops, powf=powf, ref=ref,
-                                    ssm_scan=ssm_scan)
+                                    flash_attn=flash_attn,
+                                    flash_attn_bwd=flash_attn_bwd,
+                                    matmul=matmul, ops=ops, powf=powf,
+                                    ref=ref, ssm_scan=ssm_scan)
     timing = own_timing()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -263,7 +263,7 @@ def _kind(name: str) -> str:
 def _traced(fn) -> dict:
     """One warm call, then one traced call of ``fn``: its host wall
     seconds (synchronized) and the profiler's device seconds and launches
-    by kind, with the top kernels."""
+    by kind, with the top kernels and every attention kernel by name."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -283,7 +283,11 @@ def _traced(fn) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {"traced_wall_s": wall, "by_kind": kinds,
             "top_kernels": [[e.key[:70], e.count,
-                             e.self_device_time_total / 1e3] for e in top]}
+                             e.self_device_time_total / 1e3] for e in top],
+            "attention_kernels": [[e.key[:70], e.count,
+                                   e.self_device_time_total / 1e3]
+                                  for e in kernels
+                                  if _kind(e.key).startswith("attention")]}
 
 
 def profile_train(device="cuda") -> None:

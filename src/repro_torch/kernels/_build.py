@@ -75,11 +75,15 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` (or ``.c``) is built."""
+    """Where the library of ``csrc/<name>.cu`` (or ``.c``) is built.  The
+    digest covers the source, the flags and, for a ``.cu`` source, every
+    ``csrc/*.cuh`` header it may include."""
     src = source_path(name)
     flags = NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    text = src.read_bytes() + " ".join(flags).encode()
+    if src.suffix == ".cu":
+        text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

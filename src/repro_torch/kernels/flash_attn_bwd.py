@@ -9,13 +9,16 @@ The CUDA kernels (``csrc/flash_attn_bwd.cu``) take q (B, H, S, D), k and v
 (B, Hk, T, D) with ``H`` a multiple of ``Hk``, the forward's output and
 its gradient dO (B, H, S, D), and the forward's row log-sum-exp (B, H, S)
 float32, and write dq, dk and dv in the operands' dtype, float32 or
-bfloat16: a pre-pass ``delta = rowsum(dO * O)``, then one kernel per
-(batch, KV head, key tile) that recomputes the softmax from ``lse`` and
-accumulates dK and dV over every query tile and every query head of its
-group, and one per (batch, head, query tile) for dQ; no atomics, so two
-runs give the same bits.  bfloat16 at the widths that are multiples of
-16 runs on ``mma.sync`` m16n8k16, float32 and bfloat16 at D 8 and 40 on
-register FMAs (no TF32).  It
+bfloat16: a pre-pass ``delta = rowsum(dO * O)``, then one kernel that
+recomputes the softmax from ``lse`` and accumulates dK and dV of a key
+tile over every query tile and every query head of its group, and one
+that does the same for dQ of a query tile; no atomics, so two runs give
+the same bits.  bfloat16 at D 64 and 128 (:data:`WGMMA_DIMS`) runs on
+``wgmma`` fed by TMA, on grids that :func:`bwd_plan` orders longest walk
+first, so that the causal triangle's short key tiles fill in behind its
+long ones; bfloat16 at
+the other widths that are multiples of 16 runs on ``mma.sync`` m16n8k16,
+float32 and bfloat16 at D 8 and 40 on register FMAs (no TF32).  It
 takes the pairs (D, D) of :data:`HEAD_DIMS`, causal or full, and no
 window; anything else raises ``ValueError`` before any launch (the
 forward's windowed, (192, 128) and (24, 16) paths have no backward yet).
@@ -30,6 +33,8 @@ for CPU tensors and the kernel's oracle on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -41,13 +46,77 @@ from .flash_attn import HEAD_DIMS, layout_error
 LAUNCHES = 0
 
 # q, k, v, out, dout, lse, delta, dq, dk, dv, their 24 strides, B, H, Hk,
-# S, T, D, scale, causal, stream.
-_SIGNATURES = {fn: [ctypes.c_void_p] * 10
-               + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-               for fn in ("flash_attn_bwd_f32", "flash_attn_bwd_bf16")}
+# S, T, D, scale, causal, (bf16: the plan's tile and dK/dV grid,) stream.
+_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
+         + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
+_SIGNATURES = {
+    "flash_attn_bwd_f32": _ARGS + [ctypes.c_void_p],
+    "flash_attn_bwd_bf16": _ARGS + [ctypes.c_int, ctypes.c_longlong,
+                                    ctypes.c_void_p],
+    "flash_attn_bwd_wgmma_smem": [ctypes.c_int, ctypes.c_int]}
 _ENTRY = {torch.float32: "flash_attn_bwd_f32",
           torch.bfloat16: "flash_attn_bwd_bf16"}
+
+
+# bfloat16 widths on the wgmma kernels; the others keep the mma.sync and
+# FMA kernels (D 192's dK and dV do not fit a thread's registers beside
+# the scores).
+WGMMA_DIMS = (64, 128)
+TILE = 64           # the wgmma kernels' keys and queries a tile
+DQ_ROWS = 128       # query rows of a dQ block: two consumers of 64
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The wgmma kernels' tiling and grids, in launch order.  dK/dV block
+    ``i`` takes the (batch row, KV head, key tile) ``dkdv_order[i]`` and
+    walks ``dkdv_steps[i]`` (head, query tile) steps; dQ block ``i`` takes
+    the (batch row, head, query tile of ``dq_rows``) ``dq_order[i]`` and
+    walks ``dq_steps[i]`` key tiles."""
+    tile: int
+    dkdv_grid: int
+    dkdv_order: tuple
+    dkdv_steps: tuple
+    dq_rows: int
+    dq_grid: tuple
+    dq_order: tuple
+    dq_steps: tuple
+
+
+@functools.lru_cache(maxsize=128)
+def bwd_plan(b: int, h: int, hk: int, s: int, t: int, d: int,
+             causal: bool) -> BwdPlan:
+    """The grids of the bfloat16 wgmma kernels at D in :data:`WGMMA_DIMS`
+    for q (b, h, s, d) and k, v (b, hk, t, d).  A dK/dV block takes one
+    64-key tile of one (batch row, KV head) and walks the group's h / hk
+    heads times the 64-row query tiles that see it: under causal masking
+    those from the tile's own on, so key tile j walks h / hk (n - j) of
+    them.  Blocks launch key tile by key tile, the longest walks first,
+    so that the short tiles fill in behind the long ones as
+    multiprocessors free (one block a multiprocessor, as the kernels'
+    shared memory allows).  A dQ block takes 128 query rows of one (batch
+    row, head) and walks the 64-key tiles they see, the latest query
+    tiles (the longest walks) first."""
+    if d not in WGMMA_DIMS:
+        raise ValueError(f"bwd_plan: the wgmma kernels take D in "
+                         f"{WGMMA_DIMS}, not {d}")
+    if min(b, h, hk, s, t) <= 0 or h % hk:
+        raise ValueError(f"bwd_plan: no plan for b={b} h={h} hk={hk} s={s} "
+                         f"t={t}")
+    g = h // hk
+    n_kt, n_qt, n_q = -(-t // TILE), -(-s // TILE), -(-s // DQ_ROWS)
+    order = tuple((bi, hi, kt) for kt in range(n_kt) for bi in range(b)
+                  for hi in range(hk))
+    dq_order = tuple((x // h, x % h, n_q - 1 - y)
+                     for y in range(n_q) for x in range(b * h))
+    return BwdPlan(
+        tile=TILE, dkdv_grid=len(order), dkdv_order=order,
+        dkdv_steps=tuple(g * (n_qt - (min(kt, n_qt) if causal else 0))
+                         for _, _, kt in order),
+        dq_rows=DQ_ROWS, dq_grid=(b * h, n_q), dq_order=dq_order,
+        dq_steps=tuple(
+            min(n_kt, (min((qt + 1) * DQ_ROWS, s) - 1) // TILE + 1)
+            if causal else n_kt for _, _, qt in dq_order))
 
 
 def check_supported(d: int, dv: int, window: int = 0) -> None:
@@ -150,10 +219,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    plan = ()
+    if q.dtype == torch.bfloat16:
+        plan = (0, 0)
+        if d in WGMMA_DIMS:
+            p = bwd_plan(b, h, hk, s, t, d, bool(causal))
+            plan = (p.tile, p.dkdv_grid)
     lib = _build.load("flash_attn_bwd", _SIGNATURES)
     _build.call(lib, "flash_attn_bwd", getattr(lib, _ENTRY[q.dtype]),
                 q.device, *(x.data_ptr() for x in (q, k, v, out, dout, lse,
                                                    delta, dq, dk, dv)),
-                strides, b, h, hk, s, t, d, scale, int(causal))
+                strides, b, h, hk, s, t, d, scale, int(causal), *plan)
     LAUNCHES += 1
     return dq, dk, dv

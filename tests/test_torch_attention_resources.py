@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import timing
-from repro_torch.kernels import flash_attn, ops, ssm_scan
+from repro_torch.kernels import flash_attn, flash_attn_bwd, ops, ssm_scan
 
 WGMMA_SMEM = {(64, 64): 82944, (80, 80): 164864, (128, 128): 164864,
               (192, 192): 148480, (192, 128): 214016}
@@ -272,3 +272,103 @@ def test_scan_bound_counts_its_bytes_and_exponentials():
     b = timing.scan_bound(4, 2048, 8192, 16)
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == exps / timing.MUFU_S * 1e3
+
+
+# The backward kernels of csrc/flash_attn_bwd.cu that a width launches:
+# the wgmma pair in bf16 at flash_attn_bwd.WGMMA_DIMS, the mma.sync pair
+# at the other multiples of 16, the FMA pair in float32 everywhere and in
+# bf16 at D 8 and 40; and the wgmma kernels' dynamic shared memory at D
+# 64 and 128 (which 0: dK/dV, 1: dQ).
+BWD_SMEM = {(64, 0): 84480, (64, 1): 82944, (128, 0): 166400,
+            (128, 1): 164864}
+
+
+def _bwd_names():
+    """The mangled names (less the namespace prefix) of the backward
+    kernels that csrc/flash_attn_bwd.cu instantiates."""
+    names = []
+    for d in flash_attn.HEAD_DIMS:
+        for kernel in ("bwd_dkdv", "bwd_dq"):
+            wg, mma, fma = (f"{kernel}_{k}" for k in ("wgmma", "mma", "fma"))
+            if d in flash_attn_bwd.WGMMA_DIMS:
+                names.append(f"{len(wg)}{wg}ILi{d}EEEv14CUtensorMap_st")
+            elif d % 16 == 0:
+                names.append(f"{len(mma)}{mma}ILi{d}EEEvPK13__nv_bfloat16")
+            names.append(f"{len(fma)}{fma}IfLi{d}EEEvPKT_")
+            if d % 16:
+                names.append(f"{len(fma)}{fma}I13__nv_bfloat16Li{d}EEEvPKT_")
+    return names
+
+
+def _bwd_log(spills=None, skip=()) -> str:
+    spills = spills or {}
+    prefix = "_ZN50_GLOBAL__N__54cd42d8_17_flash_attn_bwd_cu_e61ae919"
+    return "".join(_entry(prefix + n, spills.get(n, 0)) for n in _bwd_names()
+                   if not any(k in n for k in skip))
+
+
+class _BwdBuild:
+    def __init__(self, log, smem=None):
+        self.log, self.smem = log, smem or BWD_SMEM
+
+    def compiler_log(self, name):
+        assert name == "flash_attn_bwd"
+        return self.log
+
+    def load(self, name, signatures):
+        assert name == "flash_attn_bwd"
+        assert "flash_attn_bwd_wgmma_smem" in signatures
+        smem = self.smem
+        return type("Lib", (), {"flash_attn_bwd_wgmma_smem": staticmethod(
+            lambda d, which: smem.get((d, which), 0))})
+
+
+def _wgmma(kernel, d):
+    return next(n for n in _bwd_names() if f"{kernel}_wgmmaILi{d}E" in n)
+
+
+def test_bwd_resources_reads_every_launched_kernel():
+    """The four wgmma kernels with their shared memory, the mma.sync pair
+    only at the widths that still launch it, the FMA pair at every
+    width."""
+    smoke = _chip_smoke()
+    res = smoke.bwd_resources(_BwdBuild(_bwd_log()), flash_attn,
+                              flash_attn_bwd)
+    assert {n for n in res if "wgmma" in n} == {
+        f"{k}_wgmma d{d}" for k in ("bwd_dkdv", "bwd_dq") for d in (64, 128)}
+    assert {n for n in res if "_mma" in n} == {
+        f"{k}_mma d{d}" for k in ("bwd_dkdv", "bwd_dq")
+        for d in (16, 32, 80, 192)}
+    assert res["bwd_dkdv_wgmma d128"]["dynamic_smem_bytes"] == 166400
+    assert res["bwd_dq_wgmma d64"]["dynamic_smem_bytes"] == 82944
+    assert all(u.get("registers") for u in res.values())
+
+
+@pytest.mark.parametrize("kernel,d", [("bwd_dkdv", 64), ("bwd_dkdv", 128),
+                                      ("bwd_dq", 64), ("bwd_dq", 128)])
+def test_bwd_resources_fails_a_wgmma_spill(kernel, d):
+    smoke = _chip_smoke()
+    build = _BwdBuild(_bwd_log({_wgmma(kernel, d): 8}))
+    with pytest.raises(AssertionError, match="spill"):
+        smoke.bwd_resources(build, flash_attn, flash_attn_bwd)
+
+
+def test_bwd_resources_records_the_older_kernels_spills():
+    """A spill in the mma.sync or FMA kernels costs time, not
+    correctness: recorded, the run goes on."""
+    smoke = _chip_smoke()
+    dq192 = next(n for n in _bwd_names() if "bwd_dq_mmaILi192E" in n)
+    res = smoke.bwd_resources(_BwdBuild(_bwd_log({dq192: 8})), flash_attn,
+                              flash_attn_bwd)
+    assert res["bwd_dq_mma d192"]["spill_store_bytes"] == 8
+
+
+def test_bwd_resources_fails_a_missing_wgmma_kernel_or_too_much_smem():
+    smoke = _chip_smoke()
+    with pytest.raises(AssertionError):
+        smoke.bwd_resources(_BwdBuild(_bwd_log(skip=("bwd_dq_wgmmaILi64E",))),
+                            flash_attn, flash_attn_bwd)
+    too_big = {**BWD_SMEM, (128, 0): 232448}
+    with pytest.raises(AssertionError, match="shared"):
+        smoke.bwd_resources(_BwdBuild(_bwd_log(), too_big), flash_attn,
+                            flash_attn_bwd)

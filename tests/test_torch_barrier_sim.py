@@ -20,6 +20,7 @@ from repro.core import barrier_sim as jsim
 from repro.core import sweep as jsweep
 from repro_torch.core import barrier, barrier_sim, prng
 from repro_torch.core.topology import DEFAULT
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NS = (64, 256, 1024)
 DELAYS = np.asarray([0.0, 128.0, 2048.0], np.float32)

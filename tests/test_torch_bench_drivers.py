@@ -22,6 +22,7 @@ from repro.core import topology as jtopology
 from repro.core import tuning as jtuning
 from repro_torch.core import barrier, topology
 from repro_torch.examples import bench_energy, bench_multicluster, fig4
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C768 = dict(n_pes=768, tiles_per_group=12, n_groups=8)
 

@@ -1,0 +1,131 @@
+"""The attention backward's grid plan (``flash_attn_bwd.bwd_plan``) on the
+CPU: the bfloat16 wgmma kernels at D 64 and 128 launch the grids it
+returns, so that which block takes which tile, and in what order, is
+checked here without the card."""
+import heapq
+import itertools
+
+import numpy as np
+import pytest
+
+from repro_torch.kernels import flash_attn_bwd
+
+TRAIN = (1, 32, 8, 2048, 2048, 128)       # Qwen3-4B's training attention
+SMS = 132                                 # the H100 SXM's multiprocessors
+
+
+def makespan(costs, sms=SMS):
+    """When the last of blocks of these costs ends, each block taken in
+    launch order by the first multiprocessor that is free (one block a
+    multiprocessor, as the wgmma kernels' shared memory allows)."""
+    free = [0] * min(sms, len(costs))
+    end = 0
+    for c in costs:
+        t = heapq.heappop(free) + c
+        end = max(end, t)
+        heapq.heappush(free, t)
+    return end
+
+
+def _visible(s, t, causal):
+    """The (query, key) pairs attention keeps: all, or key <= query."""
+    if not causal:
+        return np.ones((s, t), dtype=bool)
+    return np.arange(t)[None, :] <= np.arange(s)[:, None]
+
+
+def _tiles(n, size):
+    return [slice(i * size, min((i + 1) * size, n))
+            for i in range(-(-n // size))]
+
+
+SHAPES = [(bb, h, hk, s, t, causal)
+          for (s, t), (h, hk), bb, causal in itertools.product(
+              [(77, 77), (300, 300), (1000, 1000), (130, 200)],
+              [(8, 8), (8, 2), (8, 1)], [1, 2], [True, False])]
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,causal", SHAPES)
+def test_every_key_tile_once_with_the_steps_that_see_it(b, h, hk, s, t,
+                                                        causal):
+    """Each (batch row, KV head, key tile) is one dK/dV block, the longest
+    walks first, and a block walks exactly the (head, query tile) pairs
+    that see any of its keys."""
+    plan = flash_attn_bwd.bwd_plan(b, h, hk, s, t, 128, causal)
+    n_kt = -(-t // plan.tile)
+    assert plan.dkdv_grid == len(plan.dkdv_order) == len(plan.dkdv_steps)
+    assert sorted(plan.dkdv_order) == [
+        (bi, hi, kt) for bi in range(b) for hi in range(hk)
+        for kt in range(n_kt)]
+    vis = _visible(s, t, causal)
+    for (_, _, kt), steps in zip(plan.dkdv_order, plan.dkdv_steps):
+        keys = _tiles(t, plan.tile)[kt]
+        seen = sum(vis[rows, keys].any() for rows in _tiles(s, plan.tile))
+        assert steps == (h // hk) * seen
+    assert list(plan.dkdv_steps) == sorted(plan.dkdv_steps, reverse=True)
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,causal", SHAPES)
+def test_dq_blocks_longest_first_over_the_keys_they_see(b, h, hk, s, t,
+                                                        causal):
+    """Each (batch row, head, 128-row query tile) is one dQ block; it
+    walks the key tiles up to the last one its rows see, and the blocks
+    launch longest walk first."""
+    plan = flash_attn_bwd.bwd_plan(b, h, hk, s, t, 64, causal)
+    n_q = -(-s // plan.dq_rows)
+    assert plan.dq_grid == (b * h, n_q)
+    assert len(plan.dq_order) == len(plan.dq_steps) == b * h * n_q
+    assert sorted(plan.dq_order) == [(bi, hi, qt) for bi in range(b)
+                                     for hi in range(h) for qt in range(n_q)]
+    vis = _visible(s, t, causal)
+    key_tiles = _tiles(t, plan.tile)
+    for (_, _, qt), steps in zip(plan.dq_order, plan.dq_steps):
+        rows = _tiles(s, plan.dq_rows)[qt]
+        seen = [kt for kt, keys in enumerate(key_tiles)
+                if vis[rows, keys].any()]
+        assert steps == max(seen) + 1
+    assert list(plan.dq_steps) == sorted(plan.dq_steps, reverse=True)
+
+
+def test_training_shape_fills_the_card():
+    """At Qwen3-4B's training shape no block walks more than 1.1x the mean
+    steps a multiprocessor, and taken in launch order the grids end
+    within 1.1x of that mean."""
+    plan = flash_attn_bwd.bwd_plan(*TRAIN, True)
+    mean = sum(plan.dkdv_steps) / SMS
+    assert max(plan.dkdv_steps) <= 1.1 * mean
+    assert makespan(plan.dkdv_steps) <= 1.1 * mean
+    assert makespan(plan.dq_steps) <= 1.1 * sum(plan.dq_steps) / SMS
+    # 8 KV heads x 32 key tiles, tile j walking 4 heads x (32 - j) query
+    # tiles: 16,896 steps, 128 a multiprocessor, and tile 0's 128.
+    assert (plan.dkdv_grid, sum(plan.dkdv_steps),
+            makespan(plan.dkdv_steps)) == (256, 16896, 128)
+
+
+def test_longest_first_ends_before_pairing_the_triangle():
+    """Pairing key tile j with tile n - 1 - j in one block (equal walks)
+    ends later than the plan's longest-first order at the training
+    shape: a pair walks as far as tile 0 alone and a head group more."""
+    plan = flash_attn_bwd.bwd_plan(*TRAIN, True)
+    steps = dict(zip(plan.dkdv_order, plan.dkdv_steps))
+    n = max(kt for _, _, kt in plan.dkdv_order) + 1
+    pairs = [steps[(0, hk, j)] + steps[(0, hk, n - 1 - j)]
+             for j in range(n // 2) for hk in range(8)]
+    assert makespan(pairs) > makespan(plan.dkdv_steps)
+
+
+def test_makespan_takes_blocks_in_launch_order():
+    assert makespan([3, 3, 2, 2, 2], sms=2) == 7
+    assert makespan([5, 1, 1, 1, 1, 1], sms=2) == 5
+    assert makespan([4], sms=132) == 4
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 80, 192])
+def test_plan_only_at_the_wgmma_widths(d):
+    with pytest.raises(ValueError, match="wgmma"):
+        flash_attn_bwd.bwd_plan(1, 2, 2, 64, 64, d, True)
+
+
+def test_plan_refuses_a_head_count_hk_does_not_divide():
+    with pytest.raises(ValueError):
+        flash_attn_bwd.bwd_plan(1, 6, 4, 64, 64, 64, True)

@@ -1295,11 +1295,15 @@ def _scaled_err(got, want) -> float:
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+# Ragged lengths, groups of 1 and 4, S = 1000 (no multiple of the wgmma
+# kernels' 64- and 128-row tiles) and Qwen3-4B's training heads (32 / 8
+# at 2048).
 @pytest.mark.parametrize("d", flash_attn.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h,hk,s,t", [(2, 2, 77, 77), (8, 2, 300, 300),
-                                      (4, 1, 130, 200)])
+                                      (4, 1, 130, 200), (8, 2, 1000, 1000),
+                                      (32, 8, 2048, 2048)])
 def test_flash_attention_bwd_matches_plain(cuda, d, dtype, causal, h, hk, s,
                                            t):
     q, k, v, do = _bwd_inputs(cuda, dtype, 2, h, hk, s, t, d, d + s)
@@ -1319,10 +1323,11 @@ def test_flash_attention_bwd_matches_plain(cuda, d, dtype, causal, h, hk, s,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_is_deterministic(cuda, dtype):
+@pytest.mark.parametrize("h,hk,s", [(8, 2, 700), (8, 2, 1000), (32, 8, 2048)])
+def test_flash_attention_bwd_is_deterministic(cuda, dtype, h, hk, s):
     """No atomics: two runs give the same bits."""
-    q, k, v, do = _bwd_inputs(cuda, dtype, 1, 8, 2, 700, 700, 128, 3)
-    lse = torch.empty(1, 8, 700, device=cuda)
+    q, k, v, do = _bwd_inputs(cuda, dtype, 1, h, hk, s, s, 128, 3)
+    lse = torch.empty(1, h, s, device=cuda)
     out = flash_attn.flash_attention(q, k, v, lse=lse)
     a = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse)
     b = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse)

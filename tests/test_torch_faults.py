@@ -24,6 +24,7 @@ from repro.core.topology import TeraPoolConfig as JConfig
 from repro_torch.core import (barrier, barrier_sim, energy, fiveg,
                               placement, prng, sweep, tuning, workloads)
 from repro_torch.core.topology import TeraPoolConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG, JCFG = TeraPoolConfig(n_pes=64), JConfig(n_pes=64)
 COMPS = [(8, 8), (4, 4, 4), (2, 8, 4), (64,), (2, 2, 2, 2, 2, 2)]

@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import fft4, ops, ref
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 RNG = np.random.default_rng(15)

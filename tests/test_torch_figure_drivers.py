@@ -14,6 +14,7 @@ import pytest
 
 from repro_torch.examples import (fig5, fig6, fig7, fig_placement,
                                   fig_tuned_tree, fig_workload_tuned)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATH = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "reference_values.json")

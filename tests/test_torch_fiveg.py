@@ -15,6 +15,7 @@ import torch
 
 from repro.core import fiveg as jfiveg
 from repro_torch.core import fiveg, prng
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODES = ("central", "tree", "partial", "hw")
 MEAN_COLUMNS = ("sync_cycles", "sync_fraction", "sync_energy",

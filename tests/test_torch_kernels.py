@@ -19,6 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
                                  flash_attn, matmul, ops, powf, ref)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(42)
 

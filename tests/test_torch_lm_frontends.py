@@ -29,6 +29,7 @@ from repro.models import transformer as jtransformer
 from repro_torch.core import prng
 from repro_torch.launch import steps
 from repro_torch.models import convert, init_params, layers, transformer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL, BF16_ATOL = 1e-4, 0.0625
 

@@ -30,6 +30,7 @@ from repro.models import transformer as jtransformer
 from repro_torch import configs
 from repro_torch.kernels import ref
 from repro_torch.models import attention, convert, init_caches, transformer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(31)
 ARCH = "hymba_1_5b"

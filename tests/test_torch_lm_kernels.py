@@ -14,6 +14,7 @@ from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro_torch.kernels import flash_attn, ops, ref
 from repro_torch.models import attention
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(7)
 

@@ -31,6 +31,7 @@ from repro.models import mla as jmla
 from repro_torch import configs
 from repro_torch.kernels import flash_attn
 from repro_torch.models import attention, mla
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(29)
 F32_TOL = 1e-5

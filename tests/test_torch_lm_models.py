@@ -35,6 +35,7 @@ from repro_torch.core import prng
 from repro_torch.models import (applicable_shapes, attention, convert,
                                 init_params, layers, skip_reason,
                                 transformer)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(11)
 DENSE = [a for a in configs.ARCH_IDS

@@ -34,6 +34,7 @@ from repro.models import transformer as jtransformer
 from repro_torch import configs
 from repro_torch.core import prng
 from repro_torch.models import convert, init_params, layers, moe, transformer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(23)
 ARCHS = ["moonshot_v1_16b_a3b", "deepseek_v3_671b"]

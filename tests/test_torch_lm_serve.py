@@ -35,6 +35,7 @@ from repro.models import init_params as jinit_params
 from repro_torch import configs
 from repro_torch.core import prng
 from repro_torch.models import convert, forward, init_caches, init_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["qwen3_4b", "codeqwen15_7b", "yi_34b"]
 # (prompt_len, decode steps): the prefill spans prompt_len + steps + 1

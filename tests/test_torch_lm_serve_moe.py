@@ -30,6 +30,7 @@ from lm_serve_family import (  # noqa: F401  (the shared tests and fixtures)
     test_decode_matches_full_forward, test_decode_matches_jax_f32,
     test_prefill_caches_match_jax_f32, test_prefill_matches_jax_f32,
     test_serve_example_runs_on_cpu, test_serve_matches_jax_bf16)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from repro_torch import configs
 from repro_torch.core import prng
 from repro_torch.launch import steps
 from repro_torch.models import convert, forward, init_caches, init_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ("falcon_mamba_7b", "hymba_1_5b")
 PROMPT_LEN, N_STEPS = 59, 4

@@ -31,6 +31,7 @@ from repro.models import init_params as jinit_params
 from repro.models import transformer as jtransformer
 from repro_torch.core import prng
 from repro_torch.models import init_params, layers, param_defs, transformer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATH = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "reference_values.json")

@@ -28,6 +28,7 @@ from repro_torch import configs
 from repro_torch.core import prng, xla_math
 from repro_torch.kernels import ssm_scan as kscan
 from repro_torch.models import convert, layers, ssm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(23)
 F32_TOL = 1e-4

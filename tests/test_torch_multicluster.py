@@ -30,6 +30,7 @@ from repro.core import topology as jtopology
 from repro.core import tuning as jtuning
 from repro_torch.core import (barrier, barrier_sim, placement, prng, sweep,
                               topology, tuning)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EXACT = ("exit_time", "last_arrival", "span_cycles", "completed")
 C768 = topology.TeraPoolConfig(n_pes=768, tiles_per_group=12, n_groups=8)

@@ -15,6 +15,7 @@ from repro.core import barrier as jbarrier
 from repro.core import barrier_sim as jsim
 from repro.core import placement as jplacement
 from repro_torch.core import barrier, barrier_sim, placement
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NS = (64, 256, 1024)
 EXACT = ("exit_time", "last_arrival", "span_cycles")

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core import prng, xla_math
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEEDS = (0, 3, 65, 1023)
 SHAPES = ((16, 1024), (26, 2), (1024,))

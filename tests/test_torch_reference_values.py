@@ -65,10 +65,16 @@ or some sections of it with
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py fig4b multicluster prng_original
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python tests/test_torch_reference_values.py fig5 fig6 fig7 fig_placement fig_tuned_tree fig_workload_tuned
 
-The tests below recompute the cheap sections with JAX, and every row
-of the reference benchmarks (``bench_rows`` and the beyond-figure
-sections), so the file cannot go stale, and hold the port's CPU run to
-the sections small enough for the CPU.
+The tests below recompute the cheap sections with JAX, so the file
+cannot go stale, and hold the port's CPU run to the sections small
+enough for the CPU.  The long recomputes are in files of their own, so
+that pytest-xdist's ``--dist loadfile`` spreads them over its workers:
+every row of ``benchmarks/fig7_5g_app.py``
+(``test_torch_reference_fig7_rows.py``) and of the beyond-figure
+benchmarks (``test_torch_reference_figures.py``), and the 5G degradation
+curve on both threefry streams (``test_torch_reference_fiveg_faults.py``,
+``test_torch_reference_fiveg_original.py``); they import this file's
+helpers.
 """
 import hashlib
 import importlib
@@ -97,6 +103,7 @@ from repro_torch.examples import bench_faults, fig4
 from repro_torch.models import init_params, layers, param_defs
 
 from lm_parity import jax_serve, port_serve, prompts, top2_margin, variant
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATH = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "reference_values.json")
@@ -648,23 +655,6 @@ def test_straggler_pareto_matches_jax_and_port():
     assert np.array_equal(port.numpy().view(np.int32), want.view(np.int32))
 
 
-def test_fiveg_faults_match_jax_and_port():
-    """The stored 5G degradation curve: one mode recomputed with JAX,
-    and every mode reproduced by the port's CPU run of the example
-    driver (cycles, completion and watchdog counts bit for bit)."""
-    ref = _load()["fiveg_faults"]
-    assert _fiveg_faults(modes=("hw",))["hw"] == ref["hw"]
-    _, curve = bench_faults.fiveg_degradation(device="cpu")
-    for mode in FAULTS.FIVEG_MODES:
-        for res, want in zip(curve[mode], ref[mode]):
-            for c in ("total_cycles", "completion_rate", "timed_out_levels"):
-                assert getattr(res, c).item() == np.float32(want[c]), \
-                    (mode, c)
-            for c in ("sync_fraction", "sync_energy"):
-                np.testing.assert_allclose(getattr(res, c).item(), want[c],
-                                           rtol=1e-5, err_msg=c)
-
-
 def test_fault_sweep_driver_matches_jax_at_small_n():
     """``repro_torch.examples.bench_faults.degradation_sweep`` against the
     benchmark's procedure run by JAX, at N = 64 and 8 trials: the
@@ -837,17 +827,6 @@ def test_fault_sweep_driver_matches_jax_at_small_n_original_stream():
         n_pes=64, n_trials=8, device="cpu")[0]
 
 
-def test_fiveg_faults_original_stream_reproduce_bench_file():
-    """The 5G degradation curve on the original stream is
-    ``BENCH_faults.json``'s ``fiveg`` section at its rounding, hw
-    ``timed_out_levels`` 26 at 1 % and 2 % included."""
-    bench = json.loads((PATH.parents[2] / "BENCH_faults.json").read_text())
-    with prng.threefry_partitionable(False):
-        record, _ = bench_faults.fiveg_degradation(device="cpu")
-    assert record == bench["fiveg"]
-    assert [r["timed_out_levels"] for r in record["hw"]][2:4] == [26.0, 26.0]
-
-
 @pytest.fixture
 def one_call(monkeypatch):
     """The reference benchmarks' ``timing.measure`` as one call: their
@@ -856,17 +835,3 @@ def one_call(monkeypatch):
     monkeypatch.setattr(
         bench_timing, "measure",
         lambda fn, **_: (jax.block_until_ready(fn()), 0.0, 0.0))
-
-
-def test_fig7_bench_rows_match_jax(one_call):
-    """The rows of ``benchmarks/fig7_5g_app.py`` (the grid's cycles,
-    speedups and fractions, the tuned modes' trees) are what the JAX
-    package computes now."""
-    assert _load()["fig7"]["bench_rows"] == _bench_rows("fig7_5g_app")
-
-
-@pytest.mark.parametrize("name", FIGURES)
-def test_figure_section_matches_jax(one_call, name):
-    """Every row (name and derived value) of a beyond-figure benchmark
-    is what the JAX package computes now."""
-    assert _load()[name] == json.loads(json.dumps(_figure(name)))

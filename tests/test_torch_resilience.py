@@ -38,6 +38,7 @@ from repro_torch.runtime import (DeviceLoss, FaultPlan, Preemption,
                                  resilient_sweep_schedules,
                                  resilient_sweep_workloads,
                                  resilient_tune_barrier, schedule_cache)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KEY = prng.PRNGKey(0, device="cpu")
 JKEY = jax.random.PRNGKey(0)

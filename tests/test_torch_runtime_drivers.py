@@ -13,6 +13,7 @@ import pytest
 from repro_torch.core import tuning
 from repro_torch.examples import (bench_core, bench_resilience,
                                   bench_serving, run)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -33,6 +33,7 @@ from repro_torch.runtime.serving import (BATCHED, CACHE_HIT, DEGRADED,
                                          TIER_EXACT, TIER_FALLBACK,
                                          TuneRequest, TuningServer,
                                          _analytic_span, fallback_uniform)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = TeraPoolConfig(n_pes=64)
 JCFG = jtopology.TeraPoolConfig(n_pes=64)

@@ -26,6 +26,7 @@ from repro.core import topology as jtopology
 from repro.runtime import serving as jserving
 from repro_torch.core import topology
 from repro_torch.runtime import serving
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PATH = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "reference_values.json")

@@ -18,6 +18,7 @@ from repro.core import sweep as jsweep
 from repro.core import tuning as jtuning
 from repro.core import workloads as jworkloads
 from repro_torch.core import barrier, placement, prng, sweep, tuning, workloads
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DELAYS = (0.0, 128.0, 512.0, 2048.0)
 EXACT = ("exit_time", "last_arrival", "span_cycles")
