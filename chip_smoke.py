@@ -2302,6 +2302,33 @@ def check_bf16_rows(flash_attn, q, k, v, causal, got, want,
     return rec
 
 
+def fa_grid_checks(torch, flash_attn, q, k, v, causal, got, scale=None,
+                   window=0) -> dict:
+    """The wgmma kernel's persistent grid on these inputs: its plan
+    (``flash_attn.fwd_plan``), a second launch the same bits as ``got``,
+    and the same items in the other order on its own grid the same bits;
+    raises otherwise."""
+    b, h, s, d = q.shape
+    dv = v.shape[3]
+    sms = flash_attn.sm_count(torch.cuda.current_device())
+    plan = flash_attn.fwd_plan(b, h, s, k.shape[2], d, dv, bool(causal),
+                               window, sms)
+    other = plan.reordered(1 - plan.order, sms)
+    out = torch.empty_like(got)
+    flash_attn.launch(q, k, v, out, None, d ** -0.5 if scale is None
+                      else scale, causal, window, other)
+    rec = {"plan": {"rows": plan.rows, "keys": plan.keys,
+                    "order": plan.order, "grid": plan.grid,
+                    "rounds": plan.rounds},
+           "repeat_bits_equal": torch.equal(flash_attn.flash_attention(
+               q, k, v, causal=causal, scale=scale, window=window), got),
+           "other_order_bits_equal": torch.equal(out, got)}
+    if not (rec["repeat_bits_equal"] and rec["other_order_bits_equal"]):
+        raise AssertionError(f"flash_attention {list(q.shape)}: the grid's "
+                             f"bits move {rec}")
+    return rec
+
+
 def fa_planted_faults(flash_attn, q, k, v, causal, got, want,
                       scale=None) -> dict:
     """Three faults the bf16 limits must catch: one 64-key tile's values
@@ -2426,7 +2453,9 @@ def _fa_kernel_checks(torch, flash_attn, build) -> dict:
            "shape": [b, h, hk, s, d], "dtype": "bfloat16", "causal": True,
            "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "tol": {"rtol": FA_BF16_TOL, "atol": FA_BF16_TOL},
-           "strided_equal": True, "ms": ms,
+           "strided_equal": True,
+           "grid": fa_grid_checks(torch, flash_attn, q, k, v, True, got),
+           "ms": ms,
            "strided_ms": cuda_ms(lambda *a: flash_attn.flash_attention(
                *a, causal=True, out=out.transpose(1, 2)),
                [(qs, ks, vs)]),
@@ -2532,6 +2561,8 @@ def _fa_config_checks(torch, flash_attn, build) -> dict:
                                        want)
                 rows["planted_faults"] = fa_planted_faults(
                     flash_attn, q, k, v, causal, got, want)
+                rows["grid"] = fa_grid_checks(torch, flash_attn, q, k, v,
+                                              causal, got)
 
             def kernel(q_, k_, v_, c=causal):
                 return flash_attn.flash_attention(q_, k_, v_, causal=c)
@@ -2646,6 +2677,8 @@ def _fa_window_checks(torch, flash_attn) -> dict:
                                atol=FA_BF16_TOL)
     rows = check_bf16_rows(flash_attn, q, k, v, True, got, want,
                            window=window)
+    rows["grid"] = fa_grid_checks(torch, flash_attn, q, k, v, True, got,
+                                  window=window)
     lag = (torch.arange(s, device=dev)[:, None]
            - torch.arange(s, device=dev)[None, :])
     mask = (lag >= 0) & (lag < window)
@@ -2832,16 +2865,16 @@ def ptxas_spills(log: str, fragment: str) -> dict:
 
 def fa_resources(build, flash_attn) -> dict:
     """The resources of the attention kernels that run D 64-192 and
-    float32: ``fa_wgmma_kernel`` at its (D, Dv) pairs, (64, 64) to (192,
-    192) and (192, 128) (ptxas's account; its register count is the launch
-    bound's per-thread share, which the kernel's setmaxnreg then moves
-    from the producer to the consumers) and the float32 ``fa_fma_kernel``
-    at every pair, each with the dynamic shared memory of a launch, which
-    ptxas does not see; a pair with D = Dv is named ``d{D}``, another
-    ``d{D} dv{Dv}``.  Raises if ptxas reports a spill in any
-    instantiation of either kernel (bf16 at D 8, 40 and (24, 16)
-    included) or a launch would take more shared memory than the 227 KB a
-    block may have."""
+    float32: ``fa_wgmma_kernel`` at every (D, Dv) pair it launches at,
+    (64, 64) to (192, 192) and (192, 128) (ptxas's account; its register
+    count is the launch bound's per-thread share, which the kernel's
+    setmaxnreg then moves from the producer to the consumers) and the
+    float32 ``fa_fma_kernel`` at every pair, each with the dynamic shared
+    memory of a launch, which ptxas does not see; a pair with D = Dv is
+    named ``d{D}``, another ``d{D} dv{Dv}``.  Raises if ptxas reports a
+    spill in any instantiation of either kernel (bf16 at D 8, 40 and (24,
+    16) included) or a launch would take more shared memory than the 227
+    KB a block may have."""
     log = build.compiler_log("flash_attn")
     lib = build.load("flash_attn", flash_attn._SIGNATURES)
     res = {}

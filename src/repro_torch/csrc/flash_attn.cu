@@ -49,41 +49,59 @@
 // grid and carried (acc, m, l) in scratch across grid steps.  On Hopper
 // the kv loop lives inside the block instead and the state stays in
 // registers.  Three kernels:
-//  * bf16, D in {64, 80, 128, 192} (the serving path's 128, hubert-xlarge's
-//    80, nemotron-4-340b's 192) and (D 192, Dv 128) (DeepSeek-V3's MLA):
-//    fa_wgmma_kernel, warp-specialised.  A
-//    block of three warpgroups takes 128 query rows of one (b, h).  The
-//    producer warpgroup gives up its registers (setmaxnreg) and one of its
-//    threads keeps a ring of K and V tiles full with TMA: 4-D tensor maps
-//    over (D, heads, rows, batch) carry the operands' strides, write the
-//    128-byte swizzled layout that wgmma reads without bank conflicts, and
+//  * bf16, D in {64, 80, 128, 192} (Hymba-1.5B's 64, the serving path's
+//    128, hubert-xlarge's 80, nemotron-4-340b's 192) and (D 192, Dv 128)
+//    (DeepSeek-V3's MLA): fa_wgmma_kernel, warp-specialised on a
+//    persistent grid.  One block a multiprocessor walks the (b, h, 128-row
+//    query tile) items that fwd_plan (kernels/flash_attn.py) gives it:
+//    item blockIdx.x + i gridDim.x of a static order, so no counter needs
+//    resetting and a CUDA graph replays the launch as it is (sched_item).
+//    Under causal masking without a window the order pairs each head's
+//    query tiles n - 1 - p and p (n + 1 key tiles together, the same for
+//    every pair) and runs the pairs head by head, so that the ~17 heads in
+//    flight keep their K and V in L2 (DeepSeek-V3's 512 heads of 1.3 MB
+//    each were re-read from HBM for every query tile when the grid walked
+//    all heads' latest tiles first); otherwise (a window, or fewer items
+//    than multiprocessors) the longest walks go first, in rounds that
+//    snake across the blocks.  A block is three warpgroups.  The producer
+//    warpgroup gives up its registers (setmaxnreg) and one of its threads
+//    keeps the Q buffers and a ring of K and V tiles full with TMA,
+//    running into the next item as buffers free: 4-D tensor maps over (D,
+//    heads, rows, batch) carry the operands' strides, write the 128-byte
+//    swizzled layout that wgmma reads without bank conflicts, and
 //    zero-fill rows past the end; mbarriers say when a tile has landed and
-//    when both consumers are done with it (K after QK^T, V after PV, so
-//    the next K refill need not wait for PV).  Shared memory holds whole
-//    64-column swizzle chunks, DP = D rounded up to 64: at D = 80 the
-//    second box of a row reads features 64-79 and TMA zero-fills the rest
-//    (the map's extent is D, so never the next head's data), and every
-//    expect_tx counts the whole boxes.  The ring is two stages of 128 rows
-//    up to D = 128 (160 KB); at D = 192 that would take 240 KB of the 227
-//    a block may have, so two stages of 64 rows (145 KB).  V has a ring of
-//    its own width: at (192, 128) its tiles are 128 features wide (two
-//    chunks, two boxes, its own expect_tx), so two stages of 128-row K and
-//    V tiles fit (209 KB) and the registers are D 128's (S 64 x 128, O 64 x
-//    128 a warpgroup); only QK^T takes 12 steps instead of 8.  The two
-//    consumer warpgroups own 64 query rows each.  S = Q K^T is wgmma
-//    m64nBNk16 (BN the tile's rows) with Q and K K-major in shared memory,
-//    D / 16 steps; O += P V is wgmma m64nDk16 with P taken from the S
-//    accumulators' registers (the accumulator layout of one 16-key step is
-//    the A fragment's) and V read through the transpose flag, so neither P
-//    nor a transposed V goes through shared memory.  Tile j's QK^T and
-//    tile j - 1's PV are issued together and the softmax of tile j runs
-//    while PV is in flight; the first tile runs before the loop, so that
-//    every wgmma in the loop is waited for on every path (ptxas serialises
-//    all of a kernel's wgmmas otherwise).  The two consumers run freely,
-//    so one's products fill the tensor cores while the other computes its
-//    softmax (making them take turns through named barriers was slower on
-//    the H100).  The softmax folds the scale into exp2f: p = 2^(s c - m)
-//    with c = scale log2(e) and the running max m kept in those units.
+//    when both consumers are done with it (K after QK^T, V after PV, Q
+//    after the item's last QK^T or once it is in registers).  Shared
+//    memory holds whole 64-column swizzle chunks, DP = D rounded up to 64:
+//    at D = 80 the second box of a row reads features 64-79 and TMA
+//    zero-fills the rest (the map's extent is D, so never the next head's
+//    data), and every expect_tx counts the whole boxes.  Q has two
+//    buffers (the next item's lands while this one runs) and the ring as
+//    many stages as fit, up to three: 64-key tiles at D 192 (128 would
+//    not fit), 128 elsewhere (WgShape).  At (192, 128) one Q buffer and
+//    two stages of 128-row K and V tiles fill 209 KB; there each consumer
+//    loads its Q rows into registers (ldmatrix) as an item starts, frees
+//    the buffer for the next item's Q, and QK^T takes Q from registers
+//    (wgmma's A operand): its 12 steps then read only K from shared
+//    memory.  The two consumer warpgroups own 64 query rows each.  S = Q
+//    K^T is wgmma m64nBNk16, D / 16 steps; O += P V is wgmma m64nDk16
+//    with P taken from the S accumulators' registers (the accumulator
+//    layout of one 16-key step is the A fragment's) and V read through
+//    the transpose flag, so neither P nor a transposed V goes through
+//    shared memory.  The block's tiles form one stream across its items:
+//    tile j's QK^T is issued, O rescaled for tile j - 1's max while it
+//    runs, then tile j - 1's PV, and tile j's softmax runs while PV is in
+//    flight; where tile j opens an item, that PV ended the last item,
+//    whose epilogue follows it.  The block's first tile runs before the
+//    loop, so that every wgmma in the loop is waited for on every path
+//    (ptxas serialises all of a kernel's wgmmas otherwise).  The epilogue
+//    divides by l and writes O in 16-byte stores (a quad transposes four
+//    8-column blocks so that a warp writes 64 contiguous bytes of each of
+//    its 8 rows), and the rows' lse where asked.  The softmax folds the
+//    scale into exp2: p = 2^(s c - m) with c = scale log2(e) and the
+//    running max m kept in those units, ex2.approx.ftz for the
+//    exponentials; each row's max over four chains.  The consumers run
+//    freely (taking turns through named barriers measured no faster).
 //  * bf16, D in {16, 32} (the smoke configs): fa_mma_kernel, 4 warps per
 //    64-query tile on mma.sync m16n8k16, K and V tiles of 64 rows in
 //    padded shared memory.
@@ -105,9 +123,11 @@
 //    which keeps two blocks a multiprocessor at D = 80.
 // Each kernel optionally writes the row log-sum-exp (lse) at its epilogue,
 // for the backward kernels of csrc/flash_attn_bwd.cu.
-// What is left for later: a persistent grid that overlaps one tile's
-// epilogue with the next tile's loads, and the output written through
-// shared memory with TMA.
+// What is left for later: at D 64 the softmax's latency sits between the
+// products (without the softmax the window's time falls to 0.58x, without
+// its exponentials not at all); a second score tile that let tile j + 1's
+// QK^T run during tile j's softmax measured slower (1.3x), with or without
+// a branch between a product's issue and its wait.
 #include <math.h>
 
 #include "hopper.cuh"
@@ -132,44 +152,116 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on wgmma, D in {64, 80, 128, 192}.
+// bf16 on wgmma, D in {64, 80, 128, 192} and (192, 128): a persistent grid.
 // ---------------------------------------------------------------------------
 
-constexpr int WG_BM = 128;        // query rows per block: 2 warpgroups x 64
-constexpr int WG_THREADS = 384;   // producer warpgroup + 2 consumers
-constexpr int WG_STAGES = 2;      // K/V ring depth
-// Registers per thread after the hand-over: 128 x 24 + 256 x 240 <= 64 K.
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS = 240;
+// The softmax's exponentials: ex2.approx.ftz (results below 2^-126 flush
+// to 0; exp2f adds a range test and two multiplies to each).
+__device__ __forceinline__ float exp2_p(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// The wgmma kernel's tiling at query/key width D and value width DV:
-// shared memory holds DP = D and DVP = DV rounded up to whole 64-column
-// (128-byte) swizzle chunks; K/V tiles of BN rows, 128 where two stages of
-// them fit the 227 KB a block may have, else 64.  Q, the ring and 1 KB to
-// align take 160 KB at D 80 and 128, 145 KB at D 192 (64-row tiles: 128
-// would need 240 KB) and 209 KB at (D 192, DV 128).
+constexpr int PRODUCER_REGS = 24;
 constexpr int WG_SMEM_MAX = 232448;
+constexpr int ORDER_PAIRS = 0;     // see sched_item
+constexpr int ORDER_HEAVIEST = 1;
+
+// The wgmma kernel's tiling at query/key width D and value width DV.
+// Shared memory holds DP = D and DVP = DV rounded up to whole 64-column
+// (128-byte) swizzle chunks.  An item is BM = 64 CONSUMERS query rows of
+// one (b, h); K/V tiles are BN rows.  Q has two buffers (the next item's
+// Q lands while this item runs), or one where Q goes to registers at the
+// item's start (and at (192, 128), where two do not fit beside two
+// stages of 128-row K and V tiles).  The K/V ring has as many stages as
+// fit, up to three.  Registers a thread after the hand-over: 128 x 24 +
+// 256 x 240 <= 64 K.
 template <int D, int DV>
 struct WgShape {
+  static constexpr bool MLA = D == 192 && DV == 128;
   static constexpr int DP = (D + 63) / 64 * 64;
   static constexpr int DVP = (DV + 63) / 64 * 64;
   static constexpr int CHUNKS = DP / 64;
   static constexpr int V_CHUNKS = DVP / 64;
-  static constexpr uint32_t Q_BYTES = WG_BM * DP * 2;   // whole TMA boxes
-  static constexpr int BN =
-      Q_BYTES + WG_STAGES * 128 * (DP + DVP) * 2 + 1024 <= WG_SMEM_MAX ? 128
-                                                                        : 64;
+  static constexpr int CONSUMERS = 2;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int CONSUMER_REGS = 240;
+  static constexpr int BM = 64 * CONSUMERS;
+  static constexpr int BN = D == 192 && !MLA ? 64 : 128;
+  static constexpr bool Q_REGS = MLA;
+  static constexpr int Q_STAGES = MLA ? 1 : 2;
+  static constexpr uint32_t Q_BYTES = BM * DP * 2;      // whole TMA boxes
   static constexpr uint32_t K_BYTES = BN * DP * 2;      // one K tile
   static constexpr uint32_t V_BYTES = BN * DVP * 2;     // one V tile
-  static constexpr int SMEM = Q_BYTES + WG_STAGES * (K_BYTES + V_BYTES)
-                              + 1024;
+  static constexpr int FIT = (WG_SMEM_MAX - 1024 - 256 - Q_STAGES * Q_BYTES)
+                             / (K_BYTES + V_BYTES);
+  static constexpr int STAGES = FIT < 3 ? FIT : 3;
+  static constexpr int SMEM = Q_STAGES * Q_BYTES
+                              + STAGES * (K_BYTES + V_BYTES) + 1024;
+  static_assert(STAGES >= 2 && BN % 64 == 0, "two ring stages at least");
 };
+
+// The persistent grid's schedule (fwd_plan in kernels/flash_attn.py is
+// its twin): n_qt query tiles of BM rows for each of the bh = B H heads;
+// block blk of `grid` takes slot i = 0, 1, ..., rounds - 1 in turn.
+//  * ORDER_PAIRS: unit u = (i / 2) grid + blk is head u / np's pair p = u
+//    % np (np = ceil(n_qt / 2)) of query tiles n_qt - 1 - p (even slots)
+//    and p (odd slots; the middle tile of an odd n_qt once).  Under causal
+//    masking the two walk n_qt + 1 key tiles together, so every unit costs
+//    the same; units run head by head, so the heads in flight at a time
+//    are about grid / np, whose K and V stay in L2 while all their query
+//    tiles read them.
+//  * ORDER_HEAVIEST: rank i grid + c, c = blk in even slots and grid - 1 -
+//    blk in odd ones (a snake), is query tile qt[rank / bh] of head rank %
+//    bh: qt lists the query tiles longest walk first (past MAX_ORDER
+//    tiles, the latest first), and the snake evens the blocks' sums.
+constexpr int MAX_ORDER = 1024;
+struct Sched {
+  int n_qt, bh, mode, grid, rounds;
+  unsigned short qt[MAX_ORDER];
+};
+
+__device__ __forceinline__ bool sched_item(const Sched& f, int i, int& bh,
+                                           int& qt) {
+  const int blk = blockIdx.x;
+  if (f.mode == ORDER_PAIRS) {
+    const int np = (f.n_qt + 1) / 2;
+    const int u = (i / 2) * f.grid + blk;
+    if (u >= f.bh * np) return false;
+    bh = u / np;
+    const int p = u % np;
+    qt = i % 2 == 0 ? f.n_qt - 1 - p : p;
+    return i % 2 == 0 || p != f.n_qt - 1 - p;
+  }
+  const int rank = i * f.grid + (i % 2 == 0 ? blk : f.grid - 1 - blk);
+  if (rank >= f.bh * f.n_qt) return false;
+  qt = f.n_qt <= MAX_ORDER ? f.qt[rank / f.bh] : f.n_qt - 1 - rank / f.bh;
+  bh = rank % f.bh;
+  return true;
+}
+
+// The key tiles of query tile qt: j0 .. j0 + n_tiles - 1.  Under causal
+// masking up to the tile of its last row's key; under a sliding window
+// from the tile that holds its first row's first visible key.  With T >=
+// 1 every item has a tile (a window needs S <= T).
+template <int BM, int BN>
+__device__ __forceinline__ void item_tiles(int qt, int S, int T, int causal,
+                                           int window, int& q0, int& j0,
+                                           int& n_tiles) {
+  q0 = qt * BM;
+  int n_kv = (T + BN - 1) / BN;
+  if (causal) n_kv = min(n_kv, (min(q0 + BM, S) - 1) / BN + 1);
+  j0 = window > 0 ? max(0, q0 - window + 1) / BN : 0;
+  n_tiles = max(0, n_kv - j0);
+}
 
 // S = Q K^T for one warpgroup's 64 rows against a BN-row K tile: D / 16
 // steps of 16 features.  Within a 64-column chunk a step advances the
 // start address by 32 bytes; the hardware applies the swizzle to the full
-// address.
-template <int D, int BN>
+// address.  Q comes from shared memory (q_s, BM rows a chunk) or, where
+// qf holds it, from registers.
+template <int D, int BN, int BM>
 __device__ __forceinline__ void issue_qk(float (&sacc)[BN / 2],
                                          uint32_t q_s, uint32_t k_s,
                                          int wg) {
@@ -177,10 +269,39 @@ __device__ __forceinline__ void issue_qk(float (&sacc)[BN / 2],
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
     wgmma_ss(sacc,
-             sw128_desc(q_s + (kk / 4) * (WG_BM * 128) + wg * (64 * 128)
+             sw128_desc(q_s + (kk / 4) * (BM * 128) + wg * (64 * 128)
                         + col, 16, 1024),
              sw128_desc(k_s + (kk / 4) * (BN * 128) + col, 16, 1024),
              kk > 0);
+  }
+}
+
+template <int D, int BN>
+__device__ __forceinline__ void issue_qk(float (&sacc)[BN / 2],
+                                         const uint32_t (&qf)[D / 16][4],
+                                         uint32_t k_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_rs_kmajor(sacc, qf[kk],
+                    sw128_desc(k_s + (kk / 4) * (BN * 128) + (kk % 4) * 32,
+                               16, 1024),
+                    kk > 0);
+}
+
+// A warp's 16 rows of Q (rows 64 wg + 16 warp ..) as wgmma's A fragments,
+// one per 16-feature step, from the 128-byte-swizzled tile (16-byte chunk
+// c of row r at chunk c ^ (r % 8)).
+template <int D, int BM>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[D / 16][4],
+                                       uint32_t q_s, int wg, int warp,
+                                       int lane) {
+  const int row = wg * 64 + warp * 16 + lane % 8 + ((lane / 8) % 2) * 8;
+  const int half = lane / 16;                    // features +0 or +8
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t chunk16 = (kk % 4) * 2 + half;
+    ldmatrix_x4(qf[kk], q_s + (kk / 4) * (BM * 128) + row * 128
+                            + ((chunk16 ^ (row % 8)) << 4));
   }
 }
 
@@ -214,30 +335,43 @@ __device__ __forceinline__ void softmax_tile(
     float& m1, float& l0, float& l1, float& al0, float& al1) {
   if (k0 + BN > T || (causal && k0 + BN - 1 > wg_row0)
       || (window > 0 && wg_row0 + 63 - k0 >= window)) {
+    // Score i is key c0 + rel(i) of row r0 or r1, rel(i) a constant: the
+    // bounds move to the row once, so that a score costs three compares
+    // against immediates.
+    const int c0 = k0 + t4 * 2;
+    const int past = T - c0;                    // rel >= past: key >= T
+    const int lo0 = window > 0 ? r0 - window + 1 - c0 : -BN;
+    const int lo1 = window > 0 ? r1 - window + 1 - c0 : -BN;
+    const int dg0 = causal ? r0 - c0 : BN, dg1 = causal ? r1 - c0 : BN;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) {
-      const int col = k0 + (i / 4) * 8 + t4 * 2 + (i % 2);
-      const int row = (i % 4) < 2 ? r0 : r1;
-      if (col >= T || (window > 0 && row - col >= window))
-        sacc[i] = -INFINITY;
-      else if (causal && col > row) sacc[i] = NEG_INF;
+      const int rel = (i / 4) * 8 + (i % 2);
+      const bool top = (i % 4) < 2;
+      if (rel >= past || rel < (top ? lo0 : lo1)) sacc[i] = -INFINITY;
+      else if (rel > (top ? dg0 : dg1)) sacc[i] = NEG_INF;
     }
   }
-  float tmax0 = -INFINITY, tmax1 = -INFINITY;
+  // Each row's max over four chains (depth BN / 16, not BN / 4).
+  float x0[4], x1[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) x0[c] = x1[c] = -INFINITY;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) {
-    if ((i % 4) < 2) tmax0 = fmaxf(tmax0, sacc[i]);
-    else tmax1 = fmaxf(tmax1, sacc[i]);
+    const int c = ((i / 4) % 2) * 2 + i % 2;
+    if ((i % 4) < 2) x0[c] = fmaxf(x0[c], sacc[i]);
+    else x1[c] = fmaxf(x1[c], sacc[i]);
   }
+  const float tmax0 = fmaxf(fmaxf(x0[0], x0[1]), fmaxf(x0[2], x0[3]));
+  const float tmax1 = fmaxf(fmaxf(x1[0], x1[1]), fmaxf(x1[2], x1[3]));
   const float mn0 = fmaxf(m0, quad_max(tmax0) * scale_log2);
   const float mn1 = fmaxf(m1, quad_max(tmax1) * scale_log2);
-  al0 = exp2f(m0 - mn0);
-  al1 = exp2f(m1 - mn1);
+  al0 = exp2_p(m0 - mn0);
+  al1 = exp2_p(m1 - mn1);
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) {
     const bool top = (i % 4) < 2;
-    const float p = exp2f(fmaf(sacc[i], scale_log2, top ? -mn0 : -mn1));
+    const float p = exp2_p(fmaf(sacc[i], scale_log2, top ? -mn0 : -mn1));
     sacc[i] = p;
     if (top) ps0 += p;
     else ps1 += p;
@@ -261,165 +395,313 @@ __device__ __forceinline__ void pack_p(const float (&sacc)[BN / 2],
   }
 }
 
+// O's rows times the softmax's rescale factors (al0 for row r0, al1 for
+// r0 + 8).
+template <int DV>
+__device__ __forceinline__ void rescale(float (&oacc)[DV / 2], float al0,
+                                        float al1) {
+#pragma unroll
+  for (int u = 0; u < DV / 2; ++u) oacc[u] *= (u % 4) < 2 ? al0 : al1;
+}
+
+// The four lanes of a quad hold a 4 x 4 block of words, lane t word e;
+// afterwards lane t holds lane e's word t as its word e (two butterfly
+// exchanges, on bit 0 and bit 1 of the lane).
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int t4) {
+  const bool odd = t4 & 1, high = t4 & 2;
+  uint32_t a = __shfl_xor_sync(0xffffffffu, odd ? w[0] : w[1], 1);
+  uint32_t b = __shfl_xor_sync(0xffffffffu, odd ? w[2] : w[3], 1);
+  if (odd) {
+    w[0] = a;
+    w[2] = b;
+  } else {
+    w[1] = a;
+    w[3] = b;
+  }
+  a = __shfl_xor_sync(0xffffffffu, high ? w[0] : w[2], 2);
+  b = __shfl_xor_sync(0xffffffffu, high ? w[1] : w[3], 2);
+  if (high) {
+    w[0] = a;
+    w[1] = b;
+  } else {
+    w[2] = a;
+    w[3] = b;
+  }
+}
+
+// An item's epilogue for one thread's rows r0 and r0 + 8: the rows'
+// log-sum-exp in natural units (m is kept in log2 units) where lse is
+// given, and out = acc / max(l, 1e-30) in 16-byte stores.  A quad holds 8
+// consecutive features of a row for each 8-column block u (2 a lane);
+// after a transpose of four blocks the lane t4 holds all 8 of block u0 +
+// t4, so a warp writes 64 contiguous bytes of each of 8 rows a store.
+template <int DV>
+__device__ __forceinline__ void store_rows(const float (&oacc)[DV / 2],
+                                           __nv_bfloat16* __restrict__ o,
+                                           float* __restrict__ lse,
+                                           const Strides& st, int b, int h,
+                                           int H, int S, int r0, int t4,
+                                           float m0, float m1, float l0,
+                                           float l1) {
+  if (lse != nullptr && t4 == 0) {
+    float* lh = lse + ((long long)b * H + h) * S;
+    if (r0 < S) lh[r0] = m0 * 0.6931471805599453f + logf(l0);
+    if (r0 + 8 < S) lh[r0 + 8] = m1 * 0.6931471805599453f + logf(l1);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* oh = o + b * st.ob + h * st.oh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    const float dn = half ? d1 : d0;
+#pragma unroll
+    for (int u0 = 0; u0 < DV / 8; u0 += 4) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = u0 + e;
+        w[e] = u < DV / 8 ? pack_f32(oacc[4 * u + 2 * half] / dn,
+                                     oacc[4 * u + 2 * half + 1] / dn)
+                          : 0u;
+      }
+      quad_transpose(w, t4);
+      if (r < S && u0 + t4 < DV / 8)
+        *reinterpret_cast<uint4*>(oh + r * st.os + (u0 + t4) * 8) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
 template <int D, int DV>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+__global__ void __launch_bounds__(WgShape<D, DV>::THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 Strides st, int H, int Hk, int S, int T, float scale_log2,
-                int causal, int window) {
+                int causal, int window, Sched f) {
   using W = WgShape<D, DV>;
-  constexpr int BN = W::BN;
+  constexpr int BM = W::BM, BN = W::BN, NS = W::STAGES, NQ = W::Q_STAGES;
+  constexpr int CONSUMER_WARPS = 4 * W::CONSUMERS;
   extern __shared__ uint8_t fa_smem[];
-  // mbarriers: Q landed; per stage K landed, V landed, K consumed, V
-  // consumed.
-  __shared__ __align__(8) uint64_t bars[1 + 4 * WG_STAGES];
+  // mbarriers: per Q buffer full and empty; per ring stage K landed, V
+  // landed, K consumed, V consumed.
+  __shared__ __align__(8) uint64_t bars[2 * NQ + 4 * NS];
   // Swizzle atoms are 1024 bytes and must start on a 1024-byte boundary.
-  const uint32_t q_s = (smem_u32(fa_smem) + 1023) & ~1023u;
-  const uint32_t k_ring = q_s + W::Q_BYTES;
-  const uint32_t v_ring = k_ring + WG_STAGES * W::K_BYTES;
-  const uint32_t q_full = smem_u32(&bars[0]);
-  const uint32_t k_full = smem_u32(&bars[1]);                  // + 8 s
-  const uint32_t v_full = smem_u32(&bars[1 + WG_STAGES]);
-  const uint32_t k_empty = smem_u32(&bars[1 + 2 * WG_STAGES]);
-  const uint32_t v_empty = smem_u32(&bars[1 + 3 * WG_STAGES]);
-
-  const int qt = gridDim.y - 1 - blockIdx.y;      // heaviest tiles first
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int hk = h / (H / Hk);
-  const int q0 = qt * WG_BM;
-  int n_kv = (T + BN - 1) / BN;
-  if (causal) n_kv = min(n_kv, (min(q0 + WG_BM, S) - 1) / BN + 1);
-  // Under a sliding window the first tile is the one that holds the first
-  // key the block's first row sees: tiles j0 .. n_kv - 1, the i-th of
-  // them in ring stage i % WG_STAGES.
-  const int j0 = window > 0 ? max(0, q0 - window + 1) / BN : 0;
-  const int n_tiles = max(0, n_kv - j0);
+  const uint32_t q_ring = (smem_u32(fa_smem) + 1023) & ~1023u;
+  const uint32_t k_ring = q_ring + NQ * W::Q_BYTES;
+  const uint32_t v_ring = k_ring + NS * W::K_BYTES;
+  const uint32_t q_full = smem_u32(&bars[0]);                  // + 8 s
+  const uint32_t q_empty = smem_u32(&bars[NQ]);
+  const uint32_t k_full = smem_u32(&bars[2 * NQ]);
+  const uint32_t v_full = k_full + 8 * NS;
+  const uint32_t k_empty = v_full + 8 * NS;
+  const uint32_t v_empty = k_empty + 8 * NS;
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < NQ; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, CONSUMER_WARPS);
+    }
+    for (int s = 0; s < NS; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
-      mbar_init(k_empty + 8 * s, 8);              // the 8 consumer warps
-      mbar_init(v_empty + 8 * s, 8);
+      mbar_init(k_empty + 8 * s, CONSUMER_WARPS);
+      mbar_init(v_empty + 8 * s, CONSUMER_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // Producer: one thread keeps the TMA ring full; the warpgroup hands
-    // its registers to the consumers.
+    // Producer: one thread walks the block's items and keeps the Q
+    // buffers and the K/V ring full with TMA, running ahead into the next
+    // item as buffers free; the warpgroup hands its registers to the
+    // consumers.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(PRODUCER_REGS));
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, W::Q_BYTES);
-      for (int c = 0; c < W::CHUNKS; ++c)
-        tma_load(q_s + c * (WG_BM * 128), tq, q_full, c * 64, h, q0, b);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % WG_STAGES, k0 = (j0 + i) * BN;
-        const uint32_t free_parity = ((i / WG_STAGES) & 1) ^ 1;
-        mbar_wait(k_empty + 8 * s, free_parity);
-        mbar_expect_tx(k_full + 8 * s, W::K_BYTES);
+    if (threadIdx.x == 0 && T > 0) {
+      int it = 0, qi = 0;
+      for (int i = 0; i < f.rounds; ++i) {
+        int bh, qt, q0, j0, n_tiles;
+        if (!sched_item(f, i, bh, qt)) continue;
+        const int b = bh / H, h = bh % H, hk = h / (H / Hk);
+        item_tiles<BM, BN>(qt, S, T, causal, window, q0, j0, n_tiles);
+        const int qs = qi % NQ;
+        mbar_wait(q_empty + 8 * qs, ((qi / NQ) & 1) ^ 1);
+        mbar_expect_tx(q_full + 8 * qs, W::Q_BYTES);
         for (int c = 0; c < W::CHUNKS; ++c)
-          tma_load(k_ring + s * W::K_BYTES + c * (BN * 128), tk,
-                   k_full + 8 * s, c * 64, hk, k0, b);
-        mbar_wait(v_empty + 8 * s, free_parity);
-        mbar_expect_tx(v_full + 8 * s, W::V_BYTES);
-        for (int c = 0; c < W::V_CHUNKS; ++c)
-          tma_load(v_ring + s * W::V_BYTES + c * (BN * 128), tv,
-                   v_full + 8 * s, c * 64, hk, k0, b);
+          tma_load(q_ring + qs * W::Q_BYTES + c * (BM * 128), tq,
+                   q_full + 8 * qs, c * 64, h, q0, b);
+        ++qi;
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int s = it % NS, k0 = (j0 + j) * BN;
+          const uint32_t free_parity = ((it / NS) & 1) ^ 1;
+          mbar_wait(k_empty + 8 * s, free_parity);
+          mbar_expect_tx(k_full + 8 * s, W::K_BYTES);
+          for (int c = 0; c < W::CHUNKS; ++c)
+            tma_load(k_ring + s * W::K_BYTES + c * (BN * 128), tk,
+                     k_full + 8 * s, c * 64, hk, k0, b);
+          mbar_wait(v_empty + 8 * s, free_parity);
+          mbar_expect_tx(v_full + 8 * s, W::V_BYTES);
+          for (int c = 0; c < W::V_CHUNKS; ++c)
+            tma_load(v_ring + s * W::V_BYTES + c * (BN * 128), tv,
+                     v_full + 8 * s, c * 64, hk, k0, b);
+        }
       }
     }
     return;
   }
 
-  // Consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64).
+  // Consumers: warpgroup wg owns rows [q0 + 64 wg, q0 + 64 wg + 64) of
+  // each item.  The block's tiles form one stream across its items:
+  // tile g's QK^T is issued with tile g - 1's PV, and where g starts an
+  // item, tile g - 1 ended the last one, whose epilogue follows that PV.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-               :: "n"(CONSUMER_REGS));
+               :: "n"(W::CONSUMER_REGS));
   const int wg = threadIdx.x / 128 - 1;
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int wg_row0 = q0 + wg * 64;
-  const int r0 = wg_row0 + warp * 16 + g, r1 = r0 + 8;
+  const int row = wg * 64 + warp * 16 + g;      // this thread's rows - q0
 
   float oacc[DV / 2], sacc[BN / 2];
   uint32_t pf[BN / 16][4];         // bf16(p) of the last tile, A fragments
+  uint32_t qf[W::Q_REGS ? D / 16 : 1][4];       // Q, where in registers
 #pragma unroll
   for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0, al1;
-  mbar_wait(q_full, 0);
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
 
-  // Tile 0 alone, so that in the loop every PV issued is waited for on
-  // every path (a wait that ptxas cannot prove makes it serialise every
-  // wgmma of the kernel).
-  if (n_tiles > 0) {
-    mbar_wait(k_full, 0);
-    wgmma_fence();
-    issue_qk<D, BN>(sacc, q_s, k_ring, wg);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sacc);
-    if (lane == 0) mbar_arrive(k_empty);
-    softmax_tile<BN>(sacc, j0 * BN, T, causal, window, wg_row0, r0, r1, t4,
-                     scale_log2, m0, m1, l0, l1, al0, al1);
-    pack_p<BN>(sacc, pf);
+  // The cursor: slot i, its head and tile (b, h, q0, j0, n_tiles), tile j
+  // of it, its Q buffer qs; `it` counts the block's tiles (ring stage and
+  // phase), qi its items (Q buffer and phase).
+  int i = 0, b = 0, h = 0, q0 = 0, j0 = 0, n_tiles = 0, qs = 0;
+  int it = 0, qi = 0;
+  // Enter the next item with a slot: false past the block's last.
+  auto next_item = [&]() -> bool {
+    for (; i < f.rounds; ++i) {
+      int bh, qt;
+      if (!sched_item(f, i, bh, qt)) continue;
+      b = bh / H;
+      h = bh % H;
+      item_tiles<BM, BN>(qt, S, T, causal, window, q0, j0, n_tiles);
+      ++i;
+      return true;
+    }
+    return false;
+  };
+  // Wait for the item's Q; where it goes to registers, load it and free
+  // its buffer for the next item's.
+  auto enter_q = [&]() {
+    qs = qi % NQ;
+    mbar_wait(q_full + 8 * qs, (qi / NQ) & 1);
+    ++qi;
+    if constexpr (W::Q_REGS) {
+      load_q<D, BM>(qf, q_ring + qs * W::Q_BYTES, wg, warp, lane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty + 8 * qs);
+    }
+  };
+  auto qk = [&](uint32_t k_s) {
+    if constexpr (W::Q_REGS) issue_qk<D, BN>(sacc, qf, k_s);
+    else issue_qk<D, BN, BM>(sacc, q_ring + qs * W::Q_BYTES, k_s, wg);
+  };
+  // After an item's last QK^T its Q buffer is free.
+  auto release = [&](int s, bool last) {
+    if (lane == 0) {
+      mbar_arrive(k_empty + 8 * s);
+      if (!W::Q_REGS && last) mbar_arrive(q_empty + 8 * qs);
+    }
+  };
+
+  if (T == 0) {                   // no key: out 0, lse -inf, no load
+    while (next_item())
+      store_rows<DV>(oacc, o, lse, st, b, h, H, S, q0 + row, t4, m0, m1,
+                     l0, l1);
+    return;
   }
-  for (int j = 1; j < n_tiles; ++j) {
-    const int s = j % WG_STAGES;
-    const int sp = (j - 1) % WG_STAGES;             // tile j - 1's stage
-    mbar_wait(k_full + 8 * s, (j / WG_STAGES) & 1);
+  if (!next_item()) return;
+  // The block's first tile alone, so that in the loop every PV issued is
+  // waited for on every path (a wait that ptxas cannot prove makes it
+  // serialise every wgmma of the kernel).
+  enter_q();
+  mbar_wait(k_full, 0);
+  wgmma_fence();
+  qk(k_ring);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sacc);
+  if constexpr (W::Q_REGS) fence_regs(qf);
+  release(0, n_tiles == 1);
+  softmax_tile<BN>(sacc, j0 * BN, T, causal, window, q0 + wg * 64, q0 + row,
+                   q0 + row + 8, t4, scale_log2, m0, m1, l0, l1, al0, al1);
+  pack_p<BN>(sacc, pf);
+  int j = 0;
+  // The item that the pending PV finishes: its head, rows and state.
+  int pb = b, ph = h, pq0 = q0;
+  float pm0, pm1, pl0, pl1;
+  while (true) {
+    const int sp = it % NS;                     // the pending PV's stage
+    const uint32_t vpar = (it / NS) & 1;
+    ++it;
+    bool fresh = false;
+    if (++j == n_tiles) {
+      pb = b;
+      ph = h;
+      pq0 = q0;
+      pm0 = m0;
+      pm1 = m1;
+      pl0 = l0;
+      pl1 = l1;
+      if (!next_item()) break;
+      enter_q();
+      j = 0;
+      fresh = true;
+      m0 = m1 = NEG_INF;
+      l0 = l1 = 0.f;
+    }
+    const int s = it % NS;
+    mbar_wait(k_full + 8 * s, (it / NS) & 1);
     wgmma_fence();
-    issue_qk<D, BN>(sacc, q_s, k_ring + s * W::K_BYTES, wg);
+    qk(k_ring + s * W::K_BYTES);
     wgmma_commit();
-    // O += bf16(P_{j-1}) V_{j-1}, in flight during this tile's softmax.
-    mbar_wait(v_full + 8 * sp, ((j - 1) / WG_STAGES) & 1);
+    // While QK^T runs: O's rows rescaled for the last tile's max, then O
+    // += bf16(P) V of that tile, in flight during this softmax.
+    rescale<DV>(oacc, al0, al1);
+    wgmma_fence();
+    mbar_wait(v_full + 8 * sp, vpar);
     issue_pv<DV, BN>(oacc, pf, v_ring + sp * W::V_BYTES);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sacc);
-    if (lane == 0) mbar_arrive(k_empty + 8 * s);      // K_j is read
-    softmax_tile<BN>(sacc, (j0 + j) * BN, T, causal, window, wg_row0, r0,
-                     r1, t4, scale_log2, m0, m1, l0, l1, al0, al1);
+    if constexpr (W::Q_REGS) fence_regs(qf);
+    release(s, j == n_tiles - 1);
+    softmax_tile<BN>(sacc, (j0 + j) * BN, T, causal, window, q0 + wg * 64,
+                     q0 + row, q0 + row + 8, t4, scale_log2, m0, m1, l0, l1,
+                     al0, al1);
     wgmma_wait<0>();
     fence_regs(oacc);
     fence_regs(pf);
-    if (lane == 0) mbar_arrive(v_empty + 8 * sp);     // V_{j-1} is read
+    if (lane == 0) mbar_arrive(v_empty + 8 * sp);     // V is read
+    if (fresh) {
+      store_rows<DV>(oacc, o, lse, st, pb, ph, H, S, pq0 + row, t4, pm0,
+                     pm1, pl0, pl1);
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) oacc[i] *= (i % 4) < 2 ? al0 : al1;
+      for (int u = 0; u < DV / 2; ++u) oacc[u] = 0.f;
+    }
     pack_p<BN>(sacc, pf);
   }
-  if (n_tiles > 0) {              // the last tile's PV
-    const int sp = (n_tiles - 1) % WG_STAGES;
-    mbar_wait(v_full + 8 * sp, ((n_tiles - 1) / WG_STAGES) & 1);
-    wgmma_fence();
-    issue_pv<DV, BN>(oacc, pf, v_ring + sp * W::V_BYTES);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(oacc);
-    fence_regs(pf);
-  }
-
-  // The row's log-sum-exp in natural units (m is kept in log2 units).
-  if (lse != nullptr && t4 == 0) {
-    float* lh = lse + ((long long)b * H + h) * S;
-    if (r0 < S) lh[r0] = m0 * 0.6931471805599453f + logf(l0);
-    if (r1 < S) lh[r1] = m1 * 0.6931471805599453f + logf(l1);
-  }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* oh = o + b * st.ob + h * st.oh;
-#pragma unroll
-  for (int u = 0; u < DV / 8; ++u) {
-    const int c = u * 8 + t4 * 2;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(oh + r0 * st.os + c) =
-          pack_f32(oacc[4 * u] / d0, oacc[4 * u + 1] / d0);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(oh + r1 * st.os + c) =
-          pack_f32(oacc[4 * u + 2] / d1, oacc[4 * u + 3] / d1);
-  }
+  // The last tile's PV, then the last item's epilogue.
+  const int sp = (it - 1) % NS;
+  mbar_wait(v_full + 8 * sp, ((it - 1) / NS) & 1);
+  rescale<DV>(oacc, al0, al1);
+  wgmma_fence();
+  issue_pv<DV, BN>(oacc, pf, v_ring + sp * W::V_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(oacc);
+  fence_regs(pf);
+  store_rows<DV>(oacc, o, lse, st, pb, ph, H, S, pq0 + row, t4, pm0, pm1,
+                 pl0, pl1);
 }
 
 // ---------------------------------------------------------------------------
@@ -927,16 +1209,43 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return (int)cudaGetLastError();
 }
 
+// The wrapper's plan of the wgmma kernel's grid (fwd_plan in
+// kernels/flash_attn.py): the query rows of an item, which must be this
+// build's, the order of the items, the number of blocks and, for
+// ORDER_HEAVIEST, the query tiles longest walk first (n_qt of them, up to
+// MAX_ORDER).
+struct Plan {
+  int rows, mode, grid;
+  const unsigned short* order;
+};
+
 template <int D, int DV = D>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
                  const Strides& st, int B, int H, int Hk, int S, int Tk,
-                 float scale, int causal, int window, cudaStream_t stream) {
+                 float scale, int causal, int window, const Plan& plan,
+                 cudaStream_t stream) {
   using W = WgShape<D, DV>;
   constexpr int smem = W::SMEM;
-  if ((S + WG_BM - 1) / WG_BM > 65535) return (int)cudaErrorInvalidValue;
+  const long long n_qt = (S + W::BM - 1) / W::BM, bh = (long long)B * H;
+  if (plan.rows != W::BM || plan.grid < 1
+      || (plan.mode != ORDER_PAIRS && plan.mode != ORDER_HEAVIEST)
+      || bh * (n_qt + 1) >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long units = plan.mode == ORDER_PAIRS ? bh * ((n_qt + 1) / 2)
+                                                   : bh * n_qt;
+  const long long slots = (units + plan.grid - 1) / plan.grid;
+  Sched f{(int)n_qt, (int)bh, plan.mode, plan.grid,
+          (int)(plan.mode == ORDER_PAIRS ? 2 * slots : slots), {}};
+  if (plan.mode == ORDER_HEAVIEST && n_qt <= MAX_ORDER) {
+    if (plan.order == nullptr) return (int)cudaErrorInvalidValue;
+    for (int t = 0; t < n_qt; ++t) {
+      if (plan.order[t] >= n_qt) return (int)cudaErrorInvalidValue;
+      f.qt[t] = plan.order[t];
+    }
+  }
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, H, S, B, st.qh, st.qs, st.qb, WG_BM))
+  if (!make_map(&tq, q, D, H, S, B, st.qh, st.qs, st.qb, W::BM))
     return (int)cudaErrorInvalidValue;
   if (Tk == 0) {                  // no key tile is ever loaded
     tk = tv = tq;
@@ -949,12 +1258,9 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const cudaError_t err = allow_smem(fa_wgmma_kernel<D, DV>, smem,
                                      &configured);
   if (err != cudaSuccess) return (int)err;
-  // (b, h) on x, query tiles on y: every head's heaviest tile is issued
-  // before any lighter one, and heads that share a KV head run together.
-  const dim3 grid((unsigned)B * H, (S + WG_BM - 1) / WG_BM);
-  fa_wgmma_kernel<D, DV><<<grid, WG_THREADS, smem, stream>>>(
+  fa_wgmma_kernel<D, DV><<<plan.grid, W::THREADS, smem, stream>>>(
       tq, tk, tv, o, lse, st, H, Hk, S, Tk, scale * 1.4426950408889634f,
-      causal, window);
+      causal, window, f);
   return (int)cudaGetLastError();
 }
 
@@ -1007,16 +1313,23 @@ extern "C" int flash_attn_f32(const float* q, const float* k, const float* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// rows, mode, grid, order: the wgmma kernel's plan (fwd_plan), read at D
+// 64-192 and (192, 128) only.
 extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                const __nv_bfloat16* v, __nv_bfloat16* o,
                                float* lse, const long long* strides, int B,
                                int H,
                                int Hk, int S, int Tk, int D, int Dv,
-                               float scale, int causal, int window,
+                               float scale, int causal, int window, int rows,
+                               int mode, int grid,
+                               const unsigned short* order,
                                cudaStream_t stream) {
   if (bad_shape(B, H, Hk, S, Tk, window)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const Strides st = strides_from(strides);
+  const Plan plan{rows, mode, grid, order};
+#define WG_ARGS \
+  q, k, v, o, lse, st, B, H, Hk, S, Tk, scale, causal, window, plan, stream
   if (D == Dv) {
     switch (D) {
       case 8: return launch_fma<__nv_bfloat16, 8>(FA_ARGS);
@@ -1024,13 +1337,14 @@ extern "C" int flash_attn_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
       case 32: return launch_mma<32>(FA_ARGS);
       // Not a multiple of mma's 16 features: the FMA kernel.
       case 40: return launch_fma<__nv_bfloat16, 40>(FA_ARGS);
-      case 64: return launch_wgmma<64>(FA_ARGS);
-      case 80: return launch_wgmma<80>(FA_ARGS);
-      case 128: return launch_wgmma<128>(FA_ARGS);
-      case 192: return launch_wgmma<192>(FA_ARGS);
+      case 64: return launch_wgmma<64>(WG_ARGS);
+      case 80: return launch_wgmma<80>(WG_ARGS);
+      case 128: return launch_wgmma<128>(WG_ARGS);
+      case 192: return launch_wgmma<192>(WG_ARGS);
     }
   }
-  if (D == 192 && Dv == 128) return launch_wgmma<192, 128>(FA_ARGS);
+  if (D == 192 && Dv == 128) return launch_wgmma<192, 128>(WG_ARGS);
+#undef WG_ARGS
   // The deepseek-v3 smoke config's (16 + 8, 16): too narrow a key for
   // wgmma's 16-feature steps to pay, so the FMA kernel, as at D 8.
   if (D == 24 && Dv == 16) return launch_fma<__nv_bfloat16, 24, 16>(FA_ARGS);

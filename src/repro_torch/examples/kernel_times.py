@@ -39,12 +39,24 @@ line per measurement:
   reading 8, 2048, 128), causal), at the full-width attention of
   nemotron-4-340b (bf16, (1, 96 heads reading 8, 1024, 192), causal) and
   hubert-xlarge
-  ((2, 16, 1024, 80), bidirectional, bf16 and float32), against
-  ``F.scaled_dot_product_attention(enable_gqa=True)``;
+  ((2, 16, 1024, 80), bidirectional, bf16 and float32), at D 64
+  (Hymba-1.5B's heads without its window) and at Qwen3-4B's training
+  forward ((1, 32 heads reading 8, 2048, 128), bf16, causal, writing the
+  rows' log-sum-exp for the backward), against
+  ``F.scaled_dot_product_attention(enable_gqa=True)`` (which writes no
+  log-sum-exp);
 * the ``mla`` part: ``flash_attention`` at DeepSeek-V3's prefill
   attention ((D, Dv) = (192, 128), (4, 128, 2048), causal, bf16) and at
   its smoke config's ((24, 16), (2, 4, 64), bf16 and float32), against
   the same SDPA call (the scale D ** -0.5 on both sides, MLA's);
+* the ``window`` part: ``flash_attention`` at Hymba-1.5B's prefill
+  attention ((4, 25 heads reading 5, 2048, 64), bf16, causal, window
+  1024) against SDPA on an (S, S) boolean mask;
+* each attention record beside its bound (``bound_ms``) and the MUFU's
+  (``mufu_bound_ms``: one ex2 a kept pair at 16 a clock an SM), with the
+  wgmma kernel's plan; with ``--src``, the other checkout's kernel and
+  this tree's in turns (other, this, this, other) on the same inputs
+  (``this_ms``, ``other_ms``) and whether they give the same bits;
 * the ``scan`` part: ``ssm_scan`` at Falcon-Mamba-7B's and Hymba-1.5B's
   prefill scans (B, S, d_inner, n) = (4, 2048, 8192, 16) and (4, 2048,
   3200, 16), beside ``timing.scan_bound`` (no PyTorch call computes the
@@ -85,12 +97,18 @@ AXPY_N = 1 << 26
 FFT_LONG = (64, 4 ** 8)   # rows above the fused kernel's 16384 points
 # powf: the straggler model's bases a call at (8, 1024), and a large block.
 POWF_SIZES = (8192, 1 << 24)
-# (config, (B, H, Hk, S, D), causal, dtype): Qwen3-4B's serving prefill
-# and the configs' full-width attention at head widths 192 and 80.
+# (config, (B, H, Hk, S, D), causal, dtype[, window, lse]): Qwen3-4B's
+# serving prefill, the configs' full-width attention at head widths 192
+# and 80, D 64 (Hymba-1.5B's heads without its window) and Qwen3-4B's
+# training forward, which also writes the rows' log-sum-exp.
 ATTN_SHAPES = (("qwen3-4b", (4, 32, 8, 2048, 128), True, "bfloat16"),
                ("nemotron-4-340b", (1, 96, 8, 1024, 192), True, "bfloat16"),
                ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "bfloat16"),
-               ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "float32"))
+               ("hubert-xlarge", (2, 16, 16, 1024, 80), False, "float32"),
+               ("hymba-1.5b, no window", (4, 25, 5, 2048, 64), True,
+                "bfloat16"),
+               ("qwen3-4b training, lse", (1, 32, 8, 2048, 128), True,
+                "bfloat16", 0, True))
 # (B, H, Hk, S, D, Dv): a value width of its own (multi-head latent
 # attention).
 MLA_SHAPES = (("deepseek-v3-671b", (4, 128, 128, 2048, 192, 128), True,
@@ -99,6 +117,10 @@ MLA_SHAPES = (("deepseek-v3-671b", (4, 128, 128, 2048, 192, 128), True,
                "bfloat16"),
               ("deepseek-v3-671b smoke", (2, 4, 4, 64, 24, 16), True,
                "float32"))
+# (config, (B, H, Hk, S, D), causal, dtype, window): the hybrid family's
+# prefill attention under its sliding window.
+WINDOW_SHAPES = (("hymba-1.5b", (4, 25, 5, 2048, 64), True, "bfloat16",
+                  1024),)
 # (config, (B, S, d_inner, n)): the SSM and hybrid prefill scans.
 SCAN_SHAPES = (("falcon-mamba-7b", (4, 2048, 8192, 16)),
                ("hymba-1.5b", (4, 2048, 3200, 16)))
@@ -326,40 +348,93 @@ def time_powf(torch, timing, kernels, emit, gen) -> None:
 
 def time_attention(torch, timing, kernels, emit, gen,
                    shapes=ATTN_SHAPES) -> None:
-    fa = kernels.flash_attn
-    for config, (b, h, hk, s, d, *dv), causal, name in shapes:
+    """``flash_attention`` at ``shapes`` beside SDPA (on a boolean mask
+    under a window) in turns, the bound and the MUFU's bound (one ex2 a
+    kept pair); with ``--src``, the other checkout's kernel and this
+    tree's in turns (other, this, this, other) on the same inputs, and
+    whether the two give the same bits (out, and lse where a shape writes
+    it)."""
+    fa, own = kernels.flash_attn, own_kernel("flash_attn")
+    other = Path(fa.__file__).resolve() != Path(own.__file__).resolve()
+    for config, (b, h, hk, s, d, *dv), causal, name, *opts in shapes:
         dv = dv[0] if dv else d
+        window, with_lse = (list(opts) + [0, False])[:2]
         dtype = getattr(torch, name)
         q = torch.randn(b, h, s, d, device=gen.device, generator=gen)
         k = torch.randn(b, hk, s, d, device=gen.device, generator=gen)
         v = torch.randn(b, hk, s, dv, device=gen.device, generator=gen)
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        lag = (torch.arange(s, device=gen.device)[:, None]
+               - torch.arange(s, device=gen.device)[None, :])
+        mask = ((lag >= 0) & (lag < window)) if window else None
+        lse = (torch.empty(b, h, s, device=gen.device) if with_lse
+               else None)
 
-        def kernel(q_, k_, v_, c=causal):
-            return fa.flash_attention(q_, k_, v_, causal=c)
+        def kernel(q_, k_, v_, c=causal, mod=own):
+            return mod.flash_attention(q_, k_, v_, causal=c, window=window,
+                                       lse=lse)
 
         def library(q_, k_, v_, c=causal):
+            if mask is not None:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q_, k_, v_, attn_mask=mask, enable_gqa=True)
             return torch.nn.functional.scaled_dot_product_attention(
                 q_, k_, v_, is_causal=c, enable_gqa=True)
 
-        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        got = kernel(q, k, v)
+        got_lse = None if lse is None else lse.clone()
+        want = own.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
         work = timing.attention_work(b, h, hk, s, s, d, causal,
-                                     q.element_size(),
+                                     q.element_size(), window=window,
                                      **({"dv": dv} if dv != d else {}))
         bnd, by = timing.bound(*work, name)
-        emit({"name": "flash_attention", "config": config,
-              "shape": [b, h, hk, s, d] + ([dv] if dv != d else []),
-              "dtype": name, "causal": causal,
-              "max_abs_err_vs_plain": (kernel(q, k, v).float()
-                                       - want.float()).abs().max().item(),
-              **timing.in_turns(kernel, library,
-                                timing.cold_copies(q, k, v)),
-              "library": "F.scaled_dot_product_attention(enable_gqa=True)",
-              "bound_ms": bnd, "bound_by": by})
+        inputs = timing.cold_copies(q, k, v)
+        rec = {"name": "flash_attention", "config": config,
+               "shape": [b, h, hk, s, d] + ([dv] if dv != d else []),
+               "dtype": name, "causal": causal, "window": window,
+               "lse": bool(with_lse),
+               "max_abs_err_vs_plain": (got.float() - want.float()).abs()
+               .max().item(),
+               "deterministic": torch.equal(got, kernel(q, k, v))
+               and (lse is None or torch.equal(got_lse, lse)),
+               **timing.in_turns(kernel, library, inputs),
+               "library": "F.scaled_dot_product_attention(enable_gqa=True"
+                          + (", attn_mask=(S, S) bool)" if window else ")"),
+               "bound_ms": bnd, "bound_by": by,
+               "mufu_bound_ms": work[1] / (2.0 * (d + dv)) / timing.MUFU_S
+               * 1e3}
+        if own.WGMMA_TILES.get((d, dv)) and name == "bfloat16":
+            plan = own.fwd_plan(b, h, s, s, d, dv, causal, window,
+                                own.sm_count(torch.cuda.current_device()))
+            rec["plan"] = {"rows": plan.rows, "keys": plan.keys,
+                           "order": plan.order, "grid": plan.grid,
+                           "rounds": plan.rounds}
+        if other:
+            def theirs(q_, k_, v_, c=causal):
+                return fa.flash_attention(q_, k_, v_, causal=c, lse=lse,
+                                          **({"window": window} if window
+                                             else {}))
+            g = [timing.graph_ms(f, inputs)
+                 for f in (theirs, kernel, kernel, theirs)]
+            rec.update(this_ms=(g[1] + g[2]) / 2, this_runs_ms=[g[1], g[2]],
+                       other_ms=(g[0] + g[3]) / 2, other_runs_ms=[g[0], g[3]],
+                       other=str(fa.__file__),
+                       speedup_vs_other=(g[0] + g[3]) / (g[1] + g[2]),
+                       same_bits_as_other=torch.equal(got, theirs(q, k, v))
+                       and (lse is None or torch.equal(got_lse, lse)))
+        rec["bound_share"] = bnd / rec["ms"]
+        emit(rec)
+        del q, k, v, got, want, inputs, lse, got_lse
+        torch.cuda.empty_cache()
 
 
 def time_mla(torch, timing, kernels, emit, gen) -> None:
     time_attention(torch, timing, kernels, emit, gen, shapes=MLA_SHAPES)
+
+
+def time_window(torch, timing, kernels, emit, gen) -> None:
+    time_attention(torch, timing, kernels, emit, gen, shapes=WINDOW_SHAPES)
 
 
 def time_scan(torch, timing, kernels, emit, gen) -> None:
@@ -512,7 +587,8 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
 PARTS = {"matmul": time_matmul, "axpy": time_axpy, "slot": time_slot,
          "dct": time_dct, "dotp": time_dotp, "fft": time_fft_long,
          "powf": time_powf, "attention": time_attention, "mla": time_mla,
-         "scan": time_scan, "attention_bwd": time_attention_bwd}
+         "window": time_window, "scan": time_scan,
+         "attention_bwd": time_attention_bwd}
 
 
 def main(argv=None) -> int:

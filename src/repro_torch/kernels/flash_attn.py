@@ -21,9 +21,15 @@ configs: 64 and 128 (most of them), 80 (hubert-xlarge), 192
 DeepSeek-V3's multi-head latent attention, keys of 128 + 64 rope
 features against values of 128, and its smoke config's (16 + 8, 16).
 At the serving path's prefill it is bound by tensor-core operations.
-The plain version is :func:`repro_torch.kernels.ref.flash_attention`
-cast to q's dtype, the path for CPU tensors and the kernel's oracle on
-the card.
+The ``wgmma`` kernel runs on a persistent grid, one block a
+multiprocessor walking the (head, query tile) items that
+:func:`fwd_plan` gives it in a static order (no counter to reset, so a
+CUDA graph replays the launch as it is): under causal masking without a
+window each head's query tiles ``n - 1 - p`` and ``p`` in one block,
+head by head, so that the heads in flight keep their K and V in L2;
+otherwise the longest walks first.  The plain version is
+:func:`repro_torch.kernels.ref.flash_attention` cast to q's dtype, the
+path for CPU tensors and the kernel's oracle on the card.
 
 Each kernel can also write the rows' log-sum-exp (``lse``), from which
 the backward kernels (:mod:`repro_torch.kernels.flash_attn_bwd`)
@@ -36,6 +42,8 @@ entry, at the pairs the backward kernels take).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -49,15 +57,130 @@ HEAD_DIMS = (8, 16, 32, 40, 64, 80, 128, 192)
 PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 
 # q, k, v, out, lse (or null), their 12 strides, B, H, Hk, S, T, D, Dv,
-# scale, causal, window, stream.
-_SIGNATURES = {fn: [ctypes.c_void_p] * 5
-               + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p]
-               for fn in ("flash_attn_f32", "flash_attn_bf16")}
+# scale, causal, window, (bf16: the wgmma plan's rows, order and grid,)
+# stream.
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+_SIGNATURES = {"flash_attn_f32": _ARGS + [ctypes.c_void_p],
+               "flash_attn_bf16": _ARGS + [ctypes.c_int] * 3
+               + [ctypes.POINTER(ctypes.c_ushort), ctypes.c_void_p]}
 _SIGNATURES["flash_attn_wgmma_smem"] = [ctypes.c_int] * 2
 _SIGNATURES["flash_attn_fma_smem"] = [ctypes.c_int] * 2
 _ENTRY = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
+
+
+# The (D, Dv) pairs that bfloat16 runs on the wgmma kernel, and its tile
+# there: the query rows of an item (64 a consumer warpgroup, two of them)
+# and the keys of a K/V tile.
+WGMMA_TILES = {(64, 64): (128, 128), (80, 80): (128, 128),
+               (128, 128): (128, 128), (192, 192): (128, 64),
+               (192, 128): (128, 128)}
+ORDER_PAIRS, ORDER_HEAVIEST = 0, 1
+MAX_ORDER = 1024    # query tiles the kernel's longest-first table holds
+SMS = 132           # the H100 SXM's multiprocessors
+
+
+def fwd_walk(qt: int, rows: int, keys: int, s: int, t: int, causal: bool,
+             window: int) -> tuple:
+    """``(j0, n)``: query tile ``qt`` (rows ``qt * rows`` on) walks key
+    tiles ``j0 .. j0 + n - 1``: under causal masking up to the tile of its
+    last row's last key, under a sliding window from the tile of its first
+    row's first key (``csrc/flash_attn.cu``'s ``item_tiles``)."""
+    q0 = qt * rows
+    n_kv = -(-t // keys)
+    if causal:
+        n_kv = min(n_kv, (min(q0 + rows, s) - 1) // keys + 1)
+    j0 = max(0, q0 - window + 1) // keys if window > 0 else 0
+    return j0, max(0, n_kv - j0)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The wgmma kernel's persistent grid: ``grid`` blocks, each taking
+    slots ``0 .. rounds - 1`` of ``order`` (:data:`ORDER_PAIRS` or
+    :data:`ORDER_HEAVIEST`) over ``n_qt`` query tiles of ``rows`` rows of
+    ``bh`` heads, walking key tiles of ``keys`` rows (:meth:`item`);
+    ``qts`` lists the query tiles longest walk first (the latest first
+    among equals), which :data:`ORDER_HEAVIEST` follows."""
+    rows: int
+    keys: int
+    order: int
+    grid: int
+    rounds: int
+    n_qt: int
+    bh: int
+    qts: tuple
+
+    def item(self, blk: int, i: int):
+        """``(bh, qt)`` that block ``blk`` takes in slot ``i``, or None for
+        an empty slot (``csrc/flash_attn.cu``'s ``sched_item``)."""
+        if self.order == ORDER_PAIRS:
+            npairs = (self.n_qt + 1) // 2
+            u = (i // 2) * self.grid + blk
+            if u >= self.bh * npairs:
+                return None
+            p = u % npairs
+            if i % 2 and p == self.n_qt - 1 - p:
+                return None
+            return u // npairs, (self.n_qt - 1 - p if i % 2 == 0 else p)
+        rank = i * self.grid + (blk if i % 2 == 0 else self.grid - 1 - blk)
+        if rank >= self.bh * self.n_qt:
+            return None
+        return rank % self.bh, self.qts[rank // self.bh]
+
+    def reordered(self, order: int, sms: int = SMS) -> "FwdPlan":
+        """The same items in ``order``, on that order's grid."""
+        units = self.bh * (self.n_qt if order == ORDER_HEAVIEST
+                           else (self.n_qt + 1) // 2)
+        grid = min(sms, units)
+        return dataclasses.replace(
+            self, order=order, grid=grid,
+            rounds=-(-units // grid) * (1 if order == ORDER_HEAVIEST else 2))
+
+    @functools.cached_property
+    def qt_table(self):
+        """``qts`` as the C array the kernel reads."""
+        return (ctypes.c_ushort * len(self.qts))(*self.qts)
+
+    def blocks(self) -> list:
+        """Each block's items ``(bh, qt)`` in the order it walks them."""
+        return [[x for x in (self.item(blk, i) for i in range(self.rounds))
+                 if x is not None] for blk in range(self.grid)]
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(b: int, h: int, s: int, t: int, d: int, dv: int, causal: bool,
+             window: int = 0, sms: int = SMS) -> FwdPlan:
+    """The persistent grid of the bfloat16 wgmma kernel at ``(d, dv)`` in
+    :data:`WGMMA_TILES` for q (b, h, s, d) and k, v (b, hk, t, ...): at most one block a
+    multiprocessor (``sms``), the kernel's shared memory allows no more.
+    Where each head's pair of query tiles n - 1 - p and p walks as many
+    key tiles as any other pair (causal masking or none, no window) and
+    there are more tiles than multiprocessors, blocks take such pairs head
+    by head (:data:`ORDER_PAIRS`): every block walks the same number of
+    key tiles, and the heads in flight at once, about ``sms`` / (n / 2),
+    keep their K and V in L2 while all their query tiles read them.
+    Otherwise (a window; a grid no larger than the card) the longest walks
+    go first, in rounds of ``grid`` items that snake across the blocks
+    (:data:`ORDER_HEAVIEST`), which evens the blocks' sums."""
+    rows, keys = WGMMA_TILES[(d, dv)]
+    if min(b, h, s, sms) <= 0 or t < 0:
+        raise ValueError(f"fwd_plan: no plan for b={b} h={h} s={s} t={t}")
+    n_qt, bh = -(-s // rows), b * h
+    walks = [fwd_walk(qt, rows, keys, s, t, causal, window)[1]
+             for qt in range(n_qt)]
+    qts = tuple(sorted(range(n_qt), key=lambda qt: (-walks[qt], -qt))
+                if n_qt <= MAX_ORDER else range(n_qt - 1, -1, -1))
+    pair_sums = {walks[p] + walks[n_qt - 1 - p] for p in range(n_qt // 2)}
+    pairs = window == 0 and len(pair_sums) <= 1 and bh * n_qt > sms
+    return FwdPlan(rows, keys, ORDER_HEAVIEST, 0, 0, n_qt, bh, qts).reordered(
+        ORDER_PAIRS if pairs else ORDER_HEAVIEST, sms)
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(index: int) -> int:
+    """Multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -178,11 +301,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{s}, T {t}")
     if out is None:
         out = torch.empty_like(q) if dv == d else q.new_empty(o_shape)
+    plan = None
+    if q.dtype == torch.bfloat16 and (d, dv) in WGMMA_TILES:
+        plan = fwd_plan(b, h, s, t, d, dv, bool(causal), window,
+                        sm_count(q.device.index))
+    launch(q, k, v, out, lse, scale, causal, window, plan)
+    LAUNCHES += 1
+    return out
+
+
+def launch(q, k, v, out, lse, scale: float, causal: bool, window: int,
+           plan: FwdPlan | None) -> None:
+    """One launch of the kernel on checked CUDA operands, the wgmma kernel
+    on ``plan``'s grid (None for the other kernels)."""
+    b, h, s, d = q.shape
     strides = _strides(q, k, v, out)
     lib = _build.load("flash_attn", _SIGNATURES)
+    extra = ()
+    if q.dtype == torch.bfloat16:
+        extra = (0, 0, 0, None) if plan is None else (
+            plan.rows, plan.order, plan.grid, plan.qt_table)
     _build.call(lib, "flash_attn", getattr(lib, _ENTRY[q.dtype]), q.device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), strides,
-                b, h, hk, s, t, d, dv, scale, int(causal), window)
-    LAUNCHES += 1
-    return out
+                b, h, k.shape[1], s, k.shape[2], d, v.shape[3], scale,
+                int(causal), window, *extra)

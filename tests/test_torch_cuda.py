@@ -701,6 +701,71 @@ def test_flash_attention_d192_grouped_12_to_1(cuda, causal):
                        got)
 
 
+# The wgmma kernel's persistent grid (flash_attn.fwd_plan): fewer items
+# than multiprocessors and many more, ragged lengths, windows at the edges
+# of its 128-row items and 128-key tiles (64-key at D 192).
+@pytest.mark.parametrize("d,dv,b,h,hk,s,window", [
+    (64, 64, 1, 2, 1, 100, 0), (128, 128, 1, 3, 1, 2048, 0),
+    (128, 128, 4, 32, 8, 1024, 0), (192, 128, 2, 16, 16, 1000, 0),
+    (192, 192, 1, 24, 2, 777, 0), (80, 80, 2, 16, 16, 640, 0),
+    (64, 64, 2, 10, 2, 1100, 1), (64, 64, 2, 10, 2, 1100, 127),
+    (64, 64, 2, 10, 2, 1100, 128), (64, 64, 2, 10, 2, 1100, 129),
+    (64, 64, 4, 25, 5, 2048, 1024), (128, 128, 2, 8, 2, 1100, 127),
+    (128, 128, 2, 8, 2, 1100, 128), (128, 128, 2, 8, 2, 1100, 129)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_persistent_grid(cuda, d, dv, b, h, hk, s, window,
+                                         causal):
+    """The plain version within FA_TOL and float32 attention on the same
+    inputs within FA_BF16_ROW_TOL of each row's scale; a second run, and
+    the same items in the other order on its own grid, give the same
+    bits."""
+    gen = torch.Generator(device=cuda).manual_seed(d + h + s + window)
+    q = _bf16(cuda, gen, b, h, s, d)
+    k, v = _bf16(cuda, gen, b, hk, s, d), _bf16(cuda, gen, b, hk, s, dv)
+    before = flash_attn.LAUNCHES
+    got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attn.LAUNCHES == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FA_TOL[torch.bfloat16],
+                               atol=FA_TOL[torch.bfloat16])
+    ref32 = flash_attn.flash_attention_plain(q.float(), k.float(), v.float(),
+                                             causal=causal, window=window)
+    assert row_scaled_err(got, ref32) <= FA_BF16_ROW_TOL
+    assert torch.equal(
+        flash_attn.flash_attention(q, k, v, causal=causal, window=window),
+        got)
+    sms = flash_attn.sm_count(torch.cuda.current_device())
+    plan = flash_attn.fwd_plan(b, h, s, s, d, dv, causal, window, sms)
+    other = plan.reordered(1 - plan.order, sms)
+    out = torch.empty_like(got)
+    flash_attn.launch(q, k, v, out, None, d ** -0.5, causal, window, other)
+    assert torch.equal(out, got)
+
+
+def test_flash_attention_persistent_grid_lse_and_views(cuda):
+    """DeepSeek-V3's pair with the rows' log-sum-exp, within 1e-5 of the
+    plain one, and on the model's strided views the contiguous call's
+    bits."""
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    q = (0.5 * torch.randn(2, 8, 700, 192, device=cuda, generator=gen)
+         ).bfloat16()
+    k = (0.5 * torch.randn(2, 8, 700, 192, device=cuda, generator=gen)
+         ).bfloat16()
+    v = _bf16(cuda, gen, 2, 8, 700, 128)
+    lse = torch.empty(2, 8, 700, device=cuda)
+    got = flash_attn.flash_attention(q, k, v, causal=True, lse=lse)
+    torch.testing.assert_close(lse, ref.attention_lse(q, k, causal=True),
+                               rtol=0, atol=1e-5)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    out = torch.empty(2, 700, 8, 128, device=cuda, dtype=torch.bfloat16)
+    flash_attn.flash_attention(qv, kv, vv, causal=True,
+                               out=out.transpose(1, 2))
+    assert torch.equal(out.transpose(1, 2), got)
+
+
 @pytest.mark.parametrize("d", flash_attn.HEAD_DIMS)
 @pytest.mark.parametrize("s,t", [(1, 1), (65, 200), (200, 65), (1000, 1000)])
 @pytest.mark.parametrize("causal", [True, False])
