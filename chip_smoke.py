@@ -183,28 +183,40 @@ phase prints one JSON line:
     ``flash_attention_mla`` the DeepSeek-V3 one (the same kernel at (192,
     128)), ``flash_attention_window`` the Hymba one (the same kernel
     under its window) and ``ssm_scan`` the Falcon-Mamba one.
-23. ``lm_train``: the dense family's training path.  The attention
-    backward kernels against their plain version (autograd through the
-    float32 reference) at the test shapes (ragged S and T, H / Hk 1 and
-    4, causal and full, float32 and bf16, every head width of
-    ``HEAD_DIMS``): dQ, dK and dV scaled by each gradient's largest
-    element, the forward's row log-sum-exp against the plain
-    ``logsumexp``, two runs bit for bit; a window and the pairs (192,
-    128) and (24, 16) must raise before any launch; then Qwen3-4B's
-    training shape, timed beside the plain version, SDPA's backward and
-    the bound, and the forward kernel with and without the ``lse``
-    output in turns.  The qwen3 smoke config's three micro-batched train
-    steps on the card against the stored JAX values (``lm_train``: the
-    init's digests, the metrics, the updated leaves' sums), float32 and
-    bf16.  Then Qwen3-4B at full width with its depth cut to 12 layers:
-    one micro-batch's loss and gradients through the kernels against
-    the plain chunked attention under autograd on the card, then a
-    warm-up and 3 timed steps of ``build_train_step`` (8 micro-batches
-    of 2048 tokens, remat, AdamW) with the step time, tokens per second,
-    peak memory, the kernels' launches (the forward twice a layer a
-    micro-batch, the backward once) and the model-FLOPs share.  Last,
-    ``examples/train_lm.py`` at its default ``10m`` scale (head width 40)
-    trains 40 steps through both kernels.  The summary line's ``flash_attention_bwd`` entry is this path: 16
+23. ``lm_train``: the training paths of the dense, MoE and MLA
+    families.  The attention backward kernels against their plain
+    version (autograd through the float32 reference) at the test shapes
+    (ragged S and T, H / Hk 1 and 4, causal and full, float32 and bf16,
+    every head width of ``HEAD_DIMS``, and the (D, Dv) pairs (192, 128)
+    and (24, 16) at the default scale and 0.37): dQ, dK and dV scaled by
+    each gradient's largest element, the forward's row log-sum-exp
+    against the plain ``logsumexp``, two runs bit for bit; a window and
+    a pair outside ``flash_attn.PAIRS`` must raise before any launch;
+    the kernels' registers and spills (a spill in a ``wgmma`` kernel or
+    an FMA kernel at a pair fails the run); then Qwen3-4B's and
+    DeepSeek-V3's training shapes, timed beside the plain version,
+    SDPA's backward and the bound, and the forward kernel with and
+    without the ``lse`` output in turns.  The qwen3 and deepseek-v3
+    smoke configs' three micro-batched train steps on the card against
+    the stored JAX values (``lm_train``, ``lm_train_moe``: the init's
+    digests, the metrics, the updated leaves' sums), float32 and bf16.
+    Then three models at full width, depth cut: Qwen3-4B to 12 layers,
+    DeepSeek-V3 to its 3 dense layers and the ``mtp`` head (bf16 master
+    weights, int8 first moment, factored second moment, bf16 gradient
+    sums: its config's plan) and Moonshot-v1-16B-A3B to 4 layers (its
+    dense layer and 3 MoE layers of 64 experts): for each, one
+    micro-batch's loss and gradients through the kernels against the
+    plain chunked attention under autograd on the card (the kernel run's
+    expert choices replayed in the plain run), then a warm-up and 3
+    timed steps of ``build_train_step`` (8 micro-batches of 2048
+    tokens, remat) with the step time, tokens per second, peak memory,
+    the kernels' launches (the forward twice a layer and once for the
+    ``mtp`` block a micro-batch, the backward once each) and the
+    model-FLOPs share.  Last, ``examples/train_lm.py`` at its default
+    ``10m`` scale (head width 40) trains 40 steps through both kernels.
+    The summary line's ``flash_attention_bwd`` entry is this path at
+    (D, D) (the Qwen3-4B and Moonshot runs' launches),
+    ``flash_attention_bwd_mla`` the DeepSeek-V3 run at (192, 128): 17
     kernels.
 
 Each phase prints its wall time.  Then the kernels' summary line and,
@@ -213,6 +225,7 @@ check raises: the script exits non-zero and prints no result.  It needs
 the rest of the checkout (``src/repro_torch``) and a CUDA device.
 """
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -228,9 +241,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.timing import (attention_work, bound, cold_copies, cuda_ms,
-                                fft_stage_work, fft_work, fp64_bound,
-                                graph_ms, in_turns, matmul_work, scan_bound,
+from repro_torch.timing import (attention_bwd_work, attention_work, bound,
+                                cold_copies, cuda_ms, fft_stage_work,
+                                fft_work, fp64_bound, graph_ms, in_turns,
+                                matmul_work, scan_bound, sdpa_backend,
                                 slot_work)
 
 
@@ -239,7 +253,8 @@ TUNED_MODES = ("tuned", "tuned_partial", "placed", "workload", "pareto")
 KERNELS = ("fft4_stage", "fft4_fused", "matmul", "dotp_central",
            "dotp_partials", "combine_partials", "combine_tree", "axpy",
            "dct", "conv2d", "powf", "flash_attention", "flash_attention_mla",
-           "flash_attention_window", "ssm_scan", "flash_attention_bwd")
+           "flash_attention_window", "ssm_scan", "flash_attention_bwd",
+           "flash_attention_bwd_mla")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             # The same Pallas kernel as src/repro/kernels/ops.py::fft4
             # chains it, every stage of a row in one launch.
@@ -270,7 +285,10 @@ REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             "ssm_scan": "src/repro/models/ssm.py:69",
             # No Pallas kernel: JAX's autodiff of the model's jnp chunked
             # attention (the Pallas kernel has no backward).
-            "flash_attention_bwd": "src/repro/models/attention.py:86"}
+            "flash_attention_bwd": "src/repro/models/attention.py:86",
+            # The same gradient at MLA's (D, Dv) = (192, 128) and scale
+            # (src/repro/models/mla.py:145).
+            "flash_attention_bwd_mla": "src/repro/models/attention.py:86"}
 SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "fft4_fused": "src/repro_torch/csrc/fft4_stage.cu",
            "matmul": "src/repro_torch/csrc/matmul.cu",
@@ -286,7 +304,9 @@ SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "flash_attention_mla": "src/repro_torch/csrc/flash_attn.cu",
            "flash_attention_window": "src/repro_torch/csrc/flash_attn.cu",
            "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
-           "flash_attention_bwd": "src/repro_torch/csrc/flash_attn_bwd.cu"}
+           "flash_attention_bwd": "src/repro_torch/csrc/flash_attn_bwd.cu",
+           "flash_attention_bwd_mla":
+           "src/repro_torch/csrc/flash_attn_bwd.cu"}
 # The dot product's path: the Fig. 5 input sizes and the 64 Mi-element
 # case where the bandwidth bound means something; the central
 # accumulator (radix 0) and the tree radices of the Fig. 6 sweep.
@@ -404,6 +424,14 @@ SCAN_TOL = 1e-4
 # logsumexp: float32 (9.5e-7 seen).
 FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 FA_BWD_ROW_FLOOR = 2.0 ** -6
+# The pairs' bf16 check at scale 0.37 (five times MLA's 192 ** -0.5) is
+# held to each gradient's largest element instead
+# (tests/test_torch_cuda.py's BWD_TOL): so peaked a softmax leaves rows
+# of dQ whose terms cancel, and dS rounded to bf16 before the dQ product
+# (every bf16 kernel's design) moves such a row by up to 0.13 of itself
+# at (192, 128) (seen), as the row metric counts it.  float32 at 0.37
+# and bf16 at MLA's scale keep the row metric.
+FA_BWD_SCALED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 FA_LSE_TOL = 1e-5
 # Its test shapes (H, Hk, S, T): ragged lengths, groups of 1 and 4, and S
 # = 1000 (no multiple of the wgmma kernels' 64- and 128-row tiles); then
@@ -411,6 +439,9 @@ FA_LSE_TOL = 1e-5
 FA_BWD_SHAPES = ((2, 2, 77, 77), (8, 2, 300, 300), (4, 1, 130, 200),
                  (8, 2, 1000, 1000))
 FA_TRAIN_SHAPE = (1, 32, 8, 2048, 128)
+# DeepSeek-V3's training attention (B, H, Hk, S, D, Dv): one micro-batch
+# of 2048 tokens, 128 heads at MLA's (192, 128).
+FA_MLA_TRAIN_SHAPE = (1, 128, 128, 2048, 192, 128)
 # The training path at full width: Qwen3-4B's published widths with the
 # depth cut to 12 of its 36 layers (4.41 B parameters need ~88 GB of
 # weights, float32 master, moments and gradient accumulator; 12 layers
@@ -418,19 +449,45 @@ FA_TRAIN_SHAPE = (1, 32, 8, 2048, 128)
 # 2048 tokens of the synthetic stream (seed 0), AdamW from the config.
 LM_TRAIN = {"arch": "qwen3_4b", "n_layers": 12, "global_batch": 8,
             "seq_len": 2048, "timed_steps": 3}
+# The MoE and MLA families at published widths, the same traffic and
+# steps at each config's own defaults.  DeepSeek-V3 as its dense prefix:
+# one of its MoE layers holds 256 x 3 x 7168 x 2048 = 11.3 B parameters,
+# and at the config's plan (bf16 weights, a bf16 gradient sum and a
+# micro-batch's bf16 gradients, an int8 first moment: 7 bytes a
+# parameter) any depth that keeps one needs ~110 GB; its 3 dense layers
+# and the mtp head are 4.29 B (~30 GB before activations).  MLA's (192,
+# 128) attention runs at full width in all four blocks.
+LM_TRAIN_MLA = {"arch": "deepseek_v3_671b", "n_layers": 3, "global_batch": 8,
+                "seq_len": 2048, "timed_steps": 3}
+# Moonshot-v1-16B-A3B (64 experts, top-6, 2 shared; MHA at D 128) cut to
+# its dense layer and 3 MoE layers: 2.52 B parameters at the default
+# float32 master and moments (~25 bytes a parameter in Qwen3-4B's run,
+# ~59 GiB; 5 layers, 3.11 B, would need ~73 GiB of the card's 80).
+LM_TRAIN_MOE = {"arch": "moonshot_v1_16b_a3b", "n_layers": 4,
+                "global_batch": 8, "seq_len": 2048, "timed_steps": 3}
 # One micro-batch's loss and gradients through the kernels against the
 # plain chunked attention under autograd on the card: both bf16, with p
 # and the outputs rounded at other places.  Each gradient leaf's largest
 # gap to 0.1 of its largest element (the CPU's bf16 port against XLA:
-# 1.9e-2; 0.034 seen here) is the check that catches a wrong kernel: at
-# the random init the loss (about 12) barely depends on attention.  The
-# loss to 1e-3 (1.9e-4 seen).
+# 1.9e-2; 0.034 seen at Qwen3-4B) is the check that catches a wrong
+# kernel: at the random init the loss (about 12) barely depends on
+# attention.  The loss to 1e-3 (1.9e-4 seen).  The same bounds hold
+# DeepSeek-V3's and Moonshot-v1-16B-A3B's runs, their expert choices
+# replayed (_Routing).
 LM_TRAIN_LOSS_GAP, LM_TRAIN_GRAD_GAP = 1e-3, 0.1
 # The smoke train steps against the stored JAX values
 # (tests/test_torch_lm_train_values.py's TOL): the metrics' relative gap,
 # a leaf's sum gap over its sum of absolute values.
 LM_TRAIN_TOL = {"float32": {"metrics": 1e-5, "leaf_sum": 1e-4},
                 "bfloat16": {"metrics": 5e-3, "leaf_sum": 2e-3}}
+# The deepseek-v3 smoke steps (``lm_train_moe``,
+# tests/test_torch_lm_train_moe_values.py's TOL): the same, but float32's
+# metrics to 5e-5: bf16 master weights and bf16 gradient sums turn an ulp
+# of float32 into a flipped bf16 rounding (1.3e-5 seen here, 8.3e-6 on the
+# CPU).  The MoE's gather backward adds with atomics on the card, so these
+# runs are held to the bounds, not to bits.
+LM_TRAIN_MOE_TOL = {"float32": {"metrics": 5e-5, "leaf_sum": 1e-4},
+                    "bfloat16": {"metrics": 5e-3, "leaf_sum": 2e-3}}
 
 
 def emit(obj) -> None:
@@ -3163,120 +3220,65 @@ def grad_row_err(got, want) -> float:
 
 
 def bwd_resources(build, flash_attn, flash_attn_bwd) -> dict:
-    """ptxas's registers and spills of the backward kernels at each head
-    width: ``bwd_dkdv_wgmma``/``bwd_dq_wgmma`` (bf16 at
-    ``flash_attn_bwd.WGMMA_DIMS``, with the dynamic shared memory of a
-    launch), ``bwd_dkdv_mma``/``bwd_dq_mma`` (bf16 at the other multiples
-    of 16) and ``bwd_dkdv_fma``/``bwd_dq_fma`` (float32; bf16 at D 8 and
-    40).  Raises if ptxas reports a spill in a wgmma kernel or one would
-    take more shared memory than a block may have; the older kernels'
-    spills are recorded beside the times (they cost time, not
-    correctness)."""
+    """ptxas's registers and spills of the backward kernels at each (D,
+    Dv) pair of ``flash_attn.PAIRS`` (named ``d{D}``, or ``d{D} dv{Dv}``
+    where Dv differs): ``bwd_dkdv_wgmma``/``bwd_dq_wgmma`` (bf16 at (D, D)
+    for D in ``flash_attn_bwd.WGMMA_DIMS``, with the dynamic shared memory
+    of a launch), ``bwd_dkdv_mma``/``bwd_dq_mma`` (bf16 at the other pairs
+    whose widths are multiples of 16, (192, 128) included) and
+    ``bwd_dkdv_fma``/``bwd_dq_fma`` (float32 at every pair; bf16 at D 8
+    and 40 and at (24, 16)).  Raises if ptxas reports a spill in a wgmma
+    kernel or in an FMA kernel at a pair where Dv differs, or a wgmma
+    launch would take more shared memory than a block may have; the
+    spills of the older mma.sync and (D, D) FMA kernels (and of the
+    mma.sync kernel at (192, 128), which shares their dQ loop) are
+    recorded beside the times (they cost time, not correctness)."""
     log = build.compiler_log("flash_attn_bwd")
     lib = build.load("flash_attn_bwd", flash_attn_bwd._SIGNATURES)
-    res = {}
-    for d in flash_attn.HEAD_DIMS:
+    res, strict = {}, []
+    for d, dv in flash_attn.PAIRS:
+        tag = f"d{d}" + ("" if dv == d else f" dv{dv}")
         for which, kernel in enumerate(("bwd_dkdv", "bwd_dq")):
-            if d in flash_attn_bwd.WGMMA_DIMS:
-                res[f"{kernel}_wgmma d{d}"] = dict(
+            if d == dv and d in flash_attn_bwd.WGMMA_DIMS:
+                res[f"{kernel}_wgmma {tag}"] = dict(
                     ptxas_usage(log, f"{kernel}_wgmmaILi{d}E"),
                     dynamic_smem_bytes=lib.flash_attn_bwd_wgmma_smem(d,
                                                                      which))
-            elif d % 16 == 0:
-                res[f"{kernel}_mma d{d}"] = ptxas_usage(
-                    log, f"{kernel}_mmaILi{d}E")
-            res[f"{kernel}_fma f32 d{d}"] = ptxas_usage(
-                log, f"{kernel}_fmaIfLi{d}E")
-        if d % 16:
-            for kernel in ("bwd_dkdv", "bwd_dq"):
-                res[f"{kernel}_fma bf16 d{d}"] = ptxas_usage(
-                    log, f"{kernel}_fmaI13__nv_bfloat16Li{d}E")
-    wg = {name: u for name, u in res.items() if "_wgmma" in name}
-    spills = ptxas_spills(log, "_wgmmaILi")
-    too_big = {name: u for name, u in wg.items()
-               if u["dynamic_smem_bytes"] + u.get("static_smem_bytes", 0)
-               > SMEM_PER_BLOCK}
-    if (len(spills) != len(wg) or any(spills.values()) or too_big
-            or not all(u.get("registers") for u in wg.values())):
-        raise AssertionError(f"backward wgmma kernels: {wg}, spill bytes "
-                             f"{spills}, over {SMEM_PER_BLOCK} bytes of "
-                             f"shared memory {too_big}")
+                strict.append(f"{kernel}_wgmma {tag}")
+            elif d % 16 == 0 and dv % 16 == 0:
+                res[f"{kernel}_mma {tag}"] = ptxas_usage(
+                    log, f"{kernel}_mmaILi{d}ELi{dv}E")
+            else:
+                res[f"{kernel}_fma bf16 {tag}"] = ptxas_usage(
+                    log, f"{kernel}_fmaI13__nv_bfloat16Li{d}ELi{dv}E")
+                strict += [f"{kernel}_fma bf16 {tag}"] if dv != d else []
+            res[f"{kernel}_fma f32 {tag}"] = ptxas_usage(
+                log, f"{kernel}_fmaIfLi{d}ELi{dv}E")
+            strict += [f"{kernel}_fma f32 {tag}"] if dv != d else []
+    spills = {name: res[name].get("spill_store_bytes", -1)
+              + res[name].get("spill_load_bytes", -1) for name in strict}
+    too_big = {name: u for name, u in res.items()
+               if "_wgmma" in name and u["dynamic_smem_bytes"]
+               + u.get("static_smem_bytes", 0) > SMEM_PER_BLOCK}
+    if (any(spills.values()) or too_big
+            or not all(u.get("registers") for u in res.values())):
+        raise AssertionError(f"backward kernels: spill bytes {spills} (-2: "
+                             f"not in ptxas's log), over {SMEM_PER_BLOCK} "
+                             f"bytes of shared memory {too_big}; {res}")
     return res
 
 
-def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> dict:
-    """The backward kernels against their plain version at the test
-    shapes and Qwen3-4B's training shape, their determinism and refusals,
-    and the times and resources at the training shape.  Returns the
-    summary record."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(25)
-
-    def inputs(dtype, b, h, hk, s, t, d):
-        q = (0.5 * torch.randn(b, h, s, d, device=dev, generator=gen)
-             ).to(dtype)
-        k = (0.5 * torch.randn(b, hk, t, d, device=dev, generator=gen)
-             ).to(dtype)
-        v = torch.randn(b, hk, t, d, device=dev, generator=gen).to(dtype)
-        do = torch.randn(b, h, s, d, device=dev, generator=gen).to(dtype)
-        return q, k, v, do
-
-    def run(q, k, v, do, causal):
-        lse = torch.empty(q.shape[:3], device=dev)
-        out = flash_attn.flash_attention(q, k, v, causal=causal, lse=lse)
-        got = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
-                                                 causal=causal)
-        again = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
-                                                   causal=causal)
-        want = flash_attn_bwd.flash_attention_bwd_plain(q, k, v, do,
-                                                        causal=causal)
-        lse_err = (lse - ref.attention_lse(q, k, causal=causal)).abs() \
-            .max().item()
-        errs = [grad_row_err(g, w) for g, w in zip(got, want)]
-        tol = FA_BWD_TOL[str(q.dtype).split(".")[1]]
-        if not (max(errs) <= tol and lse_err <= FA_LSE_TOL):
-            raise AssertionError(f"flash_attention_bwd {list(q.shape)} "
-                                 f"{q.dtype} causal={causal}: dq/dk/dv "
-                                 f"errors {errs} (tol {tol}), lse {lse_err}")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError("flash_attention_bwd: two runs differ")
-        return {"dq_dk_dv_row_err": errs, "lse_err": lse_err, "tol": tol,
-                "deterministic": True}, (out, lse, got, want)
-
-    worst = {}
-    for name in ("float32", "bfloat16"):
-        for d in flash_attn.HEAD_DIMS:
-            for causal in (True, False):
-                for h, hk, s, t in FA_BWD_SHAPES:
-                    rec, _ = run(*inputs(getattr(torch, name), 2, h, hk, s, t,
-                                         d), causal)
-                    worst[name] = max(worst.get(name, 0.0),
-                                      max(rec["dq_dk_dv_row_err"]))
-    emit({"phase": "lm_train", "check": "flash_attention_bwd against plain "
-          "at the test shapes", "shapes": FA_BWD_SHAPES,
-          "head_dims": flash_attn.HEAD_DIMS, "worst_row_err": worst,
-          "tol": FA_BWD_TOL, "deterministic": True})
-
-    x = torch.zeros(1, 2, 8, 192, device=dev, dtype=torch.bfloat16)
-    lse0 = torch.zeros(1, 2, 8, device=dev)
-    x24 = torch.zeros(1, 2, 8, 24, device=dev, dtype=torch.bfloat16)
-    before = flash_attn_bwd.LAUNCHES
-    for what, args, kw in (
-            ("window", (x, x, x, x, x, lse0), {"window": 64}),
-            ("(192, 128)", (x, x, x[..., :128], x, x, lse0), {}),
-            ("(24, 16)", (x24, x24, x24[..., :16], x24, x24, lse0), {})):
-        try:
-            flash_attn_bwd.flash_attention_bwd(*args, **kw)
-        except ValueError:
-            continue
-        raise AssertionError(f"flash_attention_bwd took a {what}")
-    if flash_attn_bwd.LAUNCHES != before:
-        raise AssertionError("flash_attention_bwd launched before refusing")
-    emit({"phase": "lm_train", "check": "a window, (192, 128) and (24, 16) "
-          "raise ValueError before any launch"})
-
-    b, h, hk, s, d = FA_TRAIN_SHAPE
-    q, k, v, do = inputs(torch.bfloat16, b, h, hk, s, s, d)
+def _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs, shape,
+               kernel_resources) -> dict:
+    """The backward at a training shape (B, H, Hk, S, D[, Dv]), bf16,
+    causal, the caller's default scale (MLA's ``D ** -0.5`` at (192,
+    128)): ``run``'s checks against the plain version, then the kernels'
+    time in device time and eagerly, SDPA's backward alone in turns with
+    them eagerly (the backend torch picked named), the plain version's
+    time and the bound of the five products; the summary record."""
+    b, h, hk, s, d, *dv = shape
+    dv = dv[0] if dv else d
+    q, k, v, do = inputs(torch.bfloat16, b, h, hk, s, s, d, dv)
     rec, (out, lse, got, want) = run(q, k, v, do, True)
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(
@@ -3292,21 +3294,149 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> dict:
         return flash_attn_bwd.flash_attention_bwd(*a, causal=True)
 
     args = [(q, k, v, out, do, lse)]
-    # The causal half's pairs, five products of 2 D operations each; q,
-    # k, v, out, dO and lse read once, dq, dk, dv written once.
-    pairs = s * (s + 1) / 2
-    b_ms, b_by = bound(2.0 * (4 * q.numel() + 4 * k.numel())
-                       + 4.0 * lse.numel(), 5 * 2.0 * d * b * h * pairs,
-                       "bfloat16")
-    ms = cuda_ms(kernel, args)
-    library_ms = cuda_ms(library, [(do,)])
+    b_ms, b_by = bound(*attention_bwd_work(b, h, hk, s, s, d, True, 2,
+                                           dv=dv), "bfloat16")
+    turns = [cuda_ms(kernel, args), cuda_ms(library, [(do,)]),
+             cuda_ms(library, [(do,)]), cuda_ms(kernel, args)]
+    ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    return {"phase": "lm_train", "shape": list(shape), "dtype": "bfloat16",
+            "causal": True, **rec,
+            "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                               for g, w in zip(got, want)),
+            "ms": ms, "runs_ms": [turns[0], turns[3]],
+            "graph_ms": graph_ms(kernel, args),
+            "plain_ms": cuda_ms(
+                lambda *a: flash_attn_bwd.flash_attention_bwd_plain(
+                    *a, causal=True), [(q, k, v, do)], iters=3, warmup=1),
+            "library_ms": library_ms,
+            "library_runs_ms": [turns[1], turns[2]],
+            "ratio_to_library": ms / library_ms,
+            "library": "torch.autograd.grad of F.scaled_dot_product_"
+                       "attention(is_causal=True, enable_gqa=True) (the "
+                       "backward alone), in turns with the kernels, "
+                       "eagerly",
+            "library_backend": sdpa_backend(q, k, v, True),
+            "library_row_err": [grad_row_err(g, w)
+                                for g, w in zip(lib, want)],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms,
+            "kernel_resources": kernel_resources,
+            "unit": "one call: the pre-pass, dK/dV and dQ kernels of one "
+                    "layer's attention, one micro-batch"}
+
+
+def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
+    """The backward kernels against their plain version at the test
+    shapes, at every (D, D) and at MLA's pairs, their determinism and
+    refusals, their resources, and the times at Qwen3-4B's and
+    DeepSeek-V3's training shapes.  Returns the two summary records
+    (Qwen3-4B's shape, DeepSeek-V3's)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def inputs(dtype, b, h, hk, s, t, d, dv=None):
+        dv = d if dv is None else dv
+        q = (0.5 * torch.randn(b, h, s, d, device=dev, generator=gen)
+             ).to(dtype)
+        k = (0.5 * torch.randn(b, hk, t, d, device=dev, generator=gen)
+             ).to(dtype)
+        v = torch.randn(b, hk, t, dv, device=dev, generator=gen).to(dtype)
+        do = torch.randn(b, h, s, dv, device=dev, generator=gen).to(dtype)
+        return q, k, v, do
+
+    def run(q, k, v, do, causal, scale=None, rows=True):
+        lse = torch.empty(q.shape[:3], device=dev)
+        out = flash_attn.flash_attention(q, k, v, causal=causal,
+                                         scale=scale, lse=lse)
+        got = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                                 causal=causal, scale=scale)
+        again = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                                   causal=causal,
+                                                   scale=scale)
+        want = flash_attn_bwd.flash_attention_bwd_plain(q, k, v, do,
+                                                        causal=causal,
+                                                        scale=scale)
+        lse_err = (lse - ref.attention_lse(q, k, causal=causal, scale=scale)
+                   ).abs().max().item()
+        dtype = str(q.dtype).split(".")[1]
+        err, tol = ((grad_row_err, FA_BWD_TOL[dtype]) if rows
+                    else (_scaled_err, FA_BWD_SCALED_TOL[dtype]))
+        errs = [err(g, w) for g, w in zip(got, want)]
+        if not (max(errs) <= tol and lse_err <= FA_LSE_TOL):
+            raise AssertionError(f"flash_attention_bwd {list(q.shape)} "
+                                 f"{list(v.shape)} {q.dtype} causal={causal}"
+                                 f" scale={scale}: dq/dk/dv errors {errs} "
+                                 f"(tol {tol}), lse {lse_err}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("flash_attention_bwd: two runs differ")
+        return {"dq_dk_dv_row_err" if rows else "dq_dk_dv_scaled_err": errs,
+                "lse_err": lse_err, "tol": tol,
+                "deterministic": True}, (out, lse, got, want)
+
+    worst = {}
+    for name in ("float32", "bfloat16"):
+        for d in flash_attn.HEAD_DIMS:
+            for causal in (True, False):
+                for h, hk, s, t in FA_BWD_SHAPES:
+                    rec, _ = run(*inputs(getattr(torch, name), 2, h, hk, s, t,
+                                         d), causal)
+                    worst[name] = max(worst.get(name, 0.0),
+                                      max(rec["dq_dk_dv_row_err"]))
+    emit({"phase": "lm_train", "check": "flash_attention_bwd against plain "
+          "at the test shapes", "shapes": FA_BWD_SHAPES,
+          "head_dims": flash_attn.HEAD_DIMS, "worst_row_err": worst,
+          "tol": FA_BWD_TOL, "deterministic": True})
+    worst = {}
+    for name in ("float32", "bfloat16"):
+        for d, dv in FA_PAIRS:
+            for causal in (True, False):
+                for scale in (None, FA_SCALE):
+                    rows = name == "float32" or scale is None
+                    for h, hk, s, t in FA_BWD_SHAPES:
+                        rec, _ = run(*inputs(getattr(torch, name), 2, h, hk,
+                                             s, t, d, dv), causal, scale,
+                                     rows)
+                        key = (f"{name} ({d}, {dv}) scale {scale or 'MLA'} "
+                               + ("row" if rows else "scaled"))
+                        worst[key] = max(worst.get(key, 0.0),
+                                         max(rec.get("dq_dk_dv_row_err")
+                                             or rec["dq_dk_dv_scaled_err"]))
+    emit({"phase": "lm_train", "check": "flash_attention_bwd against plain "
+          "at the (D, Dv) pairs, MLA's scale and "
+          f"{FA_SCALE}", "shapes": FA_BWD_SHAPES, "pairs": FA_PAIRS,
+          "worst_err": worst, "tol": FA_BWD_TOL,
+          "scaled_tol": FA_BWD_SCALED_TOL, "deterministic": True})
+
+    x = torch.zeros(1, 2, 8, 192, device=dev, dtype=torch.bfloat16)
+    lse0 = torch.zeros(1, 2, 8, device=dev)
+    before = flash_attn_bwd.LAUNCHES
+    for what, args, kw in (
+            ("window", (x, x, x, x, x, lse0), {"window": 64}),
+            ("(192, 64)", (x, x, *(x[..., :64],) * 3, lse0), {})):
+        try:
+            flash_attn_bwd.flash_attention_bwd(*args, **kw)
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention_bwd took a {what}")
+    if flash_attn_bwd.LAUNCHES != before:
+        raise AssertionError("flash_attention_bwd launched before refusing")
+    emit({"phase": "lm_train", "check": "a window and a pair outside "
+          "flash_attn.PAIRS raise ValueError before any launch"})
+
+    resources = bwd_resources(build, flash_attn, flash_attn_bwd)
+    summary = _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs,
+                         FA_TRAIN_SHAPE, resources)
+    mla_summary = _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs,
+                             FA_MLA_TRAIN_SHAPE, resources)
     # The forward kernel with and without the lse output, in turns, in
-    # device time, at this shape and at the serving prefill's.
+    # device time, at the training shapes and at the serving prefill's.
     fwd = {}
     for label, shape in (("train", FA_TRAIN_SHAPE),
+                         ("mla_train", FA_MLA_TRAIN_SHAPE),
                          ("serve", FA_PATH_SHAPE)):
-        bb, hh, hkk, ss, dd = shape
-        fq, fk, fv, _ = inputs(torch.bfloat16, bb, hh, hkk, ss, ss, dd)
+        bb, hh, hkk, ss, dd, *dv = shape
+        fq, fk, fv, _ = inputs(torch.bfloat16, bb, hh, hkk, ss, ss, dd,
+                               *dv)
         lse_buf = torch.empty(bb, hh, ss, device=dev)
         ins = cold_copies(fq, fk, fv)
         runs = [graph_ms(lambda *a: flash_attn.flash_attention(
@@ -3314,29 +3444,13 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> dict:
                 for with_lse in (False, True, True, False)]
         fwd[label] = {"no_lse_ms": (runs[0] + runs[3]) / 2,
                       "lse_ms": (runs[1] + runs[2]) / 2, "runs_ms": runs}
-    summary = {"phase": "lm_train", "name": "flash_attention_bwd",
-               "shape": list(FA_TRAIN_SHAPE), "dtype": "bfloat16",
-               "causal": True, **rec,
-               "max_abs_err": max((g.float() - w.float()).abs().max().item()
-                                  for g, w in zip(got, want)),
-               "ms": ms, "graph_ms": graph_ms(kernel, args),
-               "plain_ms": cuda_ms(
-                   lambda *a: flash_attn_bwd.flash_attention_bwd_plain(
-                       *a, causal=True), [(q, k, v, do)], iters=3, warmup=1),
-               "library_ms": library_ms, "ratio_to_library": ms / library_ms,
-               "library": "torch.autograd.grad of F.scaled_dot_product_"
-                          "attention(is_causal=True, enable_gqa=True) (the "
-                          "backward alone)",
-               "library_row_err": [grad_row_err(g, w)
-                                   for g, w in zip(lib, want)],
-               "bound_ms": b_ms, "bound_by": b_by,
-               "forward_lse_cost": fwd,
-               "kernel_resources": bwd_resources(build, flash_attn,
-                                                 flash_attn_bwd),
-               "unit": "one call: the pre-pass, dK/dV and dQ kernels of one "
-                       "layer's attention, one micro-batch"}
+        del fq, fk, fv, ins, lse_buf
+    summary.update(name="flash_attention_bwd", forward_lse_cost=fwd)
+    mla_summary.update(name="flash_attention_bwd_mla",
+                       forward_lse_cost={"mla_train": fwd["mla_train"]})
     emit(summary)
-    return summary
+    emit(mla_summary)
+    return summary, mla_summary
 
 
 def _leaf_digests(torch, items) -> dict:
@@ -3350,10 +3464,11 @@ def _leaf_digests(torch, items) -> dict:
 
 
 def _train_smoke_against_jax(torch, configs, prng, optim, steps, data,
-                             init_params, tree_items, ref) -> None:
-    """The qwen3 smoke config's stored three train steps (``lm_train``)
-    on the card: the init's leaf digests, each step's metrics and the
-    updated leaves' sums at :data:`LM_TRAIN_TOL`."""
+                             init_params, tree_items, ref, tols) -> None:
+    """A smoke config's stored three train steps (``lm_train``: qwen3;
+    ``lm_train_moe``: deepseek-v3) on the card: the init's leaf digests,
+    each step's metrics and the updated leaves' sums at ``tols``
+    (:data:`LM_TRAIN_TOL`, :data:`LM_TRAIN_MOE_TOL`)."""
     dcfg = data.DataConfig(seed=ref["data_seed"], seq_len=ref["seq_len"],
                            global_batch=ref["global_batch"],
                            vocab_size=configs.get_smoke(ref["arch"])
@@ -3368,40 +3483,70 @@ def _train_smoke_against_jax(torch, configs, prng, optim, steps, data,
                                  f"differs from the JAX leaves")
         fn, _ = steps.build_train_step(cfg, opt_cfg=ocfg)
         state = optim.init(params, ocfg)
-        m_gap = 0.0
+        gaps = {}
         for i, w in enumerate(want["metrics"]):
             batch = {k: torch.from_numpy(v).cuda() for k, v in
                      data.batch_for_model(cfg, dcfg, i).items()}
             params, state, m = fn(params, state, batch)
             for k, wv in w.items():
                 g = float(m[k])
-                m_gap = max(m_gap, abs(g - wv) / abs(wv) if wv else abs(g))
+                gaps[k] = max(gaps.get(k, 0.0),
+                              abs(g - wv) / abs(wv) if wv else abs(g))
+        m_gap = max(gaps.values())
         s_gap = 0.0
         for path, t in tree_items(params):
             s, l1 = want["leaf_sums"][path]
             s_gap = max(s_gap, abs(t.double().sum().item() - s) / l1)
-        tol = LM_TRAIN_TOL[dtype]
+        tol = tols[dtype]
         emit({"phase": "lm_train", "check": f"smoke {ref['arch']} {dtype} "
               f"train steps against JAX", "steps": ref["steps"],
               "micro_batches": ref["micro_batches"], "digests_equal": True,
-              "metrics_gap": m_gap, "leaf_sum_gap": s_gap, "tol": tol})
+              "metrics_gap": m_gap, "metrics_gap_by_key": gaps,
+              "leaf_sum_gap": s_gap, "tol": tol})
         if not (m_gap <= tol["metrics"] and s_gap <= tol["leaf_sum"]):
             raise AssertionError(f"lm_train {dtype}: metrics gap {m_gap}, "
                                  f"leaf sum gap {s_gap} past {tol}")
 
 
+class _Routing:
+    """``models.moe.top_k`` recorded in one run and replayed in the next,
+    so that two runs of a MoE model that differ only in their attention
+    send every token to the same experts (one bf16 ulp of the attention's
+    output flips a near-tied expert otherwise, and with it that token's
+    gradients); ``flips`` counts the (token, slot) choices that the
+    replayed run would have made otherwise.  A dense model never calls
+    it."""
+
+    def __init__(self, moe):
+        self.moe, self.real, self.calls, self.flips = moe, moe.top_k, [], 0
+
+    def record(self, probs, k):
+        vals, idx = self.real(probs, k)
+        self.calls.append(idx)
+        return vals, idx
+
+    def replay(self, probs, k):
+        idx = self.calls.pop(0)
+        self.flips += int((self.real(probs, k)[1] != idx).sum())
+        return probs.gather(-1, idx), idx
+
+
 def _train_full(torch, configs, prng, optim, steps, data, attention,
-                models, layers, flash_attn, flash_attn_bwd, fa_ms) -> dict:
-    """Qwen3-4B at full width, depth cut to :data:`LM_TRAIN`'s 12 layers:
-    one micro-batch's loss and gradients through the kernels against the
-    plain chunked attention under autograd on the card, then a warm-up
-    step and the timed steps of ``build_train_step`` (the main path, the
-    kernels' launches counted from 0 just before the timed steps).
-    ``fa_ms`` holds one forward and one backward call's device
-    milliseconds at this shape.  Returns the launches by kernel."""
-    spec = LM_TRAIN
-    cfg = dataclasses.replace(configs.get(spec["arch"]),
-                              n_layers=spec["n_layers"])
+                models, layers, flash_attn, flash_attn_bwd, spec,
+                fa_ms) -> dict:
+    """A config at its published widths, depth cut to ``spec``'s
+    ``n_layers``: one micro-batch's loss and gradients through the kernels
+    against the plain chunked attention under autograd on the card (a MoE
+    model's expert choices recorded in the kernel run and replayed in the
+    plain one, :class:`_Routing`), then a warm-up step and the timed steps
+    of ``build_train_step`` at the config's own optimizer plan (the main
+    path, the kernels' launches counted from 0 just before the timed
+    steps).  ``fa_ms`` holds one forward and one backward call's device
+    milliseconds at this shape, or is None where they were not timed.
+    Returns the launches by kernel."""
+    from repro_torch.models import moe
+    full = configs.get(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec["n_layers"])
     t0 = time.perf_counter()
     params = models.init_params(cfg, prng.PRNGKey(0, device="cuda"))
     torch.cuda.synchronize()
@@ -3420,33 +3565,49 @@ def _train_full(torch, configs, prng, optim, steps, data, attention,
                            params)
     items = layers.tree_items(live)
     leaves = [t for _, t in items]
+    routing = _Routing(moe)
 
-    def loss_grads():
-        loss, _ = models.loss_fn(live, cfg, one)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+    def loss_grads(top_k):
+        moe.top_k = top_k
+        try:
+            loss, _ = models.loss_fn(live, cfg, one)
+            # A stack cut to no layers (DeepSeek-V3's MoE stack) has
+            # empty leaves that the loss never reads.
+            return loss.detach(), torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True)
+        finally:
+            moe.top_k = routing.real
 
-    kernel_loss, kernel_grads = loss_grads()
+    kernel_loss, kernel_grads = loss_grads(routing.record)
     kernel_attention = attention.flash_attention
     attention.flash_attention = attention.chunked_attention
     try:
-        plain_loss, plain_grads = loss_grads()
+        plain_loss, plain_grads = loss_grads(routing.replay)
     finally:
         attention.flash_attention = kernel_attention
+    if routing.calls:
+        raise AssertionError(f"{cfg.name}: {len(routing.calls)} recorded "
+                             f"routings not replayed")
     loss_gap = abs(kernel_loss.item() - plain_loss.item())
     grad_gaps = {path: _scaled_err(g, w) for (path, _), g, w in
-                 zip(items, kernel_grads, plain_grads)}
+                 zip(items, kernel_grads, plain_grads)
+                 if w.numel()}
     del live, items, leaves, kernel_grads, plain_grads
+    gc.collect()
     torch.cuda.empty_cache()
     grad_gap = max(grad_gaps.values())
-    emit({"phase": "lm_train", "check": "full-width micro-batch: kernels "
-          "against the plain chunked attention under autograd",
-          "loss_kernels": kernel_loss.item(), "loss_plain": plain_loss.item(),
-          "loss_gap": loss_gap, "loss_gap_bound": LM_TRAIN_LOSS_GAP,
-          "grad_gap_by_leaf": grad_gaps, "grad_gap": grad_gap,
-          "grad_gap_bound": LM_TRAIN_GRAD_GAP})
+    emit({"phase": "lm_train", "model": cfg.name, "check": "full-width "
+          "micro-batch: kernels against the plain chunked attention under "
+          "autograd", "loss_kernels": kernel_loss.item(),
+          "loss_plain": plain_loss.item(), "loss_gap": loss_gap,
+          "loss_gap_bound": LM_TRAIN_LOSS_GAP, "grad_gap_by_leaf": grad_gaps,
+          "grad_gap": grad_gap, "grad_gap_bound": LM_TRAIN_GRAD_GAP,
+          "routing_replayed": cfg.is_moe,
+          "routing_flips_plain_would_make": routing.flips})
     if not (loss_gap <= LM_TRAIN_LOSS_GAP and grad_gap <= LM_TRAIN_GRAD_GAP):
-        raise AssertionError(f"full-width training: kernels against plain "
-                             f"loss gap {loss_gap}, gradient gap {grad_gap}")
+        raise AssertionError(f"{cfg.name} full-width training: kernels "
+                             f"against plain loss gap {loss_gap}, gradient "
+                             f"gap {grad_gap}")
 
     ocfg = optim.OptConfig.from_model(cfg)
     fn, _ = steps.build_train_step(cfg, opt_cfg=ocfg)
@@ -3470,39 +3631,61 @@ def _train_full(torch, configs, prng, optim, steps, data, attention,
                 "flash_attention_bwd": flash_attn_bwd.LAUNCHES}
     n = spec["timed_steps"]
     micro = min(cfg.micro_batches, spec["global_batch"])
-    expected = {"flash_attention": n * cfg.n_layers * micro * 2,
-                "flash_attention_bwd": n * cfg.n_layers * micro}
+    # A micro-batch: each layer's attention forward twice under remat
+    # (the block's forward, then its recomputation in the backward), the
+    # mtp block's once (transformer.mtp_loss does not remat it); one
+    # backward each.
+    mtp = 1 if cfg.use_mtp else 0
+    expected = {"flash_attention": n * micro * (
+                    cfg.n_layers * (2 if cfg.remat else 1) + mtp),
+                "flash_attention_bwd": n * micro * (cfg.n_layers + mtp)}
     tokens = spec["global_batch"] * spec["seq_len"]
     step_mean = sum(step_s) / n
-    # Model FLOPs: 6 per parameter and token, plus attention's two
-    # products (4 D a kept pair a head) three times (forward, backward).
-    pairs = spec["seq_len"] * (spec["seq_len"] + 1) / 2
-    attn_flops = (3 * 4 * cfg.head_dim * cfg.n_heads * pairs * cfg.n_layers
+    # Model FLOPs: 6 per active parameter and token, plus attention's two
+    # products (2 (D + Dv) a kept pair a head) three times (forward,
+    # backward), over every layer and the mtp block (S - 1 positions).
+    d_qk = (cfg.qk_nope_dim + cfg.qk_rope_dim) if cfg.use_mla \
+        else cfg.head_dim
+    d_v = cfg.v_head_dim if cfg.use_mla else cfg.head_dim
+    seq = spec["seq_len"]
+    pairs = seq * (seq + 1) / 2 * cfg.n_layers + (seq - 1) * seq / 2 * mtp
+    attn_flops = (3 * 2 * (d_qk + d_v) * cfg.n_heads * pairs
                   * spec["global_batch"])
-    model_flops = 6 * cfg.param_count() * tokens + attn_flops
-    attention_ms = (launches["flash_attention"] * fa_ms["forward"]
-                    + launches["flash_attention_bwd"] * fa_ms["backward"]) / n
+    model_flops = 6 * cfg.active_param_count() * tokens + attn_flops
     rec = {"phase": "lm_train", "run": "full-width training",
            "model": cfg.name, **spec,
-           "reduced": {"n_layers": [configs.get(spec["arch"]).n_layers,
-                                    cfg.n_layers]},
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
            "micro_batches": micro, "remat": cfg.remat,
-           "params_b": cfg.param_count() / 1e9, "init_s": init_s,
+           "optimizer": {"master": ocfg.master_dtype,
+                         "moments": ocfg.moment_dtype,
+                         "factored_second_moment":
+                         ocfg.factored_second_moment,
+                         "grad_accum": cfg.grad_accum_dtype},
+           "params_b": cfg.param_count() / 1e9,
+           "active_params_b": cfg.active_param_count() / 1e9,
+           "init_s": init_s,
            "warmup_step_s": warmup_s, "step_ms": [x * 1e3 for x in step_s],
            "step_ms_mean": step_mean * 1e3,
            "tokens_per_s": tokens / step_mean,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches": launches, "launches_expected": expected,
            "metrics": metrics,
-           "attention_ms_per_step": attention_ms,
-           "attention_share": attention_ms / (step_mean * 1e3),
            "model_tflop_per_step": model_flops / 1e12,
            "mfu_bf16": model_flops / step_mean / 989e12}
+    if cfg.is_moe:
+        rec["reduced"]["moe_layers"] = [full.n_moe_layers, cfg.n_moe_layers]
+    if fa_ms is not None:
+        attention_ms = (launches["flash_attention"] * fa_ms["forward"]
+                        + launches["flash_attention_bwd"]
+                        * fa_ms["backward"]) / n
+        rec.update(attention_ms_per_step=attention_ms,
+                   attention_share=attention_ms / (step_mean * 1e3))
     emit(rec)
     finite = all(math.isfinite(v) for m in metrics for v in m.values())
     if launches != expected or not finite:
-        raise AssertionError(f"full-width training: launches {launches}, "
-                             f"expected {expected}; finite metrics {finite}")
+        raise AssertionError(f"{cfg.name} full-width training: launches "
+                             f"{launches}, expected {expected}; finite "
+                             f"metrics {finite}")
     return launches
 
 
@@ -3531,9 +3714,11 @@ def _train_example(flash_attn, flash_attn_bwd) -> None:
 
 
 def phase_lm_train(torch, flash_attn, flash_attn_bwd, ref, build,
-                   ref_values):
-    """The dense family's training path; returns the summary record and
-    the full-width run's backward launches."""
+                   ref_values) -> dict:
+    """The training paths of the dense, MoE and MLA families; returns
+    ``{entry: (summary record, launches)}`` for the summary's two entries
+    of the backward: at (D, D) the Qwen3-4B and Moonshot-v1-16B-A3B runs'
+    launches, at (192, 128) the DeepSeek-V3 run's."""
     from repro_torch import configs, data, models, optim
     from repro_torch.core import prng
     from repro_torch.launch import steps
@@ -3542,19 +3727,34 @@ def phase_lm_train(torch, flash_attn, flash_attn_bwd, ref, build,
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    summary = _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build)
-    _train_smoke_against_jax(torch, configs, prng, optim, steps, data,
-                             models.init_params, layers.tree_items,
-                             ref_values["lm_train"])
-    fa_ms = {"forward": summary["forward_lse_cost"]["train"]["lse_ms"],
-             "backward": summary["graph_ms"]}
-    launches = _train_full(torch, configs, prng, optim, steps, data,
-                           attention, models, layers, flash_attn,
-                           flash_attn_bwd, fa_ms)
-    torch.cuda.empty_cache()
+    summary, mla_summary = _fa_bwd_checks(torch, flash_attn, flash_attn_bwd,
+                                          ref, build)
+    for section, tols in (("lm_train", LM_TRAIN_TOL),
+                          ("lm_train_moe", LM_TRAIN_MOE_TOL)):
+        _train_smoke_against_jax(torch, configs, prng, optim, steps, data,
+                                 models.init_params, layers.tree_items,
+                                 ref_values[section], tols)
+    launches = {}
+    for spec, rec, shape in ((LM_TRAIN, summary, "train"),
+                             (LM_TRAIN_MLA, mla_summary, "mla_train"),
+                             (LM_TRAIN_MOE, None, None)):
+        fa_ms = None if rec is None else {
+            "forward": rec["forward_lse_cost"][shape]["lse_ms"],
+            "backward": rec["graph_ms"]}
+        launches[spec["arch"]] = _train_full(
+            torch, configs, prng, optim, steps, data, attention, models,
+            layers, flash_attn, flash_attn_bwd, spec, fa_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
     _train_example(flash_attn, flash_attn_bwd)
     emit({"phase": "lm_train", "wall_s": time.perf_counter() - t_phase})
-    return summary, launches["flash_attention_bwd"]
+    return {"flash_attention_bwd": (
+                summary,
+                launches[LM_TRAIN["arch"]]["flash_attention_bwd"]
+                + launches[LM_TRAIN_MOE["arch"]]["flash_attention_bwd"]),
+            "flash_attention_bwd_mla": (
+                mla_summary,
+                launches[LM_TRAIN_MLA["arch"]]["flash_attention_bwd"])}
 
 
 def kernel_entry(name: str, rec: dict, launches: int) -> dict:
@@ -3641,9 +3841,10 @@ def main() -> int:
     for name, (rec, count) in phase_lm_serve(torch, flash_attn, ssm_scan,
                                              _build, ref_values).items():
         summary[name], launches[name] = rec, count
-    summary["flash_attention_bwd"], launches["flash_attention_bwd"] = \
-        phase_lm_train(torch, flash_attn, flash_attn_bwd, ref, _build,
-                       ref_values)
+    for name, (rec, count) in phase_lm_train(torch, flash_attn,
+                                             flash_attn_bwd, ref, _build,
+                                             ref_values).items():
+        summary[name], launches[name] = rec, count
 
     emit({"kernels": [kernel_entry(name, summary[name], launches[name])
                       for name in KERNELS]})

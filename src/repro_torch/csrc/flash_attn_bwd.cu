@@ -1,5 +1,5 @@
 // Flash attention backward: the gradients dQ, dK and dV of the forward of
-// csrc/flash_attn.cu, out (B, H, S, D) = softmax(q k^T * scale) v, causal
+// csrc/flash_attn.cu, out (B, H, S, Dv) = softmax(q k^T * scale) v, causal
 // or bidirectional, with grouped-query heads and strided operands.
 //
 // Replaces no Pallas kernel of its own: the reference trains through JAX's
@@ -7,26 +7,30 @@
 // flash_attention, the same function as the Pallas kernel
 // src/repro/kernels/flash_attn.py:73, which has no backward).  On the card
 // the port's forward is the hand-written kernel, so its gradient is one
-// too.  q, out and dO are (B, H, S, D), k and v (B, Hk, T, D) with H a
-// multiple of Hk (query head h reads KV head h / (H / Hk)); lse (B, H, S)
-// is the forward's row log-sum-exp of the scaled scores and delta (B, H,
-// S) a float32 scratch.  With P = exp(q k^T * scale - lse) (exactly the
-// forward's normalised softmax; masked and out-of-range keys give p = 0):
+// too.  q is (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv), out and dO
+// (B, H, S, Dv), with H a multiple of Hk (query head h reads KV head h /
+// (H / Hk)); lse (B, H, S) is the forward's row log-sum-exp of the scaled
+// scores and delta (B, H, S) a float32 scratch.  With P = exp(q k^T *
+// scale - lse) (exactly the forward's normalised softmax; masked and
+// out-of-range keys give p = 0):
 //
-//   delta_i = sum_f dO_if O_if                 (pre-pass, bwd_delta_kernel)
-//   dS_ij   = P_ij (dO_i . v_j - delta_i)
-//   dV_j    = sum_i P_ij dO_i                  (P rounded to v's dtype, as
-//                                              the forward's PV product)
-//   dK_j    = scale sum_i dS_ij q_i
-//   dQ_i    = scale sum_j dS_ij k_j
+//   delta_i = sum_f dO_if O_if   (over Dv)     (pre-pass, bwd_delta_kernel)
+//   dS_ij   = P_ij (dO_i . v_j - delta_i)      (dP over Dv)
+//   dV_j    = sum_i P_ij dO_i                  (width Dv; P rounded to v's
+//                                              dtype, as the forward's PV
+//                                              product)
+//   dK_j    = scale sum_i dS_ij q_i            (width D)
+//   dQ_i    = scale sum_j dS_ij k_j            (width D)
 //
 // in the FlashAttention-2 form: one kernel per (batch, KV head, key tile)
 // recomputes P from lse tile by tile, accumulates dK and dV over every
 // query tile and over the H / Hk query heads of its group, and writes them
 // once; one kernel per (batch, head, query tile) recomputes P and dP and
 // accumulates dQ.  No atomics: two runs give the same bits.  Pairs (D, D)
-// for D in {8, 16, 32, 40, 64, 80, 128, 192}; no window and no (D, Dv)
-// pair with Dv != D (the wrapper refuses both before any launch).
+// for D in {8, 16, 32, 40, 64, 80, 128, 192}, and multi-head latent
+// attention's (D, Dv) = (192, 128) (DeepSeek-V3) and (24, 16) (its smoke
+// config), each at the caller's scale; no window (the wrapper refuses one
+// before any launch).
 //
 // Bound: at Qwen3-4B's training shape (B = 1, H = 32, Hk = 8, S = T =
 // 2048, D = 128, bf16, causal) the five products (S = QK^T and dP = dO V^T
@@ -34,6 +38,8 @@
 // causal half, 0.087 ms at the H100's 989 TFLOP/s bf16 tensor rate,
 // against 42 MB of traffic (q, k, v, out, dO, lse read once, dq, dk, dv
 // written once), 0.013 ms at 3.35 TB/s: bound by tensor-core operations.
+// At DeepSeek-V3's (B = 1, H = Hk = 128, S = 2048, (192, 128)) the
+// products take 2 H S(S+1)/2 (3 D + 2 Dv) = 4.5e11 FLOP, 0.452 ms.
 // dQ's own kernel recomputes S and dP (seven products in all), which caps
 // the pair at 5/7 of that bound.
 //
@@ -81,12 +87,14 @@
 //      serialises all of a kernel's wgmmas when a wait is not on every
 //      path); the two consumers overlap each other's elementwise work
 //      with their products.
-//  * bf16 at D 16, 32, 80 and 192: mma.sync m16n8k16 (bf16 in, float32
-//    sums).  Blocks of 4 warps own 64 rows of their side (keys in
-//    bwd_dkdv_mma, queries in bwd_dq_mma), 16 a warp; the other side comes
-//    in 64-row tiles through shared memory (rows padded by 8 elements) and
-//    is walked 16 rows at a time, so a warp's score tiles are 16 x 16 and
-//    its registers hold only its dK and dV (or dQ) accumulators.  The
+//  * bf16 at D 16, 32, 80 and 192 and at (192, 128): mma.sync m16n8k16
+//    (bf16 in, float32 sums), bwd_dkdv_mma<D, DV> and bwd_dq_mma<D, DV>.
+//    Blocks of 4 warps own 64 rows of their side (keys in bwd_dkdv_mma,
+//    queries in bwd_dq_mma), 16 a warp; the other side comes in 64-row
+//    tiles through shared memory (rows padded by 8 elements; K and Q D
+//    wide, V and dO DV wide) and is walked 16 rows at a time, so a warp's
+//    score tiles are 16 x 16 and its registers hold only its dK and dV
+//    (or dQ) accumulators: D / 2 + DV / 2 floats (160 at (192, 128)).  The
 //    accumulators of S^T and dP^T become, after the elementwise step, the
 //    A fragments of the dV and dK products, as the forward's P does for
 //    PV; the B operands that run along a tile's rows are gathered from
@@ -96,14 +104,17 @@
 //    wholly above the diagonal.  At D 192 the wgmma design's dK and dV (192
 //    float32 registers a thread beside the scores) do not fit, and D 16,
 //    32 and 80 are the smoke configs' and hubert-xlarge's.
-//  * float32 (true float32 FMAs, no TF32) and bf16 at D = 8 and 40: 32 x 32
+//  * float32 (true float32 FMAs, no TF32) at every pair, and bf16 at D = 8
+//    and 40 and at (24, 16): bwd_dkdv_fma<T, D, DV> and bwd_dq_fma; 32 x 32
 //    tiles of 128 threads in float32 shared memory (rows padded by one
 //    float); a thread computes 8 scores and their dS, the block writes P
-//    and dS to shared memory, then each thread accumulates D / 4 elements
-//    of dK and dV (or dQ) over the tile.
-// What is left for later: the wgmma kernels at D 80 and 192 and under a
-// window or a (D, Dv) pair, and overlapping one item's products with the
-// next one's inside a consumer.
+//    and dS to shared memory, then each thread accumulates its share of
+//    dK (D wide) and dV (DV wide), or dQ, over the tile.
+// Where D == DV the two widths' loops run together, as one loop of both
+// products, so the (D, D) kernels are those of before the pairs.
+// What is left for later: the wgmma kernels at D 80 and 192, at (192, 128)
+// and under a window, and overlapping one item's products with the next
+// one's inside a consumer.
 #include <math.h>
 
 #include "hopper.cuh"
@@ -171,10 +182,18 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // bf16 on mma.sync m16n8k16, D a multiple of 16.
 // ---------------------------------------------------------------------------
 
-// Q, dO, K and V tiles of 64 padded rows, then lse and delta of 64 rows.
-template <int D>
+// Q and K tiles of 64 padded rows of D, dO and V of DV, then lse and delta
+// of 64 rows.
+template <int D, int DV>
 constexpr int mma_smem_bytes() {
-  return 4 * BM * (D + 8) * 2 + 2 * BM * 4;
+  return 2 * BM * (D + 8) * 2 + 2 * BM * (DV + 8) * 2 + 2 * BM * 4;
+}
+
+__host__ __device__ constexpr int cmax(int a, int b) {
+  return a > b ? a : b;
+}
+__host__ __device__ constexpr int cmin(int a, int b) {
+  return a < b ? a : b;
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -226,13 +245,13 @@ __device__ __forceinline__ void frag_b_cols(uint32_t& b0, uint32_t& b1,
   b1 = pack_bf16(p[8 * LD], p[9 * LD]);
 }
 
-// Rows row0 .. row0 + 63 of a (rows, D) operand with row stride `stride`
+// Rows row0 .. row0 + 63 of a (rows, W) operand with row stride `stride`
 // into a padded shared tile, 16 bytes a copy; rows past the end are zeros.
-template <int D>
+template <int W>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long stride, int row0,
                                           int rows) {
-  constexpr int LD = D + 8, PACKS = D / 8;
+  constexpr int LD = W + 8, PACKS = W / 8;
   for (int e = threadIdx.x; e < BM * PACKS; e += THREADS) {
     const int r = e / PACKS, c = (e % PACKS) * 8;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
@@ -242,20 +261,22 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dk, bf16* __restrict__ dv, Layouts st, int H,
              int Hk, int S, int T, float scale, int causal) {
-  constexpr int LD = D + 8;
+  static_assert(D % 16 == 0 && DV % 16 == 0, "m16n8k16 steps");
+  constexpr int LK = D + 8, LV = DV + 8;
+  constexpr int NK = D / 8, NV = DV / 8;      // 8-column blocks of dK, dV
   extern __shared__ __align__(16) uint8_t smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + BM * LD;
-  bf16* qs = vs + BM * LD;
-  bf16* ds = qs + BM * LD;                               // dO
-  float* ls = reinterpret_cast<float*>(ds + BM * LD);    // lse * log2(e)
+  bf16* vs = ks + BM * LK;
+  bf16* qs = vs + BM * LV;
+  bf16* ds = qs + BM * LK;                               // dO
+  float* ls = reinterpret_cast<float*>(ds + BM * LV);    // lse * log2(e)
   float* es = ls + BM;                                   // delta
 
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -265,13 +286,17 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float sl2 = scale * LOG2E;
 
   load_tile<D>(ks, k + b * st.k.b + hk * st.k.h, st.k.s, k0, T);
-  load_tile<D>(vs, v + b * st.v.b + hk * st.v.h, st.v.s, k0, T);
+  load_tile<DV>(vs, v + b * st.v.b + hk * st.v.h, st.v.s, k0, T);
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[NK][4], dva[NV][4];
 #pragma unroll
-  for (int u = 0; u < D / 8; ++u)
+  for (int u = 0; u < NK; ++u)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[u][e] = dva[u][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[u][e] = 0.f;
+#pragma unroll
+  for (int u = 0; u < NV; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[u][e] = 0.f;
 
   const int G = H / Hk;
   const int n_qt = (S + BM - 1) / BM;
@@ -288,7 +313,7 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int q0 = qt * BM;
       __syncthreads();                      // the previous tiles are read
       load_tile<D>(qs, qh, st.q.s, q0, S);
-      load_tile<D>(ds, doh, st.dout.s, q0, S);
+      load_tile<DV>(ds, doh, st.dout.s, q0, S);
       if (threadIdx.x < BM) {
         const int r = q0 + threadIdx.x;
         ls[threadIdx.x] = r < S ? lh[r] * LOG2E : 0.f;
@@ -300,24 +325,29 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int qs0 = sub * SUB;
         // Every key of the warp after every query of the step: p = 0.
         if (causal && q0 + qs0 + SUB - 1 < k0 + kw) continue;
-        // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 queries.
+        // S^T = K Q^T over D and dP^T = V dO^T over DV: 16 keys x 16
+        // queries, the two products side by side where both widths run.
         float sa[2][4], pa[2][4];
 #pragma unroll
         for (int n = 0; n < 2; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sa[n][e] = pa[n][e] = 0.f;
 #pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
+        for (int c = 0; c < cmax(D, DV) / 16; ++c) {
           uint32_t ak[4], av[4];
-          frag_a<LD>(ak, ks, kw, c * 16, g, t4);
-          frag_a<LD>(av, vs, kw, c * 16, g, t4);
+          if (c < D / 16) frag_a<LK>(ak, ks, kw, c * 16, g, t4);
+          if (c < DV / 16) frag_a<LV>(av, vs, kw, c * 16, g, t4);
 #pragma unroll
           for (int n = 0; n < 2; ++n) {
             uint32_t b0, b1;
-            frag_b_rows<LD>(b0, b1, qs, qs0 + n * 8, c * 16, g, t4);
-            mma_bf16(sa[n], ak, b0, b1);
-            frag_b_rows<LD>(b0, b1, ds, qs0 + n * 8, c * 16, g, t4);
-            mma_bf16(pa[n], av, b0, b1);
+            if (c < D / 16) {
+              frag_b_rows<LK>(b0, b1, qs, qs0 + n * 8, c * 16, g, t4);
+              mma_bf16(sa[n], ak, b0, b1);
+            }
+            if (c < DV / 16) {
+              frag_b_rows<LV>(b0, b1, ds, qs0 + n * 8, c * 16, g, t4);
+              mma_bf16(pa[n], av, b0, b1);
+            }
           }
         }
         // P^T and dS^T in place.
@@ -333,7 +363,8 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             pa[n][e] = p * (pa[n][e] - es[qi]);
             sa[n][e] = p;
           }
-        // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over the 16 queries.
+        // dV += bf16(P^T) dO (DV wide) and dK += bf16(dS^T) Q (D wide)
+        // over the 16 queries.
         const uint32_t pf[4] = {pack_f32(sa[0][0], sa[0][1]),
                                 pack_f32(sa[0][2], sa[0][3]),
                                 pack_f32(sa[1][0], sa[1][1]),
@@ -343,12 +374,16 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 pack_f32(pa[1][0], pa[1][1]),
                                 pack_f32(pa[1][2], pa[1][3])};
 #pragma unroll
-        for (int u = 0; u < D / 8; ++u) {
+        for (int u = 0; u < cmax(NK, NV); ++u) {
           uint32_t b0, b1;
-          frag_b_cols<LD>(b0, b1, ds, qs0, u * 8, g, t4);
-          mma_bf16(dva[u], pf, b0, b1);
-          frag_b_cols<LD>(b0, b1, qs, qs0, u * 8, g, t4);
-          mma_bf16(dka[u], df, b0, b1);
+          if (u < NV) {
+            frag_b_cols<LV>(b0, b1, ds, qs0, u * 8, g, t4);
+            mma_bf16(dva[u], pf, b0, b1);
+          }
+          if (u < NK) {
+            frag_b_cols<LK>(b0, b1, qs, qs0, u * 8, g, t4);
+            mma_bf16(dka[u], df, b0, b1);
+          }
         }
       }
     }
@@ -358,36 +393,41 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dvh = dv + b * st.dv.b + hk * st.dv.h;
   const int r0 = k0 + kw + g, r1 = r0 + 8;
 #pragma unroll
-  for (int u = 0; u < D / 8; ++u) {
+  for (int u = 0; u < cmax(NK, NV); ++u) {
     const int c = u * 8 + t4 * 2;
     if (r0 < T) {
-      *reinterpret_cast<uint32_t*>(dkh + r0 * st.dk.s + c) =
-          pack_f32(dka[u][0] * scale, dka[u][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvh + r0 * st.dv.s + c) =
-          pack_f32(dva[u][0], dva[u][1]);
+      if (u < NK)
+        *reinterpret_cast<uint32_t*>(dkh + r0 * st.dk.s + c) =
+            pack_f32(dka[u][0] * scale, dka[u][1] * scale);
+      if (u < NV)
+        *reinterpret_cast<uint32_t*>(dvh + r0 * st.dv.s + c) =
+            pack_f32(dva[u][0], dva[u][1]);
     }
     if (r1 < T) {
-      *reinterpret_cast<uint32_t*>(dkh + r1 * st.dk.s + c) =
-          pack_f32(dka[u][2] * scale, dka[u][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvh + r1 * st.dv.s + c) =
-          pack_f32(dva[u][2], dva[u][3]);
+      if (u < NK)
+        *reinterpret_cast<uint32_t*>(dkh + r1 * st.dk.s + c) =
+            pack_f32(dka[u][2] * scale, dka[u][3] * scale);
+      if (u < NV)
+        *reinterpret_cast<uint32_t*>(dvh + r1 * st.dv.s + c) =
+            pack_f32(dva[u][2], dva[u][3]);
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            bf16* __restrict__ dq, Layouts st, int H, int Hk, int S, int T,
            float scale, int causal) {
-  constexpr int LD = D + 8;
+  static_assert(D % 16 == 0 && DV % 16 == 0, "m16n8k16 steps");
+  constexpr int LK = D + 8, LV = DV + 8;
   extern __shared__ __align__(16) uint8_t smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ds = qs + BM * LD;                               // dO
-  bf16* ks = ds + BM * LD;
-  bf16* vs = ks + BM * LD;
+  bf16* ds = qs + BM * LK;                               // dO
+  bf16* ks = ds + BM * LV;
+  bf16* vs = ks + BM * LK;
 
   const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -399,7 +439,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float sl2 = scale * LOG2E;
 
   load_tile<D>(qs, q + b * st.q.b + h * st.q.h, st.q.s, q0, S);
-  load_tile<D>(ds, dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0, S);
+  load_tile<DV>(ds, dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0, S);
   const float* lh = lse + ((long long)b * H + h) * S;
   const float* eh = delta + ((long long)b * H + h) * S;
   const float l0 = r0 < S ? lh[r0] * LOG2E : 0.f;
@@ -421,31 +461,35 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = kt * BM;
     __syncthreads();                        // the previous K and V are read
     load_tile<D>(ks, kh, st.k.s, k0, T);
-    load_tile<D>(vs, vh, st.v.s, k0, T);
+    load_tile<DV>(vs, vh, st.v.s, k0, T);
     __syncthreads();
 #pragma unroll 1
     for (int sub = 0; sub < BM / SUB; ++sub) {
       const int ks0 = sub * SUB;
       // Every key of the step after every query of the warp: p = 0.
       if (causal && k0 + ks0 > q0 + qw + 15) continue;
-      // S = Q K^T and dP = dO V^T: 16 queries x 16 keys.
+      // S = Q K^T over D and dP = dO V^T over DV: 16 queries x 16 keys.
       float sa[2][4], pa[2][4];
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sa[n][e] = pa[n][e] = 0.f;
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
+      for (int c = 0; c < cmax(D, DV) / 16; ++c) {
         uint32_t aq[4], ad[4];
-        frag_a<LD>(aq, qs, qw, c * 16, g, t4);
-        frag_a<LD>(ad, ds, qw, c * 16, g, t4);
+        if (c < D / 16) frag_a<LK>(aq, qs, qw, c * 16, g, t4);
+        if (c < DV / 16) frag_a<LV>(ad, ds, qw, c * 16, g, t4);
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
           uint32_t b0, b1;
-          frag_b_rows<LD>(b0, b1, ks, ks0 + n * 8, c * 16, g, t4);
-          mma_bf16(sa[n], aq, b0, b1);
-          frag_b_rows<LD>(b0, b1, vs, ks0 + n * 8, c * 16, g, t4);
-          mma_bf16(pa[n], ad, b0, b1);
+          if (c < D / 16) {
+            frag_b_rows<LK>(b0, b1, ks, ks0 + n * 8, c * 16, g, t4);
+            mma_bf16(sa[n], aq, b0, b1);
+          }
+          if (c < DV / 16) {
+            frag_b_rows<LV>(b0, b1, vs, ks0 + n * 8, c * 16, g, t4);
+            mma_bf16(pa[n], ad, b0, b1);
+          }
         }
       }
 #pragma unroll
@@ -467,7 +511,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < D / 8; ++u) {
         uint32_t b0, b1;
-        frag_b_cols<LD>(b0, b1, ks, ks0, u * 8, g, t4);
+        frag_b_cols<LK>(b0, b1, ks, ks0, u * 8, g, t4);
         mma_bf16(dqa[u], df, b0, b1);
       }
     }
@@ -917,46 +961,70 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// float32 (and bf16 at D = 8 and 40) on FMAs.
+// float32 (and bf16 at D = 8 and 40 and at (24, 16)) on FMAs.
 // ---------------------------------------------------------------------------
 
-// Four tiles of 32 rows of D floats (rows padded by one float), two 32 x 32
-// score tiles (padded likewise), lse and delta of 32 rows.
-template <int D>
+// Two tiles of 32 rows of D floats (K and Q) and two of DV (V and dO), rows
+// padded by one float, two 32 x 32 score tiles (padded likewise), lse and
+// delta of 32 rows.
+template <int D, int DV>
 struct FmaShape {
-  static constexpr int LD = D + 1;
+  static constexpr int LK = D + 1;
+  static constexpr int LV = DV + 1;
   static constexpr int LP = FB + 1;
-  static constexpr int E = FB * D / THREADS;   // accumulators a thread
-  static constexpr int SMEM = (4 * FB * LD + 2 * FB * LP + 2 * FB) * 4;
-  static_assert(FB * D % THREADS == 0, "whole accumulators a thread");
+  static constexpr int EK = FB * D / THREADS;   // dK (or dQ) floats a thread
+  static constexpr int EV = FB * DV / THREADS;  // dV floats a thread
+  static constexpr int SMEM =
+      (2 * FB * LK + 2 * FB * LV + 2 * FB * LP + 2 * FB) * 4;
+  static_assert(FB * D % THREADS == 0 && FB * DV % THREADS == 0,
+                "whole accumulators a thread");
 };
 
-template <typename T, int D>
+template <typename T, int W>
 __device__ __forceinline__ void load_tile_f(float* dst, const T* src,
                                             long long stride, int row0,
                                             int rows) {
-  for (int e = threadIdx.x; e < FB * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] =
+  for (int e = threadIdx.x; e < FB * W; e += THREADS) {
+    const int r = e / W, c = e % W;
+    dst[r * (W + 1) + c] =
         row0 + r < rows ? to_f32(src[(row0 + r) * stride + c]) : 0.f;
   }
 }
 
-template <typename T, int D>
+// s = a . b over D features and dp = c . e over DV: one loop of both
+// chains where the widths meet, then the wider one's rest (each sum in
+// increasing feature order either way).
+template <int D, int DV>
+__device__ __forceinline__ void fma_scores(float& s, float& dp,
+                                           const float* a, const float* b,
+                                           const float* c, const float* e) {
+  constexpr int DM = cmin(D, DV);
+#pragma unroll 8
+  for (int f = 0; f < DM; ++f) {
+    s = fmaf(a[f], b[f], s);
+    dp = fmaf(c[f], e[f], dp);
+  }
+#pragma unroll 8
+  for (int f = DM; f < D; ++f) s = fmaf(a[f], b[f], s);
+#pragma unroll 8
+  for (int f = DM; f < DV; ++f) dp = fmaf(c[f], e[f], dp);
+}
+
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              T* __restrict__ dk, T* __restrict__ dv, Layouts st, int H,
              int Hk, int S, int Tk, float scale, int causal) {
-  using F = FmaShape<D>;
-  constexpr int LD = F::LD, LP = F::LP, E = F::E;
+  using F = FmaShape<D, DV>;
+  constexpr int LK = F::LK, LV = F::LV, LP = F::LP, EK = F::EK, EV = F::EV;
   extern __shared__ __align__(16) uint8_t smem[];
   float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + FB * LD;
-  float* qs = vs + FB * LD;
-  float* ds = qs + FB * LD;                 // dO
-  float* pt = ds + FB * LD;                 // P^T [key][query], as v's dtype
+  float* vs = ks + FB * LK;
+  float* qs = vs + FB * LV;
+  float* ds = qs + FB * LK;                 // dO
+  float* pt = ds + FB * LV;                 // P^T [key][query], as v's dtype
   float* dst = pt + FB * LP;                // dS^T [key][query]
   float* ls = dst + FB * LP;
   float* es = ls + FB;
@@ -966,11 +1034,13 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
   // Scores: key `me` against queries 8 part .. 8 part + 7.
   const int me = threadIdx.x % FB, part = threadIdx.x / FB;
   load_tile_f<T, D>(ks, k + b * st.k.b + hk * st.k.h, st.k.s, k0, Tk);
-  load_tile_f<T, D>(vs, v + b * st.v.b + hk * st.v.h, st.v.s, k0, Tk);
+  load_tile_f<T, DV>(vs, v + b * st.v.b + hk * st.v.h, st.v.s, k0, Tk);
 
-  float dka[E], dva[E];
+  float dka[EK], dva[EV];
 #pragma unroll
-  for (int e = 0; e < E; ++e) dka[e] = dva[e] = 0.f;
+  for (int e = 0; e < EK; ++e) dka[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < EV; ++e) dva[e] = 0.f;
 
   const int G = H / Hk;
   const int n_qt = (S + FB - 1) / FB;
@@ -987,7 +1057,7 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
       const int q0 = qt * FB;
       __syncthreads();                      // the previous tiles are read
       load_tile_f<T, D>(qs, qh, st.q.s, q0, S);
-      load_tile_f<T, D>(ds, doh, st.dout.s, q0, S);
+      load_tile_f<T, DV>(ds, doh, st.dout.s, q0, S);
       if (threadIdx.x < FB) {
         const int r = q0 + threadIdx.x;
         ls[threadIdx.x] = r < S ? lh[r] : 0.f;
@@ -998,29 +1068,27 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 8; ++i) {
         const int qi = part * 8 + i, row = q0 + qi, key = k0 + me;
         float s = 0.f, dp = 0.f;
-#pragma unroll 8
-        for (int f = 0; f < D; ++f) {
-          s = fmaf(ks[me * LD + f], qs[qi * LD + f], s);
-          dp = fmaf(vs[me * LD + f], ds[qi * LD + f], dp);
-        }
+        fma_scores<D, DV>(s, dp, ks + me * LK, qs + qi * LK, vs + me * LV,
+                          ds + qi * LV);
         const bool keep = key < Tk && row < S && (!causal || key <= row);
         const float p = keep ? expf(s * scale - ls[qi]) : 0.f;
         pt[me * LP + qi] = as_v(p, v);
         dst[me * LP + qi] = p * (dp - es[qi]);
       }
       __syncthreads();
+      // dV (DV wide) and dK (D wide) of this thread's elements.
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
+      for (int e = 0; e < cmax(EK, EV); ++e) {
         const int idx = threadIdx.x + THREADS * e;
-        const int key = idx / D, f = idx % D;
-        float a = dva[e], c = dka[e];
+        const int kv = idx / DV, fv = idx % DV, kk = idx / D, fk = idx % D;
+        float a = e < EV ? dva[e] : 0.f, c = e < EK ? dka[e] : 0.f;
 #pragma unroll 8
         for (int qi = 0; qi < FB; ++qi) {
-          a = fmaf(pt[key * LP + qi], ds[qi * LD + f], a);
-          c = fmaf(dst[key * LP + qi], qs[qi * LD + f], c);
+          if (e < EV) a = fmaf(pt[kv * LP + qi], ds[qi * LV + fv], a);
+          if (e < EK) c = fmaf(dst[kk * LP + qi], qs[qi * LK + fk], c);
         }
-        dva[e] = a;
-        dka[e] = c;
+        if (e < EV) dva[e] = a;
+        if (e < EK) dka[e] = c;
       }
     }
   }
@@ -1028,31 +1096,29 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
   T* dkh = dk + b * st.dk.b + hk * st.dk.h;
   T* dvh = dv + b * st.dv.b + hk * st.dv.h;
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
+  for (int e = 0; e < cmax(EK, EV); ++e) {
     const int idx = threadIdx.x + THREADS * e;
-    const int key = k0 + idx / D, f = idx % D;
-    if (key < Tk) {
-      store(dkh + key * st.dk.s + f, dka[e] * scale);
-      store(dvh + key * st.dv.s + f, dva[e]);
-    }
+    const int kk = k0 + idx / D, kv = k0 + idx / DV;
+    if (e < EK && kk < Tk) store(dkh + kk * st.dk.s + idx % D, dka[e] * scale);
+    if (e < EV && kv < Tk) store(dvh + kv * st.dv.s + idx % DV, dva[e]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            T* __restrict__ dq, Layouts st, int H, int Hk, int S, int Tk,
            float scale, int causal) {
-  using F = FmaShape<D>;
-  constexpr int LD = F::LD, LP = F::LP, E = F::E;
+  using F = FmaShape<D, DV>;
+  constexpr int LK = F::LK, LV = F::LV, LP = F::LP, E = F::EK;
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  float* ds = qs + FB * LD;                 // dO
-  float* ks = ds + FB * LD;
-  float* vs = ks + FB * LD;
-  float* dss = vs + FB * LD;                // dS [query][key]
+  float* ds = qs + FB * LK;                 // dO
+  float* ks = ds + FB * LV;
+  float* vs = ks + FB * LK;
+  float* dss = vs + FB * LV;                // dS [query][key]
   float* ls = dss + 2 * FB * LP;
   float* es = ls + FB;
 
@@ -1063,8 +1129,8 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
   // Scores: query `me` against keys 8 part .. 8 part + 7.
   const int me = threadIdx.x % FB, part = threadIdx.x / FB;
   load_tile_f<T, D>(qs, q + b * st.q.b + h * st.q.h, st.q.s, q0, S);
-  load_tile_f<T, D>(ds, dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0,
-                    S);
+  load_tile_f<T, DV>(ds, dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0,
+                     S);
   if (threadIdx.x < FB) {
     const int r = q0 + threadIdx.x;
     const long long bh = (long long)b * H + h;
@@ -1085,17 +1151,14 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kt * FB;
     __syncthreads();                        // the previous K, V, dS are read
     load_tile_f<T, D>(ks, kh, st.k.s, k0, Tk);
-    load_tile_f<T, D>(vs, vh, st.v.s, k0, Tk);
+    load_tile_f<T, DV>(vs, vh, st.v.s, k0, Tk);
     __syncthreads();
 #pragma unroll 2
     for (int i = 0; i < 8; ++i) {
       const int kj = part * 8 + i, key = k0 + kj, row = q0 + me;
       float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int f = 0; f < D; ++f) {
-        s = fmaf(qs[me * LD + f], ks[kj * LD + f], s);
-        dp = fmaf(ds[me * LD + f], vs[kj * LD + f], dp);
-      }
+      fma_scores<D, DV>(s, dp, qs + me * LK, ks + kj * LK, ds + me * LV,
+                        vs + kj * LV);
       const bool keep = row < S && key < Tk && (!causal || key <= row);
       const float p = keep ? expf(s * scale - ls[me]) : 0.f;
       dss[me * LP + kj] = p * (dp - es[me]);
@@ -1108,7 +1171,7 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
       float c = dqa[e];
 #pragma unroll 8
       for (int kj = 0; kj < FB; ++kj)
-        c = fmaf(dss[qr * LP + kj], ks[kj * LD + f], c);
+        c = fmaf(dss[qr * LP + kj], ks[kj * LK + f], c);
       dqa[e] = c;
     }
   }
@@ -1133,7 +1196,7 @@ struct Args {
   float* delta;
   T *dq, *dk, *dv;
   Layouts st;
-  int B, H, Hk, S, Tk, D;
+  int B, H, Hk, S, Tk, D, DV;
   float scale;
   int causal;
   cudaStream_t stream;
@@ -1145,28 +1208,28 @@ int launch_delta(const Args<T>& a) {
   const long long blocks = (rows + 7) / 8;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   bwd_delta_kernel<T><<<(unsigned)blocks, 256, 0, a.stream>>>(
-      a.o, a.dout, a.delta, a.st, a.H, a.S, a.D, rows);
+      a.o, a.dout, a.delta, a.st, a.H, a.S, a.DV, rows);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_mma(const Args<bf16>& a) {
   static unsigned long long kv_configured = 0, q_configured = 0;
-  constexpr int smem = mma_smem_bytes<D>();
-  cudaError_t err = allow_smem(bwd_dkdv_mma<D>, smem, &kv_configured);
-  if (err == cudaSuccess) err = allow_smem(bwd_dq_mma<D>, smem,
+  constexpr int smem = mma_smem_bytes<D, DV>();
+  cudaError_t err = allow_smem(bwd_dkdv_mma<D, DV>, smem, &kv_configured);
+  if (err == cudaSuccess) err = allow_smem(bwd_dq_mma<D, DV>, smem,
                                            &q_configured);
   if (err != cudaSuccess) return (int)err;
   int rc = launch_delta(a);
   if (rc) return rc;
-  bwd_dkdv_mma<D><<<dim3((a.Tk + BM - 1) / BM, a.Hk, a.B), THREADS, smem,
-                    a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk,
+  bwd_dkdv_mma<D, DV><<<dim3((a.Tk + BM - 1) / BM, a.Hk, a.B), THREADS,
+                        smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk,
                                 a.dv, a.st, a.H, a.Hk, a.S, a.Tk, a.scale,
                                 a.causal);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  bwd_dq_mma<D><<<dim3((a.S + BM - 1) / BM, a.H, a.B), THREADS, smem,
-                  a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
+  bwd_dq_mma<D, DV><<<dim3((a.S + BM - 1) / BM, a.H, a.B), THREADS, smem,
+                      a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
                               a.st, a.H, a.Hk, a.S, a.Tk, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
@@ -1215,24 +1278,24 @@ int launch_wgmma(const Args<bf16>& a, int tile, long long grid) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 int launch_fma(const Args<T>& a) {
   static unsigned long long kv_configured = 0, q_configured = 0;
-  constexpr int smem = FmaShape<D>::SMEM;
-  cudaError_t err = allow_smem(bwd_dkdv_fma<T, D>, smem, &kv_configured);
-  if (err == cudaSuccess) err = allow_smem(bwd_dq_fma<T, D>, smem,
+  constexpr int smem = FmaShape<D, DV>::SMEM;
+  cudaError_t err = allow_smem(bwd_dkdv_fma<T, D, DV>, smem, &kv_configured);
+  if (err == cudaSuccess) err = allow_smem(bwd_dq_fma<T, D, DV>, smem,
                                            &q_configured);
   if (err != cudaSuccess) return (int)err;
   int rc = launch_delta(a);
   if (rc) return rc;
-  bwd_dkdv_fma<T, D><<<dim3((a.Tk + FB - 1) / FB, a.Hk, a.B), THREADS, smem,
-                       a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
+  bwd_dkdv_fma<T, D, DV><<<dim3((a.Tk + FB - 1) / FB, a.Hk, a.B), THREADS,
+                           smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
                                    a.dk, a.dv, a.st, a.H, a.Hk, a.S, a.Tk,
                                    a.scale, a.causal);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  bwd_dq_fma<T, D><<<dim3((a.S + FB - 1) / FB, a.H, a.B), THREADS, smem,
-                     a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
+  bwd_dq_fma<T, D, DV><<<dim3((a.S + FB - 1) / FB, a.H, a.B), THREADS,
+                         smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
                                  a.st, a.H, a.Hk, a.S, a.Tk, a.scale,
                                  a.causal);
   return (int)cudaGetLastError();
@@ -1251,9 +1314,10 @@ template <typename T>
 bool fill(Args<T>& a, const T* q, const T* k, const T* v, const T* o,
           const T* dout, const float* lse, float* delta, T* dq, T* dk,
           T* dv, const long long* strides, int B, int H, int Hk, int S,
-          int Tk, int D, float scale, int causal, cudaStream_t stream) {
+          int Tk, int D, int DV, float scale, int causal,
+          cudaStream_t stream) {
   a = Args<T>{q, k, v, o, dout, lse, delta, dq, dk, dv,
-              layouts_from(strides), B, H, Hk, S, Tk, D, scale, causal,
+              layouts_from(strides), B, H, Hk, S, Tk, D, DV, scale, causal,
               stream};
   // Heads and batch rows run on the grid's y and z axes.
   return !(B <= 0 || S <= 0 || Tk <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0
@@ -1264,21 +1328,25 @@ bool fill(Args<T>& a, const T* q, const T* k, const T* v, const T* o,
 
 // strides: 24 element strides (batch, head, row) of q, k, v, out, dout, dq,
 // dk, dv.  lse: the forward's (B, H, S) float32 row log-sum-exp; delta a
-// (B, H, S) float32 scratch.  D one of 8, 16, 32, 40, 64, 80, 128, 192 (any
-// other -> cudaErrorInvalidValue); B, S, Tk > 0 (the wrapper returns zero
-// gradients for an empty problem without a launch).
+// (B, H, S) float32 scratch.  (D, DV): (D, D) for D one of 8, 16, 32, 40,
+// 64, 80, 128, 192, or (192, 128) or (24, 16) (any other ->
+// cudaErrorInvalidValue); B, S, Tk > 0 (the wrapper returns zero gradients
+// for an empty problem without a launch).
 extern "C" int flash_attn_bwd_f32(const float* q, const float* k,
                                   const float* v, const float* o,
                                   const float* dout, const float* lse,
                                   float* delta, float* dq, float* dk,
                                   float* dv, const long long* strides, int B,
-                                  int H, int Hk, int S, int Tk, int D,
+                                  int H, int Hk, int S, int Tk, int D, int DV,
                                   float scale, int causal,
                                   cudaStream_t stream) {
   Args<float> a;
   if (!fill(a, q, k, v, o, dout, lse, delta, dq, dk, dv, strides, B, H, Hk,
-            S, Tk, D, scale, causal, stream))
+            S, Tk, D, DV, scale, causal, stream))
     return (int)cudaErrorInvalidValue;
+  if (D == 192 && DV == 128) return launch_fma<float, 192, 128>(a);
+  if (D == 24 && DV == 16) return launch_fma<float, 24, 16>(a);
+  if (DV != D) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 8: return launch_fma<float, 8>(a);
     case 16: return launch_fma<float, 16>(a);
@@ -1292,20 +1360,26 @@ extern "C" int flash_attn_bwd_f32(const float* q, const float* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// tile, grid: bwd_plan's tile and dK/dV grid at D 64 and 128 (the wgmma
-// kernels), ignored at the other widths.
+// tile, grid: bwd_plan's tile and dK/dV grid at (D, D) for D 64 and 128
+// (the wgmma kernels), ignored at the other pairs.
 extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
                                    const bf16* v, const bf16* o,
                                    const bf16* dout, const float* lse,
                                    float* delta, bf16* dq, bf16* dk, bf16* dv,
                                    const long long* strides, int B, int H,
-                                   int Hk, int S, int Tk, int D, float scale,
-                                   int causal, int tile, long long grid,
-                                   cudaStream_t stream) {
+                                   int Hk, int S, int Tk, int D, int DV,
+                                   float scale, int causal, int tile,
+                                   long long grid, cudaStream_t stream) {
   Args<bf16> a;
   if (!fill(a, q, k, v, o, dout, lse, delta, dq, dk, dv, strides, B, H, Hk,
-            S, Tk, D, scale, causal, stream))
+            S, Tk, D, DV, scale, causal, stream))
     return (int)cudaErrorInvalidValue;
+  // Multi-head latent attention: DeepSeek-V3's pair on mma.sync (dK and dV
+  // of 64 keys at 192 + 128 features do not fit a wgmma consumer beside
+  // the scores), its smoke config's on the FMAs (24 is no multiple of 16).
+  if (D == 192 && DV == 128) return launch_mma<192, 128>(a);
+  if (D == 24 && DV == 16) return launch_fma<bf16, 24, 16>(a);
+  if (DV != D) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 8: return launch_fma<bf16, 8>(a);
     case 16: return launch_mma<16>(a);

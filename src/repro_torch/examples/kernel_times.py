@@ -66,9 +66,12 @@ line per measurement:
   and the other's lane counts too where it has them.
 * the ``attention_bwd`` part: ``flash_attention_bwd`` at Qwen3-4B's
   training attention ((1, 32 heads reading 8, 2048, 128), bf16, causal)
-  in device time and eagerly, beside SDPA's backward alone (eagerly), the
-  plain version and the bound of the backward's five products; with
-  ``--src``, the other checkout's kernels and this tree's in turns.
+  and DeepSeek-V3's ((1, 128 heads, 2048, (D, Dv) = (192, 128)), MLA's
+  scale) in device time and eagerly, SDPA's backward alone and this
+  tree's kernels in turns, eagerly (kernel, SDPA, SDPA, kernel; SDPA's
+  backend named), the plain version and the bound of the backward's five
+  products; with ``--src``, the other checkout's kernels and this tree's
+  in turns.
 
 ``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
 through copies that together exceed twice the 50 MB L2, timed as one
@@ -124,9 +127,10 @@ WINDOW_SHAPES = (("hymba-1.5b", (4, 25, 5, 2048, 64), True, "bfloat16",
 # (config, (B, S, d_inner, n)): the SSM and hybrid prefill scans.
 SCAN_SHAPES = (("falcon-mamba-7b", (4, 2048, 8192, 16)),
                ("hymba-1.5b", (4, 2048, 3200, 16)))
-# (config, (B, H, Hk, S, D)): the training attention's backward, one
-# micro-batch, bf16, causal.
-BWD_SHAPES = (("qwen3-4b", (1, 32, 8, 2048, 128)),)
+# (config, (B, H, Hk, S, D[, Dv])): the training attention's backward,
+# one micro-batch, bf16, causal.
+BWD_SHAPES = (("qwen3-4b", (1, 32, 8, 2048, 128)),
+              ("deepseek-v3-671b", (1, 128, 128, 2048, 192, 128)))
 
 
 def own_timing():
@@ -496,25 +500,28 @@ def time_scan(torch, timing, kernels, emit, gen) -> None:
 
 
 def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
-    """The backward at Qwen3-4B's training attention: this tree's kernels
-    (the pre-pass, dK/dV and dQ of one call) in device time and eagerly,
-    with ``--src`` the other checkout's in turns (other, this, this,
-    other); SDPA's backward alone (``autograd.grad`` through
-    ``scaled_dot_product_attention(enable_gqa=True)``, eagerly); the plain
-    version; the bound of the backward's five products; the errors
-    against the plain version; the SM clock and power while it runs."""
+    """The backward at the training attentions of :data:`BWD_SHAPES`:
+    this tree's kernels (the pre-pass, dK/dV and dQ of one call) in device
+    time and eagerly, with ``--src`` the other checkout's in turns (other,
+    this, this, other); SDPA's backward alone (``autograd.grad`` through
+    ``scaled_dot_product_attention(enable_gqa=True)``) and this tree's
+    kernels in turns, eagerly (the backward cannot be captured in a
+    graph: autograd runs it on the forward's stream); the plain version;
+    the bound of the backward's five products; the errors against the
+    plain version; the SM clock and power while it runs."""
     fa, bwd = own_kernel("flash_attn"), own_kernel("flash_attn_bwd")
     other = kernels.flash_attn_bwd
     if Path(other.__file__).resolve() == Path(bwd.__file__).resolve():
         other = None
-    for config, (b, h, hk, s, d) in BWD_SHAPES:
+    for config, (b, h, hk, s, d, *dv) in BWD_SHAPES:
+        dv = dv[0] if dv else d
         q = (0.5 * torch.randn(b, h, s, d, device=gen.device, generator=gen)
              ).bfloat16()
         k = (0.5 * torch.randn(b, hk, s, d, device=gen.device, generator=gen)
              ).bfloat16()
-        v = torch.randn(b, hk, s, d, device=gen.device, generator=gen
+        v = torch.randn(b, hk, s, dv, device=gen.device, generator=gen
                         ).bfloat16()
-        do = torch.randn(b, h, s, d, device=gen.device, generator=gen
+        do = torch.randn(b, h, s, dv, device=gen.device, generator=gen
                          ).bfloat16()
         lse = torch.empty(b, h, s, device=gen.device)
         out = fa.flash_attention(q, k, v, causal=True, lse=lse)
@@ -534,15 +541,12 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
             return torch.autograd.grad(lib_out, (qs, ks, vs), do_,
                                        retain_graph=True)
 
-        _, fwd_flops = timing.attention_work(b, h, hk, s, s, d, True, 2)
-        # q, k, v, out, dO read once and dq, dk, dv written once in bf16,
-        # lse read once in float32; five products to the forward's two.
-        bnd, by = timing.bound(2.0 * (4 * b * h * s * d + 4 * b * hk * s * d)
-                               + 4.0 * b * h * s, fwd_flops * 5 / 2,
-                               "bfloat16")
+        bnd, by = timing.bound(*timing.attention_bwd_work(
+            b, h, hk, s, s, d, True, 2, dv=dv), "bfloat16")
         rec = {"name": "flash_attention_bwd", "config": config,
-               "shape": [b, h, hk, s, d], "dtype": "bfloat16",
-               "causal": True,
+               "shape": [b, h, hk, s, d] + ([dv] if dv != d else []),
+               "dtype": "bfloat16", "causal": True,
+               "library_backend": timing.sdpa_backend(q, k, v, True),
                "scaled_err_vs_plain": [
                    ((g.float() - w.float()).abs().max()
                     / w.float().abs().max()).item()
@@ -551,7 +555,14 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
                                     for x, y in zip(got, again)),
                "bound_ms": bnd, "bound_by": by}
         del got, again, want
+        theirs = other
         if other is not None:
+            try:
+                other.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+            except ValueError as err:       # a tree without this pair
+                rec["other_refuses"] = str(err)
+                theirs = None
+        if theirs is not None:
             g = [timing.graph_ms(f, inputs)
                  for f in (lambda *a: other.flash_attention_bwd(
                      *a, causal=True), kernel, kernel,
@@ -566,8 +577,14 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
         else:
             rec.update(ms=timing.graph_ms(kernel, inputs))
         lib_inputs = timing.cold_copies(do)
-        rec.update(timing="graph", eager_ms=timing.cuda_ms(kernel, inputs),
-                   library_eager_ms=timing.cuda_ms(library, lib_inputs),
+        turns = [timing.cuda_ms(kernel, inputs),
+                 timing.cuda_ms(library, lib_inputs),
+                 timing.cuda_ms(library, lib_inputs),
+                 timing.cuda_ms(kernel, inputs)]
+        rec.update(timing="graph", eager_ms=(turns[0] + turns[3]) / 2,
+                   eager_runs_ms=[turns[0], turns[3]],
+                   library_eager_ms=(turns[1] + turns[2]) / 2,
+                   library_eager_runs_ms=[turns[1], turns[2]],
                    library="torch.autograd.grad of F.scaled_dot_product_"
                            "attention(is_causal=True, enable_gqa=True), "
                            "the backward alone, eagerly",

@@ -5,24 +5,27 @@ Replaces no Pallas kernel of its own: the reference differentiates its
 jnp chunked attention (``src/repro/models/attention.py:86``) with JAX's
 autodiff, and on the card the port's forward is the hand-written kernel
 of :mod:`repro_torch.kernels.flash_attn`, so its gradient is a kernel too.
-The CUDA kernels (``csrc/flash_attn_bwd.cu``) take q (B, H, S, D), k and v
-(B, Hk, T, D) with ``H`` a multiple of ``Hk``, the forward's output and
-its gradient dO (B, H, S, D), and the forward's row log-sum-exp (B, H, S)
-float32, and write dq, dk and dv in the operands' dtype, float32 or
-bfloat16: a pre-pass ``delta = rowsum(dO * O)``, then one kernel that
+The CUDA kernels (``csrc/flash_attn_bwd.cu``) take q (B, H, S, D), k
+(B, Hk, T, D) and v (B, Hk, T, Dv) with ``H`` a multiple of ``Hk``, the
+forward's output and its gradient dO (B, H, S, Dv), and the forward's row
+log-sum-exp (B, H, S) float32, and write dq, dk (width D) and dv (width
+Dv) in the operands' dtype, float32 or bfloat16: a pre-pass ``delta =
+rowsum(dO * O)`` over Dv, then one kernel that
 recomputes the softmax from ``lse`` and accumulates dK and dV of a key
 tile over every query tile and every query head of its group, and one
 that does the same for dQ of a query tile; no atomics, so two runs give
 the same bits.  bfloat16 at D 64 and 128 (:data:`WGMMA_DIMS`) runs on
 ``wgmma`` fed by TMA, on grids that :func:`bwd_plan` orders longest walk
 first, so that the causal triangle's short key tiles fill in behind its
-long ones; bfloat16 at
-the other widths that are multiples of 16 runs on ``mma.sync`` m16n8k16,
-float32 and bfloat16 at D 8 and 40 on register FMAs (no TF32).  It
-takes the pairs (D, D) of :data:`HEAD_DIMS`, causal or full, and no
-window; anything else raises ``ValueError`` before any launch (the
-forward's windowed, (192, 128) and (24, 16) paths have no backward yet).
-Bound at Qwen3-4B's training shape: tensor-core operations (the source's
+long ones; bfloat16 at the other widths that are multiples of 16 and at
+multi-head latent attention's (192, 128) runs on ``mma.sync`` m16n8k16,
+float32 at every pair and bfloat16 at D 8 and 40 and at (24, 16) on
+register FMAs (no TF32).  It takes every pair of ``flash_attn.PAIRS``
+(the (D, D) of ``flash_attn.HEAD_DIMS``, DeepSeek-V3's (192, 128) and its
+smoke config's (24, 16)) at the caller's scale, causal or full, and no
+window; a window or another pair raises ``ValueError`` before any launch
+(the forward's windowed path has no backward yet).  Bound at Qwen3-4B's
+and DeepSeek-V3's training shapes: tensor-core operations (the source's
 header).  Every operand and output may be a strided view whose feature
 axis is contiguous (``flash_attn.layout_error``).
 
@@ -39,16 +42,17 @@ import functools
 import torch
 
 from . import _build, ref
-from .flash_attn import HEAD_DIMS, layout_error
+from .flash_attn import PAIRS, layout_error
 
 # Calls of flash_attention_bwd that launched the kernels (the pre-pass,
 # dK/dV and dQ: one count); the plain path never counts.
 LAUNCHES = 0
 
 # q, k, v, out, dout, lse, delta, dq, dk, dv, their 24 strides, B, H, Hk,
-# S, T, D, scale, causal, (bf16: the plan's tile and dK/dV grid,) stream.
+# S, T, D, Dv, scale, causal, (bf16: the plan's tile and dK/dV grid,)
+# stream.
 _ARGS = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
-         + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
+         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
 _SIGNATURES = {
     "flash_attn_bwd_f32": _ARGS + [ctypes.c_void_p],
     "flash_attn_bwd_bf16": _ARGS + [ctypes.c_int, ctypes.c_longlong,
@@ -121,14 +125,14 @@ def bwd_plan(b: int, h: int, hk: int, s: int, t: int, d: int,
 
 def check_supported(d: int, dv: int, window: int = 0) -> None:
     """Raise ``ValueError`` naming what the backward kernels do not take:
-    a sliding window, a value width other than the key width, or a width
-    outside :data:`HEAD_DIMS`."""
+    a sliding window, or a (D, Dv) pair outside
+    :data:`repro_torch.kernels.flash_attn.PAIRS`."""
     if window:
         raise ValueError(f"flash_attention has no backward under a sliding "
                          f"window (window {window})")
-    if dv != d or d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention has a backward at (D, D) for D "
-                         f"in {HEAD_DIMS}, not at (D, Dv) = ({d}, {dv})")
+    if (d, dv) not in PAIRS:
+        raise ValueError(f"flash_attention has a backward at (D, Dv) in "
+                         f"{PAIRS}, not at ({d}, {dv})")
 
 
 def flash_attention_bwd_plain(q, k, v, dout, *, causal: bool = True,
@@ -160,33 +164,35 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dk: torch.Tensor | None = None,
                         dv: torch.Tensor | None = None) -> tuple:
     """``(dq, dk, dv)``, the gradients of attention over q (B, H, S, D), k
-    and v (B, Hk, T, D) (scale ``scale``, default ``D ** -0.5``; causal
-    masking by absolute position) against ``dout``, given the forward's
-    output ``out`` and its row log-sum-exp ``lse`` (a contiguous (B, H, S)
-    float32 tensor, ``flash_attn.flash_attention(..., lse=)``).  Writes
+    (B, Hk, T, D) and v (B, Hk, T, Dv) (scale ``scale``, default ``D **
+    -0.5``; causal masking by absolute position) against ``dout`` (B, H,
+    S, Dv), given the forward's output ``out`` (B, H, S, Dv) and its row
+    log-sum-exp ``lse`` (a contiguous (B, H, S) float32 tensor,
+    ``flash_attn.flash_attention(..., lse=)``).  Writes
     into ``dq``, ``dk``, ``dv`` (any layout ``layout_error`` accepts, in
     the operands' dtype) where given.  CUDA tensors launch the kernels
     (float32 or bfloat16 operands of one dtype); CPU tensors take
     :func:`flash_attention_bwd_plain`, which needs neither ``out`` nor
-    ``lse``.  A window or an unsupported pair raises ``ValueError``
-    (:func:`check_supported`) before any launch."""
+    ``lse``.  A window or a pair outside ``flash_attn.PAIRS`` raises
+    ``ValueError`` (:func:`check_supported`) before any launch."""
     global LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"flash_attention_bwd needs q (B, H, S, D), k and v "
-                         f"(B, Hk, T, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"flash_attention_bwd needs q (B, H, S, D), k "
+                         f"(B, Hk, T, D) and v (B, Hk, T, Dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, h, s, d = q.shape
-    hk, t = k.shape[1], k.shape[2]
-    check_supported(d, v.shape[3], window)
+    hk, t, d_v = k.shape[1], k.shape[2], v.shape[3]
+    check_supported(d, d_v, window)
     if k.shape[0] != b or k.shape[3] != d or hk == 0 or h % hk:
         raise ValueError(f"flash_attention_bwd: k/v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)} (H must be a multiple of "
                          f"Hk)")
     for name, x in (("out", out), ("dout", dout)):
-        if x.shape != q.shape:
+        if tuple(x.shape) != (b, h, s, d_v):
             raise ValueError(f"flash_attention_bwd: {name} must be "
-                             f"{tuple(q.shape)}, got {tuple(x.shape)}")
+                             f"{(b, h, s, d_v)}, got {tuple(x.shape)}")
     scale = d ** -0.5 if scale is None else float(scale)
     grads = {"dq": (dq, q), "dk": (dk, k), "dv": (dv, v)}
     for name, (g, like) in grads.items():
@@ -222,13 +228,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = ()
     if q.dtype == torch.bfloat16:
         plan = (0, 0)
-        if d in WGMMA_DIMS:
+        if d == d_v and d in WGMMA_DIMS:
             p = bwd_plan(b, h, hk, s, t, d, bool(causal))
             plan = (p.tile, p.dkdv_grid)
     lib = _build.load("flash_attn_bwd", _SIGNATURES)
     _build.call(lib, "flash_attn_bwd", getattr(lib, _ENTRY[q.dtype]),
                 q.device, *(x.data_ptr() for x in (q, k, v, out, dout, lse,
                                                    delta, dq, dk, dv)),
-                strides, b, h, hk, s, t, d, scale, int(causal), *plan)
+                strides, b, h, hk, s, t, d, d_v, scale, int(causal), *plan)
     LAUNCHES += 1
     return dq, dk, dv

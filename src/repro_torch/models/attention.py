@@ -14,7 +14,8 @@ where multi-head latent attention asks for them, and the sliding window
 of the hybrid family.  Under autograd it is a ``torch.autograd.Function``
 whose forward kernel also writes the rows' log-sum-exp and whose
 backward is the kernels of :mod:`repro_torch.kernels.flash_attn_bwd`, at
-the pairs (D, D) without a window; elsewhere a gradient raises.  Decode
+every (D, Dv) pair of the kernel without a window; under a window a
+gradient raises.  Decode
 attention is plain torch, as the reference has no kernel for it; under a
 window the KV cache is a rolling buffer of ``min(max_len, window)`` slots
 (slot ``pos % Smax``).
@@ -161,15 +162,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class _KernelAttention(torch.autograd.Function):
-    """The attention kernel with its backward kernels, on (B, S, H, D)
-    tensors seen as (B, H, S, D) through ``transpose(1, 2)``: the forward
-    saves q, k, v, the output and the rows' log-sum-exp; the backward
-    hands the kernels the output gradient made contiguous and writes the
-    three gradients in the operands' (B, S, H, D) layout."""
+    """The attention kernel with its backward kernels, on q, k (B, S, H,
+    D) and v (B, S, H, Dv) seen as (B, H, S, .) through ``transpose(1,
+    2)``: the forward writes a (B, S, H, Dv) output and saves q, k, v, the
+    output and the rows' log-sum-exp; the backward hands the kernels the
+    output gradient made contiguous and writes the three gradients in the
+    operands' layouts."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out = torch.empty_like(q)
+        out = q.new_empty(q.shape[:3] + v.shape[3:])
         lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
                           dtype=torch.float32, device=q.device)
         _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -206,9 +208,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(D, Dv)`` must be one of the kernel's pairs
     (``kernels.flash_attn.PAIRS``, else ``ValueError``).  Where autograd
     records (grad enabled and an operand that requires grad) CUDA tensors
-    go through :class:`_KernelAttention`, whose backward is a kernel too;
-    a window or a pair other than (D, D) then raises ``ValueError``, and
-    nothing falls back to the plain attention.
+    go through :class:`_KernelAttention`, whose backward is a kernel too
+    at every pair; a window then raises ``ValueError``, and nothing falls
+    back to the plain attention.
     """
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,

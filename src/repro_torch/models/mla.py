@@ -6,7 +6,8 @@ Prefill runs the expanded path through
 ``qk_nope + qk_rope`` features against keys of the same width (the
 rope part one shared key broadcast over the heads) and values of
 ``v_head_dim``, with the scale ``(qk_nope + qk_rope) ** -0.5``; on the
-card that is the flash-attention kernel at its (192, 128) pair.  Decode
+card that is the flash-attention kernel at its (192, 128) pair, and
+under autograd its backward kernels at the same pair (training).  Decode
 runs the *absorbed* path: the k up-projection is folded into the query
 so attention reads the (B, S, kv_lora) latent cache directly, with the
 reference's casts at the same sites (the absorbed query and the softmax

@@ -182,6 +182,31 @@ def attention_work(b: int, h: int, hk: int, s: int, t: int, d: int,
             2.0 * b * h * (d + dv) * pairs)
 
 
+def attention_bwd_work(b: int, h: int, hk: int, s: int, t: int, d: int,
+                       causal: bool, itemsize: int, dv: int = None) -> tuple:
+    """Bytes and operations of attention's backward over q (b, h, s, d),
+    k (b, hk, t, d), v (b, hk, t, dv), the output and its gradient (b, h,
+    s, dv) (``dv`` defaults to ``d``): q, k, v, out and dO read once and
+    dq, dk, dv written once in their dtype, the float32 (b, h, s) lse read
+    once; five products a kept pair (S = QK^T and dQ, dK over d, dP = dO
+    V^T and dV over dv): 2 (3 d + 2 dv) operations."""
+    dv = d if dv is None else dv
+    _, fwd = attention_work(b, h, hk, s, t, d, causal, itemsize, dv=dv)
+    pairs = fwd / (2.0 * b * h * (d + dv))
+    return (itemsize * (2 * b * h * s * (d + dv) + 2 * b * hk * t * (d + dv))
+            + 4.0 * b * h * s, 2.0 * b * h * (3 * d + 2 * dv) * pairs)
+
+
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend that ``F.scaled_dot_product_attention`` picks for these
+    operands (``torch._fused_sdp_choice``), by name."""
+    from torch.nn.attention import SDPBackend
+    choice = torch._fused_sdp_choice(q, k, v, None, 0.0, causal,
+                                     enable_gqa=True)
+    names = {int(b.value): b.name for b in SDPBackend.__members__.values()}
+    return names.get(int(choice), f"unknown ({choice})")
+
+
 def scan_work(b: int, s: int, di: int, n: int) -> tuple:
     """Bytes and exponentials of the selective scan over (b, s, di)
     float32 inputs with n states: dt and x read and y written once, B

@@ -274,10 +274,12 @@ def test_scan_bound_counts_its_bytes_and_exponentials():
     assert b["bound_ms"] == exps / timing.MUFU_S * 1e3
 
 
-# The backward kernels of csrc/flash_attn_bwd.cu that a width launches:
-# the wgmma pair in bf16 at flash_attn_bwd.WGMMA_DIMS, the mma.sync pair
-# at the other multiples of 16, the FMA pair in float32 everywhere and in
-# bf16 at D 8 and 40; and the wgmma kernels' dynamic shared memory at D
+# The backward kernels of csrc/flash_attn_bwd.cu that a (D, Dv) pair
+# launches: the wgmma pair in bf16 at (D, D) for D in
+# flash_attn_bwd.WGMMA_DIMS, the mma.sync pair (templated on D and Dv) at
+# the other pairs of multiples of 16, (192, 128) included, the FMA pair
+# (templated likewise) in float32 at every pair and in bf16 at D 8 and 40
+# and at (24, 16); and the wgmma kernels' dynamic shared memory at D
 # 64 and 128 (which 0: dK/dV, 1: dQ).
 BWD_SMEM = {(64, 0): 84480, (64, 1): 82944, (128, 0): 166400,
             (128, 1): 164864}
@@ -287,16 +289,18 @@ def _bwd_names():
     """The mangled names (less the namespace prefix) of the backward
     kernels that csrc/flash_attn_bwd.cu instantiates."""
     names = []
-    for d in flash_attn.HEAD_DIMS:
+    for d, dv in flash_attn.PAIRS:
         for kernel in ("bwd_dkdv", "bwd_dq"):
             wg, mma, fma = (f"{kernel}_{k}" for k in ("wgmma", "mma", "fma"))
-            if d in flash_attn_bwd.WGMMA_DIMS:
+            if d == dv and d in flash_attn_bwd.WGMMA_DIMS:
                 names.append(f"{len(wg)}{wg}ILi{d}EEEv14CUtensorMap_st")
-            elif d % 16 == 0:
-                names.append(f"{len(mma)}{mma}ILi{d}EEEvPK13__nv_bfloat16")
-            names.append(f"{len(fma)}{fma}IfLi{d}EEEvPKT_")
-            if d % 16:
-                names.append(f"{len(fma)}{fma}I13__nv_bfloat16Li{d}EEEvPKT_")
+            elif d % 16 == 0 and dv % 16 == 0:
+                names.append(f"{len(mma)}{mma}ILi{d}ELi{dv}EEEvPK13"
+                             f"__nv_bfloat16")
+            else:
+                names.append(f"{len(fma)}{fma}I13__nv_bfloat16Li{d}ELi{dv}"
+                             f"EEEvPKT_")
+            names.append(f"{len(fma)}{fma}IfLi{d}ELi{dv}EEEvPKT_")
     return names
 
 
@@ -329,8 +333,9 @@ def _wgmma(kernel, d):
 
 def test_bwd_resources_reads_every_launched_kernel():
     """The four wgmma kernels with their shared memory, the mma.sync pair
-    only at the widths that still launch it, the FMA pair at every
-    width."""
+    only at the pairs that still launch it (DeepSeek-V3's (192, 128)
+    among them), the FMA pair at every pair in float32 and in bf16 at D 8
+    and 40 and at (24, 16)."""
     smoke = _chip_smoke()
     res = smoke.bwd_resources(_BwdBuild(_bwd_log()), flash_attn,
                               flash_attn_bwd)
@@ -338,7 +343,13 @@ def test_bwd_resources_reads_every_launched_kernel():
         f"{k}_wgmma d{d}" for k in ("bwd_dkdv", "bwd_dq") for d in (64, 128)}
     assert {n for n in res if "_mma" in n} == {
         f"{k}_mma d{d}" for k in ("bwd_dkdv", "bwd_dq")
-        for d in (16, 32, 80, 192)}
+        for d in (16, 32, 80, 192)} | {"bwd_dkdv_mma d192 dv128",
+                                       "bwd_dq_mma d192 dv128"}
+    assert {n for n in res if "_fma bf16" in n} == {
+        f"{k}_fma bf16 {t}" for k in ("bwd_dkdv", "bwd_dq")
+        for t in ("d8", "d40", "d24 dv16")}
+    assert len([n for n in res if "_fma f32" in n]) == 2 * len(
+        flash_attn.PAIRS)
     assert res["bwd_dkdv_wgmma d128"]["dynamic_smem_bytes"] == 166400
     assert res["bwd_dq_wgmma d64"]["dynamic_smem_bytes"] == 82944
     assert all(u.get("registers") for u in res.values())
@@ -354,13 +365,59 @@ def test_bwd_resources_fails_a_wgmma_spill(kernel, d):
 
 
 def test_bwd_resources_records_the_older_kernels_spills():
-    """A spill in the mma.sync or FMA kernels costs time, not
+    """A spill in the mma.sync or (D, D) FMA kernels costs time, not
     correctness: recorded, the run goes on."""
     smoke = _chip_smoke()
-    dq192 = next(n for n in _bwd_names() if "bwd_dq_mmaILi192E" in n)
+    dq192 = next(n for n in _bwd_names() if "bwd_dq_mmaILi192ELi192E" in n)
     res = smoke.bwd_resources(_BwdBuild(_bwd_log({dq192: 8})), flash_attn,
                               flash_attn_bwd)
     assert res["bwd_dq_mma d192"]["spill_store_bytes"] == 8
+
+
+@pytest.mark.parametrize("fragment,name", [
+    ("bwd_dq_mmaILi192ELi128E", "bwd_dq_mma d192 dv128"),
+    ("bwd_dkdv_fmaIfLi40ELi40E", "bwd_dkdv_fma f32 d40"),
+    ("bwd_dq_fmaI13__nv_bfloat16Li8ELi8E", "bwd_dq_fma bf16 d8")])
+def test_bwd_resources_records_the_mma_pairs_spills(fragment, name):
+    """The mma.sync kernel at (192, 128) shares the (D, D) kernels' dQ
+    loop, and its spill is recorded as theirs are (16 bytes seen on the
+    card), as are the (D, D) FMA kernels'."""
+    smoke = _chip_smoke()
+    mangled = next(n for n in _bwd_names() if fragment in n)
+    res = smoke.bwd_resources(_BwdBuild(_bwd_log({mangled: 16})),
+                              flash_attn, flash_attn_bwd)
+    assert res[name]["spill_store_bytes"] == 16
+
+
+@pytest.mark.parametrize("fragment", [
+    "bwd_dkdv_fmaIfLi192ELi128E", "bwd_dq_fmaIfLi24ELi16E",
+    "bwd_dkdv_fmaI13__nv_bfloat16Li24ELi16E"])
+def test_bwd_resources_fails_a_spill_of_a_pairs_fma_kernel(fragment):
+    """The FMA kernels at MLA's pairs spill nothing on the card; a spill
+    there fails the run, as one in a wgmma kernel does."""
+    smoke = _chip_smoke()
+    mangled = next(n for n in _bwd_names() if fragment in n)
+    with pytest.raises(AssertionError, match="spill"):
+        smoke.bwd_resources(_BwdBuild(_bwd_log({mangled: 8})), flash_attn,
+                            flash_attn_bwd)
+
+
+@pytest.mark.parametrize("shape,bytes_,ops_", [
+    ((1, 32, 8, 2048, 128, 128), 84148224.0, 85941288960.0),
+    ((1, 128, 128, 2048, 192, 128), 672137216.0, 446894702592.0)])
+def test_attention_bwd_work_counts_five_products(shape, bytes_, ops_):
+    """The backward's bound: q, k, v, out, dO read and dq, dk, dv written
+    once in bf16, lse read once; 2 (3 D + 2 Dv) operations a kept pair a
+    head.  DeepSeek-V3's training attention: 4.47e11 operations, 0.452 ms
+    at the bf16 tensor rate."""
+    b, h, hk, s, d, dv = shape
+    assert timing.attention_bwd_work(b, h, hk, s, s, d, True, 2, dv=dv) \
+        == (bytes_, ops_)
+    pairs = s * (s + 1) / 2
+    assert ops_ == 2.0 * b * h * (3 * d + 2 * dv) * pairs
+    if d == 192:
+        assert abs(timing.bound(bytes_, ops_, "bfloat16")[0] - 0.4519) \
+            < 1e-4
 
 
 def test_bwd_resources_fails_a_missing_wgmma_kernel_or_too_much_smem():

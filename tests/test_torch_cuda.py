@@ -1338,12 +1338,13 @@ def test_ssm_hybrid_smoke_serve_on_card_matches_the_cpu_port(cuda, arch):
 # The attention backward kernels (training).
 # ---------------------------------------------------------------------------
 
-def _bwd_inputs(cuda, dtype, b, h, hk, s, t, d, seed):
+def _bwd_inputs(cuda, dtype, b, h, hk, s, t, d, seed, dv=None):
+    dv = d if dv is None else dv
     gen = torch.Generator(device=cuda).manual_seed(seed)
     q = (0.5 * torch.randn(b, h, s, d, device=cuda, generator=gen)).to(dtype)
     k = (0.5 * torch.randn(b, hk, t, d, device=cuda, generator=gen)).to(dtype)
-    v = torch.randn(b, hk, t, d, device=cuda, generator=gen).to(dtype)
-    do = torch.randn(b, h, s, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(b, hk, t, dv, device=cuda, generator=gen).to(dtype)
+    do = torch.randn(b, h, s, dv, device=cuda, generator=gen).to(dtype)
     return q, k, v, do
 
 
@@ -1387,6 +1388,52 @@ def test_flash_attention_bwd_matches_plain(cuda, d, dtype, causal, h, hk, s,
         assert _scaled_err(g, w) <= BWD_TOL[dtype]
 
 
+# Multi-head latent attention's pairs: DeepSeek-V3's (192, 128) on
+# mma.sync in bf16, its smoke config's (24, 16) on the FMAs, both on the
+# FMAs in float32; MLA's scale (the default, D ** -0.5) and another; ragged
+# lengths, groups of 1 and 4, and DeepSeek-V3's 128 heads at 2048.
+@pytest.mark.parametrize("d,dv", [(192, 128), (24, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("scale", [None, 0.37])
+@pytest.mark.parametrize("h,hk,s,t", [(2, 2, 77, 77), (8, 2, 300, 300),
+                                      (4, 1, 130, 200), (8, 8, 1000, 1000),
+                                      (128, 128, 2048, 2048)])
+def test_flash_attention_bwd_pairs_match_plain(cuda, d, dv, dtype, causal,
+                                               scale, h, hk, s, t):
+    b = 1 if h == 128 else 2
+    q, k, v, do = _bwd_inputs(cuda, dtype, b, h, hk, s, t, d, d + s, dv)
+    lse = torch.empty(b, h, s, device=cuda)
+    out = flash_attn.flash_attention(q, k, v, causal=causal, scale=scale,
+                                     lse=lse)
+    torch.testing.assert_close(
+        lse, ref.attention_lse(q, k, causal=causal, scale=scale), rtol=0,
+        atol=1e-5)
+    before = flash_attn_bwd.LAUNCHES
+    got = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                             causal=causal, scale=scale)
+    assert flash_attn_bwd.LAUNCHES == before + 1
+    want = flash_attn_bwd.flash_attention_bwd_plain(q, k, v, do,
+                                                    causal=causal,
+                                                    scale=scale)
+    for g, w, width in zip(got, want, (d, d, dv)):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert g.shape[-1] == width
+        assert _scaled_err(g, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("d,dv", [(192, 128), (24, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_pairs_are_deterministic(cuda, d, dv, dtype):
+    """No atomics at the pairs either: two runs give the same bits."""
+    q, k, v, do = _bwd_inputs(cuda, dtype, 1, 8, 2, 700, 700, d, 5, dv)
+    lse = torch.empty(1, 8, 700, device=cuda)
+    out = flash_attn.flash_attention(q, k, v, lse=lse)
+    a = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse)
+    b = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,hk,s", [(8, 2, 700), (8, 2, 1000), (32, 8, 2048)])
 def test_flash_attention_bwd_is_deterministic(cuda, dtype, h, hk, s):
@@ -1400,20 +1447,20 @@ def test_flash_attention_bwd_is_deterministic(cuda, dtype, h, hk, s):
 
 
 def test_flash_attention_bwd_refuses_before_any_launch(cuda):
-    """A window or a pair other than (D, D) raises ValueError and launches
-    nothing."""
+    """A window or a pair outside ``flash_attn.PAIRS`` raises ValueError
+    and launches nothing."""
     x = torch.zeros(1, 2, 8, 192, device=cuda, dtype=torch.bfloat16)
-    v128 = torch.zeros(1, 2, 8, 128, device=cuda, dtype=torch.bfloat16)
+    v64 = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 8, device=cuda)
     before = flash_attn_bwd.LAUNCHES
     with pytest.raises(ValueError, match="window"):
         flash_attn_bwd.flash_attention_bwd(x, x, x, x, x, lse, window=4)
-    with pytest.raises(ValueError, match="192, 128"):
-        flash_attn_bwd.flash_attention_bwd(x, x, v128, x, x, lse)
+    with pytest.raises(ValueError, match="192, 64"):
+        flash_attn_bwd.flash_attention_bwd(x, x, v64, v64, v64, lse)
     x24 = torch.zeros(1, 2, 8, 24, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="24, 16"):
-        flash_attn_bwd.flash_attention_bwd(x24, x24, x24[..., :16], x24,
-                                           x24, lse)
+    with pytest.raises(ValueError, match="24, 8"):
+        flash_attn_bwd.flash_attention_bwd(x24, x24, x24[..., :8],
+                                           x24[..., :8], x24[..., :8], lse)
     assert flash_attn_bwd.LAUNCHES == before
 
 
@@ -1437,10 +1484,60 @@ def test_model_attention_gradient_on_card_matches_chunked(cuda, dtype):
         assert _scaled_err(g, w) <= BWD_TOL[dtype]
 
 
+# DeepSeek-V3's smoke config (MLA at (24, 16), MoE, the mtp head) under
+# autograd on the card, the kernels both ways against the plain chunked
+# attention: the loss to 1e-5 (float32) and 2e-3 (bf16), each gradient
+# leaf within 3e-3 (float32, the CPU's bound against JAX in
+# test_torch_lm_train_mtp.py) and 0.1 (bf16, chip_smoke.py's full-width
+# bound) of its largest element.  bf16 takes neutral routing (capacity
+# factor 8, every expert; tests/lm_parity.py's neutral_routing): one bf16
+# ulp flips a near-tied expert otherwise.
+MLA_SMOKE_TOL = {"float32": (1e-5, 3e-3), "bfloat16": (2e-3, 0.1)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepseek_smoke_gradients_on_card_match_chunked(cuda, dtype,
+                                                        monkeypatch):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, batch_for_model
+    from repro_torch.models import init_params, layers, loss_fn
+    base = configs.get_smoke("deepseek_v3_671b")
+    over = {"compute_dtype": dtype}
+    if dtype == "bfloat16":
+        over.update(capacity_factor=8.0, top_k=base.n_experts)
+    cfg = dataclasses.replace(base, **over)
+    params = init_params(cfg, prng.PRNGKey(0, device=cuda))
+    leaves = [t.requires_grad_(True) for _, t in layers.tree_items(params)]
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch_for_model(
+        cfg, DataConfig(seed=0, seq_len=64, global_batch=2,
+                        vocab_size=cfg.vocab_size), 0).items()}
+
+    def run():
+        loss, _ = loss_fn(params, cfg, batch)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    fwd, bwd = flash_attn.LAUNCHES, flash_attn_bwd.LAUNCHES
+    got_loss, got = run()
+    # Remat runs each layer's forward twice; the mtp block's once.
+    assert flash_attn.LAUNCHES - fwd == 2 * cfg.n_layers + 1
+    assert flash_attn_bwd.LAUNCHES - bwd == cfg.n_layers + 1
+    monkeypatch.setattr(attention, "flash_attention",
+                        attention.chunked_attention)
+    want_loss, want = run()
+    loss_tol, grad_tol = MLA_SMOKE_TOL[dtype]
+    assert abs(got_loss - want_loss) <= loss_tol * abs(want_loss)
+    for g, w in zip(got, want):
+        assert w.abs().max() > 0
+        assert _scaled_err(g, w) <= grad_tol
+
+
 def test_kernels_without_backward_refuse_a_gradient(cuda):
     """No gradient passes silently through a kernel wrapper that has no
     backward: the forward kernel itself, the model's attention under a
-    window or at (192, 128), and the scan all raise."""
+    window or at a pair outside ``flash_attn.PAIRS``, and the scan all
+    raise."""
     q = torch.randn(1, 4, 64, 64, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):
         flash_attn.flash_attention(q, q, q)
@@ -1450,8 +1547,8 @@ def test_kernels_without_backward_refuse_a_gradient(cuda):
     with pytest.raises(ValueError, match="window"):
         attention.flash_attention(m, m, m, window=16)
     m192 = torch.randn(1, 64, 4, 192, device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="192, 128"):
-        attention.flash_attention(m192, m192, m192[..., :128])
+    with pytest.raises(ValueError, match="192, 64"):
+        attention.flash_attention(m192, m192, m192[..., :64])
     x = torch.randn(1, 8, 128, device=cuda, requires_grad=True)
     n = 16
     with pytest.raises(RuntimeError, match="no backward"):

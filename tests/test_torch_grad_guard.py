@@ -4,10 +4,12 @@ On the card the attention forward kernel and the selective-scan kernel
 write their outputs through raw pointers, so an output has no
 ``grad_fn``: each wrapper raises when autograd would record (grad
 enabled and an operand that requires grad), and the model's attention
-routes differentiable calls through the backward kernels where they
-exist and raises where they do not (a window, (192, 128), (24, 16)).
-These checks come before the device check, so meta tensors show them on
-the CPU; ``tests/test_torch_cuda.py`` shows them on the card.  The CPU
+routes differentiable calls through the backward kernels at every (D,
+Dv) pair of the kernel, multi-head latent attention's (192, 128) and (24,
+16) included, and raises where there is none (a window).  These checks
+come before the device check, so meta tensors show them on the CPU (the
+kernel wrappers replaced by recorders of what they are handed);
+``tests/test_torch_cuda.py`` shows them on the card.  The CPU
 paths (the plain versions) stay differentiable, and the backward's plain
 version equals autograd through the chunked attention.
 """
@@ -41,14 +43,45 @@ def test_scan_kernel_refuses_a_gradient():
         ssm_scan.ssm_scan(*ops)                      # past the guard
 
 
-@pytest.mark.parametrize("d,dv,window,match", [
-    (64, 64, 16, "window"), (192, 128, 0, "192, 128"),
-    (24, 16, 0, "24, 16")])
+@pytest.mark.parametrize("d,dv,window,match", [(64, 64, 16, "window")])
 def test_model_attention_refuses_a_gradient_without_a_backward(d, dv, window,
                                                               match):
     q, v = _meta(1, 16, 4, d), _meta(1, 16, 4, dv)
     with pytest.raises(ValueError, match=match):
         attention.flash_attention(q, q, v, window=window)
+
+
+@pytest.mark.parametrize("d,dv", [(192, 128), (24, 16), (128, 128)])
+def test_model_attention_routes_pairs_through_the_kernels(monkeypatch, d,
+                                                          dv):
+    """Under autograd every pair of the kernel, multi-head latent
+    attention's (192, 128) and (24, 16) included, goes through
+    ``_KernelAttention``: the forward kernel writes a (B, H, S, Dv) view
+    of a (B, S, H, Dv) output beside the (B, H, S) lse, and the backward
+    kernels get the output and its gradient at width Dv and write dq and
+    dk at D, dv at Dv."""
+    seen = {}
+
+    def fwd(q, k, v, *, causal, scale, out, lse):
+        seen["fwd"] = (tuple(out.shape), tuple(lse.shape), scale)
+        return out
+
+    def bwd(q, k, v, out, dout, lse, *, causal, scale, dq, dk, dv):
+        seen["bwd"] = [tuple(t.shape) for t in (out, dout, dq, dk, dv)]
+        return dq, dk, dv
+
+    monkeypatch.setattr(flash_attn, "flash_attention", fwd)
+    monkeypatch.setattr(flash_attn_bwd, "flash_attention_bwd", bwd)
+    q, k, v = _meta(2, 16, 4, d), _meta(2, 16, 4, d), _meta(2, 16, 4, dv)
+    out = attention.flash_attention(q, k, v, scale=0.3)
+    assert type(out.grad_fn).__name__ == "_KernelAttentionBackward"
+    assert tuple(out.shape) == (2, 16, 4, dv)
+    assert seen["fwd"] == ((2, 4, 16, dv), (2, 4, 16), 0.3)
+    grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
+    assert seen["bwd"] == [(2, 4, 16, dv)] * 2 + [(2, 4, 16, d)] * 2 \
+        + [(2, 4, 16, dv)]
+    assert [tuple(g.shape) for g in grads] == [(2, 16, 4, d)] * 2 \
+        + [(2, 16, 4, dv)]
 
 
 def test_backward_refuses_before_any_launch():

@@ -1,8 +1,9 @@
 """``loss_fn`` of the MoE families against the JAX package's on the CPU:
 the DeepSeek-V3 smoke config (multi-head latent attention, a leading
 dense layer, MoE layers whose routers add the auxiliary loss, and the
-multi-token-prediction head with its weighted loss), in float32, on the
-same parameters
+multi-token-prediction head with its weighted loss) and Moonshot-v1-16B-
+A3B's (multi-head attention, a leading dense layer, MoE layers with two
+shared experts, no ``mtp``), in float32, on the same parameters
 (``init_params(PRNGKey(0))``, bit for bit) and numpy batches.
 
 Tolerances: every metric (``ce``, ``aux``, ``mtp``, ``loss``) to 1e-5
@@ -10,7 +11,8 @@ Tolerances: every metric (``ce``, ``aux``, ``mtp``, ``loss``) to 1e-5
 float32 sums run in other orders and the MoE's dispatch and combine are
 scatter-adds whose order differs, and the gradients of the layers at and
 below the experts differ by up to 1.1e-3 of their scale (seen at
-``layers.attn.wo``; 1e-4 to 7e-4 in the others).  Every
+``layers.attn.wo``; 1e-4 to 7e-4 in the others; Moonshot's up to 5.1e-4,
+at ``layers.moe.shared_out``).  Every
 parameter, the ``mtp`` subtree's included, gets a gradient.
 """
 import dataclasses
@@ -31,7 +33,7 @@ from repro_torch.models.layers import tree_items
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v3_671b"])
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "moonshot_v1_16b_a3b"])
 def test_moe_loss_and_grads_match_jax(arch):
     over = dict(param_dtype="float32", compute_dtype="float32")
     jcfg = dataclasses.replace(jconfigs.get_smoke(arch), **over)
