@@ -3222,28 +3222,27 @@ def grad_row_err(got, want) -> float:
 def bwd_resources(build, flash_attn, flash_attn_bwd) -> dict:
     """ptxas's registers and spills of the backward kernels at each (D,
     Dv) pair of ``flash_attn.PAIRS`` (named ``d{D}``, or ``d{D} dv{Dv}``
-    where Dv differs): ``bwd_dkdv_wgmma``/``bwd_dq_wgmma`` (bf16 at (D, D)
-    for D in ``flash_attn_bwd.WGMMA_DIMS``, with the dynamic shared memory
-    of a launch), ``bwd_dkdv_mma``/``bwd_dq_mma`` (bf16 at the other pairs
-    whose widths are multiples of 16, (192, 128) included) and
+    where Dv differs): ``bwd_dkdv_wgmma``/``bwd_dq_wgmma`` (bf16 at the
+    pairs of ``flash_attn_bwd.WGMMA_DIMS``, (192, 128) among them, with the
+    dynamic shared memory of a launch), ``bwd_dkdv_mma``/``bwd_dq_mma``
+    (bf16 at the other pairs whose widths are multiples of 16) and
     ``bwd_dkdv_fma``/``bwd_dq_fma`` (float32 at every pair; bf16 at D 8
     and 40 and at (24, 16)).  Raises if ptxas reports a spill in a wgmma
     kernel or in an FMA kernel at a pair where Dv differs, or a wgmma
     launch would take more shared memory than a block may have; the
-    spills of the older mma.sync and (D, D) FMA kernels (and of the
-    mma.sync kernel at (192, 128), which shares their dQ loop) are
-    recorded beside the times (they cost time, not correctness)."""
+    spills of the older mma.sync and (D, D) FMA kernels are recorded
+    beside the times (they cost time, not correctness)."""
     log = build.compiler_log("flash_attn_bwd")
     lib = build.load("flash_attn_bwd", flash_attn_bwd._SIGNATURES)
     res, strict = {}, []
     for d, dv in flash_attn.PAIRS:
         tag = f"d{d}" + ("" if dv == d else f" dv{dv}")
         for which, kernel in enumerate(("bwd_dkdv", "bwd_dq")):
-            if d == dv and d in flash_attn_bwd.WGMMA_DIMS:
+            if (d, dv) in flash_attn_bwd.WGMMA_DIMS:
                 res[f"{kernel}_wgmma {tag}"] = dict(
-                    ptxas_usage(log, f"{kernel}_wgmmaILi{d}E"),
-                    dynamic_smem_bytes=lib.flash_attn_bwd_wgmma_smem(d,
-                                                                     which))
+                    ptxas_usage(log, f"{kernel}_wgmmaILi{d}ELi{dv}E"),
+                    dynamic_smem_bytes=lib.flash_attn_bwd_wgmma_smem(
+                        d, dv, which))
                 strict.append(f"{kernel}_wgmma {tag}")
             elif d % 16 == 0 and dv % 16 == 0:
                 res[f"{kernel}_mma {tag}"] = ptxas_usage(

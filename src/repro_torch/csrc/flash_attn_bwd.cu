@@ -44,15 +44,17 @@
 // the pair at 5/7 of that bound.
 //
 // Design.  Three kernel families:
-//  * bf16 at D 64 and 128 (the training path's 128): bwd_dkdv_wgmma and
-//    bwd_dq_wgmma, warp-specialised as the forward's fa_wgmma_kernel
+//  * bf16 at (64, 64), (128, 128) (the dense training path's) and (192,
+//    128) (DeepSeek-V3's): bwd_dkdv_wgmma<D, DV> and bwd_dq_wgmma<D, DV>,
+//    warp-specialised as the forward's fa_wgmma_kernel
 //    (helpers in hopper.cuh).  A block is a producer warpgroup, which
 //    hands its registers to two consumer warpgroups (setmaxnreg), and
 //    the two consumers.  Every operand arrives by TMA through 4-D tensor
 //    maps over the strided views, 64-row boxes in the 128-byte swizzle
 //    that wgmma reads, rows past the end zero-filled; mbarriers say when
-//    a tile has landed and when its consumer is done with it.
-//    - dK/dV: a block takes one 64-key tile; K and V stay in shared
+//    a tile has landed and when its consumer is done with it.  Q and K
+//    tiles are D wide, dO and V tiles DV wide.
+//    - dK/dV at (D, D): a block takes one 64-key tile; K and V stay in shared
 //      memory, and a ring of three stages streams the (head, query tile)
 //      items that see the keys: Q and dO by TMA (producer warp 0), their
 //      lse (times log2 e, +inf past row S so that p = 0 there) and delta
@@ -68,6 +70,20 @@
 //      hands its dK over the K/V tiles, consumer 1 its dV beside them, and
 //      each sums the other's half into the gradient it writes (a + b ==
 //      b + a, so the order of the two does not matter).
+//    - dK/dV at (192, 128): there dK (96 floats a thread) and dV (64)
+//      beside two 64 x 64 score tiles and their fragments would take 256
+//      registers of a consumer's 240, and a dK partial (48 KB) would not
+//      fit over K and V.  So a block takes 128 keys, 64 a consumer, and
+//      both consumers walk every item of the ring (Q and dO read once for
+//      128 keys, and no partials to hand over).  A consumer holds one
+//      score tile at a time and no fragments: S^T, then P^T (float32 into
+//      a shared stash of its own, bf16 into a swizzled shared tile), then
+//      dP^T beside dV += P^T dO, then dS^T = P^T (dP^T - delta) with P^T
+//      from the stash (bf16 into a second tile), then dK += dS^T Q in
+//      flight during the next item's P^T; dV and dK read their A operands
+//      from those tiles.  That is 96 + 64 + 32 registers: with fragments
+//      in registers ptxas serialised the wgmmas (C7512).  P^T and dS^T
+//      round to bf16 where the (D, D) kernel rounds them.
 //    - dQ: a block takes 128 query rows of one (batch, head), 64 a
 //      consumer; Q and dO stay in shared memory and a three-stage ring
 //      streams 64-key K and V tiles.  S = Q K^T and dP = dO V^T as above;
@@ -81,20 +97,24 @@
 //      tile, so under causal masking the longest walks (tile j walks H /
 //      Hk (S/64 - j) items) go first and the short ones fill in behind
 //      them; dQ blocks launch the latest query tiles (the longest walks)
-//      first.  At the training shape the 256 dK/dV blocks hold 16,896
-//      items, 128 a multiprocessor, and taken in launch order end at 128.
+//      first.  At Qwen3-4B's training shape the 256 dK/dV blocks hold
+//      16,896 items, 128 a multiprocessor, and taken in launch order end
+//      at 128.  At (192, 128) both grids launch in groups of HEAD_GROUP KV
+//      heads, that order within a group: with every head in flight, the
+//      blocks stream 168 MB of Q and dO (1.31 MB a head at DeepSeek-V3's
+//      2048 rows) through the 50 MB L2; a group's 16 heads or fewer fit.
 //    - Every wgmma is waited for in the iteration that issues it (ptxas
 //      serialises all of a kernel's wgmmas when a wait is not on every
 //      path); the two consumers overlap each other's elementwise work
 //      with their products.
-//  * bf16 at D 16, 32, 80 and 192 and at (192, 128): mma.sync m16n8k16
+//  * bf16 at D 16, 32, 80 and 192: mma.sync m16n8k16
 //    (bf16 in, float32 sums), bwd_dkdv_mma<D, DV> and bwd_dq_mma<D, DV>.
 //    Blocks of 4 warps own 64 rows of their side (keys in bwd_dkdv_mma,
 //    queries in bwd_dq_mma), 16 a warp; the other side comes in 64-row
 //    tiles through shared memory (rows padded by 8 elements; K and Q D
 //    wide, V and dO DV wide) and is walked 16 rows at a time, so a warp's
 //    score tiles are 16 x 16 and its registers hold only its dK and dV
-//    (or dQ) accumulators: D / 2 + DV / 2 floats (160 at (192, 128)).  The
+//    (or dQ) accumulators: D / 2 + DV / 2 floats (192 at D 192).  The
 //    accumulators of S^T and dP^T become, after the elementwise step, the
 //    A fragments of the dV and dK products, as the forward's P does for
 //    PV; the B operands that run along a tile's rows are gathered from
@@ -112,8 +132,8 @@
 //    dK (D wide) and dV (DV wide), or dQ, over the tile.
 // Where D == DV the two widths' loops run together, as one loop of both
 // products, so the (D, D) kernels are those of before the pairs.
-// What is left for later: the wgmma kernels at D 80 and 192, at (192, 128)
-// and under a window, and overlapping one item's products with the next
+// What is left for later: the wgmma kernels at D 80 and 192 and under a
+// window, and at (D, D) overlapping one item's products with the next
 // one's inside a consumer.
 #include <math.h>
 
@@ -531,7 +551,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on wgmma fed by TMA, D in {64, 128}.
+// bf16 on wgmma fed by TMA: (D, D) for D in {64, 128}, and (192, 128).
 // ---------------------------------------------------------------------------
 
 constexpr int WG_TILE = 64;          // rows of every tile, keys and queries
@@ -541,23 +561,41 @@ constexpr int DQ_STAGES = 3;         // dQ: the K/V ring
 // Registers per thread after the hand-over: 128 x 24 + 256 x 240 <= 64 K.
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
+// At (192, 128) both grids launch in groups of HEAD_GROUP KV heads
+// (bwd_plan's HEAD_GROUP).
+constexpr int HEAD_GROUP = 8;
 
-// Shared memory at width D: 64-row tiles of whole 64-column swizzle chunks
-// (8 KB each).  dK/dV: K and V, the ring's Q and dO, each stage's lse and
-// delta, and the float32 partial dV one consumer hands the other (its dK
-// partial goes over K and V once both are read), 1 KB to align: 163 KB at
-// D 128.  dQ: the block's 128 rows of Q and dO, the ring's K and V: 161 KB.
-template <int D>
+// Shared memory at (D, DV): 64-row tiles of whole 64-column swizzle chunks
+// (8 KB each), Q and K tiles D wide (TILE), dO and V tiles DV wide
+// (TILE_V).  dK/dV at (D, D): the block's 64 keys (KEYS) of K and V, the
+// ring's Q and dO, each stage's lse and delta, and the float32 partial dV
+// one consumer hands the other (its dK partial goes over K and V once both
+// are read), 1 KB to align: 163 KB at D 128.  dK/dV at (192, 128)
+// (SPLIT): 128 keys, 64 a consumer, a ring of two stages, and each
+// consumer's float32 P^T and bf16 P^T and dS^T in place of the partial:
+// 226 KB.  dQ: the block's 128 rows of Q and dO, the ring's K and V: 161
+// KB at D 128, 201 KB at (192, 128).
+template <int D, int DV>
 struct BwdShape {
-  static constexpr int CHUNKS = D / 64;
+  static constexpr bool SPLIT = D != DV;
+  static constexpr int KEYS = SPLIT ? 2 * WG_TILE : WG_TILE;
+  static constexpr int RING = SPLIT ? 2 : KV_STAGES;     // dK/dV's stages
   static constexpr uint32_t TILE = WG_TILE * D * 2;
+  static constexpr uint32_t TILE_V = WG_TILE * DV * 2;
+  static constexpr uint32_t STAGE = TILE + TILE_V;       // Q, dO or K, V
   static constexpr int ROWS_BYTES = 2 * WG_TILE * 4;     // lse and delta
-  static constexpr int RED_BYTES = 128 * (D / 2) * 4;    // one partial
-  static constexpr int KV_SMEM = 2 * TILE + KV_STAGES * (2 * TILE + ROWS_BYTES)
+  // The partial dV one consumer hands the other (D, D), or each
+  // consumer's 64 x 64 scores as float32 P^T and as bf16 P^T and dS^T
+  // (SPLIT).
+  static constexpr int RED_BYTES = SPLIT ? 2 * WG_TILE * WG_TILE * (4 + 4)
+                                         : 128 * (D / 2) * 4;
+  static constexpr int KV_SMEM = KEYS / WG_TILE * STAGE
+                                 + RING * (STAGE + ROWS_BYTES)
                                  + RED_BYTES + 1024;
-  static constexpr int DQ_SMEM = 4 * TILE + DQ_STAGES * 2 * TILE + 1024;
-  static_assert(D % 64 == 0, "whole swizzle chunks");
-  static_assert(RED_BYTES <= 2 * TILE, "a partial fits over K and V");
+  static constexpr int DQ_SMEM = (2 + DQ_STAGES) * STAGE + 1024;
+  static_assert(D % 64 == 0 && DV % 64 == 0, "whole swizzle chunks");
+  static_assert(SPLIT || RED_BYTES <= 2 * TILE,
+                "a partial fits over K and V");
 };
 
 // acc (64 x 64) = A B^T over D features, A and B 64-row tiles K-major in
@@ -602,22 +640,51 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-// dK and dV of one key tile: block i takes key tile i / (B Hk) of batch
-// row and KV head i % (B Hk) (bwd_plan in kernels/flash_attn_bwd.py: under
-// causal masking the longest walks first).  K and V stay in shared memory;
-// the (head, query tile) items that see them stream through the ring,
-// taken by the two consumers in turn; each consumer holds float32 dK and
-// dV of all 64 keys, and the two halves are summed at the end.
+// The 4 warps of consumer wg alone.
+__device__ __forceinline__ void consumer_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+}
+
+// A 64 x 64 accumulator tile rounded to bf16 into a 64-row tile of
+// 128-byte rows in the 128-byte swizzle (K-major, as wgmma reads an A
+// operand from shared memory): this thread's rows warp * 16 + g and + 8.
+__device__ __forceinline__ void store_sw128(const float (&acc)[32],
+                                            uint8_t* tile, int warp, int g,
+                                            int t4) {
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int r = warp * 16 + g + ((e % 4) >= 2 ? 8 : 0);
+    *reinterpret_cast<uint32_t*>(tile + r * 128 + (((e / 4) ^ g) << 4)
+                                 + t4 * 4) = pack_f32(acc[e], acc[e + 1]);
+  }
+}
+
+// acc (64 x 2 NA) += A B: A such a 64 x 64 tile in shared memory, B 64
+// rows of a tile read N-major through the transpose flag, 16 a step.
+template <int NA>
+__device__ __forceinline__ void issue_ab_ss(float (&acc)[NA], uint32_t a_s,
+                                            uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_tb(acc, sw128_desc(a_s + kk * 32, 16, 1024),
+                sw128_desc(b_s + kk * 16 * 128, WG_TILE * 128, 1024));
+}
+
+// dK and dV of one 64-key tile at (D, D): block i takes key tile i / (B
+// Hk) of batch row and KV head i % (B Hk) (bwd_plan in
+// kernels/flash_attn_bwd.py: under causal masking the longest walks
+// first).  K and V stay in shared memory; the (head, query tile) items
+// that see them stream through the ring, taken by the two consumers in
+// turn; each consumer holds float32 dK and dV of all 64 keys, and the two
+// halves are summed at the end.
 template <int D>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
-               const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv,
-               const __grid_constant__ CUtensorMap tdo,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, Layouts st,
-               int B, int H, int Hk, int S, int T, float scale, int causal) {
-  using W = BwdShape<D>;
+__device__ __forceinline__ void dkdv_shared(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, const Layouts& st, int B, int H, int Hk, int S,
+    int T, float scale, int causal) {
+  using W = BwdShape<D, D>;
   constexpr int NA = D / 2;                   // dK (or dV) floats a thread
   extern __shared__ uint8_t bwd_smem[];
   // mbarriers: K/V landed; per stage Q/dO (and lse, delta) landed, read.
@@ -661,7 +728,7 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (warp == 0 && lane == 0) {
       mbar_expect_tx(kv_full, 2 * W::TILE);
-      for (int c = 0; c < W::CHUNKS; ++c) {
+      for (int c = 0; c < D / 64; ++c) {
         tma_load(k_s + c * (WG_TILE * 128), tk, kv_full, c * 64, hk, k0, b);
         tma_load(v_s + c * (WG_TILE * 128), tv, kv_full, c * 64, hk, k0, b);
       }
@@ -675,7 +742,7 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           if (lane == 0) {
             const uint32_t q_t = ring + s * 2 * W::TILE;
             mbar_expect_tx(full + 8 * s, 2 * W::TILE);
-            for (int c = 0; c < W::CHUNKS; ++c) {
+            for (int c = 0; c < D / 64; ++c) {
               tma_load(q_t + c * (WG_TILE * 128), tq, full + 8 * s, c * 64, h,
                        q0, b);
               tma_load(q_t + W::TILE + c * (WG_TILE * 128), tdo, full + 8 * s,
@@ -784,6 +851,262 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// dK and dV of one 128-key tile at (192, 128), 64 keys a consumer: block
+// i takes the (batch row, KV head, key tile) of bwd_plan's order (groups
+// of HEAD_GROUP KV heads, key tile by key tile within a group).  Both
+// consumers walk every (head, query tile) item of the ring, each against
+// its own 64 keys of K and V, and write their own rows: no partials to
+// hand over.  A consumer's dK (96 floats a thread) and dV (64) leave room
+// for one 64 x 64 score tile and no fragments: an item runs S^T = K Q^T;
+// P^T, kept as float32 in the consumer's stash and as bf16 in a swizzled
+// shared tile; dP^T = V dO^T beside dV += bf16(P^T) dO; dS^T = P^T (dP^T
+// - delta) from the stash, as bf16 into a second tile; and dK +=
+// bf16(dS^T) Q, in flight during the next item's P^T.  Every elementwise
+// step has a product in flight, and P^T and dS^T round to bf16 where the
+// (D, D) kernel rounds them.
+template <int D, int DV>
+__device__ __forceinline__ void dkdv_split(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, const Layouts& st, int B, int H, int Hk, int S,
+    int T, float scale, int causal) {
+  using W = BwdShape<D, DV>;
+  constexpr int RING = W::RING;
+  extern __shared__ uint8_t bwd_smem[];
+  // mbarriers: K/V landed; per stage Q/dO (and lse, delta) landed, read.
+  __shared__ __align__(8) uint64_t bars[1 + 2 * RING];
+  const uint32_t raw = smem_u32(bwd_smem);
+  const uint32_t k_s = (raw + 1023) & ~1023u;  // K of keys 0-63, 64-127
+  const uint32_t v_s = k_s + 2 * W::TILE;      // V of the same
+  const uint32_t ring = v_s + 2 * W::TILE_V;   // stage s: Q, then dO
+  constexpr uint32_t SCORES = WG_TILE * WG_TILE * 2;  // a bf16 score tile
+  const uint32_t pt_s = ring + RING * W::STAGE;  // bf16 P^T, one a consumer
+  const uint32_t ds_s = pt_s + 2 * SCORES;       // bf16 dS^T, likewise
+  uint8_t* base = bwd_smem + (k_s - raw);
+  float* rows = reinterpret_cast<float*>(base + (ds_s + 2 * SCORES - k_s));
+  float* stash = rows + RING * 2 * WG_TILE;    // float32 P^T, likewise
+  const uint32_t kv_full = smem_u32(&bars[0]);
+  const uint32_t full = smem_u32(&bars[1]);                        // + 8 s
+  const uint32_t empty = smem_u32(&bars[1 + RING]);
+
+  // Block -> (batch row, KV head, key tile): batch rows in turn, KV heads
+  // in groups of HEAD_GROUP, key tile by key tile within a group.
+  const int n_kt = (T + W::KEYS - 1) / W::KEYS;
+  const int b = blockIdx.x / (Hk * n_kt), rem = blockIdx.x % (Hk * n_kt);
+  const int g0 = rem / (HEAD_GROUP * n_kt) * HEAD_GROUP;
+  const int gs = min(HEAD_GROUP, Hk - g0);
+  const int kt = (rem - g0 * n_kt) / gs, hk = g0 + (rem - g0 * n_kt) % gs;
+  const int k0 = kt * W::KEYS;
+  const int n_qt = (S + WG_TILE - 1) / WG_TILE;
+  const int G = H / Hk;
+  // Under causal masking the query tiles from the one holding row k0 on.
+  const int qt0 = causal ? min(kt * (W::KEYS / WG_TILE), n_qt) : 0;
+  const int nq = n_qt - qt0, n_items = G * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);        // TMA's arrival + the lse warp
+      mbar_init(empty + 8 * s, 8);            // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: warp 0 loads K and V, then keeps the ring of Q and dO
+    // tiles full; warp 1 writes each stage's lse (times log2 e; +inf past
+    // row S, so that p = 0 there) and delta.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {             // keys past T zero-filled
+      mbar_expect_tx(kv_full, 2 * W::STAGE);
+      for (int w = 0; w < 2; ++w) {
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(k_s + w * W::TILE + c * (WG_TILE * 128), tk, kv_full,
+                   c * 64, hk, k0 + w * WG_TILE, b);
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(v_s + w * W::TILE_V + c * (WG_TILE * 128), tv, kv_full,
+                   c * 64, hk, k0 + w * WG_TILE, b);
+      }
+    }
+    if (warp < 2) {
+      for (int i = 0; i < n_items; ++i) {
+        const int s = i % RING;
+        const int h = hk * G + i / nq, q0 = (qt0 + i % nq) * WG_TILE;
+        mbar_wait(empty + 8 * s, ((i / RING) & 1) ^ 1);
+        if (warp == 0) {
+          if (lane == 0) {
+            const uint32_t q_t = ring + s * W::STAGE;
+            mbar_expect_tx(full + 8 * s, W::STAGE);
+            for (int c = 0; c < D / 64; ++c)
+              tma_load(q_t + c * (WG_TILE * 128), tq, full + 8 * s, c * 64,
+                       h, q0, b);
+            for (int c = 0; c < DV / 64; ++c)
+              tma_load(q_t + W::TILE + c * (WG_TILE * 128), tdo,
+                       full + 8 * s, c * 64, h, q0, b);
+          }
+        } else {
+          float* ls = rows + s * 2 * WG_TILE;
+          const long long bhs = ((long long)b * H + h) * S;
+          for (int r = lane; r < WG_TILE; r += 32) {
+            const int row = q0 + r;
+            ls[r] = row < S ? lse[bhs + row] * LOG2E : INFINITY;
+            ls[WG_TILE + r] = row < S ? delta[bhs + row] : 0.f;
+          }
+          mbar_arrive(full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer wg takes keys kw .. kw + 63 of every item.  No wgmma is
+  // issued under a condition (ptxas serialises every wgmma of a kernel
+  // that does, C7520): a consumer also runs the items none of its keys see
+  // (consumer 1's first query tile of each head under causal masking;
+  // keys past T), where p = 0 adds exact zeros, and the first item's
+  // "last dK" multiplies a zeroed dS^T.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const float sl2 = scale * LOG2E;
+  const int kw = k0 + wg * WG_TILE;
+  const uint32_t kw_s = k_s + wg * W::TILE, vw_s = v_s + wg * W::TILE_V;
+  const uint32_t pt_w = pt_s + wg * SCORES, ds_w = ds_s + wg * SCORES;
+  uint8_t* pt = base + (pt_w - k_s);
+  uint8_t* ds = base + (ds_w - k_s);
+  float* my_stash = stash + wg * WG_TILE * WG_TILE + tid;  // + 128 e
+  float dka[D / 2], dva[DV / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < (int)SCORES / 4 / 128; ++j)
+    reinterpret_cast<uint32_t*>(ds)[tid + 128 * j] = 0u;
+  fence_async_smem();
+  consumer_sync(wg);
+  // The Q tile that the last item's dS^T multiplies (at first this
+  // consumer's K tile, which has landed, against zeros), and that item's
+  // stage, released once its dK product ends.
+  uint32_t p_q = kw_s;
+  int held = -1;
+  mbar_wait(kv_full, 0);
+#pragma unroll 1
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i % RING, q0 = (qt0 + i % nq) * WG_TILE;
+    mbar_wait(full + 8 * s, (i / RING) & 1);
+    const uint32_t q_t = ring + s * W::STAGE, do_t = q_t + W::TILE;
+    const float* ls = rows + s * 2 * WG_TILE;
+    // An item that reaches past T or above the diagonal masks its keys.
+    const bool edge = kw + WG_TILE > T
+                      || (causal && kw + WG_TILE - 1 > q0);
+    // S^T = K Q^T (64 keys x 64 queries), then the last item's dK +=
+    // bf16(dS^T) Q, in flight during this item's P^T.  K's and V's
+    // descriptors are built anew each item (opaque): held across the
+    // loop they spill.
+    float sa[32];
+    wgmma_fence();
+    issue_abt<D>(sa, opaque(kw_s), q_t);
+    wgmma_commit();
+    issue_ab_ss(dka, ds_w, p_q);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sa);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
+      const int key = kw + warp * 16 + g + ((e % 4) >= 2 ? 8 : 0);
+      float p = exp2f(fmaf(sa[e], sl2, -ls[qi]));
+      if (edge && (key >= T || (causal && key > q0 + qi))) p = 0.f;
+      sa[e] = p;
+      my_stash[128 * e] = p;
+    }
+    store_sw128(sa, pt, warp, g, t4);          // bf16(P^T), the last dV's
+    wgmma_wait<0>();                           // operand long since read
+    fence_regs(dka);
+    if (held >= 0) {                // the last item's products have ended
+      __syncwarp();                 // every lane's lse is read
+      if (lane == 0) mbar_arrive(empty + 8 * held);
+    }
+    fence_async_smem();
+    consumer_sync(wg);              // all of P^T is written
+    // dP^T = V dO^T, then dV += bf16(P^T) dO, in flight during dS^T.
+    float pa[32];
+    wgmma_fence();
+    issue_abt<DV>(pa, opaque(vw_s), do_t);
+    wgmma_commit();
+    issue_ab_ss(dva, pt_w, do_t);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(pa);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
+      pa[e] = my_stash[128 * e] * (pa[e] - ls[WG_TILE + qi]);
+    }
+    store_sw128(pa, ds, warp, g, t4);          // bf16(dS^T): the last dK
+    wgmma_wait<0>();                           // ended in the P^T step
+    fence_regs(dva);
+    fence_async_smem();
+    consumer_sync(wg);              // all of dS^T is written
+    p_q = q_t;
+    held = s;
+  }
+  wgmma_fence();                    // the last item's dK (the producer
+  issue_ab_ss(dka, ds_w, p_q);      // loads nothing more: no release)
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dka);
+  if (kw >= T) return;
+  const int r0 = kw + warp * 16 + g, r1 = r0 + 8;
+  bf16* dkh = dk + b * st.dk.b + hk * st.dk.h;
+  bf16* dvh = dv + b * st.dv.b + hk * st.dv.h;
+#pragma unroll
+  for (int u = 0; u < DV / 8; ++u) {
+    const int col = u * 8 + t4 * 2;
+    if (r0 < T)
+      *reinterpret_cast<uint32_t*>(dvh + r0 * st.dv.s + col) =
+          pack_f32(dva[4 * u], dva[4 * u + 1]);
+    if (r1 < T)
+      *reinterpret_cast<uint32_t*>(dvh + r1 * st.dv.s + col) =
+          pack_f32(dva[4 * u + 2], dva[4 * u + 3]);
+  }
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u) {
+    const int col = u * 8 + t4 * 2;
+    if (r0 < T)
+      *reinterpret_cast<uint32_t*>(dkh + r0 * st.dk.s + col) =
+          pack_f32(dka[4 * u] * scale, dka[4 * u + 1] * scale);
+    if (r1 < T)
+      *reinterpret_cast<uint32_t*>(dkh + r1 * st.dk.s + col) =
+          pack_f32(dka[4 * u + 2] * scale, dka[4 * u + 3] * scale);
+  }
+}
+
+// dK and dV: the shared-tile design at (D, D), the split one at (192, 128).
+template <int D, int DV>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, Layouts st,
+               int B, int H, int Hk, int S, int T, float scale, int causal) {
+  if constexpr (BwdShape<D, DV>::SPLIT)
+    dkdv_split<D, DV>(tq, tk, tv, tdo, lse, delta, dk, dv, st, B, H, Hk, S,
+                      T, scale, causal);
+  else
+    dkdv_shared<D>(tq, tk, tv, tdo, lse, delta, dk, dv, st, B, H, Hk, S, T,
+                   scale, causal);
+}
+
 // dS = P (dP - delta) in place in pa for one consumer's 64 queries (rows
 // r0, r1 of this thread, lse l0, l1 times log2 e, delta e0, e1) against
 // keys k0 .. k0 + 63; a tile that reaches past T or above the diagonal
@@ -805,8 +1128,12 @@ __device__ __forceinline__ void dq_scores(const float (&sa)[32],
 }
 
 // dQ of 128 query rows of one (batch row, head), 64 a consumer: S and dP
-// recomputed against each 64-key tile of the ring, dQ += bf16(dS) K.
-template <int D>
+// recomputed against each 64-key tile of the ring, dQ += bf16(dS) K.  At
+// (D, D) block (x, y) takes (batch row, head) x and the y-th latest query
+// tile; at (192, 128) block x takes the (batch row, head, query tile) of
+// bwd_plan's order (groups of the query heads of HEAD_GROUP KV heads, the
+// latest query tiles first within a group).
+template <int D, int DV>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
@@ -815,21 +1142,33 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, Layouts st, int H, int Hk, int S, int T,
              float scale, int causal) {
-  using W = BwdShape<D>;
+  using W = BwdShape<D, DV>;
   extern __shared__ uint8_t bwd_smem[];
   // mbarriers: Q/dO landed; per stage K landed, V landed, K read, V read.
   __shared__ __align__(8) uint64_t bars[1 + 4 * DQ_STAGES];
   const uint32_t q_s = (smem_u32(bwd_smem) + 1023) & ~1023u;  // 2 tiles
   const uint32_t do_s = q_s + 2 * W::TILE;                     // 2 tiles
-  const uint32_t ring = q_s + 4 * W::TILE;     // stage s: K, then V
+  const uint32_t ring = do_s + 2 * W::TILE_V;  // stage s: K, then V
   const uint32_t q_full = smem_u32(&bars[0]);
   const uint32_t k_full = smem_u32(&bars[1]);                  // + 8 s
   const uint32_t v_full = smem_u32(&bars[1 + DQ_STAGES]);
   const uint32_t k_empty = smem_u32(&bars[1 + 2 * DQ_STAGES]);
   const uint32_t v_empty = smem_u32(&bars[1 + 3 * DQ_STAGES]);
 
-  const int qt = gridDim.y - 1 - blockIdx.y;      // heaviest tiles first
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  int b, h, qt;
+  if constexpr (W::SPLIT) {
+    const int n_q = (S + 2 * WG_TILE - 1) / (2 * WG_TILE);
+    const int gh = HEAD_GROUP * (H / Hk);        // query heads a group
+    b = blockIdx.x / (H * n_q);
+    const int rem = blockIdx.x % (H * n_q);
+    const int h0 = rem / (gh * n_q) * gh, gs = min(gh, H - h0);
+    qt = n_q - 1 - (rem - h0 * n_q) / gs;
+    h = h0 + (rem - h0 * n_q) % gs;
+  } else {
+    qt = gridDim.y - 1 - blockIdx.y;             // heaviest tiles first
+    b = blockIdx.x / H;
+    h = blockIdx.x % H;
+  }
   const int hk = h / (H / Hk);
   const int q0 = qt * 2 * WG_TILE;
   int n_kv = (T + WG_TILE - 1) / WG_TILE;
@@ -851,25 +1190,29 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, 4 * W::TILE);
+      mbar_expect_tx(q_full, 2 * W::STAGE);
       for (int w = 0; w < 2; ++w)
-        for (int c = 0; c < W::CHUNKS; ++c) {
-          const uint32_t off = w * W::TILE + c * (WG_TILE * 128);
-          tma_load(q_s + off, tq, q_full, c * 64, h, q0 + w * WG_TILE, b);
-          tma_load(do_s + off, tdo, q_full, c * 64, h, q0 + w * WG_TILE, b);
+        for (int c = 0; c < cmax(D, DV) / 64; ++c) {
+          const uint32_t off = c * (WG_TILE * 128);
+          if (c < D / 64)
+            tma_load(q_s + w * W::TILE + off, tq, q_full, c * 64, h,
+                     q0 + w * WG_TILE, b);
+          if (c < DV / 64)
+            tma_load(do_s + w * W::TILE_V + off, tdo, q_full, c * 64, h,
+                     q0 + w * WG_TILE, b);
         }
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % DQ_STAGES, k0 = j * WG_TILE;
         const uint32_t free_parity = ((j / DQ_STAGES) & 1) ^ 1;
-        const uint32_t k_t = ring + s * 2 * W::TILE;
+        const uint32_t k_t = ring + s * W::STAGE;
         mbar_wait(k_empty + 8 * s, free_parity);
         mbar_expect_tx(k_full + 8 * s, W::TILE);
-        for (int c = 0; c < W::CHUNKS; ++c)
+        for (int c = 0; c < D / 64; ++c)
           tma_load(k_t + c * (WG_TILE * 128), tk, k_full + 8 * s, c * 64, hk,
                    k0, b);
         mbar_wait(v_empty + 8 * s, free_parity);
-        mbar_expect_tx(v_full + 8 * s, W::TILE);
-        for (int c = 0; c < W::CHUNKS; ++c)
+        mbar_expect_tx(v_full + 8 * s, W::TILE_V);
+        for (int c = 0; c < DV / 64; ++c)
           tma_load(k_t + W::TILE + c * (WG_TILE * 128), tv, v_full + 8 * s,
                    c * 64, hk, k0, b);
       }
@@ -891,7 +1234,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const float l1 = r1 < S ? lh[r1] * LOG2E : 0.f;
   const float e0 = r0 < S ? eh[r0] : 0.f, e1 = r1 < S ? eh[r1] : 0.f;
 
-  const uint32_t q_t = q_s + wg * W::TILE, do_t = do_s + wg * W::TILE;
+  const uint32_t q_t = q_s + wg * W::TILE, do_t = do_s + wg * W::TILE_V;
   float dqa[D / 2], sa[32], pa[32];
   uint32_t df[4][4];               // bf16(dS) of the last tile, A fragments
 #pragma unroll
@@ -905,7 +1248,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   mbar_wait(v_full, 0);
   wgmma_fence();
   issue_abt<D>(sa, q_t, ring);
-  issue_abt<D>(pa, do_t, ring + W::TILE);
+  issue_abt<DV>(pa, do_t, ring + W::TILE);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sa);
@@ -917,16 +1260,18 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   for (int j = 1; j < n_kv; ++j) {
     const int s = j % DQ_STAGES, sp = (j - 1) % DQ_STAGES;
     const uint32_t parity = (j / DQ_STAGES) & 1;
-    const uint32_t k_t = ring + s * 2 * W::TILE;
+    const uint32_t k_t = ring + s * W::STAGE;
     mbar_wait(k_full + 8 * s, parity);
     mbar_wait(v_full + 8 * s, parity);
     // S = Q K_j^T and dP = dO V_j^T (64 queries x 64 keys), then dQ +=
-    // bf16(dS_{j-1}) K_{j-1}, in flight during this tile's dS.
+    // bf16(dS_{j-1}) K_{j-1}, in flight during this tile's dS.  At (192,
+    // 128) Q's and dO's descriptors are built anew each tile (opaque):
+    // held across the loop they spill.
     wgmma_fence();
-    issue_abt<D>(sa, q_t, k_t);
-    issue_abt<D>(pa, do_t, k_t + W::TILE);
+    issue_abt<D>(sa, W::SPLIT ? opaque(q_t) : q_t, k_t);
+    issue_abt<DV>(pa, W::SPLIT ? opaque(do_t) : do_t, k_t + W::TILE);
     wgmma_commit();
-    issue_ab<D>(dqa, df, ring + sp * 2 * W::TILE);
+    issue_ab<D>(dqa, df, ring + sp * W::STAGE);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sa);
@@ -941,7 +1286,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     pack_frags(pa, df);
   }
   wgmma_fence();                   // the last tile's dQ
-  issue_ab<D>(dqa, df, ring + ((n_kv - 1) % DQ_STAGES) * 2 * W::TILE);
+  issue_ab<D>(dqa, df, ring + ((n_kv - 1) % DQ_STAGES) * W::STAGE);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(dqa);
@@ -1234,45 +1579,49 @@ int launch_mma(const Args<bf16>& a) {
   return (int)cudaGetLastError();
 }
 
-// The wgmma kernels at width D.  tile and grid are bwd_plan's (the
-// wrapper's plan of the dK/dV grid), checked against this source's tile
-// and grid.
-template <int D>
-int launch_wgmma(const Args<bf16>& a, int tile, long long grid) {
-  using W = BwdShape<D>;
-  const long long kv_grid = (long long)((a.Tk + WG_TILE - 1) / WG_TILE)
+// The wgmma kernels at (D, DV).  keys, group and grid are bwd_plan's (the
+// wrapper's plan: keys a dK/dV block, KV heads a launch group, the dK/dV
+// grid), checked against this source's.
+template <int D, int DV>
+int launch_wgmma(const Args<bf16>& a, int keys, int group, long long grid) {
+  using W = BwdShape<D, DV>;
+  const long long kv_grid = (long long)((a.Tk + W::KEYS - 1) / W::KEYS)
                             * a.B * a.Hk;
-  if (tile != WG_TILE || grid != kv_grid || kv_grid > 2147483647LL
-      || (long long)a.B * a.H > 2147483647LL
-      || (a.S + 2 * WG_TILE - 1) / (2 * WG_TILE) > 65535)
+  const long long n_q = (a.S + 2 * WG_TILE - 1) / (2 * WG_TILE);
+  const long long dq_blocks = (long long)a.B * a.H * (W::SPLIT ? n_q : 1);
+  if (keys != W::KEYS || group != (W::SPLIT ? HEAD_GROUP : 0)
+      || grid != kv_grid || kv_grid > 2147483647LL
+      || dq_blocks > 2147483647LL || (!W::SPLIT && n_q > 65535))
     return (int)cudaErrorInvalidValue;
   const Layouts& st = a.st;
   CUtensorMap tq, tk, tv, tdo;
   if (!make_map(&tq, a.q, D, a.H, a.S, a.B, st.q.h, st.q.s, st.q.b, WG_TILE)
-      || !make_map(&tdo, a.dout, D, a.H, a.S, a.B, st.dout.h, st.dout.s,
+      || !make_map(&tdo, a.dout, DV, a.H, a.S, a.B, st.dout.h, st.dout.s,
                    st.dout.b, WG_TILE)
       || !make_map(&tk, a.k, D, a.Hk, a.Tk, a.B, st.k.h, st.k.s, st.k.b,
                    WG_TILE)
-      || !make_map(&tv, a.v, D, a.Hk, a.Tk, a.B, st.v.h, st.v.s, st.v.b,
+      || !make_map(&tv, a.v, DV, a.Hk, a.Tk, a.B, st.v.h, st.v.s, st.v.b,
                    WG_TILE))
     return (int)cudaErrorInvalidValue;
   static unsigned long long kv_configured = 0, q_configured = 0;
-  cudaError_t err = allow_smem(bwd_dkdv_wgmma<D>, W::KV_SMEM,
+  cudaError_t err = allow_smem(bwd_dkdv_wgmma<D, DV>, W::KV_SMEM,
                                &kv_configured);
-  if (err == cudaSuccess) err = allow_smem(bwd_dq_wgmma<D>, W::DQ_SMEM,
+  if (err == cudaSuccess) err = allow_smem(bwd_dq_wgmma<D, DV>, W::DQ_SMEM,
                                            &q_configured);
   if (err != cudaSuccess) return (int)err;
   int rc = launch_delta(a);
   if (rc) return rc;
-  bwd_dkdv_wgmma<D><<<(unsigned)kv_grid, WG_THREADS, W::KV_SMEM, a.stream>>>(
+  bwd_dkdv_wgmma<D, DV><<<(unsigned)kv_grid, WG_THREADS, W::KV_SMEM,
+                          a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, a.dk, a.dv, st, a.B, a.H, a.Hk, a.S,
       a.Tk, a.scale, a.causal);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  // (b, h) on x, query tiles on y, the heaviest (causal) first.
-  bwd_dq_wgmma<D><<<dim3((unsigned)(a.B * a.H),
-                         (a.S + 2 * WG_TILE - 1) / (2 * WG_TILE)),
-                    WG_THREADS, W::DQ_SMEM, a.stream>>>(
+  // (D, D): (b, h) on x, query tiles on y, the heaviest (causal) first;
+  // (192, 128): one axis in bwd_plan's order.
+  const dim3 dq_grid = W::SPLIT ? dim3((unsigned)dq_blocks)
+                                : dim3((unsigned)dq_blocks, (unsigned)n_q);
+  bwd_dq_wgmma<D, DV><<<dq_grid, WG_THREADS, W::DQ_SMEM, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, a.dq, st, a.H, a.Hk, a.S, a.Tk,
       a.scale, a.causal);
   return (int)cudaGetLastError();
@@ -1360,24 +1709,27 @@ extern "C" int flash_attn_bwd_f32(const float* q, const float* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// tile, grid: bwd_plan's tile and dK/dV grid at (D, D) for D 64 and 128
-// (the wgmma kernels), ignored at the other pairs.
+// keys, group, grid: bwd_plan's keys a dK/dV block, KV heads a launch
+// group and dK/dV grid at the wgmma pairs ((64, 64), (128, 128) and (192,
+// 128)), ignored at the others.
 extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
                                    const bf16* v, const bf16* o,
                                    const bf16* dout, const float* lse,
                                    float* delta, bf16* dq, bf16* dk, bf16* dv,
                                    const long long* strides, int B, int H,
                                    int Hk, int S, int Tk, int D, int DV,
-                                   float scale, int causal, int tile,
-                                   long long grid, cudaStream_t stream) {
+                                   float scale, int causal, int keys,
+                                   int group, long long grid,
+                                   cudaStream_t stream) {
   Args<bf16> a;
   if (!fill(a, q, k, v, o, dout, lse, delta, dq, dk, dv, strides, B, H, Hk,
             S, Tk, D, DV, scale, causal, stream))
     return (int)cudaErrorInvalidValue;
-  // Multi-head latent attention: DeepSeek-V3's pair on mma.sync (dK and dV
-  // of 64 keys at 192 + 128 features do not fit a wgmma consumer beside
-  // the scores), its smoke config's on the FMAs (24 is no multiple of 16).
-  if (D == 192 && DV == 128) return launch_mma<192, 128>(a);
+  // Multi-head latent attention: DeepSeek-V3's pair on the wgmma kernels
+  // (dkdv_split), its smoke config's on the FMAs (24 is no multiple of
+  // 16).
+  if (D == 192 && DV == 128)
+    return launch_wgmma<192, 128>(a, keys, group, grid);
   if (D == 24 && DV == 16) return launch_fma<bf16, 24, 16>(a);
   if (DV != D) return (int)cudaErrorInvalidValue;
   switch (D) {
@@ -1385,9 +1737,9 @@ extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
     case 16: return launch_mma<16>(a);
     case 32: return launch_mma<32>(a);
     case 40: return launch_fma<bf16, 40>(a);
-    case 64: return launch_wgmma<64>(a, tile, grid);
+    case 64: return launch_wgmma<64, 64>(a, keys, group, grid);
     case 80: return launch_mma<80>(a);
-    case 128: return launch_wgmma<128>(a, tile, grid);
+    case 128: return launch_wgmma<128, 128>(a, keys, group, grid);
     // dK and dV of 64 keys at 192 features need 192 float32 registers a
     // thread beside the scores: the mma.sync kernels.
     case 192: return launch_mma<192>(a);
@@ -1395,12 +1747,17 @@ extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of the wgmma kernels at width D: which 0 the dK/dV
-// kernel, 1 the dQ kernel (0 at a width without them).
-extern "C" int flash_attn_bwd_wgmma_smem(int D, int which) {
+// Dynamic shared memory of the wgmma kernels at (D, DV): which 0 the dK/dV
+// kernel, 1 the dQ kernel (0 at a pair without them).
+extern "C" int flash_attn_bwd_wgmma_smem(int D, int DV, int which) {
+  if (D == 192 && DV == 128)
+    return which ? BwdShape<192, 128>::DQ_SMEM : BwdShape<192, 128>::KV_SMEM;
+  if (DV != D) return 0;
   switch (D) {
-    case 64: return which ? BwdShape<64>::DQ_SMEM : BwdShape<64>::KV_SMEM;
-    case 128: return which ? BwdShape<128>::DQ_SMEM : BwdShape<128>::KV_SMEM;
+    case 64: return which ? BwdShape<64, 64>::DQ_SMEM
+                          : BwdShape<64, 64>::KV_SMEM;
+    case 128: return which ? BwdShape<128, 128>::DQ_SMEM
+                           : BwdShape<128, 128>::KV_SMEM;
   }
   return 0;
 }

@@ -71,7 +71,9 @@ line per measurement:
   tree's kernels in turns, eagerly (kernel, SDPA, SDPA, kernel; SDPA's
   backend named), the plain version and the bound of the backward's five
   products; with ``--src``, the other checkout's kernels and this tree's
-  in turns.
+  in turns; each call's device time split into the pre-pass, dK/dV and
+  dQ kernels (``split``, and ``other_split`` for the other checkout's)
+  from ``torch.profiler``'s kernel names.
 
 ``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
 through copies that together exceed twice the 50 MB L2, timed as one
@@ -499,6 +501,39 @@ def time_scan(torch, timing, kernels, emit, gen) -> None:
         torch.cuda.empty_cache()
 
 
+# The backward's kernels by the fragment of their names that the
+# profiler shows: the pre-pass, dK/dV and dQ.
+BWD_KERNELS = (("prepass", "bwd_delta"), ("dkdv", "bwd_dkdv"),
+               ("dq", "bwd_dq"))
+
+
+def bwd_split(torch, fn, inputs) -> dict:
+    """One call of ``fn`` (the backward) split into its kernels' device
+    time (ms a call, from ``torch.profiler``'s kernel names) over one
+    traced pass through ``inputs`` after a warm one; ``other_kernels_ms``
+    is whatever else the card ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            fn(*args)
+        torch.cuda.synchronize()
+    split = {f"{part}_ms": 0.0 for part, _ in BWD_KERNELS}
+    split["other_kernels_ms"] = 0.0
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        part = next((p for p, frag in BWD_KERNELS if frag in e.key),
+                    "other_kernels")
+        split[f"{part}_ms"] += e.self_device_time_total / 1e3 / len(inputs)
+        names[e.key[:80]] = e.count
+    return dict(split, kernels_traced=names)
+
+
 def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
     """The backward at the training attentions of :data:`BWD_SHAPES`:
     this tree's kernels (the pre-pass, dK/dV and dQ of one call) in device
@@ -595,7 +630,12 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
                    **clocks_during(torch, kernel, inputs))
         rec.update(bound_share=bnd / rec["ms"],
                    ratio_to_library_eager=rec["eager_ms"]
-                   / rec["library_eager_ms"])
+                   / rec["library_eager_ms"],
+                   split=bwd_split(torch, kernel, inputs))
+        if theirs is not None:
+            rec["other_split"] = bwd_split(
+                torch, lambda *a: other.flash_attention_bwd(*a, causal=True),
+                inputs)
         emit(rec)
         del inputs, lib_inputs, lib_out
         torch.cuda.empty_cache()

@@ -14,20 +14,22 @@ rowsum(dO * O)`` over Dv, then one kernel that
 recomputes the softmax from ``lse`` and accumulates dK and dV of a key
 tile over every query tile and every query head of its group, and one
 that does the same for dQ of a query tile; no atomics, so two runs give
-the same bits.  bfloat16 at D 64 and 128 (:data:`WGMMA_DIMS`) runs on
-``wgmma`` fed by TMA, on grids that :func:`bwd_plan` orders longest walk
-first, so that the causal triangle's short key tiles fill in behind its
-long ones; bfloat16 at the other widths that are multiples of 16 and at
-multi-head latent attention's (192, 128) runs on ``mma.sync`` m16n8k16,
-float32 at every pair and bfloat16 at D 8 and 40 and at (24, 16) on
-register FMAs (no TF32).  It takes every pair of ``flash_attn.PAIRS``
-(the (D, D) of ``flash_attn.HEAD_DIMS``, DeepSeek-V3's (192, 128) and its
-smoke config's (24, 16)) at the caller's scale, causal or full, and no
-window; a window or another pair raises ``ValueError`` before any launch
-(the forward's windowed path has no backward yet).  Bound at Qwen3-4B's
-and DeepSeek-V3's training shapes: tensor-core operations (the source's
-header).  Every operand and output may be a strided view whose feature
-axis is contiguous (``flash_attn.layout_error``).
+the same bits.  bfloat16 at (64, 64), (128, 128) and multi-head latent
+attention's (192, 128) (:data:`WGMMA_DIMS`) runs on ``wgmma`` fed by
+TMA, on grids that :func:`bwd_plan` orders longest walk first, so that
+the causal triangle's short key tiles fill in behind its long ones (at
+(192, 128) in groups of :data:`HEAD_GROUP` KV heads, whose operands stay
+in L2 while their blocks walk them); bfloat16 at D 16, 32, 80 and 192
+runs on ``mma.sync`` m16n8k16, float32 at every pair and bfloat16 at D 8
+and 40 and at (24, 16) on register FMAs (no TF32).  It takes every pair
+of ``flash_attn.PAIRS`` (the (D, D) of ``flash_attn.HEAD_DIMS``,
+DeepSeek-V3's (192, 128) and its smoke config's (24, 16)) at the
+caller's scale, causal or full, and no window; a window or another pair
+raises ``ValueError`` before any launch (the forward's windowed path has
+no backward yet).  Bound at Qwen3-4B's and DeepSeek-V3's training shapes:
+tensor-core operations (the source's header).  Every operand and output
+may be a strided view whose feature axis is contiguous
+(``flash_attn.layout_error``).
 
 The plain version, :func:`flash_attention_bwd_plain`, is autograd through
 ``ref.flash_attention`` in float32, cast to the operands' dtype: the path
@@ -49,34 +51,46 @@ from .flash_attn import PAIRS, layout_error
 LAUNCHES = 0
 
 # q, k, v, out, dout, lse, delta, dq, dk, dv, their 24 strides, B, H, Hk,
-# S, T, D, Dv, scale, causal, (bf16: the plan's tile and dK/dV grid,)
-# stream.
+# S, T, D, Dv, scale, causal, (bf16: the plan's keys a dK/dV block, head
+# group and dK/dV grid,) stream.
 _ARGS = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
          + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
 _SIGNATURES = {
     "flash_attn_bwd_f32": _ARGS + [ctypes.c_void_p],
-    "flash_attn_bwd_bf16": _ARGS + [ctypes.c_int, ctypes.c_longlong,
-                                    ctypes.c_void_p],
-    "flash_attn_bwd_wgmma_smem": [ctypes.c_int, ctypes.c_int]}
+    "flash_attn_bwd_bf16": _ARGS + [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_longlong, ctypes.c_void_p],
+    "flash_attn_bwd_wgmma_smem": [ctypes.c_int] * 3}
 _ENTRY = {torch.float32: "flash_attn_bwd_f32",
           torch.bfloat16: "flash_attn_bwd_bf16"}
 
 
-# bfloat16 widths on the wgmma kernels; the others keep the mma.sync and
-# FMA kernels (D 192's dK and dV do not fit a thread's registers beside
-# the scores).
-WGMMA_DIMS = (64, 128)
+# bfloat16 (D, Dv) pairs on the wgmma kernels; the others keep the
+# mma.sync and FMA kernels (at (192, 192) dK and dV do not fit a thread's
+# registers beside the scores).  At (D, D) a dK/dV block takes 64 keys that
+# its two consumers share; at multi-head latent attention's (192, 128) it
+# takes 128, 64 a consumer, whose dK (96 floats a thread) and dV (64) fit
+# beside one score tile (P^T and dS^T go through shared memory).
+WGMMA_DIMS = ((64, 64), (128, 128), (192, 128))
 TILE = 64           # the wgmma kernels' keys and queries a tile
 DQ_ROWS = 128       # query rows of a dQ block: two consumers of 64
+# At (192, 128) blocks launch in groups of this many KV heads (all of a
+# group's blocks before the next group's), so that the operands the
+# blocks in flight stream (Q and dO for dK/dV, K and V for dQ: 1.31 MB a
+# head at DeepSeek-V3's 2048 rows) stay in the 50 MB L2 while they walk
+# them; at (D, D) every head is in flight at once, as before.
+HEAD_GROUP = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """The wgmma kernels' tiling and grids, in launch order.  dK/dV block
-    ``i`` takes the (batch row, KV head, key tile) ``dkdv_order[i]`` and
-    walks ``dkdv_steps[i]`` (head, query tile) steps; dQ block ``i`` takes
-    the (batch row, head, query tile of ``dq_rows``) ``dq_order[i]`` and
-    walks ``dq_steps[i]`` key tiles."""
+    ``i`` takes the ``dkdv_keys`` keys of (batch row, KV head, key tile)
+    ``dkdv_order[i]`` and walks ``dkdv_steps[i]`` (head, ``tile``-row
+    query tile) steps; dQ block ``i`` takes the (batch row, head, query
+    tile of ``dq_rows``) ``dq_order[i]`` and walks ``dq_steps[i]``
+    ``tile``-key tiles.  ``head_group`` is the KV heads a launch group
+    (0: none, every head in flight at once); ``dq_grid`` the dQ kernel's
+    CUDA grid, (x, y) or, grouped, one axis in launch order."""
     tile: int
     dkdv_grid: int
     dkdv_order: tuple
@@ -85,42 +99,69 @@ class BwdPlan:
     dq_grid: tuple
     dq_order: tuple
     dq_steps: tuple
+    dkdv_keys: int = TILE
+    head_group: int = 0
+
+
+def _grouped(b, n_heads, group, n_tiles, tiles):
+    """(batch row, head, tile) in launch order: batch rows in turn, heads
+    in groups of ``group``, and within a group ``tiles`` (an order of
+    range(n_tiles)) tile by tile over the group's heads."""
+    return tuple((bi, hi, tile) for bi in range(b)
+                 for g0 in range(0, n_heads, group) for tile in tiles
+                 for hi in range(g0, min(g0 + group, n_heads)))
 
 
 @functools.lru_cache(maxsize=128)
 def bwd_plan(b: int, h: int, hk: int, s: int, t: int, d: int,
-             causal: bool) -> BwdPlan:
-    """The grids of the bfloat16 wgmma kernels at D in :data:`WGMMA_DIMS`
-    for q (b, h, s, d) and k, v (b, hk, t, d).  A dK/dV block takes one
-    64-key tile of one (batch row, KV head) and walks the group's h / hk
+             causal: bool, dv: int | None = None) -> BwdPlan:
+    """The grids of the bfloat16 wgmma kernels at (d, dv) (dv defaults to
+    d) in :data:`WGMMA_DIMS` for q (b, h, s, d), k (b, hk, t, d) and v
+    (b, hk, t, dv).  A dK/dV block takes one tile of 64 keys (128 at
+    (192, 128)) of one (batch row, KV head) and walks the group's h / hk
     heads times the 64-row query tiles that see it: under causal masking
-    those from the tile's own on, so key tile j walks h / hk (n - j) of
-    them.  Blocks launch key tile by key tile, the longest walks first,
-    so that the short tiles fill in behind the long ones as
+    those from the tile's first key on, so a 64-key tile j walks h / hk
+    (n - j) of them.  Blocks launch key tile by key tile, the longest
+    walks first, so that the short tiles fill in behind the long ones as
     multiprocessors free (one block a multiprocessor, as the kernels'
     shared memory allows).  A dQ block takes 128 query rows of one (batch
     row, head) and walks the 64-key tiles they see, the latest query
-    tiles (the longest walks) first."""
-    if d not in WGMMA_DIMS:
-        raise ValueError(f"bwd_plan: the wgmma kernels take D in "
-                         f"{WGMMA_DIMS}, not {d}")
+    tiles (the longest walks) first.  At (192, 128) both grids launch in
+    groups of :data:`HEAD_GROUP` KV heads (for dQ the query heads that
+    read them), that order within each group."""
+    dv = d if dv is None else dv
+    if (d, dv) not in WGMMA_DIMS:
+        raise ValueError(f"bwd_plan: the wgmma kernels take (D, Dv) in "
+                         f"{WGMMA_DIMS}, not ({d}, {dv})")
     if min(b, h, hk, s, t) <= 0 or h % hk:
         raise ValueError(f"bwd_plan: no plan for b={b} h={h} hk={hk} s={s} "
                          f"t={t}")
     g = h // hk
-    n_kt, n_qt, n_q = -(-t // TILE), -(-s // TILE), -(-s // DQ_ROWS)
-    order = tuple((bi, hi, kt) for kt in range(n_kt) for bi in range(b)
-                  for hi in range(hk))
-    dq_order = tuple((x // h, x % h, n_q - 1 - y)
-                     for y in range(n_q) for x in range(b * h))
+    keys, group = (2 * TILE, HEAD_GROUP) if d != dv else (TILE, 0)
+    n_kt, n_qt, n_q = -(-t // keys), -(-s // TILE), -(-s // DQ_ROWS)
+    n_kv = -(-t // TILE)                # a dQ block's 64-key tiles
+    if group:
+        order = _grouped(b, hk, group, n_kt, range(n_kt))
+        dq_order = _grouped(b, h, group * g, n_q, range(n_q - 1, -1, -1))
+        dq_grid = (len(dq_order),)
+    else:
+        order = tuple((bi, hi, kt) for kt in range(n_kt) for bi in range(b)
+                      for hi in range(hk))
+        dq_order = tuple((x // h, x % h, n_q - 1 - y)
+                         for y in range(n_q) for x in range(b * h))
+        dq_grid = (b * h, n_q)
+    # Under causal masking a key tile's walk starts at the query tile
+    # that holds its first key.
+    first = [min(kt * keys // TILE, n_qt) if causal else 0
+             for kt in range(n_kt)]
     return BwdPlan(
         tile=TILE, dkdv_grid=len(order), dkdv_order=order,
-        dkdv_steps=tuple(g * (n_qt - (min(kt, n_qt) if causal else 0))
-                         for _, _, kt in order),
-        dq_rows=DQ_ROWS, dq_grid=(b * h, n_q), dq_order=dq_order,
+        dkdv_steps=tuple(g * (n_qt - first[kt]) for _, _, kt in order),
+        dq_rows=DQ_ROWS, dq_grid=dq_grid, dq_order=dq_order,
         dq_steps=tuple(
-            min(n_kt, (min((qt + 1) * DQ_ROWS, s) - 1) // TILE + 1)
-            if causal else n_kt for _, _, qt in dq_order))
+            min(n_kv, (min((qt + 1) * DQ_ROWS, s) - 1) // TILE + 1)
+            if causal else n_kv for _, _, qt in dq_order),
+        dkdv_keys=keys, head_group=group)
 
 
 def check_supported(d: int, dv: int, window: int = 0) -> None:
@@ -227,10 +268,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     plan = ()
     if q.dtype == torch.bfloat16:
-        plan = (0, 0)
-        if d == d_v and d in WGMMA_DIMS:
-            p = bwd_plan(b, h, hk, s, t, d, bool(causal))
-            plan = (p.tile, p.dkdv_grid)
+        plan = (0, 0, 0)
+        if (d, d_v) in WGMMA_DIMS:
+            p = bwd_plan(b, h, hk, s, t, d, bool(causal), d_v)
+            plan = (p.dkdv_keys, p.head_group, p.dkdv_grid)
     lib = _build.load("flash_attn_bwd", _SIGNATURES)
     _build.call(lib, "flash_attn_bwd", getattr(lib, _ENTRY[q.dtype]),
                 q.device, *(x.data_ptr() for x in (q, k, v, out, dout, lse,

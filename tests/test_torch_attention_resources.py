@@ -275,14 +275,15 @@ def test_scan_bound_counts_its_bytes_and_exponentials():
 
 
 # The backward kernels of csrc/flash_attn_bwd.cu that a (D, Dv) pair
-# launches: the wgmma pair in bf16 at (D, D) for D in
-# flash_attn_bwd.WGMMA_DIMS, the mma.sync pair (templated on D and Dv) at
-# the other pairs of multiples of 16, (192, 128) included, the FMA pair
+# launches: the wgmma pair (templated on D and Dv) in bf16 at the pairs of
+# flash_attn_bwd.WGMMA_DIMS, (192, 128) among them, the mma.sync pair
+# (templated likewise) at the other pairs of multiples of 16, the FMA pair
 # (templated likewise) in float32 at every pair and in bf16 at D 8 and 40
-# and at (24, 16); and the wgmma kernels' dynamic shared memory at D
-# 64 and 128 (which 0: dK/dV, 1: dQ).
-BWD_SMEM = {(64, 0): 84480, (64, 1): 82944, (128, 0): 166400,
-            (128, 1): 164864}
+# and at (24, 16); and the wgmma kernels' dynamic shared memory at (64,
+# 64), (128, 128) and (192, 128) (which 0: dK/dV, 1: dQ).
+BWD_SMEM = {(64, 64, 0): 84480, (64, 64, 1): 82944, (128, 128, 0): 166400,
+            (128, 128, 1): 164864, (192, 128, 0): 231424,
+            (192, 128, 1): 205824}
 
 
 def _bwd_names():
@@ -292,8 +293,9 @@ def _bwd_names():
     for d, dv in flash_attn.PAIRS:
         for kernel in ("bwd_dkdv", "bwd_dq"):
             wg, mma, fma = (f"{kernel}_{k}" for k in ("wgmma", "mma", "fma"))
-            if d == dv and d in flash_attn_bwd.WGMMA_DIMS:
-                names.append(f"{len(wg)}{wg}ILi{d}EEEv14CUtensorMap_st")
+            if (d, dv) in flash_attn_bwd.WGMMA_DIMS:
+                names.append(f"{len(wg)}{wg}ILi{d}ELi{dv}EEEv14CUtensorMap"
+                             f"_st")
             elif d % 16 == 0 and dv % 16 == 0:
                 names.append(f"{len(mma)}{mma}ILi{d}ELi{dv}EEEvPK13"
                              f"__nv_bfloat16")
@@ -324,27 +326,30 @@ class _BwdBuild:
         assert "flash_attn_bwd_wgmma_smem" in signatures
         smem = self.smem
         return type("Lib", (), {"flash_attn_bwd_wgmma_smem": staticmethod(
-            lambda d, which: smem.get((d, which), 0))})
+            lambda d, dv, which: smem.get((d, dv, which), 0))})
 
 
 def _wgmma(kernel, d):
-    return next(n for n in _bwd_names() if f"{kernel}_wgmmaILi{d}E" in n)
+    """The wgmma kernel's mangled name at D (or the pair (D, Dv))."""
+    d, dv = d if isinstance(d, tuple) else (d, d)
+    return next(n for n in _bwd_names()
+                if f"{kernel}_wgmmaILi{d}ELi{dv}E" in n)
 
 
 def test_bwd_resources_reads_every_launched_kernel():
-    """The four wgmma kernels with their shared memory, the mma.sync pair
-    only at the pairs that still launch it (DeepSeek-V3's (192, 128)
-    among them), the FMA pair at every pair in float32 and in bf16 at D 8
+    """The six wgmma kernels (DeepSeek-V3's (192, 128) among them) with
+    their shared memory, the mma.sync pair only at the pairs that still
+    launch it, the FMA pair at every pair in float32 and in bf16 at D 8
     and 40 and at (24, 16)."""
     smoke = _chip_smoke()
     res = smoke.bwd_resources(_BwdBuild(_bwd_log()), flash_attn,
                               flash_attn_bwd)
     assert {n for n in res if "wgmma" in n} == {
-        f"{k}_wgmma d{d}" for k in ("bwd_dkdv", "bwd_dq") for d in (64, 128)}
+        f"{k}_wgmma {t}" for k in ("bwd_dkdv", "bwd_dq")
+        for t in ("d64", "d128", "d192 dv128")}
     assert {n for n in res if "_mma" in n} == {
         f"{k}_mma d{d}" for k in ("bwd_dkdv", "bwd_dq")
-        for d in (16, 32, 80, 192)} | {"bwd_dkdv_mma d192 dv128",
-                                       "bwd_dq_mma d192 dv128"}
+        for d in (16, 32, 80, 192)}
     assert {n for n in res if "_fma bf16" in n} == {
         f"{k}_fma bf16 {t}" for k in ("bwd_dkdv", "bwd_dq")
         for t in ("d8", "d40", "d24 dv16")}
@@ -352,12 +357,18 @@ def test_bwd_resources_reads_every_launched_kernel():
         flash_attn.PAIRS)
     assert res["bwd_dkdv_wgmma d128"]["dynamic_smem_bytes"] == 166400
     assert res["bwd_dq_wgmma d64"]["dynamic_smem_bytes"] == 82944
+    assert res["bwd_dkdv_wgmma d192 dv128"]["dynamic_smem_bytes"] == 231424
+    assert res["bwd_dq_wgmma d192 dv128"]["dynamic_smem_bytes"] == 205824
     assert all(u.get("registers") for u in res.values())
 
 
-@pytest.mark.parametrize("kernel,d", [("bwd_dkdv", 64), ("bwd_dkdv", 128),
-                                      ("bwd_dq", 64), ("bwd_dq", 128)])
+@pytest.mark.parametrize("kernel,d", [
+    ("bwd_dkdv", 64), ("bwd_dkdv", 128), ("bwd_dq", 64), ("bwd_dq", 128),
+    pytest.param("bwd_dkdv", (192, 128), id="bwd_dkdv-192-128"),
+    pytest.param("bwd_dq", (192, 128), id="bwd_dq-192-128")])
 def test_bwd_resources_fails_a_wgmma_spill(kernel, d):
+    """A spill in any wgmma kernel fails the run, DeepSeek-V3's (192, 128)
+    pair's included."""
     smoke = _chip_smoke()
     build = _BwdBuild(_bwd_log({_wgmma(kernel, d): 8}))
     with pytest.raises(AssertionError, match="spill"):
@@ -375,13 +386,12 @@ def test_bwd_resources_records_the_older_kernels_spills():
 
 
 @pytest.mark.parametrize("fragment,name", [
-    ("bwd_dq_mmaILi192ELi128E", "bwd_dq_mma d192 dv128"),
+    ("bwd_dq_mmaILi80ELi80E", "bwd_dq_mma d80"),
     ("bwd_dkdv_fmaIfLi40ELi40E", "bwd_dkdv_fma f32 d40"),
     ("bwd_dq_fmaI13__nv_bfloat16Li8ELi8E", "bwd_dq_fma bf16 d8")])
 def test_bwd_resources_records_the_mma_pairs_spills(fragment, name):
-    """The mma.sync kernel at (192, 128) shares the (D, D) kernels' dQ
-    loop, and its spill is recorded as theirs are (16 bytes seen on the
-    card), as are the (D, D) FMA kernels'."""
+    """A spill of the mma.sync kernels that still launch (hubert-xlarge's
+    D 80) is recorded, as are the (D, D) FMA kernels'."""
     smoke = _chip_smoke()
     mangled = next(n for n in _bwd_names() if fragment in n)
     res = smoke.bwd_resources(_BwdBuild(_bwd_log({mangled: 16})),
@@ -425,7 +435,7 @@ def test_bwd_resources_fails_a_missing_wgmma_kernel_or_too_much_smem():
     with pytest.raises(AssertionError):
         smoke.bwd_resources(_BwdBuild(_bwd_log(skip=("bwd_dq_wgmmaILi64E",))),
                             flash_attn, flash_attn_bwd)
-    too_big = {**BWD_SMEM, (128, 0): 232448}
+    too_big = {**BWD_SMEM, (128, 128, 0): 232448}
     with pytest.raises(AssertionError, match="shared"):
         smoke.bwd_resources(_BwdBuild(_bwd_log(), too_big), flash_attn,
                             flash_attn_bwd)

@@ -129,3 +129,154 @@ def test_plan_only_at_the_wgmma_widths(d):
 def test_plan_refuses_a_head_count_hk_does_not_divide():
     with pytest.raises(ValueError):
         flash_attn_bwd.bwd_plan(1, 6, 4, 64, 64, 64, True)
+
+
+# DeepSeek-V3's training attention at multi-head latent attention's (D,
+# Dv) = (192, 128): 128 heads, each its own KV head, 2048 rows.
+MLA_TRAIN = (1, 128, 128, 2048, 2048)
+
+
+def _pair_plan(b, h, hk, s, t, causal):
+    return flash_attn_bwd.bwd_plan(b, h, hk, s, t, 192, causal, dv=128)
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,causal", SHAPES)
+def test_pair_key_tiles_once_with_the_steps_that_see_them(b, h, hk, s, t,
+                                                         causal):
+    """At (192, 128) each (batch row, KV head, 128-key tile) is one dK/dV
+    block, and it walks exactly the (head, 64-row query tile) pairs that
+    see any of its keys."""
+    plan = _pair_plan(b, h, hk, s, t, causal)
+    assert (plan.dkdv_keys, plan.tile) == (128, 64)
+    n_kt = -(-t // plan.dkdv_keys)
+    assert plan.dkdv_grid == len(plan.dkdv_order) == len(plan.dkdv_steps)
+    assert sorted(plan.dkdv_order) == [
+        (bi, hi, kt) for bi in range(b) for hi in range(hk)
+        for kt in range(n_kt)]
+    vis = _visible(s, t, causal)
+    for (_, _, kt), steps in zip(plan.dkdv_order, plan.dkdv_steps):
+        keys = _tiles(t, plan.dkdv_keys)[kt]
+        seen = sum(vis[rows, keys].any() for rows in _tiles(s, plan.tile))
+        assert steps == (h // hk) * seen
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,causal", SHAPES)
+def test_pair_dq_blocks_walk_the_keys_they_see(b, h, hk, s, t, causal):
+    """At (192, 128) each (batch row, head, 128-row query tile) is one dQ
+    block on a one-axis grid, and it walks the 64-key tiles up to the last
+    one its rows see."""
+    plan = _pair_plan(b, h, hk, s, t, causal)
+    n_q = -(-s // plan.dq_rows)
+    assert plan.dq_grid == (b * h * n_q,)
+    assert sorted(plan.dq_order) == [(bi, hi, qt) for bi in range(b)
+                                     for hi in range(h) for qt in range(n_q)]
+    vis = _visible(s, t, causal)
+    key_tiles = _tiles(t, plan.tile)
+    for (_, _, qt), steps in zip(plan.dq_order, plan.dq_steps):
+        rows = _tiles(s, plan.dq_rows)[qt]
+        seen = [kt for kt, keys in enumerate(key_tiles)
+                if vis[rows, keys].any()]
+        assert steps == max(seen) + 1
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,causal", SHAPES + [
+    (1, 128, 128, 2048, 2048, True), (2, 24, 12, 300, 300, True)])
+def test_pair_launches_head_group_by_head_group(b, h, hk, s, t, causal):
+    """At (192, 128) both grids take batch rows in turn and KV heads in
+    groups of ``HEAD_GROUP`` (for dQ the query heads that read them), every
+    block of a group before the next group's; within a group dK/dV blocks
+    go key tile by key tile and dQ blocks latest query tile first, so the
+    longest walks of each group lead it."""
+    plan = _pair_plan(b, h, hk, s, t, causal)
+    group, g = plan.head_group, h // hk
+    assert group == flash_attn_bwd.HEAD_GROUP == 8
+    for order, steps, per in ((plan.dkdv_order, plan.dkdv_steps, 1),
+                              (plan.dq_order, plan.dq_steps, g)):
+        keys = [(bi, hi // (group * per)) for bi, hi, _ in order]
+        runs = [key for i, key in enumerate(keys)
+                if i == 0 or keys[i - 1] != key]
+        assert len(runs) == len(set(runs))          # one run a group
+        assert runs == sorted(runs)
+        for key in runs:
+            mine = [i for i, k in enumerate(keys) if k == key]
+            assert [steps[i] for i in mine] == sorted(
+                (steps[i] for i in mine), reverse=True)
+
+
+def _decode_dkdv(x, hk, n_kt, group):
+    """bwd_dkdv_wgmma's block -> (batch row, KV head, key tile) at (192,
+    128), as csrc/flash_attn_bwd.cu writes it."""
+    b, rem = divmod(x, hk * n_kt)
+    g0 = rem // (group * n_kt) * group
+    gs = min(group, hk - g0)
+    kt, off = divmod(rem - g0 * n_kt, gs)
+    return b, g0 + off, kt
+
+
+def _decode_dq(x, h, hk, n_q, group):
+    """bwd_dq_wgmma's block -> (batch row, head, query tile) at (192,
+    128), as csrc/flash_attn_bwd.cu writes it."""
+    gh = group * (h // hk)
+    b, rem = divmod(x, h * n_q)
+    h0 = rem // (gh * n_q) * gh
+    gs = min(gh, h - h0)
+    qi, off = divmod(rem - h0 * n_q, gs)
+    return b, h0 + off, n_q - 1 - qi
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,causal", SHAPES + [
+    (1, 128, 128, 2048, 2048, True), (2, 24, 12, 300, 300, True),
+    (1, 20, 20, 129, 129, False)])
+def test_pair_kernels_decode_the_plans_order(b, h, hk, s, t, causal):
+    """The kernels find their block's tile from blockIdx.x alone; that
+    arithmetic gives the plan's order block for block."""
+    plan = _pair_plan(b, h, hk, s, t, causal)
+    n_kt = -(-t // plan.dkdv_keys)
+    n_q = -(-s // plan.dq_rows)
+    assert [_decode_dkdv(x, hk, n_kt, plan.head_group)
+            for x in range(plan.dkdv_grid)] == list(plan.dkdv_order)
+    assert [_decode_dq(x, h, hk, n_q, plan.head_group)
+            for x in range(plan.dq_grid[0])] == list(plan.dq_order)
+
+
+def _heads_in_flight(order, sms=SMS):
+    """The most (batch row, head) pairs among any ``sms`` blocks launched
+    one after another."""
+    return max(len({(bi, hi) for bi, hi, _ in order[i:i + sms]})
+               for i in range(max(1, len(order) - sms + 1)))
+
+
+def test_pair_training_shape_fills_the_card_and_keeps_heads_in_l2():
+    """At DeepSeek-V3's training shape, taken in launch order both grids
+    end within 1.03x of the mean steps a multiprocessor, and any 132
+    blocks launched one after another read the operands of 16 heads (at
+    most 24: their Q and dO, or K and V, 1.31 MB a head, ~21 MB of the 50
+    MB L2), where the (D, D) order would hold all 128."""
+    plan = _pair_plan(*MLA_TRAIN, True)
+    for steps in (plan.dkdv_steps, plan.dq_steps):
+        assert makespan(steps) <= 1.03 * sum(steps) / SMS
+    # 128 heads x 16 key tiles, tile j walking 32 - 2 j query tiles.
+    assert (plan.dkdv_grid, sum(plan.dkdv_steps), max(plan.dkdv_steps)) \
+        == (2048, 34816, 32)
+    assert _heads_in_flight(plan.dkdv_order) == 16
+    assert _heads_in_flight(plan.dq_order) == 16
+    flat = flash_attn_bwd.bwd_plan(*MLA_TRAIN, 128, True)
+    assert _heads_in_flight(flat.dkdv_order) == 128
+
+
+def test_plan_at_d_d_is_the_plan_without_dv():
+    """Giving Dv = D changes nothing: the (D, D) plans keep 64-key blocks
+    and every head in flight."""
+    for d in (64, 128):
+        assert flash_attn_bwd.bwd_plan(*TRAIN[:5], d, True, dv=d) \
+            == flash_attn_bwd.bwd_plan(*TRAIN[:5], d, True)
+    plan = flash_attn_bwd.bwd_plan(*TRAIN, True)
+    assert (plan.dkdv_keys, plan.head_group, plan.dq_grid) == (64, 0,
+                                                               (32, 16))
+
+
+@pytest.mark.parametrize("d,dv", [(192, 192), (192, 64), (128, 192),
+                                  (24, 16)])
+def test_plan_refuses_pairs_without_wgmma_kernels(d, dv):
+    with pytest.raises(ValueError, match="wgmma"):
+        flash_attn_bwd.bwd_plan(1, 2, 2, 64, 64, d, True, dv=dv)

@@ -1388,17 +1388,25 @@ def test_flash_attention_bwd_matches_plain(cuda, d, dtype, causal, h, hk, s,
         assert _scaled_err(g, w) <= BWD_TOL[dtype]
 
 
-# Multi-head latent attention's pairs: DeepSeek-V3's (192, 128) on
-# mma.sync in bf16, its smoke config's (24, 16) on the FMAs, both on the
-# FMAs in float32; MLA's scale (the default, D ** -0.5) and another; ragged
-# lengths, groups of 1 and 4, and DeepSeek-V3's 128 heads at 2048.
+# Multi-head latent attention's pairs: DeepSeek-V3's (192, 128) on the
+# wgmma kernels in bf16, its smoke config's (24, 16) on the FMAs, both on
+# the FMAs in float32; MLA's scale (the default, D ** -0.5) and another;
+# ragged lengths, groups of 1 and 4, and DeepSeek-V3's 128 heads at 2048;
+# then lengths around the (192, 128) kernels' 64-query items and 128-key
+# dK/dV tiles (63, 64, 65, 129; S past T and T past S), and 12 KV heads,
+# a launch group of 8 and one of 4.
+BWD_PAIR_SHAPES = [(2, 2, 77, 77), (8, 2, 300, 300), (4, 1, 130, 200),
+                   (8, 8, 1000, 1000), (128, 128, 2048, 2048),
+                   (4, 4, 63, 63), (4, 4, 64, 64), (4, 4, 65, 65),
+                   (4, 1, 129, 129), (4, 4, 200, 130), (12, 12, 129, 129),
+                   (24, 12, 130, 200)]
+
+
 @pytest.mark.parametrize("d,dv", [(192, 128), (24, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("scale", [None, 0.37])
-@pytest.mark.parametrize("h,hk,s,t", [(2, 2, 77, 77), (8, 2, 300, 300),
-                                      (4, 1, 130, 200), (8, 8, 1000, 1000),
-                                      (128, 128, 2048, 2048)])
+@pytest.mark.parametrize("h,hk,s,t", BWD_PAIR_SHAPES)
 def test_flash_attention_bwd_pairs_match_plain(cuda, d, dv, dtype, causal,
                                                scale, h, hk, s, t):
     b = 1 if h == 128 else 2
@@ -1431,6 +1439,24 @@ def test_flash_attention_bwd_pairs_are_deterministic(cuda, d, dv, dtype):
     out = flash_attn.flash_attention(q, k, v, lse=lse)
     a = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse)
     b = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hk,s,t", BWD_PAIR_SHAPES[5:])
+def test_flash_attention_bwd_pair_is_deterministic_around_its_tiles(
+        cuda, causal, h, hk, s, t):
+    """DeepSeek-V3's pair on the wgmma kernels in bf16 at the lengths
+    around their tiles: two runs give the same bits (no atomics; every
+    block writes its own rows)."""
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, h, hk, s, t, 192, 7,
+                              128)
+    lse = torch.empty(2, h, s, device=cuda)
+    out = flash_attn.flash_attention(q, k, v, causal=causal, lse=lse)
+    a = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                           causal=causal)
+    b = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                           causal=causal)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
