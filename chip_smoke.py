@@ -183,41 +183,50 @@ phase prints one JSON line:
     ``flash_attention_mla`` the DeepSeek-V3 one (the same kernel at (192,
     128)), ``flash_attention_window`` the Hymba one (the same kernel
     under its window) and ``ssm_scan`` the Falcon-Mamba one.
-23. ``lm_train``: the training paths of the dense, MoE and MLA
-    families.  The attention backward kernels against their plain
+23. ``lm_train``: the training paths of the dense, MoE, MLA, SSM and
+    hybrid families.  The attention backward kernels against their plain
     version (autograd through the float32 reference) at the test shapes
     (ragged S and T, H / Hk 1 and 4, causal and full, float32 and bf16,
     every head width of ``HEAD_DIMS``, and the (D, Dv) pairs (192, 128)
-    and (24, 16) at the default scale and 0.37): dQ, dK and dV scaled by
-    each gradient's largest element, the forward's row log-sum-exp
-    against the plain ``logsumexp``, two runs bit for bit; a window and
-    a pair outside ``flash_attn.PAIRS`` must raise before any launch;
-    the kernels' registers and spills (a spill in a ``wgmma`` kernel or
-    an FMA kernel at a pair fails the run); then Qwen3-4B's and
-    DeepSeek-V3's training shapes, timed beside the plain version,
-    SDPA's backward and the bound, and the forward kernel with and
-    without the ``lse`` output in turns.  The qwen3 and deepseek-v3
-    smoke configs' three micro-batched train steps on the card against
-    the stored JAX values (``lm_train``, ``lm_train_moe``: the init's
-    digests, the metrics, the updated leaves' sums), float32 and bf16.
-    Then three models at full width, depth cut: Qwen3-4B to 12 layers,
-    DeepSeek-V3 to its 3 dense layers and the ``mtp`` head (bf16 master
-    weights, int8 first moment, factored second moment, bf16 gradient
-    sums: its config's plan) and Moonshot-v1-16B-A3B to 4 layers (its
-    dense layer and 3 MoE layers of 64 experts): for each, one
-    micro-batch's loss and gradients through the kernels against the
-    plain chunked attention under autograd on the card (the kernel run's
-    expert choices replayed in the plain run), then a warm-up and 3
-    timed steps of ``build_train_step`` (8 micro-batches of 2048
-    tokens, remat) with the step time, tokens per second, peak memory,
-    the kernels' launches (the forward twice a layer and once for the
-    ``mtp`` block a micro-batch, the backward once each) and the
-    model-FLOPs share.  Last, ``examples/train_lm.py`` at its default
-    ``10m`` scale (head width 40) trains 40 steps through both kernels.
-    The summary line's ``flash_attention_bwd`` entry is this path at
-    (D, D) (the Qwen3-4B and Moonshot runs' launches),
-    ``flash_attention_bwd_mla`` the DeepSeek-V3 run at (192, 128): 17
-    kernels.
+    and (24, 16) at the default scale and 0.37), and under the sliding
+    window (the forward's window checks' windows, shapes and kernels, and
+    the (192, 128) ``wgmma`` kernels): dQ, dK and dV scaled by each
+    gradient's largest element, the forward's row log-sum-exp against
+    the plain ``logsumexp``, two runs bit for bit; a window over more
+    query rows than keys and a pair outside ``flash_attn.PAIRS`` must
+    raise before any launch; the kernels' registers and spills (a spill
+    in a ``wgmma`` kernel or an FMA kernel at a pair, or a C75xx
+    serialisation, fails the run); then Qwen3-4B's, DeepSeek-V3's and
+    Hymba-1.5B's (under its window) training shapes, timed beside the
+    plain version, SDPA's backward and the bound, and the forward kernel
+    with and without the ``lse`` output in turns.  The scan's backward
+    against its plain version (autograd through the chunked scan) at
+    every lane count and at both SSM models' training micro-batches,
+    timed beside its bound.  The qwen3, deepseek-v3, falcon-mamba and
+    hymba smoke configs' three micro-batched train steps on the card
+    against the stored JAX values (``lm_train``, ``lm_train_moe``,
+    ``lm_train_ssm``, ``lm_train_hybrid``: the init's digests, the
+    metrics, the updated leaves' sums), float32 and bf16.  Then five
+    models at full width: Qwen3-4B cut to 12 layers, DeepSeek-V3 to its 3
+    dense layers and the ``mtp`` head (bf16 master weights, int8 first
+    moment, factored second moment, bf16 gradient sums: its config's
+    plan), Moonshot-v1-16B-A3B to 4 layers (its dense layer and 3 MoE
+    layers of 64 experts), Falcon-Mamba-7B to 16 of 64 layers and
+    Hymba-1.5B whole: for each, one micro-batch's loss and gradients
+    through the kernels against the plain chunked attention and plain
+    scan under autograd on the card (the kernel run's expert choices
+    replayed in the plain run), then a warm-up and 3 timed steps of
+    ``build_train_step`` (8 micro-batches of 2048 tokens, remat) with the
+    step time, tokens per second, peak memory, the kernels' launches (the
+    attention forward and the scan twice a layer and once for the ``mtp``
+    block a micro-batch, each backward once) and the model-FLOPs share.
+    Last, ``examples/train_lm.py`` at its default ``10m`` scale (head
+    width 40) trains 40 steps through both kernels.  The summary line's
+    ``flash_attention_bwd`` entry is this path at (D, D) (the Qwen3-4B
+    and Moonshot runs' launches), ``flash_attention_bwd_mla`` the
+    DeepSeek-V3 run at (192, 128), ``flash_attention_bwd_window`` the
+    Hymba-1.5B run under its window and ``ssm_scan_bwd`` the
+    Falcon-Mamba-7B and Hymba-1.5B runs' scan: 19 kernels.
 
 Each phase prints its wall time.  Then the kernels' summary line and,
 last, the device line.  Any failed
@@ -244,8 +253,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.timing import (attention_bwd_work, attention_work, bound,
                                 cold_copies, cuda_ms, fft_stage_work,
                                 fft_work, fp64_bound, graph_ms, in_turns,
-                                matmul_work, scan_bound, sdpa_backend,
-                                slot_work)
+                                matmul_work, scan_bound, scan_bwd_bound,
+                                sdpa_backend, slot_work)
 
 
 MODES = ("central", "tree", "partial", "hw")
@@ -254,7 +263,8 @@ KERNELS = ("fft4_stage", "fft4_fused", "matmul", "dotp_central",
            "dotp_partials", "combine_partials", "combine_tree", "axpy",
            "dct", "conv2d", "powf", "flash_attention", "flash_attention_mla",
            "flash_attention_window", "ssm_scan", "flash_attention_bwd",
-           "flash_attention_bwd_mla")
+           "flash_attention_bwd_mla", "flash_attention_bwd_window",
+           "ssm_scan_bwd")
 REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             # The same Pallas kernel as src/repro/kernels/ops.py::fft4
             # chains it, every stage of a row in one launch.
@@ -288,7 +298,14 @@ REPLACES = {"fft4_stage": "src/repro/kernels/fft4.py:58",
             "flash_attention_bwd": "src/repro/models/attention.py:86",
             # The same gradient at MLA's (D, Dv) = (192, 128) and scale
             # (src/repro/models/mla.py:145).
-            "flash_attention_bwd_mla": "src/repro/models/attention.py:86"}
+            "flash_attention_bwd_mla": "src/repro/models/attention.py:86",
+            # The same gradient under the models' sliding window (the
+            # swa_fast path, src/repro/models/attention.py:110-124),
+            # Hymba's.
+            "flash_attention_bwd_window":
+            "src/repro/models/attention.py:86",
+            # No Pallas kernel: JAX's autodiff of the jnp selective scan.
+            "ssm_scan_bwd": "src/repro/models/ssm.py:69"}
 SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "fft4_fused": "src/repro_torch/csrc/fft4_stage.cu",
            "matmul": "src/repro_torch/csrc/matmul.cu",
@@ -306,7 +323,10 @@ SOURCES = {"fft4_stage": "src/repro_torch/csrc/fft4_stage.cu",
            "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu",
            "flash_attention_bwd": "src/repro_torch/csrc/flash_attn_bwd.cu",
            "flash_attention_bwd_mla":
-           "src/repro_torch/csrc/flash_attn_bwd.cu"}
+           "src/repro_torch/csrc/flash_attn_bwd.cu",
+           "flash_attention_bwd_window":
+           "src/repro_torch/csrc/flash_attn_bwd.cu",
+           "ssm_scan_bwd": "src/repro_torch/csrc/ssm_scan_bwd.cu"}
 # The dot product's path: the Fig. 5 input sizes and the 64 Mi-element
 # case where the bandwidth bound means something; the central
 # accumulator (radix 0) and the tree radices of the Fig. 6 sweep.
@@ -412,6 +432,16 @@ SCAN_TEST_S = (1, 255, 256, 2048)
 SCAN_SHAPES = {"falcon-mamba-7b": (4, 2048, 8192, 16),
                "hymba-1.5b": (4, 2048, 3200, 16)}
 SCAN_TOL = 1e-4
+# The scan's backward against its plain version (autograd through the
+# chunked scan), each gradient to 1e-4 of its largest element
+# (tests/test_torch_cuda.py's SCAN_BWD_TOL): S below one 16-step
+# checkpoint interval, ragged past the plain version's chunk; 200
+# channels over 2 batch rows at every lane count; then the two models'
+# training micro-batches (B, S, d_inner, n).
+SCAN_BWD_TEST_S = (15, 300)
+SCAN_BWD_SHAPES = {"falcon-mamba-7b": (1, 2048, 8192, 16),
+                   "hymba-1.5b": (1, 2048, 3200, 16)}
+SCAN_BWD_TOL = 1e-4
 # The attention backward against its plain version (autograd through the
 # float32 reference), row-scaled as row_scaled_err does for the forward:
 # each row's largest error over the larger of that row's largest element
@@ -438,6 +468,18 @@ FA_LSE_TOL = 1e-5
 # Qwen3-4B's training attention (B, H, Hk, S, D), one micro-batch.
 FA_BWD_SHAPES = ((2, 2, 77, 77), (8, 2, 300, 300), (4, 1, 130, 200),
                  (8, 2, 1000, 1000))
+# The backward under the window at the forward's window checks (FA_WINDOWS
+# at S = T = 1100, 10 heads on 2, each kernel of FA_WINDOW_KERNELS, causal
+# and not) and at the (192, 128) wgmma kernels (700 rows, 8 heads), at
+# the unwindowed backward's bounds: float32 by rows (FA_BWD_TOL), bf16 by
+# each gradient's largest element (FA_BWD_SCALED_TOL, the card tests'
+# bound), as at the pairs' scale 0.37: a window of a few dozen keys leaves
+# rows of dQ whose terms cancel, which dS rounded to bf16 moves by up to
+# 0.103 of themselves (D 64, window 64, PR 30 call 2); then Hymba-1.5B's
+# training attention (B, H, Hk, S, D, window), one micro-batch.
+FA_BWD_WINDOW_SHAPE = (1, 10, 2, 1100)
+FA_BWD_WINDOW_PAIR = (1, 8, 8, 700, 192, 128)
+FA_WINDOW_TRAIN_SHAPE = (1, 25, 5, 2048, 64, 1024)
 FA_TRAIN_SHAPE = (1, 32, 8, 2048, 128)
 # DeepSeek-V3's training attention (B, H, Hk, S, D, Dv): one micro-batch
 # of 2048 tokens, 128 heads at MLA's (192, 128).
@@ -465,6 +507,15 @@ LM_TRAIN_MLA = {"arch": "deepseek_v3_671b", "n_layers": 3, "global_batch": 8,
 # ~59 GiB; 5 layers, 3.11 B, would need ~73 GiB of the card's 80).
 LM_TRAIN_MOE = {"arch": "moonshot_v1_16b_a3b", "n_layers": 4,
                 "global_batch": 8, "seq_len": 2048, "timed_steps": 3}
+# The SSM and hybrid families, the same traffic and steps: Falcon-Mamba-7B
+# at its published widths cut to 16 of its 64 layers (2.22 B parameters;
+# all 64, 7.27 B, would need ~180 GB at the ~28 bytes a parameter of the
+# default float32 master and moments), Hymba-1.5B whole (32 layers, 1.66
+# B).
+LM_TRAIN_SSM = {"arch": "falcon_mamba_7b", "n_layers": 16, "global_batch": 8,
+                "seq_len": 2048, "timed_steps": 3}
+LM_TRAIN_HYBRID = {"arch": "hymba_1_5b", "n_layers": 32, "global_batch": 8,
+                   "seq_len": 2048, "timed_steps": 3}
 # One micro-batch's loss and gradients through the kernels against the
 # plain chunked attention under autograd on the card: both bf16, with p
 # and the outputs rounded at other places.  Each gradient leaf's largest
@@ -488,6 +539,14 @@ LM_TRAIN_TOL = {"float32": {"metrics": 1e-5, "leaf_sum": 1e-4},
 # runs are held to the bounds, not to bits.
 LM_TRAIN_MOE_TOL = {"float32": {"metrics": 5e-5, "leaf_sum": 1e-4},
                     "bfloat16": {"metrics": 5e-3, "leaf_sum": 2e-3}}
+# The falcon-mamba and hymba smoke steps (``lm_train_ssm``,
+# ``lm_train_hybrid``; tests/test_torch_lm_train_ssm_values.py's TOL):
+# LM_TRAIN_TOL, but a bf16 leaf's sum to 5e-3: the zero-initialised conv
+# bias (256 elements) moves by 2 lr = 2e-3 for each element whose tiny
+# gradient takes the other sign in bf16, 4e-3 of its sum of absolute
+# values after three steps (2.5e-3 seen on the CPU).
+LM_TRAIN_SSM_TOL = {"float32": {"metrics": 1e-5, "leaf_sum": 1e-4},
+                    "bfloat16": {"metrics": 5e-3, "leaf_sum": 5e-3}}
 
 
 def emit(obj) -> None:
@@ -503,7 +562,7 @@ def phase_info(torch, build):
     t0 = time.perf_counter()
     paths = build.build(["fft4_stage", "matmul", "dotp", "axpy", "dct",
                          "conv2d", "powf", "powf_host", "flash_attn",
-                         "flash_attn_bwd", "ssm_scan"])
+                         "flash_attn_bwd", "ssm_scan", "ssm_scan_bwd"])
     build_s = time.perf_counter() - t0
     emit({"phase": "info", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
@@ -2884,6 +2943,116 @@ def _scan_checks(torch, ssm_scan, build) -> dict:
     return out
 
 
+def _scan_bwd_checks(torch, ssm_scan, ssm_scan_bwd, build) -> dict:
+    """The scan's backward: its resources (``nvcc -Xptxas -v``, recorded),
+    then against its plain version (autograd through the chunked scan) at
+    :data:`SCAN_BWD_TEST_S` at every lane count of n 8 and 16, the final
+    state's gradient absent and present, and at the two models' training
+    micro-batches (:data:`SCAN_BWD_SHAPES`, two runs bit for bit), each
+    gradient to :data:`SCAN_BWD_TOL` of its largest element; the training
+    shapes timed (device time, a CUDA graph replay, and eagerly) beside
+    the plain version and the bound.  No PyTorch call computes the scan's
+    gradient, so it has no library time.  Returns Falcon-Mamba's record,
+    Hymba's beside it."""
+    log = build.compiler_log("ssm_scan_bwd")
+    lib = build.load("ssm_scan_bwd", ssm_scan_bwd._SIGNATURES)
+    pairs = [(lanes, n) for n in ssm_scan.STATES
+             for lanes in ssm_scan.lane_counts(n)]
+    usage = {f"ssm_scan_bwd_kernel l{lanes} n{n}": dict(
+        ptxas_usage(log, f"ssm_scan_bwd_kernelILi{lanes}ELi{n}E"),
+        dynamic_smem_bytes=lib.ssm_scan_bwd_smem(lanes, n))
+        for lanes, n in pairs}
+    fwd_log = build.compiler_log("ssm_scan")
+    ckpt_usage = {f"ssm_scan_ckpt_kernel l{lanes} n{n}": ptxas_usage(
+        fwd_log, f"ssm_scan_ckpt_kernelILi{lanes}ELi{n}E")
+        for lanes, n in pairs}
+    emit({"phase": "lm_train", "name": "ssm_scan_bwd",
+          "kernel_resources": usage, "forward_ckpt_resources": ckpt_usage})
+    if not all("registers" in u and u["dynamic_smem_bytes"] > 0
+               for u in usage.values()) or not all(
+                   "registers" in u for u in ckpt_usage.values()):
+        raise AssertionError(f"ssm_scan_bwd: resources {usage}, the "
+                             f"checkpointing forward's {ckpt_usage}")
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    names = ("dt", "x", "B", "C", "A", "D", "h0")
+
+    def grads(b, s, di, n, lanes, with_dh):
+        args = _scan_inputs(torch, gen, b, s, di, n)
+        dy = torch.randn(b, s, di, device="cuda", generator=gen)
+        dh = (torch.randn(b, di, n, device="cuda", generator=gen)
+              if with_dh else None)
+        ckpt = torch.empty(b, ssm_scan_bwd.checkpoints(s), di, n,
+                           device="cuda")
+        ssm_scan.ssm_scan(*args, ckpt=ckpt)
+        got = ssm_scan_bwd.ssm_scan_bwd(*args, dy, dh, ckpt=ckpt,
+                                        lanes=lanes)
+        want = ssm_scan_bwd.ssm_scan_bwd_plain(*args, dy, dh)
+        errs = {k: _scaled_err(g, w) for k, g, w in zip(names, got, want)}
+        if max(errs.values()) > SCAN_BWD_TOL:
+            raise AssertionError(f"ssm_scan_bwd ({b}, {s}, {di}, {n}) at "
+                                 f"{lanes} lanes, dh {with_dh}: {errs}")
+        return args, dy, ckpt, got, want, errs
+
+    worst = 0.0
+    for s in SCAN_BWD_TEST_S:
+        for lanes, n in pairs:
+            for with_dh in (False, True):
+                *_, errs = grads(2, s, 200, n, lanes, with_dh)
+                worst = max(worst, max(errs.values()))
+    emit({"phase": "lm_train", "name": "ssm_scan_bwd", "check": "against "
+          "plain at every lane count", "s": SCAN_BWD_TEST_S, "d_inner": 200,
+          "lane_counts": pairs, "worst_scaled_err": worst,
+          "tol": SCAN_BWD_TOL})
+    out = None
+    for config, (b, s, di, n) in SCAN_BWD_SHAPES.items():
+        plan = ssm_scan_bwd.bwd_plan(b, s, di, n)
+        args, dy, ckpt, got, want, errs = grads(b, s, di, n, plan.lanes,
+                                                False)
+        again = ssm_scan_bwd.ssm_scan_bwd(*args, dy, ckpt=ckpt)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"ssm_scan_bwd {config}: two runs differ")
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        del got, want, again
+        inputs = [(*args, dy, None)]
+
+        def kernel(*a):
+            return ssm_scan_bwd.ssm_scan_bwd(*a, ckpt=ckpt)
+
+        rec = {"phase": "lm_train", "name": "ssm_scan_bwd", "config": config,
+               "shape": [b, s, di, n], "dtype": "float32",
+               "plan": {"lanes": plan.lanes, "channels": plan.channels,
+                        "grid": list(plan.grid),
+                        "checkpoints": plan.checkpoints},
+               "max_abs_err": err, "scaled_err": errs, "tol": SCAN_BWD_TOL,
+               "deterministic": True,
+               "timing": "graph", "ms": graph_ms(kernel, inputs),
+               "eager_ms": cuda_ms(kernel, inputs),
+               "forward_with_checkpoints_ms": graph_ms(
+                   lambda *a: ssm_scan.ssm_scan(*a, ckpt=ckpt), [args]),
+               "forward_ms": graph_ms(ssm_scan.ssm_scan, [args]),
+               "plain_ms": cuda_ms(ssm_scan_bwd.ssm_scan_bwd_plain, inputs,
+                                   iters=2, warmup=1),
+               "library_ms": None, "library_eager_ms": None,
+               "library": "none: no PyTorch call computes the selective "
+                          "scan's gradient",
+               **scan_bwd_bound(b, s, di, n),
+               "kernel_resources": usage,
+               "unit": "one call: the reverse walk and the partial sums of "
+                       "one SSM layer, one micro-batch"}
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+        if out is None:
+            out = rec
+        else:
+            out["hymba"] = {k: rec[k] for k in (
+                "shape", "plan", "ms", "eager_ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_share", "max_abs_err",
+                "forward_with_checkpoints_ms")}
+        del args, dy, ckpt, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_usage(log: str, fragment: str) -> dict:
     """``nvcc -Xptxas -v``'s registers, barriers, static shared memory and
     spills of the kernel whose mangled name holds ``fragment``."""
@@ -3203,19 +3372,24 @@ def phase_lm_serve(torch, flash_attn, ssm_scan, build, ref_values) -> dict:
             "ssm_scan": (scan_summary, ssm_launches["ssm_scan"])}
 
 
-def _scaled_err(got, want) -> float:
-    """A gradient's largest error over its largest element."""
-    return ((got.float() - want.float()).abs().max()
-            / want.float().abs().max()).item()
+def _scaled_err(got, want, top: float = 0.0) -> float:
+    """A gradient's largest error over its largest element (``top`` where
+    the gradient is exactly zero)."""
+    diff = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item() or top
+    return diff / scale if scale else (math.inf if diff else 0.0)
 
 
-def grad_row_err(got, want) -> float:
+def grad_row_err(got, want, top: float = 0.0) -> float:
     """:func:`row_scaled_err` for a gradient: each row's largest error
     over the larger of its largest element and :data:`FA_BWD_ROW_FLOOR`
-    of the gradient's largest row."""
+    of the gradient's largest row (of ``top`` where the gradient is
+    exactly zero: at window 1 under causal masking a row sees only itself,
+    p = 1 and dS = dP - delta = 0, so dQ and dK vanish but for
+    rounding)."""
     diff = (got.float() - want.float()).abs().amax(dim=-1)
     rows = want.float().abs().amax(dim=-1)
-    floor = rows.max().item() * FA_BWD_ROW_FLOOR
+    floor = (rows.max().item() or top) * FA_BWD_ROW_FLOOR
     return (diff / rows.clamp_min(floor)).max().item()
 
 
@@ -3259,29 +3433,39 @@ def bwd_resources(build, flash_attn, flash_attn_bwd) -> dict:
     too_big = {name: u for name, u in res.items()
                if "_wgmma" in name and u["dynamic_smem_bytes"]
                + u.get("static_smem_bytes", 0) > SMEM_PER_BLOCK}
-    if (any(spills.values()) or too_big
+    # ptxas's C75xx warnings: a wgmma it serialises.
+    serialised = [line for line in log.splitlines() if "C75" in line]
+    if (any(spills.values()) or too_big or serialised
             or not all(u.get("registers") for u in res.values())):
         raise AssertionError(f"backward kernels: spill bytes {spills} (-2: "
                              f"not in ptxas's log), over {SMEM_PER_BLOCK} "
-                             f"bytes of shared memory {too_big}; {res}")
+                             f"bytes of shared memory {too_big}, "
+                             f"serialised {serialised}; {res}")
     return res
 
 
 def _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs, shape,
-               kernel_resources) -> dict:
+               kernel_resources, window=0) -> dict:
     """The backward at a training shape (B, H, Hk, S, D[, Dv]), bf16,
     causal, the caller's default scale (MLA's ``D ** -0.5`` at (192,
-    128)): ``run``'s checks against the plain version, then the kernels'
-    time in device time and eagerly, SDPA's backward alone in turns with
-    them eagerly (the backend torch picked named), the plain version's
-    time and the bound of the five products; the summary record."""
+    128)), under a sliding ``window`` or none: ``run``'s checks against
+    the plain version, then the kernels' time in device time and eagerly,
+    SDPA's backward alone in turns with them eagerly (the backend torch
+    picked named; under a window on the (S, S) boolean mask of the causal
+    window), the plain version's time and the bound of the five products;
+    the summary record."""
     b, h, hk, s, d, *dv = shape
     dv = dv[0] if dv else d
     q, k, v, do = inputs(torch.bfloat16, b, h, hk, s, s, d, dv)
-    rec, (out, lse, got, want) = run(q, k, v, do, True)
+    rec, (out, lse, got, want) = run(q, k, v, do, True, window=window)
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    mask = None
+    if window:
+        lag = (torch.arange(s, device=q.device)[:, None]
+               - torch.arange(s, device=q.device)[None, :])
+        mask = (lag >= 0) & (lag < window)
     lib_out = torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True)
+        qs, ks, vs, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
 
     def library(do_):
         return torch.autograd.grad(lib_out, (qs, ks, vs), do_,
@@ -3290,31 +3474,35 @@ def _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs, shape,
     lib = library(do)
 
     def kernel(*a):
-        return flash_attn_bwd.flash_attention_bwd(*a, causal=True)
+        return flash_attn_bwd.flash_attention_bwd(*a, causal=True,
+                                                  window=window)
 
     args = [(q, k, v, out, do, lse)]
     b_ms, b_by = bound(*attention_bwd_work(b, h, hk, s, s, d, True, 2,
-                                           dv=dv), "bfloat16")
+                                           dv=dv, window=window), "bfloat16")
     turns = [cuda_ms(kernel, args), cuda_ms(library, [(do,)]),
              cuda_ms(library, [(do,)]), cuda_ms(kernel, args)]
     ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     return {"phase": "lm_train", "shape": list(shape), "dtype": "bfloat16",
-            "causal": True, **rec,
+            "causal": True, "window": window, **rec,
             "max_abs_err": max((g.float() - w.float()).abs().max().item()
                                for g, w in zip(got, want)),
             "ms": ms, "runs_ms": [turns[0], turns[3]],
             "graph_ms": graph_ms(kernel, args),
             "plain_ms": cuda_ms(
                 lambda *a: flash_attn_bwd.flash_attention_bwd_plain(
-                    *a, causal=True), [(q, k, v, do)], iters=3, warmup=1),
+                    *a, causal=True, window=window), [(q, k, v, do)],
+                iters=3, warmup=1),
             "library_ms": library_ms,
             "library_runs_ms": [turns[1], turns[2]],
             "ratio_to_library": ms / library_ms,
             "library": "torch.autograd.grad of F.scaled_dot_product_"
-                       "attention(is_causal=True, enable_gqa=True) (the "
-                       "backward alone), in turns with the kernels, "
-                       "eagerly",
-            "library_backend": sdpa_backend(q, k, v, True),
+                       "attention(" + ("attn_mask=the (S, S) causal "
+                                       "window" if window else
+                                       "is_causal=True")
+                       + ", enable_gqa=True) (the backward alone), in "
+                       "turns with the kernels, eagerly",
+            "library_backend": sdpa_backend(q, k, v, mask is None, mask),
             "library_row_err": [grad_row_err(g, w)
                                 for g, w in zip(lib, want)],
             "bound_ms": b_ms, "bound_by": b_by,
@@ -3326,10 +3514,11 @@ def _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs, shape,
 
 def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
     """The backward kernels against their plain version at the test
-    shapes, at every (D, D) and at MLA's pairs, their determinism and
-    refusals, their resources, and the times at Qwen3-4B's and
-    DeepSeek-V3's training shapes.  Returns the two summary records
-    (Qwen3-4B's shape, DeepSeek-V3's)."""
+    shapes, at every (D, D) and at MLA's pairs, under the sliding window,
+    their determinism and refusals, their resources, and the times at
+    Qwen3-4B's, DeepSeek-V3's and Hymba-1.5B's training shapes.  Returns
+    the three summary records (Qwen3-4B's shape, DeepSeek-V3's,
+    Hymba-1.5B's under its window)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(25)
 
@@ -3343,29 +3532,25 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
         do = torch.randn(b, h, s, dv, device=dev, generator=gen).to(dtype)
         return q, k, v, do
 
-    def run(q, k, v, do, causal, scale=None, rows=True):
+    def run(q, k, v, do, causal, scale=None, rows=True, window=0):
         lse = torch.empty(q.shape[:3], device=dev)
-        out = flash_attn.flash_attention(q, k, v, causal=causal,
-                                         scale=scale, lse=lse)
-        got = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
-                                                 causal=causal, scale=scale)
+        kw = dict(causal=causal, scale=scale, window=window)
+        out = flash_attn.flash_attention(q, k, v, lse=lse, **kw)
+        got = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse, **kw)
         again = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
-                                                   causal=causal,
-                                                   scale=scale)
-        want = flash_attn_bwd.flash_attention_bwd_plain(q, k, v, do,
-                                                        causal=causal,
-                                                        scale=scale)
-        lse_err = (lse - ref.attention_lse(q, k, causal=causal, scale=scale)
-                   ).abs().max().item()
+                                                   **kw)
+        want = flash_attn_bwd.flash_attention_bwd_plain(q, k, v, do, **kw)
+        lse_err = (lse - ref.attention_lse(q, k, **kw)).abs().max().item()
         dtype = str(q.dtype).split(".")[1]
         err, tol = ((grad_row_err, FA_BWD_TOL[dtype]) if rows
                     else (_scaled_err, FA_BWD_SCALED_TOL[dtype]))
-        errs = [err(g, w) for g, w in zip(got, want)]
+        top = max(w.float().abs().max().item() for w in want)
+        errs = [err(g, w, top) for g, w in zip(got, want)]
         if not (max(errs) <= tol and lse_err <= FA_LSE_TOL):
             raise AssertionError(f"flash_attention_bwd {list(q.shape)} "
                                  f"{list(v.shape)} {q.dtype} causal={causal}"
-                                 f" scale={scale}: dq/dk/dv errors {errs} "
-                                 f"(tol {tol}), lse {lse_err}")
+                                 f" scale={scale} window={window}: dq/dk/dv "
+                                 f"errors {errs} (tol {tol}), lse {lse_err}")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError("flash_attention_bwd: two runs differ")
         return {"dq_dk_dv_row_err" if rows else "dq_dk_dv_scaled_err": errs,
@@ -3406,11 +3591,41 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
           "worst_err": worst, "tol": FA_BWD_TOL,
           "scaled_tol": FA_BWD_SCALED_TOL, "deterministic": True})
 
+    # Under the window: the forward's window checks, then the (192, 128)
+    # wgmma kernels.
+    worst = {}
+    b, h, hk, s = FA_BWD_WINDOW_SHAPE
+    for d, name in FA_WINDOW_KERNELS:
+        for causal in (True, False):
+            for window in FA_WINDOWS:
+                rows = name == "float32"
+                rec, _ = run(*inputs(getattr(torch, name), b, h, hk, s, s, d),
+                             causal, rows=rows, window=window)
+                key = f"{name} d{d} " + ("row" if rows else "scaled")
+                worst[key] = max(worst.get(key, 0.0),
+                                 max(rec.get("dq_dk_dv_row_err")
+                                     or rec["dq_dk_dv_scaled_err"]))
+    b, h, hk, s, d, dv = FA_BWD_WINDOW_PAIR
+    for causal in (True, False):
+        for window in (7, 64, 1000):
+            rec, _ = run(*inputs(torch.bfloat16, b, h, hk, s, s, d, dv),
+                         causal, rows=False, window=window)
+            key = f"bfloat16 ({d}, {dv}) scaled"
+            worst[key] = max(worst.get(key, 0.0),
+                             max(rec["dq_dk_dv_scaled_err"]))
+    emit({"phase": "lm_train", "check": "flash_attention_bwd against plain "
+          "under the sliding window", "shape": FA_BWD_WINDOW_SHAPE,
+          "windows": FA_WINDOWS, "kernels": FA_WINDOW_KERNELS,
+          "pair_shape": FA_BWD_WINDOW_PAIR, "worst_err": worst,
+          "tol": FA_BWD_TOL, "scaled_tol": FA_BWD_SCALED_TOL,
+          "deterministic": True})
+
     x = torch.zeros(1, 2, 8, 192, device=dev, dtype=torch.bfloat16)
     lse0 = torch.zeros(1, 2, 8, device=dev)
     before = flash_attn_bwd.LAUNCHES
     for what, args, kw in (
-            ("window", (x, x, x, x, x, lse0), {"window": 64}),
+            ("window over S > T", (x, x[:, :, :4], x[:, :, :4], x, x, lse0),
+             {"window": 4}),
             ("(192, 64)", (x, x, *(x[..., :64],) * 3, lse0), {})):
         try:
             flash_attn_bwd.flash_attention_bwd(*args, **kw)
@@ -3419,14 +3634,18 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
         raise AssertionError(f"flash_attention_bwd took a {what}")
     if flash_attn_bwd.LAUNCHES != before:
         raise AssertionError("flash_attention_bwd launched before refusing")
-    emit({"phase": "lm_train", "check": "a window and a pair outside "
-          "flash_attn.PAIRS raise ValueError before any launch"})
+    emit({"phase": "lm_train", "check": "a window over more query rows "
+          "than keys and a pair outside flash_attn.PAIRS raise ValueError "
+          "before any launch"})
 
     resources = bwd_resources(build, flash_attn, flash_attn_bwd)
     summary = _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs,
                          FA_TRAIN_SHAPE, resources)
     mla_summary = _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs,
                              FA_MLA_TRAIN_SHAPE, resources)
+    window_summary = _bwd_timed(torch, flash_attn, flash_attn_bwd, run,
+                                inputs, FA_WINDOW_TRAIN_SHAPE[:5], resources,
+                                window=FA_WINDOW_TRAIN_SHAPE[5])
     # The forward kernel with and without the lse output, in turns, in
     # device time, at the training shapes and at the serving prefill's.
     fwd = {}
@@ -3447,9 +3666,21 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
     summary.update(name="flash_attention_bwd", forward_lse_cost=fwd)
     mla_summary.update(name="flash_attention_bwd_mla",
                        forward_lse_cost={"mla_train": fwd["mla_train"]})
+    # The windowed forward with lse at Hymba's training shape, for the
+    # run's attention share.
+    bb, hh, hkk, ss, dd, window = FA_WINDOW_TRAIN_SHAPE
+    fq, fk, fv, _ = inputs(torch.bfloat16, bb, hh, hkk, ss, ss, dd)
+    lse_buf = torch.empty(bb, hh, ss, device=dev)
+    window_summary.update(
+        name="flash_attention_bwd_window",
+        forward_lse_ms=graph_ms(lambda *a: flash_attn.flash_attention(
+            *a, causal=True, window=window, lse=lse_buf),
+            cold_copies(fq, fk, fv)))
+    del fq, fk, fv, lse_buf
     emit(summary)
     emit(mla_summary)
-    return summary, mla_summary
+    emit(window_summary)
+    return summary, mla_summary, window_summary
 
 
 def _leaf_digests(torch, items) -> dict:
@@ -3535,15 +3766,21 @@ def _train_full(torch, configs, prng, optim, steps, data, attention,
                 fa_ms) -> dict:
     """A config at its published widths, depth cut to ``spec``'s
     ``n_layers``: one micro-batch's loss and gradients through the kernels
-    against the plain chunked attention under autograd on the card (a MoE
-    model's expert choices recorded in the kernel run and replayed in the
-    plain one, :class:`_Routing`), then a warm-up step and the timed steps
-    of ``build_train_step`` at the config's own optimizer plan (the main
-    path, the kernels' launches counted from 0 just before the timed
-    steps).  ``fa_ms`` holds one forward and one backward call's device
-    milliseconds at this shape, or is None where they were not timed.
-    Returns the launches by kernel."""
+    against the plain chunked attention and the plain selective scan under
+    autograd on the card (a MoE model's expert choices recorded in the
+    kernel run and replayed in the plain one, :class:`_Routing`), then a
+    warm-up step and the timed steps of ``build_train_step`` at the
+    config's own optimizer plan (the main path, the kernels' launches
+    counted from 0 just before the timed steps).  ``fa_ms`` holds one
+    forward and one backward call's device milliseconds at this shape (of
+    the attention, or of the scan: ``scan_forward``, ``scan_backward``),
+    or is None where they were not timed.  Returns the launches by
+    kernel."""
+    import functools
+
+    from repro_torch.kernels import ssm_scan, ssm_scan_bwd
     from repro_torch.models import moe
+    from repro_torch.models import ssm as ssm_model
     full = configs.get(spec["arch"])
     cfg = dataclasses.replace(full, n_layers=spec["n_layers"])
     t0 = time.perf_counter()
@@ -3578,12 +3815,15 @@ def _train_full(torch, configs, prng, optim, steps, data, attention,
             moe.top_k = routing.real
 
     kernel_loss, kernel_grads = loss_grads(routing.record)
-    kernel_attention = attention.flash_attention
+    kernel_attention, kernel_scan = attention.flash_attention, \
+        ssm_model.ssm_scan
     attention.flash_attention = attention.chunked_attention
+    ssm_model.ssm_scan = functools.partial(kernel_scan, plain=True)
     try:
         plain_loss, plain_grads = loss_grads(routing.replay)
     finally:
         attention.flash_attention = kernel_attention
+        ssm_model.ssm_scan = kernel_scan
     if routing.calls:
         raise AssertionError(f"{cfg.name}: {len(routing.calls)} recorded "
                              f"routings not replayed")
@@ -3596,8 +3836,8 @@ def _train_full(torch, configs, prng, optim, steps, data, attention,
     torch.cuda.empty_cache()
     grad_gap = max(grad_gaps.values())
     emit({"phase": "lm_train", "model": cfg.name, "check": "full-width "
-          "micro-batch: kernels against the plain chunked attention under "
-          "autograd", "loss_kernels": kernel_loss.item(),
+          "micro-batch: kernels against the plain chunked attention and "
+          "scan under autograd", "loss_kernels": kernel_loss.item(),
           "loss_plain": plain_loss.item(), "loss_gap": loss_gap,
           "loss_gap_bound": LM_TRAIN_LOSS_GAP, "grad_gap_by_leaf": grad_gaps,
           "grad_gap": grad_gap, "grad_gap_bound": LM_TRAIN_GRAD_GAP,
@@ -3617,6 +3857,7 @@ def _train_full(torch, configs, prng, optim, steps, data, attention,
     warmup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     flash_attn.LAUNCHES = flash_attn_bwd.LAUNCHES = 0
+    ssm_scan.LAUNCHES = ssm_scan_bwd.LAUNCHES = 0
     step_s, metrics = [], []
     for i in range(spec["timed_steps"]):
         b = batch(1 + i)
@@ -3627,27 +3868,40 @@ def _train_full(torch, configs, prng, optim, steps, data, attention,
         step_s.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
     launches = {"flash_attention": flash_attn.LAUNCHES,
-                "flash_attention_bwd": flash_attn_bwd.LAUNCHES}
+                "flash_attention_bwd": flash_attn_bwd.LAUNCHES,
+                "ssm_scan": ssm_scan.LAUNCHES,
+                "ssm_scan_bwd": ssm_scan_bwd.LAUNCHES}
     n = spec["timed_steps"]
     micro = min(cfg.micro_batches, spec["global_batch"])
-    # A micro-batch: each layer's attention forward twice under remat
-    # (the block's forward, then its recomputation in the backward), the
-    # mtp block's once (transformer.mtp_loss does not remat it); one
-    # backward each.
+    # A micro-batch: each layer's attention forward and selective scan
+    # twice under remat (the block's forward, then its recomputation in
+    # the backward), the mtp block's once (transformer.mtp_loss does not
+    # remat it); one backward each.  An SSM layer has no attention, a
+    # hybrid layer both.
     mtp = 1 if cfg.use_mtp else 0
-    expected = {"flash_attention": n * micro * (
-                    cfg.n_layers * (2 if cfg.remat else 1) + mtp),
-                "flash_attention_bwd": n * micro * (cfg.n_layers + mtp)}
+    attn = cfg.family != "ssm"
+    scan = cfg.family in ("ssm", "hybrid")
+    fwd_layers = cfg.n_layers * (2 if cfg.remat else 1)
+    expected = {"flash_attention": n * micro * (fwd_layers + mtp) * attn,
+                "flash_attention_bwd": n * micro * (cfg.n_layers + mtp)
+                * attn,
+                "ssm_scan": n * micro * fwd_layers * scan,
+                "ssm_scan_bwd": n * micro * cfg.n_layers * scan}
     tokens = spec["global_batch"] * spec["seq_len"]
     step_mean = sum(step_s) / n
     # Model FLOPs: 6 per active parameter and token, plus attention's two
-    # products (2 (D + Dv) a kept pair a head) three times (forward,
-    # backward), over every layer and the mtp block (S - 1 positions).
+    # products (2 (D + Dv) a kept pair a head, under the window the pairs
+    # it keeps) three times (forward, backward), over every layer and the
+    # mtp block (S - 1 positions); the scan's elementwise work is not
+    # counted.
     d_qk = (cfg.qk_nope_dim + cfg.qk_rope_dim) if cfg.use_mla \
         else cfg.head_dim
     d_v = cfg.v_head_dim if cfg.use_mla else cfg.head_dim
     seq = spec["seq_len"]
-    pairs = seq * (seq + 1) / 2 * cfg.n_layers + (seq - 1) * seq / 2 * mtp
+    rows = np.arange(seq)
+    kept = float(np.minimum(rows + 1, cfg.attn_window).sum()
+                 if cfg.attn_window else seq * (seq + 1) / 2)
+    pairs = kept * cfg.n_layers + (seq - 1) * seq / 2 * mtp
     attn_flops = (3 * 2 * (d_qk + d_v) * cfg.n_heads * pairs
                   * spec["global_batch"])
     model_flops = 6 * cfg.active_param_count() * tokens + attn_flops
@@ -3673,12 +3927,17 @@ def _train_full(torch, configs, prng, optim, steps, data, attention,
            "mfu_bf16": model_flops / step_mean / 989e12}
     if cfg.is_moe:
         rec["reduced"]["moe_layers"] = [full.n_moe_layers, cfg.n_moe_layers]
-    if fa_ms is not None:
+    if fa_ms is not None and attn:
         attention_ms = (launches["flash_attention"] * fa_ms["forward"]
                         + launches["flash_attention_bwd"]
                         * fa_ms["backward"]) / n
         rec.update(attention_ms_per_step=attention_ms,
                    attention_share=attention_ms / (step_mean * 1e3))
+    if fa_ms is not None and scan:
+        scan_ms = (launches["ssm_scan"] * fa_ms["scan_forward"]
+                   + launches["ssm_scan_bwd"] * fa_ms["scan_backward"]) / n
+        rec.update(scan_ms_per_step=scan_ms,
+                   scan_share=scan_ms / (step_mean * 1e3))
     emit(rec)
     finite = all(math.isfinite(v) for m in metrics for v in m.values())
     if launches != expected or not finite:
@@ -3712,12 +3971,14 @@ def _train_example(flash_attn, flash_attn_bwd) -> None:
                              f"{launches}")
 
 
-def phase_lm_train(torch, flash_attn, flash_attn_bwd, ref, build,
-                   ref_values) -> dict:
-    """The training paths of the dense, MoE and MLA families; returns
-    ``{entry: (summary record, launches)}`` for the summary's two entries
-    of the backward: at (D, D) the Qwen3-4B and Moonshot-v1-16B-A3B runs'
-    launches, at (192, 128) the DeepSeek-V3 run's."""
+def phase_lm_train(torch, flash_attn, flash_attn_bwd, ssm_scan,
+                   ssm_scan_bwd, ref, build, ref_values) -> dict:
+    """The training paths of the dense, MoE, MLA, SSM and hybrid families;
+    returns ``{entry: (summary record, launches)}`` for the summary's four
+    entries of the gradients: attention's at (D, D) with the Qwen3-4B and
+    Moonshot-v1-16B-A3B runs' launches, at (192, 128) with the DeepSeek-V3
+    run's, under the window with the Hymba-1.5B run's, and the scan's with
+    the Falcon-Mamba-7B and Hymba-1.5B runs'."""
     from repro_torch import configs, data, models, optim
     from repro_torch.core import prng
     from repro_torch.launch import steps
@@ -3726,18 +3987,33 @@ def phase_lm_train(torch, flash_attn, flash_attn_bwd, ref, build,
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    summary, mla_summary = _fa_bwd_checks(torch, flash_attn, flash_attn_bwd,
-                                          ref, build)
+    summary, mla_summary, window_summary = _fa_bwd_checks(
+        torch, flash_attn, flash_attn_bwd, ref, build)
+    scan_summary = _scan_bwd_checks(torch, ssm_scan, ssm_scan_bwd, build)
     for section, tols in (("lm_train", LM_TRAIN_TOL),
-                          ("lm_train_moe", LM_TRAIN_MOE_TOL)):
+                          ("lm_train_moe", LM_TRAIN_MOE_TOL),
+                          ("lm_train_ssm", LM_TRAIN_SSM_TOL),
+                          ("lm_train_hybrid", LM_TRAIN_SSM_TOL)):
         _train_smoke_against_jax(torch, configs, prng, optim, steps, data,
                                  models.init_params, layers.tree_items,
                                  ref_values[section], tols)
+    scan_ms = {"falcon_mamba_7b": {
+                   "scan_forward": scan_summary[
+                       "forward_with_checkpoints_ms"],
+                   "scan_backward": scan_summary["ms"]},
+               "hymba_1_5b": {
+                   "scan_forward": scan_summary["hymba"][
+                       "forward_with_checkpoints_ms"],
+                   "scan_backward": scan_summary["hymba"]["ms"],
+                   "forward": window_summary["forward_lse_ms"],
+                   "backward": window_summary["graph_ms"]}}
     launches = {}
     for spec, rec, shape in ((LM_TRAIN, summary, "train"),
                              (LM_TRAIN_MLA, mla_summary, "mla_train"),
-                             (LM_TRAIN_MOE, None, None)):
-        fa_ms = None if rec is None else {
+                             (LM_TRAIN_MOE, None, None),
+                             (LM_TRAIN_SSM, None, None),
+                             (LM_TRAIN_HYBRID, None, None)):
+        fa_ms = scan_ms.get(spec["arch"]) if rec is None else {
             "forward": rec["forward_lse_cost"][shape]["lse_ms"],
             "backward": rec["graph_ms"]}
         launches[spec["arch"]] = _train_full(
@@ -3753,7 +4029,14 @@ def phase_lm_train(torch, flash_attn, flash_attn_bwd, ref, build,
                 + launches[LM_TRAIN_MOE["arch"]]["flash_attention_bwd"]),
             "flash_attention_bwd_mla": (
                 mla_summary,
-                launches[LM_TRAIN_MLA["arch"]]["flash_attention_bwd"])}
+                launches[LM_TRAIN_MLA["arch"]]["flash_attention_bwd"]),
+            "flash_attention_bwd_window": (
+                window_summary,
+                launches[LM_TRAIN_HYBRID["arch"]]["flash_attention_bwd"]),
+            "ssm_scan_bwd": (
+                scan_summary,
+                launches[LM_TRAIN_SSM["arch"]]["ssm_scan_bwd"]
+                + launches[LM_TRAIN_HYBRID["arch"]]["ssm_scan_bwd"])}
 
 
 def kernel_entry(name: str, rec: dict, launches: int) -> dict:
@@ -3795,7 +4078,7 @@ def main() -> int:
                                       figure_rows, fiveg_pipeline)
     from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
                                      flash_attn, flash_attn_bwd, matmul, ops,
-                                     powf, ref, ssm_scan)
+                                     powf, ref, ssm_scan, ssm_scan_bwd)
     from repro_torch.runtime import serving
 
     ref_values = json.loads(
@@ -3841,7 +4124,8 @@ def main() -> int:
                                              _build, ref_values).items():
         summary[name], launches[name] = rec, count
     for name, (rec, count) in phase_lm_train(torch, flash_attn,
-                                             flash_attn_bwd, ref, _build,
+                                             flash_attn_bwd, ssm_scan,
+                                             ssm_scan_bwd, ref, _build,
                                              ref_values).items():
         summary[name], launches[name] = rec, count
 

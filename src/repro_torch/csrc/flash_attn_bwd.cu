@@ -29,8 +29,9 @@
 // accumulates dQ.  No atomics: two runs give the same bits.  Pairs (D, D)
 // for D in {8, 16, 32, 40, 64, 80, 128, 192}, and multi-head latent
 // attention's (D, Dv) = (192, 128) (DeepSeek-V3) and (24, 16) (its smoke
-// config), each at the caller's scale; no window (the wrapper refuses one
-// before any launch).
+// config), each at the caller's scale, causal or full, and under the
+// forward's sliding window (window > 0: query s sees key t only when s - t
+// < window; S <= T), the hybrid family's.
 //
 // Bound: at Qwen3-4B's training shape (B = 1, H = 32, Hk = 8, S = T =
 // 2048, D = 128, bf16, causal) the five products (S = QK^T and dP = dO V^T
@@ -39,7 +40,9 @@
 // against 42 MB of traffic (q, k, v, out, dO, lse read once, dq, dk, dv
 // written once), 0.013 ms at 3.35 TB/s: bound by tensor-core operations.
 // At DeepSeek-V3's (B = 1, H = Hk = 128, S = 2048, (192, 128)) the
-// products take 2 H S(S+1)/2 (3 D + 2 Dv) = 4.5e11 FLOP, 0.452 ms.
+// products take 2 H S(S+1)/2 (3 D + 2 Dv) = 4.5e11 FLOP, 0.452 ms; at
+// Hymba-1.5B's (B = 1, H = 25, Hk = 5, S = 2048, D = 64, window 1024) the
+// 1.57e6 pairs the window keeps take 2.5e10 FLOP, 0.0255 ms.
 // dQ's own kernel recomputes S and dP (seven products in all), which caps
 // the pair at 5/7 of that bound.
 //
@@ -97,10 +100,17 @@
 //      tile, so under causal masking the longest walks (tile j walks H /
 //      Hk (S/64 - j) items) go first and the short ones fill in behind
 //      them; dQ blocks launch the latest query tiles (the longest walks)
-//      first.  At Qwen3-4B's training shape the 256 dK/dV blocks hold
-//      16,896 items, 128 a multiprocessor, and taken in launch order end
-//      at 128.  At (192, 128) both grids launch in groups of HEAD_GROUP KV
-//      heads, that order within a group: with every head in flight, the
+//      first.  The tiles' order comes from two tables the plan passes in
+//      the kernels' parameters (TileOrder, longest walk first; without a
+//      window the order above): under a window a key tile walks only the
+//      query tiles from its first key to the last query its last key
+//      reaches (window_end), a dQ tile only the key tiles from its first
+//      row's first visible key (window_start), and the walks no longer
+//      shrink in launch order.  At Qwen3-4B's training shape the 256
+//      dK/dV blocks hold 16,896 items, 128 a multiprocessor, and taken in
+//      launch order end at 128.  At (192, 128) both grids launch in
+//      groups of HEAD_GROUP KV heads, that order within a group: with
+//      every head in flight, the
 //      blocks stream 168 MB of Q and dO (1.31 MB a head at DeepSeek-V3's
 //      2048 rows) through the 50 MB L2; a group's 16 heads or fewer fit.
 //    - Every wgmma is waited for in the iteration that issues it (ptxas
@@ -132,9 +142,15 @@
 //    dK (D wide) and dV (DV wide), or dQ, over the tile.
 // Where D == DV the two widths' loops run together, as one loop of both
 // products, so the (D, D) kernels are those of before the pairs.
-// What is left for later: the wgmma kernels at D 80 and 192 and under a
-// window, and at (D, D) overlapping one item's products with the next
-// one's inside a consumer.
+// The window: every kernel masks a kept pair by causal and s - t < window
+// (ref.flash_attention's mask, not the reference's non-causal swa_fast
+// quirk), and a tile walks only the tiles the window reaches; the wgmma
+// kernels apply the mask arithmetically inside a tile (a select on p) and
+// set only their loops' bounds per item, so no wgmma is issued under a
+// condition.
+// What is left for later: the wgmma kernels at D 80 and 192, and at (D,
+// D) overlapping one item's products with the next one's inside a
+// consumer.
 #include <math.h>
 
 #include "hopper.cuh"
@@ -216,6 +232,25 @@ __host__ __device__ constexpr int cmin(int a, int b) {
   return a < b ? a : b;
 }
 
+// Under a sliding window (window > 0; query s sees key t only when s - t <
+// window) a key tile's walk ends at the query tile (of qrows rows) that
+// holds the last query its last key reaches: keys k0 .. k0 + krows - 1,
+// below T; n_qt without a window.
+__host__ __device__ __forceinline__ int window_end(int k0, int krows, int T,
+                                                   int window, int qrows,
+                                                   int n_qt) {
+  if (window <= 0) return n_qt;
+  const int last = cmin(k0 + krows, T) - 1 + window - 1;
+  return cmin(n_qt, last / qrows + 1);
+}
+
+// ... and a query tile's walk starts at the key tile (of krows keys) that
+// holds its first row's first visible key; 0 without a window.
+__host__ __device__ __forceinline__ int window_start(int q0, int window,
+                                                     int krows) {
+  return window > 0 ? cmax(0, q0 - window + 1) / krows : 0;
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -287,7 +322,7 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dk, bf16* __restrict__ dv, Layouts st, int H,
-             int Hk, int S, int T, float scale, int causal) {
+             int Hk, int S, int T, float scale, int causal, int window) {
   static_assert(D % 16 == 0 && DV % 16 == 0, "m16n8k16 steps");
   constexpr int LK = D + 8, LV = DV + 8;
   constexpr int NK = D / 8, NV = DV / 8;      // 8-column blocks of dK, dV
@@ -321,6 +356,7 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int G = H / Hk;
   const int n_qt = (S + BM - 1) / BM;
   const int qt0 = causal ? k0 / BM : 0;     // queries before k0 see no key
+  const int qt1 = window_end(k0, BM, T, window, BM, n_qt);
 #pragma unroll 1
   for (int hh = 0; hh < G; ++hh) {
     const int h = hk * G + hh;
@@ -329,7 +365,7 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* lh = lse + ((long long)b * H + h) * S;
     const float* eh = delta + ((long long)b * H + h) * S;
 #pragma unroll 1
-    for (int qt = qt0; qt < n_qt; ++qt) {
+    for (int qt = qt0; qt < qt1; ++qt) {
       const int q0 = qt * BM;
       __syncthreads();                      // the previous tiles are read
       load_tile<D>(qs, qh, st.q.s, q0, S);
@@ -343,8 +379,10 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll 1
       for (int sub = 0; sub < BM / SUB; ++sub) {
         const int qs0 = sub * SUB;
-        // Every key of the warp after every query of the step: p = 0.
+        // Every key of the warp after every query of the step, or a window
+        // or more behind it: p = 0.
         if (causal && q0 + qs0 + SUB - 1 < k0 + kw) continue;
+        if (window > 0 && q0 + qs0 - (k0 + kw + 15) >= window) continue;
         // S^T = K Q^T over D and dP^T = V dO^T over DV: 16 keys x 16
         // queries, the two products side by side where both widths run.
         float sa[2][4], pa[2][4];
@@ -378,7 +416,8 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const int key = k0 + kw + g + (e >= 2 ? 8 : 0);
             const int qi = qs0 + n * 8 + t4 * 2 + (e & 1);
             const int row = q0 + qi;
-            const bool keep = key < T && row < S && (!causal || key <= row);
+            const bool keep = key < T && row < S && (!causal || key <= row)
+                              && (window <= 0 || row - key < window);
             const float p = keep ? exp2f(fmaf(sa[n][e], sl2, -ls[qi])) : 0.f;
             pa[n][e] = p * (pa[n][e] - es[qi]);
             sa[n][e] = p;
@@ -440,7 +479,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            bf16* __restrict__ dq, Layouts st, int H, int Hk, int S, int T,
-           float scale, int causal) {
+           float scale, int causal, int window) {
   static_assert(D % 16 == 0 && DV % 16 == 0, "m16n8k16 steps");
   constexpr int LK = D + 8, LV = DV + 8;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -477,7 +516,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n_kt = (T + BM - 1) / BM;
   if (causal) n_kt = min(n_kt, (min(q0 + BM, S) - 1) / BM + 1);
 #pragma unroll 1
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = window_start(q0, window, BM); kt < n_kt; ++kt) {
     const int k0 = kt * BM;
     __syncthreads();                        // the previous K and V are read
     load_tile<D>(ks, kh, st.k.s, k0, T);
@@ -486,8 +525,10 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll 1
     for (int sub = 0; sub < BM / SUB; ++sub) {
       const int ks0 = sub * SUB;
-      // Every key of the step after every query of the warp: p = 0.
+      // Every key of the step after every query of the warp, or a window
+      // or more behind it: p = 0.
       if (causal && k0 + ks0 > q0 + qw + 15) continue;
+      if (window > 0 && q0 + qw - (k0 + ks0 + 15) >= window) continue;
       // S = Q K^T over D and dP = dO V^T over DV: 16 queries x 16 keys.
       float sa[2][4], pa[2][4];
 #pragma unroll
@@ -518,7 +559,8 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int row = e < 2 ? r0 : r1;
           const int key = k0 + ks0 + n * 8 + t4 * 2 + (e & 1);
-          const bool keep = row < S && key < T && (!causal || key <= row);
+          const bool keep = row < S && key < T && (!causal || key <= row)
+                            && (window <= 0 || row - key < window);
           const float p =
               keep ? exp2f(fmaf(sa[n][e], sl2, -(e < 2 ? l0 : l1))) : 0.f;
           pa[n][e] = p * (pa[n][e] - (e < 2 ? e0 : e1));
@@ -564,6 +606,24 @@ constexpr int CONSUMER_REGS = 240;
 // At (192, 128) both grids launch in groups of HEAD_GROUP KV heads
 // (bwd_plan's HEAD_GROUP).
 constexpr int HEAD_GROUP = 8;
+// bwd_plan's launch order of the tiles (kernels/flash_attn_bwd.py
+// MAX_ORDER): the dK/dV grid's key tiles and the dQ grid's query tiles,
+// longest walk first; n_kt (n_q) 0 past MAX_ORDER tiles, where rank r
+// takes key tile r (query tile n_q - 1 - r), the order without a window.
+constexpr int MAX_ORDER = 512;
+struct TileOrder {
+  int n_kt, n_q;
+  unsigned short kt[MAX_ORDER], qt[MAX_ORDER];
+};
+
+__device__ __forceinline__ int key_tile(const TileOrder& o, int rank) {
+  return o.n_kt ? o.kt[rank] : rank;
+}
+
+__device__ __forceinline__ int query_tile(const TileOrder& o, int rank,
+                                          int n_q) {
+  return o.n_q ? o.qt[rank] : n_q - 1 - rank;
+}
 
 // Shared memory at (D, DV): 64-row tiles of whole 64-column swizzle chunks
 // (8 KB each), Q and K tiles D wide (TILE), dO and V tiles DV wide
@@ -670,6 +730,23 @@ __device__ __forceinline__ void issue_ab_ss(float (&acc)[NA], uint32_t a_s,
                 sw128_desc(b_s + kk * 16 * 128, WG_TILE * 128, 1024));
 }
 
+// p = 0 in a 64 x 64 tile of P^T (keys key0 + 0..7 and + 8..15 of this
+// thread's rows, queries row0 + 0, 1 + 8 j of its columns) where the key
+// lies past T, after the query under causal masking, or a window or more
+// behind it.
+__device__ __forceinline__ void mask_scores_t(float (&p)[32], int key0,
+                                              int row0, int T, int causal,
+                                              int window) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int key = key0 + ((e % 4) >= 2 ? 8 : 0);
+    const int row = row0 + (e / 4) * 8 + (e % 2);
+    if (key >= T || (causal && key > row)
+        || (window > 0 && row - key >= window))
+      p[e] = 0.f;
+  }
+}
+
 // dK and dV of one 64-key tile at (D, D): block i takes key tile i / (B
 // Hk) of batch row and KV head i % (B Hk) (bwd_plan in
 // kernels/flash_attn_bwd.py: under causal masking the longest walks
@@ -683,7 +760,7 @@ __device__ __forceinline__ void dkdv_shared(
     const CUtensorMap& tdo, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, const Layouts& st, int B, int H, int Hk, int S,
-    int T, float scale, int causal) {
+    int T, float scale, int causal, int window, const TileOrder& ord) {
   using W = BwdShape<D, D>;
   constexpr int NA = D / 2;                   // dK (or dV) floats a thread
   extern __shared__ uint8_t bwd_smem[];
@@ -703,10 +780,14 @@ __device__ __forceinline__ void dkdv_shared(
 
   const int n_qt = (S + WG_TILE - 1) / WG_TILE;
   const int G = H / Hk;
-  const int bh = blockIdx.x % (B * Hk), kt = blockIdx.x / (B * Hk);
+  const int bh = blockIdx.x % (B * Hk);
+  const int kt = key_tile(ord, blockIdx.x / (B * Hk));
   const int b = bh / Hk, hk = bh % Hk, k0 = kt * WG_TILE;
-  // Under causal masking the query tiles from the one holding row k0 on.
-  const int qt0 = causal ? min(kt, n_qt) : 0, nq = n_qt - qt0;
+  // Under causal masking the query tiles from the one holding row k0 on;
+  // under a window up to the one its last key reaches.
+  const int qt0 = causal ? min(kt, n_qt) : 0;
+  const int nq = max(0, window_end(k0, WG_TILE, T, window, WG_TILE, n_qt)
+                        - qt0);
   const int n_items = G * nq;                 // (head, query tile) pairs
 
   if (threadIdx.x == 0) {
@@ -791,17 +872,21 @@ __device__ __forceinline__ void dkdv_shared(
     wgmma_wait<0>();
     fence_regs(sa);
     fence_regs(pa);
-    // P^T and dS^T in place; a tile that reaches past T or above the
-    // diagonal masks its keys.
-    const bool edge = k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > q0);
+    // P^T and dS^T in place; a tile that reaches past T, above the
+    // diagonal or behind a window masks its keys (a branch the whole
+    // warpgroup takes alike, around no wgmma).
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
-      const int key = k0 + warp * 16 + g + ((e % 4) >= 2 ? 8 : 0);
-      float p = exp2f(fmaf(sa[e], sl2, -ls[qi]));
-      if (edge && (key >= T || (causal && key > q0 + qi))) p = 0.f;
-      pa[e] = p * (pa[e] - ls[WG_TILE + qi]);
-      sa[e] = p;
+      sa[e] = exp2f(fmaf(sa[e], sl2, -ls[qi]));
+    }
+    if (k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > q0)
+        || (window > 0 && q0 + WG_TILE - 1 - k0 >= window))
+      mask_scores_t(sa, k0 + warp * 16 + g, q0 + t4 * 2, T, causal, window);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
+      pa[e] = sa[e] * (pa[e] - ls[WG_TILE + qi]);
     }
     // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over the 64 queries.
     uint32_t pf[4][4], df[4][4];
@@ -870,7 +955,7 @@ __device__ __forceinline__ void dkdv_split(
     const CUtensorMap& tdo, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, const Layouts& st, int B, int H, int Hk, int S,
-    int T, float scale, int causal) {
+    int T, float scale, int causal, int window, const TileOrder& ord) {
   using W = BwdShape<D, DV>;
   constexpr int RING = W::RING;
   extern __shared__ uint8_t bwd_smem[];
@@ -896,13 +981,17 @@ __device__ __forceinline__ void dkdv_split(
   const int b = blockIdx.x / (Hk * n_kt), rem = blockIdx.x % (Hk * n_kt);
   const int g0 = rem / (HEAD_GROUP * n_kt) * HEAD_GROUP;
   const int gs = min(HEAD_GROUP, Hk - g0);
-  const int kt = (rem - g0 * n_kt) / gs, hk = g0 + (rem - g0 * n_kt) % gs;
+  const int kt = key_tile(ord, (rem - g0 * n_kt) / gs);
+  const int hk = g0 + (rem - g0 * n_kt) % gs;
   const int k0 = kt * W::KEYS;
   const int n_qt = (S + WG_TILE - 1) / WG_TILE;
   const int G = H / Hk;
-  // Under causal masking the query tiles from the one holding row k0 on.
+  // Under causal masking the query tiles from the one holding row k0 on;
+  // under a window up to the one its last key reaches.
   const int qt0 = causal ? min(kt * (W::KEYS / WG_TILE), n_qt) : 0;
-  const int nq = n_qt - qt0, n_items = G * nq;
+  const int nq = max(0, window_end(k0, W::KEYS, T, window, WG_TILE, n_qt)
+                        - qt0);
+  const int n_items = G * nq;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -1003,9 +1092,11 @@ __device__ __forceinline__ void dkdv_split(
     mbar_wait(full + 8 * s, (i / RING) & 1);
     const uint32_t q_t = ring + s * W::STAGE, do_t = q_t + W::TILE;
     const float* ls = rows + s * 2 * WG_TILE;
-    // An item that reaches past T or above the diagonal masks its keys.
+    // An item that reaches past T, above the diagonal or behind a window
+    // masks its keys (a branch the whole warpgroup takes alike).
     const bool edge = kw + WG_TILE > T
-                      || (causal && kw + WG_TILE - 1 > q0);
+                      || (causal && kw + WG_TILE - 1 > q0)
+                      || (window > 0 && q0 + WG_TILE - 1 - kw >= window);
     // S^T = K Q^T (64 keys x 64 queries), then the last item's dK +=
     // bf16(dS^T) Q, in flight during this item's P^T.  K's and V's
     // descriptors are built anew each item (opaque): held across the
@@ -1021,12 +1112,12 @@ __device__ __forceinline__ void dkdv_split(
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
-      const int key = kw + warp * 16 + g + ((e % 4) >= 2 ? 8 : 0);
-      float p = exp2f(fmaf(sa[e], sl2, -ls[qi]));
-      if (edge && (key >= T || (causal && key > q0 + qi))) p = 0.f;
-      sa[e] = p;
-      my_stash[128 * e] = p;
+      sa[e] = exp2f(fmaf(sa[e], sl2, -ls[qi]));
     }
+    if (edge)
+      mask_scores_t(sa, kw + warp * 16 + g, q0 + t4 * 2, T, causal, window);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) my_stash[128 * e] = sa[e];
     store_sw128(sa, pt, warp, g, t4);          // bf16(P^T), the last dV's
     wgmma_wait<0>();                           // operand long since read
     fence_regs(dka);
@@ -1098,33 +1189,44 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, Layouts st,
-               int B, int H, int Hk, int S, int T, float scale, int causal) {
+               int B, int H, int Hk, int S, int T, float scale, int causal,
+               int window, const __grid_constant__ TileOrder ord) {
   if constexpr (BwdShape<D, DV>::SPLIT)
     dkdv_split<D, DV>(tq, tk, tv, tdo, lse, delta, dk, dv, st, B, H, Hk, S,
-                      T, scale, causal);
+                      T, scale, causal, window, ord);
   else
     dkdv_shared<D>(tq, tk, tv, tdo, lse, delta, dk, dv, st, B, H, Hk, S, T,
-                   scale, causal);
+                   scale, causal, window, ord);
 }
 
 // dS = P (dP - delta) in place in pa for one consumer's 64 queries (rows
 // r0, r1 of this thread, lse l0, l1 times log2 e, delta e0, e1) against
-// keys k0 .. k0 + 63; a tile that reaches past T or above the diagonal
-// masks its keys (p = 0).
-__device__ __forceinline__ void dq_scores(const float (&sa)[32],
+// keys k0 .. k0 + 63; a tile that reaches past T, above the diagonal or
+// behind a window masks its keys (p = 0).
+__device__ __forceinline__ void dq_scores(float (&sa)[32],
                                           float (&pa)[32], int k0, int T,
-                                          int causal, int wg_row0, int r0,
-                                          int r1, int t4, float sl2, float l0,
-                                          float l1, float e0, float e1) {
-  const bool edge = k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > wg_row0);
+                                          int causal, int window, int wg_row0,
+                                          int r0, int r1, int t4, float sl2,
+                                          float l0, float l1, float e0,
+                                          float e1) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const bool top = (e % 4) < 2;
-    const int key = k0 + (e / 4) * 8 + t4 * 2 + (e % 2);
-    float p = exp2f(fmaf(sa[e], sl2, -(top ? l0 : l1)));
-    if (edge && (key >= T || (causal && key > (top ? r0 : r1)))) p = 0.f;
-    pa[e] = p * (pa[e] - (top ? e0 : e1));
+  for (int e = 0; e < 32; ++e)
+    sa[e] = exp2f(fmaf(sa[e], sl2, -((e % 4) < 2 ? l0 : l1)));
+  // A branch the whole warpgroup takes alike, around no wgmma.
+  if (k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > wg_row0)
+      || (window > 0 && wg_row0 + WG_TILE - 1 - k0 >= window)) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int key = k0 + (e / 4) * 8 + t4 * 2 + (e % 2);
+      const int row = (e % 4) < 2 ? r0 : r1;
+      if (key >= T || (causal && key > row)
+          || (window > 0 && row - key >= window))
+        sa[e] = 0.f;
+    }
   }
+#pragma unroll
+  for (int e = 0; e < 32; ++e)
+    pa[e] = sa[e] * (pa[e] - ((e % 4) < 2 ? e0 : e1));
 }
 
 // dQ of 128 query rows of one (batch row, head), 64 a consumer: S and dP
@@ -1141,7 +1243,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tdo,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, Layouts st, int H, int Hk, int S, int T,
-             float scale, int causal) {
+             float scale, int causal, int window,
+             const __grid_constant__ TileOrder ord) {
   using W = BwdShape<D, DV>;
   extern __shared__ uint8_t bwd_smem[];
   // mbarriers: Q/dO landed; per stage K landed, V landed, K read, V read.
@@ -1162,17 +1265,23 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     b = blockIdx.x / (H * n_q);
     const int rem = blockIdx.x % (H * n_q);
     const int h0 = rem / (gh * n_q) * gh, gs = min(gh, H - h0);
-    qt = n_q - 1 - (rem - h0 * n_q) / gs;
+    qt = query_tile(ord, (rem - h0 * n_q) / gs, n_q);
     h = h0 + (rem - h0 * n_q) % gs;
   } else {
-    qt = gridDim.y - 1 - blockIdx.y;             // heaviest tiles first
+    qt = query_tile(ord, blockIdx.y, gridDim.y);   // heaviest tiles first
     b = blockIdx.x / H;
     h = blockIdx.x % H;
   }
   const int hk = h / (H / Hk);
   const int q0 = qt * 2 * WG_TILE;
-  int n_kv = (T + WG_TILE - 1) / WG_TILE;
-  if (causal) n_kv = min(n_kv, (min(q0 + 2 * WG_TILE, S) - 1) / WG_TILE + 1);
+  // Key tiles j0 .. j0 + n_kv - 1: under a window from the one holding the
+  // first row's first visible key, under causal masking up to the last
+  // row's (at least one: a window needs S <= T).
+  const int j0 = window_start(q0, window, WG_TILE);
+  int kv_end = (T + WG_TILE - 1) / WG_TILE;
+  if (causal)
+    kv_end = min(kv_end, (min(q0 + 2 * WG_TILE, S) - 1) / WG_TILE + 1);
+  const int n_kv = kv_end - j0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -1202,7 +1311,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                      q0 + w * WG_TILE, b);
         }
       for (int j = 0; j < n_kv; ++j) {
-        const int s = j % DQ_STAGES, k0 = j * WG_TILE;
+        const int s = j % DQ_STAGES, k0 = (j0 + j) * WG_TILE;
         const uint32_t free_parity = ((j / DQ_STAGES) & 1) ^ 1;
         const uint32_t k_t = ring + s * W::STAGE;
         mbar_wait(k_empty + 8 * s, free_parity);
@@ -1254,7 +1363,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   fence_regs(sa);
   fence_regs(pa);
   if (lane == 0) mbar_arrive(v_empty);                // V_0 is read
-  dq_scores(sa, pa, 0, T, causal, wg_row0, r0, r1, t4, sl2, l0, l1, e0, e1);
+  dq_scores(sa, pa, j0 * WG_TILE, T, causal, window, wg_row0, r0, r1, t4, sl2,
+            l0, l1, e0, e1);
   pack_frags(pa, df);
 #pragma unroll 1
   for (int j = 1; j < n_kv; ++j) {
@@ -1277,8 +1387,8 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     fence_regs(sa);
     fence_regs(pa);
     if (lane == 0) mbar_arrive(v_empty + 8 * s);      // V_j is read
-    dq_scores(sa, pa, j * WG_TILE, T, causal, wg_row0, r0, r1, t4, sl2, l0,
-              l1, e0, e1);
+    dq_scores(sa, pa, (j0 + j) * WG_TILE, T, causal, window, wg_row0, r0, r1,
+              t4, sl2, l0, l1, e0, e1);
     wgmma_wait<0>();
     fence_regs(dqa);
     fence_regs(df);
@@ -1361,7 +1471,7 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              T* __restrict__ dk, T* __restrict__ dv, Layouts st, int H,
-             int Hk, int S, int Tk, float scale, int causal) {
+             int Hk, int S, int Tk, float scale, int causal, int window) {
   using F = FmaShape<D, DV>;
   constexpr int LK = F::LK, LV = F::LV, LP = F::LP, EK = F::EK, EV = F::EV;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -1390,6 +1500,7 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
   const int G = H / Hk;
   const int n_qt = (S + FB - 1) / FB;
   const int qt0 = causal ? k0 / FB : 0;
+  const int qt1 = window_end(k0, FB, Tk, window, FB, n_qt);
 #pragma unroll 1
   for (int hh = 0; hh < G; ++hh) {
     const int h = hk * G + hh;
@@ -1398,7 +1509,7 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
     const float* lh = lse + ((long long)b * H + h) * S;
     const float* eh = delta + ((long long)b * H + h) * S;
 #pragma unroll 1
-    for (int qt = qt0; qt < n_qt; ++qt) {
+    for (int qt = qt0; qt < qt1; ++qt) {
       const int q0 = qt * FB;
       __syncthreads();                      // the previous tiles are read
       load_tile_f<T, D>(qs, qh, st.q.s, q0, S);
@@ -1415,7 +1526,8 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
         float s = 0.f, dp = 0.f;
         fma_scores<D, DV>(s, dp, ks + me * LK, qs + qi * LK, vs + me * LV,
                           ds + qi * LV);
-        const bool keep = key < Tk && row < S && (!causal || key <= row);
+        const bool keep = key < Tk && row < S && (!causal || key <= row)
+                          && (window <= 0 || row - key < window);
         const float p = keep ? expf(s * scale - ls[qi]) : 0.f;
         pt[me * LP + qi] = as_v(p, v);
         dst[me * LP + qi] = p * (dp - es[qi]);
@@ -1455,7 +1567,7 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            T* __restrict__ dq, Layouts st, int H, int Hk, int S, int Tk,
-           float scale, int causal) {
+           float scale, int causal, int window) {
   using F = FmaShape<D, DV>;
   constexpr int LK = F::LK, LV = F::LV, LP = F::LP, E = F::EK;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -1492,7 +1604,7 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
   int n_kt = (Tk + FB - 1) / FB;
   if (causal) n_kt = min(n_kt, (min(q0 + FB, S) - 1) / FB + 1);
 #pragma unroll 1
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = window_start(q0, window, FB); kt < n_kt; ++kt) {
     const int k0 = kt * FB;
     __syncthreads();                        // the previous K, V, dS are read
     load_tile_f<T, D>(ks, kh, st.k.s, k0, Tk);
@@ -1504,7 +1616,8 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
       float s = 0.f, dp = 0.f;
       fma_scores<D, DV>(s, dp, qs + me * LK, ks + kj * LK, ds + me * LV,
                         vs + kj * LV);
-      const bool keep = row < S && key < Tk && (!causal || key <= row);
+      const bool keep = row < S && key < Tk && (!causal || key <= row)
+                        && (window <= 0 || row - key < window);
       const float p = keep ? expf(s * scale - ls[me]) : 0.f;
       dss[me * LP + kj] = p * (dp - es[me]);
     }
@@ -1543,7 +1656,7 @@ struct Args {
   Layouts st;
   int B, H, Hk, S, Tk, D, DV;
   float scale;
-  int causal;
+  int causal, window;
   cudaStream_t stream;
 };
 
@@ -1570,29 +1683,56 @@ int launch_mma(const Args<bf16>& a) {
   bwd_dkdv_mma<D, DV><<<dim3((a.Tk + BM - 1) / BM, a.Hk, a.B), THREADS,
                         smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk,
                                 a.dv, a.st, a.H, a.Hk, a.S, a.Tk, a.scale,
-                                a.causal);
+                                a.causal, a.window);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   bwd_dq_mma<D, DV><<<dim3((a.S + BM - 1) / BM, a.H, a.B), THREADS, smem,
                       a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
-                              a.st, a.H, a.Hk, a.S, a.Tk, a.scale, a.causal);
+                              a.st, a.H, a.Hk, a.S, a.Tk, a.scale, a.causal,
+                              a.window);
   return (int)cudaGetLastError();
 }
 
-// The wgmma kernels at (D, DV).  keys, group and grid are bwd_plan's (the
-// wrapper's plan: keys a dK/dV block, KV heads a launch group, the dK/dV
-// grid), checked against this source's.
+// The wgmma kernels at (D, DV).  keys, group, grid and the tile orders are
+// bwd_plan's (the wrapper's plan: keys a dK/dV block, KV heads a launch
+// group, the dK/dV grid, key tiles and query tiles longest walk first, or
+// none past MAX_ORDER), checked against this source's.
 template <int D, int DV>
-int launch_wgmma(const Args<bf16>& a, int keys, int group, long long grid) {
+int launch_wgmma(const Args<bf16>& a, int keys, int group, long long grid,
+                 const unsigned short* kt_order, int n_kt_order,
+                 const unsigned short* qt_order, int n_q_order) {
   using W = BwdShape<D, DV>;
-  const long long kv_grid = (long long)((a.Tk + W::KEYS - 1) / W::KEYS)
-                            * a.B * a.Hk;
+  const long long n_kt = (a.Tk + W::KEYS - 1) / W::KEYS;
+  const long long kv_grid = n_kt * a.B * a.Hk;
   const long long n_q = (a.S + 2 * WG_TILE - 1) / (2 * WG_TILE);
   const long long dq_blocks = (long long)a.B * a.H * (W::SPLIT ? n_q : 1);
   if (keys != W::KEYS || group != (W::SPLIT ? HEAD_GROUP : 0)
       || grid != kv_grid || kv_grid > 2147483647LL
       || dq_blocks > 2147483647LL || (!W::SPLIT && n_q > 65535))
     return (int)cudaErrorInvalidValue;
+  // A table lists every tile once (or is absent past MAX_ORDER).
+  TileOrder ord{n_kt_order, n_q_order, {}, {}};
+  if ((n_kt_order != 0 && n_kt_order != n_kt)
+      || (n_q_order != 0 && n_q_order != n_q)
+      || (n_kt_order == 0 && n_kt <= MAX_ORDER)
+      || (n_q_order == 0 && n_q <= MAX_ORDER) || n_kt_order > MAX_ORDER
+      || n_q_order > MAX_ORDER)
+    return (int)cudaErrorInvalidValue;
+  unsigned seen_k[MAX_ORDER / 32] = {}, seen_q[MAX_ORDER / 32] = {};
+  for (int i = 0; i < n_kt_order; ++i) {
+    const unsigned x = kt_order[i];
+    if (x >= (unsigned)n_kt || (seen_k[x / 32] >> (x % 32) & 1u))
+      return (int)cudaErrorInvalidValue;
+    seen_k[x / 32] |= 1u << (x % 32);
+    ord.kt[i] = (unsigned short)x;
+  }
+  for (int i = 0; i < n_q_order; ++i) {
+    const unsigned x = qt_order[i];
+    if (x >= (unsigned)n_q || (seen_q[x / 32] >> (x % 32) & 1u))
+      return (int)cudaErrorInvalidValue;
+    seen_q[x / 32] |= 1u << (x % 32);
+    ord.qt[i] = (unsigned short)x;
+  }
   const Layouts& st = a.st;
   CUtensorMap tq, tk, tv, tdo;
   if (!make_map(&tq, a.q, D, a.H, a.S, a.B, st.q.h, st.q.s, st.q.b, WG_TILE)
@@ -1614,7 +1754,7 @@ int launch_wgmma(const Args<bf16>& a, int keys, int group, long long grid) {
   bwd_dkdv_wgmma<D, DV><<<(unsigned)kv_grid, WG_THREADS, W::KV_SMEM,
                           a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, a.dk, a.dv, st, a.B, a.H, a.Hk, a.S,
-      a.Tk, a.scale, a.causal);
+      a.Tk, a.scale, a.causal, a.window, ord);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   // (D, D): (b, h) on x, query tiles on y, the heaviest (causal) first;
@@ -1623,7 +1763,7 @@ int launch_wgmma(const Args<bf16>& a, int keys, int group, long long grid) {
                                 : dim3((unsigned)dq_blocks, (unsigned)n_q);
   bwd_dq_wgmma<D, DV><<<dq_grid, WG_THREADS, W::DQ_SMEM, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, a.dq, st, a.H, a.Hk, a.S, a.Tk,
-      a.scale, a.causal);
+      a.scale, a.causal, a.window, ord);
   return (int)cudaGetLastError();
 }
 
@@ -1640,13 +1780,13 @@ int launch_fma(const Args<T>& a) {
   bwd_dkdv_fma<T, D, DV><<<dim3((a.Tk + FB - 1) / FB, a.Hk, a.B), THREADS,
                            smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
                                    a.dk, a.dv, a.st, a.H, a.Hk, a.S, a.Tk,
-                                   a.scale, a.causal);
+                                   a.scale, a.causal, a.window);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   bwd_dq_fma<T, D, DV><<<dim3((a.S + FB - 1) / FB, a.H, a.B), THREADS,
                          smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
                                  a.st, a.H, a.Hk, a.S, a.Tk, a.scale,
-                                 a.causal);
+                                 a.causal, a.window);
   return (int)cudaGetLastError();
 }
 
@@ -1663,14 +1803,15 @@ template <typename T>
 bool fill(Args<T>& a, const T* q, const T* k, const T* v, const T* o,
           const T* dout, const float* lse, float* delta, T* dq, T* dk,
           T* dv, const long long* strides, int B, int H, int Hk, int S,
-          int Tk, int D, int DV, float scale, int causal,
+          int Tk, int D, int DV, float scale, int causal, int window,
           cudaStream_t stream) {
   a = Args<T>{q, k, v, o, dout, lse, delta, dq, dk, dv,
               layouts_from(strides), B, H, Hk, S, Tk, D, DV, scale, causal,
-              stream};
-  // Heads and batch rows run on the grid's y and z axes.
+              window, stream};
+  // Heads and batch rows run on the grid's y and z axes; a window needs S
+  // <= T, as the forward's.
   return !(B <= 0 || S <= 0 || Tk <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0
-           || H > 65535 || B > 65535);
+           || H > 65535 || B > 65535 || window < 0 || (window > 0 && S > Tk));
 }
 
 }  // namespace
@@ -1680,18 +1821,19 @@ bool fill(Args<T>& a, const T* q, const T* k, const T* v, const T* o,
 // (B, H, S) float32 scratch.  (D, DV): (D, D) for D one of 8, 16, 32, 40,
 // 64, 80, 128, 192, or (192, 128) or (24, 16) (any other ->
 // cudaErrorInvalidValue); B, S, Tk > 0 (the wrapper returns zero gradients
-// for an empty problem without a launch).
+// for an empty problem without a launch).  window > 0: query s sees key t
+// only when s - t < window, as in the forward (needs S <= Tk).
 extern "C" int flash_attn_bwd_f32(const float* q, const float* k,
                                   const float* v, const float* o,
                                   const float* dout, const float* lse,
                                   float* delta, float* dq, float* dk,
                                   float* dv, const long long* strides, int B,
                                   int H, int Hk, int S, int Tk, int D, int DV,
-                                  float scale, int causal,
+                                  float scale, int causal, int window,
                                   cudaStream_t stream) {
   Args<float> a;
   if (!fill(a, q, k, v, o, dout, lse, delta, dq, dk, dv, strides, B, H, Hk,
-            S, Tk, D, DV, scale, causal, stream))
+            S, Tk, D, DV, scale, causal, window, stream))
     return (int)cudaErrorInvalidValue;
   if (D == 192 && DV == 128) return launch_fma<float, 192, 128>(a);
   if (D == 24 && DV == 16) return launch_fma<float, 24, 16>(a);
@@ -1709,27 +1851,32 @@ extern "C" int flash_attn_bwd_f32(const float* q, const float* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// keys, group, grid: bwd_plan's keys a dK/dV block, KV heads a launch
-// group and dK/dV grid at the wgmma pairs ((64, 64), (128, 128) and (192,
-// 128)), ignored at the others.
+// keys, group, grid, the key-tile and query-tile orders and their lengths:
+// bwd_plan's keys a dK/dV block, KV heads a launch group, dK/dV grid and
+// tiles longest walk first at the wgmma pairs ((64, 64), (128, 128) and
+// (192, 128)), ignored at the others.
 extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
                                    const bf16* v, const bf16* o,
                                    const bf16* dout, const float* lse,
                                    float* delta, bf16* dq, bf16* dk, bf16* dv,
                                    const long long* strides, int B, int H,
                                    int Hk, int S, int Tk, int D, int DV,
-                                   float scale, int causal, int keys,
-                                   int group, long long grid,
-                                   cudaStream_t stream) {
+                                   float scale, int causal, int window,
+                                   int keys, int group, long long grid,
+                                   const unsigned short* kt_order,
+                                   int n_kt_order,
+                                   const unsigned short* qt_order,
+                                   int n_q_order, cudaStream_t stream) {
   Args<bf16> a;
   if (!fill(a, q, k, v, o, dout, lse, delta, dq, dk, dv, strides, B, H, Hk,
-            S, Tk, D, DV, scale, causal, stream))
+            S, Tk, D, DV, scale, causal, window, stream))
     return (int)cudaErrorInvalidValue;
   // Multi-head latent attention: DeepSeek-V3's pair on the wgmma kernels
   // (dkdv_split), its smoke config's on the FMAs (24 is no multiple of
   // 16).
   if (D == 192 && DV == 128)
-    return launch_wgmma<192, 128>(a, keys, group, grid);
+    return launch_wgmma<192, 128>(a, keys, group, grid, kt_order,
+                                  n_kt_order, qt_order, n_q_order);
   if (D == 24 && DV == 16) return launch_fma<bf16, 24, 16>(a);
   if (DV != D) return (int)cudaErrorInvalidValue;
   switch (D) {
@@ -1737,9 +1884,13 @@ extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
     case 16: return launch_mma<16>(a);
     case 32: return launch_mma<32>(a);
     case 40: return launch_fma<bf16, 40>(a);
-    case 64: return launch_wgmma<64, 64>(a, keys, group, grid);
+    case 64:
+      return launch_wgmma<64, 64>(a, keys, group, grid, kt_order, n_kt_order,
+                                  qt_order, n_q_order);
     case 80: return launch_mma<80>(a);
-    case 128: return launch_wgmma<128, 128>(a, keys, group, grid);
+    case 128:
+      return launch_wgmma<128, 128>(a, keys, group, grid, kt_order,
+                                    n_kt_order, qt_order, n_q_order);
     // dK and dV of 64 keys at 192 features need 192 float32 registers a
     // thread beside the scores: the mma.sync kernels.
     case 192: return launch_mma<192>(a);

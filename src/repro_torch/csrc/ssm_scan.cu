@@ -56,6 +56,14 @@
 //   pointer) every copy takes 4 bytes instead.  Steps past S are staged
 //   as zeros: there the decay is exp2(0) = 1 and the input 0, so h stays
 //   as it is and every tile runs whole; their y is not stored.
+// * Checkpoints.  When autograd records (models/ssm.py's _KernelScan),
+//   ssm_scan_ckpt_kernel, the same scan, also writes the state at the
+//   start of every 16-step tile, h before step 16 j, into ckpt (B, ceil(S
+//   / 16), DI, N): 1/16 of all the states, from which
+//   csrc/ssm_scan_bwd.cu recomputes a tile's states and walks them in
+//   reverse (the state cannot be recovered from the next one: exp(dt A)
+//   underflows).  Serving passes no buffer and runs ssm_scan_kernel,
+//   which has no checkpoint code.
 // Sums run in another order than the reference's associative tree:
 // float32 rounding apart.
 #include <cuda_runtime.h>
@@ -209,13 +217,14 @@ __device__ __forceinline__ float reduce_scatter(float (&p)[L], int lane) {
   return p[0];
 }
 
-template <int L, int N>
-__global__ void __launch_bounds__(SCAN_THREADS, 4)
-ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
-                const float* __restrict__ bm, const float* __restrict__ cm,
-                const float* __restrict__ a, const float* __restrict__ dskip,
-                const float* __restrict__ h0, float* __restrict__ y,
-                float* __restrict__ h_out, int S, int DI, int vec) {
+template <int L, int N, bool CKPT>
+__device__ __forceinline__ void scan(
+    const float* __restrict__ dt, const float* __restrict__ x,
+    const float* __restrict__ bm, const float* __restrict__ cm,
+    const float* __restrict__ a, const float* __restrict__ dskip,
+    const float* __restrict__ h0, float* __restrict__ y,
+    float* __restrict__ h_out, float* __restrict__ ckpt, int S, int DI,
+    int vec) {
   using Sh = Shape<L, N>;
   constexpr int CH = Sh::CH, SL = Sh::SL, ACC = Sh::ACC;
   extern __shared__ __align__(16) float ring[];
@@ -261,6 +270,12 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
     else
       cp_async_commit();
     const float* s = ring + j % SCAN_STAGES * Sh::STAGE;
+    if (CKPT && live) {
+      float* cp = ckpt + (((long long)b * n_tiles + j) * DI + ch) * N
+                  + lane * SL;
+#pragma unroll
+      for (int i = 0; i < SL; ++i) cp[i] = h[i];
+    }
 #pragma unroll
     for (int g = 0; g < SCAN_STEPS; g += L) {
       float p[L];
@@ -296,20 +311,53 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
 }
 
 template <int L, int N>
+__global__ void __launch_bounds__(SCAN_THREADS, 4)
+ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
+                const float* __restrict__ bm, const float* __restrict__ cm,
+                const float* __restrict__ a, const float* __restrict__ dskip,
+                const float* __restrict__ h0, float* __restrict__ y,
+                float* __restrict__ h_out, int S, int DI, int vec) {
+  scan<L, N, false>(dt, x, bm, cm, a, dskip, h0, y, h_out, nullptr, S, DI,
+                    vec);
+}
+
+template <int L, int N>
+__global__ void __launch_bounds__(SCAN_THREADS, 4)
+ssm_scan_ckpt_kernel(const float* __restrict__ dt,
+                     const float* __restrict__ x,
+                     const float* __restrict__ bm,
+                     const float* __restrict__ cm,
+                     const float* __restrict__ a,
+                     const float* __restrict__ dskip,
+                     const float* __restrict__ h0, float* __restrict__ y,
+                     float* __restrict__ h_out, float* __restrict__ ckpt,
+                     int S, int DI, int vec) {
+  scan<L, N, true>(dt, x, bm, cm, a, dskip, h0, y, h_out, ckpt, S, DI, vec);
+}
+
+template <int L, int N>
 int launch(const float* dt, const float* x, const float* bm, const float* cm,
            const float* a, const float* dskip, const float* h0, float* y,
-           float* h_out, int B, int S, int DI, bool vec,
+           float* h_out, float* ckpt, int B, int S, int DI, bool vec,
            cudaStream_t stream) {
   using Sh = Shape<L, N>;
   if (Sh::SMEM > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssm_scan_kernel<L, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Sh::SMEM);
+    const cudaError_t err =
+        ckpt ? cudaFuncSetAttribute(
+                   ssm_scan_ckpt_kernel<L, N>,
+                   cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM)
+             : cudaFuncSetAttribute(
+                   ssm_scan_kernel<L, N>,
+                   cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((DI + Sh::CH - 1) / Sh::CH, B);
-  ssm_scan_kernel<L, N><<<grid, SCAN_THREADS, Sh::SMEM, stream>>>(
-      dt, x, bm, cm, a, dskip, h0, y, h_out, S, DI, vec ? 1 : 0);
+  if (ckpt)
+    ssm_scan_ckpt_kernel<L, N><<<grid, SCAN_THREADS, Sh::SMEM, stream>>>(
+        dt, x, bm, cm, a, dskip, h0, y, h_out, ckpt, S, DI, vec ? 1 : 0);
+  else
+    ssm_scan_kernel<L, N><<<grid, SCAN_THREADS, Sh::SMEM, stream>>>(
+        dt, x, bm, cm, a, dskip, h0, y, h_out, S, DI, vec ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
@@ -318,23 +366,23 @@ int launch(const float* dt, const float* x, const float* bm, const float* cm,
 template <int N>
 int dispatch(int lanes, const float* dt, const float* x, const float* bm,
              const float* cm, const float* a, const float* dskip,
-             const float* h0, float* y, float* h_out, int B, int S, int DI,
-             bool vec, cudaStream_t stream) {
+             const float* h0, float* y, float* h_out, float* ckpt, int B,
+             int S, int DI, bool vec, cudaStream_t stream) {
   const bool empty = B == 0 || DI == 0;
   switch (lanes) {
     case 1:
       return empty ? 0 : launch<1, N>(dt, x, bm, cm, a, dskip, h0, y, h_out,
-                                      B, S, DI, vec, stream);
+                                      ckpt, B, S, DI, vec, stream);
     case 2:
       return empty ? 0 : launch<2, N>(dt, x, bm, cm, a, dskip, h0, y, h_out,
-                                      B, S, DI, vec, stream);
+                                      ckpt, B, S, DI, vec, stream);
     case 4:
       return empty ? 0 : launch<4, N>(dt, x, bm, cm, a, dskip, h0, y, h_out,
-                                      B, S, DI, vec, stream);
+                                      ckpt, B, S, DI, vec, stream);
     case 8:
       if constexpr (N / 8 >= 2)
         return empty ? 0 : launch<8, N>(dt, x, bm, cm, a, dskip, h0, y,
-                                        h_out, B, S, DI, vec, stream);
+                                        h_out, ckpt, B, S, DI, vec, stream);
       return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
@@ -362,12 +410,14 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // The scan over B batch rows of S steps and DI channels with N states (8
 // or 16) at `lanes` lanes a channel (1, 2, 4 or 8, at least 2 states a
-// lane); another N or lane count -> cudaErrorInvalidValue.
+// lane); another N or lane count -> cudaErrorInvalidValue.  ckpt: null, or
+// a (B, ceil(S / 16), DI, N) float32 buffer for the state at the start of
+// every 16-step tile.
 extern "C" int ssm_scan_f32(const float* dt, const float* x, const float* bm,
                             const float* cm, const float* a,
                             const float* dskip, const float* h0, float* y,
-                            float* h_out, int B, int S, int DI, int N,
-                            int lanes, cudaStream_t stream) {
+                            float* h_out, float* ckpt, int B, int S, int DI,
+                            int N, int lanes, cudaStream_t stream) {
   if (B < 0 || S < 0 || DI < 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   // 16-byte copies need every row of dt and x, and of B and C (N is a
@@ -375,11 +425,11 @@ extern "C" int ssm_scan_f32(const float* dt, const float* x, const float* bm,
   const bool vec = DI % 4 == 0 && aligned16(dt) && aligned16(x) &&
                    aligned16(bm) && aligned16(cm);
   if (N == 8)
-    return dispatch<8>(lanes, dt, x, bm, cm, a, dskip, h0, y, h_out, B, S,
-                       DI, vec, stream);
+    return dispatch<8>(lanes, dt, x, bm, cm, a, dskip, h0, y, h_out, ckpt, B,
+                       S, DI, vec, stream);
   if (N == 16)
-    return dispatch<16>(lanes, dt, x, bm, cm, a, dskip, h0, y, h_out, B, S,
-                        DI, vec, stream);
+    return dispatch<16>(lanes, dt, x, bm, cm, a, dskip, h0, y, h_out, ckpt,
+                        B, S, DI, vec, stream);
   return (int)cudaErrorInvalidValue;
 }
 

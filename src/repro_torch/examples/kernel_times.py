@@ -1,6 +1,7 @@
 """Device and eager times of the ``matmul``, ``axpy``, ``dct``,
-``fft4_stage``, ``powf``, ``flash_attention``, ``flash_attention_bwd``
-and ``ssm_scan`` kernels and the dot product's tree kernels, each beside
+``fft4_stage``, ``powf``, ``flash_attention``, ``flash_attention_bwd``,
+``ssm_scan`` and ``ssm_scan_bwd`` kernels and the dot product's tree
+kernels, each beside
 one PyTorch call for the same function in the same mode (where there is
 one) and the least time the card could take.
 
@@ -65,15 +66,26 @@ line per measurement:
   this tree's in turns (other, this, this, other) on the same inputs,
   and the other's lane counts too where it has them.
 * the ``attention_bwd`` part: ``flash_attention_bwd`` at Qwen3-4B's
-  training attention ((1, 32 heads reading 8, 2048, 128), bf16, causal)
-  and DeepSeek-V3's ((1, 128 heads, 2048, (D, Dv) = (192, 128)), MLA's
-  scale) in device time and eagerly, SDPA's backward alone and this
-  tree's kernels in turns, eagerly (kernel, SDPA, SDPA, kernel; SDPA's
-  backend named), the plain version and the bound of the backward's five
+  training attention ((1, 32 heads reading 8, 2048, 128), bf16, causal),
+  DeepSeek-V3's ((1, 128 heads, 2048, (D, Dv) = (192, 128)), MLA's
+  scale) and Hymba-1.5B's under its window ((1, 25 heads reading 5,
+  2048, 64), window 1024) in device time and eagerly, SDPA's backward
+  alone (on the (S, S) boolean mask under the window) and this tree's
+  kernels in turns, eagerly (kernel, SDPA, SDPA, kernel; SDPA's backend
+  named), the plain version and the bound of the backward's five
   products; with ``--src``, the other checkout's kernels and this tree's
-  in turns; each call's device time split into the pre-pass, dK/dV and
-  dQ kernels (``split``, and ``other_split`` for the other checkout's)
-  from ``torch.profiler``'s kernel names.
+  in turns (a tree without the window says so); each call's device time
+  split into the pre-pass, dK/dV and dQ kernels (``split``, and
+  ``other_split`` for the other checkout's) from ``torch.profiler``'s
+  kernel names.
+* the ``scan_bwd`` part: ``ssm_scan_bwd`` at Falcon-Mamba-7B's and
+  Hymba-1.5B's training micro-batches ((1, 2048, 8192, 16) and (1, 2048,
+  3200, 16)) at the plan's lane count and every other, in device time and
+  eagerly, beside ``timing.scan_bwd_bound`` and the plain version (no
+  PyTorch call computes the scan's gradient), and the forward kernel
+  with and without its checkpoints in turns; with ``--src``, the other
+  checkout's forward in turns with this tree's (a tree without the
+  backward says so).
 
 ``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
 through copies that together exceed twice the 50 MB L2, timed as one
@@ -129,10 +141,15 @@ WINDOW_SHAPES = (("hymba-1.5b", (4, 25, 5, 2048, 64), True, "bfloat16",
 # (config, (B, S, d_inner, n)): the SSM and hybrid prefill scans.
 SCAN_SHAPES = (("falcon-mamba-7b", (4, 2048, 8192, 16)),
                ("hymba-1.5b", (4, 2048, 3200, 16)))
-# (config, (B, H, Hk, S, D[, Dv])): the training attention's backward,
-# one micro-batch, bf16, causal.
-BWD_SHAPES = (("qwen3-4b", (1, 32, 8, 2048, 128)),
-              ("deepseek-v3-671b", (1, 128, 128, 2048, 192, 128)))
+# (config, (B, H, Hk, S, D[, Dv]), window): the training attention's
+# backward, one micro-batch, bf16, causal.
+BWD_SHAPES = (("qwen3-4b", (1, 32, 8, 2048, 128), 0),
+              ("deepseek-v3-671b", (1, 128, 128, 2048, 192, 128), 0),
+              ("hymba-1.5b", (1, 25, 5, 2048, 64), 1024))
+# (config, (B, S, d_inner, n)): the SSM and hybrid training scans, one
+# micro-batch.
+SCAN_BWD_SHAPES = (("falcon-mamba-7b", (1, 2048, 8192, 16)),
+                   ("hymba-1.5b", (1, 2048, 3200, 16)))
 
 
 def own_timing():
@@ -535,7 +552,8 @@ def bwd_split(torch, fn, inputs) -> dict:
 
 
 def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
-    """The backward at the training attentions of :data:`BWD_SHAPES`:
+    """The backward at the training attentions of :data:`BWD_SHAPES`
+    (under the window where one has it):
     this tree's kernels (the pre-pass, dK/dV and dQ of one call) in device
     time and eagerly, with ``--src`` the other checkout's in turns (other,
     this, this, other); SDPA's backward alone (``autograd.grad`` through
@@ -548,8 +566,9 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
     other = kernels.flash_attn_bwd
     if Path(other.__file__).resolve() == Path(bwd.__file__).resolve():
         other = None
-    for config, (b, h, hk, s, d, *dv) in BWD_SHAPES:
+    for config, (b, h, hk, s, d, *dv), window in BWD_SHAPES:
         dv = dv[0] if dv else d
+        kw = dict(causal=True, window=window) if window else dict(causal=True)
         q = (0.5 * torch.randn(b, h, s, d, device=gen.device, generator=gen)
              ).bfloat16()
         k = (0.5 * torch.randn(b, hk, s, d, device=gen.device, generator=gen)
@@ -559,29 +578,39 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
         do = torch.randn(b, h, s, dv, device=gen.device, generator=gen
                          ).bfloat16()
         lse = torch.empty(b, h, s, device=gen.device)
-        out = fa.flash_attention(q, k, v, causal=True, lse=lse)
+        out = fa.flash_attention(q, k, v, lse=lse, **kw)
         inputs = timing.cold_copies(q, k, v, out, do, lse)
 
-        def kernel(*a, mod=bwd):
-            return mod.flash_attention_bwd(*a, causal=True)
+        def kernel(*a, mod=bwd, kw=kw):
+            return mod.flash_attention_bwd(*a, **kw)
+
+        def theirs_bwd(*a, kw=kw):
+            return other.flash_attention_bwd(*a, **kw)
 
         got = kernel(q, k, v, out, do, lse)
         again = kernel(q, k, v, out, do, lse)
-        want = bwd.flash_attention_bwd_plain(q, k, v, do, causal=True)
+        want = bwd.flash_attention_bwd_plain(q, k, v, do, **kw)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        mask = None
+        if window:
+            lag = (torch.arange(s, device=q.device)[:, None]
+                   - torch.arange(s, device=q.device)[None, :])
+            mask = (lag >= 0) & (lag < window)
         lib_out = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True)
+            qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
 
         def library(do_):
             return torch.autograd.grad(lib_out, (qs, ks, vs), do_,
                                        retain_graph=True)
 
         bnd, by = timing.bound(*timing.attention_bwd_work(
-            b, h, hk, s, s, d, True, 2, dv=dv), "bfloat16")
+            b, h, hk, s, s, d, True, 2, dv=dv, window=window), "bfloat16")
         rec = {"name": "flash_attention_bwd", "config": config,
                "shape": [b, h, hk, s, d] + ([dv] if dv != d else []),
-               "dtype": "bfloat16", "causal": True,
-               "library_backend": timing.sdpa_backend(q, k, v, True),
+               "dtype": "bfloat16", "causal": True, "window": window,
+               "library_backend": timing.sdpa_backend(q, k, v, mask is None,
+                                                      mask),
                "scaled_err_vs_plain": [
                    ((g.float() - w.float()).abs().max()
                     / w.float().abs().max()).item()
@@ -593,22 +622,17 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
         theirs = other
         if other is not None:
             try:
-                other.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
-            except ValueError as err:       # a tree without this pair
+                theirs_bwd(q, k, v, out, do, lse)
+            except ValueError as err:   # a tree without this pair or window
                 rec["other_refuses"] = str(err)
                 theirs = None
         if theirs is not None:
             g = [timing.graph_ms(f, inputs)
-                 for f in (lambda *a: other.flash_attention_bwd(
-                     *a, causal=True), kernel, kernel,
-                           lambda *a: other.flash_attention_bwd(
-                               *a, causal=True))]
+                 for f in (theirs_bwd, kernel, kernel, theirs_bwd)]
             rec.update(ms=(g[1] + g[2]) / 2, runs_ms=[g[1], g[2]],
                        other_ms=(g[0] + g[3]) / 2, other_runs_ms=[g[0], g[3]],
                        other=str(other.__file__),
-                       other_eager_ms=timing.cuda_ms(
-                           lambda *a: other.flash_attention_bwd(
-                               *a, causal=True), inputs))
+                       other_eager_ms=timing.cuda_ms(theirs_bwd, inputs))
         else:
             rec.update(ms=timing.graph_ms(kernel, inputs))
         lib_inputs = timing.cold_copies(do)
@@ -621,23 +645,91 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
                    library_eager_ms=(turns[1] + turns[2]) / 2,
                    library_eager_runs_ms=[turns[1], turns[2]],
                    library="torch.autograd.grad of F.scaled_dot_product_"
-                           "attention(is_causal=True, enable_gqa=True), "
-                           "the backward alone, eagerly",
+                           "attention(" + ("attn_mask=the (S, S) causal "
+                                           "window" if window else
+                                           "is_causal=True")
+                           + ", enable_gqa=True), the backward alone, "
+                           "eagerly",
                    plain_ms=timing.cuda_ms(
-                       lambda *a: bwd.flash_attention_bwd_plain(
-                           *a, causal=True), [(q, k, v, do)], iters=3,
-                       warmup=1),
+                       lambda *a: bwd.flash_attention_bwd_plain(*a, **kw),
+                       [(q, k, v, do)], iters=3, warmup=1),
                    **clocks_during(torch, kernel, inputs))
         rec.update(bound_share=bnd / rec["ms"],
                    ratio_to_library_eager=rec["eager_ms"]
                    / rec["library_eager_ms"],
                    split=bwd_split(torch, kernel, inputs))
         if theirs is not None:
-            rec["other_split"] = bwd_split(
-                torch, lambda *a: other.flash_attention_bwd(*a, causal=True),
-                inputs)
+            rec["other_split"] = bwd_split(torch, theirs_bwd, inputs)
         emit(rec)
         del inputs, lib_inputs, lib_out
+        torch.cuda.empty_cache()
+
+
+def time_scan_bwd(torch, timing, kernels, emit, gen) -> None:
+    """The scan's backward at :data:`SCAN_BWD_SHAPES`: this tree's kernels
+    (the reverse walk and the partial sums of one call) from the forward's
+    checkpoints at the planned lane count and every other, in device time
+    and eagerly, beside the bound, the plain version and its errors
+    against it; then the forward with and without its checkpoints in
+    turns, and with ``--src`` the other checkout's forward in turns with
+    this tree's (other, this, this, other)."""
+    scan, own = kernels.ssm_scan, own_kernel("ssm_scan")
+    bwd = own_kernel("ssm_scan_bwd")
+    other = Path(scan.__file__).resolve() != Path(own.__file__).resolve()
+    for config, (b, s, di, n) in SCAN_BWD_SHAPES:
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, s, di, device=gen.device, generator=gen) - 2.0)
+        x = torch.randn(b, s, di, device=gen.device, generator=gen)
+        bm, cm = (torch.randn(b, s, n, device=gen.device, generator=gen)
+                  for _ in range(2))
+        a = -torch.arange(1, n + 1, device=gen.device,
+                          dtype=torch.float32).expand(di, n).contiguous()
+        d = torch.randn(di, device=gen.device, generator=gen)
+        h0 = torch.randn(b, di, n, device=gen.device, generator=gen)
+        dy = torch.randn(b, s, di, device=gen.device, generator=gen)
+        args = (dt, x, bm, cm, a, d, h0)
+        ckpt = torch.empty(b, bwd.checkpoints(s), di, n, device=gen.device)
+        own.ssm_scan(*args, ckpt=ckpt)
+        plan = bwd.bwd_plan(b, s, di, n)
+        want = bwd.ssm_scan_bwd_plain(*args, dy)
+        base = {"name": "ssm_scan_bwd", "config": config,
+                "shape": [b, s, di, n], "dtype": "float32",
+                "plan": {"lanes": plan.lanes, "channels": plan.channels,
+                         "grid": list(plan.grid),
+                         "checkpoints": plan.checkpoints},
+                "library_ms": None,
+                "library": "none: no PyTorch call computes the selective "
+                           "scan's gradient",
+                **timing.scan_bwd_bound(b, s, di, n)}
+        inputs = [(*args, dy)]
+        for lanes in own.lane_counts(n):
+            def run(*t, lanes=lanes):
+                return bwd.ssm_scan_bwd(*t, ckpt=ckpt, lanes=lanes)
+            got = run(*inputs[0])
+            ms = timing.graph_ms(run, inputs)
+            emit(dict(base, timing="graph", lanes=lanes,
+                      planned=lanes == plan.lanes, ms=ms,
+                      eager_ms=timing.cuda_ms(run, inputs),
+                      scaled_err_vs_plain=[
+                          ((g - w).abs().max() / w.abs().max()).item()
+                          for g, w in zip(got, want)],
+                      bound_share=base["bound_ms"] / ms))
+            del got
+        emit(dict(base, timing="eager", what="plain version",
+                  plain_ms=timing.cuda_ms(bwd.ssm_scan_bwd_plain, inputs,
+                                          iters=2, warmup=1)))
+        fwd = {"this, checkpoints": lambda *t: own.ssm_scan(*t, ckpt=ckpt),
+               "this": own.ssm_scan}
+        if other:
+            fwd["other"] = scan.ssm_scan
+        order = list(fwd) + list(fwd)[::-1]
+        runs = [timing.graph_ms(fwd[k], [args]) for k in order]
+        emit(dict(base, timing="graph", what="forward in turns",
+                  forward_ms={k: [r for o, r in zip(order, runs) if o == k]
+                              for k in fwd},
+                  other=str(scan.__file__) if other else None,
+                  other_has_backward=hasattr(kernels, "ssm_scan_bwd")))
+        del args, inputs, ckpt, want
         torch.cuda.empty_cache()
 
 
@@ -645,7 +737,7 @@ PARTS = {"matmul": time_matmul, "axpy": time_axpy, "slot": time_slot,
          "dct": time_dct, "dotp": time_dotp, "fft": time_fft_long,
          "powf": time_powf, "attention": time_attention, "mla": time_mla,
          "window": time_window, "scan": time_scan,
-         "attention_bwd": time_attention_bwd}
+         "attention_bwd": time_attention_bwd, "scan_bwd": time_scan_bwd}
 
 
 def main(argv=None) -> int:
@@ -670,6 +762,11 @@ def main(argv=None) -> int:
                                     flash_attn_bwd=flash_attn_bwd,
                                     matmul=matmul, ops=ops, powf=powf,
                                     ref=ref, ssm_scan=ssm_scan)
+    try:                        # a tree without the scan's backward
+        from repro_torch.kernels import ssm_scan_bwd
+        kernels.ssm_scan_bwd = ssm_scan_bwd
+    except ImportError:
+        pass
     timing = own_timing()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

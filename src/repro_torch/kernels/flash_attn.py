@@ -286,7 +286,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(
             "the flash_attention kernel has no gradient of its own: call "
             "repro_torch.models.attention.flash_attention (a backward at "
-            "every pair without a window) or run under torch.no_grad()")
+            "every pair, under a window too) or run under torch.no_grad()")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")

@@ -24,12 +24,15 @@ runs on ``mma.sync`` m16n8k16, float32 at every pair and bfloat16 at D 8
 and 40 and at (24, 16) on register FMAs (no TF32).  It takes every pair
 of ``flash_attn.PAIRS`` (the (D, D) of ``flash_attn.HEAD_DIMS``,
 DeepSeek-V3's (192, 128) and its smoke config's (24, 16)) at the
-caller's scale, causal or full, and no window; a window or another pair
-raises ``ValueError`` before any launch (the forward's windowed path has
-no backward yet).  Bound at Qwen3-4B's and DeepSeek-V3's training shapes:
-tensor-core operations (the source's header).  Every operand and output
-may be a strided view whose feature axis is contiguous
-(``flash_attn.layout_error``).
+caller's scale, causal or full, and the forward's sliding window (the
+hybrid family's): every kernel masks by the forward's rule (query s sees
+key t only when s - t < window), a key tile walks only the query tiles
+its window reaches and a query tile only the key tiles from its first
+row's first visible key (:func:`key_walk`, :func:`query_walk`); another
+pair raises ``ValueError`` before any launch.  Bound at Qwen3-4B's,
+DeepSeek-V3's and Hymba-1.5B's training shapes: tensor-core operations
+(the source's header).  Every operand and output may be a strided view
+whose feature axis is contiguous (``flash_attn.layout_error``).
 
 The plain version, :func:`flash_attention_bwd_plain`, is autograd through
 ``ref.flash_attention`` in float32, cast to the operands' dtype: the path
@@ -51,14 +54,17 @@ from .flash_attn import PAIRS, layout_error
 LAUNCHES = 0
 
 # q, k, v, out, dout, lse, delta, dq, dk, dv, their 24 strides, B, H, Hk,
-# S, T, D, Dv, scale, causal, (bf16: the plan's keys a dK/dV block, head
-# group and dK/dV grid,) stream.
+# S, T, D, Dv, scale, causal, window, (bf16: the plan's keys a dK/dV block,
+# head group, dK/dV grid, and its key-tile and query-tile orders with their
+# lengths,) stream.
 _ARGS = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
-         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
+         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+_ORDER = [ctypes.POINTER(ctypes.c_ushort), ctypes.c_int]
 _SIGNATURES = {
     "flash_attn_bwd_f32": _ARGS + [ctypes.c_void_p],
     "flash_attn_bwd_bf16": _ARGS + [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_longlong, ctypes.c_void_p],
+                                    ctypes.c_longlong] + _ORDER * 2
+    + [ctypes.c_void_p],
     "flash_attn_bwd_wgmma_smem": [ctypes.c_int] * 3}
 _ENTRY = {torch.float32: "flash_attn_bwd_f32",
           torch.bfloat16: "flash_attn_bwd_bf16"}
@@ -79,6 +85,10 @@ DQ_ROWS = 128       # query rows of a dQ block: two consumers of 64
 # head at DeepSeek-V3's 2048 rows) stay in the 50 MB L2 while they walk
 # them; at (D, D) every head is in flight at once, as before.
 HEAD_GROUP = 8
+# Tiles a launch-order table holds (csrc/flash_attn_bwd.cu MAX_ORDER, two
+# tables of 16-bit entries in the kernels' parameters); past it the kernels
+# take key tiles in order and query tiles latest first.
+MAX_ORDER = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +100,10 @@ class BwdPlan:
     tile of ``dq_rows``) ``dq_order[i]`` and walks ``dq_steps[i]``
     ``tile``-key tiles.  ``head_group`` is the KV heads a launch group
     (0: none, every head in flight at once); ``dq_grid`` the dQ kernel's
-    CUDA grid, (x, y) or, grouped, one axis in launch order."""
+    CUDA grid, (x, y) or, grouped, one axis in launch order.
+    ``key_tiles`` and ``query_tiles`` are the tables the kernels read:
+    the key tiles and the query tiles in launch order, longest walk first
+    (empty past :data:`MAX_ORDER` tiles)."""
     tile: int
     dkdv_grid: int
     dkdv_order: tuple
@@ -101,6 +114,14 @@ class BwdPlan:
     dq_steps: tuple
     dkdv_keys: int = TILE
     head_group: int = 0
+    key_tiles: tuple = ()
+    query_tiles: tuple = ()
+
+    @functools.cached_property
+    def tables(self) -> tuple:
+        """The two tables as the kernels' C arrays, each with its length."""
+        return tuple(((ctypes.c_ushort * max(len(t), 1))(*t), len(t))
+                     for t in (self.key_tiles, self.query_tiles))
 
 
 def _grouped(b, n_heads, group, n_tiles, tiles):
@@ -112,23 +133,57 @@ def _grouped(b, n_heads, group, n_tiles, tiles):
                  for hi in range(g0, min(g0 + group, n_heads)))
 
 
+def key_walk(kt: int, keys: int, s: int, t: int, causal: bool,
+             window: int) -> tuple:
+    """``(first, n)``: the key tile ``kt`` of ``keys`` keys walks the
+    64-row query tiles ``first .. first + n - 1`` that see any of its
+    keys: under causal masking from the tile holding its first key, under
+    a sliding window up to the tile holding the last query its last key
+    reaches (``csrc/flash_attn_bwd.cu``'s ``window_end``)."""
+    n_qt = -(-s // TILE)
+    first = min(kt * keys // TILE, n_qt) if causal else 0
+    end = n_qt
+    if window > 0:
+        end = min(n_qt, (min((kt + 1) * keys, t) + window - 2) // TILE + 1)
+    return first, max(0, end - first)
+
+
+def query_walk(qt: int, s: int, t: int, causal: bool, window: int) -> tuple:
+    """``(first, n)``: the dQ block of query tile ``qt`` (:data:`DQ_ROWS`
+    rows) walks the 64-key tiles ``first .. first + n - 1``: under a
+    sliding window from the tile of its first row's first visible key
+    (``window_start``), under causal masking up to its last row's key."""
+    q0 = qt * DQ_ROWS
+    end = -(-t // TILE)
+    if causal:
+        end = min(end, (min(q0 + DQ_ROWS, s) - 1) // TILE + 1)
+    first = max(0, q0 - window + 1) // TILE if window > 0 else 0
+    return first, max(0, end - first)
+
+
 @functools.lru_cache(maxsize=128)
 def bwd_plan(b: int, h: int, hk: int, s: int, t: int, d: int,
-             causal: bool, dv: int | None = None) -> BwdPlan:
+             causal: bool, dv: int | None = None,
+             window: int = 0) -> BwdPlan:
     """The grids of the bfloat16 wgmma kernels at (d, dv) (dv defaults to
     d) in :data:`WGMMA_DIMS` for q (b, h, s, d), k (b, hk, t, d) and v
-    (b, hk, t, dv).  A dK/dV block takes one tile of 64 keys (128 at
-    (192, 128)) of one (batch row, KV head) and walks the group's h / hk
-    heads times the 64-row query tiles that see it: under causal masking
-    those from the tile's first key on, so a 64-key tile j walks h / hk
-    (n - j) of them.  Blocks launch key tile by key tile, the longest
-    walks first, so that the short tiles fill in behind the long ones as
+    (b, hk, t, dv), causal or not, under a sliding ``window`` or none.  A
+    dK/dV block takes one tile of 64 keys (128 at (192, 128)) of one
+    (batch row, KV head) and walks the group's h / hk heads times the
+    64-row query tiles that see it (:func:`key_walk`): under causal
+    masking those from the tile's first key on, so without a window a
+    64-key tile j walks h / hk (n - j) of them.  Blocks launch key tile by
+    key tile, the longest walks first (the earliest tile first among
+    equals), so that the short tiles fill in behind the long ones as
     multiprocessors free (one block a multiprocessor, as the kernels'
     shared memory allows).  A dQ block takes 128 query rows of one (batch
-    row, head) and walks the 64-key tiles they see, the latest query
-    tiles (the longest walks) first.  At (192, 128) both grids launch in
-    groups of :data:`HEAD_GROUP` KV heads (for dQ the query heads that
-    read them), that order within each group."""
+    row, head) and walks the 64-key tiles they see (:func:`query_walk`),
+    the longest walks first (the latest query tile first among equals).
+    Without a window these are the key tiles in order and the query tiles
+    latest first; under one the walks shrink to the window's reach, and
+    the tables the kernels read give the order.  At (192, 128) both grids
+    launch in groups of :data:`HEAD_GROUP` KV heads (for dQ the query
+    heads that read them), that order within each group."""
     dv = d if dv is None else dv
     if (d, dv) not in WGMMA_DIMS:
         raise ValueError(f"bwd_plan: the wgmma kernels take (D, Dv) in "
@@ -136,52 +191,65 @@ def bwd_plan(b: int, h: int, hk: int, s: int, t: int, d: int,
     if min(b, h, hk, s, t) <= 0 or h % hk:
         raise ValueError(f"bwd_plan: no plan for b={b} h={h} hk={hk} s={s} "
                          f"t={t}")
+    if window < 0 or (window > 0 and s > t):
+        raise ValueError(f"bwd_plan: a window of {window} at s={s} t={t} "
+                         f"(a window needs 0 < s <= t)")
     g = h // hk
     keys, group = (2 * TILE, HEAD_GROUP) if d != dv else (TILE, 0)
-    n_kt, n_qt, n_q = -(-t // keys), -(-s // TILE), -(-s // DQ_ROWS)
-    n_kv = -(-t // TILE)                # a dQ block's 64-key tiles
+    n_kt, n_q = -(-t // keys), -(-s // DQ_ROWS)
+    k_walk = [key_walk(kt, keys, s, t, causal, window)[1]
+              for kt in range(n_kt)]
+    q_walk = [query_walk(qt, s, t, causal, window)[1] for qt in range(n_q)]
+    # Longest walk first: the earliest key tile, the latest query tile
+    # among equals (the order of before the tables, in which the kernels
+    # past MAX_ORDER take them).
+    kts = (sorted(range(n_kt), key=lambda kt: (-k_walk[kt], kt))
+           if n_kt <= MAX_ORDER else list(range(n_kt)))
+    qts = (sorted(range(n_q), key=lambda qt: (-q_walk[qt], -qt))
+           if n_q <= MAX_ORDER else list(range(n_q - 1, -1, -1)))
     if group:
-        order = _grouped(b, hk, group, n_kt, range(n_kt))
-        dq_order = _grouped(b, h, group * g, n_q, range(n_q - 1, -1, -1))
+        order = _grouped(b, hk, group, n_kt, kts)
+        dq_order = _grouped(b, h, group * g, n_q, qts)
         dq_grid = (len(dq_order),)
     else:
-        order = tuple((bi, hi, kt) for kt in range(n_kt) for bi in range(b)
+        order = tuple((bi, hi, kt) for kt in kts for bi in range(b)
                       for hi in range(hk))
-        dq_order = tuple((x // h, x % h, n_q - 1 - y)
-                         for y in range(n_q) for x in range(b * h))
+        dq_order = tuple((x // h, x % h, qt)
+                         for qt in qts for x in range(b * h))
         dq_grid = (b * h, n_q)
-    # Under causal masking a key tile's walk starts at the query tile
-    # that holds its first key.
-    first = [min(kt * keys // TILE, n_qt) if causal else 0
-             for kt in range(n_kt)]
     return BwdPlan(
         tile=TILE, dkdv_grid=len(order), dkdv_order=order,
-        dkdv_steps=tuple(g * (n_qt - first[kt]) for _, _, kt in order),
+        dkdv_steps=tuple(g * k_walk[kt] for _, _, kt in order),
         dq_rows=DQ_ROWS, dq_grid=dq_grid, dq_order=dq_order,
-        dq_steps=tuple(
-            min(n_kv, (min((qt + 1) * DQ_ROWS, s) - 1) // TILE + 1)
-            if causal else n_kv for _, _, qt in dq_order),
-        dkdv_keys=keys, head_group=group)
+        dq_steps=tuple(q_walk[qt] for _, _, qt in dq_order),
+        dkdv_keys=keys, head_group=group,
+        key_tiles=tuple(kts) if n_kt <= MAX_ORDER else (),
+        query_tiles=tuple(qts) if n_q <= MAX_ORDER else ())
 
 
-def check_supported(d: int, dv: int, window: int = 0) -> None:
-    """Raise ``ValueError`` naming what the backward kernels do not take:
-    a sliding window, or a (D, Dv) pair outside
-    :data:`repro_torch.kernels.flash_attn.PAIRS`."""
-    if window:
-        raise ValueError(f"flash_attention has no backward under a sliding "
-                         f"window (window {window})")
+def check_supported(d: int, dv: int, window: int = 0, s: int = 0,
+                    t: int = 0) -> None:
+    """Raise ``ValueError`` naming what the backward kernels do not take: a
+    (D, Dv) pair outside :data:`repro_torch.kernels.flash_attn.PAIRS`, or
+    what the forward refuses of a sliding window (a negative one, or one
+    over ``s`` query rows past ``t`` keys)."""
     if (d, dv) not in PAIRS:
         raise ValueError(f"flash_attention has a backward at (D, Dv) in "
                          f"{PAIRS}, not at ({d}, {dv})")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if window and s > t:
+        raise ValueError(f"flash_attention: a window needs S <= T, got S "
+                         f"{s}, T {t}")
 
 
 def flash_attention_bwd_plain(q, k, v, dout, *, causal: bool = True,
-                              scale: float | None = None) -> tuple:
+                              scale: float | None = None,
+                              window: int = 0) -> tuple:
     """``(dq, dk, dv)`` in the operands' dtype, from autograd through the
     float32 reference attention."""
     grads = ref.flash_attention_bwd(q, k, v, dout, causal=causal,
-                                    scale=scale)
+                                    scale=scale, window=window)
     return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
@@ -209,13 +277,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -0.5``; causal masking by absolute position) against ``dout`` (B, H,
     S, Dv), given the forward's output ``out`` (B, H, S, Dv) and its row
     log-sum-exp ``lse`` (a contiguous (B, H, S) float32 tensor,
-    ``flash_attn.flash_attention(..., lse=)``).  Writes
+    ``flash_attn.flash_attention(..., lse=)`` under the same ``window``:
+    query s sees key t only when s - t < window).  Writes
     into ``dq``, ``dk``, ``dv`` (any layout ``layout_error`` accepts, in
     the operands' dtype) where given.  CUDA tensors launch the kernels
     (float32 or bfloat16 operands of one dtype); CPU tensors take
     :func:`flash_attention_bwd_plain`, which needs neither ``out`` nor
-    ``lse``.  A window or a pair outside ``flash_attn.PAIRS`` raises
-    ``ValueError`` (:func:`check_supported`) before any launch."""
+    ``lse``.  A pair outside ``flash_attn.PAIRS``, a negative window or a
+    window with S > T raises ``ValueError`` (:func:`check_supported`)
+    before any launch."""
     global LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
@@ -225,7 +295,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)}")
     b, h, s, d = q.shape
     hk, t, d_v = k.shape[1], k.shape[2], v.shape[3]
-    check_supported(d, d_v, window)
+    window = int(window)
+    check_supported(d, d_v, window, s, t)
     if k.shape[0] != b or k.shape[3] != d or hk == 0 or h % hk:
         raise ValueError(f"flash_attention_bwd: k/v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)} (H must be a multiple of "
@@ -243,7 +314,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(like.shape)} {q.dtype} on {q.device}")
     if q.device.type == "cpu":
         res = flash_attention_bwd_plain(q, k, v, dout, causal=causal,
-                                        scale=scale)
+                                        scale=scale, window=window)
         return tuple(r if g is None else g.copy_(r)
                      for r, (g, _) in zip(res, grads.values()))
     if q.device.type != "cuda":
@@ -268,14 +339,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     plan = ()
     if q.dtype == torch.bfloat16:
-        plan = (0, 0, 0)
+        plan = (0, 0, 0, None, 0, None, 0)
         if (d, d_v) in WGMMA_DIMS:
-            p = bwd_plan(b, h, hk, s, t, d, bool(causal), d_v)
-            plan = (p.dkdv_keys, p.head_group, p.dkdv_grid)
+            p = bwd_plan(b, h, hk, s, t, d, bool(causal), d_v, window)
+            (kts, n_kts), (qts, n_qts) = p.tables
+            plan = (p.dkdv_keys, p.head_group, p.dkdv_grid, kts, n_kts, qts,
+                    n_qts)
     lib = _build.load("flash_attn_bwd", _SIGNATURES)
     _build.call(lib, "flash_attn_bwd", getattr(lib, _ENTRY[q.dtype]),
                 q.device, *(x.data_ptr() for x in (q, k, v, out, dout, lse,
                                                    delta, dq, dk, dv)),
-                strides, b, h, hk, s, t, d, d_v, scale, int(causal), *plan)
+                strides, b, h, hk, s, t, d, d_v, scale, int(causal), window,
+                *plan)
     LAUNCHES += 1
     return dq, dk, dv

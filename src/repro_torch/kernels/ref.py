@@ -229,7 +229,8 @@ def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
-                        scale: float | None = None) -> tuple:
+                        scale: float | None = None,
+                        window: int = 0) -> tuple:
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` against
     the output gradient ``dout``, float32: autograd through it on float32
     copies of the operands (the softmax then needs no rounding before the
@@ -237,5 +238,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ops = [t.detach().to(torch.float32).requires_grad_(True)
            for t in (q, k, v)]
     with torch.enable_grad():
-        out = flash_attention(*ops, causal=causal, scale=scale)
+        out = flash_attention(*ops, causal=causal, scale=scale,
+                              window=window)
         return torch.autograd.grad(out, ops, dout.to(torch.float32))

@@ -23,7 +23,13 @@ tree: it agrees with the plain version to float32 rounding, not bit for
 bit.  The plain version, :func:`ssm_scan_plain`, keeps the reference's
 chunks (``min(256, S)`` steps, the whole of S if that does not divide
 it) and runs a first-order scan inside each; it is the path for CPU
-tensors and the kernel's oracle on the card.
+tensors and the kernel's oracle on the card, and autograd follows it.
+
+This wrapper has no gradient of its own: on the card it refuses operands
+that require one while grad is enabled.  The differentiable entry is
+``repro_torch.models.ssm.ssm_scan``, whose ``autograd.Function`` has the
+kernel write the state at the start of every 16-step tile (``ckpt``)
+and differentiates with :mod:`repro_torch.kernels.ssm_scan_bwd`.
 """
 from __future__ import annotations
 
@@ -53,8 +59,9 @@ LANES = (1, 2, 4, 8)
 SCHEDULERS = 4 * 132
 WARPS_PER_SCHEDULER = 1.5
 
-# dt, x, B, C, A, D, h0, y, h_out, then B, S, d_inner, n, lanes, stream.
-_SIGNATURES = {"ssm_scan_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+# dt, x, B, C, A, D, h0, y, h_out, ckpt, then B, S, d_inner, n, lanes,
+# stream.
+_SIGNATURES = {"ssm_scan_f32": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                + [ctypes.c_void_p],
                "ssm_scan_smem": [ctypes.c_int] * 2}
 
@@ -110,7 +117,7 @@ def ssm_scan_plain(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     each chunk's decays ``exp(dt A)`` and inputs ``(dt x) B`` as (c, B,
     d_inner, n) tensors, a first-order scan over the chunk's steps, then
     ``y = C . h`` for the chunk; ``D x`` is added at the end.  Returns
-    ``(y, h)``."""
+    ``(y, h)``; autograd follows it."""
     B, S, di = x.shape
     c = min(chunk, S)
     if c == 0 or S % c:
@@ -123,9 +130,12 @@ def ssm_scan_plain(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
         decay = torch.exp(dt_c[..., None] * a)                # (c, B, di, n)
         inp = (dt_c * x_c)[..., None] * bmat[:, t0:t0 + c].transpose(
             0, 1)[:, :, None, :]
-        h_seq = torch.empty_like(decay)
+        # The states as a list, stacked: autograd refuses out=.
+        hs = []
         for t in range(decay.shape[0]):
-            h = torch.addcmul(inp[t], decay[t], h, out=h_seq[t])
+            h = torch.addcmul(inp[t], decay[t], h)
+            hs.append(h)
+        h_seq = torch.stack(hs)
         ys.append(torch.einsum("cbdn,bcn->bcd", h_seq, cmat[:, t0:t0 + c]))
     y = torch.cat(ys, dim=1) if ys else torch.zeros_like(x)
     return y + x * d_skip, h.clone()
@@ -150,36 +160,40 @@ def _check(dt, x, bmat, cmat, a, d_skip, h0) -> None:
 
 def ssm_scan(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
              cmat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
-             h0: torch.Tensor) -> tuple:
+             h0: torch.Tensor, *, ckpt: torch.Tensor | None = None) -> tuple:
     """``(y, h)`` of the selective scan (module docstring).  CUDA tensors
-    launch the kernel at :func:`scan_plan`'s lane count: float32,
-    contiguous, n in :data:`STATES`, no operand that requires grad while
-    grad is enabled (the kernel has no backward; anything else raises);
-    CPU tensors take :func:`ssm_scan_plain`, which autograd follows."""
+    launch the kernel at :func:`scan_plan`'s lane count (writing the
+    checkpoints into ``ckpt`` where given): float32, contiguous, n in
+    :data:`STATES`, no operand that requires grad while grad is enabled
+    (this wrapper has no gradient; anything else raises); CPU tensors take
+    :func:`ssm_scan_plain`, which autograd follows."""
     if x.device.type == "cpu":
         _check(dt, x, bmat, cmat, a, d_skip, h0)
         return ssm_scan_plain(dt, x, bmat, cmat, a, d_skip, h0)
     plan = scan_plan(x.shape[0], x.shape[-1], a.shape[-1])
-    return launch(dt, x, bmat, cmat, a, d_skip, h0, plan.lanes)
+    return launch(dt, x, bmat, cmat, a, d_skip, h0, plan.lanes, ckpt=ckpt)
 
 
 def launch(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
            cmat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
-           h0: torch.Tensor, lanes: int) -> tuple:
+           h0: torch.Tensor, lanes: int, *,
+           ckpt: torch.Tensor | None = None) -> tuple:
     """``(y, h)`` from one launch of the kernel at ``lanes`` lanes a
     channel (what :func:`ssm_scan` runs with :func:`scan_plan`'s count;
     the checks and tests run the others): CUDA operands only, float32,
     contiguous, n in :data:`STATES`.  A lane count the kernel does not
     instantiate at this n (:func:`lane_counts`) raises
-    (``cudaErrorInvalidValue``)."""
+    (``cudaErrorInvalidValue``).  ``ckpt``, a contiguous (B, ceil(S /
+    16), d_inner, n) float32 tensor, receives the state at the start of
+    every 16-step tile, from which :mod:`.ssm_scan_bwd` differentiates."""
     global LAUNCHES
     ops = (dt, x, bmat, cmat, a, d_skip, h0)
     _check(*ops)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
         raise RuntimeError(
-            "the ssm_scan kernel has no backward: training the SSM family "
-            "on the card waits for a backward scan; run it under "
-            "torch.no_grad() or torch.inference_mode()")
+            "the ssm_scan kernel wrapper has no gradient of its own: call "
+            "repro_torch.models.ssm.ssm_scan (its backward is the "
+            "ssm_scan_bwd kernel) or run under torch.no_grad()")
     if x.device.type != "cuda":
         raise ValueError(f"the ssm_scan kernel runs on cuda, not {x.device}")
     if any(t.dtype != torch.float32 for t in ops):
@@ -191,11 +205,19 @@ def launch(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     n = a.shape[-1]
     if n not in STATES:
         raise ValueError(f"ssm_scan holds n in {STATES} states, got {n}")
+    if ckpt is not None and (
+            tuple(ckpt.shape) != (B, -(-S // 16), di, n)
+            or ckpt.dtype != torch.float32 or ckpt.device != x.device
+            or not ckpt.is_contiguous()):
+        raise ValueError(f"ssm_scan: ckpt must be a contiguous "
+                         f"{(B, -(-S // 16), di, n)} float32 tensor on "
+                         f"{x.device}")
     y = torch.empty_like(x)
     h = torch.empty_like(h0)
     lib = _build.load("ssm_scan", _SIGNATURES)
     _build.call(lib, "ssm_scan", lib.ssm_scan_f32, x.device,
                 *(t.data_ptr() for t in ops), y.data_ptr(), h.data_ptr(),
-                B, S, di, n, lanes)
+                None if ckpt is None else ckpt.data_ptr(), B, S, di, n,
+                lanes)
     LAUNCHES += 1
     return y, h

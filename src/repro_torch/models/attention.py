@@ -14,8 +14,9 @@ where multi-head latent attention asks for them, and the sliding window
 of the hybrid family.  Under autograd it is a ``torch.autograd.Function``
 whose forward kernel also writes the rows' log-sum-exp and whose
 backward is the kernels of :mod:`repro_torch.kernels.flash_attn_bwd`, at
-every (D, Dv) pair of the kernel without a window; under a window a
-gradient raises.  Decode
+every (D, Dv) pair of the kernel, under the sliding window too (whose
+mask both follow, not the reference's non-causal ``swa_fast`` quirk;
+ROADMAP §3).  Decode
 attention is plain torch, as the reference has no kernel for it; under a
 window the KV cache is a rolling buffer of ``min(max_len, window)`` slots
 (slot ``pos % Smax``).
@@ -164,21 +165,21 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 class _KernelAttention(torch.autograd.Function):
     """The attention kernel with its backward kernels, on q, k (B, S, H,
     D) and v (B, S, H, Dv) seen as (B, H, S, .) through ``transpose(1,
-    2)``: the forward writes a (B, S, H, Dv) output and saves q, k, v, the
-    output and the rows' log-sum-exp; the backward hands the kernels the
-    output gradient made contiguous and writes the three gradients in the
-    operands' layouts."""
+    2)``, under a sliding ``window`` or none: the forward writes a (B, S,
+    H, Dv) output and saves q, k, v, the output and the rows' log-sum-exp;
+    the backward hands the kernels the output gradient made contiguous and
+    writes the three gradients in the operands' layouts."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, window):
         out = q.new_empty(q.shape[:3] + v.shape[3:])
         lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
                           dtype=torch.float32, device=q.device)
         _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, scale=scale,
-                            out=out.transpose(1, 2), lse=lse)
+                            window=window, out=out.transpose(1, 2), lse=lse)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return out
 
     @staticmethod
@@ -188,9 +189,10 @@ class _KernelAttention(torch.autograd.Function):
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         _fa_bwd.flash_attention_bwd(
             *(t.transpose(1, 2) for t in (q, k, v, out, dout)), lse,
-            causal=ctx.causal, scale=ctx.scale, dq=dq.transpose(1, 2),
-            dk=dk.transpose(1, 2), dv=dv.transpose(1, 2))
-        return dq, dk, dv, None, None
+            causal=ctx.causal, scale=ctx.scale, window=ctx.window,
+            dq=dq.transpose(1, 2), dk=dk.transpose(1, 2),
+            dv=dv.transpose(1, 2))
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -209,15 +211,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``kernels.flash_attn.PAIRS``, else ``ValueError``).  Where autograd
     records (grad enabled and an operand that requires grad) CUDA tensors
     go through :class:`_KernelAttention`, whose backward is a kernel too
-    at every pair; a window then raises ``ValueError``, and nothing falls
-    back to the plain attention.
+    at every pair, under a window as without one (what the kernels do not
+    take raises ``ValueError`` before any launch), and nothing falls back
+    to the plain attention.
     """
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale)
     if _fa.needs_grad(q, k, v):
-        _fa_bwd.check_supported(q.shape[-1], v.shape[-1], window)
-        return _KernelAttention.apply(q, k, v, causal, scale)
+        _fa_bwd.check_supported(q.shape[-1], v.shape[-1], window, q.shape[1],
+                                k.shape[1])
+        return _KernelAttention.apply(q, k, v, causal, scale, window)
     out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
                       device=q.device)
     _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),

@@ -3,9 +3,13 @@ the Falcon-Mamba SSM family and the SSM path of the hybrid (Hymba).
 
 Prefill runs the selective scan of :mod:`repro_torch.kernels.ssm_scan`:
 the hand-written kernel for CUDA tensors, its plain chunked version for
-CPU ones.  Decode is the reference's one-step recurrence in plain torch
-on both devices (the reference has no kernel there) against the cache
-(conv_state, ssm_state), O(1) in the sequence length.  The reference's
+CPU ones (which autograd differentiates).  Where autograd records on the
+card the scan is :class:`_KernelScan`, whose forward kernel also writes
+the state at the start of every 16-step tile and whose backward is the
+kernel of :mod:`repro_torch.kernels.ssm_scan_bwd`.  Decode is the
+reference's one-step recurrence in plain torch on both devices (the
+reference has no kernel there) against the cache (conv_state,
+ssm_state), O(1) in the sequence length.  The reference's
 casts stay where they are: ``x_proj``'s product in the activations'
 dtype, ``dt`` through ``softplus`` in float32, the causal conv in
 float32 and cast back, the state float32, ``y`` cast to the input dtype
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ssm_scan as _scan
+from ..kernels import ssm_scan_bwd as _scan_bwd
 from .config import ModelConfig
 from .layers import ParamDef
 
@@ -79,17 +84,52 @@ def _causal_conv(p, x, conv_state=None):
     return out.to(x.dtype), new_state.to(x.dtype)
 
 
-def ssm_scan(p: dict, xc: torch.Tensor,
-             state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+class _KernelScan(torch.autograd.Function):
+    """The scan kernel with its backward kernel, on the float32 operands
+    of :func:`repro_torch.kernels.ssm_scan.ssm_scan`: the forward writes
+    (y, h) and the state at the start of every 16-step tile, and saves the
+    operands and those checkpoints; the backward hands the kernel the
+    output's gradient (and the final state's, which training leaves
+    None) and returns the seven operands' gradients."""
+
+    @staticmethod
+    def forward(ctx, dt, x, bmat, cmat, a, d_skip, h0):
+        ctx.set_materialize_grads(False)
+        B, S, di = x.shape
+        ckpt = torch.empty((B, _scan_bwd.checkpoints(S), di, a.shape[-1]),
+                           dtype=torch.float32, device=x.device)
+        y, h = _scan.ssm_scan(dt, x, bmat, cmat, a, d_skip, h0, ckpt=ckpt)
+        ctx.save_for_backward(dt, x, bmat, cmat, a, d_skip, h0, ckpt)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        *ops, ckpt = ctx.saved_tensors
+        dy = torch.zeros_like(ops[1]) if dy is None else dy.contiguous()
+        dh = None if dh is None else dh.contiguous()
+        return _scan_bwd.ssm_scan_bwd(*ops, dy, dh, ckpt=ckpt)
+
+
+def ssm_scan(p: dict, xc: torch.Tensor, state: torch.Tensor, *,
+             plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The selective-scan recurrence over S.  xc: (B,S,di) post-conv
     activations; state: (B,di,n) float32.  Returns (y in xc's dtype, the
-    final state)."""
+    final state).  CPU tensors run the plain scan; CUDA tensors the
+    kernel, through :class:`_KernelScan` where autograd records (nothing
+    falls back to the plain scan).  ``plain=True`` runs the plain scan on
+    any device, under autograd too: the kernels' oracle on the card."""
     A = -torch.exp(p["a_log"].to(torch.float32))              # (di, n)
     dt, bmat, cmat = _ssm_params(p, xc)
-    y, state = _scan.ssm_scan(
-        dt.contiguous(), xc.to(torch.float32).contiguous(),
-        bmat.contiguous(), cmat.contiguous(), A.contiguous(),
-        p["d_skip"].to(torch.float32).contiguous(), state.contiguous())
+    ops = (dt.contiguous(), xc.to(torch.float32).contiguous(),
+           bmat.contiguous(), cmat.contiguous(), A.contiguous(),
+           p["d_skip"].to(torch.float32).contiguous(), state.contiguous())
+    if plain:
+        y, state = _scan.ssm_scan_plain(*ops)
+    elif xc.device.type != "cpu" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in ops):
+        y, state = _KernelScan.apply(*ops)
+    else:
+        y, state = _scan.ssm_scan(*ops)
     return y.to(xc.dtype), state
 
 

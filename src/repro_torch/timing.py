@@ -183,25 +183,29 @@ def attention_work(b: int, h: int, hk: int, s: int, t: int, d: int,
 
 
 def attention_bwd_work(b: int, h: int, hk: int, s: int, t: int, d: int,
-                       causal: bool, itemsize: int, dv: int = None) -> tuple:
+                       causal: bool, itemsize: int, dv: int = None,
+                       window: int = 0) -> tuple:
     """Bytes and operations of attention's backward over q (b, h, s, d),
     k (b, hk, t, d), v (b, hk, t, dv), the output and its gradient (b, h,
     s, dv) (``dv`` defaults to ``d``): q, k, v, out and dO read once and
     dq, dk, dv written once in their dtype, the float32 (b, h, s) lse read
-    once; five products a kept pair (S = QK^T and dQ, dK over d, dP = dO
-    V^T and dV over dv): 2 (3 d + 2 dv) operations."""
+    once; five products a pair the mask keeps (under a sliding ``window``
+    too; S = QK^T and dQ, dK over d, dP = dO V^T and dV over dv): 2 (3 d +
+    2 dv) operations."""
     dv = d if dv is None else dv
-    _, fwd = attention_work(b, h, hk, s, t, d, causal, itemsize, dv=dv)
+    _, fwd = attention_work(b, h, hk, s, t, d, causal, itemsize, dv=dv,
+                            window=window)
     pairs = fwd / (2.0 * b * h * (d + dv))
     return (itemsize * (2 * b * h * s * (d + dv) + 2 * b * hk * t * (d + dv))
             + 4.0 * b * h * s, 2.0 * b * h * (3 * d + 2 * dv) * pairs)
 
 
-def sdpa_backend(q, k, v, causal: bool) -> str:
+def sdpa_backend(q, k, v, causal: bool, attn_mask=None) -> str:
     """The backend that ``F.scaled_dot_product_attention`` picks for these
-    operands (``torch._fused_sdp_choice``), by name."""
+    operands (``torch._fused_sdp_choice``, with ``attn_mask`` where the
+    call passes one), by name."""
     from torch.nn.attention import SDPBackend
-    choice = torch._fused_sdp_choice(q, k, v, None, 0.0, causal,
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask, 0.0, causal,
                                      enable_gqa=True)
     names = {int(b.value): b.name for b in SDPBackend.__members__.values()}
     return names.get(int(choice), f"unknown ({choice})")
@@ -222,12 +226,33 @@ def scan_bound(b: int, s: int, di: int, n: int) -> dict:
     """The scan's bound: its bytes over the memory rate, its
     exponentials over the MUFU rate, and the larger of the two
     (``bound_ms``, ``bound_by``: ``"bytes"`` or ``"operations"``)."""
-    bytes_moved, exps = scan_work(b, s, di, n)
+    return _mufu_bound(*scan_work(b, s, di, n))
+
+
+def _mufu_bound(bytes_moved: float, exps: float) -> dict:
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
     t_ops = exps / MUFU_S * 1e3
     return {"bytes_bound_ms": t_bytes, "mufu_bound_ms": t_ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def scan_bwd_work(b: int, s: int, di: int, n: int) -> tuple:
+    """Bytes and exponentials of the selective scan's gradient over (b, s,
+    di) float32 inputs with n states: dt, x and dy read and d(dt), dx
+    written once, B and C read and dB, dC written once (b, s, n), A and
+    dA (di, n), D and dD (di,), h0 read and dh0 written (b, di, n) once
+    (the final state's gradient absent, as in training); one exponential
+    for each of the b s di n decays, as the forward (the kernel's
+    recomputation of the states from its checkpoints is its own cost)."""
+    return (4.0 * (5 * b * s * di + 4 * b * s * n + 2 * di * n + 2 * di
+                   + 2 * b * di * n),
+            float(b) * s * di * n)
+
+
+def scan_bwd_bound(b: int, s: int, di: int, n: int) -> dict:
+    """:func:`scan_bound` of :func:`scan_bwd_work`."""
+    return _mufu_bound(*scan_bwd_work(b, s, di, n))
 
 
 def fft_stage_work(rows: int, n: int) -> tuple:

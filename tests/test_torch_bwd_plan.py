@@ -280,3 +280,119 @@ def test_plan_at_d_d_is_the_plan_without_dv():
 def test_plan_refuses_pairs_without_wgmma_kernels(d, dv):
     with pytest.raises(ValueError, match="wgmma"):
         flash_attn_bwd.bwd_plan(1, 2, 2, 64, 64, d, True, dv=dv)
+
+
+# Under a sliding window: Hymba-1.5B's training attention (25 heads on 5
+# KV heads, 2048 rows, window 1024) and small shapes with windows short
+# and long against the tiles.
+WINDOW_SHAPES = [(b, h, hk, s, s, causal, w)
+                 for (b, h, hk), s, causal, w in itertools.product(
+                     [(1, 5, 1), (2, 4, 2)], [77, 300, 1100],
+                     [True, False], [1, 7, 63, 64, 65, 130, 1000, 1100])]
+
+
+def _visible_window(s, t, causal, window):
+    """The pairs the forward keeps: key <= query under causal masking,
+    and query - key < window."""
+    lag = np.arange(s)[:, None] - np.arange(t)[None, :]
+    keep = lag < window
+    return keep & (lag >= 0) if causal else keep
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (192, 128)])
+@pytest.mark.parametrize("b,h,hk,s,t,causal,window", WINDOW_SHAPES)
+def test_window_walks_count_the_kept_pairs_longest_first(b, h, hk, s, t,
+                                                         causal, window, d,
+                                                         dv):
+    """Under a window each dK/dV block walks exactly the (head, query
+    tile) pairs that keep any of its keys, each dQ block the key tiles
+    from the first its rows keep to the last, and both grids launch
+    longest walk first."""
+    plan = flash_attn_bwd.bwd_plan(b, h, hk, s, t, d, causal, dv, window)
+    vis = _visible_window(s, t, causal, window)
+    key_tiles = _tiles(t, plan.tile)
+    for (_, _, kt), steps in zip(plan.dkdv_order, plan.dkdv_steps):
+        keys = _tiles(t, plan.dkdv_keys)[kt]
+        seen = [qt for qt, rows in enumerate(_tiles(s, plan.tile))
+                if vis[rows, keys].any()]
+        assert seen == list(range(seen[0], seen[-1] + 1)) if seen else True
+        assert steps == (h // hk) * len(seen)
+    for (_, _, qt), steps in zip(plan.dq_order, plan.dq_steps):
+        rows = _tiles(s, plan.dq_rows)[qt]
+        seen = [kt for kt, keys in enumerate(key_tiles)
+                if vis[rows, keys].any()]
+        assert steps == seen[-1] - seen[0] + 1
+    if not plan.head_group:
+        assert list(plan.dkdv_steps) == sorted(plan.dkdv_steps, reverse=True)
+        assert list(plan.dq_steps) == sorted(plan.dq_steps, reverse=True)
+
+
+@pytest.mark.parametrize("b,h,hk,s,t,causal,window", WINDOW_SHAPES)
+def test_window_tables_are_what_the_kernels_decode(b, h, hk, s, t, causal,
+                                                   window):
+    """The kernels read the tile of a block's rank from the plan's two
+    tables: at (D, D) key tile ``key_tiles[x / (B Hk)]`` and query tile
+    ``query_tiles[y]``; at (192, 128) the grouped decoders' ranks index
+    the same tables.  Both tables hold every tile once."""
+    flat = flash_attn_bwd.bwd_plan(b, h, hk, s, t, 64, causal, 64, window)
+    assert sorted(flat.key_tiles) == list(range(-(-t // 64)))
+    assert sorted(flat.query_tiles) == list(range(-(-s // 128)))
+    assert [(x % (b * hk) // hk, x % (b * hk) % hk,
+             flat.key_tiles[x // (b * hk)])
+            for x in range(flat.dkdv_grid)] == list(flat.dkdv_order)
+    n_q = flat.dq_grid[1]
+    assert [(x // h, x % h, flat.query_tiles[y]) for y in range(n_q)
+            for x in range(b * h)] == list(flat.dq_order)
+    pair = _pair_plan_window(b, h, hk, s, t, causal, window)
+    n_kt, n_q = -(-t // pair.dkdv_keys), -(-s // pair.dq_rows)
+    dk = [_decode_dkdv(x, hk, n_kt, pair.head_group)
+          for x in range(pair.dkdv_grid)]
+    assert [(bi, hi, pair.key_tiles[r]) for bi, hi, r in dk] \
+        == list(pair.dkdv_order)
+    dq = [_decode_dq(x, h, hk, n_q, pair.head_group)
+          for x in range(pair.dq_grid[0])]
+    assert [(bi, hi, pair.query_tiles[n_q - 1 - r]) for bi, hi, r in dq] \
+        == list(pair.dq_order)
+
+
+def _pair_plan_window(b, h, hk, s, t, causal, window):
+    return flash_attn_bwd.bwd_plan(b, h, hk, s, t, 192, causal, 128, window)
+
+
+def test_without_a_window_the_tables_are_the_order_of_before():
+    """Window 0 keeps the orders of the kernels' arithmetic before the
+    tables: key tiles in order, query tiles latest first."""
+    for causal in (True, False):
+        plan = flash_attn_bwd.bwd_plan(*TRAIN, causal)
+        assert plan.key_tiles == tuple(range(32))
+        assert plan.query_tiles == tuple(range(15, -1, -1))
+        assert plan == flash_attn_bwd.bwd_plan(*TRAIN, causal, window=0)
+
+
+def test_hymba_training_window_shrinks_the_walks():
+    """At Hymba-1.5B's training attention (1, 25 / 5 heads, 2048 rows, D
+    64, causal, window 1024) a 64-key tile walks at most 17 query tiles of
+    its window (5 heads: 85 steps) against 32 without it, and a dQ block
+    at most 18 key tiles; the grids' sums fall to the window's share of
+    the causal triangle."""
+    shape = (1, 25, 5, 2048, 2048, 64, True)
+    win = flash_attn_bwd.bwd_plan(*shape, window=1024)
+    full = flash_attn_bwd.bwd_plan(*shape)
+    assert max(win.dkdv_steps) == 5 * 17 and max(full.dkdv_steps) == 5 * 32
+    assert max(win.dq_steps) == 18 and max(full.dq_steps) == 32
+    assert sum(win.dkdv_steps) < 0.8 * sum(full.dkdv_steps)
+    assert makespan(win.dkdv_steps) <= 1.1 * sum(win.dkdv_steps) / SMS
+
+
+def test_past_max_order_the_kernels_take_the_arithmetic_order():
+    n = flash_attn_bwd.MAX_ORDER + 1
+    plan = flash_attn_bwd.bwd_plan(1, 1, 1, 128 * n, 64 * n, 64, True)
+    assert plan.key_tiles == () and plan.query_tiles == ()
+    assert [kt for _, _, kt in plan.dkdv_order] == list(range(n))
+
+
+def test_plan_refuses_a_window_it_cannot_take():
+    with pytest.raises(ValueError, match="window"):
+        flash_attn_bwd.bwd_plan(1, 2, 2, 128, 64, 64, True, window=16)
+    with pytest.raises(ValueError, match="window"):
+        flash_attn_bwd.bwd_plan(1, 2, 2, 64, 64, 64, True, window=-1)

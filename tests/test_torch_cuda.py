@@ -10,7 +10,7 @@ import torch
 from repro_torch.core import barrier, fiveg, prng, sweep
 from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
                                  flash_attn, flash_attn_bwd, matmul, ops,
-                                 powf, ref, ssm_scan)
+                                 powf, ref, ssm_scan, ssm_scan_bwd)
 from repro_torch.models import attention
 
 pytestmark = pytest.mark.cuda
@@ -1473,14 +1473,18 @@ def test_flash_attention_bwd_is_deterministic(cuda, dtype, h, hk, s):
 
 
 def test_flash_attention_bwd_refuses_before_any_launch(cuda):
-    """A window or a pair outside ``flash_attn.PAIRS`` raises ValueError
-    and launches nothing."""
+    """A window over more query rows than keys, a negative window or a
+    pair outside ``flash_attn.PAIRS`` raises ValueError and launches
+    nothing."""
     x = torch.zeros(1, 2, 8, 192, device=cuda, dtype=torch.bfloat16)
     v64 = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 8, device=cuda)
     before = flash_attn_bwd.LAUNCHES
+    with pytest.raises(ValueError, match="S <= T"):
+        flash_attn_bwd.flash_attention_bwd(x, x[:, :, :4], x[:, :, :4], x, x,
+                                           lse, window=4)
     with pytest.raises(ValueError, match="window"):
-        flash_attn_bwd.flash_attention_bwd(x, x, x, x, x, lse, window=4)
+        flash_attn_bwd.flash_attention_bwd(x, x, x, x, x, lse, window=-2)
     with pytest.raises(ValueError, match="192, 64"):
         flash_attn_bwd.flash_attention_bwd(x, x, v64, v64, v64, lse)
     x24 = torch.zeros(1, 2, 8, 24, device=cuda, dtype=torch.bfloat16)
@@ -1561,23 +1565,26 @@ def test_deepseek_smoke_gradients_on_card_match_chunked(cuda, dtype,
 
 def test_kernels_without_backward_refuse_a_gradient(cuda):
     """No gradient passes silently through a kernel wrapper that has no
-    backward: the forward kernel itself, the model's attention under a
-    window or at a pair outside ``flash_attn.PAIRS``, and the scan all
-    raise."""
+    backward: the forward kernel itself and the scan kernel's wrapper
+    raise, and so does the model's attention under a window over more
+    query rows than keys or at a pair outside ``flash_attn.PAIRS``; under
+    a window with S <= T it is ``_KernelAttention``."""
     q = torch.randn(1, 4, 64, 64, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):
         flash_attn.flash_attention(q, q, q)
     with torch.no_grad():
         flash_attn.flash_attention(q, q, q)
     m = torch.randn(1, 64, 4, 64, device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="window"):
-        attention.flash_attention(m, m, m, window=16)
+    with pytest.raises(ValueError, match="S <= T"):
+        attention.flash_attention(m, m[:, :32], m[:, :32], window=16)
+    out = attention.flash_attention(m, m, m, window=16)
+    assert type(out.grad_fn).__name__ == "_KernelAttentionBackward"
     m192 = torch.randn(1, 64, 4, 192, device=cuda, requires_grad=True)
     with pytest.raises(ValueError, match="192, 64"):
         attention.flash_attention(m192, m192, m192[..., :64])
     x = torch.randn(1, 8, 128, device=cuda, requires_grad=True)
     n = 16
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="no gradient of its own"):
         ssm_scan.ssm_scan(x, x, torch.randn(1, 8, n, device=cuda),
                           torch.randn(1, 8, n, device=cuda),
                           -torch.rand(128, n, device=cuda),
@@ -1599,3 +1606,249 @@ def test_train_lm_default_scale_trains_on_card(cuda, tmp_path):
     losses = [h.metrics["loss"] for h in out["history"]]
     assert len(losses) == 40 and all(np.isfinite(losses))
     assert losses[-1] < losses[0] - 1.0
+
+
+# ---------------------------------------------------------------------------
+# The scan's backward (G3) and attention's backward under the window (G2).
+# ---------------------------------------------------------------------------
+
+# The scan's backward against its plain version (float32 autograd through
+# the chunked scan), each gradient to 1e-4 of its largest element: float32
+# sums over time, channels or states in other orders, and the kernel's
+# decays are ex2.approx, an ulp or two from torch's exp.
+SCAN_BWD_TOL = 1e-4
+
+
+def _scan_grad_run(cuda, b, s, di, n, lanes, seed, with_dh):
+    args = _scan_inputs(cuda, b, s, di, n, seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dy = torch.randn(b, s, di, device=cuda, generator=gen)
+    dh = torch.randn(b, di, n, device=cuda, generator=gen) if with_dh \
+        else None
+    ckpt = torch.empty(b, ssm_scan_bwd.checkpoints(s), di, n, device=cuda)
+    ssm_scan.ssm_scan(*args, ckpt=ckpt)
+    before = ssm_scan_bwd.LAUNCHES
+    got = ssm_scan_bwd.ssm_scan_bwd(*args, dy, dh, ckpt=ckpt, lanes=lanes)
+    assert ssm_scan_bwd.LAUNCHES == before + 1
+    want = ssm_scan_bwd.ssm_scan_bwd_plain(*args, dy, dh)
+    return args, dy, dh, ckpt, got, want
+
+
+SCAN_BWD_CASES = [(lanes, n) for n in ssm_scan.STATES
+                  for lanes in ssm_scan.lane_counts(n)]
+
+
+@pytest.mark.parametrize("lanes,n", SCAN_BWD_CASES)
+@pytest.mark.parametrize("s", [1, 15, 16, 300])
+@pytest.mark.parametrize("with_dh", [False, True])
+def test_ssm_scan_bwd_matches_plain(cuda, lanes, n, s, with_dh):
+    """Every lane count at n 8 and 16; S below one 16-step checkpoint
+    interval, at it and ragged past the plain version's 256-step chunk;
+    the final state's gradient absent and present; 200 channels (a
+    ragged last block) over 2 batch rows."""
+    _, _, _, _, got, want = _scan_grad_run(cuda, 2, s, 200, n, lanes,
+                                           s + n + lanes, with_dh)
+    for name, g, w in zip(("dt", "x", "B", "C", "A", "D", "h0"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _scaled_err(g, w) <= SCAN_BWD_TOL, name
+
+
+@pytest.mark.parametrize("di", [8192, 3200])
+def test_ssm_scan_bwd_at_the_training_shapes(cuda, di):
+    """Falcon-Mamba-7B's (1, 2048, 8192, 16) and Hymba-1.5B's (1, 2048,
+    3200, 16) training micro-batches at the plan's lane count (4 and 8),
+    twice: the same bits."""
+    plan = ssm_scan_bwd.bwd_plan(1, 2048, di, 16)
+    args, dy, _, ckpt, got, want = _scan_grad_run(cuda, 1, 2048, di, 16,
+                                                  plan.lanes, di, False)
+    for g, w in zip(got, want):
+        assert _scaled_err(g, w) <= SCAN_BWD_TOL
+    again = ssm_scan_bwd.ssm_scan_bwd(*args, dy, ckpt=ckpt)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssm_scan_checkpoints_are_the_states_at_the_tiles(cuda):
+    """The forward's checkpoint j is the state before step 16 j: h0, then
+    the plain scan's final state over the first 16 j steps."""
+    args = _scan_inputs(cuda, 2, 70, 96, 16, 4)
+    ckpt = torch.empty(2, 5, 96, 16, device=cuda)
+    y, h = ssm_scan.ssm_scan(*args, ckpt=ckpt)
+    wy, _ = ssm_scan.ssm_scan(*args)
+    assert torch.equal(y, wy)
+    assert torch.equal(ckpt[:, 0], args[6])
+    for j in range(1, 5):
+        cut = [t[:, :16 * j] if t.dim() == 3 and t.shape[1] == 70 else t
+               for t in args]
+        torch.testing.assert_close(ckpt[:, j],
+                                   ssm_scan.ssm_scan_plain(*cut)[1],
+                                   rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+def test_ssm_scan_bwd_planted_fault_dropped_partial(cuda):
+    """The check must see one block's dB partial dropped: dB summed over
+    every block of channels but the second (channels 32-63 at the plan's
+    4 lanes) is the plain version's gradient of the scan without those
+    channels (each channel's recurrence is its own), and it fails the
+    tolerance against the kernel's dB."""
+    args, dy, _, _, got, want = _scan_grad_run(cuda, 1, 300, 256, 16, 4, 11,
+                                               False)
+    keep = torch.cat([torch.arange(0, 32), torch.arange(64, 256)]).to(cuda)
+    dt, x, bm, cm, a, d, h0 = args
+    dropped = ssm_scan_bwd.ssm_scan_bwd_plain(
+        dt[..., keep], x[..., keep], bm, cm, a[keep], d[keep], h0[:, keep],
+        dy[..., keep])[2]
+    assert _scaled_err(got[2], want[2]) <= SCAN_BWD_TOL
+    assert _scaled_err(got[2], dropped) > SCAN_BWD_TOL
+
+
+def test_ssm_scan_bwd_refuses_without_checkpoints(cuda):
+    args = _scan_inputs(cuda, 1, 32, 64, 16, 1)
+    dy = torch.zeros(1, 32, 64, device=cuda)
+    before = ssm_scan_bwd.LAUNCHES
+    with pytest.raises(ValueError, match="checkpoints"):
+        ssm_scan_bwd.ssm_scan_bwd(*args, dy)
+    with pytest.raises(ValueError, match="lanes"):
+        ssm_scan_bwd.ssm_scan_bwd(*args, dy, lanes=16,
+                                  ckpt=torch.empty(1, 2, 64, 16,
+                                                   device=cuda))
+    assert ssm_scan_bwd.LAUNCHES == before
+
+
+def _window_errs(got, want) -> list:
+    """:func:`_scaled_err` of each gradient; one that is exactly zero is
+    held at the largest of the three's scale instead (at window 1 under
+    causal masking a row sees only itself, p = 1 and dS = dP - delta = 0,
+    so dQ and dK vanish but for rounding)."""
+    top = max(w.float().abs().max().item() for w in want)
+    return [(g.float() - w.float()).abs().max().item()
+            / (w.float().abs().max().item() or top)
+            for g, w in zip(got, want)]
+
+
+def _window_bwd(cuda, d, dv, dtype, causal, window, s=1100, h=10, hk=2,
+                seed=0):
+    q, k, v, do = _bwd_inputs(cuda, dtype, 1, h, hk, s, s, d, seed + window,
+                              dv)
+    lse = torch.empty(1, h, s, device=cuda)
+    out = flash_attn.flash_attention(q, k, v, causal=causal, window=window,
+                                     lse=lse)
+    torch.testing.assert_close(
+        lse, ref.attention_lse(q, k, causal=causal, window=window), rtol=0,
+        atol=1e-5)
+    before = flash_attn_bwd.LAUNCHES
+    got = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                             causal=causal, window=window)
+    assert flash_attn_bwd.LAUNCHES == before + 1
+    return (q, k, v, do, out, lse), got
+
+
+@pytest.mark.parametrize("window", [1, 7, 63, 64, 1000, 1024, 1100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dtype", WINDOW_KERNELS)
+def test_flash_attention_bwd_window_matches_plain(cuda, window, causal, d,
+                                                  dtype):
+    """The forward's window tests' shapes (S = T = 1100, 10 heads on 2: g
+    = 5; windows 1 to >= S) and kernels (FMA, mma.sync, wgmma) under the
+    unwindowed backward's bounds."""
+    (q, k, v, do, _, _), got = _window_bwd(cuda, d, d, dtype, causal, window)
+    want = flash_attn_bwd.flash_attention_bwd_plain(
+        q, k, v, do, causal=causal, window=window)
+    for g in got:
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+    assert max(_window_errs(got, want)) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("window", [7, 64, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dv,dtype", [
+    (192, 128, torch.bfloat16), (24, 16, torch.bfloat16),
+    (24, 16, torch.float32), (32, 32, torch.bfloat16),
+    (40, 40, torch.bfloat16), (80, 80, torch.bfloat16),
+    (192, 192, torch.bfloat16)])
+def test_flash_attention_bwd_window_at_every_kernel(cuda, window, causal, d,
+                                                    dv, dtype):
+    """The window at the kernels the forward's window tests leave out:
+    the (192, 128) wgmma kernels (128-key dK/dV blocks), mma.sync at 32,
+    80 and 192, the FMAs at 40 and (24, 16)."""
+    (q, k, v, do, _, _), got = _window_bwd(cuda, d, dv, dtype, causal, window,
+                                           s=700, h=8, hk=8)
+    want = flash_attn_bwd.flash_attention_bwd_plain(
+        q, k, v, do, causal=causal, window=window)
+    assert max(_window_errs(got, want)) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (192, 128)])
+def test_flash_attention_bwd_window_is_deterministic(cuda, d, dv):
+    (q, k, v, do, out, lse), a = _window_bwd(cuda, d, dv, torch.bfloat16,
+                                             True, 1024, s=2048, h=25, hk=5)
+    b = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                           causal=True, window=1024)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("d,dtype", WINDOW_KERNELS)
+def test_flash_attention_bwd_window_planted_faults(cuda, d, dtype):
+    """The check must see a window off by one 64-key tile: the kernel at
+    window 128 against the plain backward at 64 and 192, and without a
+    window, fails the bound in some gradient."""
+    (q, k, v, do, _, _), got = _window_bwd(cuda, d, d, dtype, True, 128,
+                                           s=600)
+    for w in (64, 192, 0):
+        bad = flash_attn_bwd.flash_attention_bwd_plain(
+            q, k, v, do, causal=True, window=w)
+        assert max(_scaled_err(g, b) for g, b in zip(got, bad)) \
+            > BWD_TOL[dtype], w
+
+
+# The SSM and hybrid smoke configs under autograd on the card, the scan and
+# attention kernels both ways against the plain scan and chunked attention
+# swapped in: the loss to 1e-5 (float32) and 2e-3 (bf16) relative, each
+# gradient leaf within 3e-3 (float32) and 0.1 (bf16, chip_smoke.py's
+# full-width bound) of its largest element.
+SSM_SMOKE_TOL = {"float32": (1e-5, 3e-3), "bfloat16": (2e-3, 0.1)}
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "hymba_1_5b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_smoke_gradients_on_card_match_plain(cuda, arch, dtype,
+                                                 monkeypatch):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, batch_for_model
+    from repro_torch.models import init_params, layers, loss_fn
+    cfg = dataclasses.replace(configs.get_smoke(arch), compute_dtype=dtype)
+    params = init_params(cfg, prng.PRNGKey(0, device=cuda))
+    leaves = [t.requires_grad_(True) for _, t in layers.tree_items(params)]
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch_for_model(
+        cfg, DataConfig(seed=0, seq_len=64, global_batch=2,
+                        vocab_size=cfg.vocab_size), 0).items()}
+
+    def run():
+        loss, _ = loss_fn(params, cfg, batch)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    counts = (ssm_scan.LAUNCHES, ssm_scan_bwd.LAUNCHES, flash_attn.LAUNCHES,
+              flash_attn_bwd.LAUNCHES)
+    got_loss, got = run()
+    attn = cfg.n_layers if cfg.family == "hybrid" else 0
+    # Remat runs each layer's forward twice, its backward once.
+    assert tuple(now - was for now, was in zip(
+        (ssm_scan.LAUNCHES, ssm_scan_bwd.LAUNCHES, flash_attn.LAUNCHES,
+         flash_attn_bwd.LAUNCHES), counts)) == (2 * cfg.n_layers,
+                                                cfg.n_layers, 2 * attn, attn)
+    import functools
+
+    from repro_torch.models import ssm as ssm_model
+    monkeypatch.setattr(attention, "flash_attention",
+                        attention.chunked_attention)
+    monkeypatch.setattr(ssm_model, "ssm_scan",
+                        functools.partial(ssm_model.ssm_scan, plain=True))
+    plain = (ssm_scan.LAUNCHES, ssm_scan_bwd.LAUNCHES)
+    want_loss, want = run()
+    assert (ssm_scan.LAUNCHES, ssm_scan_bwd.LAUNCHES) == plain
+    loss_tol, grad_tol = SSM_SMOKE_TOL[dtype]
+    assert abs(got_loss - want_loss) <= loss_tol * abs(want_loss)
+    for g, w in zip(got, want):
+        assert w.abs().max() > 0
+        assert _scaled_err(g, w) <= grad_tol

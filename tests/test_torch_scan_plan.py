@@ -140,8 +140,9 @@ def test_source_matches_the_plan():
     params = [p.split()[-1] for p in sig.group(1).split(",")]
     assert params[-6:] == ["B", "S", "DI", "N", "lanes", "stream"]
     types = ssm_scan._SIGNATURES["ssm_scan_f32"]
-    assert len(types) == len(params) == 15
-    assert types[9:14] == [types[9]] * 5 and types[9] is not types[0]
+    assert len(types) == len(params) == 16
+    assert params[9] == "ckpt"
+    assert types[10:15] == [types[10]] * 5 and types[10] is not types[0]
     cases = re.search(r"int dispatch\(.*?\n}\n", SOURCE, re.S).group(0)
     assert sorted(int(c) for c in re.findall(r"case (\d+):", cases)) == [
         1, 2, 4, 8]
