@@ -199,10 +199,15 @@ phase prints one JSON line:
     serialisation, fails the run); then Qwen3-4B's, DeepSeek-V3's and
     Hymba-1.5B's (under its window) training shapes, timed beside the
     plain version, SDPA's backward and the bound, and the forward kernel
-    with and without the ``lse`` output in turns.  The scan's backward
-    against its plain version (autograd through the chunked scan) at
-    every lane count and at both SSM models' training micro-batches,
-    timed beside its bound.  The qwen3, deepseek-v3, falcon-mamba and
+    with and without the ``lse`` output in turns; each windowed bf16
+    draw beside SDPA's backward on the same inputs, both against the
+    float32 reference.  The scan's backward against its plain version
+    (autograd through the chunked scan) at every lane count and chunk
+    length, S below one chunk and ragged past several, the final state's
+    gradient absent and present, and at both SSM models' training
+    micro-batches at every chunk length the plan picks from (two runs
+    bit for bit), timed beside its bound; a spill in any of its kernels
+    fails the run.  The qwen3, deepseek-v3, falcon-mamba and
     hymba smoke configs' three micro-batched train steps on the card
     against the stored JAX values (``lm_train``, ``lm_train_moe``,
     ``lm_train_ssm``, ``lm_train_hybrid``: the init's digests, the
@@ -436,11 +441,19 @@ SCAN_TOL = 1e-4
 # chunked scan), each gradient to 1e-4 of its largest element
 # (tests/test_torch_cuda.py's SCAN_BWD_TOL): S below one 16-step
 # checkpoint interval, ragged past the plain version's chunk; 200
-# channels over 2 batch rows at every lane count; then the two models'
-# training micro-batches (B, S, d_inner, n).
+# channels over 2 batch rows at chunks of one tile and of every length
+# the plan picks from (at 300 steps 19 chunks
+# of 16, five of 64 with the last ragged, one of 512: S below a chunk);
+# then the two models' training micro-batches (B, S, d_inner, n) at
+# every chunk length.
 SCAN_BWD_TEST_S = (15, 300)
 SCAN_BWD_SHAPES = {"falcon-mamba-7b": (1, 2048, 8192, 16),
                    "hymba-1.5b": (1, 2048, 3200, 16)}
+# The backward's 4-byte staging (rows off 16-byte boundaries): (B, S, n,
+# chunk) over five chunks with the final state's gradient present, at an
+# odd d_inner, and at (d_inner, operands at storage offset 1).
+SCAN_BWD_SCALAR = {"shape": (2, 300, 16, 64),
+                   "cases": ((33, False), (64, True), (33, True))}
 SCAN_BWD_TOL = 1e-4
 # The attention backward against its plain version (autograd through the
 # float32 reference), row-scaled as row_scaled_err does for the forward:
@@ -2943,40 +2956,65 @@ def _scan_checks(torch, ssm_scan, build) -> dict:
     return out
 
 
-def _scan_bwd_checks(torch, ssm_scan, ssm_scan_bwd, build) -> dict:
-    """The scan's backward: its resources (``nvcc -Xptxas -v``, recorded),
-    then against its plain version (autograd through the chunked scan) at
-    :data:`SCAN_BWD_TEST_S` at every lane count of n 8 and 16, the final
-    state's gradient absent and present, and at the two models' training
-    micro-batches (:data:`SCAN_BWD_SHAPES`, two runs bit for bit), each
-    gradient to :data:`SCAN_BWD_TOL` of its largest element; the training
-    shapes timed (device time, a CUDA graph replay, and eagerly) beside
-    the plain version and the bound.  No PyTorch call computes the scan's
-    gradient, so it has no library time.  Returns Falcon-Mamba's record,
-    Hymba's beside it."""
+def scan_bwd_resources(build, ssm_scan, ssm_scan_bwd) -> dict:
+    """The scan backward's resources: ``ssm_scan_bwd_kernel`` (the walk,
+    n / 4 lanes a channel) and ``scan_bwd_prepass`` at each n it
+    instantiates, the walk with its dynamic shared memory (``nvcc -Xptxas
+    -v`` and the library's ``ssm_scan_bwd_smem``), by
+    ``"ssm_scan_bwd_kernel n{n}"`` and ``"scan_bwd_prepass n{n}"``;
+    raises if any kernel of the library spills or an instantiation is
+    missing from the log."""
     log = build.compiler_log("ssm_scan_bwd")
     lib = build.load("ssm_scan_bwd", ssm_scan_bwd._SIGNATURES)
+    usage = {f"ssm_scan_bwd_kernel n{n}": dict(
+        ptxas_usage(log, f"ssm_scan_bwd_kernelILi{n}E"),
+        dynamic_smem_bytes=lib.ssm_scan_bwd_smem(n))
+        for n in ssm_scan.STATES}
+    usage.update({f"scan_bwd_prepass n{n}": ptxas_usage(
+        log, f"scan_bwd_prepassILi{n}E") for n in ssm_scan.STATES})
+    spills = ptxas_spills(log, "scan_bwd")
+    if (len(spills) != 2 * len(ssm_scan.STATES) + 1
+            or any(spills.values())
+            or not all("registers" in u for u in usage.values())
+            or not all(u["dynamic_smem_bytes"] > 0 for k, u in usage.items()
+                       if k.startswith("ssm_scan_bwd_kernel"))):
+        raise AssertionError(f"ssm_scan_bwd: spill bytes {spills}, "
+                             f"resources {usage}")
+    return usage
+
+
+def _scan_bwd_checks(torch, ssm_scan, ssm_scan_bwd, build) -> dict:
+    """The scan's backward: its resources (:func:`scan_bwd_resources`; a
+    spill fails the run), then against its plain version (autograd
+    through the chunked scan) at :data:`SCAN_BWD_TEST_S` at n 8 and 16
+    and every chunk length of the test (one tile and
+    ``ssm_scan_bwd.CHUNK_STEPS``), the final state's gradient absent and
+    present; the 4-byte staging (:data:`SCAN_BWD_SCALAR`: an odd d_inner,
+    operands at storage offset 1) over several chunks; and at the two
+    models' training micro-batches
+    (:data:`SCAN_BWD_SHAPES`) at every chunk length the plan picks from,
+    two runs bit for bit, each gradient to :data:`SCAN_BWD_TOL` of its
+    largest element; the training shapes timed at the plan's chunk
+    (device time, a CUDA graph replay, and eagerly) beside the plain
+    version and the bound.  No PyTorch call computes the scan's gradient,
+    so it has no library time.  Returns Falcon-Mamba's record, Hymba's
+    beside it."""
+    usage = scan_bwd_resources(build, ssm_scan, ssm_scan_bwd)
     pairs = [(lanes, n) for n in ssm_scan.STATES
              for lanes in ssm_scan.lane_counts(n)]
-    usage = {f"ssm_scan_bwd_kernel l{lanes} n{n}": dict(
-        ptxas_usage(log, f"ssm_scan_bwd_kernelILi{lanes}ELi{n}E"),
-        dynamic_smem_bytes=lib.ssm_scan_bwd_smem(lanes, n))
-        for lanes, n in pairs}
     fwd_log = build.compiler_log("ssm_scan")
     ckpt_usage = {f"ssm_scan_ckpt_kernel l{lanes} n{n}": ptxas_usage(
         fwd_log, f"ssm_scan_ckpt_kernelILi{lanes}ELi{n}E")
         for lanes, n in pairs}
     emit({"phase": "lm_train", "name": "ssm_scan_bwd",
           "kernel_resources": usage, "forward_ckpt_resources": ckpt_usage})
-    if not all("registers" in u and u["dynamic_smem_bytes"] > 0
-               for u in usage.values()) or not all(
-                   "registers" in u for u in ckpt_usage.values()):
-        raise AssertionError(f"ssm_scan_bwd: resources {usage}, the "
-                             f"checkpointing forward's {ckpt_usage}")
+    if not all("registers" in u for u in ckpt_usage.values()):
+        raise AssertionError(f"ssm_scan_bwd: the checkpointing forward's "
+                             f"resources {ckpt_usage}")
     gen = torch.Generator(device="cuda").manual_seed(30)
     names = ("dt", "x", "B", "C", "A", "D", "h0")
 
-    def grads(b, s, di, n, lanes, with_dh):
+    def inputs(b, s, di, n, with_dh):
         args = _scan_inputs(torch, gen, b, s, di, n)
         dy = torch.randn(b, s, di, device="cuda", generator=gen)
         dh = (torch.randn(b, di, n, device="cuda", generator=gen)
@@ -2984,36 +3022,73 @@ def _scan_bwd_checks(torch, ssm_scan, ssm_scan_bwd, build) -> dict:
         ckpt = torch.empty(b, ssm_scan_bwd.checkpoints(s), di, n,
                            device="cuda")
         ssm_scan.ssm_scan(*args, ckpt=ckpt)
-        got = ssm_scan_bwd.ssm_scan_bwd(*args, dy, dh, ckpt=ckpt,
-                                        lanes=lanes)
-        want = ssm_scan_bwd.ssm_scan_bwd_plain(*args, dy, dh)
+        return args, dy, dh, ckpt
+
+    def errors(got, want, what):
         errs = {k: _scaled_err(g, w) for k, g, w in zip(names, got, want)}
         if max(errs.values()) > SCAN_BWD_TOL:
-            raise AssertionError(f"ssm_scan_bwd ({b}, {s}, {di}, {n}) at "
-                                 f"{lanes} lanes, dh {with_dh}: {errs}")
-        return args, dy, ckpt, got, want, errs
+            raise AssertionError(f"ssm_scan_bwd {what}: {errs}")
+        return errs
 
+    chunks = (16,) + tuple(ssm_scan_bwd.CHUNK_STEPS)
     worst = 0.0
     for s in SCAN_BWD_TEST_S:
-        for lanes, n in pairs:
+        for n in ssm_scan.STATES:
             for with_dh in (False, True):
-                *_, errs = grads(2, s, 200, n, lanes, with_dh)
-                worst = max(worst, max(errs.values()))
+                args, dy, dh, ckpt = inputs(2, s, 200, n, with_dh)
+                want = ssm_scan_bwd.ssm_scan_bwd_plain(*args, dy, dh)
+                for chunk in chunks:
+                    got = ssm_scan_bwd.ssm_scan_bwd(*args, dy, dh,
+                                                    ckpt=ckpt, chunk=chunk)
+                    errs = errors(got, want, f"(2, {s}, 200, {n}) at chunk "
+                                  f"{chunk}, dh {with_dh}")
+                    worst = max(worst, max(errs.values()))
     emit({"phase": "lm_train", "name": "ssm_scan_bwd", "check": "against "
-          "plain at every lane count", "s": SCAN_BWD_TEST_S, "d_inner": 200,
-          "lane_counts": pairs, "worst_scaled_err": worst,
-          "tol": SCAN_BWD_TOL})
+          "plain at every chunk length", "s": SCAN_BWD_TEST_S,
+          "d_inner": 200, "states": list(ssm_scan.STATES), "chunks": chunks,
+          "worst_scaled_err": worst, "tol": SCAN_BWD_TOL})
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, device="cuda")
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        if view.data_ptr() % 16 != 4:
+            raise AssertionError("ssm_scan_bwd: the offset view is aligned")
+        return view
+
+    scalar = {}
+    b, s, n, chunk = SCAN_BWD_SCALAR["shape"]
+    for di, moved in SCAN_BWD_SCALAR["cases"]:
+        args, dy, dh, ckpt = inputs(b, s, di, n, True)
+        want = ssm_scan_bwd.ssm_scan_bwd_plain(*args, dy, dh)
+        ops = [offset(t) if moved else t for t in (*args, dy, dh)]
+        got = ssm_scan_bwd.ssm_scan_bwd(*ops, ckpt=ckpt, chunk=chunk)
+        scalar[f"d_inner {di}, offset {moved}"] = errors(
+            got, want, f"({b}, {s}, {di}, {n}) 4-byte staging, offset "
+            f"{moved}, chunk {chunk}")
+    emit({"phase": "lm_train", "name": "ssm_scan_bwd", "check": "4-byte "
+          "staging against plain", "shape": [b, s, n], "chunk": chunk,
+          "chunks": ssm_scan_bwd.chunk_count(s, chunk),
+          "scaled_err": scalar, "tol": SCAN_BWD_TOL})
     out = None
     for config, (b, s, di, n) in SCAN_BWD_SHAPES.items():
         plan = ssm_scan_bwd.bwd_plan(b, s, di, n)
-        args, dy, ckpt, got, want, errs = grads(b, s, di, n, plan.lanes,
-                                                False)
-        again = ssm_scan_bwd.ssm_scan_bwd(*args, dy, ckpt=ckpt)
-        if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise AssertionError(f"ssm_scan_bwd {config}: two runs differ")
-        err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        del got, want, again
-        inputs = [(*args, dy, None)]
+        args, dy, _, ckpt = inputs(b, s, di, n, False)
+        want = ssm_scan_bwd.ssm_scan_bwd_plain(*args, dy)
+        by_chunk = {}
+        for chunk in ssm_scan_bwd.CHUNK_STEPS:
+            got = ssm_scan_bwd.ssm_scan_bwd(*args, dy, ckpt=ckpt,
+                                            chunk=chunk)
+            errs = errors(got, want, f"{config} at chunk {chunk}")
+            again = ssm_scan_bwd.ssm_scan_bwd(*args, dy, ckpt=ckpt,
+                                              chunk=chunk)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"ssm_scan_bwd {config} at chunk "
+                                     f"{chunk}: two runs differ")
+            by_chunk[chunk] = {"scaled_err": errs, "max_abs_err": max(
+                (g - w).abs().max().item() for g, w in zip(got, want))}
+            del got, again
+        inputs_ = [(*args, dy, None)]
 
         def kernel(*a):
             return ssm_scan_bwd.ssm_scan_bwd(*a, ckpt=ckpt)
@@ -3021,24 +3096,29 @@ def _scan_bwd_checks(torch, ssm_scan, ssm_scan_bwd, build) -> dict:
         rec = {"phase": "lm_train", "name": "ssm_scan_bwd", "config": config,
                "shape": [b, s, di, n], "dtype": "float32",
                "plan": {"lanes": plan.lanes, "channels": plan.channels,
+                        "chunk": plan.chunk, "chunks": plan.chunks,
                         "grid": list(plan.grid),
+                        "prepass_grid": list(plan.prepass_grid),
                         "checkpoints": plan.checkpoints},
-               "max_abs_err": err, "scaled_err": errs, "tol": SCAN_BWD_TOL,
+               "max_abs_err": by_chunk[plan.chunk]["max_abs_err"],
+               "scaled_err": by_chunk[plan.chunk]["scaled_err"],
+               "by_chunk": by_chunk, "tol": SCAN_BWD_TOL,
                "deterministic": True,
-               "timing": "graph", "ms": graph_ms(kernel, inputs),
-               "eager_ms": cuda_ms(kernel, inputs),
+               "timing": "graph", "ms": graph_ms(kernel, inputs_),
+               "eager_ms": cuda_ms(kernel, inputs_),
                "forward_with_checkpoints_ms": graph_ms(
                    lambda *a: ssm_scan.ssm_scan(*a, ckpt=ckpt), [args]),
                "forward_ms": graph_ms(ssm_scan.ssm_scan, [args]),
-               "plain_ms": cuda_ms(ssm_scan_bwd.ssm_scan_bwd_plain, inputs,
+               "plain_ms": cuda_ms(ssm_scan_bwd.ssm_scan_bwd_plain, inputs_,
                                    iters=2, warmup=1),
                "library_ms": None, "library_eager_ms": None,
                "library": "none: no PyTorch call computes the selective "
                           "scan's gradient",
                **scan_bwd_bound(b, s, di, n),
                "kernel_resources": usage,
-               "unit": "one call: the reverse walk and the partial sums of "
-                       "one SSM layer, one micro-batch"}
+               "unit": "one call: the chunks' pre-pass, the reverse walk "
+                       "and the partial sums of one SSM layer, one "
+                       "micro-batch"}
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         emit(rec)
         if out is None:
@@ -3048,7 +3128,7 @@ def _scan_bwd_checks(torch, ssm_scan, ssm_scan_bwd, build) -> dict:
                 "shape", "plan", "ms", "eager_ms", "plain_ms", "bound_ms",
                 "bound_by", "bound_share", "max_abs_err",
                 "forward_with_checkpoints_ms")}
-        del args, dy, ckpt, inputs
+        del args, dy, ckpt, inputs_, want
         torch.cuda.empty_cache()
     return out
 
@@ -3444,6 +3524,38 @@ def bwd_resources(build, flash_attn, flash_attn_bwd) -> dict:
     return res
 
 
+def _bf16_reference_errs(torch, q, k, v, do, causal, window, got,
+                         want) -> dict:
+    """A bf16 draw's kernel gradients ``got`` beside SDPA's backward on
+    the same bf16 inputs (``enable_gqa``, the (S, T) boolean mask of the
+    window: s - t < window, and t <= s where causal), both against the
+    float32 reference ``want`` by each gradient's largest element
+    (:func:`_scaled_err`, the windowed bf16 check's metric) and by rows
+    (:func:`grad_row_err`, the metric :data:`FA_BWD_TOL` holds without a
+    window): dq, dk, dv each, and SDPA's backend."""
+    s, t = q.shape[2], k.shape[2]
+    lag = (torch.arange(s, device=q.device)[:, None]
+           - torch.arange(t, device=q.device)[None, :])
+    mask = lag < window
+    if causal:
+        mask &= lag >= 0
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        lib = torch.autograd.grad(out, (qs, ks, vs), do)
+    top = max(w.float().abs().max().item() for w in want)
+    return {"kernel_scaled_err": [_scaled_err(g, w, top)
+                                  for g, w in zip(got, want)],
+            "reference_scaled_err": [_scaled_err(g, w, top)
+                                     for g, w in zip(lib, want)],
+            "kernel_row_err": [grad_row_err(g, w, top)
+                               for g, w in zip(got, want)],
+            "reference_row_err": [grad_row_err(g, w, top)
+                                  for g, w in zip(lib, want)],
+            "reference_backend": sdpa_backend(q, k, v, False, mask)}
+
+
 def _bwd_timed(torch, flash_attn, flash_attn_bwd, run, inputs, shape,
                kernel_resources, window=0) -> dict:
     """The backward at a training shape (B, H, Hk, S, D[, Dv]), bf16,
@@ -3592,33 +3704,55 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
           "scaled_tol": FA_BWD_SCALED_TOL, "deterministic": True})
 
     # Under the window: the forward's window checks, then the (192, 128)
-    # wgmma kernels.
-    worst = {}
+    # wgmma kernels.  Each bf16 draw also runs SDPA's backward on the same
+    # inputs, a bf16 reference whose errors stand beside the kernel's.
+    worst, beside = {}, []
     b, h, hk, s = FA_BWD_WINDOW_SHAPE
     for d, name in FA_WINDOW_KERNELS:
         for causal in (True, False):
             for window in FA_WINDOWS:
                 rows = name == "float32"
-                rec, _ = run(*inputs(getattr(torch, name), b, h, hk, s, s, d),
-                             causal, rows=rows, window=window)
+                q, k, v, do = inputs(getattr(torch, name), b, h, hk, s, s, d)
+                rec, (_, _, got, want) = run(q, k, v, do, causal, rows=rows,
+                                             window=window)
                 key = f"{name} d{d} " + ("row" if rows else "scaled")
                 worst[key] = max(worst.get(key, 0.0),
                                  max(rec.get("dq_dk_dv_row_err")
                                      or rec["dq_dk_dv_scaled_err"]))
+                if not rows:
+                    beside.append(dict(d=d, causal=causal, window=window,
+                                       **_bf16_reference_errs(
+                                           torch, q, k, v, do, causal,
+                                           window, got, want)))
     b, h, hk, s, d, dv = FA_BWD_WINDOW_PAIR
     for causal in (True, False):
         for window in (7, 64, 1000):
-            rec, _ = run(*inputs(torch.bfloat16, b, h, hk, s, s, d, dv),
-                         causal, rows=False, window=window)
+            q, k, v, do = inputs(torch.bfloat16, b, h, hk, s, s, d, dv)
+            rec, (_, _, got, want) = run(q, k, v, do, causal, rows=False,
+                                         window=window)
             key = f"bfloat16 ({d}, {dv}) scaled"
             worst[key] = max(worst.get(key, 0.0),
                              max(rec["dq_dk_dv_scaled_err"]))
+            beside.append(dict(d=d, dv=dv, causal=causal, window=window,
+                               **_bf16_reference_errs(torch, q, k, v, do,
+                                                      causal, window, got,
+                                                      want)))
+    del q, k, v, do, got, want
     emit({"phase": "lm_train", "check": "flash_attention_bwd against plain "
           "under the sliding window", "shape": FA_BWD_WINDOW_SHAPE,
           "windows": FA_WINDOWS, "kernels": FA_WINDOW_KERNELS,
           "pair_shape": FA_BWD_WINDOW_PAIR, "worst_err": worst,
           "tol": FA_BWD_TOL, "scaled_tol": FA_BWD_SCALED_TOL,
           "deterministic": True})
+    emit({"phase": "lm_train", "check": "the windowed bf16 backward beside "
+          "SDPA's backward on the same draw, both against the float32 "
+          "reference", "worst": {
+              key: max(max(c[key]) for c in beside)
+              for key in ("kernel_scaled_err", "reference_scaled_err",
+                          "kernel_row_err", "reference_row_err")},
+          "scaled_tol": FA_BWD_SCALED_TOL["bfloat16"],
+          "row_metric_before_pr30": FA_BWD_TOL["bfloat16"],
+          "cases": beside})
 
     x = torch.zeros(1, 2, 8, 192, device=dev, dtype=torch.bfloat16)
     lse0 = torch.zeros(1, 2, 8, device=dev)

@@ -80,12 +80,15 @@ line per measurement:
   kernel names.
 * the ``scan_bwd`` part: ``ssm_scan_bwd`` at Falcon-Mamba-7B's and
   Hymba-1.5B's training micro-batches ((1, 2048, 8192, 16) and (1, 2048,
-  3200, 16)) at the plan's lane count and every other, in device time and
-  eagerly, beside ``timing.scan_bwd_bound`` and the plain version (no
-  PyTorch call computes the scan's gradient), and the forward kernel
-  with and without its checkpoints in turns; with ``--src``, the other
-  checkout's forward in turns with this tree's (a tree without the
-  backward says so).
+  3200, 16)) at every chunk length (``CHUNK_STEPS``; the planned one
+  marked), in device time and eagerly, beside
+  ``timing.scan_bwd_bound`` and the plain version (no PyTorch call
+  computes the scan's gradient), and the forward kernel with and without
+  its checkpoints in turns; with ``--src``, the other checkout's backward
+  and this tree's at their own plans in turns, whether their bits agree,
+  each call split into its kernels (pre-pass, walk, sums) from
+  ``torch.profiler``, and the other checkout's forward in turns with this
+  tree's (a tree without the backward says so).
 
 ``ms``/``library_ms`` are device time (a CUDA graph of 20 calls cycling
 through copies that together exceed twice the 50 MB L2, timed as one
@@ -522,29 +525,37 @@ def time_scan(torch, timing, kernels, emit, gen) -> None:
 # profiler shows: the pre-pass, dK/dV and dQ.
 BWD_KERNELS = (("prepass", "bwd_delta"), ("dkdv", "bwd_dkdv"),
                ("dq", "bwd_dq"))
+# The scan's backward likewise: the chunks' pre-pass, the reverse walk
+# and the partial sums.
+SCAN_BWD_KERNELS = (("prepass", "scan_bwd_prepass"),
+                    ("walk", "ssm_scan_bwd_kernel"), ("sums", "scan_bwd_sum"))
 
 
-def bwd_split(torch, fn, inputs) -> dict:
-    """One call of ``fn`` (the backward) split into its kernels' device
-    time (ms a call, from ``torch.profiler``'s kernel names) over one
-    traced pass through ``inputs`` after a warm one; ``other_kernels_ms``
-    is whatever else the card ran."""
+def bwd_split(torch, fn, inputs, parts=BWD_KERNELS) -> dict:
+    """One call of ``fn`` (a backward) split into its kernels' device
+    time (ms a call, from ``torch.profiler``'s kernel names: ``parts``,
+    attention's by default) over one traced pass through ``inputs`` after
+    a warm one; ``other_kernels_ms`` is whatever else the card ran.  A
+    one-element fill leads the traced pass: a later trace in one process
+    drops its first kernel (seen on the H100: a second shape's split
+    lacked its first kernel), and the fill is what it drops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for args in inputs:
         fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
         for args in inputs:
             fn(*args)
         torch.cuda.synchronize()
-    split = {f"{part}_ms": 0.0 for part, _ in BWD_KERNELS}
+    split = {f"{part}_ms": 0.0 for part, _ in parts}
     split["other_kernels_ms"] = 0.0
     names = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        part = next((p for p, frag in BWD_KERNELS if frag in e.key),
+        part = next((p for p, frag in parts if frag in e.key),
                     "other_kernels")
         split[f"{part}_ms"] += e.self_device_time_total / 1e3 / len(inputs)
         names[e.key[:80]] = e.count
@@ -667,15 +678,19 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
 
 def time_scan_bwd(torch, timing, kernels, emit, gen) -> None:
     """The scan's backward at :data:`SCAN_BWD_SHAPES`: this tree's kernels
-    (the reverse walk and the partial sums of one call) from the forward's
-    checkpoints at the planned lane count and every other, in device time
-    and eagerly, beside the bound, the plain version and its errors
-    against it; then the forward with and without its checkpoints in
-    turns, and with ``--src`` the other checkout's forward in turns with
-    this tree's (other, this, this, other)."""
+    (the pre-pass over the sequence chunks, the reverse walk and the
+    partial sums of one call) from the forward's checkpoints at every
+    chunk length the plan picks from, in device time and eagerly, beside the
+    bound, the plain version and its errors against it; with ``--src``
+    the other checkout's backward and this tree's at their own plans in
+    turns (other, this, this, other), each call split into its kernels
+    (``torch.profiler``); then the forward with and without its
+    checkpoints in turns, and with ``--src`` the other checkout's forward
+    in turns with this tree's."""
     scan, own = kernels.ssm_scan, own_kernel("ssm_scan")
     bwd = own_kernel("ssm_scan_bwd")
     other = Path(scan.__file__).resolve() != Path(own.__file__).resolve()
+    theirs = getattr(kernels, "ssm_scan_bwd", None) if other else None
     for config, (b, s, di, n) in SCAN_BWD_SHAPES:
         dt = torch.nn.functional.softplus(
             torch.randn(b, s, di, device=gen.device, generator=gen) - 2.0)
@@ -694,21 +709,20 @@ def time_scan_bwd(torch, timing, kernels, emit, gen) -> None:
         want = bwd.ssm_scan_bwd_plain(*args, dy)
         base = {"name": "ssm_scan_bwd", "config": config,
                 "shape": [b, s, di, n], "dtype": "float32",
-                "plan": {"lanes": plan.lanes, "channels": plan.channels,
-                         "grid": list(plan.grid),
-                         "checkpoints": plan.checkpoints},
+                "plan": {k: list(v) if isinstance(v, tuple) else v
+                         for k, v in vars(plan).items()},
                 "library_ms": None,
                 "library": "none: no PyTorch call computes the selective "
                            "scan's gradient",
                 **timing.scan_bwd_bound(b, s, di, n)}
         inputs = [(*args, dy)]
-        for lanes in own.lane_counts(n):
-            def run(*t, lanes=lanes):
-                return bwd.ssm_scan_bwd(*t, ckpt=ckpt, lanes=lanes)
+        for chunk in bwd.CHUNK_STEPS:
+            def run(*t, chunk=chunk):
+                return bwd.ssm_scan_bwd(*t, ckpt=ckpt, chunk=chunk)
             got = run(*inputs[0])
             ms = timing.graph_ms(run, inputs)
-            emit(dict(base, timing="graph", lanes=lanes,
-                      planned=lanes == plan.lanes, ms=ms,
+            emit(dict(base, timing="graph", lanes=plan.lanes, chunk=chunk,
+                      planned=chunk == plan.chunk, ms=ms,
                       eager_ms=timing.cuda_ms(run, inputs),
                       scaled_err_vs_plain=[
                           ((g - w).abs().max() / w.abs().max()).item()
@@ -718,6 +732,32 @@ def time_scan_bwd(torch, timing, kernels, emit, gen) -> None:
         emit(dict(base, timing="eager", what="plain version",
                   plain_ms=timing.cuda_ms(bwd.ssm_scan_bwd_plain, inputs,
                                           iters=2, warmup=1)))
+        if theirs is not None:
+            def this_bwd(*t):
+                return bwd.ssm_scan_bwd(*t, ckpt=ckpt)
+
+            def other_bwd(*t):
+                return theirs.ssm_scan_bwd(*t, ckpt=ckpt)
+            mine, their = this_bwd(*inputs[0]), other_bwd(*inputs[0])
+            g = [timing.graph_ms(f, inputs)
+                 for f in (other_bwd, this_bwd, this_bwd, other_bwd)]
+            emit(dict(base, timing="graph", what="backward in turns",
+                      ms=(g[1] + g[2]) / 2, runs_ms=[g[1], g[2]],
+                      other_ms=(g[0] + g[3]) / 2, other_runs_ms=[g[0], g[3]],
+                      eager_ms=timing.cuda_ms(this_bwd, inputs),
+                      other_eager_ms=timing.cuda_ms(other_bwd, inputs),
+                      other=str(theirs.__file__),
+                      other_scaled_err_vs_plain=[
+                          ((g_ - w).abs().max() / w.abs().max()).item()
+                          for g_, w in zip(their, want)],
+                      same_bits=all(torch.equal(p, q)
+                                    for p, q in zip(mine, their)),
+                      bound_share=base["bound_ms"] * 2 / (g[1] + g[2]),
+                      split=bwd_split(torch, this_bwd, inputs,
+                                      SCAN_BWD_KERNELS),
+                      other_split=bwd_split(torch, other_bwd, inputs,
+                                            SCAN_BWD_KERNELS)))
+            del mine, their
         fwd = {"this, checkpoints": lambda *t: own.ssm_scan(*t, ckpt=ckpt),
                "this": own.ssm_scan}
         if other:
@@ -728,7 +768,7 @@ def time_scan_bwd(torch, timing, kernels, emit, gen) -> None:
                   forward_ms={k: [r for o, r in zip(order, runs) if o == k]
                               for k in fwd},
                   other=str(scan.__file__) if other else None,
-                  other_has_backward=hasattr(kernels, "ssm_scan_bwd")))
+                  other_has_backward=theirs is not None))
         del args, inputs, ckpt, want
         torch.cuda.empty_cache()
 

@@ -31,17 +31,30 @@ Hymba-1.5B (32 layers of window-1024 attention beside a Mamba block) and
 ``--only train`` profiles the training step at full width (Qwen3-4B's
 published widths, depth cut to 12 layers, 8 micro-batches of 2048
 tokens, remat, AdamW, as ``chip_smoke.py`` trains it): one traced step's
-device time by kind (the attention kernels forward and backward, GEMMs,
-elementwise and reduction passes, the rest) with the step's busy and
-idle share (against that traced step's own wall time,
-``traced_wall_s``), and the optimizer update traced alone.
+device time by kind (the attention kernels forward and backward, the
+scan kernels forward and backward, GEMMs, elementwise and reduction
+passes, the rest) with the step's busy and idle share (against that
+traced step's own wall time, ``traced_wall_s``), the host's busiest
+operators, and the optimizer update traced alone; ``--only train_ssm``
+Falcon-Mamba-7B at its published widths cut to 16 layers and ``--only
+train_hybrid`` Hymba-1.5B whole (32 layers), as ``chip_smoke.py`` trains
+them.  With ``--other-src DIR`` (another checkout's ``src``, a parent's
+say) the SSM and hybrid steps are also timed with that checkout's scan
+backward swapped in, in turns with this tree's (other, this, this, other,
+``--rounds`` times over; each a warm step and a timed one on the same
+weights and batch), with each side's mean, the spread of the step's
+change over the rounds, and the least and most of each side's runs.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
+import sys
 import time
+import types
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -51,7 +64,8 @@ from repro_torch.core import fiveg, prng, sweep, tuning
 from repro_torch.data import DataConfig, batch_for_model
 from repro_torch.examples import bench_faults, fiveg_pipeline, serve_lm
 from repro_torch.kernels import (axpy, conv2d, dct, dotp, fft4, flash_attn,
-                                 flash_attn_bwd, matmul, ops, powf, ssm_scan)
+                                 flash_attn_bwd, matmul, ops, powf, ssm_scan,
+                                 ssm_scan_bwd)
 from repro_torch.launch import steps
 from repro_torch.models import init_params
 from repro_torch.models.layers import tree_map
@@ -246,6 +260,9 @@ def profile_simulator(device="cuda") -> None:
 KINDS = (("attention_forward", ("fa_wgmma_kernel", "fa_mma_kernel",
                                 "fa_fma_kernel")),
          ("attention_backward", ("bwd_dkdv", "bwd_dq", "bwd_delta")),
+         ("scan_forward", ("ssm_scan_kernel", "ssm_scan_ckpt_kernel")),
+         ("scan_backward", ("ssm_scan_bwd_kernel", "scan_bwd_prepass",
+                            "scan_bwd_sum")),
          ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
          ("elementwise", ("elementwise", "vectorized", "reduce", "softmax",
                           "cat", "copy", "fill", "index", "gather",
@@ -263,7 +280,9 @@ def _kind(name: str) -> str:
 def _traced(fn) -> dict:
     """One warm call, then one traced call of ``fn``: its host wall
     seconds (synchronized) and the profiler's device seconds and launches
-    by kind, with the top kernels and every attention kernel by name."""
+    by kind, with the top kernels, every attention and scan kernel by
+    name, and the host operators that took the most of the host's own
+    time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -273,26 +292,90 @@ def _traced(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     kinds = {}
     for e in kernels:
         k = kinds.setdefault(_kind(e.key), {"device_s": 0.0, "launches": 0})
         k["device_s"] += e.self_device_time_total / 1e6
         k["launches"] += e.count
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
     return {"traced_wall_s": wall, "by_kind": kinds,
             "top_kernels": [[e.key[:70], e.count,
                              e.self_device_time_total / 1e3] for e in top],
             "attention_kernels": [[e.key[:70], e.count,
                                    e.self_device_time_total / 1e3]
                                   for e in kernels
-                                  if _kind(e.key).startswith("attention")]}
+                                  if _kind(e.key).startswith("attention")],
+            "scan_kernels": [[e.key[:70], e.count,
+                              e.self_device_time_total / 1e3]
+                             for e in kernels
+                             if _kind(e.key).startswith("scan")],
+            "host_ops_self_ms": [[e.key[:60], e.count,
+                                  e.self_cpu_time_total / 1e3]
+                                 for e in host]}
 
 
-def profile_train(device="cuda") -> None:
-    """The full-width training step (module docstring)."""
-    cfg = dataclasses.replace(configs.get("qwen3_4b"), n_layers=12)
+# The model each train profile runs (config, layers): Qwen3-4B cut to 12
+# of its 36 layers, Falcon-Mamba-7B to 16 of 64, Hymba-1.5B whole; 8
+# micro-batches of 2048 tokens a step, as chip_smoke.py trains them.
+TRAIN_MODELS = {"train": ("qwen3_4b", 12), "train_ssm": ("falcon_mamba_7b", 16),
+                "train_hybrid": ("hymba_1_5b", 32)}
+
+
+def other_scan_bwd(src: str):
+    """``kernels/ssm_scan_bwd.py`` of another checkout's ``src``, under a
+    package of its own (its library builds in that checkout's ``build/``),
+    so that one process can run both trees' scan backward."""
+    name = "other_repro_torch"
+    if name not in sys.modules:
+        pkg = types.ModuleType(name)
+        pkg.__path__ = [str(Path(src).resolve() / "repro_torch")]
+        sys.modules[name] = pkg
+    return importlib.import_module(f"{name}.kernels.ssm_scan_bwd")
+
+
+def _steps_in_turns(fn, params, state, batch, other, rounds=1) -> dict:
+    """The step's wall ms with this tree's scan backward and with
+    ``other``'s swapped into ``models.ssm``, in turns (other, this, this,
+    other, ``rounds`` times), each a warm step then a timed one; with
+    each round's change (this minus other, the mean of its two runs a
+    side) and the changes' mean, least and most."""
+    from repro_torch.models import ssm as ssm_model
+    own = ssm_model._scan_bwd
+    times = {"this": [], "other": []}
+    try:
+        for label in ("other", "this", "this", "other") * rounds:
+            ssm_model._scan_bwd = own if label == "this" else other
+            fn(params, state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(params, state, batch)
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ssm_model._scan_bwd = own
+    change = [(sum(times["this"][2 * r:2 * r + 2])
+               - sum(times["other"][2 * r:2 * r + 2])) / 2
+              for r in range(rounds)]
+    return {"step_ms_in_turns": times, "other": str(other.__file__),
+            "step_ms_mean": {k: sum(v) / len(v) for k, v in times.items()},
+            "step_ms_range": {k: [min(v), max(v)] for k, v in times.items()},
+            "change_ms_by_round": change,
+            "change_ms_mean": sum(change) / rounds,
+            "change_ms_range": [min(change), max(change)]}
+
+
+def profile_train(device="cuda", which="train", other=None,
+                  rounds=1) -> None:
+    """One of :data:`TRAIN_MODELS`' training steps at full width (module
+    docstring); ``other``, a scan backward module (:func:`other_scan_bwd`)
+    timed in turns with this tree's ``rounds`` times where the model has a
+    scan."""
+    arch, layers = TRAIN_MODELS[which]
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
     params = init_params(cfg, prng.PRNGKey(0, device=device))
     ocfg = optim.OptConfig.from_model(cfg)
     state = optim.init(params, ocfg)
@@ -305,11 +388,14 @@ def profile_train(device="cuda") -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     flash_attn.LAUNCHES = flash_attn_bwd.LAUNCHES = 0
+    ssm_scan.LAUNCHES = ssm_scan_bwd.LAUNCHES = 0
     fn(params, state, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attn.LAUNCHES,
-                "flash_attention_bwd": flash_attn_bwd.LAUNCHES}
+                "flash_attention_bwd": flash_attn_bwd.LAUNCHES,
+                "ssm_scan": ssm_scan.LAUNCHES,
+                "ssm_scan_bwd": ssm_scan_bwd.LAUNCHES}
     traced = _traced(lambda: fn(params, state, batch))
     busy_s = sum(x["device_s"] for x in traced["by_kind"].values())
 
@@ -318,14 +404,16 @@ def profile_train(device="cuda") -> None:
     nsq = optim.global_norm_sq(grads)
     update = _traced(lambda: optim.update(grads, state, params, ocfg,
                                           norm_sq=nsq))
+    turns = (_steps_in_turns(fn, params, state, batch, other, rounds)
+             if other is not None and cfg.has_ssm else {})
     print(json.dumps({
-        "run": "train step qwen3-4b 12 layers, 8 x 2048 tokens",
+        "run": f"train step {cfg.name} {layers} layers, 8 x 2048 tokens",
         "wall_s": wall, "launches": launches, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / traced["traced_wall_s"], **traced,
-        "optimizer_update": update}))
+        "optimizer_update": update, **turns}))
 
 
-PATHS = ("simulator", "train", *SERVE_MODELS)
+PATHS = ("simulator", *TRAIN_MODELS, *SERVE_MODELS)
 
 
 def main(argv=None) -> None:
@@ -333,7 +421,16 @@ def main(argv=None) -> None:
     ap.add_argument("--only", help="profile these paths, comma-separated, "
                                    f"of {', '.join(PATHS)} (default: the "
                                    "simulator and Qwen3-4B's serve)")
+    ap.add_argument("--other-src", help="another checkout's src: its scan "
+                                        "backward timed in turns with this "
+                                        "tree's in the train paths")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="rounds of (other, this, this, other) steps with "
+                         "--other-src (default 1)")
     args = ap.parse_args(argv)
+    if args.rounds < 1:
+        ap.error("--rounds: at least 1")
+    other = other_scan_bwd(args.other_src) if args.other_src else None
     only = args.only.split(",") if args.only else ["simulator", "serve"]
     bad = [name for name in only if name not in PATHS]
     if bad:
@@ -342,8 +439,8 @@ def main(argv=None) -> None:
     for name in only:
         if name == "simulator":
             profile_simulator()
-        elif name == "train":
-            profile_train()
+        elif name in TRAIN_MODELS:
+            profile_train(which=name, other=other, rounds=args.rounds)
             torch.cuda.empty_cache()
         else:
             profile_serve(which=name)

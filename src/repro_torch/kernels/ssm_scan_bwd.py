@@ -11,17 +11,21 @@ None for zeros, as in training, which never reads the final state), it
 returns the seven gradients ``(d(dt), dx, dB, dC, dA, dD, dh0)``, all
 float32, in the operands' order.
 
-The CUDA kernel (``csrc/ssm_scan_bwd.cu``) walks each (batch row,
+The CUDA kernels (``csrc/ssm_scan_bwd.cu``) walk each (batch row,
 channel)'s steps in reverse over 16-step tiles: the forward writes the
 state at the start of every tile (``ckpt``, (B, ceil(S / 16), d_inner, n),
 :func:`checkpoints` tiles) when autograd records, and the backward
-recomputes a tile's states from it into shared memory before walking
-the tile backwards, ``lanes`` threads a channel as the forward (the lane
-count of :func:`bwd_plan`).  dB and dC, which sum over every channel, and
-dA and dD, which sum over batch rows and time, go through per-block
-partial sums and a second launch that adds them in a fixed order: no
-atomics, so two runs give the same bits.  The plain version,
-:func:`ssm_scan_bwd_plain`, is autograd through
+recomputes a tile's states from it into registers before walking the
+tile backwards, n / :data:`LANE_STATES` threads a channel.  The sequence
+is cut into chunks of :func:`bwd_plan`'s ``chunk`` steps, walked in
+parallel: the carry a chunk hands the one before is linear in the carry
+it receives, so a pre-pass writes each chunk's outgoing carry from a zero
+one and its decays' product, and each walk folds the later chunks' into
+its own incoming carry, last chunk first.  dB and dC, which sum over every
+channel, and dA and dD, which sum over chunks, batch rows and time, go
+through per-block partial sums and a last launch that adds them in a
+fixed order: no atomics, so two runs give the same bits.  The plain
+version, :func:`ssm_scan_bwd_plain`, is autograd through
 :func:`repro_torch.kernels.ssm_scan.ssm_scan_plain`: the path for CPU
 tensors and the kernel's oracle on the card.
 """
@@ -33,22 +37,35 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
-from .ssm_scan import STATES, THREADS, _check, lane_counts, scan_plan, \
-    ssm_scan_plain
+from .ssm_scan import STATES, THREADS, _check, ssm_scan_plain
 
-# Calls of ssm_scan_bwd that launched the kernels (the walk and the sums:
-# one count); the plain path never counts.
+# Calls of ssm_scan_bwd that launched the kernels (the pre-pass, the walk
+# and the sums: one count); the plain path never counts.
 LAUNCHES = 0
 
 # Steps a tile: the forward's checkpoint interval (csrc/ssm_scan.cu,
 # csrc/ssm_scan_bwd.cu STEPS).
 STEPS = 16
+# States a pre-pass thread (csrc/ssm_scan_bwd.cu PRE_STATES): a pre-pass
+# block holds 128 / (n / 8) channels.
+PRE_STATES = 8
+# States a walk lane (csrc/ssm_scan_bwd.cu LANE_STATES): n / 4 lanes a
+# channel, the fewest whose recomputed history fits registers.
+LANE_STATES = 4
+# The chunk lengths the plan picks from, in steps (whole tiles each).
+CHUNK_STEPS = (64, 128, 256, 512, 1024)
+# Walk blocks the plan asks of the grid: the longest chunk whose grid has
+# this many, else the shortest.  About two waves of the walk at 4 lanes
+# (128 registers a thread: 4 blocks on each of the 132 SMs), the fastest
+# of CHUNK_STEPS at both training shapes (kernel_times.py on the H100).
+TARGET_BLOCKS = 1024
 
 # dt, x, B, C, A, D, ckpt, dy, dh_T, then the seven gradients, the four
-# partial sums, then B, S, d_inner, n, lanes, stream.
-_SIGNATURES = {"ssm_scan_bwd_f32": [ctypes.c_void_p] * 20
+# partial sums, the chunks' carries and decay products, then B, S,
+# d_inner, n, chunk, stream.
+_SIGNATURES = {"ssm_scan_bwd_f32": [ctypes.c_void_p] * 22
                + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-               "ssm_scan_bwd_smem": [ctypes.c_int] * 2}
+               "ssm_scan_bwd_smem": [ctypes.c_int]}
 
 
 def checkpoints(s: int) -> int:
@@ -56,35 +73,63 @@ def checkpoints(s: int) -> int:
     return -(-s // STEPS)
 
 
+def chunk_count(s: int, chunk: int) -> int:
+    """Chunks of ``chunk`` steps over ``s`` steps: at least one."""
+    return max(1, -(-s // chunk))
+
+
 @dataclass(frozen=True)
 class ScanBwdPlan:
     """A launch of the backward: ``lanes`` threads a (batch row, channel),
-    ``channels`` a block of :data:`THREADS`, ``grid`` (blocks along
-    d_inner, whose dB and dC partial sums the second launch adds, and
-    batch rows); ``checkpoints`` states a (batch row, channel) from the
+    ``channels`` a walk block of :data:`THREADS`, ``chunk`` steps a chunk
+    over ``chunks`` chunks, the walk's ``grid`` (blocks along d_inner,
+    whose dB and dC partial sums the last launch adds; chunks; batch
+    rows), the pre-pass's ``prepass_grid`` (blocks of ``prepass_channels``
+    along d_inner; the chunks but the first; batch rows; no launch at one
+    chunk) and ``checkpoints`` states a (batch row, channel) from the
     forward."""
     lanes: int
     channels: int
+    chunk: int
+    chunks: int
     grid: tuple
+    prepass_channels: int
+    prepass_grid: tuple
     checkpoints: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
 
 
 def bwd_plan(b: int, s: int, d_inner: int, n: int,
-             lanes: int | None = None) -> ScanBwdPlan:
+             chunk: int | None = None) -> ScanBwdPlan:
     """The backward's launch for ``b`` batch rows of ``s`` steps and
-    ``d_inner`` channels at ``n`` states: the forward's lane count
-    (:func:`~repro_torch.kernels.ssm_scan.scan_plan`: at one batch row 4
-    lanes at Falcon-Mamba-7B's 8192 channels, 8 at Hymba-1.5B's 3200) or
-    ``lanes``, one of :func:`~repro_torch.kernels.ssm_scan.lane_counts`."""
-    if lanes is None:
-        lanes = scan_plan(b, d_inner, n).lanes
-    if n not in STATES or lanes not in lane_counts(n):
-        raise ValueError(f"ssm_scan_bwd: {lanes} lanes at n = {n}; the "
-                         f"kernel holds n in {STATES} at lanes "
-                         f"{lane_counts(n) if n in STATES else ()}")
+    ``d_inner`` channels at ``n`` states: n / :data:`LANE_STATES` lanes
+    (4 at n = 16, 2 at n = 8; the chunks, not the lanes, fill the card);
+    the longest chunk of :data:`CHUNK_STEPS` whose walk has
+    :data:`TARGET_BLOCKS` blocks, else the shortest, or ``chunk`` steps
+    (a positive multiple of 16).  Falcon-Mamba-7B's training micro-batch
+    (1, 2048, 8192, 16) takes chunks of 512 steps, Hymba-1.5B's (1, 2048,
+    3200, 16) 128."""
+    if n not in STATES:
+        raise ValueError(f"ssm_scan_bwd: n = {n}; the kernel holds n in "
+                         f"{STATES}")
+    lanes = n // LANE_STATES
     channels = THREADS // lanes
-    return ScanBwdPlan(lanes, channels, (-(-d_inner // channels), b),
-                       checkpoints(s))
+    blocks_x = -(-d_inner // channels)
+    if chunk is None:
+        chunk = next((c for c in CHUNK_STEPS[::-1]
+                      if blocks_x * chunk_count(s, c) * b >= TARGET_BLOCKS),
+                     CHUNK_STEPS[0])
+    if chunk <= 0 or chunk % STEPS:
+        raise ValueError(f"ssm_scan_bwd: a chunk of {chunk} steps; it "
+                         f"takes a positive multiple of {STEPS}")
+    chunks = chunk_count(s, chunk)
+    pre = THREADS // (n // PRE_STATES)
+    return ScanBwdPlan(lanes, channels, chunk, chunks,
+                       (blocks_x, chunks, b), pre,
+                       (-(-d_inner // pre), chunks - 1, b), checkpoints(s))
 
 
 def ssm_scan_bwd_plain(dt, x, bmat, cmat, a, d_skip, h0, dy,
@@ -108,14 +153,13 @@ def ssm_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
                  h0: torch.Tensor, dy: torch.Tensor,
                  dh: torch.Tensor | None = None, *,
                  ckpt: torch.Tensor | None = None,
-                 lanes: int | None = None) -> tuple:
+                 chunk: int | None = None) -> tuple:
     """The scan's seven gradients (module docstring).  CUDA tensors launch
-    the kernels at :func:`bwd_plan`'s lane count (or ``lanes``) from the
-    forward's checkpoints ``ckpt`` ((B, :func:`checkpoints`, d_inner, n),
-    ``ssm_scan.launch(..., ckpt=)``): float32, contiguous, n in
-    :data:`~repro_torch.kernels.ssm_scan.STATES`; anything else raises.
-    CPU tensors take :func:`ssm_scan_bwd_plain`, which needs no
-    checkpoints."""
+    the kernels at :func:`bwd_plan`'s chunk length (or ``chunk``) from the forward's checkpoints ``ckpt`` ((B,
+    :func:`checkpoints`, d_inner, n), ``ssm_scan.launch(..., ckpt=)``):
+    float32, contiguous, n in :data:`~repro_torch.kernels.ssm_scan.STATES`;
+    anything else raises.  CPU tensors take :func:`ssm_scan_bwd_plain`,
+    which needs no checkpoints."""
     global LAUNCHES
     _check(dt, x, bmat, cmat, a, d_skip, h0)
     B, S, di = x.shape
@@ -129,7 +173,7 @@ def ssm_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"the ssm_scan_bwd kernel runs on cuda, not "
                          f"{x.device}")
-    plan = bwd_plan(B, S, di, n, lanes)
+    plan = bwd_plan(B, S, di, n, chunk)
     ops = [dt, x, bmat, cmat, a, d_skip, dy] + ([] if dh is None else [dh])
     if ckpt is None or tuple(ckpt.shape) != (B, plan.checkpoints, di, n):
         raise ValueError(f"ssm_scan_bwd needs the forward's checkpoints "
@@ -144,9 +188,12 @@ def ssm_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
         raise ValueError("ssm_scan_bwd takes contiguous operands")
     grads = [torch.empty_like(t) for t in (dt, x, bmat, cmat, a, d_skip, h0)]
     f32 = dict(dtype=torch.float32, device=x.device)
+    k = plan.chunks
     parts = (torch.empty((plan.grid[0], B, S, n), **f32),
              torch.empty((plan.grid[0], B, S, n), **f32),
-             torch.empty((B, di, n), **f32), torch.empty((B, di), **f32))
+             torch.empty((k, B, di, n), **f32), torch.empty((k, B, di), **f32),
+             torch.empty((B, k, di, n), **f32),
+             torch.empty((B, k, di, n), **f32))
     if B == 0:
         for g in grads:
             g.zero_()
@@ -157,6 +204,6 @@ def ssm_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bmat: torch.Tensor,
                                          dy)),
                 None if dh is None else dh.data_ptr(),
                 *(g.data_ptr() for g in grads),
-                *(p.data_ptr() for p in parts), B, S, di, n, plan.lanes)
+                *(p.data_ptr() for p in parts), B, S, di, n, plan.chunk)
     LAUNCHES += 1
     return tuple(grads)

@@ -1619,7 +1619,18 @@ def test_train_lm_default_scale_trains_on_card(cuda, tmp_path):
 SCAN_BWD_TOL = 1e-4
 
 
-def _scan_grad_run(cuda, b, s, di, n, lanes, seed, with_dh):
+def _offset(cuda, t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary (a view at storage offset 1)."""
+    flat = torch.empty(t.numel() + 1, device=cuda)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _scan_grad_run(cuda, b, s, di, n, seed, with_dh, chunk=None,
+                   offset=False):
     args = _scan_inputs(cuda, b, s, di, n, seed)
     gen = torch.Generator(device=cuda).manual_seed(seed + 1)
     dy = torch.randn(b, s, di, device=cuda, generator=gen)
@@ -1628,42 +1639,67 @@ def _scan_grad_run(cuda, b, s, di, n, lanes, seed, with_dh):
     ckpt = torch.empty(b, ssm_scan_bwd.checkpoints(s), di, n, device=cuda)
     ssm_scan.ssm_scan(*args, ckpt=ckpt)
     before = ssm_scan_bwd.LAUNCHES
-    got = ssm_scan_bwd.ssm_scan_bwd(*args, dy, dh, ckpt=ckpt, lanes=lanes)
+    ops = [*args, dy, dh]
+    if offset:
+        ops = [None if t is None else _offset(cuda, t) for t in ops]
+    got = ssm_scan_bwd.ssm_scan_bwd(*ops, ckpt=ckpt, chunk=chunk)
     assert ssm_scan_bwd.LAUNCHES == before + 1
     want = ssm_scan_bwd.ssm_scan_bwd_plain(*args, dy, dh)
     return args, dy, dh, ckpt, got, want
 
 
-SCAN_BWD_CASES = [(lanes, n) for n in ssm_scan.STATES
-                  for lanes in ssm_scan.lane_counts(n)]
+# The backward's chunk lengths under test: one tile, and every length the
+# plan picks from.
+SCAN_BWD_CHUNKS = (16,) + ssm_scan_bwd.CHUNK_STEPS
 
 
-@pytest.mark.parametrize("lanes,n", SCAN_BWD_CASES)
+@pytest.mark.parametrize("n", ssm_scan.STATES)
 @pytest.mark.parametrize("s", [1, 15, 16, 300])
 @pytest.mark.parametrize("with_dh", [False, True])
-def test_ssm_scan_bwd_matches_plain(cuda, lanes, n, s, with_dh):
-    """Every lane count at n 8 and 16; S below one 16-step checkpoint
-    interval, at it and ragged past the plain version's 256-step chunk;
-    the final state's gradient absent and present; 200 channels (a
-    ragged last block) over 2 batch rows."""
-    _, _, _, _, got, want = _scan_grad_run(cuda, 2, s, 200, n, lanes,
-                                           s + n + lanes, with_dh)
+@pytest.mark.parametrize("chunk", SCAN_BWD_CHUNKS)
+def test_ssm_scan_bwd_matches_plain(cuda, n, s, with_dh, chunk):
+    """n 8 and 16 (2 and 4 lanes) and every chunk length; S below one
+    16-step checkpoint interval, at it and ragged past the plain
+    version's 256-step chunk (below one chunk, at it, and ragged over
+    several); the final state's gradient absent and present; 200 channels
+    (a ragged last block) over 2 batch rows."""
+    _, _, _, _, got, want = _scan_grad_run(cuda, 2, s, 200, n,
+                                           s + n + n // 4, with_dh, chunk)
+    for name, g, w in zip(("dt", "x", "B", "C", "A", "D", "h0"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _scaled_err(g, w) <= SCAN_BWD_TOL, name
+
+
+@pytest.mark.parametrize("n", ssm_scan.STATES)
+@pytest.mark.parametrize("di,offset", [(33, False), (64, True),
+                                       (33, True)])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ssm_scan_bwd_scalar_staging_matches_plain(cuda, n, di, offset,
+                                                   with_dh, chunk):
+    """The 4-byte copies of the walk's and the pre-pass's staging: an odd
+    d_inner (rows off 16-byte boundaries), operands at storage offset 1
+    at a d_inner whose rows would be aligned, and both; 300 steps over
+    19 or 5 chunks, so the pre-pass runs."""
+    _, _, _, _, got, want = _scan_grad_run(cuda, 2, 300, di, n,
+                                           di + n + chunk, with_dh, chunk,
+                                           offset)
     for name, g, w in zip(("dt", "x", "B", "C", "A", "D", "h0"), got, want):
         assert g.shape == w.shape and torch.isfinite(g).all(), name
         assert _scaled_err(g, w) <= SCAN_BWD_TOL, name
 
 
 @pytest.mark.parametrize("di", [8192, 3200])
-def test_ssm_scan_bwd_at_the_training_shapes(cuda, di):
+@pytest.mark.parametrize("chunk", ssm_scan_bwd.CHUNK_STEPS)
+def test_ssm_scan_bwd_at_the_training_shapes(cuda, di, chunk):
     """Falcon-Mamba-7B's (1, 2048, 8192, 16) and Hymba-1.5B's (1, 2048,
-    3200, 16) training micro-batches at the plan's lane count (4 and 8),
-    twice: the same bits."""
-    plan = ssm_scan_bwd.bwd_plan(1, 2048, di, 16)
+    3200, 16) training micro-batches (4 lanes at both) at every chunk
+    length the plan picks from, twice: the same bits."""
     args, dy, _, ckpt, got, want = _scan_grad_run(cuda, 1, 2048, di, 16,
-                                                  plan.lanes, di, False)
+                                                  di, False, chunk)
     for g, w in zip(got, want):
         assert _scaled_err(g, w) <= SCAN_BWD_TOL
-    again = ssm_scan_bwd.ssm_scan_bwd(*args, dy, ckpt=ckpt)
+    again = ssm_scan_bwd.ssm_scan_bwd(*args, dy, ckpt=ckpt, chunk=chunk)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -1690,7 +1726,7 @@ def test_ssm_scan_bwd_planted_fault_dropped_partial(cuda):
     4 lanes) is the plain version's gradient of the scan without those
     channels (each channel's recurrence is its own), and it fails the
     tolerance against the kernel's dB."""
-    args, dy, _, _, got, want = _scan_grad_run(cuda, 1, 300, 256, 16, 4, 11,
+    args, dy, _, _, got, want = _scan_grad_run(cuda, 1, 300, 256, 16, 11,
                                                False)
     keep = torch.cat([torch.arange(0, 32), torch.arange(64, 256)]).to(cuda)
     dt, x, bm, cm, a, d, h0 = args
@@ -1701,14 +1737,31 @@ def test_ssm_scan_bwd_planted_fault_dropped_partial(cuda):
     assert _scaled_err(got[2], dropped) > SCAN_BWD_TOL
 
 
+def test_ssm_scan_bwd_planted_fault_dropped_chunk_carry(cuda):
+    """The check must see a chunk's incoming carry dropped: with the
+    carry into the first 64-step chunk zero, that chunk's gradients are
+    the plain version's of the scan cut after step 64 (the later steps
+    reach the earlier ones only through that carry), and they fail the
+    tolerance against the kernel's d(dt) and dx there (dh0, 64 decays
+    away from the carry, moves by less: 8.6e-5 of itself, seen)."""
+    args, dy, _, _, got, want = _scan_grad_run(cuda, 1, 300, 256, 16, 13,
+                                               False, 64)
+    cut = [t[:, :64] if t.dim() == 3 and t.shape[1] == 300 else t
+           for t in args]
+    dropped = ssm_scan_bwd.ssm_scan_bwd_plain(*cut, dy[:, :64])
+    for i in (0, 1):
+        assert _scaled_err(got[i], want[i]) <= SCAN_BWD_TOL
+        assert _scaled_err(got[i][:, :64], dropped[i]) > SCAN_BWD_TOL
+
+
 def test_ssm_scan_bwd_refuses_without_checkpoints(cuda):
     args = _scan_inputs(cuda, 1, 32, 64, 16, 1)
     dy = torch.zeros(1, 32, 64, device=cuda)
     before = ssm_scan_bwd.LAUNCHES
     with pytest.raises(ValueError, match="checkpoints"):
         ssm_scan_bwd.ssm_scan_bwd(*args, dy)
-    with pytest.raises(ValueError, match="lanes"):
-        ssm_scan_bwd.ssm_scan_bwd(*args, dy, lanes=16,
+    with pytest.raises(ValueError, match="chunk"):
+        ssm_scan_bwd.ssm_scan_bwd(*args, dy, chunk=24,
                                   ckpt=torch.empty(1, 2, 64, 16,
                                                    device=cuda))
     assert ssm_scan_bwd.LAUNCHES == before
