@@ -493,6 +493,9 @@ FA_BWD_SHAPES = ((2, 2, 77, 77), (8, 2, 300, 300), (4, 1, 130, 200),
 FA_BWD_WINDOW_SHAPE = (1, 10, 2, 1100)
 FA_BWD_WINDOW_PAIR = (1, 8, 8, 700, 192, 128)
 FA_WINDOW_TRAIN_SHAPE = (1, 25, 5, 2048, 64, 1024)
+# Hymba-1.5B's training shape is also checked causal and not, by each
+# gradient's largest element beside SDPA, on draws of this seed.
+FA_BWD_FULL_SEED = 32
 FA_TRAIN_SHAPE = (1, 32, 8, 2048, 128)
 # DeepSeek-V3's training attention (B, H, Hk, S, D, Dv): one micro-batch
 # of 2048 tokens, 128 heads at MLA's (192, 128).
@@ -3634,14 +3637,15 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(25)
 
-    def inputs(dtype, b, h, hk, s, t, d, dv=None):
+    def inputs(dtype, b, h, hk, s, t, d, dv=None, g=None):
         dv = d if dv is None else dv
-        q = (0.5 * torch.randn(b, h, s, d, device=dev, generator=gen)
+        g = gen if g is None else g
+        q = (0.5 * torch.randn(b, h, s, d, device=dev, generator=g)
              ).to(dtype)
-        k = (0.5 * torch.randn(b, hk, t, d, device=dev, generator=gen)
+        k = (0.5 * torch.randn(b, hk, t, d, device=dev, generator=g)
              ).to(dtype)
-        v = torch.randn(b, hk, t, dv, device=dev, generator=gen).to(dtype)
-        do = torch.randn(b, h, s, dv, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, hk, t, dv, device=dev, generator=g).to(dtype)
+        do = torch.randn(b, h, s, dv, device=dev, generator=g).to(dtype)
         return q, k, v, do
 
     def run(q, k, v, do, causal, scale=None, rows=True, window=0):
@@ -3780,6 +3784,26 @@ def _fa_bwd_checks(torch, flash_attn, flash_attn_bwd, ref, build) -> tuple:
     window_summary = _bwd_timed(torch, flash_attn, flash_attn_bwd, run,
                                 inputs, FA_WINDOW_TRAIN_SHAPE[:5], resources,
                                 window=FA_WINDOW_TRAIN_SHAPE[5])
+    # Hymba-1.5B's full training shape under its window, causal and not,
+    # on draws of their own generator (the draws above keep theirs): by
+    # each gradient's largest element (the windowed bound), beside SDPA's
+    # backward on the same draws.
+    full_gen = torch.Generator(device=dev).manual_seed(FA_BWD_FULL_SEED)
+    bb, hh, hkk, ss, dd, window = FA_WINDOW_TRAIN_SHAPE
+    full = []
+    for causal in (True, False):
+        q, k, v, do = inputs(torch.bfloat16, bb, hh, hkk, ss, ss, dd,
+                             g=full_gen)
+        rec, (_, _, got, want) = run(q, k, v, do, causal, rows=False,
+                                     window=window)
+        full.append(dict(causal=causal, **rec, **_bf16_reference_errs(
+            torch, q, k, v, do, causal, window, got, want)))
+    del q, k, v, do, got, want
+    emit({"phase": "lm_train", "check": "flash_attention_bwd at Hymba-1.5B's "
+          "training shape under its window against plain, beside SDPA's "
+          "backward on the same draws", "shape": FA_WINDOW_TRAIN_SHAPE,
+          "seed": FA_BWD_FULL_SEED,
+          "scaled_tol": FA_BWD_SCALED_TOL["bfloat16"], "cases": full})
     # The forward kernel with and without the lse output, in turns, in
     # device time, at the training shapes and at the serving prefill's.
     fwd = {}

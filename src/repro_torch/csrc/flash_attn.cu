@@ -155,14 +155,6 @@ __device__ __forceinline__ float quad_sum(float x) {
 // bf16 on wgmma, D in {64, 80, 128, 192} and (192, 128): a persistent grid.
 // ---------------------------------------------------------------------------
 
-// The softmax's exponentials: ex2.approx.ftz (results below 2^-126 flush
-// to 0; exp2f adds a range test and two multiplies to each).
-__device__ __forceinline__ float exp2_p(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 constexpr int PRODUCER_REGS = 24;
 constexpr int WG_SMEM_MAX = 232448;
 constexpr int ORDER_PAIRS = 0;     // see sched_item

@@ -10,11 +10,12 @@
 // too.  q is (B, H, S, D), k (B, Hk, T, D), v (B, Hk, T, Dv), out and dO
 // (B, H, S, Dv), with H a multiple of Hk (query head h reads KV head h /
 // (H / Hk)); lse (B, H, S) is the forward's row log-sum-exp of the scaled
-// scores and delta (B, H, S) a float32 scratch.  With P = exp(q k^T *
-// scale - lse) (exactly the forward's normalised softmax; masked and
-// out-of-range keys give p = 0):
+// scores, and a float32 scratch takes each row's record {lse * log2 e,
+// delta}.  With P = exp(q k^T * scale - lse) (exactly the forward's
+// normalised softmax; masked and out-of-range keys give p = 0):
 //
-//   delta_i = sum_f dO_if O_if   (over Dv)     (pre-pass, bwd_delta_kernel)
+//   delta_i = sum_f dO_if O_if   (over Dv)     (pre-pass,
+//                                              bwd_delta_rows_kernel)
 //   dS_ij   = P_ij (dO_i . v_j - delta_i)      (dP over Dv)
 //   dV_j    = sum_i P_ij dO_i                  (width Dv; P rounded to v's
 //                                              dtype, as the forward's PV
@@ -57,22 +58,30 @@
 //    that wgmma reads, rows past the end zero-filled; mbarriers say when
 //    a tile has landed and when its consumer is done with it.  Q and K
 //    tiles are D wide, dO and V tiles DV wide.
-//    - dK/dV at (D, D): a block takes one 64-key tile; K and V stay in shared
-//      memory, and a ring of three stages streams the (head, query tile)
-//      items that see the keys: Q and dO by TMA (producer warp 0), their
-//      lse (times log2 e, +inf past row S so that p = 0 there) and delta
-//      by producer warp 1.  The consumers take items in turn.  S^T = K Q^T
-//      and dP^T = V dO^T are wgmma with both operands in shared memory
-//      (64 keys x 64 queries); P^T (rounded to bf16, as the forward's PV
-//      took it) and dS^T (rounded to bf16) stay in registers, where the
-//      accumulator layout is the A fragment's, and are the A operands of
-//      dV += P^T dO and dK += dS^T Q (wgmma, dO and Q read N-major through
-//      the transpose flag): no operand is gathered element by element.
-//      Each consumer holds float32 dK and dV of all 64 keys (D floats a
-//      thread beside 64 of scores: 192 at D 128); at the end consumer 0
-//      hands its dK over the K/V tiles, consumer 1 its dV beside them, and
-//      each sums the other's half into the gradient it writes (a + b ==
-//      b + a, so the order of the two does not matter).
+//    - The pre-pass (bwd_delta_rows_kernel) writes every query row's
+//      record, lse * log2 e and delta, 8 lanes a row with 16-byte loads
+//      of O and dO and a fixed shuffle tree, 4 rows a warp; each (batch,
+//      head) is padded to whole 64-row tiles with {+inf, 0}, so that p = 0
+//      past row S with no branch, and a tile holds its 64 lse values, then
+//      its 64 deltas (512 bytes, one bulk copy; every kernel family reads
+//      this one form).
+//    - dK/dV at (D, D): a block takes one 64-key tile; K and V stay in
+//      shared memory, and a ring streams the (head, query tile) items that
+//      see the keys: one producer thread brings Q and dO by TMA and the
+//      item's 64 records by one cp.async.bulk, all on the stage's `full`
+//      mbarrier.  The consumers take items in turn.  S^T = K Q^T and dP^T =
+//      V dO^T are wgmma (64 keys x 64 queries); P^T (rounded to bf16, as
+//      the forward's PV took it) and dS^T (rounded to bf16) stay in
+//      registers, where the accumulator layout is the A fragment's, and are
+//      the A operands of dV += P^T dO and dK += dS^T Q (wgmma, dO and Q
+//      read N-major through the transpose flag): no operand is gathered
+//      element by element.  Each consumer holds float32 dK and dV of all 64
+//      keys (D floats a thread beside 64 of scores: 192 at D 128); at the
+//      end consumer 0 hands its dK over the K/V tiles, consumer 1 its dV
+//      over the ring, and each sums the other's half into the gradient it
+//      writes (a + b == b + a, so the order of the two does not matter).
+//      A consumer waits for an item's products before its next scores; the
+//      ring has three stages.
 //    - dK/dV at (192, 128): there dK (96 floats a thread) and dV (64)
 //      beside two 64 x 64 score tiles and their fragments would take 256
 //      registers of a consumer's 240, and a dK partial (48 KB) would not
@@ -88,13 +97,14 @@
 //      in registers ptxas serialised the wgmmas (C7512).  P^T and dS^T
 //      round to bf16 where the (D, D) kernel rounds them.
 //    - dQ: a block takes 128 query rows of one (batch, head), 64 a
-//      consumer; Q and dO stay in shared memory and a three-stage ring
-//      streams 64-key K and V tiles.  S = Q K^T and dP = dO V^T as above;
-//      dQ += bf16(dS) K with dS from registers.  A separate kernel, rather
-//      than dQ summed beside dK/dV: a key tile's share of dQ would cross
-//      blocks, and a fixed-order sum of it needs a float32 scratch of
-//      every (key tile, query row) or a flag chain between blocks; the
-//      two recomputed products cost less.
+//      consumer; Q and dO stay in shared memory and a ring streams 64-key
+//      K and V tiles (three stages); each consumer reads its rows' records
+//      once.  S = Q K^T and dP = dO V^T as above; dQ += bf16(dS) K
+//      with dS from registers, in flight during the next tile's scores.  A
+//      separate kernel, rather than dQ summed beside dK/dV: a key tile's
+//      share of dQ would cross blocks, and a fixed-order sum of it needs a
+//      float32 scratch of every (key tile, query row) or a flag chain
+//      between blocks; the two recomputed products cost less.
 //    - The grid (bwd_plan in kernels/flash_attn_bwd.py, which the wrapper
 //      passes and this file checks): dK/dV blocks launch key tile by key
 //      tile, so under causal masking the longest walks (tile j walks H /
@@ -148,9 +158,40 @@
 // kernels apply the mask arithmetically inside a tile (a select on p) and
 // set only their loops' bounds per item, so no wgmma is issued under a
 // condition.
-// What is left for later: the wgmma kernels at D 80 and 192, and at (D,
-// D) overlapping one item's products with the next one's inside a
-// consumer.
+// Why G2 (bf16 at (64, 64) under Hymba-1.5B's window, (1, 25 / 5, 2048,
+// 64), window 1024) has this shape, by cut-down copies of the design
+// before it (a warp's lse/delta loads, three stages, one warp a row in the
+// pre-pass) timed in turns with it (kernel_times.py --only attention_bwd
+// --src; on an H100 at 700 W, PERF.md §6): the pre-pass took 0.0145 ms
+// and 0.0068 with 16-byte loads, so it has them; dK/dV took 0.057, of
+// which its products alone take 0.044 and the row loads ~0.003, so the
+// records come by one bulk copy in place of a warp's loads; with the Q/dO
+// stream from L2 taken away, or a ring of six stages in place of three,
+// dK/dV was no faster (0.0565, 0.062), so no cluster shares Q and dO.  In
+// this design, without exp2 dK/dV was 4 % faster, without the bf16
+// conversions 2 %, with an integer rounding in place of the conversions
+// 25 % slower (more instructions a thread an item), and with products
+// only 35 % faster; two warpgroups' m64n64k16 run near the card's peak
+// rate, so the products' shape is not what holds it: the consumer's
+// elementwise work between a wait and the next issue is.  A consumer that
+// issued item j's scores before item j - 1's dV and dK (two stages held,
+// a ring of eight), a dQ ring of six with Q and dO as register fragments,
+// descriptors stepped by one add (sw128_step) and the barrier in
+// item_scores_t each moved G2 by 2 % or less (the pipelined consumer
+// 0.056-0.058 ms against 0.057): of these only the last two are kept, and
+// (64, 64) runs the three-stage consumer loop and dQ path of (128, 128).
+// The exponentials are ex2.approx.ftz (exp2_p) in every wgmma kernel, as
+// in the forward, where the design before took exp2f; the FMA kernels
+// take exp2f of s * scale * log2 e less the record's prescaled lse where
+// they took expf(s * scale - lse) (the mma.sync kernels read from the
+// record the product they formed themselves: the same bits).  With the
+// pre-pass's other summation order these are why the gradients differ
+// from that design's in the last bits (all within the checks' bounds).
+// What is left for later: the wgmma kernels at D 80 and 192; a consumer
+// schedule that overlaps one warpgroup's elementwise work with the
+// other's products (G2's dK/dV runs at ~40 % of its products' rate);
+// two-block clusters sharing Q and dO by TMA multicast, which the copies
+// above say would not pay.
 #include <math.h>
 
 #include "hopper.cuh"
@@ -189,37 +230,100 @@ __device__ __forceinline__ float as_v(float p, const bf16*) {
 }
 
 // ---------------------------------------------------------------------------
-// delta = rowsum(dO * O), one warp a row.
+// The row record {lse * log2 e, delta = rowsum(dO * O)} of every (batch,
+// head, query row), each (batch, head) padded to whole 64-row tiles
+// (ROW_TILE) with {+inf, 0}, so that a padded row's p is 0 with no branch.
+// 8 lanes a row and 4 rows a warp: each lane reads 16-byte packs of O and
+// dO (pack l, l + 8, ...), sums them in order, and a fixed shuffle tree adds
+// the 8 lanes.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                 float* __restrict__ delta, Layouts st, int H, int S, int D,
-                 long long rows) {
-  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;                     // the whole warp
-  const int s = (int)(row % S);
-  const long long bh = row / S;
-  const int h = (int)(bh % H), b = (int)(bh / H);
-  const T* orow = o + b * st.o.b + h * st.o.h + s * st.o.s;
-  const T* drow = dout + b * st.dout.b + h * st.dout.h + s * st.dout.s;
-  float acc = 0.f;
-  for (int f = lane; f < D; f += 32)
-    acc = fmaf(to_f32(orow[f]), to_f32(drow[f]), acc);
+constexpr int ROW_TILE = 64;
+
+__host__ __device__ constexpr int row_pad(int S) {
+  return (S + ROW_TILE - 1) / ROW_TILE * ROW_TILE;
+}
+
+// The records of one (batch, head): rows + (b H + h) 2 row_pad(S) floats,
+// tile by tile; a tile holds its 64 rows' lse * log2 e, then their delta.
+__device__ __forceinline__ const float* head_records(const float* rows,
+                                                     int b, int H, int h,
+                                                     int S) {
+  return rows + ((long long)b * H + h) * 2 * row_pad(S);
+}
+
+__device__ __forceinline__ float rec_lse(const float* rh, int r) {
+  return rh[r / ROW_TILE * 2 * ROW_TILE + r % ROW_TILE];
+}
+
+__device__ __forceinline__ float rec_delta(const float* rh, int r) {
+  return rh[r / ROW_TILE * 2 * ROW_TILE + ROW_TILE + r % ROW_TILE];
+}
+
+__device__ __forceinline__ float dot_pack(const uint4& a, const uint4& b,
+                                          float acc, const float*) {
+  const float* x = reinterpret_cast<const float*>(&a);
+  const float* y = reinterpret_cast<const float*>(&b);
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+  for (int j = 0; j < 4; ++j) acc = fmaf(x[j], y[j], acc);
+  return acc;
+}
+
+__device__ __forceinline__ float dot_pack(const uint4& a, const uint4& b,
+                                          float acc, const bf16*) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 u = __bfloat1622float2(x[j]), w = __bfloat1622float2(y[j]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+template <typename T, int DV>
+__global__ void __launch_bounds__(256)
+bwd_delta_rows_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      float* __restrict__ rows, Layouts st, int H, int S,
+                      long long n_rows) {
+  constexpr int PACKS = DV * (int)sizeof(T) / 16;
+  static_assert(DV * sizeof(T) % 16 == 0, "whole 16-byte packs");
+  const int s_pad = row_pad(S);
+  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
+  const int l8 = threadIdx.x % 8;
+  const int s = (int)(row % s_pad);
+  const long long bh = row / s_pad;
+  const bool real = row < n_rows && s < S;
+  float acc = 0.f, l = 0.f;
+  if (real) {
+    const int h = (int)(bh % H), b = (int)(bh / H);
+    if (l8 == 0) l = lse[bh * S + s];
+    const T* orow = o + b * st.o.b + h * st.o.h + s * st.o.s;
+    const T* drow = dout + b * st.dout.b + h * st.dout.h + s * st.dout.s;
+#pragma unroll
+    for (int p = l8; p < PACKS; p += 8)
+      acc = dot_pack(*reinterpret_cast<const uint4*>(orow + p * 16 / sizeof(T)),
+                     *reinterpret_cast<const uint4*>(drow + p * 16 / sizeof(T)),
+                     acc, o);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  if (row < n_rows && l8 == 0) {
+    float* rec = rows + row / ROW_TILE * 2 * ROW_TILE + row % ROW_TILE;
+    rec[0] = real ? l * LOG2E : INFINITY;
+    rec[ROW_TILE] = real ? acc : 0.f;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // bf16 on mma.sync m16n8k16, D a multiple of 16.
 // ---------------------------------------------------------------------------
 
-// Q and K tiles of 64 padded rows of D, dO and V of DV, then lse and delta
-// of 64 rows.
+// Q and K tiles of 64 padded rows of D, dO and V of DV, then lse (times
+// log2 e) and delta of 64 rows.
 template <int D, int DV>
 constexpr int mma_smem_bytes() {
   return 2 * BM * (D + 8) * 2 + 2 * BM * (DV + 8) * 2 + 2 * BM * 4;
@@ -320,7 +424,7 @@ template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
+             const float* __restrict__ rows,
              bf16* __restrict__ dk, bf16* __restrict__ dv, Layouts st, int H,
              int Hk, int S, int T, float scale, int causal, int window) {
   static_assert(D % 16 == 0 && DV % 16 == 0, "m16n8k16 steps");
@@ -362,8 +466,7 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int h = hk * G + hh;
     const bf16* qh = q + b * st.q.b + h * st.q.h;
     const bf16* doh = dout + b * st.dout.b + h * st.dout.h;
-    const float* lh = lse + ((long long)b * H + h) * S;
-    const float* eh = delta + ((long long)b * H + h) * S;
+    const float* rh = head_records(rows, b, H, h, S);
 #pragma unroll 1
     for (int qt = qt0; qt < qt1; ++qt) {
       const int q0 = qt * BM;
@@ -372,8 +475,8 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_tile<DV>(ds, doh, st.dout.s, q0, S);
       if (threadIdx.x < BM) {
         const int r = q0 + threadIdx.x;
-        ls[threadIdx.x] = r < S ? lh[r] * LOG2E : 0.f;
-        es[threadIdx.x] = r < S ? eh[r] : 0.f;
+        ls[threadIdx.x] = r < S ? rec_lse(rh, r) : 0.f;
+        es[threadIdx.x] = r < S ? rec_delta(rh, r) : 0.f;
       }
       __syncthreads();
 #pragma unroll 1
@@ -477,7 +580,7 @@ template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
+           const float* __restrict__ rows,
            bf16* __restrict__ dq, Layouts st, int H, int Hk, int S, int T,
            float scale, int causal, int window) {
   static_assert(D % 16 == 0 && DV % 16 == 0, "m16n8k16 steps");
@@ -499,11 +602,11 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_tile<D>(qs, q + b * st.q.b + h * st.q.h, st.q.s, q0, S);
   load_tile<DV>(ds, dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0, S);
-  const float* lh = lse + ((long long)b * H + h) * S;
-  const float* eh = delta + ((long long)b * H + h) * S;
-  const float l0 = r0 < S ? lh[r0] * LOG2E : 0.f;
-  const float l1 = r1 < S ? lh[r1] * LOG2E : 0.f;
-  const float e0 = r0 < S ? eh[r0] : 0.f, e1 = r1 < S ? eh[r1] : 0.f;
+  const float* rh = head_records(rows, b, H, h, S);
+  const float l0 = r0 < S ? rec_lse(rh, r0) : 0.f;
+  const float l1 = r1 < S ? rec_lse(rh, r1) : 0.f;
+  const float e0 = r0 < S ? rec_delta(rh, r0) : 0.f;
+  const float e1 = r1 < S ? rec_delta(rh, r1) : 0.f;
   const bf16* kh = k + b * st.k.b + hk * st.k.h;
   const bf16* vh = v + b * st.v.b + hk * st.v.h;
 
@@ -598,8 +701,10 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 constexpr int WG_TILE = 64;          // rows of every tile, keys and queries
 constexpr int WG_THREADS = 384;      // producer warpgroup + 2 consumers
-constexpr int KV_STAGES = 3;         // dK/dV: the Q/dO ring
-constexpr int DQ_STAGES = 3;         // dQ: the K/V ring
+// The rings' stages: dK/dV's of Q and dO (each with its 64 row records)
+// and dQ's of K and V.
+constexpr int KV_STAGES = 3;
+constexpr int DQ_STAGES = 3;
 // Registers per thread after the hand-over: 128 x 24 + 256 x 240 <= 64 K.
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
@@ -628,34 +733,36 @@ __device__ __forceinline__ int query_tile(const TileOrder& o, int rank,
 // Shared memory at (D, DV): 64-row tiles of whole 64-column swizzle chunks
 // (8 KB each), Q and K tiles D wide (TILE), dO and V tiles DV wide
 // (TILE_V).  dK/dV at (D, D): the block's 64 keys (KEYS) of K and V, the
-// ring's Q and dO, each stage's lse and delta, and the float32 partial dV
-// one consumer hands the other (its dK partial goes over K and V once both
-// are read), 1 KB to align: 163 KB at D 128.  dK/dV at (192, 128)
-// (SPLIT): 128 keys, 64 a consumer, a ring of two stages, and each
-// consumer's float32 P^T and bf16 P^T and dS^T in place of the partial:
-// 226 KB.  dQ: the block's 128 rows of Q and dO, the ring's K and V: 161
-// KB at D 128, 201 KB at (192, 128).
+// ring's Q and dO and each stage's 64 row records (512 bytes), 1 KB to
+// align; at the end one consumer's float32 partial dK goes over K and V
+// and the other's dV over the ring, whose stages are all read by then: 67
+// KB at (64, 64), 131 KB at (128, 128).  dK/dV at (192, 128) (SPLIT): 128
+// keys, 64 a consumer, a ring of two stages, and each consumer's float32
+// P^T and bf16 P^T and dS^T: 226 KB.  dQ: the block's 128 rows of Q and
+// dO, the ring's K and V: 81 KB at (64, 64), 161 KB at (128, 128), 201 KB
+// at (192, 128).
 template <int D, int DV>
 struct BwdShape {
   static constexpr bool SPLIT = D != DV;
   static constexpr int KEYS = SPLIT ? 2 * WG_TILE : WG_TILE;
-  static constexpr int RING = SPLIT ? 2 : KV_STAGES;     // dK/dV's stages
+  static constexpr int RING = SPLIT ? 2 : KV_STAGES;
   static constexpr uint32_t TILE = WG_TILE * D * 2;
   static constexpr uint32_t TILE_V = WG_TILE * DV * 2;
   static constexpr uint32_t STAGE = TILE + TILE_V;       // Q, dO or K, V
-  static constexpr int ROWS_BYTES = 2 * WG_TILE * 4;     // lse and delta
-  // The partial dV one consumer hands the other (D, D), or each
-  // consumer's 64 x 64 scores as float32 P^T and as bf16 P^T and dS^T
-  // (SPLIT).
-  static constexpr int RED_BYTES = SPLIT ? 2 * WG_TILE * WG_TILE * (4 + 4)
-                                         : 128 * (D / 2) * 4;
+  static constexpr uint32_t ROWS_BYTES = 2 * WG_TILE * 4; // 64 records
+  // Each consumer's 64 x 64 scores as float32 P^T and as bf16 P^T and
+  // dS^T (SPLIT); at (D, D) the partials go over K and V and the ring.
+  static constexpr int SCORE_BYTES = SPLIT ? 2 * WG_TILE * WG_TILE * (4 + 4)
+                                           : 0;
+  static constexpr int PARTIAL_BYTES = 128 * (D / 2) * 4;
   static constexpr int KV_SMEM = KEYS / WG_TILE * STAGE
                                  + RING * (STAGE + ROWS_BYTES)
-                                 + RED_BYTES + 1024;
+                                 + SCORE_BYTES + 1024;
   static constexpr int DQ_SMEM = (2 + DQ_STAGES) * STAGE + 1024;
   static_assert(D % 64 == 0 && DV % 64 == 0, "whole swizzle chunks");
-  static_assert(SPLIT || RED_BYTES <= 2 * TILE,
-                "a partial fits over K and V");
+  static_assert(SPLIT || (PARTIAL_BYTES <= 2 * TILE
+                          && PARTIAL_BYTES <= RING * STAGE),
+                "the partials fit over K and V and over the ring");
 };
 
 // acc (64 x 64) = A B^T over D features, A and B 64-row tiles K-major in
@@ -665,11 +772,11 @@ struct BwdShape {
 template <int D>
 __device__ __forceinline__ void issue_abt(float (&acc)[32], uint32_t a_s,
                                           uint32_t b_s) {
+  const uint64_t da = sw128_desc(a_s, 16, 1024), db = sw128_desc(b_s, 16, 1024);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * (WG_TILE * 128) + (kk % 4) * 32;
-    wgmma_ss(acc, sw128_desc(a_s + off, 16, 1024),
-             sw128_desc(b_s + off, 16, 1024), kk > 0);
+    wgmma_ss(acc, sw128_step(da, off), sw128_step(db, off), kk > 0);
   }
 }
 
@@ -680,10 +787,10 @@ template <int D>
 __device__ __forceinline__ void issue_ab(float (&acc)[D / 2],
                                          const uint32_t (&af)[4][4],
                                          uint32_t b_s) {
+  const uint64_t db = sw128_desc(b_s, WG_TILE * 128, 1024);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(acc, af[kk], sw128_desc(b_s + kk * 16 * 128, WG_TILE * 128,
-                                     1024));
+    wgmma_rs(acc, af[kk], sw128_step(db, kk * 16 * 128));
 }
 
 // A 64 x 64 accumulator tile rounded to bf16 as A fragments.
@@ -724,10 +831,11 @@ __device__ __forceinline__ void store_sw128(const float (&acc)[32],
 template <int NA>
 __device__ __forceinline__ void issue_ab_ss(float (&acc)[NA], uint32_t a_s,
                                             uint32_t b_s) {
+  const uint64_t da = sw128_desc(a_s, 16, 1024);
+  const uint64_t db = sw128_desc(b_s, WG_TILE * 128, 1024);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss_tb(acc, sw128_desc(a_s + kk * 32, 16, 1024),
-                sw128_desc(b_s + kk * 16 * 128, WG_TILE * 128, 1024));
+    wgmma_ss_tb(acc, sw128_step(da, kk * 32), sw128_step(db, kk * 16 * 128));
 }
 
 // p = 0 in a 64 x 64 tile of P^T (keys key0 + 0..7 and + 8..15 of this
@@ -747,36 +855,116 @@ __device__ __forceinline__ void mask_scores_t(float (&p)[32], int key0,
   }
 }
 
+// The producer's part of the dK/dV kernels, one thread: K and V of the
+// block's keys once, then each item's Q and dO tiles by TMA and its 64 row
+// records (lse times log2 e, then delta; +inf and 0 past row S) by one bulk
+// copy, all completing on the stage's `full` barrier, once the stage's
+// `empty` barrier says its last item is read.
+template <int D, int DV>
+__device__ __forceinline__ void dkdv_produce(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const float* __restrict__ rows, uint32_t k_s,
+    uint32_t v_s, uint32_t ring, uint32_t rec_s, uint32_t kv_full,
+    uint32_t full, uint32_t empty, int b, int hk, int k0, int H, int G,
+    int S, int qt0, int nq, int n_items) {
+  using W = BwdShape<D, DV>;
+  constexpr int RING = W::RING;
+  mbar_expect_tx(kv_full, W::KEYS / WG_TILE * W::STAGE);
+  for (int w = 0; w < W::KEYS / WG_TILE; ++w) {  // keys past T zero-filled
+    for (int c = 0; c < D / 64; ++c)
+      tma_load(k_s + w * W::TILE + c * (WG_TILE * 128), tk, kv_full, c * 64,
+               hk, k0 + w * WG_TILE, b);
+    for (int c = 0; c < DV / 64; ++c)
+      tma_load(v_s + w * W::TILE_V + c * (WG_TILE * 128), tv, kv_full,
+               c * 64, hk, k0 + w * WG_TILE, b);
+  }
+  const int s_pad = row_pad(S);
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i % RING;
+    const int h = hk * G + i / nq, q0 = (qt0 + i % nq) * WG_TILE;
+    const uint32_t q_t = ring + s * W::STAGE, bar = full + 8 * s;
+    mbar_wait(empty + 8 * s, ((i / RING) & 1) ^ 1);
+    mbar_expect_tx(bar, W::STAGE + W::ROWS_BYTES);
+    for (int c = 0; c < D / 64; ++c)
+      tma_load(q_t + c * (WG_TILE * 128), tq, bar, c * 64, h, q0, b);
+    for (int c = 0; c < DV / 64; ++c)
+      tma_load(q_t + W::TILE + c * (WG_TILE * 128), tdo, bar, c * 64, h, q0,
+               b);
+    bulk_load(rec_s + s * W::ROWS_BYTES,
+              rows + (((long long)b * H + h) * s_pad + q0) * 2, W::ROWS_BYTES,
+              bar);
+  }
+}
+
+// P^T and dS^T of one 64 x 64 item in place (sa: S^T, pa: dP^T; keys
+// key0 + 0..7 and + 8..15 of this thread's rows, queries row0 + 0, 1 + 8 j
+// of its columns, their records rec), for the (D, D) consumers; an item
+// that reaches past T, above the diagonal or behind a window masks its
+// keys (a branch the whole warpgroup takes alike, around no wgmma).
+__device__ __forceinline__ void item_scores_t(float (&sa)[32],
+                                              float (&pa)[32],
+                                              const float* rec, int k0,
+                                              int q0, int key0, int row0,
+                                              int t4, int T, int causal,
+                                              int window, float sl2) {
+#pragma unroll
+  for (int e = 0; e < 32; e += 4) {   // queries (e / 4) 8 + 2 t4 + 0, 1
+    const float2 l = *reinterpret_cast<const float2*>(rec + e * 2 + t4 * 2);
+    sa[e] = exp2_p(fmaf(sa[e], sl2, -l.x));
+    sa[e + 1] = exp2_p(fmaf(sa[e + 1], sl2, -l.y));
+    sa[e + 2] = exp2_p(fmaf(sa[e + 2], sl2, -l.x));
+    sa[e + 3] = exp2_p(fmaf(sa[e + 3], sl2, -l.y));
+  }
+  if (k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > q0)
+      || (window > 0 && q0 + WG_TILE - 1 - k0 >= window))
+    mask_scores_t(sa, key0, row0, T, causal, window);
+  // The deltas are read here, not beside the lse values: held across the
+  // mask they take 16 registers, and at (128, 128) ptxas spilled.
+  asm volatile("" ::: "memory");
+#pragma unroll
+  for (int e = 0; e < 32; e += 4) {
+    const float2 d = *reinterpret_cast<const float2*>(rec + WG_TILE + e * 2
+                                                      + t4 * 2);
+    pa[e] = sa[e] * (pa[e] - d.x);
+    pa[e + 1] = sa[e + 1] * (pa[e + 1] - d.y);
+    pa[e + 2] = sa[e + 2] * (pa[e + 2] - d.x);
+    pa[e + 3] = sa[e + 3] * (pa[e + 3] - d.y);
+  }
+}
+
 // dK and dV of one 64-key tile at (D, D): block i takes key tile i / (B
 // Hk) of batch row and KV head i % (B Hk) (bwd_plan in
 // kernels/flash_attn_bwd.py: under causal masking the longest walks
 // first).  K and V stay in shared memory; the (head, query tile) items
 // that see them stream through the ring, taken by the two consumers in
 // turn; each consumer holds float32 dK and dV of all 64 keys, and the two
-// halves are summed at the end.
+// halves are summed at the end; a consumer waits for one item's products
+// before it issues the next item's.
 template <int D>
 __device__ __forceinline__ void dkdv_shared(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-    const CUtensorMap& tdo, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, const Layouts& st, int B, int H, int Hk, int S,
-    int T, float scale, int causal, int window, const TileOrder& ord) {
+    const CUtensorMap& tdo, const float* __restrict__ rows,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const Layouts& st, int B,
+    int H, int Hk, int S, int T, float scale, int causal, int window,
+    const TileOrder& ord) {
   using W = BwdShape<D, D>;
+  constexpr int RING = W::RING;
   constexpr int NA = D / 2;                   // dK (or dV) floats a thread
   extern __shared__ uint8_t bwd_smem[];
-  // mbarriers: K/V landed; per stage Q/dO (and lse, delta) landed, read.
-  __shared__ __align__(8) uint64_t bars[1 + 2 * KV_STAGES];
+  // mbarriers: K/V landed; per stage Q, dO and records landed, read.
+  __shared__ __align__(8) uint64_t bars[1 + 2 * RING];
   const uint32_t raw = smem_u32(bwd_smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;
   uint8_t* base = bwd_smem + (k_s - raw);
   const uint32_t v_s = k_s + W::TILE;
   const uint32_t ring = k_s + 2 * W::TILE;    // stage s: Q, then dO
-  float* rows = reinterpret_cast<float*>(base + (2 + 2 * KV_STAGES) * W::TILE);
+  const uint32_t rec_s = ring + RING * W::STAGE;
+  const float* recs = reinterpret_cast<const float*>(base + (rec_s - k_s));
   float* red_k = reinterpret_cast<float*>(base);          // over K and V
-  float* red_v = rows + KV_STAGES * 2 * WG_TILE;
+  float* red_v = reinterpret_cast<float*>(base + (ring - k_s));  // the ring
   const uint32_t kv_full = smem_u32(&bars[0]);
   const uint32_t full = smem_u32(&bars[1]);                        // + 8 s
-  const uint32_t empty = smem_u32(&bars[1 + KV_STAGES]);
+  const uint32_t empty = smem_u32(&bars[1 + RING]);
 
   const int n_qt = (S + WG_TILE - 1) / WG_TILE;
   const int G = H / Hk;
@@ -792,8 +980,8 @@ __device__ __forceinline__ void dkdv_shared(
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < KV_STAGES; ++s) {
-      mbar_init(full + 8 * s, 1 + 32);        // TMA's arrival + the lse warp
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + 8 * s, 1);             // the producer's arrival
       mbar_init(empty + 8 * s, 4);            // the 4 warps of one consumer
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -801,47 +989,12 @@ __device__ __forceinline__ void dkdv_shared(
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // Producer: warp 0 loads K and V, then keeps the ring of Q and dO
-    // tiles full; warp 1 writes each stage's lse (times log2 e; +inf past
-    // row S, so that p = 0 there) and delta.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(PRODUCER_REGS));
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (warp == 0 && lane == 0) {
-      mbar_expect_tx(kv_full, 2 * W::TILE);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load(k_s + c * (WG_TILE * 128), tk, kv_full, c * 64, hk, k0, b);
-        tma_load(v_s + c * (WG_TILE * 128), tv, kv_full, c * 64, hk, k0, b);
-      }
-    }
-    if (warp < 2) {
-      for (int i = 0; i < n_items; ++i) {
-        const int s = i % KV_STAGES;
-        const int h = hk * G + i / nq, q0 = (qt0 + i % nq) * WG_TILE;
-        mbar_wait(empty + 8 * s, ((i / KV_STAGES) & 1) ^ 1);
-        if (warp == 0) {
-          if (lane == 0) {
-            const uint32_t q_t = ring + s * 2 * W::TILE;
-            mbar_expect_tx(full + 8 * s, 2 * W::TILE);
-            for (int c = 0; c < D / 64; ++c) {
-              tma_load(q_t + c * (WG_TILE * 128), tq, full + 8 * s, c * 64, h,
-                       q0, b);
-              tma_load(q_t + W::TILE + c * (WG_TILE * 128), tdo, full + 8 * s,
-                       c * 64, h, q0, b);
-            }
-          }
-        } else {
-          float* ls = rows + s * 2 * WG_TILE;
-          const long long bhs = ((long long)b * H + h) * S;
-          for (int r = lane; r < WG_TILE; r += 32) {
-            const int row = q0 + r;
-            ls[r] = row < S ? lse[bhs + row] * LOG2E : INFINITY;
-            ls[WG_TILE + r] = row < S ? delta[bhs + row] : 0.f;
-          }
-          mbar_arrive(full + 8 * s);
-        }
-      }
-    }
+    if (threadIdx.x == 0)
+      dkdv_produce<D, D>(tq, tk, tv, tdo, rows, k_s, v_s, ring, rec_s,
+                         kv_full, full, empty, b, hk, k0, H, G, S, qt0, nq,
+                         n_items);
     return;
   }
 
@@ -858,11 +1011,10 @@ __device__ __forceinline__ void dkdv_shared(
   mbar_wait(kv_full, 0);
 #pragma unroll 1
   for (int i = wg; i < n_items; i += 2) {
-    const int s = i % KV_STAGES;
+    const int s = i % RING;
     const int q0 = (qt0 + i % nq) * WG_TILE;
-    const uint32_t q_t = ring + s * 2 * W::TILE, do_t = q_t + W::TILE;
-    const float* ls = rows + s * 2 * WG_TILE;
-    mbar_wait(full + 8 * s, (i / KV_STAGES) & 1);
+    const uint32_t q_t = ring + s * W::STAGE, do_t = q_t + W::TILE;
+    mbar_wait(full + 8 * s, (i / RING) & 1);
     // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries.
     float sa[32], pa[32];
     wgmma_fence();
@@ -872,22 +1024,8 @@ __device__ __forceinline__ void dkdv_shared(
     wgmma_wait<0>();
     fence_regs(sa);
     fence_regs(pa);
-    // P^T and dS^T in place; a tile that reaches past T, above the
-    // diagonal or behind a window masks its keys (a branch the whole
-    // warpgroup takes alike, around no wgmma).
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
-      sa[e] = exp2f(fmaf(sa[e], sl2, -ls[qi]));
-    }
-    if (k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > q0)
-        || (window > 0 && q0 + WG_TILE - 1 - k0 >= window))
-      mask_scores_t(sa, k0 + warp * 16 + g, q0 + t4 * 2, T, causal, window);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
-      pa[e] = sa[e] * (pa[e] - ls[WG_TILE + qi]);
-    }
+    item_scores_t(sa, pa, recs + s * 2 * WG_TILE, k0, q0, k0 + warp * 16 + g,
+                  q0 + t4 * 2, t4, T, causal, window, sl2);
     // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over the 64 queries.
     uint32_t pf[4][4], df[4][4];
     pack_frags(sa, pf);
@@ -901,12 +1039,13 @@ __device__ __forceinline__ void dkdv_shared(
     fence_regs(dka);
     fence_regs(pf);
     fence_regs(df);
-    __syncwarp();                             // every lane's lse is read
+    __syncwarp();                           // every lane's records are read
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
-  // Both consumers are done with K and V: consumer 0 hands its dK over
-  // them, consumer 1 its dV beside; each adds the other's half (a + b ==
-  // b + a: the same bits whichever adds) and writes one gradient.
+  // Both consumers are done with K, V and the ring: consumer 0 hands its
+  // dK over K and V, consumer 1 its dV over the ring; each adds the
+  // other's half (a + b == b + a: the same bits whichever adds) and writes
+  // one gradient.
   consumers_sync();
 #pragma unroll
   for (int i = 0; i < NA; ++i) {
@@ -952,14 +1091,14 @@ __device__ __forceinline__ void dkdv_shared(
 template <int D, int DV>
 __device__ __forceinline__ void dkdv_split(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-    const CUtensorMap& tdo, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, const Layouts& st, int B, int H, int Hk, int S,
-    int T, float scale, int causal, int window, const TileOrder& ord) {
+    const CUtensorMap& tdo, const float* __restrict__ rows,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const Layouts& st, int B,
+    int H, int Hk, int S, int T, float scale, int causal, int window,
+    const TileOrder& ord) {
   using W = BwdShape<D, DV>;
   constexpr int RING = W::RING;
   extern __shared__ uint8_t bwd_smem[];
-  // mbarriers: K/V landed; per stage Q/dO (and lse, delta) landed, read.
+  // mbarriers: K/V landed; per stage Q, dO and records landed, read.
   __shared__ __align__(8) uint64_t bars[1 + 2 * RING];
   const uint32_t raw = smem_u32(bwd_smem);
   const uint32_t k_s = (raw + 1023) & ~1023u;  // K of keys 0-63, 64-127
@@ -968,9 +1107,11 @@ __device__ __forceinline__ void dkdv_split(
   constexpr uint32_t SCORES = WG_TILE * WG_TILE * 2;  // a bf16 score tile
   const uint32_t pt_s = ring + RING * W::STAGE;  // bf16 P^T, one a consumer
   const uint32_t ds_s = pt_s + 2 * SCORES;       // bf16 dS^T, likewise
+  const uint32_t rec_s = ds_s + 2 * SCORES;     // each stage's records
   uint8_t* base = bwd_smem + (k_s - raw);
-  float* rows = reinterpret_cast<float*>(base + (ds_s + 2 * SCORES - k_s));
-  float* stash = rows + RING * 2 * WG_TILE;    // float32 P^T, likewise
+  const float* recs = reinterpret_cast<const float*>(base + (rec_s - k_s));
+  float* stash = reinterpret_cast<float*>(base + (rec_s - k_s)
+                                          + RING * W::ROWS_BYTES);
   const uint32_t kv_full = smem_u32(&bars[0]);
   const uint32_t full = smem_u32(&bars[1]);                        // + 8 s
   const uint32_t empty = smem_u32(&bars[1 + RING]);
@@ -996,7 +1137,7 @@ __device__ __forceinline__ void dkdv_split(
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < RING; ++s) {
-      mbar_init(full + 8 * s, 1 + 32);        // TMA's arrival + the lse warp
+      mbar_init(full + 8 * s, 1);             // the producer's arrival
       mbar_init(empty + 8 * s, 8);            // the 8 consumer warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1004,51 +1145,12 @@ __device__ __forceinline__ void dkdv_split(
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // Producer: warp 0 loads K and V, then keeps the ring of Q and dO
-    // tiles full; warp 1 writes each stage's lse (times log2 e; +inf past
-    // row S, so that p = 0 there) and delta.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(PRODUCER_REGS));
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (warp == 0 && lane == 0) {             // keys past T zero-filled
-      mbar_expect_tx(kv_full, 2 * W::STAGE);
-      for (int w = 0; w < 2; ++w) {
-        for (int c = 0; c < D / 64; ++c)
-          tma_load(k_s + w * W::TILE + c * (WG_TILE * 128), tk, kv_full,
-                   c * 64, hk, k0 + w * WG_TILE, b);
-        for (int c = 0; c < DV / 64; ++c)
-          tma_load(v_s + w * W::TILE_V + c * (WG_TILE * 128), tv, kv_full,
-                   c * 64, hk, k0 + w * WG_TILE, b);
-      }
-    }
-    if (warp < 2) {
-      for (int i = 0; i < n_items; ++i) {
-        const int s = i % RING;
-        const int h = hk * G + i / nq, q0 = (qt0 + i % nq) * WG_TILE;
-        mbar_wait(empty + 8 * s, ((i / RING) & 1) ^ 1);
-        if (warp == 0) {
-          if (lane == 0) {
-            const uint32_t q_t = ring + s * W::STAGE;
-            mbar_expect_tx(full + 8 * s, W::STAGE);
-            for (int c = 0; c < D / 64; ++c)
-              tma_load(q_t + c * (WG_TILE * 128), tq, full + 8 * s, c * 64,
-                       h, q0, b);
-            for (int c = 0; c < DV / 64; ++c)
-              tma_load(q_t + W::TILE + c * (WG_TILE * 128), tdo,
-                       full + 8 * s, c * 64, h, q0, b);
-          }
-        } else {
-          float* ls = rows + s * 2 * WG_TILE;
-          const long long bhs = ((long long)b * H + h) * S;
-          for (int r = lane; r < WG_TILE; r += 32) {
-            const int row = q0 + r;
-            ls[r] = row < S ? lse[bhs + row] * LOG2E : INFINITY;
-            ls[WG_TILE + r] = row < S ? delta[bhs + row] : 0.f;
-          }
-          mbar_arrive(full + 8 * s);
-        }
-      }
-    }
+    if (threadIdx.x == 0)
+      dkdv_produce<D, DV>(tq, tk, tv, tdo, rows, k_s, v_s, ring, rec_s,
+                          kv_full, full, empty, b, hk, k0, H, G, S, qt0, nq,
+                          n_items);
     return;
   }
 
@@ -1091,7 +1193,7 @@ __device__ __forceinline__ void dkdv_split(
     const int s = i % RING, q0 = (qt0 + i % nq) * WG_TILE;
     mbar_wait(full + 8 * s, (i / RING) & 1);
     const uint32_t q_t = ring + s * W::STAGE, do_t = q_t + W::TILE;
-    const float* ls = rows + s * 2 * WG_TILE;
+    const float* rec = recs + s * 2 * WG_TILE;
     // An item that reaches past T, above the diagonal or behind a window
     // masks its keys (a branch the whole warpgroup takes alike).
     const bool edge = kw + WG_TILE > T
@@ -1112,7 +1214,7 @@ __device__ __forceinline__ void dkdv_split(
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
-      sa[e] = exp2f(fmaf(sa[e], sl2, -ls[qi]));
+      sa[e] = exp2_p(fmaf(sa[e], sl2, -rec[qi]));
     }
     if (edge)
       mask_scores_t(sa, kw + warp * 16 + g, q0 + t4 * 2, T, causal, window);
@@ -1122,7 +1224,7 @@ __device__ __forceinline__ void dkdv_split(
     wgmma_wait<0>();                           // operand long since read
     fence_regs(dka);
     if (held >= 0) {                // the last item's products have ended
-      __syncwarp();                 // every lane's lse is read
+      __syncwarp();                 // every lane's records are read
       if (lane == 0) mbar_arrive(empty + 8 * held);
     }
     fence_async_smem();
@@ -1139,7 +1241,7 @@ __device__ __forceinline__ void dkdv_split(
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int qi = (e / 4) * 8 + t4 * 2 + (e % 2);
-      pa[e] = my_stash[128 * e] * (pa[e] - ls[WG_TILE + qi]);
+      pa[e] = my_stash[128 * e] * (pa[e] - rec[WG_TILE + qi]);
     }
     store_sw128(pa, ds, warp, g, t4);          // bf16(dS^T): the last dK
     wgmma_wait<0>();                           // ended in the P^T step
@@ -1187,16 +1289,16 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap tdo,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, Layouts st,
-               int B, int H, int Hk, int S, int T, float scale, int causal,
-               int window, const __grid_constant__ TileOrder ord) {
+               const float* __restrict__ rows, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, Layouts st, int B, int H, int Hk, int S,
+               int T, float scale, int causal, int window,
+               const __grid_constant__ TileOrder ord) {
   if constexpr (BwdShape<D, DV>::SPLIT)
-    dkdv_split<D, DV>(tq, tk, tv, tdo, lse, delta, dk, dv, st, B, H, Hk, S,
-                      T, scale, causal, window, ord);
+    dkdv_split<D, DV>(tq, tk, tv, tdo, rows, dk, dv, st, B, H, Hk, S, T,
+                      scale, causal, window, ord);
   else
-    dkdv_shared<D>(tq, tk, tv, tdo, lse, delta, dk, dv, st, B, H, Hk, S, T,
-                   scale, causal, window, ord);
+    dkdv_shared<D>(tq, tk, tv, tdo, rows, dk, dv, st, B, H, Hk, S, T, scale,
+                   causal, window, ord);
 }
 
 // dS = P (dP - delta) in place in pa for one consumer's 64 queries (rows
@@ -1211,7 +1313,7 @@ __device__ __forceinline__ void dq_scores(float (&sa)[32],
                                           float e1) {
 #pragma unroll
   for (int e = 0; e < 32; ++e)
-    sa[e] = exp2f(fmaf(sa[e], sl2, -((e % 4) < 2 ? l0 : l1)));
+    sa[e] = exp2_p(fmaf(sa[e], sl2, -((e % 4) < 2 ? l0 : l1)));
   // A branch the whole warpgroup takes alike, around no wgmma.
   if (k0 + WG_TILE > T || (causal && k0 + WG_TILE - 1 > wg_row0)
       || (window > 0 && wg_row0 + WG_TILE - 1 - k0 >= window)) {
@@ -1241,10 +1343,9 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap tdo,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             bf16* __restrict__ dq, Layouts st, int H, int Hk, int S, int T,
-             float scale, int causal, int window,
-             const __grid_constant__ TileOrder ord) {
+             const float* __restrict__ rows, bf16* __restrict__ dq,
+             Layouts st, int H, int Hk, int S, int T, float scale, int causal,
+             int window, const __grid_constant__ TileOrder ord) {
   using W = BwdShape<D, DV>;
   extern __shared__ uint8_t bwd_smem[];
   // mbarriers: Q/dO landed; per stage K landed, V landed, K read, V read.
@@ -1337,11 +1438,13 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const int wg_row0 = q0 + wg * WG_TILE;
   const int r0 = wg_row0 + warp * 16 + g, r1 = r0 + 8;
   const float sl2 = scale * LOG2E;
-  const float* lh = lse + ((long long)b * H + h) * S;
-  const float* eh = delta + ((long long)b * H + h) * S;
-  const float l0 = r0 < S ? lh[r0] * LOG2E : 0.f;
-  const float l1 = r1 < S ? lh[r1] * LOG2E : 0.f;
-  const float e0 = r0 < S ? eh[r0] : 0.f, e1 = r1 < S ? eh[r1] : 0.f;
+  // The rows' records (rows past the padded tile, in a 128-row block's
+  // second half, read none: their p is 0 by their zero-filled scores).
+  const float* rh = head_records(rows, b, H, h, S);
+  const float l0 = r0 < S ? rec_lse(rh, r0) : 0.f;
+  const float l1 = r1 < S ? rec_lse(rh, r1) : 0.f;
+  const float e0 = r0 < S ? rec_delta(rh, r0) : 0.f;
+  const float e1 = r1 < S ? rec_delta(rh, r1) : 0.f;
 
   const uint32_t q_t = q_s + wg * W::TILE, do_t = do_s + wg * W::TILE_V;
   float dqa[D / 2], sa[32], pa[32];
@@ -1469,7 +1572,7 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
+             const float* __restrict__ rows,
              T* __restrict__ dk, T* __restrict__ dv, Layouts st, int H,
              int Hk, int S, int Tk, float scale, int causal, int window) {
   using F = FmaShape<D, DV>;
@@ -1481,11 +1584,12 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
   float* ds = qs + FB * LK;                 // dO
   float* pt = ds + FB * LV;                 // P^T [key][query], as v's dtype
   float* dst = pt + FB * LP;                // dS^T [key][query]
-  float* ls = dst + FB * LP;
-  float* es = ls + FB;
+  float* ls = dst + FB * LP;                // lse * log2(e)
+  float* es = ls + FB;                      // delta
 
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * FB;
+  const float sl2 = scale * LOG2E;
   // Scores: key `me` against queries 8 part .. 8 part + 7.
   const int me = threadIdx.x % FB, part = threadIdx.x / FB;
   load_tile_f<T, D>(ks, k + b * st.k.b + hk * st.k.h, st.k.s, k0, Tk);
@@ -1506,8 +1610,7 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
     const int h = hk * G + hh;
     const T* qh = q + b * st.q.b + h * st.q.h;
     const T* doh = dout + b * st.dout.b + h * st.dout.h;
-    const float* lh = lse + ((long long)b * H + h) * S;
-    const float* eh = delta + ((long long)b * H + h) * S;
+    const float* rh = head_records(rows, b, H, h, S);
 #pragma unroll 1
     for (int qt = qt0; qt < qt1; ++qt) {
       const int q0 = qt * FB;
@@ -1516,8 +1619,8 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
       load_tile_f<T, DV>(ds, doh, st.dout.s, q0, S);
       if (threadIdx.x < FB) {
         const int r = q0 + threadIdx.x;
-        ls[threadIdx.x] = r < S ? lh[r] : 0.f;
-        es[threadIdx.x] = r < S ? eh[r] : 0.f;
+        ls[threadIdx.x] = r < S ? rec_lse(rh, r) : 0.f;
+        es[threadIdx.x] = r < S ? rec_delta(rh, r) : 0.f;
       }
       __syncthreads();
 #pragma unroll 2
@@ -1528,7 +1631,7 @@ bwd_dkdv_fma(const T* __restrict__ q, const T* __restrict__ k,
                           ds + qi * LV);
         const bool keep = key < Tk && row < S && (!causal || key <= row)
                           && (window <= 0 || row - key < window);
-        const float p = keep ? expf(s * scale - ls[qi]) : 0.f;
+        const float p = keep ? exp2f(fmaf(s, sl2, -ls[qi])) : 0.f;
         pt[me * LP + qi] = as_v(p, v);
         dst[me * LP + qi] = p * (dp - es[qi]);
       }
@@ -1565,7 +1668,7 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
+           const float* __restrict__ rows,
            T* __restrict__ dq, Layouts st, int H, int Hk, int S, int Tk,
            float scale, int causal, int window) {
   using F = FmaShape<D, DV>;
@@ -1576,8 +1679,8 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
   float* ks = ds + FB * LV;
   float* vs = ks + FB * LK;
   float* dss = vs + FB * LV;                // dS [query][key]
-  float* ls = dss + 2 * FB * LP;
-  float* es = ls + FB;
+  float* ls = dss + 2 * FB * LP;            // lse * log2(e)
+  float* es = ls + FB;                      // delta
 
   const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -1590,10 +1693,11 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
                      S);
   if (threadIdx.x < FB) {
     const int r = q0 + threadIdx.x;
-    const long long bh = (long long)b * H + h;
-    ls[threadIdx.x] = r < S ? lse[bh * S + r] : 0.f;
-    es[threadIdx.x] = r < S ? delta[bh * S + r] : 0.f;
+    const float* rh = head_records(rows, b, H, h, S);
+    ls[threadIdx.x] = r < S ? rec_lse(rh, r) : 0.f;
+    es[threadIdx.x] = r < S ? rec_delta(rh, r) : 0.f;
   }
+  const float sl2 = scale * LOG2E;
   const T* kh = k + b * st.k.b + hk * st.k.h;
   const T* vh = v + b * st.v.b + hk * st.v.h;
 
@@ -1618,7 +1722,7 @@ bwd_dq_fma(const T* __restrict__ q, const T* __restrict__ k,
                         vs + kj * LV);
       const bool keep = row < S && key < Tk && (!causal || key <= row)
                         && (window <= 0 || row - key < window);
-      const float p = keep ? expf(s * scale - ls[me]) : 0.f;
+      const float p = keep ? exp2f(fmaf(s, sl2, -ls[me])) : 0.f;
       dss[me * LP + kj] = p * (dp - es[me]);
     }
     __syncthreads();
@@ -1651,7 +1755,7 @@ template <typename T>
 struct Args {
   const T *q, *k, *v, *o, *dout;
   const float* lse;
-  float* delta;
+  float* rows;                   // the row records (head_records)
   T *dq, *dk, *dv;
   Layouts st;
   int B, H, Hk, S, Tk, D, DV;
@@ -1660,13 +1764,13 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T>
-int launch_delta(const Args<T>& a) {
-  const long long rows = (long long)a.B * a.H * a.S;
-  const long long blocks = (rows + 7) / 8;
+template <typename T, int DV>
+int launch_rows(const Args<T>& a) {
+  const long long rows = (long long)a.B * a.H * row_pad(a.S);
+  const long long blocks = (rows + 31) / 32;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  bwd_delta_kernel<T><<<(unsigned)blocks, 256, 0, a.stream>>>(
-      a.o, a.dout, a.delta, a.st, a.H, a.S, a.DV, rows);
+  bwd_delta_rows_kernel<T, DV><<<(unsigned)blocks, 256, 0, a.stream>>>(
+      a.o, a.dout, a.lse, a.rows, a.st, a.H, a.S, rows);
   return (int)cudaGetLastError();
 }
 
@@ -1678,18 +1782,18 @@ int launch_mma(const Args<bf16>& a) {
   if (err == cudaSuccess) err = allow_smem(bwd_dq_mma<D, DV>, smem,
                                            &q_configured);
   if (err != cudaSuccess) return (int)err;
-  int rc = launch_delta(a);
+  int rc = launch_rows<bf16, DV>(a);
   if (rc) return rc;
   bwd_dkdv_mma<D, DV><<<dim3((a.Tk + BM - 1) / BM, a.Hk, a.B), THREADS,
-                        smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk,
-                                a.dv, a.st, a.H, a.Hk, a.S, a.Tk, a.scale,
-                                a.causal, a.window);
+                        smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.rows, a.dk,
+                                          a.dv, a.st, a.H, a.Hk, a.S, a.Tk,
+                                          a.scale, a.causal, a.window);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   bwd_dq_mma<D, DV><<<dim3((a.S + BM - 1) / BM, a.H, a.B), THREADS, smem,
-                      a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
-                              a.st, a.H, a.Hk, a.S, a.Tk, a.scale, a.causal,
-                              a.window);
+                      a.stream>>>(a.q, a.k, a.v, a.dout, a.rows, a.dq, a.st,
+                                  a.H, a.Hk, a.S, a.Tk, a.scale, a.causal,
+                                  a.window);
   return (int)cudaGetLastError();
 }
 
@@ -1749,12 +1853,12 @@ int launch_wgmma(const Args<bf16>& a, int keys, int group, long long grid,
   if (err == cudaSuccess) err = allow_smem(bwd_dq_wgmma<D, DV>, W::DQ_SMEM,
                                            &q_configured);
   if (err != cudaSuccess) return (int)err;
-  int rc = launch_delta(a);
+  int rc = launch_rows<bf16, DV>(a);
   if (rc) return rc;
   bwd_dkdv_wgmma<D, DV><<<(unsigned)kv_grid, WG_THREADS, W::KV_SMEM,
                           a.stream>>>(
-      tq, tk, tv, tdo, a.lse, a.delta, a.dk, a.dv, st, a.B, a.H, a.Hk, a.S,
-      a.Tk, a.scale, a.causal, a.window, ord);
+      tq, tk, tv, tdo, a.rows, a.dk, a.dv, st, a.B, a.H, a.Hk, a.S, a.Tk,
+      a.scale, a.causal, a.window, ord);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   // (D, D): (b, h) on x, query tiles on y, the heaviest (causal) first;
@@ -1762,8 +1866,8 @@ int launch_wgmma(const Args<bf16>& a, int keys, int group, long long grid,
   const dim3 dq_grid = W::SPLIT ? dim3((unsigned)dq_blocks)
                                 : dim3((unsigned)dq_blocks, (unsigned)n_q);
   bwd_dq_wgmma<D, DV><<<dq_grid, WG_THREADS, W::DQ_SMEM, a.stream>>>(
-      tq, tk, tv, tdo, a.lse, a.delta, a.dq, st, a.H, a.Hk, a.S, a.Tk,
-      a.scale, a.causal, a.window, ord);
+      tq, tk, tv, tdo, a.rows, a.dq, st, a.H, a.Hk, a.S, a.Tk, a.scale,
+      a.causal, a.window, ord);
   return (int)cudaGetLastError();
 }
 
@@ -1775,18 +1879,19 @@ int launch_fma(const Args<T>& a) {
   if (err == cudaSuccess) err = allow_smem(bwd_dq_fma<T, D, DV>, smem,
                                            &q_configured);
   if (err != cudaSuccess) return (int)err;
-  int rc = launch_delta(a);
+  int rc = launch_rows<T, DV>(a);
   if (rc) return rc;
   bwd_dkdv_fma<T, D, DV><<<dim3((a.Tk + FB - 1) / FB, a.Hk, a.B), THREADS,
-                           smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta,
-                                   a.dk, a.dv, a.st, a.H, a.Hk, a.S, a.Tk,
-                                   a.scale, a.causal, a.window);
+                           smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.rows,
+                                             a.dk, a.dv, a.st, a.H, a.Hk,
+                                             a.S, a.Tk, a.scale, a.causal,
+                                             a.window);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   bwd_dq_fma<T, D, DV><<<dim3((a.S + FB - 1) / FB, a.H, a.B), THREADS,
-                         smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq,
-                                 a.st, a.H, a.Hk, a.S, a.Tk, a.scale,
-                                 a.causal, a.window);
+                         smem, a.stream>>>(a.q, a.k, a.v, a.dout, a.rows,
+                                           a.dq, a.st, a.H, a.Hk, a.S, a.Tk,
+                                           a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
 }
 
@@ -1801,11 +1906,11 @@ Layouts layouts_from(const long long* s) {
 
 template <typename T>
 bool fill(Args<T>& a, const T* q, const T* k, const T* v, const T* o,
-          const T* dout, const float* lse, float* delta, T* dq, T* dk,
+          const T* dout, const float* lse, float* rows, T* dq, T* dk,
           T* dv, const long long* strides, int B, int H, int Hk, int S,
           int Tk, int D, int DV, float scale, int causal, int window,
           cudaStream_t stream) {
-  a = Args<T>{q, k, v, o, dout, lse, delta, dq, dk, dv,
+  a = Args<T>{q, k, v, o, dout, lse, rows, dq, dk, dv,
               layouts_from(strides), B, H, Hk, S, Tk, D, DV, scale, causal,
               window, stream};
   // Heads and batch rows run on the grid's y and z axes; a window needs S
@@ -1817,8 +1922,9 @@ bool fill(Args<T>& a, const T* q, const T* k, const T* v, const T* o,
 }  // namespace
 
 // strides: 24 element strides (batch, head, row) of q, k, v, out, dout, dq,
-// dk, dv.  lse: the forward's (B, H, S) float32 row log-sum-exp; delta a
-// (B, H, S) float32 scratch.  (D, DV): (D, D) for D one of 8, 16, 32, 40,
+// dk, dv.  lse: the forward's (B, H, S) float32 row log-sum-exp; rows a
+// (B, H, S padded to whole 64-row tiles, 2) float32 scratch (the pre-pass's
+// row records).  (D, DV): (D, D) for D one of 8, 16, 32, 40,
 // 64, 80, 128, 192, or (192, 128) or (24, 16) (any other ->
 // cudaErrorInvalidValue); B, S, Tk > 0 (the wrapper returns zero gradients
 // for an empty problem without a launch).  window > 0: query s sees key t
@@ -1826,13 +1932,13 @@ bool fill(Args<T>& a, const T* q, const T* k, const T* v, const T* o,
 extern "C" int flash_attn_bwd_f32(const float* q, const float* k,
                                   const float* v, const float* o,
                                   const float* dout, const float* lse,
-                                  float* delta, float* dq, float* dk,
+                                  float* rows, float* dq, float* dk,
                                   float* dv, const long long* strides, int B,
                                   int H, int Hk, int S, int Tk, int D, int DV,
                                   float scale, int causal, int window,
                                   cudaStream_t stream) {
   Args<float> a;
-  if (!fill(a, q, k, v, o, dout, lse, delta, dq, dk, dv, strides, B, H, Hk,
+  if (!fill(a, q, k, v, o, dout, lse, rows, dq, dk, dv, strides, B, H, Hk,
             S, Tk, D, DV, scale, causal, window, stream))
     return (int)cudaErrorInvalidValue;
   if (D == 192 && DV == 128) return launch_fma<float, 192, 128>(a);
@@ -1858,7 +1964,7 @@ extern "C" int flash_attn_bwd_f32(const float* q, const float* k,
 extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
                                    const bf16* v, const bf16* o,
                                    const bf16* dout, const float* lse,
-                                   float* delta, bf16* dq, bf16* dk, bf16* dv,
+                                   float* rows, bf16* dq, bf16* dk, bf16* dv,
                                    const long long* strides, int B, int H,
                                    int Hk, int S, int Tk, int D, int DV,
                                    float scale, int causal, int window,
@@ -1868,7 +1974,7 @@ extern "C" int flash_attn_bwd_bf16(const bf16* q, const bf16* k,
                                    const unsigned short* qt_order,
                                    int n_q_order, cudaStream_t stream) {
   Args<bf16> a;
-  if (!fill(a, q, k, v, o, dout, lse, delta, dq, dk, dv, strides, B, H, Hk,
+  if (!fill(a, q, k, v, o, dout, lse, rows, dq, dk, dv, strides, B, H, Hk,
             S, Tk, D, DV, scale, causal, window, stream))
     return (int)cudaErrorInvalidValue;
   // Multi-head latent attention: DeepSeek-V3's pair on the wgmma kernels

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the attention kernels of flash_attn.cu
-// (the forward) and flash_attn_bwd.cu (its gradient): bf16 packing,
-// mbarriers, TMA loads of 4-D strided views through tensor maps that the
-// host encodes, 128-byte-swizzle shared-memory descriptors, and the wgmma
-// products (operands from shared memory, or A from registers) at the
-// widths the two kernels take.  Everything here is for sm_90a.
+// (the forward) and flash_attn_bwd.cu (its gradient): bf16 packing, the
+// softmax's exponential, mbarriers, TMA loads of 4-D strided views through
+// tensor maps that the host encodes, bulk copies of contiguous rows,
+// 128-byte-swizzle shared-memory descriptors, and the wgmma products
+// (operands from shared memory, or A from registers) at the widths the two
+// kernels take.  Everything here is for sm_90a.
 #pragma once
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -22,6 +23,14 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
                                               __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo)
          | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The softmax's exponentials: ex2.approx.ftz (results below 2^-126 flush
+// to 0; exp2f adds a range test and two multiplies to each).
+__device__ __forceinline__ float exp2_p(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -67,6 +76,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory into shared
+// memory by one bulk copy, completing on `bar`; both addresses 16-byte
+// aligned.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // A wgmma shared-memory descriptor for the 128-byte swizzle: start
 // address and leading and stride byte offsets, in bytes (the descriptor
 // holds them in 16-byte units).
@@ -75,6 +96,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return (uint64_t)((addr & 0x3FFFF) >> 4)
          | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
          | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The descriptor of the same tile `bytes` (a multiple of 16) further on:
+// the start address is the low field, so one add replaces rebuilding it.
+__device__ __forceinline__ uint64_t sw128_step(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

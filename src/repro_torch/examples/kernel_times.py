@@ -74,10 +74,12 @@ line per measurement:
   kernels in turns, eagerly (kernel, SDPA, SDPA, kernel; SDPA's backend
   named), the plain version and the bound of the backward's five
   products; with ``--src``, the other checkout's kernels and this tree's
-  in turns (a tree without the window says so); each call's device time
-  split into the pre-pass, dK/dV and dQ kernels (``split``, and
-  ``other_split`` for the other checkout's) from ``torch.profiler``'s
-  kernel names.
+  in turns (a tree without the window says so) and whether dq, dk and dv
+  equal the other's bit for bit (``same_bits_as_other``); each call's
+  device time split into the pre-pass, dK/dV and dQ kernels (``split``,
+  and ``other_split`` for the other checkout's) from ``torch.profiler``'s
+  kernel names, with the pre-pass's share of its byte bound
+  (``prepass_bound_share``).
 * the ``scan_bwd`` part: ``ssm_scan_bwd`` at Falcon-Mamba-7B's and
   Hymba-1.5B's training micro-batches ((1, 2048, 8192, 16) and (1, 2048,
   3200, 16)) at every chunk length (``CHUNK_STEPS``; the planned one
@@ -535,17 +537,19 @@ def bwd_split(torch, fn, inputs, parts=BWD_KERNELS) -> dict:
     """One call of ``fn`` (a backward) split into its kernels' device
     time (ms a call, from ``torch.profiler``'s kernel names: ``parts``,
     attention's by default) over one traced pass through ``inputs`` after
-    a warm one; ``other_kernels_ms`` is whatever else the card ran.  A
-    one-element fill leads the traced pass: a later trace in one process
-    drops its first kernel (seen on the H100: a second shape's split
-    lacked its first kernel), and the fill is what it drops."""
+    a warm one; ``other_kernels_ms`` is whatever else the card ran.  Four
+    one-element fills lead the traced pass: a later trace in one process
+    drops its first kernels (seen on the H100: a second shape's split
+    lacked its first kernel, and once its first two), and the fills are
+    what it drops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for args in inputs:
         fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")
+        for _ in range(4):
+            torch.zeros(1, device="cuda")
         for args in inputs:
             fn(*args)
         torch.cuda.synchronize()
@@ -629,14 +633,18 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
                "deterministic": all(torch.equal(x, y)
                                     for x, y in zip(got, again)),
                "bound_ms": bnd, "bound_by": by}
-        del got, again, want
+        del again, want
         theirs = other
         if other is not None:
             try:
-                theirs_bwd(q, k, v, out, do, lse)
+                their = theirs_bwd(q, k, v, out, do, lse)
+                rec["same_bits_as_other"] = all(
+                    torch.equal(x, y) for x, y in zip(got, their))
+                del their
             except ValueError as err:   # a tree without this pair or window
                 rec["other_refuses"] = str(err)
                 theirs = None
+        del got
         if theirs is not None:
             g = [timing.graph_ms(f, inputs)
                  for f in (theirs_bwd, kernel, kernel, theirs_bwd)]
@@ -665,12 +673,20 @@ def time_attention_bwd(torch, timing, kernels, emit, gen) -> None:
                        lambda *a: bwd.flash_attention_bwd_plain(*a, **kw),
                        [(q, k, v, do)], iters=3, warmup=1),
                    **clocks_during(torch, kernel, inputs))
+        pre_ms = timing.attention_bwd_prepass_bytes(
+            b, h, s, dv, 2) / timing.PEAK_BYTES_S * 1e3
         rec.update(bound_share=bnd / rec["ms"],
                    ratio_to_library_eager=rec["eager_ms"]
                    / rec["library_eager_ms"],
-                   split=bwd_split(torch, kernel, inputs))
+                   split=bwd_split(torch, kernel, inputs),
+                   prepass_bound_ms=pre_ms)
+        rec["prepass_bound_share"] = (pre_ms / rec["split"]["prepass_ms"]
+                                      if rec["split"]["prepass_ms"] else None)
         if theirs is not None:
             rec["other_split"] = bwd_split(torch, theirs_bwd, inputs)
+            rec["other_prepass_bound_share"] = (
+                pre_ms / rec["other_split"]["prepass_ms"]
+                if rec["other_split"]["prepass_ms"] else None)
         emit(rec)
         del inputs, lib_inputs, lib_out
         torch.cuda.empty_cache()

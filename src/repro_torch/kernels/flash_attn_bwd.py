@@ -9,9 +9,10 @@ The CUDA kernels (``csrc/flash_attn_bwd.cu``) take q (B, H, S, D), k
 (B, Hk, T, D) and v (B, Hk, T, Dv) with ``H`` a multiple of ``Hk``, the
 forward's output and its gradient dO (B, H, S, Dv), and the forward's row
 log-sum-exp (B, H, S) float32, and write dq, dk (width D) and dv (width
-Dv) in the operands' dtype, float32 or bfloat16: a pre-pass ``delta =
-rowsum(dO * O)`` over Dv, then one kernel that
-recomputes the softmax from ``lse`` and accumulates dK and dV of a key
+Dv) in the operands' dtype, float32 or bfloat16: a pre-pass that writes
+each query row's record ``{lse * log2 e, delta = rowsum(dO * O)}`` (over
+Dv; :func:`row_records_plain`), then one kernel that
+recomputes the softmax from the records and accumulates dK and dV of a key
 tile over every query tile and every query head of its group, and one
 that does the same for dQ of a query tile; no atomics, so two runs give
 the same bits.  bfloat16 at (64, 64), (128, 128) and multi-head latent
@@ -53,7 +54,7 @@ from .flash_attn import PAIRS, layout_error
 # dK/dV and dQ: one count); the plain path never counts.
 LAUNCHES = 0
 
-# q, k, v, out, dout, lse, delta, dq, dk, dv, their 24 strides, B, H, Hk,
+# q, k, v, out, dout, lse, rows, dq, dk, dv, their 24 strides, B, H, Hk,
 # S, T, D, Dv, scale, causal, window, (bf16: the plan's keys a dK/dV block,
 # head group, dK/dV grid, and its key-tile and query-tile orders with their
 # lengths,) stream.
@@ -89,6 +90,36 @@ HEAD_GROUP = 8
 # tables of 16-bit entries in the kernels' parameters); past it the kernels
 # take key tiles in order and query tiles latest first.
 MAX_ORDER = 512
+# The pre-pass pads each (batch row, head)'s row records to whole tiles of
+# this many rows (csrc/flash_attn_bwd.cu ROW_TILE), with {+inf, 0}, and
+# stores a tile's lse column, then its delta column: a stage of the dK/dV
+# ring takes one tile's records in one bulk copy.
+ROW_TILE = 64
+LOG2E = 1.4426950408889634
+
+
+def row_pad(s: int) -> int:
+    """``s`` query rows padded to whole :data:`ROW_TILE`-row tiles."""
+    return -(-s // ROW_TILE) * ROW_TILE
+
+
+def row_records_plain(out: torch.Tensor, dout: torch.Tensor,
+                      lse: torch.Tensor) -> torch.Tensor:
+    """The pre-pass's row records of the output and its gradient (B, H,
+    S, Dv) and the forward's lse (B, H, S), in the kernels' layout: (B, H,
+    :func:`row_pad` (S) / :data:`ROW_TILE`, 2, :data:`ROW_TILE`) float32,
+    tile by tile ``[..., 0, :]`` lse times log2 e (in float32, as the
+    kernels scale it) and ``[..., 1, :]`` delta = rowsum(dO * O) in
+    float32 of the tile's rows; a padded row holds (+inf, 0), so that its
+    p = 2^(s - inf) is 0."""
+    b, h, s, _ = out.shape
+    rec = torch.empty(b, h, row_pad(s), 2, dtype=torch.float32,
+                      device=out.device)
+    rec[..., 0] = float("inf")
+    rec[..., 1] = 0.0
+    rec[:, :, :s, 0] = lse.float() * torch.tensor(LOG2E, dtype=torch.float32)
+    rec[:, :, :s, 1] = (dout.float() * out.float()).sum(-1)
+    return rec.view(b, h, -1, ROW_TILE, 2).transpose(-1, -2).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,7 +367,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             g.zero_()
         return dq, dk, dv
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    rows = torch.empty((b, h, row_pad(s) // ROW_TILE, 2, ROW_TILE),
+                       dtype=torch.float32, device=q.device)
     plan = ()
     if q.dtype == torch.bfloat16:
         plan = (0, 0, 0, None, 0, None, 0)
@@ -348,7 +380,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load("flash_attn_bwd", _SIGNATURES)
     _build.call(lib, "flash_attn_bwd", getattr(lib, _ENTRY[q.dtype]),
                 q.device, *(x.data_ptr() for x in (q, k, v, out, dout, lse,
-                                                   delta, dq, dk, dv)),
+                                                   rows, dq, dk, dv)),
                 strides, b, h, hk, s, t, d, d_v, scale, int(causal), window,
                 *plan)
     LAUNCHES += 1

@@ -200,6 +200,15 @@ def attention_bwd_work(b: int, h: int, hk: int, s: int, t: int, d: int,
             + 4.0 * b * h * s, 2.0 * b * h * (3 * d + 2 * dv) * pairs)
 
 
+def attention_bwd_prepass_bytes(b: int, h: int, s: int, dv: int,
+                                itemsize: int) -> float:
+    """Bytes of the backward's pre-pass over (b, h, s) rows: the output
+    and its gradient (b, h, s, dv) read once in their dtype, the float32
+    lse read once, and each row's record (lse times log2 e and delta, two
+    float32) written once."""
+    return itemsize * 2.0 * b * h * s * dv + 12.0 * b * h * s
+
+
 def sdpa_backend(q, k, v, causal: bool, attn_mask=None) -> str:
     """The backend that ``F.scaled_dot_product_attention`` picks for these
     operands (``torch._fused_sdp_choice``, with ``attn_mask`` where the

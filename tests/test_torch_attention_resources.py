@@ -14,6 +14,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from attention_rows import wgmma_smem
 
 from repro_torch import timing
 from repro_torch.kernels import flash_attn, flash_attn_bwd, ops, ssm_scan
@@ -280,10 +281,10 @@ def test_scan_bound_counts_its_bytes_and_exponentials():
 # (templated likewise) at the other pairs of multiples of 16, the FMA pair
 # (templated likewise) in float32 at every pair and in bf16 at D 8 and 40
 # and at (24, 16); and the wgmma kernels' dynamic shared memory at (64,
-# 64), (128, 128) and (192, 128) (which 0: dK/dV, 1: dQ).
-BWD_SMEM = {(64, 64, 0): 84480, (64, 64, 1): 82944, (128, 128, 0): 166400,
-            (128, 128, 1): 164864, (192, 128, 0): 231424,
-            (192, 128, 1): 205824}
+# 64), (128, 128) and (192, 128) (which 0: dK/dV, 1: dQ), from the
+# source's constants.
+BWD_SMEM = {(d, dv, which): wgmma_smem(d, dv)[which]
+            for d, dv in ((64, 64), (128, 128), (192, 128)) for which in (0, 1)}
 
 
 def _bwd_names():
@@ -355,8 +356,9 @@ def test_bwd_resources_reads_every_launched_kernel():
         for t in ("d8", "d40", "d24 dv16")}
     assert len([n for n in res if "_fma f32" in n]) == 2 * len(
         flash_attn.PAIRS)
-    assert res["bwd_dkdv_wgmma d128"]["dynamic_smem_bytes"] == 166400
+    assert res["bwd_dkdv_wgmma d128"]["dynamic_smem_bytes"] == 133632
     assert res["bwd_dq_wgmma d64"]["dynamic_smem_bytes"] == 82944
+    assert res["bwd_dkdv_wgmma d64"]["dynamic_smem_bytes"] == 68096
     assert res["bwd_dkdv_wgmma d192 dv128"]["dynamic_smem_bytes"] == 231424
     assert res["bwd_dq_wgmma d192 dv128"]["dynamic_smem_bytes"] == 205824
     assert all(u.get("registers") for u in res.values())

@@ -6,6 +6,7 @@ with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 import numpy as np
 import pytest
 import torch
+from attention_rows import bwd_from_records, row_errs
 
 from repro_torch.core import barrier, fiveg, prng, sweep
 from repro_torch.kernels import (_build, axpy, conv2d, dct, dotp, fft4,
@@ -1852,6 +1853,55 @@ def test_flash_attention_bwd_window_planted_faults(cuda, d, dtype):
         assert max(_scaled_err(g, b) for g, b in zip(got, bad)) \
             > BWD_TOL[dtype], w
 
+
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 1024, None])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [130, 1100])
+def test_flash_attention_bwd_d64_window_gqa(cuda, s, causal, window):
+    """G2's kernels (bf16 at (64, 64): the row records' pre-pass, dK/dV,
+    dQ) at Hymba-1.5B's 25 heads on 5, S no
+    multiple of the 64-row tiles, windows from 1 to S itself (None), under
+    the windowed bound; two runs give the same bits."""
+    window = s if window is None else window
+    (q, k, v, do, out, lse), got = _window_bwd(
+        cuda, 64, 64, torch.bfloat16, causal, window, s=s, h=25, hk=5)
+    want = flash_attn_bwd.flash_attention_bwd_plain(
+        q, k, v, do, causal=causal, window=window)
+    assert max(_window_errs(got, want)) <= BWD_TOL[torch.bfloat16]
+    again = flash_attn_bwd.flash_attention_bwd(q, k, v, out, do, lse,
+                                               causal=causal, window=window)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+# G2's dK and dV by rows against the kernels' own algorithm in plain torch
+# (tests/attention_rows.py: P and dS rounded to bf16 where the kernels
+# round them), a bound tight enough to see one (head, query tile) item
+# left out of a key tile's walk, which can stay under the windowed bound
+# (2e-2 of the gradient's largest element) and the unwindowed row bound
+# (0.1): the test asserts both sides of it.
+RECORD_ROW_TOL = 1e-2
+
+
+def test_flash_attention_bwd_d64_planted_faults(cuda):
+    """The checks must tell G2's kernels from a row record one tile off
+    and from a skipped item: the first item of a walk, one inside it, and
+    the last item of each consumer of key tile 0's walk."""
+    kw = dict(causal=True, window=1024)
+    (q, k, v, do, out, lse), got = _window_bwd(
+        cuda, 64, 64, torch.bfloat16, True, 1024, s=1100, h=25, hk=5)
+    rec = flash_attn_bwd.row_records_plain(out, do, lse)
+    own = bwd_from_records(q, k, v, do, rec, bf16=True, **kw)
+    assert max(row_errs(got[1:], own[1:])) <= RECORD_ROW_TOL
+    assert max(_window_errs(got, own)) <= BWD_TOL[torch.bfloat16]
+    for shift in (1, -1):           # one 64-row tile of records
+        off = bwd_from_records(q, k, v, do, torch.roll(rec, shift, dims=2),
+                               bf16=True, **kw)
+        assert max(_window_errs(got, off)) > BWD_TOL[torch.bfloat16], shift
+    for item in ((20, 0, 0), (4, 15, 0), (9, 14, 2), (24, 15, 0),
+                 (24, 16, 0)):
+        skipped = bwd_from_records(q, k, v, do, rec, bf16=True, skip=item,
+                                   **kw)
+        assert max(row_errs(got[1:], skipped[1:])) > RECORD_ROW_TOL, item
 
 # The SSM and hybrid smoke configs under autograd on the card, the scan and
 # attention kernels both ways against the plain scan and chunked attention
